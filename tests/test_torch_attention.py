@@ -3,8 +3,8 @@ package's Pallas kernels (interpret mode), on the same numpy-seeded
 inputs.
 
 On the CPU the port's wrappers run their plain PyTorch versions; the
-CUDA kernels themselves are held against those plain versions by the
-``cuda``-marked tests at the end (and by chip_smoke.py).
+CUDA kernels themselves are held against those plain versions on the
+card by tests/test_torch_kernels_cuda.py (and by chip_smoke.py).
 
 Tolerances: f32 at atol 2e-4 / rtol 1e-4, the bound of
 tests/test_fastserve.py.  bf16 at 2 bf16 ulps of the largest output
@@ -162,59 +162,3 @@ def test_plain_versions_leave_tf32_flags_as_found():
     tatt.fused_attention_block_padded_plain(x, *a.values(), 2, valid_len=8)
     assert (torch.backends.cuda.matmul.allow_tf32,
             torch.backends.cudnn.allow_tf32) == prev
-
-
-# --------------------------------------------------------------------------
-# On the card: the CUDA kernels against their plain versions
-# --------------------------------------------------------------------------
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card (the CUDA kernels have no CPU mode)")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("b,t,d,heads", [(2, 33, 64, 4), (3, 197, 128, 2)])
-def test_attention_kernel_matches_plain_on_card(cuda_device, b, t, d, heads):
-    tp = tatt._round_up(t, 8)
-    a = _torch_args(_attn_inputs(5, b, tp, d), torch.bfloat16, cuda_device)
-    x = a.pop("x")
-    n0 = tatt.LAUNCHES["attention_block"]
-    got = tatt.fused_attention_block_padded(x, *a.values(), heads,
-                                            valid_len=t)
-    want = tatt.fused_attention_block_padded_plain(x, *a.values(), heads,
-                                                   valid_len=t)
-    torch.cuda.synchronize()
-    assert tatt.LAUNCHES["attention_block"] == n0 + 1
-    _assert_close(got.float().cpu().numpy(), want.float().cpu().numpy(),
-                  "bf16")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("b,t", [(2, 40), (3, 197)])
-def test_mlp_kernel_matches_plain_on_card(cuda_device, b, t):
-    m = _torch_args(_mlp_inputs(6, b, t, 64, 256), torch.bfloat16,
-                    cuda_device)
-    x = m.pop("x")
-    n0 = tatt.LAUNCHES["mlp_block"]
-    got = tatt.fused_mlp_block(x, *m.values())
-    want = tatt.fused_mlp_block_plain(x, *m.values())
-    torch.cuda.synchronize()
-    assert tatt.LAUNCHES["mlp_block"] == n0 + 1
-    _assert_close(got.float().cpu().numpy(), want.float().cpu().numpy(),
-                  "bf16")
-
-
-@pytest.mark.cuda
-def test_kernels_reject_what_they_cannot_take(cuda_device):
-    a = _torch_args(_attn_inputs(7, 1, 40, 48), torch.bfloat16, cuda_device)
-    x = a.pop("x")
-    with pytest.raises(ValueError, match="head dim"):   # 48 / 4 = 12
-        tatt.fused_attention_block_padded(x, *a.values(), 4, valid_len=33)
-    a = _torch_args(_attn_inputs(7, 1, 40, 64), torch.float32, cuda_device)
-    x = a.pop("x")
-    with pytest.raises(TypeError, match="bfloat16"):
-        tatt.fused_attention_block_padded(x, *a.values(), 4, valid_len=33)

@@ -13,15 +13,17 @@
 //
 // Design (a first, simple one): four launches on the caller's stream,
 //   1. LayerNorm rows -> xn (bf16 scratch)
-//   2. GEMM xn @ Wqkv + bqkv -> qkv (bf16 scratch [B*Tp, 3D])
-//   3. attention per (query tile of 64, head, item): S = Q K^T on the
-//      tensor cores, f32 masked softmax in shared memory, P V -> attn
-//      (bf16 scratch, reusing the xn buffer)
-//   4. GEMM attn @ Wproj + bproj + x -> out
-// All products are bf16 x bf16 with f32 accumulation through wmma.  The
-// TPU kernel kept qkv and the head outputs in VMEM; here they go through
-// device memory (about 4x the compulsory bytes).  Fusing them away, and
-// moving the GEMMs to TMA + wgmma, is later work.
+//   2. GEMM xn @ Wqkv + bqkv -> qkv (bf16 scratch [B*Tp, 3D]), wgmma
+//      (common.cuh)
+//   3. attention per (query tile of 64, head, item) with mma.sync, the
+//      scores in registers -> attn (bf16 scratch, reusing the xn buffer)
+//   4. GEMM attn @ Wproj + bproj + x -> out, wgmma
+// All products are bf16 x bf16 with f32 accumulation.  The TPU kernel kept
+// qkv and the head outputs in VMEM; here they go through device memory
+// (about 4x the compulsory bytes), and the attention core recomputes
+// Q K^T once to normalize the weights before rounding them (1.5x its
+// 15.7 GFLOP).  Fusing qkv away, TMA loads and a persistent GEMM schedule
+// are later work.
 //
 // Rounding points follow the TPU kernel: xn, qkv, the softmax weights and
 // the concatenated head outputs are rounded to bf16; LN, the logits, the
@@ -33,70 +35,92 @@
 namespace vsd {
 namespace {
 
-constexpr int kAttBQ = 64;        // query rows per block: 4 warps x 16
+constexpr int kAttBQ = 64;         // query rows per block: 4 warps x 16
 constexpr int kAttThreads = 128;
+constexpr int kAttKeyChunk = 64;   // keys per step of the score loops
 
 __host__ __device__ inline int att_keys(int tp) { return (tp + 15) / 16 * 16; }
 
-// Shared-memory carve-up of one attention block (byte offsets, all
-// multiples of 32 for wmma):
-//   Q [64][dh+8] bf16 | K [tk][dh+8] | V [tk][dh+8] | S [64][max(tk,dh)+4] f32 |
-//   P [64][tk+8] bf16
-struct AttLayout {
-  int qld, sld, pld;
-  size_t k_off, v_off, s_off, p_off, bytes;
-};
-
-__host__ __device__ inline AttLayout att_layout(int tp, int dh) {
-  AttLayout L;
-  const int tk = att_keys(tp);
-  L.qld = dh + 8;
-  L.sld = (tk > dh ? tk : dh) + 4;
-  L.pld = tk + 8;
-  L.k_off = static_cast<size_t>(kAttBQ) * L.qld * sizeof(bf16);
-  L.v_off = L.k_off + static_cast<size_t>(tk) * L.qld * sizeof(bf16);
-  L.s_off = L.v_off + static_cast<size_t>(tk) * L.qld * sizeof(bf16);
-  L.p_off = L.s_off + static_cast<size_t>(kAttBQ) * L.sld * sizeof(float);
-  L.bytes = L.p_off + static_cast<size_t>(kAttBQ) * L.pld * sizeof(bf16);
-  return L;
+// Shared memory of one block: K and V [tk][dh + 8], Q [64][dh + 8], bf16.
+__host__ __device__ inline size_t att_smem_bytes(int tp, int dh) {
+  return (2 * static_cast<size_t>(att_keys(tp)) + kAttBQ) * (dh + 8) * sizeof(bf16);
 }
 
-// qkv [B, Tp, 3D] (q | k | v, heads contiguous inside each) -> out [B, Tp, D].
-// Grid (ceil(Tp / 64), heads, B).  Warp w owns query rows 16w .. 16w + 15
-// of the tile from the logits to the output, so after the shared loads only
-// warp-level syncs are needed.
+__device__ __forceinline__ uint32_t ld_shared_u32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// c += a @ b for one 16x8x16 tile: a row-major bf16 (4 regs), b
+// column-major bf16 (2 regs), c f32 (4 regs), the PTX fragment layouts.
+__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two 8x8 bf16 tiles of a row-major [key][col] matrix, transposed on the
+// way into registers: the B fragment of a 16-key x 8-column product.
+// Lanes 0-15 give the addresses of rows key0 .. key0 + 15.
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& b0, uint32_t& b1, const bf16* row) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(b0), "=r"(b1)
+               : "r"(a));
+}
+
+// qkv [B, Tp, 3D] (q | k | v, heads contiguous inside each) -> out [B, Tp, D]
+// for head dim DH.  Grid (ceil(Tp / 64), heads, B); warp w owns query rows
+// 16w .. 16w + 15 of the tile and keeps their scores in registers
+// (mma.sync fragments), never in shared memory.
+//
+// Two passes over the keys, 64 at a time, recomputing Q K^T in the second:
+//   1. running row max m and sum l of exp(s - m) (online rescaling);
+//   2. w = exp(s - m) / l, rounded to bf16, and O += w V.
+// So the weights are normalized before the bf16 rounding, as in the TPU
+// kernel (a one-pass online softmax would round unnormalized weights).
+// Logits are f32 q . k * scale; key columns >= valid_len are -1e30 like
+// the TPU kernel's mask, columns past the stream (>= Tp) are -inf so they
+// add nothing to m or l.
+template <int DH>
 __global__ void __launch_bounds__(kAttThreads)
     attention_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int tp, int d,
-                     int dh, int valid_len, float scale) {
+                     int valid_len, float scale) {
+  constexpr int LD = DH + 8;   // shared row stride (elements), 16-byte multiple
+  constexpr int KK = DH / 16;  // k-steps of Q K^T
+  constexpr int NO = DH / 8;   // 8-column output tiles
+  constexpr int CPR = DH / 8;  // 16-byte chunks per head row
   extern __shared__ __align__(128) unsigned char smem[];
-  const AttLayout L = att_layout(tp, dh);
   const int tk = att_keys(tp);
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = reinterpret_cast<bf16*>(smem + L.k_off);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + L.v_off);
-  float* Ss = reinterpret_cast<float*>(smem + L.s_off);
-  bf16* Ps = reinterpret_cast<bf16*>(smem + L.p_off);
+  bf16* Ks = reinterpret_cast<bf16*>(smem);
+  bf16* Vs = Ks + tk * LD;
+  bf16* Qs = Vs + tk * LD;
 
   const int q0 = blockIdx.x * kAttBQ, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const size_t stride = 3 * static_cast<size_t>(d);
-  const bf16* base = qkv + static_cast<size_t>(b) * tp * stride + static_cast<size_t>(h) * dh;
-  const int cpr = dh / 8;  // 16-byte chunks per head row
+  const bf16* base = qkv + static_cast<size_t>(b) * tp * stride + static_cast<size_t>(h) * DH;
 
   // Q rows of this tile and every key/value row; rows past Tp are zeros so
-  // that masked (zero) weights never meet uninitialised values.
-  for (int c = tid; c < kAttBQ * cpr; c += kAttThreads) {
-    const int r = c / cpr, col = (c % cpr) * 8;
-    bf16* dst = Qs + r * L.qld + col;
+  // that zero weights never meet uninitialised values.
+  for (int c = tid; c < kAttBQ * CPR; c += kAttThreads) {
+    const int r = c / CPR, col = (c % CPR) * 8;
+    bf16* dst = Qs + r * LD + col;
     if (q0 + r < tp)
       cp_async16(dst, base + (q0 + r) * stride + col);
     else
       store_zero16(dst);
   }
-  for (int c = tid; c < tk * cpr; c += kAttThreads) {
-    const int r = c / cpr, col = (c % cpr) * 8;
-    bf16* dk = Ks + r * L.qld + col;
-    bf16* dv = Vs + r * L.qld + col;
+  for (int c = tid; c < tk * CPR; c += kAttThreads) {
+    const int r = c / CPR, col = (c % CPR) * 8;
+    bf16* dk = Ks + r * LD + col;
+    bf16* dv = Vs + r * LD + col;
     if (r < tp) {
       cp_async16(dk, base + r * stride + d + col);
       cp_async16(dv, base + r * stride + 2 * d + col);
@@ -110,71 +134,136 @@ __global__ void __launch_bounds__(kAttThreads)
   __syncthreads();
 
   const int r0 = warp * 16;
+  if (q0 + r0 >= tp) return;  // all of this warp's rows are past the stream
+  const int g = lane >> 2, t4 = lane & 3;  // fragment row group, column pair
 
-  // S = Q K^T (f32), K read as a column-major B operand.
-  for (int n0 = 0; n0 < tk; n0 += 16) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> s;
-    wmma::fill_fragment(s, 0.0f);
-    for (int k0 = 0; k0 < dh; k0 += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kb;
-      wmma::load_matrix_sync(a, Qs + r0 * L.qld + k0, L.qld);
-      wmma::load_matrix_sync(kb, Ks + n0 * L.qld + k0, L.qld);
-      wmma::mma_sync(s, a, kb, s);
-    }
-    wmma::store_matrix_sync(Ss + r0 * L.sld + n0, s, L.sld, wmma::mem_row_major);
-  }
-  __syncwarp();
-
-  // Masked softmax in f32, one row at a time: logits * scale, key columns
-  // >= valid_len set to -1e30, exp(x - max) / sum, weights rounded to bf16.
-  for (int r = r0; r < r0 + 16; ++r) {
-    float* srow = Ss + r * L.sld;
-    float m = -CUDART_INF_F;
-    for (int c = lane; c < tk; c += 32) {
-      const float v = c < valid_len ? srow[c] * scale : -1e30f;
-      srow[c] = v;
-      m = fmaxf(m, v);
-    }
-    m = warp_max(m);
-    float sum = 0.f;
-    for (int c = lane; c < tk; c += 32) {
-      const float e = expf(srow[c] - m);
-      srow[c] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    bf16* prow = Ps + r * L.pld;
-    for (int c = lane; c < tk; c += 32) prow[c] = __float2bfloat16(srow[c] / sum);
-  }
-  __syncwarp();
-
-  // O = P V (f32), staged through this warp's rows of S.
-  for (int n0 = 0; n0 < dh; n0 += 16) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> o;
-    wmma::fill_fragment(o, 0.0f);
-    for (int k0 = 0; k0 < tk; k0 += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> p;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> v;
-      wmma::load_matrix_sync(p, Ps + r0 * L.pld + k0, L.pld);
-      wmma::load_matrix_sync(v, Vs + k0 * L.qld + n0, L.qld);
-      wmma::mma_sync(o, p, v, o);
-    }
-    wmma::store_matrix_sync(Ss + r0 * L.sld + n0, o, L.sld, wmma::mem_row_major);
-  }
-  __syncwarp();
-
-  bf16* obase = out + static_cast<size_t>(b) * tp * d + static_cast<size_t>(h) * dh;
-  for (int c = lane; c < 16 * cpr; c += 32) {
-    const int r = c / cpr, col = (c % cpr) * 8;
-    const int gr = q0 + r0 + r;
-    if (gr < tp) {
-      const float* src = Ss + (r0 + r) * L.sld + col;
-      float f[8];
+  uint32_t qa[KK][4];
 #pragma unroll
-      for (int e = 0; e < 8; ++e) f[e] = src[e];
-      *reinterpret_cast<uint4*>(obase + static_cast<size_t>(gr) * d + col) = pack8(f);
+  for (int kk = 0; kk < KK; ++kk) {
+    const bf16* q = Qs + (r0 + g) * LD + kk * 16 + t4 * 2;
+    qa[kk][0] = ld_shared_u32(q);
+    qa[kk][1] = ld_shared_u32(q + 8 * LD);
+    qa[kk][2] = ld_shared_u32(q + 8);
+    qa[kk][3] = ld_shared_u32(q + 8 * LD + 8);
+  }
+
+  // s[j][0..1]: row g, keys kc0 + 8j + 2*t4 + {0, 1}; s[j][2..3]: row g + 8.
+  auto scores = [&](float (&s)[8][4], int kc0) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+      const int key0 = kc0 + j * 8;
+      if (key0 < tk) {
+        const bf16* kp = Ks + (key0 + g) * LD + t4 * 2;
+#pragma unroll
+        for (int kk = 0; kk < KK; ++kk)
+          mma_16816(s[j], qa[kk], ld_shared_u32(kp + kk * 16), ld_shared_u32(kp + kk * 16 + 8));
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = key0 + t4 * 2 + (e & 1);
+        s[j][e] = key < valid_len ? s[j][e] * scale : (key < tp ? -1e30f : -CUDART_INF_F);
+      }
     }
+  };
+
+  // Pass 1: row max and sum.  The four lanes of a quad share a row.
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
+  for (int kc0 = 0; kc0 < tk; kc0 += kAttKeyChunk) {
+    float s[8][4];
+    scores(s, kc0);
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      float mx = -CUDART_INF_F;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * hr], s[j][2 * hr + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float mn = fmaxf(m[hr], mx);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        sum += expf(s[j][2 * hr] - mn) + expf(s[j][2 * hr + 1] - mn);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      l[hr] = l[hr] * expf(m[hr] - mn) + sum;
+      m[hr] = mn;
+    }
+  }
+
+  // Pass 2: normalized weights in bf16 as the A fragments of P V.
+  float o[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  for (int kc0 = 0; kc0 < tk; kc0 += kAttKeyChunk) {
+    float s[8][4];
+    scores(s, kc0);
+#pragma unroll
+    for (int t = 0; t < kAttKeyChunk / 16; ++t) {
+      const int key0 = kc0 + t * 16;
+      if (key0 < tk) {
+        const float(&lo)[4] = s[2 * t];
+        const float(&hi)[4] = s[2 * t + 1];
+        const uint32_t pa[4] = {
+            pack_bf16x2(expf(lo[0] - m[0]) / l[0], expf(lo[1] - m[0]) / l[0]),
+            pack_bf16x2(expf(lo[2] - m[1]) / l[1], expf(lo[3] - m[1]) / l[1]),
+            pack_bf16x2(expf(hi[0] - m[0]) / l[0], expf(hi[1] - m[0]) / l[0]),
+            pack_bf16x2(expf(hi[2] - m[1]) / l[1], expf(hi[3] - m[1]) / l[1])};
+        const bf16* vrow = Vs + (key0 + (lane & 15)) * LD;
+#pragma unroll
+        for (int n = 0; n < NO; ++n) {
+          uint32_t b0, b1;
+          ldmatrix_x2_trans(b0, b1, vrow + n * 8);
+          mma_16816(o[n], pa, b0, b1);
+        }
+      }
+    }
+  }
+
+  // Each head's output columns, rounded to bf16 once.
+  const int row = q0 + r0 + g;
+  bf16* orow = out + (static_cast<size_t>(b) * tp + row) * d + static_cast<size_t>(h) * DH + t4 * 2;
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    if (row < tp)
+      *reinterpret_cast<uint32_t*>(orow + n * 8) = pack_bf16x2(o[n][0], o[n][1]);
+    if (row + 8 < tp)
+      *reinterpret_cast<uint32_t*>(orow + 8 * static_cast<size_t>(d) + n * 8) =
+          pack_bf16x2(o[n][2], o[n][3]);
+  }
+}
+
+template <int DH>
+cudaError_t launch_attention(const bf16* qkv, bf16* out, int batch, int tp, int d, int heads,
+                             int valid_len, float scale, cudaStream_t stream) {
+  const size_t smem = att_smem_bytes(tp, DH);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(attention_kernel<DH>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  const dim3 grid((tp + kAttBQ - 1) / kAttBQ, heads, batch);
+  attention_kernel<DH><<<grid, kAttThreads, smem, stream>>>(qkv, out, tp, d, valid_len, scale);
+  return cudaGetLastError();
+}
+
+cudaError_t attention(const bf16* qkv, bf16* out, int batch, int tp, int d, int heads,
+                      int valid_len, float scale, cudaStream_t stream) {
+  switch (d / heads) {
+#define VSD_HEAD_DIM(DH) \
+  case DH:               \
+    return launch_attention<DH>(qkv, out, batch, tp, d, heads, valid_len, scale, stream);
+    VSD_HEAD_DIM(16)
+    VSD_HEAD_DIM(32)
+    VSD_HEAD_DIM(48)
+    VSD_HEAD_DIM(64)
+    VSD_HEAD_DIM(80)
+    VSD_HEAD_DIM(96)
+    VSD_HEAD_DIM(112)
+    VSD_HEAD_DIM(128)
+#undef VSD_HEAD_DIM
+    default:
+      return cudaErrorInvalidValue;
   }
 }
 
@@ -183,7 +272,8 @@ __global__ void __launch_bounds__(kAttThreads)
 
 // x, out [B, Tp, D] bf16; ln_* [D] f32; w_qkv [D, 3D] and w_proj [D, D] bf16;
 // b_qkv [3D], b_proj [D] f32; scratch [B*Tp, D] and qkv [B*Tp, 3D] bf16.
-// Needs D % 32 == 0, head dim % 16 == 0, Tp % 8 == 0, 0 <= valid_len <= Tp.
+// Needs a head dim that is a multiple of 16 up to 128, Tp % 8 == 0,
+// 0 <= valid_len <= Tp, and K, V and a Q tile within shared memory.
 // Returns the first CUDA error of the four launches (0 on success).
 extern "C" int vsd_attention_block(const void* x, const void* ln_scale, const void* ln_bias,
                                    const void* w_qkv, const void* b_qkv, const void* w_proj,
@@ -191,13 +281,11 @@ extern "C" int vsd_attention_block(const void* x, const void* ln_scale, const vo
                                    int batch, int tp, int d, int num_heads, int valid_len,
                                    float eps, float scale, void* stream) {
   using namespace vsd;
-  if (batch <= 0 || batch > 65535 || tp <= 0 || tp % 8 || d <= 0 || d % kGemmBK ||
+  if (batch <= 0 || batch > 65535 || tp <= 0 || tp % 8 || d <= 0 ||
       num_heads <= 0 || num_heads > 65535 || d % num_heads || valid_len < 0 || valid_len > tp)
     return cudaErrorInvalidValue;
   const int dh = d / num_heads;
-  if (dh % 16) return cudaErrorInvalidValue;
-  const AttLayout L = att_layout(tp, dh);
-  if (L.bytes > kMaxSmem) return cudaErrorInvalidValue;
+  if (dh % 16 || dh > 128 || att_smem_bytes(tp, dh) > kMaxSmem) return cudaErrorInvalidValue;
 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int rows = batch * tp;
@@ -211,12 +299,7 @@ extern "C" int vsd_attention_block(const void* x, const void* ln_scale, const vo
   e = launch_gemm<kEpiBias>(sc, static_cast<const bf16*>(w_qkv), static_cast<const float*>(b_qkv),
                             nullptr, qb, rows, 3 * d, d, s);
   if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(L.bytes));
-  if (e != cudaSuccess) return e;
-  const dim3 grid((tp + kAttBQ - 1) / kAttBQ, num_heads, batch);
-  attention_kernel<<<grid, kAttThreads, L.bytes, s>>>(qb, sc, tp, d, dh, valid_len, scale);
-  e = cudaGetLastError();
+  e = attention(qb, sc, batch, tp, d, num_heads, valid_len, scale, s);
   if (e != cudaSuccess) return e;
   return launch_gemm<kEpiBiasResidual>(sc, static_cast<const bf16*>(w_proj),
                                        static_cast<const float*>(b_proj), xb,

@@ -1,5 +1,5 @@
 // Device code shared by the port's hand-written Hopper kernels: a
-// LayerNorm row pass and a bf16 tensor-core GEMM with fused epilogues.
+// LayerNorm row pass and a bf16 wgmma GEMM with fused epilogues.
 //
 // Built by ops/_build.py with nvcc for sm_90a into one shared library
 // per kernel source (attention_block.cu, mlp_block.cu), each exposing a
@@ -10,13 +10,11 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 namespace vsd {
 
 using bf16 = __nv_bfloat16;
-namespace wmma = nvcuda::wmma;
 
 // Largest dynamic shared memory one block may ask for on the H100.
 constexpr size_t kMaxSmem = 232448;
@@ -24,13 +22,6 @@ constexpr size_t kMaxSmem = 232448;
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
 }
 
@@ -139,12 +130,19 @@ inline cudaError_t launch_layernorm(const bf16* x, const float* gamma, const flo
 // ---------------------------------------------------------------------------
 // GEMM: C[M, N] = epilogue(A[M, K] @ W[K, N]), A and W bf16 row-major (W in
 // the JAX [in, out] layout), f32 accumulation on the tensor cores through
-// nvcuda::wmma 16x16x16 bf16 fragments.
+// Hopper's warpgroup MMA (wgmma.mma_async m64n128k16).
 //
-// A 128x128 output tile per block of 8 warps (4 x 2, each 32 x 64 = 2 x 4
-// fragments); K advances 32 at a time through a 3-stage cp.async ring in
-// shared memory.  Rows past M and columns past N are zero-filled on load
-// and skipped on store, so any M and any N % 8 == 0 work; K % 32 == 0.
+// A 128 x 128 output tile per block of two warpgroups (64 rows each); K
+// advances 64 at a time through a 3-stage cp.async ring in shared memory,
+// two blocks per SM (96 KB each) so one block's epilogue overlaps the
+// other's products.  Tiles are stored in the 128-byte swizzled layout
+// wgmma reads: A K-major (one 128-byte row of 64 k per m), W N-major (for
+// each 64-column block, one 128-byte row of 64 n per k); 16-byte chunk c of
+// row r sits at chunk c ^ (r % 8).  The ring keeps one wgmma group in
+// flight: tile kt + 1 is loaded while tile kt is multiplied, into the slot
+// whose products retired at the barrier.  Rows past M, columns past N and
+// k past K are zero-filled on load and skipped on store, so any M works and
+// N, K need only be multiples of 8 (16-byte rows).
 //
 // Epilogues, all in f32 and rounded to bf16 once:
 //   kEpiBias          acc + bias
@@ -154,127 +152,164 @@ inline cudaError_t launch_layernorm(const bf16* x, const float* gamma, const flo
 
 enum { kEpiBias = 0, kEpiBiasGelu = 1, kEpiBiasResidual = 2 };
 
-constexpr int kGemmBM = 128, kGemmBN = 128, kGemmBK = 32, kGemmStages = 3;
+constexpr int kGemmBM = 128, kGemmBN = 128, kGemmBK = 64, kGemmStages = 3;
 constexpr int kGemmThreads = 256;
-constexpr int kGemmALd = kGemmBK + 8;  // padded rows break bank conflicts
-constexpr int kGemmBLd = kGemmBN + 8;
-constexpr int kGemmAStage = kGemmBM * kGemmALd;  // elements
-constexpr int kGemmBStage = kGemmBK * kGemmBLd;
+constexpr int kGemmAStage = kGemmBM * kGemmBK, kGemmBStage = kGemmBN * kGemmBK;  // elements
 constexpr size_t kGemmSmem =
     static_cast<size_t>(kGemmStages) * (kGemmAStage + kGemmBStage) * sizeof(bf16) +
-    (kGemmThreads / 32) * 256 * sizeof(float);  // one 16x16 f32 staging tile a warp
+    1024;  // room to align the ring to the 1024-byte swizzle period
+
+// Shared-memory matrix descriptor of a 128-byte swizzled tile: start
+// address, leading and stride byte offsets (16-byte units), swizzle mode.
+__device__ __forceinline__ uint64_t gmma_desc(const void* smem, uint32_t lbo, uint32_t sbo) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  uint64_t d = static_cast<uint64_t>((a & 0x3FFFF) >> 4);
+  d |= static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16;
+  d |= static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32;
+  return d | (1ull << 62);  // 128-byte swizzle
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Makes this thread's shared-memory writes (cp.async, stores) visible to
+// wgmma, which reads through the async proxy.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// d += A (64 x 16, K-major) @ B (16 x 128, N-major), f32 accumulation, one
+// warpgroup; a and b are shared-memory descriptors (gmma_desc).  The
+// accumulator layout: thread t of the warpgroup holds, for each 8-column
+// group j, rows 16 * (t / 32) + (t % 32) / 4 (+ 8) and columns
+// 8j + 2 * (t % 4) (+ 1) in d[4j .. 4j + 3].
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n"
+      "}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(1));
+}
 
 template <int EPI>
-__global__ void __launch_bounds__(kGemmThreads)
+__global__ void __launch_bounds__(kGemmThreads, 2)
     gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
                      const float* __restrict__ bias, const bf16* __restrict__ R,
                      bf16* __restrict__ C, int M, int N, int K) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* As = reinterpret_cast<bf16*>(smem_raw);
+  const uint32_t base = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  bf16* As = reinterpret_cast<bf16*>(smem_raw + ((1024 - (base & 1023)) & 1023));
   bf16* Bs = As + kGemmStages * kGemmAStage;
-  float* staging = reinterpret_cast<float*>(Bs + kGemmStages * kGemmBStage);
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tid = threadIdx.x, wg = tid >> 7;
   const int m0 = blockIdx.y * kGemmBM, n0 = blockIdx.x * kGemmBN;
-  const int wm = warp >> 1, wn = warp & 1;
 
   auto load_tile = [&](int stage, int kt) {
     const int k0 = kt * kGemmBK;
     bf16* as = As + stage * kGemmAStage;
     bf16* bs = Bs + stage * kGemmBStage;
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {  // 128 rows x 4 chunks of 8
-      const int c = tid + i * kGemmThreads;
-      const int r = c >> 2, col = (c & 3) * 8;
-      bf16* dst = as + r * kGemmALd + col;
-      if (m0 + r < M)
-        cp_async16(dst, A + static_cast<size_t>(m0 + r) * K + k0 + col);
+    for (int i = 0; i < kGemmBM * 8 / kGemmThreads; ++i) {  // row r, chunk ch
+      const int c = tid + i * kGemmThreads, r = c >> 3, ch = c & 7;
+      bf16* dst = as + r * 64 + ((ch ^ (r & 7)) << 3);
+      if (m0 + r < M && k0 + ch * 8 < K)
+        cp_async16(dst, A + static_cast<size_t>(m0 + r) * K + k0 + ch * 8);
       else
         store_zero16(dst);
     }
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {  // 32 rows x 16 chunks of 8
-      const int c = tid + i * kGemmThreads;
-      const int r = c >> 4, col = (c & 15) * 8;
-      bf16* dst = bs + r * kGemmBLd + col;
-      if (n0 + col < N)
-        cp_async16(dst, W + static_cast<size_t>(k0 + r) * N + n0 + col);
+    for (int i = 0; i < kGemmBN * 8 / kGemmThreads; ++i) {  // block nb, k-row kr, chunk ch
+      const int c = tid + i * kGemmThreads, nb = c >> 9, kr = (c >> 3) & 63, ch = c & 7;
+      bf16* dst = bs + nb * 64 * 64 + kr * 64 + ((ch ^ (kr & 7)) << 3);
+      const int col = n0 + nb * 64 + ch * 8;
+      if (k0 + kr < K && col < N)
+        cp_async16(dst, W + static_cast<size_t>(k0 + kr) * N + col);
       else
         store_zero16(dst);
     }
   };
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
+  float acc[64];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
 
-  const int ktiles = K / kGemmBK;
-#pragma unroll
-  for (int s = 0; s < kGemmStages - 1; ++s) {
-    if (s < ktiles) load_tile(s, s);
-    cp_async_commit();
-  }
+  const int ktiles = (K + kGemmBK - 1) / kGemmBK;
+  load_tile(0, 0);
+  cp_async_commit();
   for (int kt = 0; kt < ktiles; ++kt) {
-    cp_async_wait<kGemmStages - 2>();  // tile kt has landed
-    __syncthreads();                   // ... and every warp is done with kt - 1
-    const int next = kt + kGemmStages - 1;
-    if (next < ktiles) load_tile(next % kGemmStages, next);
+    cp_async_wait<0>();  // tile kt has landed (this thread's part) ...
+    fence_proxy_async();
+    __syncthreads();     // ... everyone's, and wgmma kt - 2 has retired in both warpgroups
+    if (kt + 1 < ktiles) load_tile((kt + 1) % kGemmStages, kt + 1);
     cp_async_commit();
 
-    const bf16* as = As + (kt % kGemmStages) * kGemmAStage;
+    const bf16* as = As + (kt % kGemmStages) * kGemmAStage + wg * 64 * 64;
     const bf16* bs = Bs + (kt % kGemmStages) * kGemmBStage;
+    wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kGemmBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b[4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], as + (wm * 32 + i * 16) * kGemmALd + kk, kGemmALd);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        wmma::load_matrix_sync(b[j], bs + kk * kGemmBLd + wn * 64 + j * 16, kGemmBLd);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
+    for (int kk = 0; kk < kGemmBK / 16; ++kk)  // A: 1024 B per 8 rows; W: 8 KB per 64 columns
+      wgmma_m64n128k16(acc, gmma_desc(as + kk * 16, 16, 1024),
+                       gmma_desc(bs + kk * 16 * 64, 8192, 1024));
+    wgmma_commit();
+    wgmma_wait<1>();  // wgmma kt - 1 has retired: its slot is free after the next barrier
   }
-  cp_async_wait<0>();
+  wgmma_wait<0>();
 
-  // Epilogue: each fragment goes through this warp's staging tile; lane
-  // handles row lane / 2, columns (lane % 2) * 8 .. + 8 with 16-byte IO.
-  float* st = staging + warp * 256;
-  const int r = lane >> 1, c8 = (lane & 1) * 8;
+  const int lane = tid & 31;
+  const int row0 = m0 + wg * 64 + ((tid >> 5) & 3) * 16 + (lane >> 2);
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
+  for (int j = 0; j < kGemmBN / 8; ++j) {
+    const int col = n0 + j * 8 + (lane & 3) * 2;
+    if (col >= N) continue;
+    const float2 bb = *reinterpret_cast<const float2*>(bias + col);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      wmma::store_matrix_sync(st, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int gr = m0 + wm * 32 + i * 16 + r;
-      const int gc = n0 + wn * 64 + j * 16 + c8;
-      if (gr < M && gc < N) {
-        const float4 b0 = *reinterpret_cast<const float4*>(bias + gc);
-        const float4 b1 = *reinterpret_cast<const float4*>(bias + gc + 4);
-        const float bb[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-        float v[8];
-        if (EPI == kEpiBiasResidual) {
-          float res[8];
-          unpack8(*reinterpret_cast<const uint4*>(R + static_cast<size_t>(gr) * N + gc), res);
-#pragma unroll
-          for (int e = 0; e < 8; ++e) v[e] = (res[e] + st[r * 16 + c8 + e]) + bb[e];
-        } else {
-#pragma unroll
-          for (int e = 0; e < 8; ++e) {
-            v[e] = st[r * 16 + c8 + e] + bb[e];
-            if (EPI == kEpiBiasGelu) v[e] = gelu_tanh(v[e]);
-          }
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + h * 8;
+      if (row >= M) continue;
+      float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+      const size_t off = static_cast<size_t>(row) * N + col;
+      if (EPI == kEpiBiasResidual) {
+        const float2 r = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(R + off));
+        v0 = (r.x + v0) + bb.x;
+        v1 = (r.y + v1) + bb.y;
+      } else {
+        v0 += bb.x;
+        v1 += bb.y;
+        if (EPI == kEpiBiasGelu) {
+          v0 = gelu_tanh(v0);
+          v1 = gelu_tanh(v1);
         }
-        *reinterpret_cast<uint4*>(C + static_cast<size_t>(gr) * N + gc) = pack8(v);
       }
-      __syncwarp();
+      *reinterpret_cast<__nv_bfloat162*>(C + off) = __floats2bfloat162_rn(v0, v1);
     }
   }
 }
@@ -283,7 +318,7 @@ template <int EPI>
 inline cudaError_t launch_gemm(const bf16* A, const bf16* W, const float* bias, const bf16* R,
                                bf16* C, int M, int N, int K, cudaStream_t stream) {
   if (M <= 0) return cudaSuccess;
-  if (N <= 0 || N % 8 || K <= 0 || K % kGemmBK) return cudaErrorInvalidValue;
+  if (N <= 0 || N % 8 || K <= 0 || K % 8) return cudaErrorInvalidValue;
   const int grid_m = (M + kGemmBM - 1) / kGemmBM;
   if (grid_m > 65535) return cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(gemm_bf16_kernel<EPI>,

@@ -15,14 +15,15 @@
 //   1. LayerNorm rows -> xn (bf16 scratch)
 //   2. GEMM xn @ W1 + b1, tanh-GELU in f32 -> h (bf16 scratch [rows, 4D])
 //   3. GEMM h @ W2 + b2 + x -> out
-// The TPU kernel never wrote the [rows, 4D] hidden to HBM (it looped over
-// hidden chunks in VMEM); here it goes through device memory (157 MB each
-// way at B = 128).  Fusing fc1 into fc2 over hidden chunks, and moving the
-// GEMMs to TMA + wgmma, is later work.
+// Both GEMMs are the wgmma GEMM of common.cuh.  The TPU kernel never wrote
+// the [rows, 4D] hidden to HBM (it looped over hidden chunks in VMEM); here
+// it goes through device memory (157 MB each way at B = 128).  Fusing fc1
+// into fc2 over hidden chunks, TMA loads and a persistent GEMM schedule are
+// later work.
 //
 // Rounding points follow the TPU kernel: xn and the GELU output are rounded
 // to bf16; LN, the GELU and every sum are f32; out is rounded once.  Any row
-// count works; D and the hidden width must be multiples of 32.
+// count works; D and the hidden width must be multiples of 8.
 #include "common.cuh"
 
 // x, out [rows, D] bf16; ln_* [D] f32; w1 [D, hidden], w2 [hidden, D] bf16;
@@ -33,7 +34,7 @@ extern "C" int vsd_mlp_block(const void* x, const void* ln_scale, const void* ln
                              void* scratch, void* hidden_buf, void* out, int rows, int d,
                              int hidden, float eps, void* stream) {
   using namespace vsd;
-  if (rows < 0 || d <= 0 || d % kGemmBK || hidden <= 0 || hidden % kGemmBK)
+  if (rows < 0 || d <= 0 || d % 8 || hidden <= 0 || hidden % 8)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bf16* xb = static_cast<const bf16*>(x);

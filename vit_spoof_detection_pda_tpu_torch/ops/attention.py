@@ -32,6 +32,7 @@ from . import _build
 from .gelu import gelu
 
 LAUNCHES = {"attention_block": 0, "mlp_block": 0}
+_MAX_SMEM = 232448          # dynamic shared memory one H100 block may use
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -134,8 +135,9 @@ def fused_attention_block_padded(xp, ln_scale, ln_bias, w_qkv, b_qkv,
 
     On the card: bf16 ``xp``, ``w_qkv [D, 3D]`` and ``w_proj [D, D]``;
     f32 ``ln_scale``, ``ln_bias``, ``b_qkv`` and ``b_proj``; any B,
-    ``Tp % 8 == 0``, ``D % 32 == 0`` and a head dim that is a multiple of
-    16."""
+    ``Tp % 8 == 0`` (up to 768 at head dim 64, where K and V stop
+    fitting in shared memory) and a head dim that is a multiple of 16 up
+    to 128."""
     if xp.device.type == "cpu":
         return fused_attention_block_padded_plain(
             xp, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj, num_heads,
@@ -145,11 +147,15 @@ def fused_attention_block_padded(xp, ln_scale, ln_bias, w_qkv, b_qkv,
     b, tp, d = xp.shape
     d = _check_head_geometry(d, num_heads)
     dh = d // num_heads
-    if dh % 16 or d % 32 or tp % 8 or not 0 <= valid_len <= tp:
+    if dh % 16 or dh > 128 or tp % 8 or not 0 <= valid_len <= tp:
         raise ValueError(
-            f"the attention kernel takes head dim % 16 == 0, D % 32 == 0, "
-            f"Tp % 8 == 0 and 0 <= valid_len <= Tp; got head dim {dh}, "
-            f"D {d}, Tp {tp}, valid_len {valid_len}")
+            f"the attention kernel takes a head dim that is a multiple of "
+            f"16 up to 128, Tp % 8 == 0 and 0 <= valid_len <= Tp; got head "
+            f"dim {dh}, Tp {tp}, valid_len {valid_len}")
+    smem = (2 * _round_up(tp, 16) + 64) * (dh + 8) * 2     # K, V, Q tile
+    if smem > _MAX_SMEM:
+        raise ValueError(f"Tp {tp} at head dim {dh} needs {smem} bytes of "
+                         f"shared memory per block; the card has {_MAX_SMEM}")
     if not 0 < b <= 65535 or num_heads > 65535:
         raise ValueError(f"batch {b} / heads {num_heads} outside the grid")
     bf, f32, dev = torch.bfloat16, torch.float32, xp.device
@@ -211,7 +217,7 @@ def fused_mlp_block(x, ln_scale, ln_bias, w_fc1, b_fc1, w_fc2, b_fc2, *,
 
     On the card: bf16 ``x``, ``w_fc1 [D, hidden]`` and
     ``w_fc2 [hidden, D]``; f32 LN and bias vectors; any row count, with
-    D and hidden multiples of 32."""
+    D and hidden multiples of 8."""
     if x.device.type == "cpu":
         return fused_mlp_block_plain(x, ln_scale, ln_bias, w_fc1, b_fc1,
                                      w_fc2, b_fc2, eps=eps)
@@ -219,9 +225,9 @@ def fused_mlp_block(x, ln_scale, ln_bias, w_fc1, b_fc1, w_fc2, b_fc2, *,
         raise ValueError(f"no kernel for device {x.device}")
     b, t, d = x.shape
     hidden = w_fc1.shape[-1]
-    if d % 32 or hidden % 32:
+    if d % 8 or hidden % 8:
         raise ValueError(f"the MLP kernel takes D and hidden that are "
-                         f"multiples of 32; got D {d}, hidden {hidden}")
+                         f"multiples of 8; got D {d}, hidden {hidden}")
     rows = b * t
     bf, f32, dev = torch.bfloat16, torch.float32, x.device
     _require(x, "x", bf, (b, t, d), dev)
