@@ -15,8 +15,9 @@
 //   1. LayerNorm rows -> xn (bf16 scratch)
 //   2. GEMM xn @ Wqkv + bqkv -> qkv (bf16 scratch [B*Tp, 3D]), wgmma
 //      (common.cuh)
-//   3. attention per (query tile of 64, head, item) with mma.sync, the
-//      scores in registers -> attn (bf16 scratch, reusing the xn buffer)
+//   3. attention per (query tile of up to 128 rows, head, item) with
+//      mma.sync, K and V in shared memory, the scores in registers -> attn
+//      (bf16 scratch, reusing the xn buffer)
 //   4. GEMM attn @ Wproj + bproj + x -> out, wgmma
 // All products are bf16 x bf16 with f32 accumulation.  The TPU kernel kept
 // qkv and the head outputs in VMEM; here they go through device memory
@@ -35,19 +36,22 @@
 namespace vsd {
 namespace {
 
-constexpr int kAttBQ = 64;         // query rows per block: 4 warps x 16
-constexpr int kAttThreads = 128;
+constexpr int kAttMaxWarps = 8;    // a block: up to 8 warps of 16 query rows
 constexpr int kAttKeyChunk = 64;   // keys per step of the score loops
 
 __host__ __device__ inline int att_keys(int tp) { return (tp + 15) / 16 * 16; }
 
-// Shared memory of one block: K and V [tk][dh + 8], Q [64][dh + 8], bf16.
+// Shared memory of one block: K and V [tk][dh + 8] bf16.
 __host__ __device__ inline size_t att_smem_bytes(int tp, int dh) {
-  return (2 * static_cast<size_t>(att_keys(tp)) + kAttBQ) * (dh + 8) * sizeof(bf16);
+  return 2 * static_cast<size_t>(att_keys(tp)) * (dh + 8) * sizeof(bf16);
 }
 
 __device__ __forceinline__ uint32_t ld_shared_u32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t ld_global_u32(const bf16* p) {
+  return __ldg(reinterpret_cast<const unsigned int*>(p));
 }
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
@@ -76,9 +80,12 @@ __device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& b0, uint32_t& b1, co
 }
 
 // qkv [B, Tp, 3D] (q | k | v, heads contiguous inside each) -> out [B, Tp, D]
-// for head dim DH.  Grid (ceil(Tp / 64), heads, B); warp w owns query rows
-// 16w .. 16w + 15 of the tile and keeps their scores in registers
-// (mma.sync fragments), never in shared memory.
+// for head dim DH.  Grid (query tiles, heads, B), the Tp rows split evenly
+// into tiles of at most 8 warps (Tp = 200: two tiles of 7 warps), so each
+// block loads one head's K and V once for up to 128 queries.  Warp w owns
+// query rows 16w .. 16w + 15 of its tile: it reads their Q fragments from
+// device memory and keeps their scores in registers (mma.sync fragments),
+// never in shared memory.
 //
 // Two passes over the keys, 64 at a time, recomputing Q K^T in the second:
 //   1. running row max m and sum l of exp(s - m) (online rescaling);
@@ -89,7 +96,7 @@ __device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& b0, uint32_t& b1, co
 // the TPU kernel's mask, columns past the stream (>= Tp) are -inf so they
 // add nothing to m or l.
 template <int DH>
-__global__ void __launch_bounds__(kAttThreads)
+__global__ void __launch_bounds__(kAttMaxWarps * 32)
     attention_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int tp, int d,
                      int valid_len, float scale) {
   constexpr int LD = DH + 8;   // shared row stride (elements), 16-byte multiple
@@ -100,24 +107,15 @@ __global__ void __launch_bounds__(kAttThreads)
   const int tk = att_keys(tp);
   bf16* Ks = reinterpret_cast<bf16*>(smem);
   bf16* Vs = Ks + tk * LD;
-  bf16* Qs = Vs + tk * LD;
 
-  const int q0 = blockIdx.x * kAttBQ, h = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x * blockDim.x / 2, h = blockIdx.y, b = blockIdx.z;  // 16 rows a warp
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const size_t stride = 3 * static_cast<size_t>(d);
   const bf16* base = qkv + static_cast<size_t>(b) * tp * stride + static_cast<size_t>(h) * DH;
 
-  // Q rows of this tile and every key/value row; rows past Tp are zeros so
-  // that zero weights never meet uninitialised values.
-  for (int c = tid; c < kAttBQ * CPR; c += kAttThreads) {
-    const int r = c / CPR, col = (c % CPR) * 8;
-    bf16* dst = Qs + r * LD + col;
-    if (q0 + r < tp)
-      cp_async16(dst, base + (q0 + r) * stride + col);
-    else
-      store_zero16(dst);
-  }
-  for (int c = tid; c < tk * CPR; c += kAttThreads) {
+  // Every key/value row; rows past Tp are zeros so that zero weights never
+  // meet uninitialised values.
+  for (int c = tid; c < tk * CPR; c += blockDim.x) {
     const int r = c / CPR, col = (c % CPR) * 8;
     bf16* dk = Ks + r * LD + col;
     bf16* dv = Vs + r * LD + col;
@@ -133,18 +131,22 @@ __global__ void __launch_bounds__(kAttThreads)
   cp_async_wait<0>();
   __syncthreads();
 
-  const int r0 = warp * 16;
-  if (q0 + r0 >= tp) return;  // all of this warp's rows are past the stream
+  const int r0 = q0 + warp * 16;
+  if (r0 >= tp) return;  // all of this warp's rows are past the stream
   const int g = lane >> 2, t4 = lane & 3;  // fragment row group, column pair
 
+  // Q as the A fragments of Q K^T (rows r0 + g and r0 + g + 8); rows past
+  // Tp are zeros.
   uint32_t qa[KK][4];
+  const bf16* qlo = base + static_cast<size_t>(r0 + g) * stride + t4 * 2;
+  const bf16* qhi = qlo + 8 * stride;
+  const bool lo_in = r0 + g < tp, hi_in = r0 + g + 8 < tp;
 #pragma unroll
   for (int kk = 0; kk < KK; ++kk) {
-    const bf16* q = Qs + (r0 + g) * LD + kk * 16 + t4 * 2;
-    qa[kk][0] = ld_shared_u32(q);
-    qa[kk][1] = ld_shared_u32(q + 8 * LD);
-    qa[kk][2] = ld_shared_u32(q + 8);
-    qa[kk][3] = ld_shared_u32(q + 8 * LD + 8);
+    qa[kk][0] = lo_in ? ld_global_u32(qlo + kk * 16) : 0u;
+    qa[kk][1] = hi_in ? ld_global_u32(qhi + kk * 16) : 0u;
+    qa[kk][2] = lo_in ? ld_global_u32(qlo + kk * 16 + 8) : 0u;
+    qa[kk][3] = hi_in ? ld_global_u32(qhi + kk * 16 + 8) : 0u;
   }
 
   // s[j][0..1]: row g, keys kc0 + 8j + 2*t4 + {0, 1}; s[j][2..3]: row g + 8.
@@ -221,7 +223,7 @@ __global__ void __launch_bounds__(kAttThreads)
   }
 
   // Each head's output columns, rounded to bf16 once.
-  const int row = q0 + r0 + g;
+  const int row = r0 + g;
   bf16* orow = out + (static_cast<size_t>(b) * tp + row) * d + static_cast<size_t>(h) * DH + t4 * 2;
 #pragma unroll
   for (int n = 0; n < NO; ++n) {
@@ -242,8 +244,11 @@ cudaError_t launch_attention(const bf16* qkv, bf16* out, int batch, int tp, int 
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  const dim3 grid((tp + kAttBQ - 1) / kAttBQ, heads, batch);
-  attention_kernel<DH><<<grid, kAttThreads, smem, stream>>>(qkv, out, tp, d, valid_len, scale);
+  const int groups = (tp + 15) / 16;  // 16-row query groups, one warp each
+  const int tiles = (groups + kAttMaxWarps - 1) / kAttMaxWarps;
+  const int warps = (groups + tiles - 1) / tiles;
+  const dim3 grid(tiles, heads, batch);
+  attention_kernel<DH><<<grid, warps * 32, smem, stream>>>(qkv, out, tp, d, valid_len, scale);
   return cudaGetLastError();
 }
 
@@ -273,7 +278,7 @@ cudaError_t attention(const bf16* qkv, bf16* out, int batch, int tp, int d, int 
 // x, out [B, Tp, D] bf16; ln_* [D] f32; w_qkv [D, 3D] and w_proj [D, D] bf16;
 // b_qkv [3D], b_proj [D] f32; scratch [B*Tp, D] and qkv [B*Tp, 3D] bf16.
 // Needs a head dim that is a multiple of 16 up to 128, Tp % 8 == 0,
-// 0 <= valid_len <= Tp, and K, V and a Q tile within shared memory.
+// 0 <= valid_len <= Tp, and one head's K and V within shared memory.
 // Returns the first CUDA error of the four launches (0 on success).
 extern "C" int vsd_attention_block(const void* x, const void* ln_scale, const void* ln_bias,
                                    const void* w_qkv, const void* b_qkv, const void* w_proj,

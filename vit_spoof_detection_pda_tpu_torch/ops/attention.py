@@ -135,9 +135,9 @@ def fused_attention_block_padded(xp, ln_scale, ln_bias, w_qkv, b_qkv,
 
     On the card: bf16 ``xp``, ``w_qkv [D, 3D]`` and ``w_proj [D, D]``;
     f32 ``ln_scale``, ``ln_bias``, ``b_qkv`` and ``b_proj``; any B,
-    ``Tp % 8 == 0`` (up to 768 at head dim 64, where K and V stop
-    fitting in shared memory) and a head dim that is a multiple of 16 up
-    to 128."""
+    ``Tp % 8 == 0`` (up to 800 at head dim 64, where one head's K and V
+    stop fitting in shared memory) and a head dim that is a multiple of
+    16 up to 128."""
     if xp.device.type == "cpu":
         return fused_attention_block_padded_plain(
             xp, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj, num_heads,
@@ -152,7 +152,7 @@ def fused_attention_block_padded(xp, ln_scale, ln_bias, w_qkv, b_qkv,
             f"the attention kernel takes a head dim that is a multiple of "
             f"16 up to 128, Tp % 8 == 0 and 0 <= valid_len <= Tp; got head "
             f"dim {dh}, Tp {tp}, valid_len {valid_len}")
-    smem = (2 * _round_up(tp, 16) + 64) * (dh + 8) * 2     # K, V, Q tile
+    smem = 2 * _round_up(tp, 16) * (dh + 8) * 2            # K and V
     if smem > _MAX_SMEM:
         raise ValueError(f"Tp {tp} at head dim {dh} needs {smem} bytes of "
                          f"shared memory per block; the card has {_MAX_SMEM}")
