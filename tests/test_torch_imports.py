@@ -64,4 +64,7 @@ def test_the_port_has_modules_to_check():
     mods = _modules()
     assert "vit_spoof_detection_pda_tpu_torch.models.fastserve" in mods
     assert "vit_spoof_detection_pda_tpu_torch.ops.attention" in mods
-    assert len(mods) >= 15
+    for mod in ("models.fasttrain", "ops.ln_bwd", "ops.losses",
+                "train.schedule", "train.state", "train.step"):
+        assert f"vit_spoof_detection_pda_tpu_torch.{mod}" in mods
+    assert len(mods) >= 22

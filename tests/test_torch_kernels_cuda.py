@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from vit_spoof_detection_pda_tpu_torch.ops import attention as tatt
+from vit_spoof_detection_pda_tpu_torch.ops import ln_bwd as tln
 
 _MATS = ("x", "w_qkv", "w_proj", "w_fc1", "w_fc2")
 
@@ -123,3 +124,107 @@ def test_kernels_reject_what_they_cannot_take(cuda_device):
     x = m.pop("x")
     with pytest.raises(ValueError, match="multiples of 8"):
         tatt.fused_mlp_block(x, *m.values())
+
+
+# --------------------------------------------------------------------------
+# training kernels
+# --------------------------------------------------------------------------
+
+# (B, Tp, valid_len, D, heads): ViT-B at B = 2, 3 and the main path's 128,
+# and a ragged shape (Tp 40, head dim 16)
+TRAIN_CASES = [(2, 200, 197, 768, 12), (3, 200, 197, 768, 12),
+               (128, 200, 197, 768, 12), (2, 40, 33, 64, 4)]
+
+
+def _bf16(rng, *shape, std=1.0, device):
+    v = rng.standard_normal(shape).astype(np.float32) * np.float32(std)
+    return torch.tensor(v, device=device).to(torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,tp,valid,d,heads", TRAIN_CASES)
+def test_attention_block_train_kernel_matches_plain_on_card(
+        cuda_device, b, tp, valid, d, heads):
+    a = _attn_inputs(11, cuda_device, b, tp, d)
+    x = a.pop("x")
+    n0 = tatt.LAUNCHES["attention_block_train"]
+    got = tatt.attention_block_train_padded(x, *a.values(), heads,
+                                            valid_len=valid)
+    want = tatt.attention_block_train_padded_plain(x, *a.values(), heads,
+                                                   valid_len=valid)
+    torch.cuda.synchronize()
+    assert tatt.LAUNCHES["attention_block_train"] == n0 + 1
+    for gg, ww in zip(got, want):          # out, qkv, attn, xhat, inv
+        assert gg.dtype == ww.dtype
+        _assert_close(gg, ww)
+
+
+def _qkv_bwd_inputs(seed, device, b, tp, valid, d):
+    rng = np.random.default_rng(seed)
+    qkv = _bf16(rng, b, tp, 3 * d, device=device)
+    g = _bf16(rng, b, tp, d, device=device)
+    g[:, valid:] = 0                        # pad rows carry no cotangent
+    return qkv, g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,tp,valid,d,heads", TRAIN_CASES)
+def test_attention_qkv_bwd_kernel_matches_plain_on_card(
+        cuda_device, b, tp, valid, d, heads):
+    qkv, g = _qkv_bwd_inputs(12, cuda_device, b, tp, valid, d)
+    n0 = tatt.LAUNCHES["attention_qkv_bwd"]
+    got = tatt.attention_qkv_bwd(qkv, g, heads, valid_len=valid)
+    want = tatt.attention_qkv_bwd_plain(qkv, g, heads, valid_len=valid)
+    torch.cuda.synchronize()
+    assert tatt.LAUNCHES["attention_qkv_bwd"] == n0 + 1
+    for part in range(3):                   # dq, dk, dv
+        cols = slice(part * d, (part + 1) * d)
+        _assert_close(got[..., cols], want[..., cols])
+
+
+def _ln_bwd_inputs(seed, device, b, tq, d, dxn_dtype):
+    rng = np.random.default_rng(seed)
+    xh = _bf16(rng, b, tq, d, device=device)
+    inv = torch.tensor(rng.uniform(0.5, 2.0, (b, tq, 1)).astype(np.float32),
+                       device=device)
+    dxn = _bf16(rng, b, tq, d, device=device).to(dxn_dtype)
+    g = _bf16(rng, b, tq, d, device=device)
+    lns = torch.tensor((1 + 0.1 * rng.standard_normal(d)).astype(np.float32),
+                       device=device)
+    return xh, inv, dxn, g, lns
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dxn_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,tp,valid,d,heads", TRAIN_CASES)
+def test_ln_res_bwd_kernel_matches_plain_on_card(
+        cuda_device, b, tp, valid, d, heads, dxn_dtype):
+    xh, inv, dxn, g, lns = _ln_bwd_inputs(13, cuda_device, b, tp, d,
+                                          dxn_dtype)
+    dxn[:, valid:] = 0                      # padding contract
+    g[:, valid:] = 0
+    n0 = tatt.LAUNCHES["ln_res_bwd"]
+    got = tln.ln_residual_bwd(xh, inv, dxn, g, lns)
+    again = tln.ln_residual_bwd(xh, inv, dxn, g, lns)
+    want = tln.ln_residual_bwd_plain(xh, inv, dxn, g, lns)
+    torch.cuda.synchronize()
+    assert tatt.LAUNCHES["ln_res_bwd"] == n0 + 2
+    for gg, ww in zip(got, want):           # dx, dscale, dbias
+        _assert_close(gg, ww)
+    assert (got[0][:, valid:] == 0).all()
+    # the parameter sums are reduced in a fixed order: bit for bit
+    assert torch.equal(got[1], again[1]) and torch.equal(got[2], again[2])
+
+
+@pytest.mark.cuda
+def test_training_kernels_reject_what_they_cannot_take(cuda_device):
+    qkv, g = _qkv_bwd_inputs(14, cuda_device, 1, 40, 33, 96)
+    with pytest.raises(ValueError, match="head dim"):     # 96 / 2 = 48
+        tatt.attention_qkv_bwd(qkv, g, 2, valid_len=33)
+    qkv, g = _qkv_bwd_inputs(14, cuda_device, 1, 256, 197, 768)
+    with pytest.raises(ValueError, match="shared memory"):
+        tatt.attention_qkv_bwd(qkv, g, 12, valid_len=197)
+    xh, inv, dxn, g, lns = _ln_bwd_inputs(15, cuda_device, 1, 8, 44,
+                                          torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        tln.ln_residual_bwd(xh, inv, dxn, g, lns)

@@ -1,9 +1,10 @@
 // Device code shared by the port's hand-written Hopper kernels: a
-// LayerNorm row pass and a bf16 wgmma GEMM with fused epilogues.
+// LayerNorm row pass, a bf16 wgmma GEMM with fused epilogues, and the
+// mma.sync / ldmatrix helpers of the attention kernels.
 //
 // Built by ops/_build.py with nvcc for sm_90a into one shared library
-// per kernel source (attention_block.cu, mlp_block.cu), each exposing a
-// plain C entry point loaded with ctypes.  Nothing here allocates or
+// per kernel source (csrc/*.cu), each exposing a plain C entry point
+// loaded with ctypes.  Nothing here allocates or
 // synchronises: the Python wrapper allocates outputs and scratch, and
 // every launch goes on the caller's stream.
 #pragma once
@@ -74,15 +75,19 @@ __device__ __forceinline__ float gelu_tanh(float x) {
 // LayerNorm: one warp per row of d bf16 values (d % 8 == 0).  Mean and
 // variance in f32, (x - mu) * rsqrt(var + eps) * gamma + beta, rounded to
 // bf16 once.  The row is read three times; the second and third reads
-// come from L1/L2.
+// come from L1/L2.  The training form (kResid) also writes the backward's
+// residuals: xhat = (x - mu) * rsqrt(var + eps) rounded to bf16, and the
+// f32 rsqrt(var + eps) of each row.
 // ---------------------------------------------------------------------------
 
 constexpr int kLnRowsPerBlock = 8;
 
+template <bool kResid>
 __global__ void __launch_bounds__(kLnRowsPerBlock * 32)
     layernorm_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
                      const float* __restrict__ beta, bf16* __restrict__ out,
-                     int rows, int d, float eps) {
+                     bf16* __restrict__ xhat, float* __restrict__ inv_out, int rows, int d,
+                     float eps) {
   const int lane = threadIdx.x & 31;
   const long long row =
       static_cast<long long>(blockIdx.x) * kLnRowsPerBlock + (threadIdx.x >> 5);
@@ -106,25 +111,95 @@ __global__ void __launch_bounds__(kLnRowsPerBlock * 32)
     }
   }
   const float inv = 1.0f / sqrtf(warp_sum(v) / static_cast<float>(d) + eps);
+  if (kResid && lane == 0) inv_out[row] = inv;
   bf16* orow = out + row * d;
   for (int c = lane * 8; c < d; c += 256) {
     unpack8(*reinterpret_cast<const uint4*>(xr + c), f);
-    float g[8];
+    float h[8], g[8];
 #pragma unroll
-    for (int i = 0; i < 8; ++i) g[i] = (f[i] - mu) * inv * gamma[c + i] + beta[c + i];
+    for (int i = 0; i < 8; ++i) {
+      h[i] = (f[i] - mu) * inv;
+      g[i] = h[i] * gamma[c + i] + beta[c + i];
+    }
     *reinterpret_cast<uint4*>(orow + c) = pack8(g);
+    if (kResid) *reinterpret_cast<uint4*>(xhat + row * d + c) = pack8(h);
   }
 }
 
+// xhat and inv_out are written only when both are given (the training form).
 inline cudaError_t launch_layernorm(const bf16* x, const float* gamma, const float* beta,
                                     bf16* out, int rows, int d, float eps,
-                                    cudaStream_t stream) {
+                                    cudaStream_t stream, bf16* xhat = nullptr,
+                                    float* inv_out = nullptr) {
   if (rows <= 0) return cudaSuccess;
   if (d % 8) return cudaErrorInvalidValue;
   const int blocks = (rows + kLnRowsPerBlock - 1) / kLnRowsPerBlock;
-  layernorm_kernel<<<blocks, kLnRowsPerBlock * 32, 0, stream>>>(x, gamma, beta, out, rows,
-                                                                 d, eps);
+  if (xhat && inv_out)
+    layernorm_kernel<true><<<blocks, kLnRowsPerBlock * 32, 0, stream>>>(
+        x, gamma, beta, out, xhat, inv_out, rows, d, eps);
+  else
+    layernorm_kernel<false><<<blocks, kLnRowsPerBlock * 32, 0, stream>>>(
+        x, gamma, beta, out, nullptr, nullptr, rows, d, eps);
   return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Warp-level tensor-core helpers of the attention kernels (mma.sync
+// m16n8k16 bf16 with f32 accumulation, ldmatrix).
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t ld_shared_u32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t ld_global_u32(const bf16* p) {
+  return __ldg(reinterpret_cast<const unsigned int*>(p));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// c += a @ b for one 16x8x16 tile: a row-major bf16 (4 regs), b
+// column-major bf16 (2 regs), c f32 (4 regs), the PTX fragment layouts:
+// with g = lane / 4 and t4 = lane % 4, a[0..3] hold A[g][2t4..+1],
+// A[g+8][2t4..+1], A[g][2t4+8..+9], A[g+8][2t4+8..+9]; b0, b1 hold
+// B[2t4..+1][g], B[2t4+8..+9][g]; c[0..1] C[g][2t4..+1], c[2..3] C[g+8][..].
+__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two 8x8 bf16 tiles of a row-major [key][col] matrix, transposed on the
+// way into registers: the B fragment of a 16-key x 8-column product.
+// Lanes 0-15 give the addresses of rows key0 .. key0 + 15.
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& b0, uint32_t& b1, const bf16* row) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(b0), "=r"(b1)
+               : "r"(a));
+}
+
+// Four 8x8 bf16 tiles into registers; lanes 8i .. 8i + 7 give the row
+// addresses of tile i.  Without .trans the tiles land as the A fragment of
+// a row-major [m][k] 16x16 block (tiles: m 0-7/k 0-7, m 8-15/k 0-7,
+// m 0-7/k 8-15, m 8-15/k 8-15); with .trans, from a [k][m] matrix.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], const bf16* row) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(s));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&a)[4], const bf16* row) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(s));
 }
 
 // ---------------------------------------------------------------------------

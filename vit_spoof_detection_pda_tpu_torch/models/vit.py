@@ -156,6 +156,7 @@ class ViTAntiSpoof(nn.Module):
         self.patch_size, self.embed_dim, self.depth = (patch_size,
                                                        embed_dim, depth)
         self.num_heads, self.norm_eps = num_heads, norm_eps
+        self.gelu, self.dropout = gelu, dropout
         self.vit = ViT(patch_size, embed_dim, depth, num_heads, mlp_ratio,
                        norm_eps, gelu, img_size)
         self.classifier = AntiSpoofHead(embed_dim, hidden, num_classes,

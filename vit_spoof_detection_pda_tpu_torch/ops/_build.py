@@ -8,6 +8,10 @@ lists ``build/``), keyed on a hash of every source in ``csrc/`` and of
 the flags, and are built at first use; a library already built for the
 same hash is reused.  A failed build raises with nvcc's stderr.
 
+:data:`LAUNCHES` holds one count per kernel: each wrapper adds one where
+it launches its kernel and nowhere else, so a run can show that its main
+path went through the kernels.
+
 Nothing here runs when the module is imported, so the CPU tests, which
 have no ``nvcc``, import it freely.
 """
@@ -24,7 +28,9 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
-KERNELS = ("attention_block", "mlp_block")
+KERNELS = ("attention_block", "mlp_block", "attention_block_train",
+           "attention_qkv_bwd", "ln_res_bwd")
+LAUNCHES = {name: 0 for name in KERNELS}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -101,6 +107,16 @@ def load(name: str) -> ctypes.CDLL:
             lib.vsd_error_string.restype = ctypes.c_char_p
             _libs[name] = lib
         return lib
+
+
+def entry(name: str, symbol: str, argtypes):
+    """``(library, C function)`` of kernel ``name``: the library loaded
+    (built first if needed), the function's argument types set."""
+    lib = load(name)
+    fn = getattr(lib, symbol)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return lib, fn
 
 
 def check(lib: ctypes.CDLL, name: str, err: int):

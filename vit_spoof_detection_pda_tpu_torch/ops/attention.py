@@ -17,8 +17,19 @@ activations and weights and raises on anything else.  ``LAUNCHES``
 counts the kernel calls (one per wrapper call on the card), so a run can
 show that its main path went through the kernels.
 
-Both kernels are bound by the tensor cores on the H100; the source notes
-in ``csrc/`` give the bounds and what the first design does about them.
+Training adds two kernels:
+
+- :func:`attention_block_train_padded`: the attention block with the
+  backward's residuals as outputs (``qkv``, the head outputs, the LN's
+  ``xhat`` and ``inv``).  Kernel: ``csrc/attention_block_train.cu``;
+  replaces ``_attn_block_train_kernel`` (JAX ``models/fasttrain.py:70``).
+- :func:`attention_qkv_bwd`: ``dqkv`` of the attention core from ``qkv``
+  and the head outputs' cotangent.  Kernel: ``csrc/attention_qkv_bwd.cu``;
+  replaces ``_attn_qkv_bwd_kernel`` (JAX ``ops/attention.py:199``).
+
+The block kernels are bound by the tensor cores on the H100, the
+backward by its bytes; the source notes in ``csrc/`` give the bounds and
+what the first design does about them.
 """
 
 from __future__ import annotations
@@ -31,7 +42,7 @@ from ..device import exact_f32_matmul
 from . import _build
 from .gelu import gelu
 
-LAUNCHES = {"attention_block": 0, "mlp_block": 0}
+LAUNCHES = _build.LAUNCHES     # one dict for every kernel of the port
 _MAX_SMEM = 232448          # dynamic shared memory one H100 block may use
 
 _P = ctypes.c_void_p
@@ -41,6 +52,10 @@ _SIGNATURES = {
     "attention_block": ("vsd_attention_block",
                         [_P] * 10 + [_I] * 5 + [_F, _F, _P]),
     "mlp_block": ("vsd_mlp_block", [_P] * 10 + [_I] * 3 + [_F, _P]),
+    "attention_block_train": ("vsd_attention_block_train",
+                              [_P] * 13 + [_I] * 5 + [_F, _F, _P]),
+    "attention_qkv_bwd": ("vsd_attention_qkv_bwd",
+                          [_P] * 3 + [_I] * 5 + [_F, _P]),
 }
 
 
@@ -63,12 +78,7 @@ def _check_head_geometry(width: int, num_heads: int, *, fused: int = 1):
 
 
 def _entry(name: str):
-    lib = _build.load(name)
-    fn_name, argtypes = _SIGNATURES[name]
-    fn = getattr(lib, fn_name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    return lib, fn
+    return _build.entry(name, *_SIGNATURES[name])
 
 
 def _require(t: torch.Tensor, what: str, dtype, shape, device):
@@ -100,12 +110,16 @@ def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 
-def fused_attention_block_padded_plain(xp, ln_scale, ln_bias, w_qkv, b_qkv,
+def attention_block_train_padded_plain(xp, ln_scale, ln_bias, w_qkv, b_qkv,
                                        w_proj, b_proj, num_heads: int, *,
                                        valid_len: int, eps: float = 1e-6):
-    """Plain PyTorch version of the attention-block kernel, rounding where
-    the TPU kernel does (to ``xp.dtype``): xn, qkv, the softmax weights
-    and the concatenated head outputs; everything else in f32."""
+    """Plain PyTorch version of the attention-block kernels, rounding where
+    the TPU kernels do (to ``xp.dtype``): xn, qkv, the softmax weights
+    and the concatenated head outputs; everything else in f32.
+
+    Returns ``(out, qkv, attn, xhat, inv)``: ``out``, ``attn`` and
+    ``xhat`` ``[B, Tp, D]`` and ``qkv [B, Tp, 3D]`` in ``xp.dtype``,
+    ``inv = rsqrt(var + eps)`` ``[B, Tp, 1]`` f32."""
     b, tp, d = xp.shape
     d = _check_head_geometry(d, num_heads)
     dh = d // num_heads
@@ -113,37 +127,42 @@ def fused_attention_block_padded_plain(xp, ln_scale, ln_bias, w_qkv, b_qkv,
     scale = float(dh) ** -0.5
     with exact_f32_matmul():
         x = xp.float()
-        xn = _layernorm_f32(x, ln_scale, ln_bias, eps).to(cdt)
+        mu = x.mean(-1, keepdim=True)
+        inv = torch.rsqrt(((x - mu) ** 2).mean(-1, keepdim=True) + eps)
+        xh = (x - mu) * inv
+        xn = (xh * ln_scale.float() + ln_bias.float()).to(cdt)
         qkv = (_mm(xn, w_qkv) + b_qkv.float()).to(cdt)
         q, k, v = qkv.view(b, tp, 3, num_heads, dh).permute(2, 0, 3, 1, 4)
-        logits = _mm(q, k.transpose(-1, -2)) * scale          # [B,H,Tp,Tp]
-        keep = torch.arange(tp, device=xp.device) < valid_len
-        logits = torch.where(keep, logits, torch.full_like(logits, -1e30))
-        w = torch.softmax(logits, dim=-1)
+        w = _softmax_weights(q, k, scale, valid_len)          # [B,H,Tp,Tp]
         heads = _mm(w.to(cdt), v)                              # [B,H,Tp,dh]
         attn = heads.permute(0, 2, 1, 3).reshape(b, tp, d).to(cdt)
-        return (x + _mm(attn, w_proj) + b_proj.float()).to(cdt)
+        out = (x + _mm(attn, w_proj) + b_proj.float()).to(cdt)
+        return out, qkv, attn, xh.to(cdt), inv
 
 
-def fused_attention_block_padded(xp, ln_scale, ln_bias, w_qkv, b_qkv,
-                                 w_proj, b_proj, num_heads: int, *,
-                                 valid_len: int, eps: float = 1e-6):
-    """Padded-stream form: ``xp [B, Tp, D]`` with ``valid_len`` real
-    tokens -> ``[B, Tp, D]``.  Pad rows are computed as real rows (their
-    keys are masked like every other row's); slice them off after the
-    last layer.
+def _softmax_weights(q, k, scale: float, valid_len: int):
+    """f32 softmax of ``q k^T * scale`` with key columns at or past
+    ``valid_len`` at -1e30, as the TPU kernels mask them."""
+    logits = _mm(q, k.transpose(-1, -2)) * scale
+    keep = torch.arange(logits.shape[-1], device=q.device) < valid_len
+    logits = torch.where(keep, logits, torch.full_like(logits, -1e30))
+    return torch.softmax(logits, dim=-1)
 
-    On the card: bf16 ``xp``, ``w_qkv [D, 3D]`` and ``w_proj [D, D]``;
-    f32 ``ln_scale``, ``ln_bias``, ``b_qkv`` and ``b_proj``; any B,
-    ``Tp % 8 == 0`` (up to 800 at head dim 64, where one head's K and V
-    stop fitting in shared memory) and a head dim that is a multiple of
-    16 up to 128."""
-    if xp.device.type == "cpu":
-        return fused_attention_block_padded_plain(
-            xp, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj, num_heads,
-            valid_len=valid_len, eps=eps)
-    if xp.device.type != "cuda":
-        raise ValueError(f"no kernel for device {xp.device}")
+
+def fused_attention_block_padded_plain(xp, ln_scale, ln_bias, w_qkv, b_qkv,
+                                       w_proj, b_proj, num_heads: int, *,
+                                       valid_len: int, eps: float = 1e-6):
+    """Plain PyTorch version of the serving attention-block kernel: the
+    first output of :func:`attention_block_train_padded_plain`."""
+    return attention_block_train_padded_plain(
+        xp, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj, num_heads,
+        valid_len=valid_len, eps=eps)[0]
+
+
+def _check_attention_block_args(xp, ln_scale, ln_bias, w_qkv, b_qkv,
+                                w_proj, b_proj, num_heads, valid_len):
+    """Raise on what the attention-block kernels do not take; returns
+    ``(b, tp, d, dh)``."""
     b, tp, d = xp.shape
     d = _check_head_geometry(d, num_heads)
     dh = d // num_heads
@@ -166,18 +185,78 @@ def fused_attention_block_padded(xp, ln_scale, ln_bias, w_qkv, b_qkv,
     _require(b_qkv, "b_qkv", f32, (3 * d,), dev)
     _require(w_proj, "w_proj", bf, (d, d), dev)
     _require(b_proj, "b_proj", f32, (d,), dev)
+    return b, tp, d, dh
+
+
+def fused_attention_block_padded(xp, ln_scale, ln_bias, w_qkv, b_qkv,
+                                 w_proj, b_proj, num_heads: int, *,
+                                 valid_len: int, eps: float = 1e-6):
+    """Padded-stream form: ``xp [B, Tp, D]`` with ``valid_len`` real
+    tokens -> ``[B, Tp, D]``.  Pad rows are computed as real rows (their
+    keys are masked like every other row's); slice them off after the
+    last layer.
+
+    On the card: bf16 ``xp``, ``w_qkv [D, 3D]`` and ``w_proj [D, D]``;
+    f32 ``ln_scale``, ``ln_bias``, ``b_qkv`` and ``b_proj``; any B,
+    ``Tp % 8 == 0`` (up to 800 at head dim 64, where one head's K and V
+    stop fitting in shared memory) and a head dim that is a multiple of
+    16 up to 128."""
+    if xp.device.type == "cpu":
+        return fused_attention_block_padded_plain(
+            xp, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj, num_heads,
+            valid_len=valid_len, eps=eps)
+    if xp.device.type != "cuda":
+        raise ValueError(f"no kernel for device {xp.device}")
+    b, tp, d, dh = _check_attention_block_args(
+        xp, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj, num_heads,
+        valid_len)
     lib, fn = _entry("attention_block")
     out = torch.empty_like(xp)
-    scratch = torch.empty((b * tp, d), dtype=bf, device=dev)
-    qkv = torch.empty((b * tp, 3 * d), dtype=bf, device=dev)
+    scratch = torch.empty((b * tp, d), dtype=xp.dtype, device=xp.device)
+    qkv = torch.empty((b * tp, 3 * d), dtype=xp.dtype, device=xp.device)
     err = fn(xp.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
              w_qkv.data_ptr(), b_qkv.data_ptr(), w_proj.data_ptr(),
              b_proj.data_ptr(), scratch.data_ptr(), qkv.data_ptr(),
              out.data_ptr(), b, tp, d, num_heads, valid_len, eps,
-             float(dh) ** -0.5, torch.cuda.current_stream(dev).cuda_stream)
+             float(dh) ** -0.5, torch.cuda.current_stream(xp.device).cuda_stream)
     _build.check(lib, "attention_block", err)
     LAUNCHES["attention_block"] += 1
     return out
+
+
+def attention_block_train_padded(xp, ln_scale, ln_bias, w_qkv, b_qkv,
+                                 w_proj, b_proj, num_heads: int, *,
+                                 valid_len: int, eps: float = 1e-6):
+    """:func:`fused_attention_block_padded` that also returns the
+    backward's residuals: ``(out, qkv, attn, xhat, inv)`` as
+    :func:`attention_block_train_padded_plain` describes, all at the Tp
+    rows of ``xp``.  Takes what the serving kernel takes."""
+    if xp.device.type == "cpu":
+        return attention_block_train_padded_plain(
+            xp, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj, num_heads,
+            valid_len=valid_len, eps=eps)
+    if xp.device.type != "cuda":
+        raise ValueError(f"no kernel for device {xp.device}")
+    b, tp, d, dh = _check_attention_block_args(
+        xp, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj, num_heads,
+        valid_len)
+    lib, fn = _entry("attention_block_train")
+    dev, cdt = xp.device, xp.dtype
+    out = torch.empty_like(xp)
+    xn = torch.empty((b, tp, d), dtype=cdt, device=dev)      # scratch
+    qkv = torch.empty((b, tp, 3 * d), dtype=cdt, device=dev)
+    attn = torch.empty((b, tp, d), dtype=cdt, device=dev)
+    xh = torch.empty((b, tp, d), dtype=cdt, device=dev)
+    inv = torch.empty((b, tp, 1), dtype=torch.float32, device=dev)
+    err = fn(xp.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
+             w_qkv.data_ptr(), b_qkv.data_ptr(), w_proj.data_ptr(),
+             b_proj.data_ptr(), xn.data_ptr(), qkv.data_ptr(),
+             attn.data_ptr(), xh.data_ptr(), inv.data_ptr(), out.data_ptr(),
+             b, tp, d, num_heads, valid_len, eps, float(dh) ** -0.5,
+             torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, "attention_block_train", err)
+    LAUNCHES["attention_block_train"] += 1
+    return out, qkv, attn, xh, inv
 
 
 def fused_attention_block(x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj,
@@ -191,6 +270,81 @@ def fused_attention_block(x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj,
         xp, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj, num_heads,
         valid_len=t, eps=eps)
     return out[:, :t, :]
+
+
+# --------------------------------------------------------------------------
+# Attention backward
+# --------------------------------------------------------------------------
+
+
+def attention_qkv_bwd_plain(qkv, g, num_heads: int, *, valid_len: int):
+    """Plain PyTorch version of the attention-backward kernel: per head,
+    the softmax recomputed in f32 from ``qkv``, then
+    ``dv = w^T g``, ``dw = g v^T``, ``dl = w (dw - rowsum(dw w))``,
+    ``dq = dl k s`` and ``dk = dl^T q s``.  Rounds where the TPU kernel
+    does (to ``qkv.dtype``): ``w`` before ``dv``, ``dl`` before ``dq``
+    and ``dk``, and the outputs; ``dl`` uses the f32 ``w`` and ``dw``."""
+    b, tp, d3 = qkv.shape
+    d = _check_head_geometry(d3, num_heads, fused=3)
+    dh = d // num_heads
+    cdt = qkv.dtype
+    scale = float(dh) ** -0.5
+    with exact_f32_matmul():
+        q, k, v = qkv.view(b, tp, 3, num_heads, dh).permute(2, 0, 3, 1, 4)
+        gh = g.to(cdt).view(b, tp, num_heads, dh).transpose(1, 2)
+        w = _softmax_weights(q, k, scale, valid_len)          # [B,H,Tp,Tp]
+        dv = _mm(w.to(cdt).transpose(-1, -2), gh)
+        dw = _mm(gh, v.transpose(-1, -2))
+        dl = (w * (dw - (dw * w).sum(-1, keepdim=True))).to(cdt)
+        dq = _mm(dl, k) * scale
+        dk = _mm(dl.transpose(-1, -2), q) * scale
+        dqkv = torch.stack([dq, dk, dv], dim=2)               # [B,H,3,Tp,dh]
+        return dqkv.permute(0, 3, 2, 1, 4).reshape(b, tp, d3).to(cdt)
+
+
+def attention_qkv_bwd(qkv, g, num_heads: int, *, valid_len: int):
+    """``dqkv [B, Tp, 3D]`` of the attention core on the fused projection
+    ``qkv [B, Tp, 3D]`` given the head outputs' cotangent
+    ``g [B, Tp, D]``, both already padded to Tp rows with ``valid_len``
+    real tokens (the counterpart of the JAX ``_backward_qkv(...,
+    valid_len=t)``).  ``g`` must be zero on the pad rows; ``dqkv`` then
+    is zero there too.
+
+    On the card: bf16 ``qkv`` and ``g``, any B, ``Tp % 8 == 0``, a head
+    dim of 16, 32 or 64, and one head's K and V and the ``[Tp, Tp]`` bf16
+    weights and their gradient within shared memory (Tp up to 208 at
+    head dim 64)."""
+    if qkv.device.type == "cpu":
+        return attention_qkv_bwd_plain(qkv, g, num_heads,
+                                       valid_len=valid_len)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"no kernel for device {qkv.device}")
+    b, tp, d3 = qkv.shape
+    d = _check_head_geometry(d3, num_heads, fused=3)
+    dh = d // num_heads
+    if dh not in (16, 32, 64) or tp % 8 or not 0 < valid_len <= tp:
+        raise ValueError(
+            f"the attention backward takes a head dim of 16, 32 or 64, "
+            f"Tp % 8 == 0 and 0 < valid_len <= Tp; got head dim {dh}, "
+            f"Tp {tp}, valid_len {valid_len}")
+    tk = _round_up(tp, 16)     # K, V (later Q, G) and the bf16 w, dl tiles
+    smem = 2 * (2 * tk * dh + 2 * tk * tk)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"Tp {tp} at head dim {dh} needs {smem} bytes of "
+                         f"shared memory per block; the card has {_MAX_SMEM}")
+    if not 0 < b <= 65535 or num_heads > 65535:
+        raise ValueError(f"batch {b} / heads {num_heads} outside the grid")
+    bf, dev = torch.bfloat16, qkv.device
+    _require(qkv, "qkv", bf, (b, tp, d3), dev)
+    _require(g, "g", bf, (b, tp, d), dev)
+    lib, fn = _entry("attention_qkv_bwd")
+    dqkv = torch.empty_like(qkv)
+    err = fn(qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(), b, tp, d,
+             num_heads, valid_len, float(dh) ** -0.5,
+             torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, "attention_qkv_bwd", err)
+    LAUNCHES["attention_qkv_bwd"] += 1
+    return dqkv
 
 
 # --------------------------------------------------------------------------

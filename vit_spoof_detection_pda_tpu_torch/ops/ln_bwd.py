@@ -1,0 +1,95 @@
+"""LayerNorm + residual backward as one hand-written CUDA kernel
+(counterpart of the JAX package's ``ops/ln_bwd.py``).
+
+Every sub-layer of the ViT is ``y = x + f(LN(x))``; given the cotangent
+``g`` of ``y`` and ``dxn`` of the LN's affine output, the tail is
+
+    dxh = dxn * scale
+    dx  = g + inv * (dxh - mean(dxh) - xh * mean(dxh * xh))
+    dscale = sum(dxn * xh);  dbias = sum(dxn)
+
+with ``xh`` the stored normalized input and ``inv = rsqrt(var + eps)``
+per row.  Kernel: ``csrc/ln_res_bwd.cu``; replaces ``_ln_res_bwd_kernel``
+(JAX ``ops/ln_bwd.py:45``).  The TPU kernel summed ``dscale`` and
+``dbias`` across its sequential grid; the CUDA kernel writes per-block
+partial sums and reduces them in a second launch in a fixed order, so
+the sums are the same from run to run.
+
+Padding contract: rows with ``dxn = g = 0`` come out with ``dx`` exactly
+0 and add nothing to the sums, so row-padded operands need no masking.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+from .attention import _require
+
+LAUNCHES = _build.LAUNCHES
+_LN_ROWS_PER_BLOCK = 128     # rows of one partial sum (csrc/ln_res_bwd.cu)
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURE = ("vsd_ln_res_bwd", [_P] * 9 + [_I] * 3 + [_P])
+
+
+def ln_residual_bwd_plain(xh, inv, dxn, g, lns):
+    """Plain PyTorch version of the kernel (the counterpart of
+    ``ln_residual_bwd_reference``): f32 math, ``dx`` rounded to
+    ``xh.dtype``, the sums f32."""
+    d = xh.shape[-1]
+    dxn = dxn.float()
+    xh32 = xh.float()
+    dxh = dxn * lns.float()
+    m1 = dxh.mean(-1, keepdim=True)
+    m2 = (dxh * xh32).mean(-1, keepdim=True)
+    dx = (g.float() + inv.float() * (dxh - m1 - xh32 * m2)).to(xh.dtype)
+    dlns = (dxn * xh32).reshape(-1, d).sum(0)
+    dlnb = dxn.reshape(-1, d).sum(0)
+    return dx, dlns, dlnb
+
+
+def ln_residual_bwd(xh, inv, dxn, g, lns):
+    """``dx, dscale, dbias`` for ``y = x + f(LN(x))``.
+
+    xh   [B, Tq, D] stored normalized input
+    inv  [B, Tq, 1] f32 rsqrt(var + eps) per row
+    dxn  [B, Tq, D] cotangent of the LN affine output
+    g    [B, Tq, D] cotangent of y (flows through the residual)
+    lns  [D] f32 LN scale
+
+    Returns ``dx [B, Tq, D]`` in ``xh.dtype``, ``dscale [D]`` and
+    ``dbias [D]`` f32.  On the card: bf16 ``xh`` and ``g``, bf16 or f32
+    ``dxn``, contiguous, D a multiple of 8 up to 1024."""
+    if xh.device.type == "cpu":
+        return ln_residual_bwd_plain(xh, inv, dxn, g, lns)
+    if xh.device.type != "cuda":
+        raise ValueError(f"no kernel for device {xh.device}")
+    b, tq, d = xh.shape
+    if d % 8 or d > 1024:
+        raise ValueError(f"the LN backward kernel takes D a multiple of 8 "
+                         f"up to 1024; got {d}")
+    if dxn.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"dxn is {dxn.dtype}; the kernel takes bfloat16 or "
+                        "float32")
+    bf, f32, dev = torch.bfloat16, torch.float32, xh.device
+    _require(xh, "xh", bf, (b, tq, d), dev)
+    _require(inv, "inv", f32, (b, tq, 1), dev)
+    _require(dxn, "dxn", dxn.dtype, (b, tq, d), dev)
+    _require(g, "g", bf, (b, tq, d), dev)
+    _require(lns, "lns", f32, (d,), dev)
+    rows = b * tq
+    blocks = max(1, -(-rows // _LN_ROWS_PER_BLOCK))
+    lib, fn = _build.entry("ln_res_bwd", *_SIGNATURE)
+    dx = torch.empty_like(xh)
+    partial = torch.empty((2, blocks, d), dtype=f32, device=dev)
+    sums = torch.empty((2, d), dtype=f32, device=dev)
+    err = fn(xh.data_ptr(), inv.data_ptr(), dxn.data_ptr(), g.data_ptr(),
+             lns.data_ptr(), dx.data_ptr(), partial.data_ptr(),
+             sums[0].data_ptr(), sums[1].data_ptr(), rows, d,
+             int(dxn.dtype == f32), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, "ln_res_bwd", err)
+    LAUNCHES["ln_res_bwd"] += 1
+    return dx, sums[0], sums[1]
