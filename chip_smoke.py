@@ -34,7 +34,31 @@ runs these phases, each printing one JSON line and raising on failure:
 5. serving  build_programs_live(shapes=(32, 128)) behind a MicroBatcher:
             300 single-image requests from 8 threads, each answer held
             against the direct serving_forward score of that image.
-6. train    one bf16 training step of a ViT-B/16 ViTAntiSpoof (erf GELU,
+   kernels  (again) the whole-encoder kernels against their plain
+            versions: at depth 1 and ViT-B width, kernel 10 fold-ends
+            (B = 1) and encoder-only (B = 1, 2), kernel 11 at chunks of
+            1-4 (the last item zero, as a pad item), within 2 bf16 ulps
+            of the largest output magnitude as above; a ragged shape
+            (Tp 40, valid_len 33, D 64, 4 heads, hidden 256) at depth 2,
+            within 2 ulps per layer; and at the full 12 layers on phase
+            4's weights, where per-layer ulps compound: scores within
+            phase 4's bounds, streams within them relative to the
+            stream's max and mean magnitude.
+6. slice_small  make_serving_fn on phase 4's model at B = 1 (auto ->
+            lowlat, fold-ends) and B = 2, 4, 8, 16 (auto -> batch_grid),
+            64 images at each B: every forward launches kernel 10 exactly
+            once at B = 1, kernel 11 ceil(B/2) times otherwise, kernels
+            1-2 never; the 64 scores held against the same regime with
+            its kernel swapped for its plain version and against the f32
+            module, within phase 4's bounds (the mean over the 64).
+7. http     the HTTP front over build_programs_live's default shapes (1,
+            2, 4, 8, 16) on 127.0.0.1: 64 distinct raw frames from 8
+            threads, then loadgen.run_load in raw mode, 200 requests at 1
+            client and 200 at 8; every answer within 1e-3 of the direct
+            make_serving_fn score of its frame at the dispatch size that
+            served it (at 1 client: B = 1).  Client p50/p99, img/s and
+            the server's batch fill.
+8. train    one bf16 training step of a ViT-B/16 ViTAntiSpoof (erf GELU,
             random weights, normalized f32 images and labels from the
             seed) at B = 128 through models/fasttrain.py.  Step 0 with
             dropout off three ways: on the kernels, with the three
@@ -50,11 +74,16 @@ runs these phases, each printing one JSON line and raising on failure:
             serving kernels never; loss and grad_norm are finite and the
             loss falls.  A make_eval_step afterwards launches the serving
             attention block 12 times and scores within [0, 1].
-7. times    CUDA-event medians after warm-up: each kernel beside its
+9. times    CUDA-event medians after warm-up: each kernel beside its
             plain version, its bound and the PyTorch call that computes
             the same function where there is one, at the main path's
             shapes; the stem and head; end-to-end img/s of scoring and of
-            the training step at B = 128.
+            the training step at B = 128; kernel 10 at B = 1 and kernel
+            11 per 2-item chunk, each with a per-phase breakdown from
+            its barrier timestamps (ops/lowlat.py ``trace``); the B = 1
+            forward (and a profile of it), the batch-grid forward at
+            B = 2, 4, 8, 16 and, as the yardstick of the regime table,
+            the fastserve forward at B = 1-16.
 
 Then it prints the kernel table as one JSON line, the card's name and
 power limit as nvidia-smi gives them, and last
@@ -71,7 +100,9 @@ import math
 import statistics
 import subprocess
 import sys
+import threading
 import time
+import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -86,10 +117,12 @@ from vit_spoof_detection_pda_tpu_torch.models.vit import ViTAntiSpoof
 from vit_spoof_detection_pda_tpu_torch.ops import _build
 from vit_spoof_detection_pda_tpu_torch.ops import attention as att
 from vit_spoof_detection_pda_tpu_torch.ops import ln_bwd
+from vit_spoof_detection_pda_tpu_torch.ops import lowlat as low
 from vit_spoof_detection_pda_tpu_torch.ops.image import normalize, to_float
 from vit_spoof_detection_pda_tpu_torch.ops.losses import make_loss_fn
-from vit_spoof_detection_pda_tpu_torch.serve import (MicroBatcher,
-                                                     build_programs_live)
+from vit_spoof_detection_pda_tpu_torch.serve import (
+    MicroBatcher, build_programs_live, make_server_from_programs, run_load)
+from vit_spoof_detection_pda_tpu_torch.serve.loadgen import sample_frame
 from vit_spoof_detection_pda_tpu_torch.train.schedule import make_lr_schedule
 from vit_spoof_detection_pda_tpu_torch.train.state import (
     create_train_state, make_optimizer, tree_flatten)
@@ -104,6 +137,9 @@ MAIN_B = 128
 SCORE_TOL = 5e-2                     # max |diff| of P(live), see phase 4
 SCORE_MEAN_TOL = 1e-2                # mean |diff| of P(live)
 SERVE_TOL = 1e-3
+SMALL_B = (1, 2, 4, 8, 16)           # the JAX server's default shapes
+SMALL_IMAGES = 64                    # scored at each of them
+HTTP_REQUESTS = 200
 GRAD_REL_TOL = 0.1                   # per-leaf relative L2, bf16 vs f32
 TRAIN_STEPS = 5
 PEAK_BF16_FLOPS = 989e12             # H100 SXM dense bf16 tensor cores
@@ -126,9 +162,16 @@ KERNELS = {
     "ln_res_bwd": dict(
         source="vit_spoof_detection_pda_tpu_torch/csrc/ln_res_bwd.cu",
         replaces="vit_spoof_detection_pda_tpu/ops/ln_bwd.py:45"),
+    "lowlat_encoder": dict(
+        source="vit_spoof_detection_pda_tpu_torch/csrc/lowlat_encoder.cu",
+        replaces="vit_spoof_detection_pda_tpu/ops/lowlat.py:94"),
+    "lowlat_batchgrid": dict(
+        source="vit_spoof_detection_pda_tpu_torch/csrc/lowlat_batchgrid.cu",
+        replaces="vit_spoof_detection_pda_tpu/ops/lowlat.py:241"),
 }
 SERVING_KERNELS = ("attention_block", "mlp_block")
 TRAIN_KERNELS = ("attention_block_train", "attention_qkv_bwd", "ln_res_bwd")
+LOWLAT_KERNELS = ("lowlat_encoder", "lowlat_batchgrid")
 
 
 def emit(obj):
@@ -176,15 +219,31 @@ def plain_training_kernels():
             setattr(fasttrain, n, f)
 
 
+@contextlib.contextmanager
+def plain_lowlat():
+    """Run the small-batch regimes' kernels on their plain versions (the
+    serving functions look them up in ops/lowlat.py at each call)."""
+    names = ("forward_lowlat_e2e", "encoder_forward_lowlat",
+             "encoder_forward_lowlat_batchgrid")
+    saved = [getattr(low, n) for n in names]
+    for n in names:
+        setattr(low, n, getattr(low, n + "_plain"))
+    try:
+        yield
+    finally:
+        for n, f in zip(names, saved):
+            setattr(low, n, f)
+
+
 def reset_launches():
     for k in att.LAUNCHES:
         att.LAUNCHES[k] = 0
 
 
-def bf16_tol(want: torch.Tensor) -> float:
-    """2 bf16 ulps at the largest magnitude of ``want``."""
+def bf16_tol(want: torch.Tensor, ulps: int = 2) -> float:
+    """``ulps`` bf16 ulps at the largest magnitude of ``want``."""
     amax = want.float().abs().max().item()
-    return 2.0 * 2.0 ** (math.floor(math.log2(amax)) - 7) if amax else 0.0
+    return ulps * 2.0 ** (math.floor(math.log2(amax)) - 7) if amax else 0.0
 
 
 # --------------------------------------------------------------------------
@@ -235,9 +294,10 @@ def train_inputs(rng, b, tp, valid, d, dev):
     return bwd, ln
 
 
-def random_params(rng) -> dict:
-    """ViT-B/16 ViTAntiSpoof parameters in the JAX layout: encoder
-    matrices N(0, 0.02), LN scales near 1, head sized so scores spread."""
+def random_params(rng, *, d=D, depth=DEPTH, hidden=HIDDEN) -> dict:
+    """ViTAntiSpoof parameters in the JAX layout (ViT-B/16 by default):
+    encoder matrices N(0, 0.02), LN scales near 1, head sized so scores
+    spread."""
     def n(*shape, std):
         return rng.standard_normal(shape, dtype=np.float32) * np.float32(std)
 
@@ -247,17 +307,17 @@ def random_params(rng) -> dict:
     def ln(dim):
         return {"scale": 1.0 + n(dim, std=0.1), "bias": n(dim, std=0.05)}
 
-    vit = {"patch_embed": dense(PATCH * PATCH * 3, D, 0.02),
-           "cls_token": n(1, 1, D, std=0.02),
-           "pos_embed": n(1, T, D, std=0.02), "norm": ln(D)}
-    for i in range(DEPTH):
+    vit = {"patch_embed": dense(PATCH * PATCH * 3, d, 0.02),
+           "cls_token": n(1, 1, d, std=0.02),
+           "pos_embed": n(1, T, d, std=0.02), "norm": ln(d)}
+    for i in range(depth):
         vit[f"block{i}"] = {
-            "norm1": ln(D),
-            "attn": {"qkv": dense(D, 3 * D, 0.02), "proj": dense(D, D, 0.02)},
-            "norm2": ln(D),
-            "mlp": {"fc1": dense(D, HIDDEN, 0.02),
-                    "fc2": dense(HIDDEN, D, 0.02)}}
-    head = {"norm": ln(D), "fc1": dense(D, HEAD_HIDDEN, D ** -0.5),
+            "norm1": ln(d),
+            "attn": {"qkv": dense(d, 3 * d, 0.02), "proj": dense(d, d, 0.02)},
+            "norm2": ln(d),
+            "mlp": {"fc1": dense(d, hidden, 0.02),
+                    "fc2": dense(hidden, d, 0.02)}}
+    head = {"norm": ln(d), "fc1": dense(d, HEAD_HIDDEN, d ** -0.5),
             "fc2": dense(HEAD_HIDDEN, 2, 0.1)}
     return {"params": {"vit": vit, "head": head}}
 
@@ -284,6 +344,37 @@ def time_ms(fn, *, windows=5, per_window=10, warmup=3) -> float:
         end.synchronize()
         out.append(start.elapsed_time(end) / per_window)
     return statistics.median(out)
+
+
+def clocks_during(fn, seconds: float = 1.0) -> dict:
+    """SM clock, its maximum and the power draw, sampled by nvidia-smi
+    every 100 ms while ``fn`` runs back to back for ``seconds``; the
+    sampler is stopped before this returns."""
+    proc = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw",
+         "--format=csv,noheader,nounits", "-lms", "100"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        proc.terminate()
+        out, _ = proc.communicate(timeout=30)
+    rows = []
+    for ln in out.splitlines():
+        try:
+            rows.append([float(v) for v in ln.split(",")])
+        except ValueError:                       # a "[N/A]" field
+            continue
+    rows = [r for r in rows if len(r) == 3]
+    if not rows:
+        return {"samples": 0}
+    sm, mx, pw = (sorted(col) for col in zip(*rows))
+    return {"samples": len(rows), "sm_mhz_median": sm[len(sm) // 2],
+            "sm_mhz_min": sm[0], "sm_mhz_max_allowed": mx[-1],
+            "power_w_median": pw[len(pw) // 2]}
 
 
 def bound(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS):
@@ -319,6 +410,21 @@ def ln_bwd_work(rows, d):
     """About 10 f32 operations per element (outside the tensor cores);
     xh, dxn and g in and dx out (bf16), inv in, lns in, two sums out."""
     return 10 * rows * d, rows * d * 2 * 4 + rows * 4 + 3 * d * 4
+
+
+def lowlat_work(b, depth, *, hh=0):
+    """A whole-encoder launch over B items of Tp rows: per layer the qkv,
+    proj, fc1 and fc2 products (12 D^2 a row) and the attention's two
+    [Tp, Tp] x Dh products per head; with fold-ends (``hh``) the
+    patch-embed over the Tp rows and the head's two products."""
+    flops = depth * (2 * b * TP * D * 12 * D + 4 * b * TP * TP * D)
+    if hh:
+        flops += 2 * b * TP * D * D + 2 * b * D * hh + 4 * b * hh
+    return flops
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def mlp_work(rows, d, hidden):
@@ -398,7 +504,7 @@ def phase_kernels(dev) -> dict:
         bwd, ln = train_inputs(rng, b, tp, valid, d, dev)
         parts, sums_repeat = _kernel_parts(a_in, m_in, bwd, ln, heads, valid)
         torch.cuda.synchronize()
-        for name in KERNELS:
+        for name in parts:
             errs, ok = {}, True
             for part, g, w in parts[name]:
                 g, w = g.float(), w.float()
@@ -524,6 +630,298 @@ def phase_serving(model, serve128):
     if not ok:
         raise AssertionError(f"micro-batched scores disagree with the "
                              f"direct ones: {err} > {SERVE_TOL}")
+
+
+def phase_kernels_lowlat(dev, model):
+    """Kernels 10 and 11 against their plain versions; returns the errors
+    at the main path's shapes (12 layers) and the two regimes' prepared
+    packs of phase 4's model."""
+    rng = np.random.default_rng(SEED + 6)
+    bf = torch.bfloat16
+    main_err = {}
+
+    def check(case, name, got, want, *, ulps=2, tol=None, mean_tol=None,
+              **extra):
+        g, w = got.float(), want.float()
+        diff = (g - w).abs()
+        err, mean = diff.max().item(), diff.mean().item()
+        tol = bf16_tol(w, ulps) if tol is None else tol
+        ok = (bool(torch.isfinite(g).all()) and err <= tol
+              and (mean_tol is None or mean <= mean_tol))
+        emit({"phase": "kernels", "case": case, "kernel": name,
+              "shape": list(g.shape), "max_abs_err": err,
+              "mean_abs_err": mean, "tol": tol, "mean_tol": mean_tol,
+              "ok": ok, **extra})
+        if not ok:
+            raise AssertionError(f"{name} disagrees with its plain version "
+                                 f"on {case}: {err} (tol {tol}), mean "
+                                 f"{mean} (tol {mean_tol})")
+        return err
+
+    def normal(*shape):
+        return torch.from_numpy(rng.standard_normal(
+            shape, dtype=np.float32)).to(dev, bf)
+
+    # depth 1 at ViT-B width: 2 ulps, as phase 3 holds kernels 1-2
+    tree = random_params(rng, depth=1)["params"]
+    w1, s1 = low.pack_encoder_weights(tree["vit"], depth=1, device=dev)
+    bw1, bs1 = low.pack_encoder_weights_batchgrid(tree["vit"], depth=1,
+                                                  device=dev)
+    ends = low.pack_end_weights(tree, device=dev)
+    kw = dict(num_heads=HEADS, valid_len=T)
+    u8 = torch.from_numpy(rng.integers(0, 256, (2, IMG, IMG, 3),
+                                       dtype=np.uint8)).to(dev)
+    xp = fastserve.patch_rows(u8[:1], patch_size=PATCH, tp=TP, dtype=bf)
+    check("vit_b_depth1_b1_fold_ends", "lowlat_encoder",
+          low.forward_lowlat_e2e(xp, w1, s1, *ends, **kw),
+          low.forward_lowlat_e2e_plain(xp, w1, s1, *ends, **kw))
+    for b in (1, 2):
+        x = normal(b, TP, D)
+        check(f"vit_b_depth1_b{b}", "lowlat_encoder",
+              low.encoder_forward_lowlat(x, w1, s1, **kw),
+              low.encoder_forward_lowlat_plain(x, w1, s1, **kw))
+    for c in (1, 2, 3, 4):
+        x = normal(c, TP, D)
+        if c > 1:
+            x[-1] = 0                                # a zero pad item
+        check(f"vit_b_depth1_chunk{c}", "lowlat_batchgrid",
+              low.encoder_forward_lowlat_batchgrid(x, bw1, bs1, **kw),
+              low.encoder_forward_lowlat_batchgrid_plain(x, bw1, bs1, **kw))
+    del tree, w1, s1, bw1, bs1, ends
+
+    # ragged, depth 2: 2 ulps per layer
+    tree = random_params(rng, d=64, depth=2, hidden=256)["params"]
+    wr, sr = low.pack_encoder_weights(tree["vit"], depth=2, device=dev)
+    bwr, bsr = low.pack_encoder_weights_batchgrid(tree["vit"], depth=2,
+                                                  device=dev)
+    kr = dict(num_heads=4, valid_len=33)
+    x = normal(2, 40, 64)
+    check("ragged_depth2_b2", "lowlat_encoder",
+          low.encoder_forward_lowlat(x, wr, sr, **kr),
+          low.encoder_forward_lowlat_plain(x, wr, sr, **kr), ulps=4)
+    x = normal(3, 40, 64)
+    x[-1] = 0
+    check("ragged_depth2_chunk3", "lowlat_batchgrid",
+          low.encoder_forward_lowlat_batchgrid(x, bwr, bsr, **kr),
+          low.encoder_forward_lowlat_batchgrid_plain(x, bwr, bsr, **kr),
+          ulps=4)
+
+    # 12 layers, phase 4's folded weights in the main path's packs: the
+    # scores within phase 4's bounds, the streams within them relative
+    # to their magnitude (per-layer ulps compound through the layers)
+    progs = {mode: fastserve.serving_program(model, mode=mode)
+             for mode in ("lowlat", "batch_grid")}
+    prep, bprep = progs["lowlat"][0], progs["batch_grid"][0]
+    ends = (prep["end_w"], prep["end_s"], prep["aux"])
+    xp = fastserve.patch_rows(u8[:1], patch_size=PATCH, tp=TP, dtype=bf)
+    got = low.forward_lowlat_e2e(xp, prep["packed_w"], prep["packed_s"],
+                                 *ends, **kw)
+    want = low.forward_lowlat_e2e_plain(xp, prep["packed_w"],
+                                        prep["packed_s"], *ends, **kw)
+    main_err["lowlat_encoder"] = (got - want).abs().max().item()
+    check("vit_b_depth12_b1_fold_ends_score", "lowlat_encoder",
+          torch.sigmoid(got[:, 1] - got[:, 0]),
+          torch.sigmoid(want[:, 1] - want[:, 0]), tol=SCORE_TOL,
+          logits_max_abs_err=main_err["lowlat_encoder"])
+    stream, _t = fastserve.padded_stream(prep["params"]["vit"], u8,
+                                         dtype=bf, patch_size=PATCH)
+
+    def rel(want):
+        w = want.float().abs()
+        return dict(tol=SCORE_TOL * w.max().item(),
+                    mean_tol=SCORE_MEAN_TOL * w.mean().item())
+
+    want = low.encoder_forward_lowlat_plain(
+        stream[:1], prep["packed_w"], prep["packed_s"], **kw)
+    check("vit_b_depth12_b1", "lowlat_encoder",
+          low.encoder_forward_lowlat(stream[:1], prep["packed_w"],
+                                     prep["packed_s"], **kw), want,
+          **rel(want))
+    want = low.encoder_forward_lowlat_batchgrid_plain(
+        stream, bprep["bg_w"], bprep["bg_s"], **kw)
+    main_err["lowlat_batchgrid"] = check(
+        "vit_b_depth12_chunk2", "lowlat_batchgrid",
+        low.encoder_forward_lowlat_batchgrid(stream, bprep["bg_w"],
+                                             bprep["bg_s"], **kw), want,
+        **rel(want))
+    return main_err, progs
+
+
+def _small_launches_want(b: int) -> dict:
+    want = {k: 0 for k in att.LAUNCHES}
+    if b == 1:
+        want["lowlat_encoder"] = 1
+    else:
+        want["lowlat_batchgrid"] = -(-b // 2)
+    return want
+
+
+def phase_slice_small(dev, model):
+    """make_serving_fn at the JAX server's default shapes, each B scoring
+    SMALL_IMAGES images in SMALL_IMAGES / B forwards (phase 4's mean bound
+    needs a population of scores); returns the serving functions and the
+    launches of the run."""
+    rng = np.random.default_rng(SEED + 5)
+    u8 = rng.integers(0, 256, (SMALL_IMAGES, IMG, IMG, 3), dtype=np.uint8)
+    fns = {b: fastserve.make_serving_fn(model, batch_size=b)
+           for b in SMALL_B}
+
+    def run(fn, b):
+        return torch.cat([fn(u8[i:i + b]) for i in range(0, SMALL_IMAGES, b)])
+
+    # the main path: counts from 0 just before, read just after; every
+    # forward's own launches are checked on the way
+    reset_launches()
+    got, bad_forwards = {}, []
+    for b in SMALL_B:
+        outs = []
+        for i in range(0, SMALL_IMAGES, b):
+            before = dict(att.LAUNCHES)
+            outs.append(fns[b](u8[i:i + b]))
+            torch.cuda.synchronize()
+            delta = {k: att.LAUNCHES[k] - before[k] for k in before}
+            if delta != _small_launches_want(b):
+                bad_forwards.append((b, i, delta))
+        got[b] = torch.cat(outs)
+    launches = dict(att.LAUNCHES)
+
+    with plain_lowlat():
+        plain = {b: run(fns[b], b) for b in SMALL_B}
+    with torch.inference_mode(), exact_f32_matmul():
+        model.to(dev)
+        x = normalize(to_float(torch.from_numpy(u8).to(dev)))
+        logits = torch.cat([model(x[i:i + 16])
+                            for i in range(0, SMALL_IMAGES, 16)])
+        ref = torch.sigmoid(logits[:, 1] - logits[:, 0])
+        model.cpu()
+    out, ok = {}, not bad_forwards
+    for b in SMALL_B:
+        g, p = got[b], plain[b]
+        e = {"regime": fastserve.auto_serving_mode(b),
+             "forwards": SMALL_IMAGES // b,
+             "launches_per_forward": {k: v for k, v in
+                                      _small_launches_want(b).items() if v},
+             "max_abs_err_vs_plain": (g - p).abs().max().item(),
+             "mean_abs_err_vs_plain": (g - p).abs().mean().item(),
+             "max_abs_err_vs_f32": (g - ref).abs().max().item(),
+             "mean_abs_err_vs_f32": (g - ref).abs().mean().item(),
+             "plain_max_abs_err_vs_f32": (p - ref).abs().max().item(),
+             "plain_mean_abs_err_vs_f32": (p - ref).abs().mean().item()}
+        ok = ok and (
+            tuple(g.shape) == (SMALL_IMAGES,)
+            and bool(torch.isfinite(g).all())
+            and bool(((g >= 0) & (g <= 1)).all())
+            and max(e["max_abs_err_vs_plain"], e["max_abs_err_vs_f32"])
+            <= SCORE_TOL
+            and max(e["mean_abs_err_vs_plain"], e["mean_abs_err_vs_f32"])
+            <= SCORE_MEAN_TOL)
+        out[str(b)] = e
+    emit({"phase": "slice_small", "images": SMALL_IMAGES, "per_batch": out,
+          "launches": launches, "bad_forwards": bad_forwards[:5],
+          "lowlat_vs_batch_grid_max_abs_diff":
+              (got[1] - got[16]).abs().max().item(),
+          "score_min": got[16].min().item(),
+          "score_max": got[16].max().item(),
+          "score_std": got[16].std().item(), "tol": SCORE_TOL,
+          "mean_tol": SCORE_MEAN_TOL, "ok": ok})
+    if not ok:
+        raise AssertionError(f"small-batch serving failed: {out}; "
+                             f"forwards off their launch counts: "
+                             f"{bad_forwards[:5]}")
+    return fns, launches
+
+
+def phase_http(model, fns):
+    """The HTTP front on the default shapes; returns its summary."""
+    rng = np.random.default_rng(SEED + 7)
+    programs, img_size, metas = build_programs_live(model, img_size=IMG)
+    server = make_server_from_programs(programs, img_size, metas,
+                                       host="127.0.0.1", port=0,
+                                       max_wait_ms=2.0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    imgs = rng.integers(0, 256, (64, IMG, IMG, 3), dtype=np.uint8)
+
+    def score(i):
+        req = urllib.request.Request(
+            url + "/score", data=imgs[i].tobytes(), method="POST",
+            headers={"Content-Type": "application/x-pad-raw"})
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return json.loads(r.read())["prob_live"]
+
+    try:
+        server.batcher.warmup()
+        with ThreadPoolExecutor(8) as pool:
+            distinct = np.array(list(pool.map(score, range(len(imgs)))),
+                                np.float32)
+        runs = {}
+        for clients in (1, 8):
+            answers = []
+            runs[clients] = (run_load(url, mode="raw", clients=clients,
+                                      requests=HTTP_REQUESTS, img_size=IMG,
+                                      warmup=16, answers=answers), answers)
+        stats = server.batcher.stats()
+    finally:
+        server.shutdown_clean()
+        thread.join(timeout=60)
+
+    def direct(batch):
+        """``{B: each frame's score in a dispatch of B frames}`` for the
+        server's shapes.  The kernels give an item the same bits whatever
+        its co-riders (checked in the kernels phase); the stem's cuBLAS
+        f32 GEMM may not across B (its algorithm follows M = 196 B), so
+        an answer is held against the dispatch size that served it."""
+        out = {}
+        for b in SMALL_B:
+            rows = np.resize(batch, (-(-len(batch) // b) * b,)
+                             + batch.shape[1:])       # repeated cyclically
+            out[b] = np.concatenate([fns[b](rows[i:i + b]).cpu().numpy()
+                                     for i in range(0, len(rows), b)])
+            out[b] = out[b][:len(batch)]
+        return out
+
+    def nearest(answers, scores):
+        """Per answer, the distance to the nearest direct score, and the
+        dispatch size it matches."""
+        dist = np.stack([np.abs(answers - scores[b]) for b in SMALL_B])
+        return dist.min(0), np.array(SMALL_B)[dist.argmin(0)]
+
+    want = direct(imgs)
+    err, sizes = nearest(distinct, want)
+    f_want = direct(sample_frame(IMG)[None])
+    out = {"phase": "http", "shapes": {str(k): v for k, v in
+                                       metas[0]["shapes"].items()},
+           "distinct_requests": len(imgs),
+           "distinct_max_abs_err_vs_direct": float(err.max()),
+           "distinct_served_at": {str(b): int((sizes == b).sum())
+                                  for b in SMALL_B},
+           "direct_spread_across_b": float(max(
+               np.abs(want[b] - want[1]).max() for b in SMALL_B)),
+           "tol": SERVE_TOL}
+    ok = err.max() <= SERVE_TOL and not thread.is_alive()
+    for clients, (load, answers) in runs.items():
+        a = np.array([x["prob_live"] for x in answers], np.float32)
+        e, _ = nearest(a, {b: np.full_like(a, f_want[b][0])
+                           for b in SMALL_B})
+        e_lone = np.abs(a - f_want[1][0])
+        # one client: every request is dispatched alone (B = 1)
+        worst = float((e_lone if clients == 1 else e).max()) if a.size else 1.0
+        ok = ok and (load["errors"] == 0 and len(a) == HTTP_REQUESTS
+                     and worst <= SERVE_TOL)
+        out[f"clients{clients}"] = {
+            "requests": load["requests"], "errors": load["errors"],
+            "img_per_s": load["img_per_s"], "latency_ms": load["latency_ms"],
+            "avg_batch_fill": load.get("avg_batch_fill"),
+            "max_abs_err_vs_direct": worst}
+    out.update(server_batches=stats["batches"],
+               server_avg_batch=stats["avg_batch"],
+               server_padded_rows=stats["padded_rows"],
+               server_latency_ms=stats.get("latency_ms"), ok=ok)
+    emit(out)
+    if not ok:
+        raise AssertionError(f"HTTP serving failed: {out}")
+    return out
 
 
 def _rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -797,6 +1195,108 @@ def phase_times(dev, model, serve128, u8, main_err, launches,
     return rows
 
 
+LAYER_PHASES = ["ln1", "qkv", "attention", "proj", "ln2", "fc1", "fc2"]
+BATCHGRID_PHASES = ["ln1", "qkv", "attention", "proj", "ln2", "fc1",
+                    "fc2_a", "fc2_b"]
+
+
+def trace_breakdown(launch, phases, repeats: int = 5) -> dict:
+    """Per-phase device time of a traced whole-encoder launch: the
+    global-timer stamps block 0 writes as it leaves each grid barrier
+    (ops/lowlat.py ``trace``), the median of ``repeats`` launches.  Each
+    phase's time includes its barrier; the first stamps time bare
+    barriers.  Returns the sum and count over the layers per phase name,
+    the bare barrier, and the traced launch's total."""
+    n = 1 + low._TRACE_BARRIERS + len(phases)
+    trace = torch.zeros(n, dtype=torch.int64, device="cuda")
+    runs = []
+    for _ in range(repeats + 1):                  # the first warms up
+        launch(trace)
+        torch.cuda.synchronize()
+        runs.append(trace.diff().double().cpu() / 1e6)   # ns -> ms
+    dt = torch.stack(runs[1:]).median(0).values
+    bare = dt[:low._TRACE_BARRIERS]
+    out = {"barrier_ms": bare.median().item(),
+           "total_ms": dt[low._TRACE_BARRIERS:].sum().item(), "phases": {}}
+    for name, ms in zip(phases, dt[low._TRACE_BARRIERS:].tolist()):
+        acc = out["phases"].setdefault(name, {"ms": 0.0, "count": 0})
+        acc["ms"] += ms
+        acc["count"] += 1
+    return out
+
+
+def phase_times_small(dev, model, progs, fns, main_err, launches) -> list:
+    """Kernel 10 at B = 1 and kernel 11 per 2-item chunk beside their
+    bounds and plain versions; the B = 1 forward (and a profile of it);
+    the batch-grid forwards; the fastserve forward at the same B."""
+    rng = np.random.default_rng(SEED + 8)
+    bf = torch.bfloat16
+    prep, bprep = progs["lowlat"][0], progs["batch_grid"][0]
+    u8 = torch.from_numpy(rng.integers(0, 256, (max(SMALL_B), IMG, IMG, 3),
+                                       dtype=np.uint8)).to(dev)
+    xp = fastserve.patch_rows(u8[:1], patch_size=PATCH, tp=TP, dtype=bf)
+    args10 = (xp, prep["packed_w"], prep["packed_s"], prep["end_w"],
+              prep["end_s"], prep["aux"])
+    stream, _t = fastserve.padded_stream(bprep["params"]["vit"], u8[:2],
+                                         dtype=bf, patch_size=PATCH)
+    args11 = (stream, bprep["bg_w"], bprep["bg_s"])
+    kw = dict(num_heads=HEADS, valid_len=T)
+    hh = prep["end_w"].shape[-1] - D
+    timed = {
+        "lowlat_encoder": (
+            lambda: low.forward_lowlat_e2e(*args10, **kw),
+            lambda: low.forward_lowlat_e2e_plain(*args10, **kw),
+            lowlat_work(1, DEPTH, hh=hh), nbytes(*args10) + 2 * 4),
+        "lowlat_batchgrid": (
+            lambda: low.encoder_forward_lowlat_batchgrid(*args11, **kw),
+            lambda: low.encoder_forward_lowlat_batchgrid_plain(*args11,
+                                                               **kw),
+            lowlat_work(2, DEPTH), nbytes(*args11) + nbytes(stream)),
+    }
+    rows = []
+    for name, (kernel, plain, flops, nb) in timed.items():
+        ms, plain_ms = time_ms(kernel), time_ms(plain, per_window=3)
+        bound_ms, bound_by = bound(flops, nb)
+        rows.append({"name": name, "route": "cuda", **KERNELS[name],
+                     "launches": launches[name],
+                     "max_abs_err": main_err[name], "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": None,
+                     "gflop": flops / 1e9, "mbytes": nb / 1e6})
+
+    fast = fastserve.make_serving_fn(model, batch_size=1, mode="fastserve")
+    e2e = {}
+    for b in SMALL_B:
+        ms = time_ms(lambda b=b: fns[b](u8[:b]))
+        fast_ms = time_ms(lambda b=b: fast(u8[:b]))
+        e2e[str(b)] = {"regime": fastserve.auto_serving_mode(b), "ms": ms,
+                       "ms_per_img": ms / b, "fastserve_ms": fast_ms,
+                       "fastserve_ms_per_img": fast_ms / b}
+    profile = profile_step(lambda: fns[1](u8[:1]))
+    m_in = block_inputs(rng, MAIN_B, TP, D, HIDDEN, dev)[1]
+    clocks = {"kernel10_b1": clocks_during(timed["lowlat_encoder"][0]),
+              "mlp_block_b128": clocks_during(
+                  lambda: att.fused_mlp_block(**m_in))}
+    del m_in
+    breakdown = {
+        "lowlat_encoder_b1": trace_breakdown(
+            lambda tr: low.forward_lowlat_e2e(*args10, **kw, trace=tr),
+            ["stem"] + LAYER_PHASES * DEPTH + ["head_fc1", "head_fc2"]),
+        "lowlat_batchgrid_chunk2": trace_breakdown(
+            lambda tr: low.encoder_forward_lowlat_batchgrid(*args11, **kw,
+                                                            trace=tr),
+            BATCHGRID_PHASES * DEPTH)}
+    emit({"phase": "times_small", "b1_ms": e2e["1"]["ms"],
+          "phase_breakdown": breakdown,
+          "kernels": {r["name"]: {k: r[k] for k in
+                                  ("ms", "plain_ms", "bound_ms", "bound_by",
+                                   "gflop", "mbytes")} for r in rows},
+          "e2e": e2e, "b1_profile": profile, "clocks": clocks})
+    for r in rows:
+        del r["gflop"], r["mbytes"]
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card "
@@ -809,9 +1309,14 @@ def main() -> int:
     main_err = phase_kernels(dev)
     model, serve128, u8, launches = phase_slice(dev)
     phase_serving(model, serve128)
+    low_err, progs = phase_kernels_lowlat(dev, model)
+    fns, small_launches = phase_slice_small(dev, model)
+    phase_http(model, fns)
     train_state, train_step, train_batch, train_launches = phase_train(dev)
     rows = phase_times(dev, model, serve128, u8, main_err, launches,
                        train_launches, train_state, train_step, train_batch)
+    rows += phase_times_small(dev, model, progs, fns, low_err,
+                              small_launches)
     emit({"phase": "done", "seconds": round(time.perf_counter() - t0, 3)})
     emit({"kernels": rows})
     print(nvidia_smi(), flush=True)

@@ -138,10 +138,22 @@ def test_make_serving_fn_needs_a_card_unless_cpu_is_asked(model):
 
 @pytest.mark.parametrize("mode,b", [("lowlat", 32), ("batch_grid", 32),
                                     ("auto", 1), ("auto", 16)])
-def test_lowlat_regimes_are_not_ported_yet(model, mode, b):
-    _jm, _v, _f, tm = model
-    with pytest.raises(NotImplementedError, match="Queue 2 items 7-8"):
-        tfast.make_serving_fn(tm, batch_size=b, mode=mode, device="cpu")
+def test_small_batch_regimes_match_jax(model, mode, b):
+    """The lowlat and batch-grid regimes (also forced at B = 32) against
+    JAX ``make_serving_fn(..., interpret=True)`` on the same weights."""
+    jm, variables, _f, tm = model
+    u8 = _images(30 + b, b)
+    got = tfast.make_serving_fn(tm, batch_size=b, mode=mode,
+                                device="cpu")(u8)
+    want = jfast.make_serving_fn(jm, variables, batch_size=b, mode=mode,
+                                 interpret=True)(jnp.asarray(u8))
+    assert got.dtype == torch.float32 and got.shape == (b,)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want, np.float32),
+                               atol=BF16_SCORE_ATOL, rtol=0)
+    regime = tfast.auto_serving_mode(b) if mode == "auto" else mode
+    _w, raw, _kw = tfast.serving_program(tm, mode=regime, device="cpu")
+    assert raw is (tfast.serving_forward_lowlat if regime == "lowlat"
+                   else tfast.serving_forward_lowlat_batch)
 
 
 def test_serving_modes_are_validated(model):
@@ -150,6 +162,12 @@ def test_serving_modes_are_validated(model):
         tfast.serving_program(tm, mode="turbo", device="cpu")
     with pytest.raises(TypeError, match="anti-spoof head"):
         tfast.serving_program(torch.nn.Linear(2, 2), mode="fastserve",
+                              device="cpu")
+    with pytest.raises(ValueError, match="int8_weights"):
+        tfast.serving_program(tm, mode="batch_grid", int8_weights=True,
+                              device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue 2 item 17"):
+        tfast.make_serving_fn(tm, batch_size=1, int8_weights=True,
                               device="cpu")
 
 

@@ -65,6 +65,40 @@ def test_the_port_has_modules_to_check():
     assert "vit_spoof_detection_pda_tpu_torch.models.fastserve" in mods
     assert "vit_spoof_detection_pda_tpu_torch.ops.attention" in mods
     for mod in ("models.fasttrain", "ops.ln_bwd", "ops.losses",
-                "train.schedule", "train.state", "train.step"):
+                "train.schedule", "train.state", "train.step") + LAZY_PIL:
         assert f"vit_spoof_detection_pda_tpu_torch.{mod}" in mods
-    assert len(mods) >= 22
+    assert len(mods) >= 26
+
+
+# the modules of the serving front, which the card's machine imports
+# without PIL: they may import it inside a function only
+LAZY_PIL = ("ops.lowlat", "data.loader", "serve.loadgen", "serve.server")
+
+
+@pytest.mark.parametrize("mod", LAZY_PIL)
+def test_pil_is_imported_inside_functions_only(mod):
+    path = PORT / (mod.replace(".", "/") + ".py")
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in tree.body:                    # module-level statements
+        for sub in ast.walk(node):
+            if isinstance(sub, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                break
+            names = ([a.name for a in sub.names] if isinstance(sub, ast.Import)
+                     else [sub.module or ""]
+                     if isinstance(sub, ast.ImportFrom) else [])
+            assert not any(n.split(".")[0] == "PIL" for n in names), (
+                f"{path.name}:{sub.lineno} imports PIL at module level")
+
+
+def test_serving_modules_import_without_pil():
+    mods = [f"vit_spoof_detection_pda_tpu_torch.{m}" for m in LAZY_PIL]
+    code = ("import sys, importlib\n"
+            f"for name in {FORBIDDEN + ('PIL',)!r}:\n"
+            "    sys.modules[name] = None\n"
+            f"for mod in {mods!r}:\n"
+            "    importlib.import_module(mod)\n"
+            "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"

@@ -20,6 +20,7 @@ import torch
 
 from vit_spoof_detection_pda_tpu_torch.ops import attention as tatt
 from vit_spoof_detection_pda_tpu_torch.ops import ln_bwd as tln
+from vit_spoof_detection_pda_tpu_torch.ops import lowlat as tlow
 
 _MATS = ("x", "w_qkv", "w_proj", "w_fc1", "w_fc2")
 
@@ -228,3 +229,155 @@ def test_training_kernels_reject_what_they_cannot_take(cuda_device):
                                           torch.bfloat16)
     with pytest.raises(ValueError, match="multiple of 8"):
         tln.ln_residual_bwd(xh, inv, dxn, g, lns)
+
+
+# --------------------------------------------------------------------------
+# whole-encoder (lowlat) kernels
+# --------------------------------------------------------------------------
+
+def _encoder_tree(seed, depth, d, hh=0):
+    """A JAX-layout ViT tree from a numpy seed (encoder matrices
+    N(0, 0.02), LN scales near 1; with ``hh`` the stem, the final LN and
+    an anti-spoof head for fold-ends, patch_dim == d)."""
+    rng = np.random.default_rng(seed)
+
+    def n(*shape, std):
+        return (rng.standard_normal(shape) * std).astype(np.float32)
+
+    def dense(i, o, std=0.02):
+        return {"kernel": n(i, o, std=std), "bias": n(o, std=0.02)}
+
+    def ln(dim):
+        return {"scale": 1.0 + n(dim, std=0.1), "bias": n(dim, std=0.05)}
+
+    vit = {f"block{i}": {"norm1": ln(d), "attn": {
+        "qkv": dense(d, 3 * d), "proj": dense(d, d)}, "norm2": ln(d),
+        "mlp": {"fc1": dense(d, 4 * d), "fc2": dense(4 * d, d)}}
+        for i in range(depth)}
+    if not hh:
+        return {"vit": vit}
+    vit.update(patch_embed=dense(d, d), cls_token=n(1, 1, d, std=0.02),
+               pos_embed=n(1, 197, d, std=0.02), norm=ln(d))
+    head = {"norm": ln(d), "fc1": dense(d, hh, std=d ** -0.5),
+            "fc2": dense(hh, 2, std=0.1)}
+    return {"vit": vit, "head": head}
+
+
+def _stream(seed, b, tp, d, device):
+    rng = np.random.default_rng(seed)
+    return _bf16(rng, b, tp, d, device=device)
+
+
+# (B, Tp, valid_len, D, heads, depth): ViT-B at depth 1, and a ragged
+# shape (Tp 40, head dim 16) at depth 2
+LOWLAT_CASES = [(1, 200, 197, 768, 12, 1), (2, 200, 197, 768, 12, 1),
+                (1, 40, 33, 64, 4, 2)]
+
+
+def _assert_close_layers(got, want, depth):
+    """2 bf16 ulps of the largest output magnitude per layer: the
+    kernel and its plain version round at the same points, and a flip of
+    one rounding moves the output by about an ulp in each layer."""
+    got, want = got.float().cpu(), want.float().cpu()
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    amax = want.abs().max().item()
+    tol = 2.0 * depth * 2.0 ** (math.floor(math.log2(amax)) - 7)
+    assert (got - want).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,tp,valid,d,heads,depth", LOWLAT_CASES)
+def test_lowlat_encoder_kernel_matches_plain_on_card(
+        cuda_device, b, tp, valid, d, heads, depth):
+    w, s = tlow.pack_encoder_weights(_encoder_tree(20, depth, d)["vit"],
+                                     depth=depth, device=cuda_device)
+    x = _stream(21, b, tp, d, cuda_device)
+    n0 = tatt.LAUNCHES["lowlat_encoder"]
+    got = tlow.encoder_forward_lowlat(x, w, s, num_heads=heads,
+                                      valid_len=valid)
+    again = tlow.encoder_forward_lowlat(x, w, s, num_heads=heads,
+                                        valid_len=valid)
+    want = tlow.encoder_forward_lowlat_plain(x, w, s, num_heads=heads,
+                                             valid_len=valid)
+    torch.cuda.synchronize()
+    assert tatt.LAUNCHES["lowlat_encoder"] == n0 + 2
+    _assert_close_layers(got, want, depth)
+    assert torch.equal(got, again)          # back-to-back launches agree
+
+
+@pytest.mark.cuda
+def test_lowlat_fold_ends_kernel_matches_plain_on_card(cuda_device):
+    d, tp, valid, hh = 768, 200, 197, 512
+    tree = _encoder_tree(22, 1, d, hh)
+    w, s = tlow.pack_encoder_weights(tree["vit"], depth=1,
+                                     device=cuda_device)
+    ends = tlow.pack_end_weights(tree, device=cuda_device)
+    rng = np.random.default_rng(23)
+    xp = torch.tensor(rng.integers(0, 256, (1, tp, d)).astype(np.float32),
+                      device=cuda_device).to(torch.bfloat16)
+    xp[:, 0] = 0
+    xp[:, valid:] = 0
+    n0 = tatt.LAUNCHES["lowlat_encoder"]
+    got = tlow.forward_lowlat_e2e(xp, w, s, *ends, num_heads=12,
+                                  valid_len=valid)
+    want = tlow.forward_lowlat_e2e_plain(xp, w, s, *ends, num_heads=12,
+                                         valid_len=valid)
+    torch.cuda.synchronize()
+    assert tatt.LAUNCHES["lowlat_encoder"] == n0 + 1
+    assert got.shape == (1, 2) and got.dtype == torch.float32
+    _assert_close_layers(got, want, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,tp,valid,d,heads,depth",
+                         [(c, 200, 197, 768, 12, 1) for c in (1, 2, 3, 4)]
+                         + [(3, 40, 33, 64, 4, 2)])
+def test_lowlat_batchgrid_kernel_matches_plain_on_card(
+        cuda_device, b, tp, valid, d, heads, depth):
+    w, s = tlow.pack_encoder_weights_batchgrid(
+        _encoder_tree(24, depth, d)["vit"], depth=depth, device=cuda_device)
+    x = _stream(25, b, tp, d, cuda_device)
+    if b > 1:
+        x[-1] = 0                            # a zero pad item
+    n0 = tatt.LAUNCHES["lowlat_batchgrid"]
+    got = tlow.encoder_forward_lowlat_batchgrid(x, w, s, num_heads=heads,
+                                                valid_len=valid)
+    want = tlow.encoder_forward_lowlat_batchgrid_plain(
+        x, w, s, num_heads=heads, valid_len=valid)
+    torch.cuda.synchronize()
+    assert tatt.LAUNCHES["lowlat_batchgrid"] == n0 + 1
+    _assert_close_layers(got, want, depth)
+
+
+@pytest.mark.cuda
+def test_lowlat_kernels_reject_what_they_cannot_take(cuda_device):
+    w, s = tlow.pack_encoder_weights(_encoder_tree(26, 1, 96)["vit"],
+                                     depth=1, device=cuda_device)
+    x = _stream(27, 1, 40, 96, cuda_device)
+    with pytest.raises(ValueError, match="head dim"):     # 96 / 2 = 48
+        tlow.encoder_forward_lowlat(x, w, s, num_heads=2, valid_len=33)
+    with pytest.raises(TypeError, match="bfloat16"):
+        tlow.encoder_forward_lowlat(x.float(), w, s, num_heads=3,
+                                    valid_len=33)
+    with pytest.raises(ValueError, match="<= 4"):
+        tlow.encoder_forward_lowlat_batchgrid(
+            _stream(27, 5, 40, 96, cuda_device), w, s, num_heads=3,
+            valid_len=33)
+
+
+@pytest.mark.cuda
+def test_lowlat_trace_stamps_every_barrier(cuda_device):
+    w, s = tlow.pack_encoder_weights(_encoder_tree(28, 2, 64)["vit"],
+                                     depth=2, device=cuda_device)
+    x = _stream(29, 2, 40, 64, cuda_device)
+    kw = dict(num_heads=4, valid_len=33)
+    trace = torch.zeros(tlow.trace_slots(2), dtype=torch.int64,
+                        device=cuda_device)
+    got = tlow.encoder_forward_lowlat(x, w, s, trace=trace, **kw)
+    want = tlow.encoder_forward_lowlat(x, w, s, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)           # tracing changes no result
+    stamps = trace.cpu()
+    assert (stamps > 0).all() and (stamps.diff() >= 0).all()
+    with pytest.raises(ValueError, match="stamps"):
+        tlow.encoder_forward_lowlat(x, w, s, trace=trace[:-1], **kw)

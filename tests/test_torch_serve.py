@@ -176,10 +176,53 @@ def test_live_programs_threshold_and_temperature(model):
                             temperature=-1.0)
 
 
-def test_live_programs_refuse_the_unported_small_batch_regimes(model):
-    with pytest.raises(NotImplementedError, match="Queue 2 items 7-8"):
-        build_programs_live(model, shapes=(16, 32), img_size=SIZE,
-                            device="cpu")
+@pytest.fixture(scope="module")
+def jax_model():
+    geom = dict(patch_size=16, embed_dim=64, depth=2, num_heads=2, hidden=16)
+    jm = jvit.ViTAntiSpoof(**geom, gelu="tanh")
+    return jm, jm.init(jax.random.PRNGKey(0), jnp.zeros((1, SIZE, SIZE, 3)))
+
+
+@pytest.mark.parametrize("shapes", [(16, 32), (1, 2, 4, 8, 16)])
+def test_live_programs_serve_the_small_batch_regimes(model, jax_model,
+                                                      shapes):
+    """Each shape runs the JAX package's regime for it, reported in the
+    metas, and scores as JAX ``build_programs_live(..., interpret=True)``
+    does on the same weights (5e-3: the bf16 score tolerance of
+    tests/test_torch_fastserve.py)."""
+    from vit_spoof_detection_pda_tpu.serve import \
+        build_programs_live as jax_build_programs_live
+
+    programs, _sz, metas = build_programs_live(model, shapes=shapes,
+                                               img_size=SIZE, device="cpu")
+    jprograms, _jsz, jmetas = jax_build_programs_live(
+        *jax_model, shapes=shapes, img_size=SIZE, interpret=True)
+    assert metas[0]["shapes"] == jmetas[0]["shapes"]
+    assert sorted(programs) == sorted(jprograms) == sorted(shapes)
+    rng = np.random.default_rng(3)
+    for s in (min(shapes), 16):
+        batch = rng.integers(0, 256, (s, SIZE, SIZE, 3), dtype=np.uint8)
+        got, want = programs[s](batch), jprograms[s](batch)
+        np.testing.assert_allclose(got["prob1"], want["prob1"], atol=5e-3)
+        assert got["prob1"].dtype == np.float32
+        assert got["pred"].dtype == np.int32
+
+
+def test_build_programs_live_defaults_to_the_jax_shapes(model):
+    import inspect
+
+    from vit_spoof_detection_pda_tpu.serve import \
+        build_programs_live as jax_build_programs_live
+
+    want = inspect.signature(jax_build_programs_live).parameters["shapes"]
+    got = inspect.signature(build_programs_live).parameters["shapes"]
+    assert got.default == want.default == (1, 2, 4, 8, 16)
+    programs, _sz, metas = build_programs_live(model, img_size=SIZE,
+                                               device="cpu")
+    assert sorted(programs) == [1, 2, 4, 8, 16]
+    assert metas[0]["shapes"] == {1: "lowlat", 2: "batch_grid",
+                                  4: "batch_grid", 8: "batch_grid",
+                                  16: "batch_grid"}
 
 
 def test_live_programs_need_a_card_unless_cpu_is_asked(model):

@@ -1,7 +1,7 @@
 """Print the port's parity gaps against the JAX package on the CPU, one
 JSON line per comparison (the numbers the tests bound).
 
-    python tests/torch_parity_report.py
+    python tests/torch_parity_report.py [kernels serving training small_batch]
 
 The port runs its plain PyTorch versions (CPU tensors); the JAX side runs
 its Pallas kernels in interpret mode, as the test files do.  Inputs come
@@ -27,14 +27,17 @@ import torch  # noqa: E402
 
 import test_torch_attention as ta  # noqa: E402
 import test_torch_fasttrain as tf  # noqa: E402
+import test_torch_lowlat as tlt  # noqa: E402
 import test_torch_train_step as tts  # noqa: E402
 from vit_spoof_detection_pda_tpu.models import fastserve as jfast  # noqa: E402
 from vit_spoof_detection_pda_tpu.models import vit as jvit  # noqa: E402
 from vit_spoof_detection_pda_tpu.models import fasttrain as jft  # noqa: E402
 from vit_spoof_detection_pda_tpu.ops import attention as jatt  # noqa: E402
 from vit_spoof_detection_pda_tpu.ops import ln_bwd as jln  # noqa: E402
+from vit_spoof_detection_pda_tpu.ops import lowlat as jlow  # noqa: E402
 from vit_spoof_detection_pda_tpu_torch.models import fasttrain as tft  # noqa: E402
 from vit_spoof_detection_pda_tpu_torch.ops import ln_bwd as tln  # noqa: E402
+from vit_spoof_detection_pda_tpu_torch.ops import lowlat as tlow  # noqa: E402
 from vit_spoof_detection_pda_tpu_torch.train import state as tstate  # noqa: E402
 from vit_spoof_detection_pda_tpu_torch.models import fastserve as tfast  # noqa: E402
 from vit_spoof_detection_pda_tpu_torch.ops import attention as tatt  # noqa: E402
@@ -179,7 +182,70 @@ def training():
          "gradient is zero in exact arithmetic (see test_torch_train_step)")
 
 
+def small_batch():
+    """The small-batch slice: the whole-encoder kernels' plain versions
+    against the JAX kernels in interpret mode (depth 1 at bf16, 2 at f32,
+    as tests/test_torch_lowlat.py holds them), and the lowlat and
+    batch-grid scores of 16 images at both of its geometries."""
+    geoms = {name: tlt._geometry(name) for name in ("small", "foldable")}
+    for jdt, tdt in tlt.DTYPES:
+        dtype = "f32" if tdt == torch.float32 else "bf16"
+        depth = 2 if dtype == "f32" else 1
+        g = geoms["small"]
+        for bg, b, jfn, tfn in (
+                (False, 2, jlow.encoder_forward_lowlat,
+                 tlow.encoder_forward_lowlat),
+                (True, 3, jlow.encoder_forward_lowlat_batchgrid,
+                 tlow.encoder_forward_lowlat_batchgrid)):
+            (jw, js), (tw, ts) = tlt._packs(g, depth, jdt, tdt, batch_grid=bg)
+            x, xj = tlt._stream(7, b, 8, 64, jdt)
+            want = jfn(xj, jw, js, num_heads=2, valid_len=5, interpret=True)
+            got = tfn(torch.tensor(x).to(tdt), tw, ts, num_heads=2,
+                      valid_len=5)
+            emit(what=tfn.__name__, dtype=dtype, b=b, depth=depth,
+                 **gap(got.float().numpy(), want))
+        g = geoms["foldable"]
+        (jw, js), (tw, ts) = tlt._packs(g, depth, jdt, tdt)
+        x, _ = tlt._stream(8, 3, 8, 48, jdt)
+        x[:, 0], x[:, 5:] = 0, 0
+        want = jlow.forward_lowlat_e2e(
+            jnp.asarray(x, jdt), jw, js,
+            *jlow.pack_end_weights(g["folded"]["params"], dtype=jdt),
+            num_heads=2, valid_len=5, interpret=True)
+        got = tlow.forward_lowlat_e2e(
+            torch.tensor(x).to(tdt), tw, ts,
+            *tlow.pack_end_weights(g["np"], dtype=tdt), num_heads=2,
+            valid_len=5)
+        emit(what="forward_lowlat_e2e", dtype=dtype, b=3, depth=depth,
+             **gap(got.numpy(), want))
+        for name, g in geoms.items():
+            u8 = tlt._images(9, 16, g["img"])
+            kw = dict(num_heads=2, patch_size=g["patch"])
+            for batch_grid in (False, True):
+                jprep = jfast.prepare_lowlat(g["folded"]["params"], depth=2,
+                                             dtype=jdt, batch_grid=batch_grid)
+                tprep = tfast.prepare_lowlat(g["np"], depth=2, dtype=tdt,
+                                             batch_grid=batch_grid,
+                                             device="cpu")
+                if batch_grid:
+                    want = jfast.serving_forward_lowlat_batch(
+                        jprep, jnp.asarray(u8), dtype=jdt, interpret=True,
+                        **kw)
+                    got = tfast.serving_forward_lowlat_batch(
+                        tprep, u8, dtype=tdt, device="cpu", **kw)
+                else:
+                    want = jfast.serving_forward_lowlat(
+                        jprep, jnp.asarray(u8), dtype=jdt, interpret=True,
+                        **kw)
+                    got = tfast.serving_forward_lowlat(
+                        tprep, u8, dtype=tdt, device="cpu", **kw)
+                emit(what=("serving_forward_lowlat_batch" if batch_grid
+                           else "serving_forward_lowlat") + "_scores",
+                     geometry=name, dtype=dtype, images=16,
+                     **gap(got.numpy(), want))
+
+
 if __name__ == "__main__":
-    kernels()
-    serving()
-    training()
+    for part in sys.argv[1:] or ("kernels", "serving", "training",
+                                 "small_batch"):
+        globals()[part]()

@@ -22,6 +22,15 @@ __host__ __device__ inline size_t att_smem_bytes(int tp, int dh) {
   return 2 * static_cast<size_t>(att_keys(tp)) * (dh + 8) * sizeof(bf16);
 }
 
+// Q's 32-bit fragments: through the read-only path in a standalone launch;
+// from L2 (coherent) in the persistent lowlat kernels, which rewrite qkv
+// during the launch.
+template <bool kCoherent>
+__device__ __forceinline__ uint32_t ld_q_u32(const bf16* p) {
+  if (kCoherent) return __ldcg(reinterpret_cast<const unsigned int*>(p));
+  return ld_global_u32(p);
+}
+
 // qkv [B, Tp, 3D] (q | k | v, heads contiguous inside each) -> out [B, Tp, D]
 // for head dim DH.  Grid (query tiles, heads, B), the Tp rows split evenly
 // into tiles of at most 8 warps (Tp = 200: two tiles of 7 warps), so each
@@ -38,20 +47,20 @@ __host__ __device__ inline size_t att_smem_bytes(int tp, int dh) {
 // Logits are f32 q . k * scale; key columns >= valid_len are -1e30 like
 // the TPU kernel's mask, columns past the stream (>= Tp) are -inf so they
 // add nothing to m or l.
-template <int DH>
-__global__ void __launch_bounds__(kAttMaxWarps * 32)
-    attention_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int tp, int d,
-                     int valid_len, float scale) {
+//
+// attention_tile is one query tile of one (head, item): the block's warps
+// own query rows q0 + 16w .. q0 + 16w + 15; Ks and Vs are the block's
+// shared memory.
+template <int DH, bool kCoherent>
+__device__ __forceinline__ void attention_tile(const bf16* __restrict__ qkv,
+                                               bf16* __restrict__ out, int tp, int d,
+                                               int valid_len, float scale, int q0, int h, int b,
+                                               bf16* Ks, bf16* Vs) {
   constexpr int LD = DH + 8;   // shared row stride (elements), 16-byte multiple
   constexpr int KK = DH / 16;  // k-steps of Q K^T
   constexpr int NO = DH / 8;   // 8-column output tiles
   constexpr int CPR = DH / 8;  // 16-byte chunks per head row
-  extern __shared__ __align__(128) unsigned char smem[];
   const int tk = att_keys(tp);
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + tk * LD;
-
-  const int q0 = blockIdx.x * blockDim.x / 2, h = blockIdx.y, b = blockIdx.z;  // 16 rows a warp
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const size_t stride = 3 * static_cast<size_t>(d);
   const bf16* base = qkv + static_cast<size_t>(b) * tp * stride + static_cast<size_t>(h) * DH;
@@ -86,10 +95,10 @@ __global__ void __launch_bounds__(kAttMaxWarps * 32)
   const bool lo_in = r0 + g < tp, hi_in = r0 + g + 8 < tp;
 #pragma unroll
   for (int kk = 0; kk < KK; ++kk) {
-    qa[kk][0] = lo_in ? ld_global_u32(qlo + kk * 16) : 0u;
-    qa[kk][1] = hi_in ? ld_global_u32(qhi + kk * 16) : 0u;
-    qa[kk][2] = lo_in ? ld_global_u32(qlo + kk * 16 + 8) : 0u;
-    qa[kk][3] = hi_in ? ld_global_u32(qhi + kk * 16 + 8) : 0u;
+    qa[kk][0] = lo_in ? ld_q_u32<kCoherent>(qlo + kk * 16) : 0u;
+    qa[kk][1] = hi_in ? ld_q_u32<kCoherent>(qhi + kk * 16) : 0u;
+    qa[kk][2] = lo_in ? ld_q_u32<kCoherent>(qlo + kk * 16 + 8) : 0u;
+    qa[kk][3] = hi_in ? ld_q_u32<kCoherent>(qhi + kk * 16 + 8) : 0u;
   }
 
   // s[j][0..1]: row g, keys kc0 + 8j + 2*t4 + {0, 1}; s[j][2..3]: row g + 8.
@@ -176,6 +185,17 @@ __global__ void __launch_bounds__(kAttMaxWarps * 32)
       *reinterpret_cast<uint32_t*>(orow + 8 * static_cast<size_t>(d) + n * 8) =
           pack_bf16x2(o[n][2], o[n][3]);
   }
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kAttMaxWarps * 32)
+    attention_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int tp, int d,
+                     int valid_len, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem);
+  bf16* Vs = Ks + att_keys(tp) * (DH + 8);
+  attention_tile<DH, false>(qkv, out, tp, d, valid_len, scale, blockIdx.x * blockDim.x / 2,
+                            blockIdx.y, blockIdx.z, Ks, Vs);
 }
 
 template <int DH>

@@ -82,28 +82,33 @@ __device__ __forceinline__ float gelu_tanh(float x) {
 
 constexpr int kLnRowsPerBlock = 8;
 
-template <bool kResid>
-__global__ void __launch_bounds__(kLnRowsPerBlock * 32)
-    layernorm_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
-                     const float* __restrict__ beta, bf16* __restrict__ out,
-                     bf16* __restrict__ xhat, float* __restrict__ inv_out, int rows, int d,
-                     float eps) {
-  const int lane = threadIdx.x & 31;
-  const long long row =
-      static_cast<long long>(blockIdx.x) * kLnRowsPerBlock + (threadIdx.x >> 5);
-  if (row >= rows) return;
-  const bf16* xr = x + row * d;
+// 16 bytes of x: through L1, or from L2 only (kCoherent: the persistent
+// lowlat kernels, which rewrite x during the launch).
+template <bool kCoherent>
+__device__ __forceinline__ uint4 ld_x16(const bf16* p) {
+  if (kCoherent) return __ldcg(reinterpret_cast<const uint4*>(p));
+  return *reinterpret_cast<const uint4*>(p);
+}
+
+// One row by one warp: xr, orow (and xhrow, inv) point at the row.
+template <bool kResid, bool kCoherent = false>
+__device__ __forceinline__ void layernorm_row(const bf16* __restrict__ xr,
+                                              const float* __restrict__ gamma,
+                                              const float* __restrict__ beta,
+                                              bf16* __restrict__ orow, bf16* __restrict__ xhrow,
+                                              float* __restrict__ inv_out, int d, float eps,
+                                              int lane) {
   float f[8];
   float s = 0.f;
   for (int c = lane * 8; c < d; c += 256) {
-    unpack8(*reinterpret_cast<const uint4*>(xr + c), f);
+    unpack8(ld_x16<kCoherent>(xr + c), f);
 #pragma unroll
     for (int i = 0; i < 8; ++i) s += f[i];
   }
   const float mu = warp_sum(s) / static_cast<float>(d);
   float v = 0.f;
   for (int c = lane * 8; c < d; c += 256) {
-    unpack8(*reinterpret_cast<const uint4*>(xr + c), f);
+    unpack8(ld_x16<kCoherent>(xr + c), f);
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const float t = f[i] - mu;
@@ -111,10 +116,9 @@ __global__ void __launch_bounds__(kLnRowsPerBlock * 32)
     }
   }
   const float inv = 1.0f / sqrtf(warp_sum(v) / static_cast<float>(d) + eps);
-  if (kResid && lane == 0) inv_out[row] = inv;
-  bf16* orow = out + row * d;
+  if (kResid && lane == 0) *inv_out = inv;
   for (int c = lane * 8; c < d; c += 256) {
-    unpack8(*reinterpret_cast<const uint4*>(xr + c), f);
+    unpack8(ld_x16<kCoherent>(xr + c), f);
     float h[8], g[8];
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
@@ -122,8 +126,22 @@ __global__ void __launch_bounds__(kLnRowsPerBlock * 32)
       g[i] = h[i] * gamma[c + i] + beta[c + i];
     }
     *reinterpret_cast<uint4*>(orow + c) = pack8(g);
-    if (kResid) *reinterpret_cast<uint4*>(xhat + row * d + c) = pack8(h);
+    if (kResid) *reinterpret_cast<uint4*>(xhrow + c) = pack8(h);
   }
+}
+
+template <bool kResid>
+__global__ void __launch_bounds__(kLnRowsPerBlock * 32)
+    layernorm_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
+                     const float* __restrict__ beta, bf16* __restrict__ out,
+                     bf16* __restrict__ xhat, float* __restrict__ inv_out, int rows, int d,
+                     float eps) {
+  const long long row =
+      static_cast<long long>(blockIdx.x) * kLnRowsPerBlock + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  layernorm_row<kResid>(x + row * d, gamma, beta, out + row * d,
+                        kResid ? xhat + row * d : nullptr, kResid ? inv_out + row : nullptr, d,
+                        eps, threadIdx.x & 31);
 }
 
 // xhat and inv_out are written only when both are given (the training form).

@@ -1,6 +1,14 @@
-"""bf16 serving path: uint8 faces in, P(live) out, with each encoder layer
-running the two hand-written kernels (counterpart of the JAX package's
-``models/fastserve.py``, its ``fastserve`` mode).
+"""bf16 serving path: uint8 faces in, P(live) out (counterpart of the JAX
+package's ``models/fastserve.py``), in its three regimes:
+
+- ``fastserve`` (B >= 17): each encoder layer on the two hand-written
+  kernels, composed as below.
+- ``lowlat`` (B = 1): the whole forward, patch rows to logits, in one
+  launch of ``csrc/lowlat_encoder.cu`` (:func:`serving_forward_lowlat`,
+  packs from :func:`prepare_lowlat`).
+- ``batch_grid`` (B = 2-16): the whole encoder in one launch of
+  ``csrc/lowlat_batchgrid.cu`` per chunk of up to 4 items
+  (:func:`serving_forward_lowlat_batch`).
 
 Composition (the math of ``models/vit.py`` at serving dtypes):
   x <- pad(embed_patches(batch))        # once, 197 -> 200 rows
@@ -15,13 +23,11 @@ JAX package: their products are f32 matmuls of bf16-rounded operands
 dots do.  Parameters use the JAX tree layout (``{"vit": {"block0": ...},
 "head": ...}``, ``[in, out]`` kernels); :func:`serving_program` casts
 them once to the dtypes the kernels take, on the device.
-
-The B = 1 and B = 2-16 regimes of the JAX package (``lowlat``,
-``batch_grid``) are not ported yet: asking for them raises
-``NotImplementedError``.
 """
 
 from __future__ import annotations
+
+import logging
 
 import numpy as np
 import torch
@@ -33,8 +39,7 @@ from ..ops.attention import (_round_up, fused_attention_block_padded,
 from ..ops.gelu import gelu
 from .vit import patchify
 
-_LOWLAT_TODO = ("the lowlat and batch_grid serving regimes (B <= 16) are "
-                "not ported yet: ROADMAP Queue 2 items 7-8")
+log = logging.getLogger(__name__)
 
 
 def _t(leaf, dtype, device) -> torch.Tensor:
@@ -60,6 +65,22 @@ def embed_patches(vit, batch: torch.Tensor, *, dtype,
     cls = _t(vit["cls_token"], dtype, dev).expand(b, 1, x.shape[-1])
     x = torch.cat([cls, x], dim=1)
     return x + _t(vit["pos_embed"], dtype, dev)
+
+
+def padded_stream(vit, batch: torch.Tensor, *, dtype, patch_size: int):
+    """The stem's ``[B, T, D]`` output zero-padded to ``Tp``, a multiple
+    of 8 rows (197 -> 200 at ViT-B/16): ``(stream, T)``."""
+    x = embed_patches(vit, batch, dtype=dtype, patch_size=patch_size)
+    t = x.shape[1]
+    return F.pad(x, (0, 0, 0, _round_up(t, 8) - t)).contiguous(), t
+
+
+def patch_rows(batch: torch.Tensor, *, patch_size: int, tp: int, dtype):
+    """The fold-ends kernel's input: ``[B, Tp, p*p*3]`` patch rows with
+    row 0 zero (the CLS slot; the kernel's aux carries cls + pos 0) and
+    zero rows after the last patch."""
+    x = patchify(batch, patch_size=patch_size, dtype=dtype)
+    return F.pad(x, (0, 0, 1, tp - 1 - x.shape[1])).contiguous()
 
 
 def _layernorm(x: torch.Tensor, p, eps: float) -> torch.Tensor:
@@ -103,11 +124,9 @@ def _encode_stream(vit, batch, *, num_heads: int, patch_size: int,
                    depth: int, norm_eps: float, dtype) -> torch.Tensor:
     """Image batch -> ``[B, Tp, D]`` residual stream after the last block
     (padded to a multiple of 8 rows, before the final LN)."""
-    x = embed_patches(vit, batch, dtype=dtype, patch_size=patch_size)
     # the stream is padded once (197 -> 200) and stays padded: pad rows
     # are computed like real rows, their keys masked at valid_len
-    t = x.shape[1]
-    x = F.pad(x, (0, 0, 0, _round_up(t, 8) - t))
+    x, t = padded_stream(vit, batch, dtype=dtype, patch_size=patch_size)
     dev, f32 = batch.device, torch.float32
     for i in range(depth):
         blk = vit[f"block{i}"]
@@ -168,33 +187,175 @@ def prepare_params(params, *, dtype, device):
     return walk(params, None)
 
 
-def serving_program(model, *, mode: str, dtype=torch.bfloat16, device=None):
+def prepare_lowlat(params, *, depth: int = 12, dtype=torch.bfloat16,
+                   fold_ends: bool = True, batch_grid: bool = False,
+                   per_item: bool = True, int8_weights: bool = False,
+                   device=None):
+    """Pack a folded JAX-layout tree for the whole-encoder kernels, once:
+    ``{"params": the tree cast as prepare_params casts it, "packed_w",
+    "packed_s"}`` for the per-item kernel, plus ``"end_w"``, ``"end_s"``,
+    ``"aux"`` with ``fold_ends`` (the stem and head folded in; shapes
+    that cannot ride that layout, patch_dim != embed_dim, fall back to the
+    encoder-only kernel with a warning, as in the JAX package), plus
+    ``"bg_w"``, ``"bg_s"`` with ``batch_grid``.  ``per_item=False`` skips
+    the per-item and fold-ends packs.  ``int8_weights`` (the opt-in int8
+    stream) raises ``NotImplementedError``.  Packs go to ``device`` (the
+    card unless ``device="cpu"``)."""
+    from ..ops.lowlat import (_INT8_TODO, pack_encoder_weights,
+                              pack_encoder_weights_batchgrid,
+                              pack_end_weights)
+
+    if not (per_item or batch_grid):
+        raise ValueError("prepare_lowlat with per_item=False needs "
+                         "batch_grid=True — nothing would be packed")
+    if int8_weights and not per_item:
+        raise ValueError("int8_weights quantizes the per-item stream; "
+                         "the batch-grid pack stays full-precision "
+                         "(weights already amortize per chunk there)")
+    if int8_weights:
+        raise NotImplementedError(_INT8_TODO)
+    device = resolve_device(device)
+    out = {"params": prepare_params(params, dtype=dtype, device=device)}
+    if per_item:
+        w, s = pack_encoder_weights(params["vit"], depth=depth, dtype=dtype,
+                                    device=device)
+        out.update(packed_w=w, packed_s=s)
+    if batch_grid:
+        bg_w, bg_s = pack_encoder_weights_batchgrid(
+            params["vit"], depth=depth, dtype=dtype, device=device)
+        out.update(bg_w=bg_w, bg_s=bg_s)
+    if fold_ends and per_item:
+        try:
+            w_end, s_end, aux = pack_end_weights(params, dtype=dtype,
+                                                 device=device)
+        except ValueError as e:
+            log.warning("lowlat fold-ends unavailable (%s) — serving "
+                        "with the encoder-only kernel and plain ends", e)
+            return out
+        out.update(end_w=w_end, end_s=s_end, aux=aux)
+    return out
+
+
+@torch.inference_mode()
+def serving_forward_lowlat(prepared, batch, *, num_heads: int = 12,
+                           patch_size: int = 16, norm_eps: float = 1e-6,
+                           dtype=torch.bfloat16, device=None) -> torch.Tensor:
+    """B = 1 regime: uint8 ``[B, H, W, 3]`` -> P(live) ``[B]`` with the
+    whole forward in one launch.  With the fold-ends packs, patch
+    extraction is the only work outside the kernel; otherwise the stem
+    and the head run as in :func:`serving_forward` around the encoder-only
+    kernel.  ``prepared``: :func:`prepare_lowlat`."""
+    from ..ops.lowlat import forward_lowlat_e2e
+
+    device = resolve_device(device)
+    batch = _as_batch(batch, device)
+    params = prepared["params"]
+    if "aux" in prepared:
+        h, w = batch.shape[1], batch.shape[2]
+        gh, gw = h // patch_size, w // patch_size
+        t = params["vit"]["pos_embed"].shape[-2]
+        if gh * gw + 1 != t:
+            raise ValueError(
+                f"batch {h}x{w} yields {gh * gw + 1} tokens but the "
+                f"prepared fold-ends packs hold a {t}-token pos embed "
+                "(prepare_lowlat and the batch must share the image size)")
+        x = patch_rows(batch, patch_size=patch_size,
+                       tp=prepared["aux"].shape[1], dtype=dtype)
+        logits = forward_lowlat_e2e(
+            x, prepared["packed_w"], prepared["packed_s"],
+            prepared["end_w"], prepared["end_s"], prepared["aux"],
+            num_heads=num_heads, eps=norm_eps, valid_len=gh * gw + 1)
+        return torch.sigmoid(logits[:, 1] - logits[:, 0])
+    x = _lowlat_encode(prepared, batch, num_heads=num_heads,
+                       patch_size=patch_size, norm_eps=norm_eps, dtype=dtype)
+    return _cls_head_scores(params, x, norm_eps=norm_eps, dtype=dtype)
+
+
+def _lowlat_encode(prepared, batch, *, num_heads: int, patch_size: int,
+                   norm_eps: float, dtype) -> torch.Tensor:
+    """Stem + the encoder-only kernel -> ``[B, Tp, D]`` stream."""
+    from ..ops.lowlat import encoder_forward_lowlat
+
+    x, t = padded_stream(prepared["params"]["vit"], batch, dtype=dtype,
+                         patch_size=patch_size)
+    return encoder_forward_lowlat(x, prepared["packed_w"],
+                                  prepared["packed_s"], num_heads=num_heads,
+                                  valid_len=t, eps=norm_eps)
+
+
+@torch.inference_mode()
+def serving_forward_lowlat_batch(prepared, batch, *, num_heads: int = 12,
+                                 patch_size: int = 16,
+                                 norm_eps: float = 1e-6,
+                                 dtype=torch.bfloat16, chunk_size: int = 2,
+                                 device=None) -> torch.Tensor:
+    """B = 2-16 regime: the stem, then the whole encoder in one launch per
+    chunk of ``chunk_size`` (<= 4) items, each superblock read once a
+    chunk; the batch is zero-padded to a whole number of chunks, and the
+    head runs on the real items.  ``prepared``: :func:`prepare_lowlat`
+    with ``batch_grid=True``."""
+    from ..ops.lowlat import encoder_forward_lowlat_batchgrid
+
+    device = resolve_device(device)
+    batch = _as_batch(batch, device)
+    params = prepared["params"]
+    x, t = padded_stream(params["vit"], batch, dtype=dtype,
+                         patch_size=patch_size)
+    b = x.shape[0]
+    chunk = min(b, chunk_size)
+    bp = -(-b // chunk) * chunk
+    x = F.pad(x, (0, 0, 0, 0, 0, bp - b))
+    outs = [encoder_forward_lowlat_batchgrid(
+        x[c:c + chunk].contiguous(), prepared["bg_w"], prepared["bg_s"],
+        num_heads=num_heads, valid_len=t, eps=norm_eps)
+        for c in range(0, bp, chunk)]
+    x = torch.cat(outs)[:b]
+    return _cls_head_scores(params, x, norm_eps=norm_eps, dtype=dtype)
+
+
+def serving_program(model, *, mode: str, dtype=torch.bfloat16,
+                    int8_weights: bool = False, device=None):
     """Resolve a serving regime to ``(weights, raw_fn, kwargs)``: read the
     module's weights into the JAX layout, fold the normalization into
-    the patch-embed GEMM and cast once for the kernels."""
+    the patch-embed GEMM, and cast once for the per-layer kernels
+    (``fastserve``) or pack for the whole-encoder ones (``lowlat``,
+    ``batch_grid``).  ``int8_weights`` (``lowlat`` only) is the opt-in
+    int8 stream, not ported: it raises ``NotImplementedError``."""
     from .convert import antispoof_from_torch
     from .vit import ViTAntiSpoof, fold_normalization
 
     if not isinstance(model, ViTAntiSpoof):
         raise TypeError("serving programs run the anti-spoof head; got "
                         f"{type(model).__name__}")
-    if mode in ("lowlat", "batch_grid"):
-        raise NotImplementedError(f"mode={mode!r}: {_LOWLAT_TODO}")
-    if mode != "fastserve":
+    if int8_weights and mode != "lowlat":
+        raise ValueError(
+            "int8_weights quantizes the per-item lowlat weight stream; "
+            f"mode={mode!r} amortizes weights across the batch and stays "
+            "full-precision (pass mode='lowlat')")
+    if mode not in ("fastserve", "lowlat", "batch_grid"):
         raise ValueError(f"unknown serving mode {mode!r}")
     device = resolve_device(device)
+    geom = dict(num_heads=model.num_heads, patch_size=model.patch_size,
+                norm_eps=model.norm_eps, dtype=dtype, device=device)
     variables = antispoof_from_torch(model.state_dict())
     folded = fold_normalization(variables)["params"]
-    weights = prepare_params(folded, dtype=dtype, device=device)
-    return weights, serving_forward, dict(
-        num_heads=model.num_heads, patch_size=model.patch_size,
-        depth=model.depth, norm_eps=model.norm_eps, dtype=dtype,
-        device=device)
+    if mode == "fastserve":
+        weights = prepare_params(folded, dtype=dtype, device=device)
+        return weights, serving_forward, dict(geom, depth=model.depth)
+    prepared = prepare_lowlat(folded, depth=model.depth, dtype=dtype,
+                              batch_grid=(mode == "batch_grid"),
+                              per_item=(mode == "lowlat"),
+                              int8_weights=int8_weights, device=device)
+    raw = (serving_forward_lowlat_batch if mode == "batch_grid"
+           else serving_forward_lowlat)
+    return prepared, raw, geom
 
 
 def auto_serving_mode(batch_size: int) -> str:
     """The JAX package's regime table: B = 1 ``lowlat``, 2..16
-    ``batch_grid``, >= 17 ``fastserve``.  Only ``fastserve`` is ported."""
+    ``batch_grid``, >= 17 ``fastserve`` (measured there on the TPU; the
+    port keeps it, and ``PERF.md`` records how the regimes compare on the
+    H100)."""
     if batch_size < 1:
         raise ValueError(f"batch_size must be >= 1, got {batch_size}")
     if batch_size == 1:
@@ -203,19 +364,21 @@ def auto_serving_mode(batch_size: int) -> str:
 
 
 def make_serving_fn(model, *, batch_size: int, mode: str = "auto",
-                    dtype=torch.bfloat16, device=None):
-    """Serving factory: fold normalization, cast the weights once, and
-    return ``uint8 [B, H, W, 3] -> P(live) [B]`` (an f32 tensor on the
-    device) on the regime for ``batch_size``.
+                    dtype=torch.bfloat16, int8_weights: bool = False,
+                    device=None):
+    """Serving factory: fold normalization, cast or pack the weights once,
+    and return ``uint8 [B, H, W, 3] -> P(live) [B]`` (an f32 tensor on the
+    device) on the regime for ``batch_size`` (:func:`auto_serving_mode`:
+    B = 1 ``lowlat``, 2-16 ``batch_grid``, >= 17 ``fastserve``); ``mode``
+    overrides it.
 
     ``model``: the port's ``ViTAntiSpoof`` holding its unfolded weights.
     Runs on the card unless ``device="cpu"``, and raises when no card is
-    present and the CPU was not asked for.  The ``lowlat`` and
-    ``batch_grid`` regimes (``mode="auto"`` at B <= 16) raise
-    ``NotImplementedError``."""
+    present and the CPU was not asked for."""
     device = resolve_device(device)
     if mode == "auto":
         mode = auto_serving_mode(batch_size)
     weights, raw, kw = serving_program(model, mode=mode, dtype=dtype,
+                                       int8_weights=int8_weights,
                                        device=device)
     return lambda batch_u8: raw(weights, batch_u8, **kw)

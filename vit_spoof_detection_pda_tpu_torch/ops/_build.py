@@ -29,7 +29,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 KERNELS = ("attention_block", "mlp_block", "attention_block_train",
-           "attention_qkv_bwd", "ln_res_bwd")
+           "attention_qkv_bwd", "ln_res_bwd", "lowlat_encoder",
+           "lowlat_batchgrid")
 LAUNCHES = {name: 0 for name in KERNELS}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
