@@ -84,6 +84,35 @@ runs these phases, each printing one JSON line and raising on failure:
             forward (and a profile of it), the batch-grid forward at
             B = 2, 4, 8, 16 and, as the yardstick of the regime table,
             the fastserve forward at B = 1-16.
+10. kernels (again) the augmentation kernels against their plain
+            versions: the pool gather (kernel 14) byte for byte at B = 128
+            from a 4,096-image 224^2 uint8 pool (588 MiB, beyond the L2)
+            and on rows of 105 bytes, an index out of range raising; the
+            warp pass (kernel 15) within one ulp of the output type, f32
+            and bf16 at B = 128 on 224^2, rows and columns, on the fields
+            of every tier's geometry at its static bound (3-shear rotation
+            at 20 and 10 degrees, perspective at distortion 0.2 and 0.15,
+            elastic) and on a ragged 250 x 190 frame with out-of-frame
+            pixels; the NLM denoise (kernel 16) within 1e-5 at B = 8 on
+            224^2 and at 250 x 190.
+11. slice_aug (a) AugmentEngine(8, 2, 224) on 64 images a class: each of
+            the 10 copies launches kernel 15 once per scanline pass of its
+            tier (heavy 7, medium 5, light 3); the copies held against the
+            same engine and seed with kernel 15 on its plain version
+            (within 1e-5, uint8 within one level).  (b) a DevicePoolData of
+            4,096 images (live:spoof 1:3.87, live x8 / spoof x2, B = 128)
+            feeding the phase-8 training step with each group's bf16 prep,
+            in epoch order until every group has run: each step launches
+            kernel 14 once, kernel 15 3 / 6 / 8 / 10 times (orig / light /
+            medium / heavy) and kernels 3, 4, 6 12, 12, 24 times; finite
+            losses; the gathered rows byte-equal to the host's and the
+            first step repeated from the host-gathered batch (loss and
+            grad_norm within 1e-6 relative).  (c) preprocess_eval(denoise=
+            True) at B = 64: kernel 16 once, the output held against plain.
+12. times_aug kernels 14-16 beside their plain versions, bounds and
+            ``torch.index_select`` for kernel 14; the tiers' images/s
+            (uint8 out); the pool step per group beside phase 9's bare
+            step, with a profile of a heavy step; preprocess_eval at B = 64.
 
 Then it prints the kernel table as one JSON line, the card's name and
 power limit as nvidia-smi gives them, and last
@@ -108,6 +137,9 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from vit_spoof_detection_pda_tpu_torch.augment.engine import AugmentEngine
+from vit_spoof_detection_pda_tpu_torch.augment.policy import (
+    make_batch_augmenter)
 from vit_spoof_detection_pda_tpu_torch.device import exact_f32_matmul
 from vit_spoof_detection_pda_tpu_torch.models import fastserve
 from vit_spoof_detection_pda_tpu_torch.models import fasttrain
@@ -116,13 +148,20 @@ from vit_spoof_detection_pda_tpu_torch.models.convert import (
 from vit_spoof_detection_pda_tpu_torch.models.vit import ViTAntiSpoof
 from vit_spoof_detection_pda_tpu_torch.ops import _build
 from vit_spoof_detection_pda_tpu_torch.ops import attention as att
+from vit_spoof_detection_pda_tpu_torch.ops import augment as aug
+from vit_spoof_detection_pda_tpu_torch.ops import gather
 from vit_spoof_detection_pda_tpu_torch.ops import ln_bwd
 from vit_spoof_detection_pda_tpu_torch.ops import lowlat as low
-from vit_spoof_detection_pda_tpu_torch.ops.image import normalize, to_float
+from vit_spoof_detection_pda_tpu_torch.ops import nlm
+from vit_spoof_detection_pda_tpu_torch.ops import warp
+from vit_spoof_detection_pda_tpu_torch.ops.image import (
+    IMAGENET_STD, normalize, preprocess_eval, to_float, to_uint8)
 from vit_spoof_detection_pda_tpu_torch.ops.losses import make_loss_fn
 from vit_spoof_detection_pda_tpu_torch.serve import (
     MicroBatcher, build_programs_live, make_server_from_programs, run_load)
 from vit_spoof_detection_pda_tpu_torch.serve.loadgen import sample_frame
+from vit_spoof_detection_pda_tpu_torch.train.driver import make_group_preps
+from vit_spoof_detection_pda_tpu_torch.train.pool import DevicePoolData
 from vit_spoof_detection_pda_tpu_torch.train.schedule import make_lr_schedule
 from vit_spoof_detection_pda_tpu_torch.train.state import (
     create_train_state, make_optimizer, tree_flatten)
@@ -168,10 +207,30 @@ KERNELS = {
     "lowlat_batchgrid": dict(
         source="vit_spoof_detection_pda_tpu_torch/csrc/lowlat_batchgrid.cu",
         replaces="vit_spoof_detection_pda_tpu/ops/lowlat.py:241"),
+    "pool_gather": dict(
+        source="vit_spoof_detection_pda_tpu_torch/csrc/pool_gather.cu",
+        replaces="vit_spoof_detection_pda_tpu/ops/gather_pallas.py:34"),
+    "warp_pass": dict(
+        source="vit_spoof_detection_pda_tpu_torch/csrc/warp_pass.cu",
+        replaces="vit_spoof_detection_pda_tpu/ops/warp_pallas.py:58"),
+    "nlm": dict(
+        source="vit_spoof_detection_pda_tpu_torch/csrc/nlm.cu",
+        replaces="vit_spoof_detection_pda_tpu/ops/nlm_pallas.py:52"),
 }
 SERVING_KERNELS = ("attention_block", "mlp_block")
 TRAIN_KERNELS = ("attention_block_train", "attention_qkv_bwd", "ln_res_bwd")
 LOWLAT_KERNELS = ("lowlat_encoder", "lowlat_batchgrid")
+AUG_KERNELS = ("pool_gather", "warp_pass", "nlm")
+POOL_N = 4096                        # 224^2 uint8 faces: 588 MiB, > the L2
+POOL_LIVE = round(POOL_N / 4.87)     # live:spoof 1:3.87
+AUG_PER_CLASS = 64                   # images per class through the tiers
+EVAL_B = 64                          # preprocess_eval(denoise=True)
+AUG_TOL = 1e-5                       # f32 outputs, kernel vs plain
+# warp passes (kernel 15 launches) of one tier copy and of one pool step
+# (its group's tier, if any, plus the train-time chain's rotation); the
+# tower runs every configured pass whatever the gates drew
+TIER_PASSES = {"heavy": 7, "medium": 5, "light": 3}
+GROUP_PASSES = {"orig": 3, "light": 6, "medium": 8, "heavy": 10}
 
 
 def emit(obj):
@@ -1103,7 +1162,7 @@ def profile_step(fn, top: int = 15) -> dict:
 
 
 def phase_times(dev, model, serve128, u8, main_err, launches,
-                train_launches, train_state, train_step, train_batch) -> list:
+                train_launches, train_state, train_step, train_batch):
     rng = np.random.default_rng(SEED + 3)
     a_in, m_in = block_inputs(rng, MAIN_B, TP, D, HIDDEN, dev)
     bwd, ln = train_inputs(rng, MAIN_B, TP, T, D, dev)
@@ -1192,7 +1251,7 @@ def phase_times(dev, model, serve128, u8, main_err, launches,
           "launches_per_step": {k: train_launches[k] for k in TRAIN_KERNELS},
           "max_memory_allocated_gb":
               torch.cuda.max_memory_allocated() / 2 ** 30, **profile})
-    return rows
+    return rows, step_ms
 
 
 LAYER_PHASES = ["ln1", "qkv", "attention", "proj", "ln2", "fc1", "fc2"]
@@ -1297,6 +1356,439 @@ def phase_times_small(dev, model, progs, fns, main_err, launches) -> list:
     return rows
 
 
+# --------------------------------------------------------------------------
+# slice 4: augmentation (kernels 14-16)
+# --------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def plain_aug_kernels():
+    """Run the warp passes and the NLM denoise on their plain versions
+    (their callers look them up in ops/warp.py and ops/nlm.py at each
+    call); restores the kernels."""
+    saved = warp.warp_pass, nlm.nlm_denoise
+    warp.warp_pass, nlm.nlm_denoise = (warp.warp_pass_plain,
+                                       nlm.nlm_denoise_plain)
+    try:
+        yield
+    finally:
+        warp.warp_pass, nlm.nlm_denoise = saved
+
+
+def ulps_apart(got, want, mantissa: int) -> dict:
+    """Max |diff|, whether every element lies within one ulp of ``want``
+    in a type of ``mantissa`` bits, and the share of bit-equal elements."""
+    g, w = got.float(), want.float()
+    ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(2.0 ** -126)))
+                     - mantissa)
+    diff = (g - w).abs()
+    return {"max_abs_err": diff.max().item(),
+            "within_1ulp": bool((diff <= ulp).all()),
+            "bit_equal": (g == w).float().mean().item()}
+
+
+def warp_cases(dev, gen):
+    """``(label, along_y, kmax, field)`` of every scanline pass the tiers
+    and the train-time chain run on a B = 128, 224^2 batch, each geometry
+    at its static bound: the 3-shear rotation at 20 and 10 degrees (the
+    rows' fields broadcast per row, the columns' per column, as the
+    tower passes them), the exact 2-pass perspective at distortion 0.2
+    and 0.15 and the 2-pass elastic field, clamped as the tower clamps
+    them; sample 0 sits at the bound itself."""
+    b, h, w = MAIN_B, IMG, IMG
+    ys = torch.arange(h, dtype=torch.float32, device=dev) - (h - 1) / 2.0
+    xs = torch.arange(w, dtype=torch.float32, device=dev) - (w - 1) / 2.0
+    cases = []
+    for deg in (20.0, 10.0):
+        rad = math.radians(deg)
+        kx = int(math.ceil(math.tan(rad / 2.0) * (h - 1) / 2.0)) + 1
+        ky = int(math.ceil(math.sin(rad) * (w - 1) / 2.0)) + 1
+        theta = (torch.rand(b, generator=gen, device=dev) * 2 - 1) * rad
+        theta[0], theta[1] = rad, -rad
+        rows = -torch.tan(theta / 2.0)[:, None] * ys
+        cols = torch.sin(theta)[:, None] * xs
+        cases += [(f"rotation{deg:g}_rows", False, kx,
+                   rows[:, :, None].expand(b, h, w)),
+                  (f"rotation{deg:g}_cols", True, ky,
+                   cols[:, None, :].expand(b, h, w))]
+    for scale in (0.2, 0.15):
+        kmax = aug._perspective_kmax(scale, IMG)
+        off = torch.rand((b, 4, 2), generator=gen, device=dev)
+        off[0] = 1.0
+        fh, fv = warp.perspective_shift_fields(
+            aug._perspective_homography(off, h, w, scale), h, w)
+        lim = kmax - 1e-3
+        cases += [(f"perspective{scale:g}_rows", False, kmax,
+                   fh.clamp(-lim, lim)),
+                  (f"perspective{scale:g}_cols", True, kmax,
+                   fv.clamp(-lim, lim))]
+    kmax = aug._elastic_kmax(1.0, 32.0, 63, IMG)
+    noise = torch.rand((2, b, h, w), generator=gen, device=dev) * 2 - 1
+    dy, dx = aug._elastic_fields(noise[0], noise[1], alpha=1.0, sigma=32.0,
+                                 kernel_size=63, kern_dtype=torch.float32)
+    lim = kmax - 1e-3
+    return cases + [("elastic_cols", True, kmax, dy.clamp(-lim, lim)),
+                    ("elastic_rows", False, kmax, dx.clamp(-lim, lim))]
+
+
+def phase_kernels_aug(dev) -> dict:
+    """Kernels 14-16 against their plain versions; returns each one's
+    largest error at the main path's shapes."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    rng = np.random.default_rng(SEED + 10)
+    main_err = {}
+
+    # kernel 14: byte for byte, B = 128 rows of a pool larger than the L2,
+    # and rows of 105 bytes (no 16-byte vectors)
+    pool = torch.randint(0, 256, (POOL_N, IMG, IMG, 3), generator=gen,
+                         device=dev, dtype=torch.uint8)
+    for label, p in (("pool4096_b128", pool),
+                     ("rows_of_105_bytes", pool[:37, :5, :7].contiguous())):
+        idx = rng.integers(0, p.shape[0], MAIN_B)
+        equal = torch.equal(gather.pool_gather(p, idx),
+                            gather.pool_gather_plain(p, idx))
+        try:
+            gather.pool_gather(p, np.array([p.shape[0]]))
+            raised = False
+        except IndexError:
+            raised = True
+        emit({"phase": "kernels", "case": label, "kernel": "pool_gather",
+              "pool": list(p.shape), "rows": MAIN_B, "byte_equal": equal,
+              "out_of_range_raises": raised, "ok": equal and raised})
+        if not (equal and raised):
+            raise AssertionError(f"pool_gather on {label}: equal {equal}, "
+                                 f"out-of-range index raised {raised}")
+    main_err["pool_gather"] = 0.0
+    del pool
+
+    # kernel 15: within one ulp of the output type, f32 and bf16 images,
+    # every pass geometry at its bound, and a ragged 250 x 190 frame with
+    # out-of-frame pixels
+    img = torch.rand((MAIN_B, IMG, IMG, 3), generator=gen, device=dev)
+    rimg = torch.rand((4, 250, 190, 3), generator=gen, device=dev)
+    rfield = (torch.rand((4, 250, 190), generator=gen, device=dev) * 2
+              - 1) * 12.5
+    cases = warp_cases(dev, gen) + [("ragged_250x190_rows", False, 13,
+                                     rfield),
+                                    ("ragged_250x190_cols", True, 13, rfield)]
+    worst = 0.0
+    for label, along_y, kmax, field in cases:
+        x = rimg if label.startswith("ragged") else img
+        n = x.shape[1 if along_y else 2]
+        pos = torch.arange(n, dtype=torch.float32, device=dev).view(
+            (1, n, 1) if along_y else (1, 1, n))
+        src = pos + field
+        res = {}
+        for name, xx, mant in (("f32", x, 23), ("bf16", x.bfloat16(), 7)):
+            got = warp.warp_pass(xx, field, kmax, along_y=along_y)
+            want = warp.warp_pass_plain(xx, field, kmax, along_y=along_y)
+            res[name] = ulps_apart(got, want, mant)
+            res[name]["dtype_kept"] = got.dtype == xx.dtype
+        ok = all(r["within_1ulp"] and r["dtype_kept"] for r in res.values())
+        emit({"phase": "kernels", "case": label, "kernel": "warp_pass",
+              "shape": list(x.shape), "kmax": kmax,
+              "max_abs_shift": field.abs().max().item(),
+              "out_of_frame_share":
+                  ((src < 0) | (src > n - 1)).float().mean().item(),
+              **res, "ok": ok})
+        if not ok:
+            raise AssertionError(f"warp_pass disagrees with its plain "
+                                 f"version on {label}: {res}")
+        if not label.startswith("ragged"):
+            worst = max(worst, *(r["max_abs_err"] for r in res.values()))
+    main_err["warp_pass"] = worst
+    del img, rimg, rfield, cases
+
+    # kernel 16: f32, within AUG_TOL (the same roundings; expf may differ
+    # by an ulp)
+    for label, shape in (("b8_224", (8, IMG, IMG, 3)),
+                         ("ragged_250x190", (2, 250, 190, 3))):
+        x = torch.rand(shape, generator=gen, device=dev)
+        diff = (nlm.nlm_denoise(x) - nlm.nlm_denoise_plain(x)).abs()
+        err = diff.max().item()
+        ok = err <= AUG_TOL
+        emit({"phase": "kernels", "case": label, "kernel": "nlm",
+              "shape": list(shape), "max_abs_err": err,
+              "mean_abs_err": diff.mean().item(), "tol": AUG_TOL, "ok": ok})
+        if not ok:
+            raise AssertionError(f"nlm disagrees with its plain version on "
+                                 f"{label}: {err} > {AUG_TOL}")
+        main_err.setdefault("nlm", err)
+    return main_err
+
+
+def _aug_launches(**counts) -> dict:
+    want = {k: 0 for k in att.LAUNCHES}
+    want.update(counts)
+    return want
+
+
+def phase_slice_aug(dev):
+    """(a) the offline tiers, (b) pool-mode training, (c) the eval
+    preprocessing; each driven with the counts set to 0 just before and
+    read just after.  Returns what phase times_aug needs and the launches
+    of the three runs together."""
+    rng = np.random.default_rng(SEED + 11)
+    launches = {k: 0 for k in AUG_KERNELS}
+
+    def add(counts):
+        for k in AUG_KERNELS:
+            launches[k] += counts[k]
+
+    # (a) AugmentEngine(8, 2, 224): 8 live copies (heavy 0-1, medium 2-4,
+    # light 5-7) and 2 spoof copies (medium, light) of 64 images a class
+    batches01 = {cls: to_float(torch.from_numpy(rng.integers(
+        0, 256, (AUG_PER_CLASS, IMG, IMG, 3), dtype=np.uint8)).to(dev))
+        for cls in ("live", "spoof")}
+
+    def run_engine():
+        engine = AugmentEngine(8, 2, IMG, seed=SEED, device=dev)
+        copies, plan = [], []
+        for cls, b01 in batches01.items():
+            before = att.LAUNCHES["warp_pass"]
+            for i, lvl, out in engine.augment_copies(b01, cls):
+                now = att.LAUNCHES["warp_pass"]
+                plan.append([cls, i, lvl, now - before])
+                before = now
+                copies.append(out)
+        return copies, plan
+
+    reset_launches()
+    copies, plan = run_engine()
+    torch.cuda.synchronize()
+    tier_launches = dict(att.LAUNCHES)
+    add(tier_launches)
+    with plain_aug_kernels():
+        plain, _ = run_engine()
+    err = max((c - p).abs().max().item() for c, p in zip(copies, plain))
+    u8_err = max((to_uint8(c).int() - to_uint8(p).int()).abs().max().item()
+                 for c, p in zip(copies, plain))
+    finished = torch.stack([to_uint8(c) for c in copies]).float() / 255.0
+    want_plan = [[cls, i, lvl, TIER_PASSES[lvl]] for cls, tiers in (
+        ("live", ["heavy"] * 2 + ["medium"] * 3 + ["light"] * 3),
+        ("spoof", ["medium", "light"])) for i, lvl in enumerate(tiers)]
+    ok = (plan == want_plan
+          and tier_launches == _aug_launches(
+              warp_pass=sum(p[3] for p in want_plan))
+          and all(bool(torch.isfinite(c).all()) for c in copies)
+          and 0.0 <= finished.min().item() and finished.max().item() <= 1.0
+          and err <= AUG_TOL and u8_err <= 1)
+    emit({"phase": "slice_aug", "part": "offline_tiers",
+          "images_per_class": AUG_PER_CLASS, "copies": plan,
+          "launches": tier_launches, "max_abs_err_vs_plain": err,
+          "tol": AUG_TOL, "uint8_max_level_diff_vs_plain": u8_err,
+          "raw_min": min(c.min().item() for c in copies),
+          "raw_max": max(c.max().item() for c in copies),
+          "finished_min": finished.min().item(),
+          "finished_max": finished.max().item(), "ok": ok})
+    if not ok:
+        raise AssertionError(f"offline tiers: copies {plan} (want "
+                             f"{want_plan}), launches {tier_launches}, "
+                             f"{err} from plain (tol {AUG_TOL}), uint8 "
+                             f"{u8_err} levels")
+    del copies, plain, finished
+
+    # (b) pool-mode training: 4,096 images (live:spoof 1:3.87) staged on
+    # the card, live x8 / spoof x2, B = 128, the slice-2 ViT-B/16 step with
+    # each group's prep (bf16 chain), in epoch order until every group has
+    # run a step
+    labels = np.zeros(POOL_N, np.int32)
+    labels[:POOL_LIVE] = 1
+    rng.shuffle(labels)
+    images = rng.integers(0, 256, (POOL_N, IMG, IMG, 3), dtype=np.uint8)
+    t0 = time.perf_counter()
+    data = DevicePoolData(images, labels, live_mult=8, spoof_mult=2,
+                          batch_size=MAIN_B, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    stage_s = time.perf_counter() - t0
+    params = random_params(rng)
+    model = load_jax_params(ViTAntiSpoof(
+        patch_size=PATCH, embed_dim=D, depth=DEPTH, num_heads=HEADS,
+        hidden=HEAD_HIDDEN, img_size=IMG, gelu="erf", dropout=0.1), params)
+    tx = make_optimizer(make_lr_schedule(3e-4, 1000, warmup_steps=100,
+                                         true_warmup=True))
+    loss_fn = make_loss_fn("focal")
+    preps = {g: data.wrap_prep(p) for g, p in make_group_preps().items()}
+    steps = {g: make_train_step(loss_fn, batch_prep=p)
+             for g, p in preps.items()}
+
+    def fresh_state():
+        return create_train_state(model, tx, SEED, variables=params,
+                                  apply_fn=fasttrain.make_apply(model),
+                                  device=dev)
+
+    state = fresh_state()
+    run, group_batch = [], {}
+    for batch in data.batches(0):
+        g = batch["group"]
+        reset_launches()                  # the main path: one pool step
+        state, m = steps[g](state, batch)
+        torch.cuda.synchronize()
+        counts = dict(att.LAUNCHES)
+        add(counts)
+        want = _aug_launches(attention_block_train=DEPTH,
+                             attention_qkv_bwd=DEPTH, ln_res_bwd=2 * DEPTH,
+                             pool_gather=1, warp_pass=GROUP_PASSES[g])
+        run.append({"group": g, "loss": m["loss"].item(),
+                    "grad_norm": m["grad_norm"].item(),
+                    "launches_ok": counts == want, "launches": counts})
+        group_batch.setdefault(g, batch)
+        if set(group_batch) == set(GROUP_PASSES) or len(run) == 40:
+            break
+
+    # the first step again from a fresh state, fed the host-gathered rows
+    first = group_batch[run[0]["group"]]
+    rows = gather.pool_gather(data.pool, first["index"])
+    host = torch.from_numpy(images[first["index"]])
+    rows_equal = torch.equal(rows.cpu(), host)
+    _, hm = steps[run[0]["group"]](fresh_state(), {
+        "image": host.to(dev), "label": first["label"]})
+    h_loss, h_norm = hm["loss"].item(), hm["grad_norm"].item()
+    loss_rel = abs(run[0]["loss"] - h_loss) / abs(h_loss)
+    norm_rel = abs(run[0]["grad_norm"] - h_norm) / abs(h_norm)
+    ok = (set(group_batch) == set(GROUP_PASSES)
+          and all(r["launches_ok"] for r in run)
+          and all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+                  for r in run)
+          and rows_equal and max(loss_rel, norm_rel) <= 1e-6)
+    emit({"phase": "slice_aug", "part": "pool_training", "pool": POOL_N,
+          "live": POOL_LIVE, "pool_gb": data.pool.numel() / 2 ** 30,
+          "stage_s": stage_s, "steps_per_epoch": data.steps_per_epoch,
+          "steps": [{k: r[k] for k in ("group", "loss", "grad_norm",
+                                       "launches_ok")} for r in run],
+          "launches_first_step": run[0]["launches"],
+          "gathered_rows_byte_equal_host": rows_equal,
+          "host_fed_step": {"group": run[0]["group"], "loss": h_loss,
+                            "grad_norm": h_norm, "loss_rel": loss_rel,
+                            "grad_norm_rel": norm_rel,
+                            "bit_equal": (h_loss == run[0]["loss"]
+                                          and h_norm == run[0]["grad_norm"])},
+          "ok": ok})
+    if not ok:
+        raise AssertionError(f"pool-mode training: {run}; rows equal "
+                             f"{rows_equal}; host-fed step {loss_rel}, "
+                             f"{norm_rel} relative")
+    del images, rows, host, hm
+
+    # (c) preprocess_eval(denoise=True) at B = 64 on 224^2
+    u8 = torch.from_numpy(rng.integers(0, 256, (EVAL_B, IMG, IMG, 3),
+                                       dtype=np.uint8)).to(dev)
+    reset_launches()
+    out = preprocess_eval(u8, IMG, denoise=True, device=dev)
+    torch.cuda.synchronize()
+    eval_launches = dict(att.LAUNCHES)
+    add(eval_launches)
+    with plain_aug_kernels():
+        want = preprocess_eval(u8, IMG, denoise=True, device=dev)
+    err = (out - want).abs().max().item()
+    tol = AUG_TOL / min(IMAGENET_STD)       # the NLM's bound, normalized
+    ok = (eval_launches == _aug_launches(nlm=1) and err <= tol
+          and tuple(out.shape) == (EVAL_B, IMG, IMG, 3)
+          and out.dtype == torch.float32 and bool(torch.isfinite(out).all()))
+    emit({"phase": "slice_aug", "part": "preprocess_eval_denoise",
+          "batch": EVAL_B, "launches": eval_launches,
+          "max_abs_err_vs_plain": err, "tol": tol, "ok": ok})
+    if not ok:
+        raise AssertionError(f"preprocess_eval(denoise=True): launches "
+                             f"{eval_launches}, {err} from plain (tol {tol})")
+    return {"batches01": batches01, "data": data, "state": state,
+            "steps": steps, "preps": preps, "group_batch": group_batch,
+            "eval_u8": u8}, launches
+
+
+def phase_times_aug(dev, ctx, main_err, launches, bare_step_ms) -> list:
+    """Kernels 14-16 beside their plain versions, bounds and library
+    calls at the main path's shapes; the tiers' images/s; the pool step
+    per group beside the bare step of phase times_train; the eval
+    preprocessing."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    pool = ctx["data"].pool
+    idx = np.random.default_rng(SEED + 12).integers(0, POOL_N, MAIN_B)
+    idx_dev = torch.from_numpy(idx).to(dev)
+    img = torch.rand((MAIN_B, IMG, IMG, 3), generator=gen,
+                     device=dev).bfloat16()
+    kmax = aug._perspective_kmax(0.2, IMG)
+    field = (torch.rand((MAIN_B, IMG, IMG), generator=gen, device=dev) * 2
+             - 1) * (kmax - 1)
+    x_nlm = torch.rand((EVAL_B, IMG, IMG, 3), generator=gen, device=dev)
+    # per pixel and search offset: diff2 3C - 1, the 3 x 3 box 8, the
+    # weight 5 (exp as one), the sums 2C + 1; C divisions at the end
+    pix = EVAL_B * IMG * IMG
+    nlm_ops = (3 * 3 - 1 + 8 + 5 + 2 * 3 + 1) * 11 * 11 * pix + 3 * pix
+    timed = {
+        "pool_gather": (lambda: gather.pool_gather(pool, idx),
+                        lambda: gather.pool_gather_plain(pool, idx),
+                        0, 2 * MAIN_B * pool[0].numel(),
+                        lambda: pool.index_select(0, idx_dev)),
+        "warp_pass": (lambda: warp.warp_pass(img, field, kmax),
+                      lambda: warp.warp_pass_plain(img, field, kmax),
+                      0, 2 * nbytes(img) + nbytes(field), None),
+        "nlm": (lambda: nlm.nlm_denoise(x_nlm),
+                lambda: nlm.nlm_denoise_plain(x_nlm),
+                nlm_ops, 2 * nbytes(x_nlm), None),
+    }
+    rows = []
+    for name, (kernel, plain, flops, nb, lib) in timed.items():
+        ms = time_ms(kernel)
+        plain_ms = time_ms(plain, windows=3, per_window=1, warmup=1)
+        bound_ms, bound_by = bound(flops, nb, PEAK_F32_FLOPS)
+        rows.append({"name": name, "route": "cuda", **KERNELS[name],
+                     "launches": launches[name],
+                     "max_abs_err": main_err[name], "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by,
+                     "library_ms": time_ms(lib) if lib else None})
+    # the gather's CUDA-event time is its wrapper's host work (the index
+    # check and upload); the kernel alone: its device time in a profile
+    gather_device_ms = [t["ms"] / t["calls"] for t in profile_step(
+        timed["pool_gather"][0])["profile_top"] if "pool_gather" in t["name"]]
+    rot = (-torch.tan(torch.full((MAIN_B,), math.radians(10.0), device=dev)
+                      / 2.0)[:, None]
+           * (torch.arange(IMG, device=dev, dtype=torch.float32)
+              - (IMG - 1) / 2.0))[:, :, None].expand(MAIN_B, IMG, IMG)
+    warp_extra = {
+        "rotation_rows_bf16_ms": time_ms(lambda: warp.warp_pass(img, rot,
+                                                                11)),
+        "full_field_f32_ms": time_ms(lambda: warp.warp_pass(
+            img.float(), field, kmax))}
+    del img, field, x_nlm, rot
+
+    tiers = {}
+    for lvl in TIER_PASSES:
+        fn = make_batch_augmenter(lvl)
+        b01 = ctx["batches01"]["live"]
+        ms = time_ms(lambda: to_uint8(fn(gen, b01)), windows=3,
+                     per_window=3, warmup=1)
+        tiers[lvl] = {"ms": ms, "img_per_s": AUG_PER_CLASS / (ms / 1e3)}
+    state, steps, batches = ctx["state"], ctx["steps"], ctx["group_batch"]
+    pool_steps = {}
+    for g in GROUP_PASSES:
+        rows_u8 = gather.pool_gather(pool, batches[g]["index"])
+        prep_ms = time_ms(lambda: ctx["preps"][g](gen, rows_u8), windows=3,
+                          per_window=3, warmup=1)
+        ms = time_ms(lambda: steps[g](state, batches[g]), windows=3,
+                     per_window=2, warmup=1)
+        pool_steps[g] = {"step_ms": ms, "img_per_s": MAIN_B / (ms / 1e3),
+                         "prep_ms": prep_ms,
+                         "over_bare_step_ms": ms - bare_step_ms}
+    profile = profile_step(lambda: steps["heavy"](state, batches["heavy"]))
+    u8 = ctx["eval_u8"]
+    eval_ms = time_ms(lambda: preprocess_eval(u8, IMG, denoise=True, device=dev),
+                      windows=3, per_window=3, warmup=1)
+    emit({"phase": "times_aug",
+          "kernels": {r["name"]: {k: r[k] for k in
+                                  ("ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms")} for r in rows},
+          "pool_gather_kernel_device_ms": gather_device_ms,
+          "warp_pass_other_shapes": warp_extra,
+          "tiers_b64_uint8_out": tiers, "pool_step": pool_steps,
+          "bare_step_ms": bare_step_ms, "heavy_step_profile": profile,
+          "preprocess_eval_denoise_b64_ms": eval_ms,
+          "max_memory_allocated_gb":
+              torch.cuda.max_memory_allocated() / 2 ** 30})
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card "
@@ -1313,10 +1805,18 @@ def main() -> int:
     fns, small_launches = phase_slice_small(dev, model)
     phase_http(model, fns)
     train_state, train_step, train_batch, train_launches = phase_train(dev)
-    rows = phase_times(dev, model, serve128, u8, main_err, launches,
-                       train_launches, train_state, train_step, train_batch)
+    rows, step_ms = phase_times(dev, model, serve128, u8, main_err, launches,
+                                train_launches, train_state, train_step,
+                                train_batch)
     rows += phase_times_small(dev, model, progs, fns, low_err,
                               small_launches)
+    del model, serve128, progs, fns, train_state, train_step, train_batch
+    aug_err = phase_kernels_aug(dev)
+    ctx, aug_launches = phase_slice_aug(dev)
+    rows += phase_times_aug(dev, ctx, aug_err, aug_launches, step_ms)
+    idle = [r["name"] for r in rows if not r["launches"]]
+    if idle:
+        raise AssertionError(f"kernels never launched on their paths: {idle}")
     emit({"phase": "done", "seconds": round(time.perf_counter() - t0, 3)})
     emit({"kernels": rows})
     print(nvidia_smi(), flush=True)

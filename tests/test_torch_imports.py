@@ -65,14 +65,19 @@ def test_the_port_has_modules_to_check():
     assert "vit_spoof_detection_pda_tpu_torch.models.fastserve" in mods
     assert "vit_spoof_detection_pda_tpu_torch.ops.attention" in mods
     for mod in ("models.fasttrain", "ops.ln_bwd", "ops.losses",
-                "train.schedule", "train.state", "train.step") + LAZY_PIL:
+                "train.schedule", "train.state", "train.step",
+                "data.conventions", "augment") + LAZY_PIL:
         assert f"vit_spoof_detection_pda_tpu_torch.{mod}" in mods
-    assert len(mods) >= 26
+    assert len(mods) >= 39
 
 
-# the modules of the serving front, which the card's machine imports
-# without PIL: they may import it inside a function only
-LAZY_PIL = ("ops.lowlat", "data.loader", "serve.loadgen", "serve.server")
+# the modules of the serving front and of the augmentation slice, which
+# the card's machine imports without PIL: they may import it inside a
+# function only
+LAZY_PIL = ("ops.lowlat", "data.loader", "serve.loadgen", "serve.server",
+            "ops.warp", "ops.augment", "ops.gather", "ops.nlm", "ops.image",
+            "augment.policy", "augment.engine", "data.manifest",
+            "train.online", "train.pool", "train.driver")
 
 
 @pytest.mark.parametrize("mod", LAZY_PIL)

@@ -381,3 +381,87 @@ def test_lowlat_trace_stamps_every_barrier(cuda_device):
     assert (stamps > 0).all() and (stamps.diff() >= 0).all()
     with pytest.raises(ValueError, match="stamps"):
         tlow.encoder_forward_lowlat(x, w, s, trace=trace[:-1], **kw)
+
+
+# --------------------------------------------------------------------------
+# augmentation kernels: pool gather, warp pass, NLM
+# --------------------------------------------------------------------------
+
+from vit_spoof_detection_pda_tpu_torch.ops import gather as tgather  # noqa: E402
+from vit_spoof_detection_pda_tpu_torch.ops import nlm as tnlm  # noqa: E402
+from vit_spoof_detection_pda_tpu_torch.ops import warp as twarp  # noqa: E402
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype", [((300, 224, 224, 3), torch.uint8),
+                                         ((37, 5, 7, 3), torch.uint8),
+                                         ((11, 2, 128), torch.float32)])
+def test_pool_gather_kernel_matches_plain_on_card(cuda_device, shape, dtype):
+    rng = np.random.default_rng(30)
+    pool = torch.tensor(rng.integers(0, 256, shape), dtype=dtype,
+                        device=cuda_device)
+    idx = rng.integers(0, shape[0], 128 if shape[0] > 100 else 5)
+    n0 = tatt.LAUNCHES["pool_gather"]
+    got = tgather.pool_gather(pool, idx)
+    want = tgather.pool_gather_plain(pool, idx)
+    torch.cuda.synchronize()
+    assert tatt.LAUNCHES["pool_gather"] == n0 + 1
+    assert torch.equal(got, want)
+    with pytest.raises(IndexError):
+        tgather.pool_gather(pool, np.array([shape[0]]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("along_y", [False, True])
+@pytest.mark.parametrize("b,h,w,kmax,lim", [(4, 224, 224, 21, 20.9),
+                                            (3, 250, 190, 9, 12.0),
+                                            (2, 31, 29, 4, 3.9)])
+def test_warp_pass_kernel_matches_plain_on_card(cuda_device, dtype, along_y,
+                                                b, h, w, kmax, lim):
+    rng = np.random.default_rng(31)
+    img = torch.tensor(rng.random((b, h, w, 3), dtype=np.float32),
+                       device=cuda_device).to(dtype)
+    field = torch.tensor((rng.random((b, h, w)) * 2 - 1).astype(np.float32)
+                         * lim, device=cuda_device)
+    n0 = tatt.LAUNCHES["warp_pass"]
+    got = twarp.warp_pass(img, field, kmax, along_y=along_y)
+    want = twarp.warp_pass_plain(img, field, kmax, along_y=along_y)
+    torch.cuda.synchronize()
+    assert tatt.LAUNCHES["warp_pass"] == n0 + 1
+    assert got.dtype == dtype
+    assert torch.equal(got, want)
+    # a broadcast field (the rotation passes' per-row shifts)
+    rows = field[:, :, :1].expand(b, h, w)
+    assert torch.equal(twarp.warp_pass(img, rows, kmax, along_y=along_y),
+                       twarp.warp_pass_plain(img, rows.contiguous(), kmax,
+                                             along_y=along_y))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,c,r,p", [(2, 224, 224, 3, 5, 1),
+                                         (1, 250, 190, 3, 5, 1),
+                                         (2, 20, 17, 1, 2, 2)])
+def test_nlm_kernel_matches_plain_on_card(cuda_device, b, h, w, c, r, p):
+    rng = np.random.default_rng(32)
+    img = torch.tensor(rng.random((b, h, w, c), dtype=np.float32),
+                       device=cuda_device)
+    kw = dict(search_radius=r, patch_radius=p)
+    n0 = tatt.LAUNCHES["nlm"]
+    got = tnlm.nlm_denoise(img, **kw)
+    want = tnlm.nlm_denoise_plain(img, **kw)
+    torch.cuda.synchronize()
+    assert tatt.LAUNCHES["nlm"] == n0 + 1
+    assert (got - want).abs().max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+def test_augmentation_kernels_reject_what_they_cannot_take(cuda_device):
+    img = torch.zeros(1, 8, 8, 5, device=cuda_device)
+    with pytest.raises(ValueError, match="1-4 channels"):
+        twarp.warp_pass(img, torch.zeros(1, 8, 8, device=cuda_device), 2)
+    with pytest.raises(TypeError, match="float32"):
+        tnlm.nlm_denoise(img[..., :3].half())
+    with pytest.raises(ValueError, match="host indices"):
+        tgather.pool_gather(img, torch.zeros(1, dtype=torch.long,
+                                             device=cuda_device))

@@ -202,10 +202,14 @@ def test_train_step_with_dropout_replays_after_resume():
 
 
 def test_pool_batches_raise():
+    """Pool batches (with ``index``) train since the pool gather landed
+    (tests/test_torch_pool.py); an index outside the pool still raises,
+    on the host, before the step runs anything."""
     _, tstate = _jax_and_port_states()
-    batch = dict(_batch(0), index=np.arange(4, dtype=np.int32))
-    with pytest.raises(NotImplementedError, match="Queue 2 item 9"):
+    batch = dict(_batch(0), index=np.array([0, 4], dtype=np.int32))
+    with pytest.raises(IndexError, match="pool indices"):
         ST.make_train_step(tl.make_loss_fn("focal"))(tstate, batch)
+    assert tstate.step == 0
 
 
 def test_training_entry_points_need_a_card_unless_cpu(monkeypatch):

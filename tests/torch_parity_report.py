@@ -1,7 +1,7 @@
 """Print the port's parity gaps against the JAX package on the CPU, one
 JSON line per comparison (the numbers the tests bound).
 
-    python tests/torch_parity_report.py [kernels serving training small_batch]
+    python tests/torch_parity_report.py [kernels serving training small_batch augment]
 
 The port runs its plain PyTorch versions (CPU tensors); the JAX side runs
 its Pallas kernels in interpret mode, as the test files do.  Inputs come
@@ -245,7 +245,163 @@ def small_batch():
                      **gap(got.numpy(), want))
 
 
+def augment():
+    """The augmentation slice: the warp pass's plain version against the
+    JAX Pallas kernel (interpret mode) and the XLA roll form, the tower's
+    warps, every op, tier and train-time chain fed JAX's draws (f32, and
+    bf16 with JAX's warp on its TPU path), the NLM and eval preprocessing,
+    the pool gather, index streams and one pool step, as the tests of
+    tests/test_torch_{warp,augment,nlm,pool}.py hold them."""
+    import contextlib
+    import functools
+
+    import test_torch_augment as tag
+    import test_torch_nlm as tnl
+    import test_torch_pool as tpl
+    import test_torch_warp as twp
+    from vit_spoof_detection_pda_tpu.ops import image as jimg
+    from vit_spoof_detection_pda_tpu.ops import nlm as jnlm
+    from vit_spoof_detection_pda_tpu.ops import nlm_pallas as jnlmp
+    from vit_spoof_detection_pda_tpu.ops import warp as jwarp
+    from vit_spoof_detection_pda_tpu.ops import warp_pallas as jwp
+    from vit_spoof_detection_pda_tpu.ops.gather_pallas import pool_gather
+    from vit_spoof_detection_pda_tpu.train import pool as jpool
+    from vit_spoof_detection_pda_tpu.train.step import make_train_step
+    from vit_spoof_detection_pda_tpu_torch.ops import gather as tgather
+    from vit_spoof_detection_pda_tpu_torch.ops import image as timg
+    from vit_spoof_detection_pda_tpu_torch.ops import nlm as tnlm
+    from vit_spoof_detection_pda_tpu_torch.ops import warp as twarp
+    from vit_spoof_detection_pda_tpu_torch.train import pool as tpool
+
+    for along_y in (False, True):
+        img, field = twp._img(1, 2, 31, 29), twp._field(2, 2, 31, 29, 3.9)
+        emit(what="warp_pass_plain_vs_pallas", dtype="f32", along_y=along_y,
+             **gap(twp._port(img, field, 4, along_y).numpy(),
+                   twp._pallas(img, field, 4, along_y)))
+        ib = img.astype(jnp.bfloat16)
+        emit(what="warp_pass_plain_vs_pallas", dtype="bf16", along_y=along_y,
+             **gap(twp._port(ib.astype(np.float32), field, 4, along_y,
+                             torch.bfloat16).float().numpy(),
+                   twp._pallas(ib, field, 4, along_y)))
+        fn = jwarp._resample_cols_field if along_y else \
+            jwarp._resample_rows_field
+        emit(what="warp_pass_plain_vs_xla_roll", dtype="f32", along_y=along_y,
+             **gap(twp._port(img, field, 4, along_y).numpy(),
+                   np.stack([fn(jnp.asarray(img[i]), jnp.asarray(field[i]), 4)
+                             for i in range(2)])))
+    img = twp._img(11, 3, 32, 32)
+    theta = np.deg2rad(np.array([-20.0, 6.0, 19.4], np.float32))
+    emit(what="rotate_3shear", dtype="f32", **gap(
+        twarp.rotate_3shear(torch.tensor(img), torch.tensor(theta), 20.0),
+        np.stack([jwarp.rotate_3shear(jnp.asarray(img[i]),
+                                      jnp.float32(theta[i]), 20.0)
+                  for i in range(3)])))
+    hm = twp._homographies(13, 3, 32)
+    emit(what="perspective_warp_2pass", dtype="f32", **gap(
+        twarp.perspective_warp_2pass(torch.tensor(img), torch.tensor(hm), 7),
+        np.stack([jwarp.perspective_warp_2pass(jnp.asarray(img[i]),
+                                               jnp.asarray(hm[i]), 7)
+                  for i in range(3)])))
+    dy, dx = twp._field(15, 3, 32, 32, 3.0), twp._field(16, 3, 32, 32, 3.0)
+    emit(what="displacement_warp_2pass", dtype="f32", **gap(
+        twarp.displacement_warp_2pass(torch.tensor(img), torch.tensor(dy),
+                                      torch.tensor(dx), 4),
+        np.stack([jwarp.displacement_warp_2pass(
+            jnp.asarray(img[i]), jnp.asarray(dy[i]), jnp.asarray(dx[i]), 4)
+            for i in range(3)])))
+
+    for name in sorted(tag.OPS):
+        port_op, jax_op = tag.OPS[name]
+        key, batch = jax.random.PRNGKey(len(name)), tag._batch(1, b=6)
+        emit(what=f"op.{name}", dtype="f32", **gap(
+            tag._port_chain([port_op()], key, batch, torch.float32),
+            tag._jax_chain([jax_op], key, batch, jnp.float32)))
+    for name in sorted(tag.CHAINS):
+        port_chain, jax_chain, size = tag.CHAINS[name]
+        key, batch = jax.random.PRNGKey(7), tag._batch(3, b=6, h=size, w=size)
+        emit(what=f"chain.{name}", dtype="f32", **gap(
+            tag._port_chain(port_chain(), key, batch, torch.float32),
+            tag._jax_chain(jax_chain(), key, batch, jnp.float32)))
+
+    @contextlib.contextmanager
+    def jax_tpu_warp_path():
+        """tests/test_torch_augment.py's fixture of the same name."""
+        saved = (jwarp._use_pallas_rolls, jwp.resample_rows_field_pallas,
+                 jwp.resample_cols_field_pallas)
+        jwarp._use_pallas_rolls = lambda: True
+        jwp.resample_rows_field_pallas = functools.partial(saved[1],
+                                                           interpret=True)
+        jwp.resample_cols_field_pallas = functools.partial(saved[2],
+                                                           interpret=True)
+        try:
+            yield
+        finally:
+            (jwarp._use_pallas_rolls, jwp.resample_rows_field_pallas,
+             jwp.resample_cols_field_pallas) = saved
+
+    with jax_tpu_warp_path():
+        for name in ("heavy", "train_time"):
+            port_chain, jax_chain, size = tag.CHAINS[name]
+            key = jax.random.PRNGKey(8)
+            batch = np.asarray(jnp.asarray(tag._batch(4, b=6, h=size, w=size),
+                                           jnp.bfloat16).astype(jnp.float32))
+            got = tag._port_chain(port_chain(), key, batch, torch.bfloat16)
+            want = tag._jax_chain(jax_chain(), key, batch, jnp.bfloat16)
+            emit(what=f"chain.{name}", dtype="bf16",
+                 mean_abs=float(np.abs(got.float().numpy() - want).mean()),
+                 **gap(got.float().numpy(), want))
+
+    img = tnl._imgs(0, (2, 16, 16, 3))
+    emit(what="nlm_plain_vs_xla", dtype="f32", **gap(
+        tnlm.fast_nlm_denoise(torch.tensor(img)),
+        jnlm.fast_nlm_denoise(jnp.asarray(img), use_pallas=False)))
+    kw = dict(h=0.2, sigma=0.05, search_radius=2, patch_radius=1)
+    img = tnl._imgs(1, (2, 16, 16, 3))
+    emit(what="nlm_plain_vs_pallas_interpret", dtype="f32", **gap(
+        tnlm.nlm_denoise_plain(torch.tensor(img), **kw),
+        jnlmp.nlm_denoise_pallas(jnp.asarray(img), interpret=True, **kw)))
+    x = tnl._imgs(3, (2, 20, 30, 3))
+    emit(what="resize_bilinear", dtype="f32", **gap(
+        timg.resize_bilinear(torch.tensor(x), (24, 12)),
+        jimg.resize_bilinear(jnp.asarray(x), (24, 12))))
+    u8 = np.random.default_rng(5).integers(0, 256, (2, 24, 24, 3),
+                                           dtype=np.uint8)
+    for denoise in (False, True):
+        emit(what="preprocess_eval", denoise=denoise, dtype="f32", **gap(
+            timg.preprocess_eval(u8, size=16, denoise=denoise, device="cpu"),
+            jimg.preprocess_eval(jnp.asarray(u8), size=16, denoise=denoise)))
+
+    images, labels = tpl._pool()
+    idx = np.array([3, 1, 4, 1, 5], np.int32)
+    emit(what="pool_gather_plain_vs_pallas", dtype="uint8", **gap(
+        tgather.pool_gather(torch.from_numpy(images), idx),
+        pool_gather(jnp.asarray(images), jnp.asarray(idx), interpret=True)))
+    kw = dict(live_mult=3, spoof_mult=2, batch_size=4, seed=7)
+    got = list(tpool.DevicePoolData(images, labels, device="cpu",
+                                    **kw).batches(1))
+    want = list(jpool.DevicePoolData(images, labels, **kw).batches(1))
+    emit(what="pool_index_stream", batches=len(got), equal=len(got) == len(
+        want) and all(a["group"] == b["group"] and np.array_equal(
+            a["index"], b["index"]) for a, b in zip(got, want)))
+    images, labels = tpl._pool(n=20, size=32)
+    idx = np.array([3, 1, 4, 1], np.int32)
+    jstate, port = tts._jax_and_port_states()
+    jstep = make_train_step(tts.jl.make_loss_fn("focal"), donate=False,
+                            batch_prep=lambda key, u: jimg.normalize(
+                                jimg.to_float(u)))
+    _, jm = jstep(jstate, {"image": jnp.asarray(images),
+                           "index": jnp.asarray(idx),
+                           "label": jnp.asarray(labels[idx])})
+    pstep = tts.ST.make_train_step(tts.tl.make_loss_fn("focal"),
+                                   batch_prep=tpl._prep)
+    _, pm = pstep(port, {"image": torch.from_numpy(images), "index": idx,
+                         "label": labels[idx]})
+    emit(what="pool_train_step.metrics", dtype="f32",
+         **{k: abs(float(pm[k]) - float(jm[k]))
+            for k in ("loss", "accuracy", "grad_norm")})
+
+
 if __name__ == "__main__":
     for part in sys.argv[1:] or ("kernels", "serving", "training",
-                                 "small_batch"):
+                                 "small_batch", "augment"):
         globals()[part]()

@@ -1,1 +1,3 @@
-"""Host-side data: ``loader.py`` (image decoding for the serving front)."""
+"""Host-side data: ``conventions.py`` (labels), ``manifest.py`` (scans,
+splits, manifests) and ``loader.py`` (decoding, the threaded pipeline,
+device prefetch)."""

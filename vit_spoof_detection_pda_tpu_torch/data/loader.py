@@ -1,16 +1,34 @@
-"""Image decoding for the serving front (the port's copy of
-``decode_image_bytes`` and ``_pil_to_sized_rgb`` from the JAX package's
-``data/loader.py``; the dataset pipeline comes with a later slice).
+"""Host decode + prefetch pipeline (counterpart of the JAX package's
+``data/loader.py``).
+
+The host does the minimum, decode and a fixed-size resize; augmentation
+and normalization run on the device.  A thread pool decodes ahead through
+a bounded queue, and :func:`prefetch_to_device` keeps batches in flight
+on the card.  Corrupt files decode to a black image with a logged
+warning.  The port decodes through PIL only (the JAX package's native
+libjpeg decoder is not ported), and runs as one process, so
+:func:`shard_for_host` is the identity.
 
 PIL is imported inside the functions, so the module imports where PIL
-is not installed; only an encoded upload needs it.
+is not installed; only decoding needs it.
 """
 
 from __future__ import annotations
 
+import collections
+import concurrent.futures as futures
 import io
+import logging
+import queue
+import threading
+from typing import Iterator, List, Sequence
 
 import numpy as np
+import torch
+
+from .manifest import Record
+
+log = logging.getLogger(__name__)
 
 
 def _pil_to_sized_rgb(im, size: int, resize: str) -> np.ndarray:
@@ -38,6 +56,18 @@ def _pil_to_sized_rgb(im, size: int, resize: str) -> np.ndarray:
     return np.asarray(im, dtype=np.uint8)
 
 
+def decode_image(path: str, size: int, resize: str = "exact") -> np.ndarray:
+    """Decode a file to (size, size, 3) uint8 RGB through PIL (geometry as
+    :func:`_pil_to_sized_rgb`); a black image on any decode failure."""
+    from PIL import Image
+    try:
+        with Image.open(path) as im:
+            return _pil_to_sized_rgb(im, size, resize)
+    except Exception as e:                       # noqa: BLE001
+        log.warning("decode failed for %s (%s) — black fallback", path, e)
+        return np.zeros((size, size, 3), np.uint8)
+
+
 def decode_image_bytes(data: bytes, size: int,
                        resize: str = "exact") -> np.ndarray:
     """Decode in-memory image bytes to (size, size, 3) uint8 RGB.  Raises
@@ -49,3 +79,150 @@ def decode_image_bytes(data: bytes, size: int,
             return _pil_to_sized_rgb(im, size, resize)
     except Exception as e:                       # noqa: BLE001
         raise ValueError(f"undecodable image bytes ({e})") from e
+
+
+def shard_for_host(records: Sequence[Record]) -> List[Record]:
+    """This process's share of the dataset: all of it (the port runs one
+    process; the JAX package slices by ``jax.process_index()``)."""
+    return list(records)
+
+
+def epoch_order(n: int, epoch: int, seed: int,
+                shuffle: bool) -> np.ndarray:
+    """The seeded per-epoch sample order."""
+    idx = np.arange(n)
+    if shuffle:
+        np.random.default_rng(seed + epoch).shuffle(idx)
+    return idx
+
+
+def epoch_limit(n: int, batch_size: int, drop_last: bool) -> int:
+    """Number of samples an epoch serves under the drop_last policy."""
+    return (n // batch_size) * batch_size if drop_last else n
+
+
+def steps_for(n: int, batch_size: int, drop_last: bool) -> int:
+    return (epoch_limit(n, batch_size, drop_last)
+            + batch_size - 1) // batch_size
+
+
+class DataPipeline:
+    """Threaded decode pipeline yielding uint8 batches; one epoch is one
+    call to :meth:`batches`, shuffled from ``(seed, epoch)``."""
+
+    def __init__(self, records: Sequence[Record], *, batch_size: int,
+                 img_size: int = 224, resize: str = "exact",
+                 num_workers: int = 8, prefetch_depth: int = 4,
+                 shuffle: bool = False, drop_last: bool = False,
+                 seed: int = 42):
+        self.records = list(records)
+        self.batch_size = batch_size
+        self.img_size = img_size
+        self.resize = resize
+        self.num_workers = max(1, num_workers)
+        self.prefetch_depth = prefetch_depth
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.seed = seed
+
+    @property
+    def steps_per_epoch(self) -> int:
+        return steps_for(len(self.records), self.batch_size,
+                         self.drop_last)
+
+    def batches(self, epoch: int = 0, *, skip: int = 0) -> Iterator[dict]:
+        """Yield ``{"image": uint8 [B,S,S,3], "label": int32 [B], "index":
+        int64 [B]}`` decoded in the background.  ``skip`` drops the first
+        ``skip`` batches before decoding (mid-epoch resume)."""
+        if skip < 0:
+            raise ValueError(f"skip must be >= 0, got {skip}")
+        order = epoch_order(len(self.records), epoch, self.seed, self.shuffle)
+        limit = epoch_limit(len(order), self.batch_size, self.drop_last)
+        starts = list(range(0, limit, self.batch_size))[skip:]
+        if not starts:
+            return
+
+        q: "queue.Queue" = queue.Queue(maxsize=self.prefetch_depth)
+        stop = threading.Event()
+        err: list = []
+
+        def _put(item) -> bool:
+            """A put that gives up once the consumer is gone."""
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.2)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def producer():
+            try:
+                with futures.ThreadPoolExecutor(self.num_workers) as pool:
+                    for s in starts:
+                        if stop.is_set():
+                            break
+                        idxs = order[s:s + self.batch_size]
+                        imgs = list(pool.map(
+                            lambda i: decode_image(
+                                self.records[i].path, self.img_size,
+                                self.resize), idxs))
+                        labels = np.asarray(
+                            [self.records[i].label for i in idxs], np.int32)
+                        if not _put({"image": np.stack(imgs),
+                                     "label": labels,
+                                     "index": idxs.astype(np.int64)}):
+                            break
+            except BaseException as e:          # surfaced in the consumer
+                err.append(e)
+            finally:
+                _put(None)                      # the sentinel always lands
+
+        t = threading.Thread(target=producer, daemon=True)
+        t.start()
+        try:
+            while True:
+                item = q.get()
+                if item is None:
+                    if err:
+                        raise RuntimeError(
+                            "decode producer failed") from err[0]
+                    break
+                yield item
+        finally:
+            stop.set()
+            while t.is_alive():
+                try:
+                    q.get_nowait()
+                except queue.Empty:
+                    break
+            t.join(timeout=5)
+
+
+def prefetch_to_device(iterator, *, device=None, depth: int = 2):
+    """Keep ``depth`` batches in flight on ``device`` (the card by
+    default): every numpy array or tensor of a batch dict goes over with
+    ``.to(device, non_blocking=True)``, from pinned memory on a card."""
+    from ..device import resolve_device
+
+    dev = resolve_device(device)
+
+    def put(item):
+        out = {}
+        for k, v in item.items():
+            if isinstance(v, np.ndarray):
+                v = torch.from_numpy(v)
+            if isinstance(v, torch.Tensor):
+                if dev.type == "cuda" and v.device.type == "cpu":
+                    v = v.pin_memory()
+                v = v.to(dev, non_blocking=True)
+            out[k] = v
+        return out
+
+    buf = collections.deque()
+    for item in iterator:
+        buf.append(put(item))
+        if len(buf) >= depth:
+            yield buf.popleft()
+    while buf:
+        yield buf.popleft()

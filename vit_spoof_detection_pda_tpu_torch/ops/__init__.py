@@ -1,11 +1,17 @@
 """Tensor ops of the port.
 
-`image.py`     — ImageNet normalization of NHWC images.
+`image.py`     — normalization, the jax.image.resize weights, the eval
+                 preprocessing.
 `gelu.py`      — erf and tanh GELU, term by term as ``jax.nn.gelu``, and
                  the lean-backward GELU.
 `losses.py`    — focal loss, weighted and label-smoothed cross entropy.
 `attention.py` — the attention-block, MLP-block and attention-backward
                  kernels' wrappers, their plain versions and launch counts.
 `ln_bwd.py`    — the LayerNorm/residual-backward kernel's wrapper.
+`lowlat.py`    — the whole-encoder kernels' wrappers and packs.
+`warp.py`      — the warp-pass kernel's wrapper and the tower's warps.
+`augment.py`   — the per-sample random augmentation ops.
+`gather.py`    — the pool-gather kernel's wrapper.
+`nlm.py`       — the fast-NLM kernel's wrapper.
 `_build.py`    — nvcc build and ctypes loading of ``csrc/*.cu``.
 """

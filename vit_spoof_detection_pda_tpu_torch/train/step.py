@@ -6,6 +6,11 @@ A step runs the forward and the backward through ``state.apply_fn``
 metrics as 0-d tensors on the device: nothing waits for the card.  The
 dropout generator of a step is derived from ``(state.seed, state.step)``,
 so a resumed run replays the same masks (the JAX ``fold_in(rng, step)``).
+
+Pool mode (``train/pool.py``): a batch with ``index`` carries the
+device-resident pool as its ``image``; the step gathers its rows on the
+card with ``ops/gather.py::pool_gather`` (kernel 14) before
+``batch_prep``.
 """
 
 from __future__ import annotations
@@ -15,11 +20,9 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..ops.gather import pool_gather
 from .state import TrainState, global_norm_f32, tree_flatten
 
-_POOL_TODO = ("pool-mode batches (with 'index') gather their rows on the "
-              "device with a kernel that is not ported yet: ROADMAP Queue 2 "
-              "item 9")
 _PREP_SALT = 104729
 
 
@@ -44,19 +47,22 @@ def make_train_step(loss_fn: Callable, *, batch_prep: Optional[Callable] = None)
     """``step(state, batch) -> (state, metrics)``.
 
     ``loss_fn(logits, labels) -> scalar``.  ``batch``: ``{"image":
-    normalized f32 [B, H, W, 3], "label": int [B]}``, arrays or tensors.
-    ``batch_prep(generator, images) -> images`` runs first, with a
+    normalized f32 [B, H, W, 3], "label": int [B]}``, arrays or tensors;
+    or, in pool mode, ``{"image": the pool [N, H, W, 3], "index": host
+    int [B], "label": int [B]}``, whose rows are gathered on the pool's
+    device first (other keys, such as ``group``, are ignored).
+    ``batch_prep(generator, images) -> images`` runs next, with a
     generator of its own derived from the step.  The state's parameters
     and optimizer state are updated in place.  Metrics: ``loss``,
     ``accuracy`` and ``grad_norm`` (the global norm of the raw gradients,
     squares summed in f32)."""
 
     def step(state: TrainState, batch):
-        if "index" in batch:
-            raise NotImplementedError(_POOL_TODO)
         leaves = state.leaves()
         dev = leaves[0].device
         images, labels = _to(batch["image"], dev), _to(batch["label"], dev)
+        if "index" in batch:
+            images = pool_gather(images, batch["index"])
         labels = labels.long()
         if batch_prep is not None:
             images = batch_prep(
