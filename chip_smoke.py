@@ -113,6 +113,31 @@ runs these phases, each printing one JSON line and raising on failure:
             ``torch.index_select`` for kernel 14; the tiers' images/s
             (uint8 out); the pool step per group beside phase 9's bare
             step, with a profile of a heavy step; preprocess_eval at B = 64.
+13. kernels (again) kernel 8, the module path's attention core, against
+            its plain version: bf16 at ViT-B (T 197 unpadded; B = 2, 3 and
+            the test verb's 128) within 2 bf16 ulps, f32 at B = 2 and the
+            harness's 32 within 1e-5 of the largest output magnitude (the
+            same f32 products and softmax, summed in other orders), a
+            ragged T 33 / D 64 / 4 heads at both; head dims 24 and 256
+            raise.
+14. slice_eval (a) the test verb: build_model("Custom_ViT_FineTuned",
+            dtype=bf16) from a .pth of numpy-seeded ViT-B/16 weights,
+            run_single_model_eval on 300 faces at B = 128 (the last batch
+            padded): every forward launches kernel 8 exactly 12 times and
+            nothing else; scores against the same module on kernel 8's
+            plain version and against the f32 module on plain, within
+            phase 4's bounds; the metrics CSV read back equals the metrics
+            returned.  (b) run_cross_model_eval itself over the four
+            registry entries at f32, B = 32 on 72 faces: every model's
+            files, the ViTs 12 kernel-8 launches a forward, the ResNets
+            none; the f32 anti-spoof scores within 1e-4 of plain f32.  (c)
+            make_eval_step over the bf16 module: 12 launches.  Host
+            decoding is replaced by a seed-backed reader (no PIL here).
+15. times_eval kernel 8 at B = 128 bf16 and B = 32 f32 beside its plain
+            version, bound and scaled_dot_product_attention; the bf16
+            module forward and the scoring loop with the upload at B = 128;
+            the f32 ViTLinearHead and ResNet50 forwards at B = 32; a
+            profile of one bf16 module forward.
 
 Then it prints the kernel table as one JSON line, the card's name and
 power limit as nvidia-smi gives them, and last
@@ -124,15 +149,18 @@ or the f32 reference runs (device.exact_f32_matmul).
 from __future__ import annotations
 
 import contextlib
+import csv
 import json
 import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -140,12 +168,19 @@ import torch
 from vit_spoof_detection_pda_tpu_torch.augment.engine import AugmentEngine
 from vit_spoof_detection_pda_tpu_torch.augment.policy import (
     make_batch_augmenter)
+from vit_spoof_detection_pda_tpu_torch.data import loader
+from vit_spoof_detection_pda_tpu_torch.data.manifest import Record
 from vit_spoof_detection_pda_tpu_torch.device import exact_f32_matmul
+from vit_spoof_detection_pda_tpu_torch.eval import harness
+from vit_spoof_detection_pda_tpu_torch.eval import runner
+from vit_spoof_detection_pda_tpu_torch.eval.single import run_single_model_eval
 from vit_spoof_detection_pda_tpu_torch.models import fastserve
 from vit_spoof_detection_pda_tpu_torch.models import fasttrain
+from vit_spoof_detection_pda_tpu_torch.models import registry
 from vit_spoof_detection_pda_tpu_torch.models.convert import (
-    antispoof_from_torch, load_jax_params)
-from vit_spoof_detection_pda_tpu_torch.models.vit import ViTAntiSpoof
+    antispoof_from_torch, antispoof_to_torch, load_jax_params)
+from vit_spoof_detection_pda_tpu_torch.models.vit import (ViTAntiSpoof,
+                                                          module_apply)
 from vit_spoof_detection_pda_tpu_torch.ops import _build
 from vit_spoof_detection_pda_tpu_torch.ops import attention as att
 from vit_spoof_detection_pda_tpu_torch.ops import augment as aug
@@ -216,6 +251,9 @@ KERNELS = {
     "nlm": dict(
         source="vit_spoof_detection_pda_tpu_torch/csrc/nlm.cu",
         replaces="vit_spoof_detection_pda_tpu/ops/nlm_pallas.py:52"),
+    "attention_qkv": dict(
+        source="vit_spoof_detection_pda_tpu_torch/csrc/attention_qkv.cu",
+        replaces="vit_spoof_detection_pda_tpu/ops/attention.py:119"),
 }
 SERVING_KERNELS = ("attention_block", "mlp_block")
 TRAIN_KERNELS = ("attention_block_train", "attention_qkv_bwd", "ln_res_bwd")
@@ -231,6 +269,11 @@ AUG_TOL = 1e-5                       # f32 outputs, kernel vs plain
 # tower runs every configured pass whatever the gates drew
 TIER_PASSES = {"heavy": 7, "medium": 5, "light": 3}
 GROUP_PASSES = {"orig": 3, "light": 6, "medium": 8, "heavy": 10}
+EVAL_TEST_N = 300                    # test verb: 3 forwards at B = 128, the
+                                     # last padded from 44 faces
+EVAL_HARNESS_B, EVAL_HARNESS_N = 32, 72   # evaluate-all: 3 forwards a model
+QKV_F32_TOL = 1e-5                   # kernel 8 f32, of the largest output
+HARNESS_F32_TOL = 1e-4               # f32 harness scores vs plain f32
 
 
 def emit(obj):
@@ -292,6 +335,20 @@ def plain_lowlat():
     finally:
         for n, f in zip(names, saved):
             setattr(low, n, f)
+
+
+@contextlib.contextmanager
+def plain_attention_qkv():
+    """Run the module path's attention core (kernel 8) on its plain
+    version, differentiable by autograd (the f32 module references, and
+    the card's bf16 reference of the module forward); restores the
+    kernel."""
+    saved = att.fused_attention_qkv
+    att.fused_attention_qkv = att.fused_attention_qkv_plain
+    try:
+        yield
+    finally:
+        att.fused_attention_qkv = saved
 
 
 def reset_launches():
@@ -613,7 +670,7 @@ def phase_slice(dev):
 
     with plain_blocks():
         plain = serve128(u8)
-    with torch.inference_mode(), exact_f32_matmul():
+    with torch.inference_mode(), exact_f32_matmul(), plain_attention_qkv():
         model.to(dev)
         x = normalize(to_float(torch.from_numpy(u8).to(dev)))
         logits = torch.cat([model(x[i:i + 32]) for i in range(0, MAIN_B, 32)])
@@ -846,7 +903,7 @@ def phase_slice_small(dev, model):
 
     with plain_lowlat():
         plain = {b: run(fns[b], b) for b in SMALL_B}
-    with torch.inference_mode(), exact_f32_matmul():
+    with torch.inference_mode(), exact_f32_matmul(), plain_attention_qkv():
         model.to(dev)
         x = normalize(to_float(torch.from_numpy(u8).to(dev)))
         logits = torch.cat([model(x[i:i + 16])
@@ -1016,7 +1073,7 @@ def phase_train(dev):
     loss_k, grads_k = step0()
     with plain_training_kernels():
         loss_p, grads_p = step0()
-    with exact_f32_matmul():                              # f32 reference
+    with exact_f32_matmul(), plain_attention_qkv():       # f32 reference
         model.to(dev).eval()
         loss_f = loss_fn(model(images), labels)
         loss_f.backward()
@@ -1788,6 +1845,353 @@ def phase_times_aug(dev, ctx, main_err, launches, bare_step_ms) -> list:
               torch.cuda.max_memory_allocated() / 2 ** 30})
     return rows
 
+# --------------------------------------------------------------------------
+# slice 5: evaluation (kernel 8, the module path)
+# --------------------------------------------------------------------------
+
+
+def qkv_work(b, t, d, heads, itemsize):
+    """Kernel 8's two [T, T] x dh products per head; qkv in, out written."""
+    return 4 * b * heads * t * t * (d // heads), b * t * 4 * d * itemsize
+
+
+def phase_kernels_qkv(dev) -> dict:
+    """Kernel 8 against its plain version: bf16 within 2 bf16 ulps and f32
+    within QKV_F32_TOL of the largest output magnitude; a head dim outside
+    the kernel's set raises.  Returns the main path's errors."""
+    rng = np.random.default_rng(SEED + 20)
+    cases = [("vit_b_b2", torch.bfloat16, 2, T, D, HEADS),
+             ("vit_b_b3", torch.bfloat16, 3, T, D, HEADS),
+             ("main_path_b128", torch.bfloat16, MAIN_B, T, D, HEADS),
+             ("vit_b_b2", torch.float32, 2, T, D, HEADS),
+             ("main_path_b32", torch.float32, EVAL_HARNESS_B, T, D, HEADS),
+             ("ragged", torch.bfloat16, 2, 33, 64, 4),
+             ("ragged", torch.float32, 2, 33, 64, 4)]
+    main_err = {}
+    for label, dt, b, t, d, heads in cases:
+        qkv = torch.from_numpy(rng.standard_normal(
+            (b, t, 3 * d), dtype=np.float32)).to(dev, dt)
+        got = att.fused_attention_qkv(qkv, heads)
+        want = att.fused_attention_qkv_plain(qkv, heads)
+        torch.cuda.synchronize()
+        g, w = got.float(), want.float()
+        err = (g - w).abs().max().item()
+        tol = (bf16_tol(w) if dt == torch.bfloat16
+               else QKV_F32_TOL * w.abs().max().item())
+        ok = (got.dtype == dt and tuple(got.shape) == (b, t, d)
+              and bool(torch.isfinite(g).all()) and err <= tol)
+        name = "bf16" if dt == torch.bfloat16 else "f32"
+        emit({"phase": "kernels", "case": f"{label}_{name}",
+              "kernel": "attention_qkv", "shape": [b, t, 3 * d],
+              "heads": heads, "max_abs_err": err,
+              "mean_abs_err": (g - w).abs().mean().item(), "tol": tol,
+              "bit_equal": (g == w).float().mean().item(), "ok": ok})
+        if not ok:
+            raise AssertionError(f"attention_qkv disagrees with its plain "
+                                 f"version on {label} {name}: {err} > {tol}")
+        if label.startswith("main_path"):
+            main_err[name] = err
+    refused = []
+    for shape, heads in (((2, T, 3 * 72), 3), ((2, T, 3 * D), 3)):
+        try:                                      # head dims 24 and 256
+            att.fused_attention_qkv(torch.zeros(shape, device=dev), heads)
+        except ValueError:
+            refused.append(True)
+    ok = refused == [True, True]
+    emit({"phase": "kernels", "case": "head_dims_24_256",
+          "kernel": "attention_qkv", "raises": ok, "ok": ok})
+    if not ok:
+        raise AssertionError("attention_qkv took a head dim outside its set")
+    return {"attention_qkv": main_err["bf16"], "attention_qkv_f32": main_err}
+
+
+@contextlib.contextmanager
+def seeded_faces(salt: int):
+    """Host decoding replaced for the run by a seed-backed reader: record
+    ``.../<i>.png`` decodes to face i drawn from (SEED, salt, i), 224^2
+    uint8.  The card's machine has no PIL; everything past decoding (the
+    threaded DataPipeline, tail padding, upload, scoring, metrics,
+    writers) runs as the eval verbs run it."""
+    saved = loader.decode_image
+
+    def decode(path, size, resize="exact"):
+        i = int(Path(path).stem)
+        return np.random.default_rng([SEED, salt, i]).integers(
+            0, 256, (size, size, 3), dtype=np.uint8)
+
+    loader.decode_image = decode
+    try:
+        yield
+    finally:
+        loader.decode_image = saved
+
+
+def seeded_records(n: int, salt: int) -> list:
+    labels = np.random.default_rng([SEED, salt]).integers(0, 2, n)
+    return [Record(f"seed/{'live' if y else 'spoof'}/{i}.png", int(y),
+                   f"s{i % 7}") for i, y in enumerate(labels)]
+
+
+def per_forward_launches(module) -> list:
+    """Each later forward of ``module`` appends its kernels' launch counts
+    (the non-zero deltas) to the returned list."""
+    seen, snap = [], {}
+    module.register_forward_pre_hook(lambda m, a: snap.update(att.LAUNCHES))
+    module.register_forward_hook(lambda m, a, o: seen.append(
+        {k: v - snap[k] for k, v in att.LAUNCHES.items() if v != snap[k]}))
+    return seen
+
+
+def _csv_column(path, column) -> np.ndarray:
+    with open(path, newline="") as f:
+        return np.array([float(r[column]) for r in csv.DictReader(f)])
+
+
+def phase_slice_eval(dev, tmp: Path):
+    """(a) the test verb: build_model("Custom_ViT_FineTuned", dtype=bf16)
+    from a .pth of numpy-seeded ViT-B/16 weights (through
+    models/convert.py), run_single_model_eval on EVAL_TEST_N seeded faces
+    at B = 128; (b) evaluate-all: run_cross_model_eval itself over the
+    four registry entries at f32, B = 32 on EVAL_HARNESS_N faces; (c)
+    make_eval_step over the bf16 module (the Trainer's validation).  Host
+    decoding is replaced by seeded_faces (no PIL on the card's machine).
+    Returns what times_eval needs and the launches of the test verb's
+    run."""
+    rng = np.random.default_rng(SEED + 21)
+    params = random_params(rng)
+    ckpt = tmp / "best_model_seeded.pth"
+    torch.save({"epoch": 0, "model_state_dict": {
+        k: torch.from_numpy(v) for k, v in antispoof_to_torch(params).items()}},
+        ckpt)
+    name = "Custom_ViT_FineTuned"
+    model = registry.build_model(name, checkpoint_path=str(ckpt),
+                                 dtype=torch.bfloat16, img_size=IMG)
+    forwards = per_forward_launches(model)
+    records = seeded_records(EVAL_TEST_N, 1)
+    want_fwd = {"attention_qkv": DEPTH}
+
+    # (a) the main path: counts from 0 just before, read just after
+    with seeded_faces(1):
+        reset_launches()
+        metrics, paths = run_single_model_eval(
+            model, records, output_dir=str(tmp / "test"), batch_size=MAIN_B,
+            img_size=IMG, checkpoint_name=ckpt.name)
+        torch.cuda.synchronize()
+        launches = dict(att.LAUNCHES)
+        test_forwards = list(forwards)
+        with plain_attention_qkv():
+            plain = runner.run_inference(model, records, batch_size=MAIN_B,
+                                         img_size=IMG)
+        ref_model = registry.build_model(name, checkpoint_path=str(ckpt),
+                                         img_size=IMG)
+        with plain_attention_qkv():
+            ref = runner.run_inference(ref_model, records, batch_size=MAIN_B,
+                                       img_size=IMG)
+    with open(paths["per_image"], newline="") as f:
+        rows = list(csv.DictReader(f))
+    got = np.array([float(r["probability_live"]) for r in rows], np.float32)
+    with open(paths["metrics"], newline="") as f:
+        written = next(csv.DictReader(f))
+    reread = all(
+        (written[k] == "" and math.isnan(v)) if isinstance(v, float)
+        and math.isnan(v) else float(written[k]) == v
+        for k, v in metrics.items())
+    e_plain = np.abs(got - plain["prob1"])
+    e_ref = np.abs(got - ref["prob1"])
+    n_fwd = -(-EVAL_TEST_N // MAIN_B)
+    ok = (test_forwards == [want_fwd] * n_fwd
+          and launches == {k: (n_fwd * DEPTH if k == "attention_qkv" else 0)
+                           for k in att.LAUNCHES}
+          and len(rows) == EVAL_TEST_N and np.isfinite(got).all()
+          and ((got >= 0) & (got <= 1)).all()
+          and max(e_plain.max(), e_ref.max()) <= SCORE_TOL
+          and max(e_plain.mean(), e_ref.mean()) <= SCORE_MEAN_TOL
+          and reread and set(paths) >= {"metrics", "per_image", "cm_csv",
+                                        "per_subject", "summary"})
+    emit({"phase": "slice_eval", "part": "test_verb",
+          "decoding": "bypassed: seeded faces (no PIL on this machine)",
+          "images": EVAL_TEST_N, "batch": MAIN_B, "forwards": n_fwd,
+          "launches_per_forward": test_forwards, "launches": launches,
+          "max_abs_err_vs_plain": float(e_plain.max()),
+          "mean_abs_err_vs_plain": float(e_plain.mean()),
+          "bit_equal_vs_plain": float((got == plain["prob1"]).mean()),
+          "max_abs_err_vs_f32_plain": float(e_ref.max()),
+          "mean_abs_err_vs_f32_plain": float(e_ref.mean()),
+          "score_std": float(got.std()), "tol": SCORE_TOL,
+          "mean_tol": SCORE_MEAN_TOL, "metrics_csv_reread_equal": reread,
+          "artifacts": sorted(paths), "auc": metrics["auc"],
+          "eer": metrics["eer"], "ok": bool(ok)})
+    if not ok:
+        raise AssertionError(
+            f"test verb: forwards {test_forwards[:4]}, launches {launches}, "
+            f"{e_plain.max()} / {e_ref.max()} from plain / f32 (tol "
+            f"{SCORE_TOL}), metrics CSV re-read equal {reread}")
+    del ref_model
+
+    # (b) run_cross_model_eval itself over the four entries at f32; each
+    # built model gets its per-forward launch record
+    built = {}
+
+    def build_and_watch(entry, **kw):
+        module = registry.build_model(entry, **kw)
+        built[entry] = per_forward_launches(module)
+        return module
+
+    hrecords = seeded_records(EVAL_HARNESS_N, 2)
+    saved = harness.build_model
+    harness.build_model = build_and_watch
+    try:
+        with seeded_faces(2):
+            results = harness.run_cross_model_eval(
+                hrecords, output_dir=str(tmp / "harness"),
+                checkpoint_path=str(ckpt), batch_size=EVAL_HARNESS_B,
+                img_size=IMG)
+            torch.cuda.synchronize()
+            with plain_attention_qkv():
+                ref32 = runner.run_inference(
+                    registry.build_model(name, checkpoint_path=str(ckpt),
+                                         img_size=IMG), hrecords,
+                    batch_size=EVAL_HARNESS_B, img_size=IMG)
+    finally:
+        harness.build_model = saved
+    names = list(registry.MODEL_REGISTRY)
+    files = ("per_image_predictions.csv", "roc_curve_data.csv",
+             "threshold_analysis.csv", "confusion_matrices.json",
+             "evaluation_summary.json", "evaluation_report.txt")
+    have = {n: all((tmp / "harness" / n / f).exists() for f in files)
+            for n in names}
+    n_fwd = -(-EVAL_HARNESS_N // EVAL_HARNESS_B)
+    vit_entries = ("Custom_ViT_FineTuned", "Base_ViT_Pretrained")
+    fwd_ok = {n: built.get(n) == [want_fwd if n in vit_entries else {}] * n_fwd
+              for n in names}
+    spoof = _csv_column(tmp / "harness" / name / "per_image_predictions.csv",
+                        "spoof_score")
+    want_spoof = (1.0 - ref32["prob1"]).astype(np.float32)
+    e32 = float(np.abs(spoof - want_spoof).max())
+    reports = all((tmp / "harness" / f).exists() for f in (
+        "model_comparison.csv", "model_comparison.json",
+        "comparison_report.txt"))
+    ok = (list(results) == names and all(have.values())
+          and all(fwd_ok.values()) and reports and e32 <= HARNESS_F32_TOL)
+    emit({"phase": "slice_eval", "part": "evaluate_all",
+          "decoding": "bypassed: seeded faces (no PIL on this machine)",
+          "images": EVAL_HARNESS_N, "batch": EVAL_HARNESS_B,
+          "models": list(results), "files_present": have,
+          "launches_per_forward": {n: (built.get(n) or [None])[0]
+                                   for n in names},
+          "launches_per_forward_ok": fwd_ok, "reports_present": reports,
+          "f32_vit_max_abs_err_vs_plain": e32, "tol": HARNESS_F32_TOL,
+          "roc_auc": {n: results[n]["roc_auc"] for n in results},
+          "ok": bool(ok)})
+    if not ok:
+        raise AssertionError(
+            f"evaluate-all: models {list(results)} (want {names}), files "
+            f"{have}, per-forward launches {fwd_ok}, f32 scores {e32} from "
+            f"plain (tol {HARNESS_F32_TOL})")
+
+    # (c) the Trainer's validation: make_eval_step over the bf16 module
+    u8 = torch.from_numpy(rng.integers(0, 256, (MAIN_B, IMG, IMG, 3),
+                                       dtype=np.uint8)).to(dev)
+    images = normalize(to_float(u8))
+    step = make_eval_step(module_apply(model))
+    reset_launches()
+    ev = step(dict(model.named_parameters()), images)
+    torch.cuda.synchronize()
+    eval_launches = {k: v for k, v in att.LAUNCHES.items() if v}
+    scores = ev["score"]
+    ok = (eval_launches == want_fwd and tuple(scores.shape) == (MAIN_B,)
+          and bool(torch.isfinite(scores).all())
+          and bool(((scores >= 0) & (scores <= 1)).all()))
+    emit({"phase": "slice_eval", "part": "make_eval_step",
+          "launches": eval_launches, "score_min": scores.min().item(),
+          "score_max": scores.max().item(), "ok": bool(ok)})
+    if not ok:
+        raise AssertionError(f"make_eval_step over the module: launches "
+                             f"{eval_launches} (want {want_fwd})")
+    return {"model": model, "images": images, "u8": u8}, launches
+
+
+def _share(top, *needles) -> float:
+    return sum(t["ms"] for t in top
+               if any(n in t["name"].lower() for n in needles))
+
+
+def phase_times_eval(dev, ctx, main_err, launches) -> list:
+    """Kernel 8 at B = 128 bf16 and B = 32 f32 beside its plain version,
+    bound and scaled_dot_product_attention on the same q/k/v views with
+    the key mask (timed only); the bf16 module forward and the scoring
+    loop with the upload at B = 128; the f32 ViTLinearHead and ResNet50
+    forwards at B = 32; a profile of one bf16 module forward."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    per = {}
+    for label, dt, b in (("bf16_b128", torch.bfloat16, MAIN_B),
+                         ("f32_b32", torch.float32, EVAL_HARNESS_B)):
+        qkv = torch.randn((b, T, 3 * D), generator=gen, device=dev).to(dt)
+        q, k, v = qkv.view(b, T, 3, HEADS, D // HEADS).permute(2, 0, 3, 1, 4)
+        mask = (torch.arange(T, device=dev) < T).view(1, 1, 1, T)
+        flops, nb = qkv_work(b, T, D, HEADS, qkv.element_size())
+        ms = time_ms(lambda: att.fused_attention_qkv(qkv, HEADS))
+        plain_ms = time_ms(lambda: att.fused_attention_qkv_plain(qkv, HEADS),
+                           per_window=3)
+        lib_ms = time_ms(lambda: sdpa(q, k, v, attn_mask=mask))
+        bound_ms, bound_by = bound(flops, nb, PEAK_BF16_FLOPS
+                                   if dt == torch.bfloat16 else PEAK_F32_FLOPS)
+        per[label] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by,
+                      "gflop": flops / 1e9, "mbytes": nb / 1e6,
+                      "launches_per_forward": DEPTH}
+        del qkv, q, k, v
+    row = {"name": "attention_qkv", "route": "cuda",
+           **KERNELS["attention_qkv"], "launches": launches["attention_qkv"],
+           "max_abs_err": main_err["attention_qkv"],
+           **{k: per["bf16_b128"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                               "bound_by", "library_ms")}}
+
+    model, images, u8 = ctx["model"], ctx["images"], ctx["u8"]
+    with torch.inference_mode():
+        fwd_ms = time_ms(lambda: model(images), windows=3, per_window=5)
+        profile = profile_step(lambda: model(images), top=20)
+    top = profile["profile_top"]
+    busy = profile["profile_device_busy_ms"]
+    breakdown = {"kernel8_ms": _share(top, "attention_f32", "attention_kernel"),
+                 "gemm_ms": _share(top, "gemm", "cutlass", "sm90", "xmma", "nvjet"),
+                 "elementwise_ms": _share(top, "elementwise", "vectorized",
+                                          "reduce", "layer_norm", "norm")}
+    breakdown.update({k.replace("_ms", "_share"): v / busy if busy else 0.0
+                      for k, v in list(breakdown.items())})
+
+    infer = runner.make_infer_fn(model)
+    host = u8.cpu().numpy()
+    batches = [{"image": host, "index": np.arange(MAIN_B) + i * MAIN_B}
+               for i in range(3)]
+    loop = []
+    for _ in range(4):                        # the first warms up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runner.score_batches(infer, batches, 3 * MAIN_B, batch_size=MAIN_B,
+                             device=dev)
+        loop.append(time.perf_counter() - t0)
+    loop_s = statistics.median(loop[1:])
+
+    others = {}
+    x32 = images[:EVAL_HARNESS_B]
+    for entry in ("Base_ViT_Pretrained", "ResNet50_Pretrained"):
+        m = registry.build_model(entry, img_size=IMG)
+        with torch.inference_mode(), exact_f32_matmul():
+            others[entry] = time_ms(lambda: m(x32), windows=3, per_window=3)
+        del m
+    emit({"phase": "times_eval", "kernel8": per,
+          "bf16_forward_b128_ms": fwd_ms,
+          "bf16_forward_img_per_s": MAIN_B / (fwd_ms / 1e3),
+          "scoring_loop_b128_with_upload_img_per_s": 3 * MAIN_B / loop_s,
+          "kernel8_ms_per_forward": DEPTH * per["bf16_b128"]["ms"],
+          "f32_forward_b32_ms": others, "forward_profile": profile,
+          "forward_breakdown": breakdown,
+          "max_memory_allocated_gb":
+              torch.cuda.max_memory_allocated() / 2 ** 30})
+    return [row]
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1814,6 +2218,11 @@ def main() -> int:
     aug_err = phase_kernels_aug(dev)
     ctx, aug_launches = phase_slice_aug(dev)
     rows += phase_times_aug(dev, ctx, aug_err, aug_launches, step_ms)
+    del ctx
+    qkv_err = phase_kernels_qkv(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        ectx, eval_launches = phase_slice_eval(dev, Path(tmp))
+        rows += phase_times_eval(dev, ectx, qkv_err, eval_launches)
     idle = [r["name"] for r in rows if not r["launches"]]
     if idle:
         raise AssertionError(f"kernels never launched on their paths: {idle}")

@@ -64,11 +64,13 @@ def test_the_port_has_modules_to_check():
     mods = _modules()
     assert "vit_spoof_detection_pda_tpu_torch.models.fastserve" in mods
     assert "vit_spoof_detection_pda_tpu_torch.ops.attention" in mods
-    for mod in ("models.fasttrain", "ops.ln_bwd", "ops.losses",
+    for mod in ("models.fasttrain", "models.registry", "models.resnet",
+                "metrics.parity", "eval.runner", "eval.single",
+                "eval.harness", "ops.ln_bwd", "ops.losses",
                 "train.schedule", "train.state", "train.step",
                 "data.conventions", "augment") + LAZY_PIL:
         assert f"vit_spoof_detection_pda_tpu_torch.{mod}" in mods
-    assert len(mods) >= 39
+    assert len(mods) >= 47
 
 
 # the modules of the serving front and of the augmentation slice, which
@@ -77,7 +79,8 @@ def test_the_port_has_modules_to_check():
 LAZY_PIL = ("ops.lowlat", "data.loader", "serve.loadgen", "serve.server",
             "ops.warp", "ops.augment", "ops.gather", "ops.nlm", "ops.image",
             "augment.policy", "augment.engine", "data.manifest",
-            "train.online", "train.pool", "train.driver")
+            "train.online", "train.pool", "train.driver", "eval.runner", "eval.single", "eval.harness", "metrics.parity",
+            "models.registry", "models.resnet")
 
 
 @pytest.mark.parametrize("mod", LAZY_PIL)
@@ -107,3 +110,38 @@ def test_serving_modules_import_without_pil():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+# the eval slice writes its artifacts where the card's machine has neither
+# pandas nor matplotlib (nor PIL: its faces come from elsewhere there)
+EVAL_MODULES = ("eval", "eval.runner", "eval.single", "eval.harness",
+                "metrics.parity", "models.registry", "models.resnet",
+                "models.convert", "models.vit", "ops.attention")
+
+
+def test_eval_slice_imports_without_pandas_matplotlib_or_pil():
+    mods = [f"vit_spoof_detection_pda_tpu_torch.{m}" for m in EVAL_MODULES]
+    code = ("import sys, importlib\n"
+            f"for name in {FORBIDDEN + ('PIL', 'pandas', 'matplotlib', 'seaborn')!r}:\n"
+            "    sys.modules[name] = None\n"
+            f"for mod in {mods!r}:\n"
+            "    importlib.import_module(mod)\n"
+            "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("mod", EVAL_MODULES)
+def test_eval_slice_has_no_module_level_pandas(mod):
+    path = PORT / (mod.replace(".", "/") + ".py")
+    if not path.exists():
+        path = PORT / mod.replace(".", "/") / "__init__.py"
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                 else [node.module or ""]
+                 if isinstance(node, ast.ImportFrom) else [])
+        assert not any(n.split(".")[0] == "pandas" for n in names), (
+            f"{path.name}:{node.lineno} imports pandas")

@@ -465,3 +465,70 @@ def test_augmentation_kernels_reject_what_they_cannot_take(cuda_device):
     with pytest.raises(ValueError, match="host indices"):
         tgather.pool_gather(img, torch.zeros(1, dtype=torch.long,
                                              device=cuda_device))
+
+
+# --------------------------------------------------------------------------
+# kernel 8: attention core on the fused projection (the module path)
+# --------------------------------------------------------------------------
+
+
+def _assert_close_f32(got, want):
+    """f32: within 1e-5 of the largest output magnitude (the same f32
+    products and softmax, summed in other orders)."""
+    got, want = got.float().cpu(), want.float().cpu()
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,t,d,heads", [
+    (2, 197, 768, 12), (3, 197, 768, 12), (2, 33, 64, 4), (1, 5, 128, 2)])
+def test_attention_qkv_kernel_matches_plain_on_card(cuda_device, dtype, b, t,
+                                                    d, heads):
+    rng = np.random.default_rng(b * t)
+    qkv = torch.tensor(rng.standard_normal((b, t, 3 * d)).astype(np.float32),
+                       device=cuda_device).to(dtype)
+    before = tatt.LAUNCHES["attention_qkv"]
+    got = tatt.fused_attention_qkv(qkv, heads)
+    torch.cuda.synchronize()
+    assert tatt.LAUNCHES["attention_qkv"] == before + 1
+    assert got.dtype == dtype
+    want = tatt.fused_attention_qkv_plain(qkv, heads)
+    if dtype == torch.bfloat16:
+        _assert_close(got, want)
+    else:
+        _assert_close_f32(got, want)
+
+
+@pytest.mark.cuda
+def test_attention_qkv_backward_on_card(cuda_device):
+    """bf16: kernel 4 behind the autograd function, within 2 bf16 ulps of
+    its plain version; f32: raises naming the missing kernel."""
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((2, 197, 3 * 768)).astype(np.float32)
+    g = torch.tensor(rng.standard_normal((2, 197, 768)).astype(np.float32),
+                     device=cuda_device).bfloat16()
+    qkv = torch.tensor(x, device=cuda_device).bfloat16().requires_grad_()
+    tatt.fused_attention_qkv(qkv, 12).backward(g)
+    _assert_close(qkv.grad, tatt.attention_qkv_bwd_plain(
+        qkv.detach(), g, 12, valid_len=197))
+    q32 = torch.tensor(x, device=cuda_device, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="slice 6"):
+        tatt.fused_attention_qkv(q32, 12).backward(g.float())
+
+
+@pytest.mark.cuda
+def test_attention_qkv_kernel_rejects_what_it_cannot_take(cuda_device):
+    qkv = torch.zeros((2, 197, 3 * 768), device=cuda_device,
+                      dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        tatt.fused_attention_qkv(torch.zeros((2, 9, 3 * 72),
+                                             device=cuda_device), 3)  # dh 24
+    with pytest.raises(ValueError, match="head dim"):
+        tatt.fused_attention_qkv(qkv, 3)                              # dh 256
+    with pytest.raises(TypeError):
+        tatt.fused_attention_qkv(qkv.half(), 12)
+    with pytest.raises(ValueError, match="shared memory"):
+        tatt.fused_attention_qkv(torch.zeros((1, 400, 3 * 64),
+                                             device=cuda_device), 1)

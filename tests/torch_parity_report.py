@@ -1,7 +1,7 @@
 """Print the port's parity gaps against the JAX package on the CPU, one
 JSON line per comparison (the numbers the tests bound).
 
-    python tests/torch_parity_report.py [kernels serving training small_batch augment]
+    python tests/torch_parity_report.py [kernels serving training small_batch augment eval]
 
 The port runs its plain PyTorch versions (CPU tensors); the JAX side runs
 its Pallas kernels in interpret mode, as the test files do.  Inputs come
@@ -401,7 +401,79 @@ def augment():
             for k in ("loss", "accuracy", "grad_norm")})
 
 
+def eval():  # noqa: A001 - the section's name on the command line
+    """The eval slice: kernel 8's plain version against the JAX Pallas
+    kernel (interpret mode), the bf16 and f32 modules against jitted
+    flax, ResNet50 with batch_stats, and run_inference's scores on a
+    synthetic tree."""
+    import tempfile
+
+    import test_torch_resnet as trs
+    from util_synthetic import make_subject_tree
+    from vit_spoof_detection_pda_tpu.data import scan_test as jscan
+    from vit_spoof_detection_pda_tpu.eval import run_inference as jrun
+    from vit_spoof_detection_pda_tpu.models.resnet import ResNet50 as JRes
+    from vit_spoof_detection_pda_tpu_torch.data.manifest import scan_test
+    from vit_spoof_detection_pda_tpu_torch.eval import run_inference
+    from vit_spoof_detection_pda_tpu_torch.models import convert as tconv
+    from vit_spoof_detection_pda_tpu_torch.models import vit as tvit
+    from vit_spoof_detection_pda_tpu_torch.models.resnet import ResNet50
+
+    dts = {"f32": (jnp.float32, torch.float32),
+           "bf16": (jnp.bfloat16, torch.bfloat16)}
+    for dtype, (jdt, tdt) in dts.items():
+        for b, t, d, heads in ((2, 17, 64, 4), (3, 33, 64, 4),
+                               (3, 197, 768, 12)):
+            x = np.random.default_rng(b * 1000 + t).standard_normal(
+                (b, t, 3 * d)).astype(np.float32)
+            want = jatt.fused_attention_qkv(jnp.asarray(x, jdt), heads, True)
+            got = tatt.fused_attention_qkv(torch.tensor(x).to(tdt), heads)
+            emit(what="attention_qkv", dtype=dtype, b=b, t=t, d=d,
+                 heads=heads, **gap(got.float().numpy(), want))
+    geoms = {"small": (dict(patch_size=16, embed_dim=64, depth=2,
+                            num_heads=4, hidden=16), 32),
+             "vit_b_width": (dict(patch_size=16, embed_dim=768, depth=1,
+                                  num_heads=12, hidden=512), 64)}
+    for dtype, (jdt, tdt) in dts.items():
+        for label, (geom, img) in geoms.items():
+            jm = jvit.ViTAntiSpoof(**geom, dtype=jdt)
+            v = jm.init(jax.random.PRNGKey(img), jnp.zeros((1, img, img, 3)))
+            u8 = np.random.default_rng(img).integers(0, 256, (4, img, img, 3),
+                                                     dtype=np.uint8)
+            x = (u8 / np.float32(255) - np.float32(0.45)) / np.float32(0.225)
+            x = x.astype(np.float32)
+            want = jax.jit(jm.apply)(v, jnp.asarray(x))
+            tm = tconv.load_jax_params(tvit.ViTAntiSpoof(
+                **geom, dtype=tdt, img_size=img).eval(),
+                jax.tree.map(np.asarray, v))
+            with torch.no_grad():
+                got = tm(torch.tensor(x))
+            emit(what="vit_antispoof_module", dtype=dtype, geom=label,
+                 **gap(got.numpy(), want))
+    jrn = JRes()
+    rv = jrn.init(jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3)))
+    x = np.random.default_rng(1).standard_normal((3, 64, 64, 3)).astype(
+        np.float32)
+    tm = tconv.load_jax_params(ResNet50().eval(), rv)
+    with torch.no_grad(), trs.exact_f32_matmul():
+        got = tm(torch.tensor(x))
+    emit(what="resnet50", dtype="f32",
+         **gap(got.numpy(), jax.jit(jrn.apply)(rv, jnp.asarray(x))))
+    with tempfile.TemporaryDirectory() as root:
+        make_subject_tree(pathlib.Path(root), subjects=3, per_class=4,
+                          size=32)
+        geom, img = geoms["small"]
+        jm = jvit.ViTAntiSpoof(**geom)
+        v = jm.init(jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 3)))
+        tm = tconv.load_jax_params(tvit.ViTAntiSpoof(**geom, img_size=32),
+                                   jax.tree.map(np.asarray, v))
+        want = jrun(jm, v, jscan(root), batch_size=5, img_size=32)
+        got = run_inference(tm, scan_test(root), batch_size=5, img_size=32)
+        emit(what="run_inference.prob1", dtype="f32",
+             **gap(got["prob1"], want["prob1"]))
+
+
 if __name__ == "__main__":
     for part in sys.argv[1:] or ("kernels", "serving", "training",
-                                 "small_batch", "augment"):
+                                 "small_batch", "augment", "eval"):
         globals()[part]()

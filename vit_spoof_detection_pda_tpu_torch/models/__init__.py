@@ -1,8 +1,12 @@
 """Model layer of the port.
 
-`vit.py`       — ViT-B/16 + anti-spoof head as ``nn.Module``s with the
-                 published checkpoint's keys; ``fold_normalization``.
-`convert.py`   — JAX-layout parameter tree <-> checkpoint state dict.
+`vit.py`       — ViT-B/16 + anti-spoof head and the linear-head ablation
+                 as ``nn.Module``s with the published checkpoint's keys
+                 and flax's ``dtype`` policy; ``fold_normalization``.
+`resnet.py`    — ResNet50 with torchvision's keys, NHWC input.
+`convert.py`   — JAX-layout trees and upstream checkpoints (timm, HF,
+                 torchvision) -> the port's key sets.
+`registry.py`  — the four evaluated models, ``build_model``.
 `fastserve.py` — the bf16 serving path over the hand-written kernels.
 `fasttrain.py` — the training forward and its autograd functions over
                  the hand-written kernels.

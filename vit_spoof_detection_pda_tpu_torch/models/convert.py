@@ -1,22 +1,49 @@
-"""Weights between the JAX-layout parameter tree and the port's modules
-(the port's own copy of the JAX package's ``models/convert.py`` export
-path, pure numpy).
+"""Weights between the JAX-layout parameter tree, upstream checkpoints and
+the port's modules (the port's own copy of the JAX package's
+``models/convert.py``, numpy and torch only).
+
+JAX tree -> the port's key sets (the tests feed both packages the same
+numbers through these):
 
 - :func:`antispoof_to_torch`: ``{"params": {"vit": ..., "head": ...}}``
   (``[in, out]`` kernels) -> the published checkpoint's key set
   (``vit.<timm names>`` + ``classifier.{0,2,5}``).
-- :func:`antispoof_from_torch`: the inverse, used by the serving path to
-  lay the module's weights out for the kernels.
-- :func:`load_jax_params`: load a JAX-layout tree into a port
-  ``ViTAntiSpoof`` with ``strict=True``.
+- :func:`vit_linear_to_torch`: a ``ViTLinearHead`` tree -> ``vit.*`` +
+  ``classifier``.
+- :func:`resnet50_to_torch`: a ``ResNet50`` tree with its
+  ``batch_stats`` -> torchvision's key set.
+- :func:`load_jax_params`: any of the three into its port module with
+  ``strict=True``.
+- :func:`antispoof_from_torch`: the inverse of the first, used by the
+  serving path to lay the module's weights out for the kernels.
+
+Upstream state dicts -> the port's key sets (the converters
+``models/registry.py`` names; each raises ``KeyError`` on a missing
+tensor, or marks it :data:`MISSING` with ``tolerant=True``):
+
+- :func:`antispoof_from_checkpoint`: the published fine-tune checkpoint
+  (already the port's keys).
+- :func:`vit_linear_from_hf`: HF ``ViTForImageClassification``, its
+  separate query/key/value fused into ``qkv`` as the JAX converter fuses
+  them (:func:`vit_backbone_from_hf`).
+- :func:`resnet50_from_torchvision`: torchvision ``resnet50``.
+- :func:`convert_partial`: ``load_state_dict(strict=False)`` semantics
+  over any of them.
 """
 
 from __future__ import annotations
 
-from typing import Mapping
+import logging
+from typing import Callable, Mapping
 
 import numpy as np
 import torch
+
+log = logging.getLogger(__name__)
+
+# A tensor absent from the source state dict, in tolerant mode
+# (torch load_state_dict(strict=False) semantics).
+MISSING = None
 
 
 def _np(x) -> np.ndarray:
@@ -139,10 +166,225 @@ def antispoof_from_torch(sd: Mapping) -> dict:
     }}
 
 
-def load_jax_params(module: torch.nn.Module, params) -> torch.nn.Module:
-    """Load a JAX-layout ViTAntiSpoof tree (``{"params": ...}`` or the
-    bare params) into the port's ``ViTAntiSpoof`` with ``strict=True``;
-    returns the module."""
-    sd = {k: torch.tensor(v) for k, v in antispoof_to_torch(params).items()}
-    module.load_state_dict(sd, strict=True)
+def vit_linear_to_torch(variables) -> dict:
+    """ViTLinearHead variables -> ``vit.<timm>`` + ``classifier``."""
+    params = variables["params"] if "params" in variables else variables
+    sd = vit_backbone_to_timm(params["vit"], prefix="vit.")
+    sd["classifier.weight"] = _np(params["classifier"]["kernel"]).T
+    sd["classifier.bias"] = _np(params["classifier"]["bias"])
+    return sd
+
+
+def _stage_blocks(params) -> list:
+    """``[(JAX block name, torchvision prefix, has projection)]`` of a
+    ResNet50 tree, read off its keys."""
+    out, stage = [], 1
+    while f"layer{stage}_0" in params:
+        block = 0
+        while f"layer{stage}_{block}" in params:
+            name = f"layer{stage}_{block}"
+            out.append((name, f"layer{stage}.{block}",
+                        "downsample_conv" in params[name]))
+            block += 1
+        stage += 1
+    return out
+
+
+def resnet50_to_torch(variables) -> dict:
+    """ResNet50 variables (``params`` + ``batch_stats``) -> torchvision's
+    key set: conv kernels ``[kh, kw, I, O]`` -> ``[O, I, kh, kw]``, the
+    BatchNorms' scale, bias and running statistics (``num_batches_tracked``
+    0), the fc transposed."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd = {}
+
+    def conv(name, p):
+        sd[f"{name}.weight"] = _np(p["kernel"]).transpose(3, 2, 0, 1)
+
+    def bn(name, p, st):
+        sd[f"{name}.weight"] = _np(p["scale"])
+        sd[f"{name}.bias"] = _np(p["bias"])
+        sd[f"{name}.running_mean"] = _np(st["mean"])
+        sd[f"{name}.running_var"] = _np(st["var"])
+        sd[f"{name}.num_batches_tracked"] = np.array(0, np.int64)
+
+    conv("conv1", params["conv1"])
+    bn("bn1", params["bn1"], stats["bn1"])
+    for name, prefix, project in _stage_blocks(params):
+        p, st = params[name], stats[name]
+        for j in (1, 2, 3):
+            conv(f"{prefix}.conv{j}", p[f"conv{j}"])
+            bn(f"{prefix}.bn{j}", p[f"bn{j}"], st[f"bn{j}"])
+        if project:
+            conv(f"{prefix}.downsample.0", p["downsample_conv"])
+            bn(f"{prefix}.downsample.1", p["downsample_bn"],
+               st["downsample_bn"])
+    sd["fc.weight"] = _np(params["fc"]["kernel"]).T
+    sd["fc.bias"] = _np(params["fc"]["bias"])
+    return sd
+
+
+def load_jax_params(module: torch.nn.Module, variables) -> torch.nn.Module:
+    """Load a JAX-layout tree into its port module with ``strict=True``:
+    ``ViTAntiSpoof`` and ``ViTLinearHead`` take ``{"params": ...}`` or
+    the bare params, ``ResNet50`` the variables with ``batch_stats``.
+    Returns the module."""
+    from .resnet import ResNet50
+    from .vit import ViTLinearHead
+
+    if isinstance(module, ResNet50):
+        sd = resnet50_to_torch(variables)
+    elif isinstance(module, ViTLinearHead):
+        sd = vit_linear_to_torch(variables)
+    else:
+        sd = antispoof_to_torch(variables)
+    module.load_state_dict({k: torch.from_numpy(np.array(v))
+                            for k, v in sd.items()}, strict=True)
     return module
+
+
+# --------------------------------------------------------------------------
+# Upstream state dicts -> the port's key sets
+# --------------------------------------------------------------------------
+
+
+def _tensor(x) -> torch.Tensor:
+    """A state-dict leaf as a CPU tensor: floats as f32, integers kept."""
+    t = x.detach().cpu() if isinstance(x, torch.Tensor) else torch.from_numpy(
+        np.array(x))
+    return t.float() if t.is_floating_point() else t
+
+
+def _leaf(sd: Mapping, key: str, tolerant: bool):
+    if key in sd:
+        return _tensor(sd[key])
+    if tolerant:
+        return MISSING
+    raise KeyError(key)
+
+
+def _take(sd: Mapping, names, tolerant: bool, src_prefix: str = "",
+          dst_prefix: str = "") -> dict:
+    return {dst_prefix + n: _leaf(sd, src_prefix + n, tolerant)
+            for n in names}
+
+
+def _timm_backbone_names(depth: int) -> list:
+    names = ["patch_embed.proj.weight", "patch_embed.proj.bias",
+             "cls_token", "pos_embed", "norm.weight", "norm.bias"]
+    for i in range(depth):
+        for mod in ("norm1", "attn.qkv", "attn.proj", "norm2", "mlp.fc1",
+                    "mlp.fc2"):
+            names += [f"blocks.{i}.{mod}.weight", f"blocks.{i}.{mod}.bias"]
+    return names
+
+
+def antispoof_from_checkpoint(sd: Mapping, depth: int = 12, *,
+                              tolerant: bool = False) -> dict:
+    """The published fine-tune checkpoint (``vit.<timm>`` +
+    ``classifier.{0,2,5}``; JAX ``antispoof_from_torch`` :251) -> the
+    port's ``ViTAntiSpoof`` state dict; extra keys are ignored."""
+    out = _take(sd, _timm_backbone_names(depth), tolerant, "vit.", "vit.")
+    out.update(_take(sd, [f"classifier.{i}.{w}" for i in (0, 2, 5)
+                          for w in ("weight", "bias")], tolerant))
+    return out
+
+
+def vit_backbone_from_hf(sd: Mapping, prefix: str = "", depth: int = 12, *,
+                         tolerant: bool = False) -> dict:
+    """HF ``ViTModel`` state dict -> timm-named backbone tensors (JAX
+    :196).  HF's separate query/key/value Linears fuse into ``qkv`` by
+    concatenation along the output dim; the fused weight and bias fall
+    back to the module's init together when any of the six parts is
+    absent (a loaded q beside a random k would be inconsistent)."""
+    p = prefix
+    out = {
+        "patch_embed.proj.weight": _leaf(
+            sd, f"{p}embeddings.patch_embeddings.projection.weight", tolerant),
+        "patch_embed.proj.bias": _leaf(
+            sd, f"{p}embeddings.patch_embeddings.projection.bias", tolerant),
+        "cls_token": _leaf(sd, f"{p}embeddings.cls_token", tolerant),
+        "pos_embed": _leaf(sd, f"{p}embeddings.position_embeddings",
+                           tolerant),
+        "norm.weight": _leaf(sd, f"{p}layernorm.weight", tolerant),
+        "norm.bias": _leaf(sd, f"{p}layernorm.bias", tolerant),
+    }
+    renames = {"norm1": "layernorm_before",
+               "attn.proj": "attention.output.dense",
+               "norm2": "layernorm_after", "mlp.fc1": "intermediate.dense",
+               "mlp.fc2": "output.dense"}
+    for i in range(depth):
+        b, t = f"{p}encoder.layer.{i}", f"blocks.{i}"
+        for mine, theirs in renames.items():
+            for w in ("weight", "bias"):
+                out[f"{t}.{mine}.{w}"] = _leaf(sd, f"{b}.{theirs}.{w}",
+                                               tolerant)
+        for w in ("weight", "bias"):
+            parts = [_leaf(sd, f"{b}.attention.attention.{x}.{w}", tolerant)
+                     for x in ("query", "key", "value")]
+            out[f"{t}.attn.qkv.{w}"] = (
+                MISSING if any(x is MISSING for x in parts)
+                else torch.cat(parts, dim=0))
+        if (out[f"{t}.attn.qkv.weight"] is MISSING
+                or out[f"{t}.attn.qkv.bias"] is MISSING):
+            out[f"{t}.attn.qkv.weight"] = out[f"{t}.attn.qkv.bias"] = MISSING
+    return out
+
+
+def vit_linear_from_hf(sd: Mapping, depth: int = 12, *,
+                       tolerant: bool = False) -> dict:
+    """HF ``ViTForImageClassification`` -> the port's ``ViTLinearHead``
+    state dict (``vit.*`` + ``classifier``; JAX :270)."""
+    out = {f"vit.{k}": v for k, v in vit_backbone_from_hf(
+        sd, "vit.", depth, tolerant=tolerant).items()}
+    out.update(_take(sd, ["classifier.weight", "classifier.bias"], tolerant))
+    return out
+
+
+def resnet50_from_torchvision(sd: Mapping, stage_sizes=(3, 4, 6, 3), *,
+                              tolerant: bool = False) -> dict:
+    """torchvision ``resnet50`` state dict -> the port's ``ResNet50``
+    state dict (the same keys; JAX :280).  A missing
+    ``num_batches_tracked`` (not a weight) is 0."""
+    bn = ("weight", "bias", "running_mean", "running_var")
+    names = ["conv1.weight", "fc.weight", "fc.bias"] + [f"bn1.{w}"
+                                                        for w in bn]
+    for stage, n_blocks in enumerate(stage_sizes):
+        for block in range(n_blocks):
+            t = f"layer{stage + 1}.{block}"
+            for j in (1, 2, 3):
+                names += [f"{t}.conv{j}.weight"] + [f"{t}.bn{j}.{w}"
+                                                    for w in bn]
+            if block == 0:
+                names += [f"{t}.downsample.0.weight"] + [
+                    f"{t}.downsample.1.{w}" for w in bn]
+    out = _take(sd, names, tolerant)
+    for n in names:
+        if n.endswith("running_var"):
+            key = n[:-len("running_var")] + "num_batches_tracked"
+            out[key] = _tensor(sd[key]) if key in sd else torch.tensor(0)
+    return out
+
+
+def convert_partial(converter: Callable, sd: Mapping,
+                    module: torch.nn.Module, **kwargs):
+    """Run ``converter`` with ``load_state_dict(strict=False)`` semantics
+    (JAX :94): tensors present in ``sd`` are converted, the rest keep the
+    module's own values, unexpected keys are ignored.  Raises
+    ``KeyError`` when nothing matched (the wrong checkpoint format, not a
+    partial load).  Returns ``(state_dict, missing_keys)``; the missing
+    keys are logged."""
+    converted = converter(sd, tolerant=True, **kwargs)
+    if converted and all(v is MISSING for v in converted.values()):
+        raise KeyError(
+            f"state dict matched none of the {len(converted)} expected "
+            "tensors — wrong checkpoint format for this converter")
+    own = module.state_dict()
+    missing = [k for k, v in converted.items() if v is MISSING]
+    merged = {k: own[k] if v is MISSING else v for k, v in converted.items()}
+    if missing:
+        log.warning("partial weight load: %d/%d tensors missing from state "
+                    "dict kept their init values: %s", len(missing),
+                    len(converted), ", ".join(missing[:8])
+                    + ("..." if len(missing) > 8 else ""))
+    return merged, missing

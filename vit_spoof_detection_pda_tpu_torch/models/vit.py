@@ -1,78 +1,142 @@
-"""ViT-B/16 backbone + anti-spoofing head as ``nn.Module``s (counterpart
-of the JAX package's ``models/vit.py``).
+"""ViT-B/16 backbone + anti-spoofing head, and the linear-head ablation,
+as ``nn.Module``s (counterpart of the JAX package's ``models/vit.py``).
 
 The modules carry the published checkpoint's key set: ``vit.<timm
 names>`` (``patch_embed.proj`` as a 16x16/stride-16 conv, fused
 ``blocks.i.attn.qkv``) plus the head as ``classifier.{0,2,5}``
 (LayerNorm, Linear(768, 512), Linear(512, 2) of an ``nn.Sequential``).
 A state dict from the JAX exporter (``models/convert.py``) therefore
-loads with ``strict=True``.
+loads with ``strict=True``.  :class:`ViTLinearHead` is ``vit.*`` plus a
+bare ``classifier`` Linear.
 
-This is the port's plain whole-model reference: dense attention with an
-f32 softmax, and ``torch.nn.functional`` everywhere.  The serving path
-(``models/fastserve.py``) runs the same function on the hand-written
-kernels over weights from :func:`fold_normalization`.
+``dtype`` is flax's compute policy: the parameters stay f32 and are
+cast to ``dtype`` where they are used.  A Linear rounds its product to
+``dtype`` and then adds the bias in ``dtype``; a LayerNorm takes its
+statistics in f32 and writes ``dtype``; the softmax is f32; the GELU
+rounds where XLA's does; the features reach the head in f32,
+and the head's last Linear computes in f32.  The patch embed is the
+conv's weights as one GEMM over :func:`patchify`'s rows, as in JAX.
+
+The attention core goes through ``ops/attention.py::
+dispatch_attention_qkv``: kernel 8 (``csrc/attention_qkv.cu``) on a CUDA
+tensor, its plain version on a CPU one.  The dense einsum path remains
+only for ``capture=True``, the attention-map tap.  The serving path
+(``models/fastserve.py``) runs the same function on the block kernels
+over weights from :func:`fold_normalization`.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from ..ops.gelu import GELU
+from ..ops import attention as att
+from ..ops.gelu import _SQRT_2_OVER_PI, _SQRT_HALF, GELU, gelu
 from ..ops.image import IMAGENET_MEAN, IMAGENET_STD
 
 
-class Attention(nn.Module):
-    """Multi-head self-attention with a fused QKV projection (dense
-    path: f32 logits and softmax, weights cast back to the input dtype
-    before ``@ v``)."""
+def _dense(x, weight, bias, dtype) -> torch.Tensor:
+    """flax ``nn.Dense(dtype=dtype)`` over a torch ``[out, in]`` weight:
+    the product rounded to ``dtype``, then the bias added in ``dtype``."""
+    return F.linear(x.to(dtype), weight.to(dtype)) + bias.to(dtype)
 
-    def __init__(self, dim: int, num_heads: int):
+
+def _linear(x, layer: nn.Linear, dtype) -> torch.Tensor:
+    return _dense(x, layer.weight, layer.bias, dtype)
+
+
+def _layer_norm(x, layer: nn.LayerNorm, dtype) -> torch.Tensor:
+    """flax ``nn.LayerNorm(dtype=dtype)``: f32 statistics and affine, the
+    output in ``dtype``."""
+    return F.layer_norm(x.float(), layer.normalized_shape,
+                        layer.weight.float(), layer.bias.float(),
+                        layer.eps).to(dtype)
+
+
+def _gelu(x: torch.Tensor, approximate: bool) -> torch.Tensor:
+    """``jax.nn.gelu`` in ``x.dtype`` with XLA's rounding points: f32 as
+    ``ops/gelu.py`` writes it; below f32 the constants rounded to the
+    dtype, the tanh form op by op, and the exact form's ``erfc`` taken in
+    f32 of the unrounded ``-x * sqrt(1/2)``, rounded, then multiplied by
+    ``0.5 x``."""
+    if x.dtype == torch.float32:
+        return gelu(x, approximate)
+    dt = x.dtype
+
+    def c(v):
+        return float(torch.tensor(v).to(dt))
+
+    if approximate:
+        inner = c(_SQRT_2_OVER_PI) * (x + c(0.044715) * x ** 3)
+        return x * (0.5 * (1.0 + torch.tanh(inner)))
+    return (0.5 * x) * torch.erfc(-x.float() * c(_SQRT_HALF)).to(dt)
+
+
+class Attention(nn.Module):
+    """Multi-head self-attention with a fused QKV projection; the core
+    goes through ``dispatch_attention_qkv``.  ``capture=True`` takes the
+    dense einsum path instead and keeps the f32 softmax ``[B, H, T, T]``
+    in :attr:`attn_probs` (the JAX ``sow`` of the attention-map tap)."""
+
+    def __init__(self, dim: int, num_heads: int, dtype=torch.float32,
+                 capture: bool = False):
         super().__init__()
         if dim % num_heads:
             raise ValueError(f"embed dim {dim} is not divisible by "
                              f"num_heads={num_heads}")
-        self.num_heads = num_heads
+        self.num_heads, self.dtype, self.capture = num_heads, dtype, capture
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
+        self.attn_probs = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, t, d = x.shape
-        dh = d // self.num_heads
-        q, k, v = self.qkv(x).view(b, t, 3, self.num_heads, dh).unbind(2)
-        logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
-        weights = torch.softmax(logits * dh ** -0.5, dim=-1).to(x.dtype)
-        out = torch.einsum("bhqk,bkhd->bqhd", weights, v)
-        return self.proj(out.reshape(b, t, d))
+        qkv = _linear(x, self.qkv, self.dtype)                  # [B, T, 3D]
+        if self.capture:
+            dh = d // self.num_heads
+            q, k, v = qkv.view(b, t, 3, self.num_heads, dh).unbind(2)
+            logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+            weights = torch.softmax(logits * dh ** -0.5, dim=-1)
+            self.attn_probs = weights
+            out = torch.einsum("bhqk,bkhd->bqhd", weights.to(self.dtype), v)
+            out = out.reshape(b, t, d)
+        else:
+            out = att.dispatch_attention_qkv(qkv, self.num_heads)
+        return _linear(out, self.proj, self.dtype)
 
 
 class MlpBlock(nn.Module):
-    def __init__(self, dim: int, hidden_dim: int, gelu: str = "erf"):
+    def __init__(self, dim: int, hidden_dim: int, gelu: str = "erf",
+                 dtype=torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.fc1 = nn.Linear(dim, hidden_dim)
         self.act = GELU(approximate=gelu == "tanh")
         self.fc2 = nn.Linear(hidden_dim, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(self.act(self.fc1(x)))
+        h = _gelu(_linear(x, self.fc1, self.dtype), self.act.approximate)
+        return _linear(h, self.fc2, self.dtype)
 
 
 class EncoderBlock(nn.Module):
     """Pre-LN transformer block (timm ViT layout)."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
-                 norm_eps: float = 1e-6, gelu: str = "erf"):
+                 norm_eps: float = 1e-6, gelu: str = "erf",
+                 dtype=torch.float32, capture_attention: bool = False):
         super().__init__()
+        self.dtype = dtype
         self.norm1 = nn.LayerNorm(dim, eps=norm_eps)
-        self.attn = Attention(dim, num_heads)
+        self.attn = Attention(dim, num_heads, dtype, capture_attention)
         self.norm2 = nn.LayerNorm(dim, eps=norm_eps)
-        self.mlp = MlpBlock(dim, int(dim * mlp_ratio), gelu)
+        self.mlp = MlpBlock(dim, int(dim * mlp_ratio), gelu, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.norm1(x))
-        return x + self.mlp(self.norm2(x))
+        x = x + self.attn(_layer_norm(x, self.norm1, self.dtype))
+        return x + self.mlp(_layer_norm(x, self.norm2, self.dtype))
 
 
 def patchify(x: torch.Tensor, *, patch_size: int, dtype) -> torch.Tensor:
@@ -87,58 +151,80 @@ def patchify(x: torch.Tensor, *, patch_size: int, dtype) -> torch.Tensor:
 
 
 class PatchEmbed(nn.Module):
-    """timm's ``patch_embed``: a stride-p conv over NHWC input, flattened
-    to ``[B, gh*gw, D]`` tokens."""
+    """timm's ``patch_embed``: a stride-p conv, computed as the JAX
+    package computes it, one GEMM over :func:`patchify`'s rows ->
+    ``[B, gh*gw, D]`` tokens in ``dtype``."""
 
     def __init__(self, patch_size: int, in_chans: int, embed_dim: int):
         super().__init__()
         self.proj = nn.Conv2d(in_chans, embed_dim, patch_size,
                               stride=patch_size)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.proj(x.permute(0, 3, 1, 2))
-        return y.flatten(2).transpose(1, 2)
+    def forward(self, x: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+        w = self.proj.weight                                   # [D, C, p, p]
+        rows = patchify(x, patch_size=w.shape[-1], dtype=dtype)
+        return _dense(rows, w.permute(0, 2, 3, 1).reshape(w.shape[0], -1),
+                      self.proj.bias, dtype)
 
 
 class ViT(nn.Module):
-    """ViT backbone returning pooled CLS features after the final
-    LayerNorm (timm ``num_classes=0``)."""
+    """ViT backbone returning pooled features after the final LayerNorm
+    (timm ``num_classes=0``), in ``dtype``: the CLS token
+    (``pool="token"``) or the mean of the patch tokens (``"mean"``)."""
 
     def __init__(self, patch_size: int = 16, embed_dim: int = 768,
                  depth: int = 12, num_heads: int = 12,
                  mlp_ratio: float = 4.0, norm_eps: float = 1e-6,
                  gelu: str = "erf", img_size: int = 224,
-                 in_chans: int = 3):
+                 in_chans: int = 3, pool: str = "token",
+                 dtype=torch.float32, capture_attention: bool = False):
         super().__init__()
+        if pool not in ("token", "mean"):
+            raise ValueError(f"pool must be 'token' or 'mean', got {pool!r}")
+        self.pool, self.dtype = pool, dtype
         n_tokens = (img_size // patch_size) ** 2 + 1
         self.patch_embed = PatchEmbed(patch_size, in_chans, embed_dim)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
         self.pos_embed = nn.Parameter(torch.zeros(1, n_tokens, embed_dim))
         self.blocks = nn.ModuleList(
-            EncoderBlock(embed_dim, num_heads, mlp_ratio, norm_eps, gelu)
+            EncoderBlock(embed_dim, num_heads, mlp_ratio, norm_eps, gelu,
+                         dtype, capture_attention)
             for _ in range(depth))
         self.norm = nn.LayerNorm(embed_dim, eps=norm_eps)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: ``[B, H, W, 3]`` float (already normalized) -> ``[B, D]``."""
-        x = self.patch_embed(x)
-        cls = self.cls_token.expand(x.shape[0], -1, -1)
-        x = torch.cat([cls, x], dim=1) + self.pos_embed
+        dt = self.dtype
+        x = self.patch_embed(x, dt)
+        cls = self.cls_token.to(dt).expand(x.shape[0], -1, -1)
+        x = torch.cat([cls, x], dim=1) + self.pos_embed.to(dt)
         for blk in self.blocks:
             x = blk(x)
-        return self.norm(x)[:, 0]
+        x = _layer_norm(x, self.norm, dt)
+        if self.pool == "token":
+            return x[:, 0]
+        return x[:, 1:].float().mean(1).to(dt)
 
 
 class AntiSpoofHead(nn.Sequential):
     """LayerNorm(eps 1e-5) -> Dropout -> Linear(D, hidden) -> exact GELU
     -> Dropout -> Linear(hidden, classes): indices 0..5, the reference's
-    ``classifier`` Sequential."""
+    ``classifier`` Sequential.  Computes in ``dtype`` but for the last
+    Linear, which is f32 (the JAX head's f32 logits)."""
 
     def __init__(self, dim: int = 768, hidden: int = 512,
-                 num_classes: int = 2, dropout: float = 0.1):
+                 num_classes: int = 2, dropout: float = 0.1,
+                 dtype=torch.float32):
         super().__init__(nn.LayerNorm(dim, eps=1e-5), nn.Dropout(dropout),
                          nn.Linear(dim, hidden), GELU(approximate=False),
                          nn.Dropout(dropout), nn.Linear(hidden, num_classes))
+        self.dtype = dtype
+
+    def forward(self, feats: torch.Tensor) -> torch.Tensor:
+        norm, drop1, fc1, _act, drop2, fc2 = self
+        x = drop1(_layer_norm(feats, norm, self.dtype))
+        x = _gelu(_linear(x, fc1, self.dtype), approximate=False)
+        return _linear(drop2(x), fc2, torch.float32)
 
 
 class ViTAntiSpoof(nn.Module):
@@ -149,23 +235,57 @@ class ViTAntiSpoof(nn.Module):
                  mlp_ratio: float = 4.0, hidden: int = 512,
                  num_classes: int = 2, dropout: float = 0.1,
                  norm_eps: float = 1e-6, gelu: str = "erf",
-                 img_size: int = 224):
+                 img_size: int = 224, dtype=torch.float32,
+                 pool: str = "token", capture_attention: bool = False):
         super().__init__()
         if gelu not in ("erf", "tanh"):
             raise ValueError(f"gelu must be 'erf' or 'tanh', got {gelu!r}")
         self.patch_size, self.embed_dim, self.depth = (patch_size,
                                                        embed_dim, depth)
         self.num_heads, self.norm_eps = num_heads, norm_eps
-        self.gelu, self.dropout = gelu, dropout
+        self.gelu, self.dropout, self.dtype = gelu, dropout, dtype
         self.vit = ViT(patch_size, embed_dim, depth, num_heads, mlp_ratio,
-                       norm_eps, gelu, img_size)
+                       norm_eps, gelu, img_size, pool=pool, dtype=dtype,
+                       capture_attention=capture_attention)
         self.classifier = AntiSpoofHead(embed_dim, hidden, num_classes,
-                                        dropout)
+                                        dropout, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: ``[B, H, W, 3]`` normalized float -> logits ``[B, classes]``
         (f32)."""
         return self.classifier(self.vit(x).float())
+
+
+class ViTLinearHead(nn.Module):
+    """ViT + a bare f32 linear head on CLS: the frozen "Base ViT"
+    ablation (HF ViTForImageClassification, LayerNorm eps 1e-12; JAX
+    ``models/vit.py:307``).  ViT-B/16 unless told otherwise."""
+
+    def __init__(self, num_classes: int = 2, dtype=torch.float32, *,
+                 patch_size: int = 16, embed_dim: int = 768,
+                 depth: int = 12, num_heads: int = 12,
+                 img_size: int = 224):
+        super().__init__()
+        self.patch_size, self.embed_dim, self.depth = (patch_size,
+                                                       embed_dim, depth)
+        self.num_heads, self.norm_eps, self.dtype = num_heads, 1e-12, dtype
+        self.vit = ViT(patch_size, embed_dim, depth, num_heads,
+                       norm_eps=1e-12, img_size=img_size, dtype=dtype)
+        self.classifier = nn.Linear(embed_dim, num_classes)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _linear(self.vit(x).float(), self.classifier, torch.float32)
+
+
+def module_apply(module: nn.Module):
+    """flax's ``module.apply`` for a port module: ``apply_fn(variables,
+    x)`` runs the module's forward on ``variables["params"]``, a state
+    dict under the module's own key names (``dict(module.
+    named_parameters())``), in eval mode."""
+    def apply_fn(variables, x):
+        module.eval()
+        return torch.func.functional_call(module, variables["params"], (x,))
+    return apply_fn
 
 
 def fold_normalization(variables, *, mean=None, std=None,

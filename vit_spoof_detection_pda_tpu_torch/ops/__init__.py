@@ -5,8 +5,9 @@
 `gelu.py`      — erf and tanh GELU, term by term as ``jax.nn.gelu``, and
                  the lean-backward GELU.
 `losses.py`    — focal loss, weighted and label-smoothed cross entropy.
-`attention.py` — the attention-block, MLP-block and attention-backward
-                 kernels' wrappers, their plain versions and launch counts.
+`attention.py` — the attention-block, MLP-block, attention-backward and
+                 fused-QKV attention kernels' wrappers, their plain
+                 versions and launch counts; ``dispatch_attention_qkv``.
 `ln_bwd.py`    — the LayerNorm/residual-backward kernel's wrapper.
 `lowlat.py`    — the whole-encoder kernels' wrappers and packs.
 `warp.py`      — the warp-pass kernel's wrapper and the tower's warps.

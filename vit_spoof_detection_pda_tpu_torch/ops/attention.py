@@ -27,6 +27,16 @@ Training adds two kernels:
   and the head outputs' cotangent.  Kernel: ``csrc/attention_qkv_bwd.cu``;
   replaces ``_attn_qkv_bwd_kernel`` (JAX ``ops/attention.py:199``).
 
+The module path (``models/vit.py::Attention``, eval and the Trainer's
+validation) adds one:
+
+- :func:`fused_attention_qkv`: ``softmax(Q K^T / sqrt(dh)) V`` per head
+  on the fused projection ``qkv [B, T, 3D]`` -> ``[B, T, D]``, in bf16
+  and in f32, differentiable (its backward is :func:`attention_qkv_bwd`
+  at bf16).  Kernel: ``csrc/attention_qkv.cu``; replaces
+  ``_attn_qkv_kernel`` (JAX ``ops/attention.py:119``).  The module
+  reaches it through :func:`dispatch_attention_qkv`.
+
 The block kernels are bound by the tensor cores on the H100, the
 backward by its bytes; the source notes in ``csrc/`` give the bounds and
 what the first design does about them.
@@ -56,6 +66,7 @@ _SIGNATURES = {
                               [_P] * 13 + [_I] * 5 + [_F, _F, _P]),
     "attention_qkv_bwd": ("vsd_attention_qkv_bwd",
                           [_P] * 3 + [_I] * 5 + [_F, _P]),
+    "attention_qkv": ("vsd_attention_qkv", [_P] * 2 + [_I] * 6 + [_F, _P]),
 }
 
 
@@ -345,6 +356,146 @@ def attention_qkv_bwd(qkv, g, num_heads: int, *, valid_len: int):
     _build.check(lib, "attention_qkv_bwd", err)
     LAUNCHES["attention_qkv_bwd"] += 1
     return dqkv
+
+
+# --------------------------------------------------------------------------
+# Attention core on the fused projection (the module path)
+# --------------------------------------------------------------------------
+
+# the f32 kernel's block: 8 warps, each on 4 query rows at a time
+_F32_WARPS, _F32_ROWS = 8, 4
+# module-path training on the card at f32 has no backward kernel yet
+_F32_BWD_TODO = (
+    "the f32 attention backward on the card has no kernel yet: module-path "
+    "training comes with slice 6 (ROADMAP Queue 1 item 9); train at bf16, "
+    "or through models/fasttrain.py")
+
+
+def fused_attention_qkv_plain(qkv, num_heads: int):
+    """Plain PyTorch version of kernel 8 (JAX ``_attn_qkv_kernel``): per
+    head f32 logits ``q k^T * dh^-0.5`` (exact f32 products of the input
+    values), the f32 softmax, the weights rounded to ``qkv.dtype`` before
+    ``@ v`` with f32 sums, and the output rounded once.  Every key is
+    real, so no column is masked: the TPU kernel's pad columns at -1e30
+    add exactly 0."""
+    b, t, d3 = qkv.shape
+    d = _check_head_geometry(d3, num_heads, fused=3)
+    dh = d // num_heads
+    cdt = qkv.dtype
+    with exact_f32_matmul():
+        q, k, v = qkv.reshape(b, t, 3, num_heads, dh).permute(2, 0, 3, 1, 4)
+        w = _softmax_weights(q, k, float(dh) ** -0.5, t)      # [B,H,T,T]
+        heads = _mm(w.to(cdt), v)                              # [B,H,T,dh]
+        return heads.permute(0, 2, 1, 3).reshape(b, t, d).to(cdt)
+
+
+def _attention_qkv_smem(t: int, dh: int, dtype) -> int:
+    """Shared memory of one block of ``csrc/attention_qkv.cu``: bf16, one
+    head's K and V rows padded to 16 (``attention_core.cuh``); f32, K and
+    V ``[T][dh + 4]`` plus each warp's 4 query rows and their ``[T][4]``
+    weights."""
+    if dtype == torch.bfloat16:
+        return 2 * _round_up(t, 16) * (dh + 8) * 2
+    return 4 * (2 * t * (dh + 4) + _F32_WARPS * _F32_ROWS * (dh + t))
+
+
+def _attention_qkv_kernel(qkv, num_heads: int):
+    """Launch kernel 8 on a CUDA ``qkv [B, T, 3D]``; raises on what it does
+    not take."""
+    b, t, d3 = qkv.shape
+    d = _check_head_geometry(d3, num_heads, fused=3)
+    dh = d // num_heads
+    if qkv.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"qkv is {qkv.dtype}; kernel 8 takes bfloat16 or "
+                        "float32")
+    # a head dim that is a multiple of 16 also keeps every qkv row (3D
+    # values) and head slice 16-byte aligned for the kernels' 16-byte
+    # loads, given a 16-byte aligned base (_require)
+    if dh % 16 or not 16 <= dh <= 128:
+        raise ValueError(f"kernel 8 takes a head dim that is a multiple of "
+                         f"16 from 16 to 128; got {dh}")
+    smem = _attention_qkv_smem(t, dh, qkv.dtype)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"T {t} at head dim {dh} needs {smem} bytes of "
+                         f"shared memory per block; the card has {_MAX_SMEM}")
+    if not 0 < b <= 65535 or num_heads > 65535 or t < 1:
+        raise ValueError(f"batch {b} / heads {num_heads} / T {t} outside "
+                         "the grid")
+    _require(qkv, "qkv", qkv.dtype, (b, t, d3), qkv.device)
+    lib, fn = _entry("attention_qkv")
+    out = torch.empty((b, t, d), dtype=qkv.dtype, device=qkv.device)
+    err = fn(qkv.data_ptr(), out.data_ptr(),
+             0 if qkv.dtype == torch.bfloat16 else 1, b, t, d, num_heads, t,
+             float(dh) ** -0.5, torch.cuda.current_stream(qkv.device).cuda_stream)
+    _build.check(lib, "attention_qkv", err)
+    LAUNCHES["attention_qkv"] += 1
+    return out
+
+
+def _attention_qkv_backward(qkv, g, num_heads: int):
+    """JAX ``_qkv_bwd``: ``dqkv`` of the attention core.  On the card
+    (bf16) the stream is zero-padded to a multiple of 8 rows for kernel 4
+    and sliced back; on the CPU its plain version runs unpadded."""
+    b, t, _ = qkv.shape
+    g = g.to(qkv.dtype).contiguous()
+    if qkv.device.type == "cpu":
+        return attention_qkv_bwd_plain(qkv, g, num_heads, valid_len=t)
+    if qkv.dtype == torch.float32:
+        raise NotImplementedError(_F32_BWD_TODO)
+    tp = _round_up(t, 8)
+    pad = (0, 0, 0, tp - t)
+    dqkv = attention_qkv_bwd(
+        torch.nn.functional.pad(qkv, pad).contiguous(),
+        torch.nn.functional.pad(g, pad).contiguous(), num_heads, valid_len=t)
+    return dqkv[:, :t]
+
+
+class _AttentionQKV(torch.autograd.Function):
+    """Kernel 8 forward, kernel 4 backward (the JAX ``custom_vjp``)."""
+
+    @staticmethod
+    def forward(ctx, qkv, num_heads):
+        ctx.num_heads = num_heads
+        ctx.save_for_backward(qkv)
+        if qkv.device.type == "cpu":
+            return fused_attention_qkv_plain(qkv, num_heads)
+        if qkv.device.type != "cuda":
+            raise ValueError(f"no kernel for device {qkv.device}")
+        return _attention_qkv_kernel(qkv, num_heads)
+
+    @staticmethod
+    def backward(ctx, g):
+        (qkv,) = ctx.saved_tensors
+        return _attention_qkv_backward(qkv, g, ctx.num_heads), None
+
+
+def fused_attention_qkv(qkv, num_heads: int):
+    """``qkv [B, T, 3D]`` (q | k | v, heads contiguous inside each) ->
+    the concatenated head outputs ``[B, T, D]`` in ``qkv.dtype``
+    (counterpart of the JAX ``fused_attention_qkv`` :194).
+
+    A CPU tensor runs :func:`fused_attention_qkv_plain`; a CUDA one runs
+    kernel 8 on bf16 or f32, any B and T, a head dim that is a multiple
+    of 16 from 16 to 128 and one head's K and V within shared memory (T
+    up to 333 at head dim 64 in f32).  Differentiable: the backward is
+    the attention-backward kernel at bf16 on the card and its plain
+    version on the CPU; at f32 on the card it raises."""
+    if not qkv.is_contiguous():
+        qkv = qkv.contiguous()
+    return _AttentionQKV.apply(qkv, num_heads)
+
+
+def dispatch_attention_qkv(qkv, num_heads: int, *, mesh=None):
+    """The attention core of ``models/vit.py::Attention`` (JAX
+    ``dispatch_attention_qkv`` :663, its single-device step): a CUDA
+    tensor goes to kernel 8, a CPU tensor to its plain version.  The
+    mesh, sequence-, head-parallel and ``manual_attention`` branches come
+    with slice 6; passing a mesh raises."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "attention under a device mesh (data, sequence or head "
+            "parallel) comes with slice 6 (ROADMAP Queue 1 item 9)")
+    return fused_attention_qkv(qkv, num_heads)
 
 
 # --------------------------------------------------------------------------
