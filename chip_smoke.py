@@ -44,20 +44,21 @@ runs these phases, each printing one JSON line and raising on failure:
             4's weights, where per-layer ulps compound: scores within
             phase 4's bounds, streams within them relative to the
             stream's max and mean magnitude.
-6. slice_small  make_serving_fn on phase 4's model at B = 1 (auto ->
-            lowlat, fold-ends) and B = 2, 4, 8, 16 (auto -> batch_grid),
-            64 images at each B: every forward launches kernel 10 exactly
+6. slice_small  make_serving_fn on phase 4's model at B = 1 (lowlat,
+            fold-ends) and B = 2, 4, 8, 16 (batch_grid, asked for by
+            mode=: the H100's regime table serves those sizes on
+            fastserve), 64 images at each B: every forward launches kernel 10 exactly
             once at B = 1, kernel 11 ceil(B/2) times otherwise, kernels
             1-2 never; the 64 scores held against the same regime with
             its kernel swapped for its plain version and against the f32
             module, within phase 4's bounds (the mean over the 64).
 7. http     the HTTP front over build_programs_live's default shapes (1,
-            2, 4, 8, 16) on 127.0.0.1: 64 distinct raw frames from 8
-            threads, then loadgen.run_load in raw mode, 200 requests at 1
-            client and 200 at 8; every answer within 1e-3 of the direct
-            make_serving_fn score of its frame at the dispatch size that
-            served it (at 1 client: B = 1).  Client p50/p99, img/s and
-            the server's batch fill.
+            2, 4, 8, 16; B = 1 lowlat, the rest fastserve) on 127.0.0.1:
+            64 distinct raw frames from 8 threads, then loadgen.run_load
+            in raw mode, 200 requests at 1 client and 200 at 8; every
+            answer within 1e-3 of the direct make_serving_fn score of its
+            frame at the dispatch size that served it (at 1 client:
+            B = 1).  Client p50/p99, img/s and the server's batch fill.
 8. train    one bf16 training step of a ViT-B/16 ViTAntiSpoof (erf GELU,
             random weights, normalized f32 images and labels from the
             seed) at B = 128 through models/fasttrain.py.  Step 0 with
@@ -138,6 +139,42 @@ runs these phases, each printing one JSON line and raising on failure:
             module forward and the scoring loop with the upload at B = 128;
             the f32 ViTLinearHead and ResNet50 forwards at B = 32; a
             profile of one bf16 module forward.
+16. kernels (again) the f32 forms of kernels 1/3, 4 and 6 against their
+            plain versions at ViT-B (B = 2, 3 and 32; Tp 200, valid_len
+            197) and a ragged shape, within F32_TOL (1e-5) of each
+            output's largest magnitude (f32 sum-order noise; the measured
+            relative error is printed beside it); kernel 7 (the training
+            MLP block) at bf16 within 2 bf16 ulps (its f32 inv within
+            F32_TOL) at the main path's 128 x 197 rows and ragged ones,
+            and at f32, erf and tanh GELU.
+17. train_modes step 0 of full ViT-B/16 at B = 128 bf16 in each mlp_vjp
+            mode (hidden, autodiff, xhat, fused), every gradient leaf
+            within 0.1 relative L2 of f32 autograd of the module (the key
+            third of each qkv bias left out: its gradient is rounding
+            noise) and exact launches ("fused": kernel 7 12 times and the
+            LN backward 24; "hidden": kernel 7 never); then at f32, B = 32,
+            on the f32 kernels ("hidden" and "fused") and on the module
+            path (kernel 8 forward, kernel 4's f32 form backward), each
+            leaf within F32_GRAD_REL_TOL (1e-3) of f32 autograd; and the
+            f32 training forward with grad off (kernel 1's f32 form).
+18. train_loop Trainer.fit over full ViT-B/16 at bf16 with dropout 0.1,
+            EMA 0.9 and the default mlp_vjp: 3 epochs of 4 steps at B = 32
+            on seeded faces whose class sets their brightness, validation
+            on 96 held-out faces, a checkpoint every epoch with best-2
+            retention in a temp dir: exact launches, the loss falls, the
+            41-point sweep is logged and its thresholds are grid points,
+            2 checkpoints kept, build_model(checkpoint_path=<dir>,
+            ema=True) loads the EMA shadow; a run preempted at epoch 1,
+            batch 2 through request_preemption() and resumed from its
+            checkpoint ends bit-equal (parameters and optimizer state) to
+            the uninterrupted run.
+19. times_train_loop  step ms of each MLP mode at B = 128 bf16 and of the
+            f32 step at B = 32 (with a profile); the Trainer's img/s over
+            an epoch with its validation; checkpoint saves, sync and
+            async; kernel 7 and the f32 kernels beside their plain
+            versions, bounds and the PyTorch call for the same function
+            where there is one (SDPA's backward for kernel 4, the LN
+            backward plus the add for kernel 6).
 
 Then it prints the kernel table as one JSON line, the card's name and
 power limit as nvidia-smi gives them, and last
@@ -195,7 +232,14 @@ from vit_spoof_detection_pda_tpu_torch.ops.losses import make_loss_fn
 from vit_spoof_detection_pda_tpu_torch.serve import (
     MicroBatcher, build_programs_live, make_server_from_programs, run_load)
 from vit_spoof_detection_pda_tpu_torch.serve.loadgen import sample_frame
-from vit_spoof_detection_pda_tpu_torch.train.driver import make_group_preps
+from vit_spoof_detection_pda_tpu_torch.config import Config
+from vit_spoof_detection_pda_tpu_torch.metrics.device import threshold_grid
+from vit_spoof_detection_pda_tpu_torch.train.driver import (make_group_preps,
+                                                            make_prep_fn)
+from vit_spoof_detection_pda_tpu_torch.train.trainer import (Trainer,
+                                                             module_tree_apply)
+from vit_spoof_detection_pda_tpu_torch.utils.checkpoint import (
+    CheckpointManager, load_checkpoint_bundle)
 from vit_spoof_detection_pda_tpu_torch.train.pool import DevicePoolData
 from vit_spoof_detection_pda_tpu_torch.train.schedule import make_lr_schedule
 from vit_spoof_detection_pda_tpu_torch.train.state import (
@@ -254,6 +298,24 @@ KERNELS = {
     "attention_qkv": dict(
         source="vit_spoof_detection_pda_tpu_torch/csrc/attention_qkv.cu",
         replaces="vit_spoof_detection_pda_tpu/ops/attention.py:119"),
+    "mlp_block_train": dict(
+        source="vit_spoof_detection_pda_tpu_torch/csrc/mlp_block_train.cu",
+        replaces="vit_spoof_detection_pda_tpu/models/fasttrain.py:508"),
+    "attention_block_f32": dict(
+        source="vit_spoof_detection_pda_tpu_torch/csrc/attention_block_f32.cu",
+        replaces="vit_spoof_detection_pda_tpu/ops/attention.py:412"),
+    "attention_block_train_f32": dict(
+        source="vit_spoof_detection_pda_tpu_torch/csrc/attention_block_f32.cu",
+        replaces="vit_spoof_detection_pda_tpu/models/fasttrain.py:70"),
+    "attention_qkv_bwd_f32": dict(
+        source="vit_spoof_detection_pda_tpu_torch/csrc/attention_qkv_bwd_f32.cu",
+        replaces="vit_spoof_detection_pda_tpu/ops/attention.py:199"),
+    "ln_res_bwd_f32": dict(
+        source="vit_spoof_detection_pda_tpu_torch/csrc/ln_res_bwd.cu",
+        replaces="vit_spoof_detection_pda_tpu/ops/ln_bwd.py:45"),
+    "mlp_block_train_f32": dict(
+        source="vit_spoof_detection_pda_tpu_torch/csrc/mlp_block_train.cu",
+        replaces="vit_spoof_detection_pda_tpu/models/fasttrain.py:508"),
 }
 SERVING_KERNELS = ("attention_block", "mlp_block")
 TRAIN_KERNELS = ("attention_block_train", "attention_qkv_bwd", "ln_res_bwd")
@@ -274,6 +336,14 @@ EVAL_TEST_N = 300                    # test verb: 3 forwards at B = 128, the
 EVAL_HARNESS_B, EVAL_HARNESS_N = 32, 72   # evaluate-all: 3 forwards a model
 QKV_F32_TOL = 1e-5                   # kernel 8 f32, of the largest output
 HARNESS_F32_TOL = 1e-4               # f32 harness scores vs plain f32
+# slice 6: the training loop
+F32_TOL = 1e-5                       # f32 kernels, of each output's largest
+                                     # magnitude (f32 sum-order noise)
+F32_B = 32                           # the f32 step's batch
+F32_GRAD_REL_TOL = 1e-3              # f32 step, per leaf relative L2 vs f32
+                                     # autograd (f32 noise, ~1e-5 expected)
+LOOP_B, LOOP_STEPS, LOOP_EPOCHS, LOOP_VAL = 32, 4, 3, 96
+LOOP_PREEMPT = (1, 2)                # (epoch, batch) of the preemption
 
 
 def emit(obj):
@@ -863,6 +933,13 @@ def phase_kernels_lowlat(dev, model):
     return main_err, progs
 
 
+def small_mode(b: int) -> str:
+    """The whole-encoder regime phase slice_small drives at B: lowlat at
+    B = 1, batch_grid (chosen explicitly: the H100's table serves B = 2-16
+    on fastserve) above."""
+    return "lowlat" if b == 1 else "batch_grid"
+
+
 def _small_launches_want(b: int) -> dict:
     want = {k: 0 for k in att.LAUNCHES}
     if b == 1:
@@ -879,7 +956,8 @@ def phase_slice_small(dev, model):
     launches of the run."""
     rng = np.random.default_rng(SEED + 5)
     u8 = rng.integers(0, 256, (SMALL_IMAGES, IMG, IMG, 3), dtype=np.uint8)
-    fns = {b: fastserve.make_serving_fn(model, batch_size=b)
+    fns = {b: fastserve.make_serving_fn(model, batch_size=b,
+                                        mode=small_mode(b))
            for b in SMALL_B}
 
     def run(fn, b):
@@ -913,7 +991,7 @@ def phase_slice_small(dev, model):
     out, ok = {}, not bad_forwards
     for b in SMALL_B:
         g, p = got[b], plain[b]
-        e = {"regime": fastserve.auto_serving_mode(b),
+        e = {"regime": small_mode(b),
              "forwards": SMALL_IMAGES // b,
              "launches_per_forward": {k: v for k, v in
                                       _small_launches_want(b).items() if v},
@@ -947,9 +1025,13 @@ def phase_slice_small(dev, model):
     return fns, launches
 
 
-def phase_http(model, fns):
-    """The HTTP front on the default shapes; returns its summary."""
+def phase_http(model):
+    """The HTTP front on the default shapes (the regimes of
+    fastserve.auto_serving_mode: B = 1 lowlat, 2-16 fastserve); returns
+    its summary."""
     rng = np.random.default_rng(SEED + 7)
+    fns = {b: fastserve.make_serving_fn(model, batch_size=b)
+           for b in SMALL_B}
     programs, img_size, metas = build_programs_live(model, img_size=IMG)
     server = make_server_from_programs(programs, img_size, metas,
                                        host="127.0.0.1", port=0,
@@ -1057,7 +1139,7 @@ def phase_train(dev):
         patch_size=PATCH, embed_dim=D, depth=DEPTH, num_heads=HEADS,
         hidden=HEAD_HIDDEN, img_size=IMG, gelu="erf", dropout=0.0), params)
     loss_fn = make_loss_fn("focal")
-    apply_fn = fasttrain.make_apply(model)               # bf16
+    apply_fn = fasttrain.make_apply(model, dtype=torch.bfloat16)
 
     def step0():
         """Loss and gradient leaves of the kernel path on fresh params."""
@@ -1114,7 +1196,8 @@ def phase_train(dev):
     tx = make_optimizer(make_lr_schedule(3e-4, 1000, warmup_steps=100,
                                          true_warmup=True))
     state = create_train_state(model, tx, SEED, variables=params,
-                               apply_fn=fasttrain.make_apply(model),
+                               apply_fn=fasttrain.make_apply(
+                                   model, dtype=torch.bfloat16),
                                device=dev)
     step = make_train_step(loss_fn)
     batch = {"image": images, "label": labels}
@@ -1385,7 +1468,7 @@ def phase_times_small(dev, model, progs, fns, main_err, launches) -> list:
     for b in SMALL_B:
         ms = time_ms(lambda b=b: fns[b](u8[:b]))
         fast_ms = time_ms(lambda b=b: fast(u8[:b]))
-        e2e[str(b)] = {"regime": fastserve.auto_serving_mode(b), "ms": ms,
+        e2e[str(b)] = {"regime": small_mode(b), "ms": ms,
                        "ms_per_img": ms / b, "fastserve_ms": fast_ms,
                        "fastserve_ms_per_img": fast_ms / b}
     profile = profile_step(lambda: fns[1](u8[:1]))
@@ -1671,7 +1754,8 @@ def phase_slice_aug(dev):
 
     def fresh_state():
         return create_train_state(model, tx, SEED, variables=params,
-                                  apply_fn=fasttrain.make_apply(model),
+                                  apply_fn=fasttrain.make_apply(
+                                      model, dtype=torch.bfloat16),
                                   device=dev)
 
     state = fresh_state()
@@ -2193,6 +2277,606 @@ def phase_times_eval(dev, ctx, main_err, launches) -> list:
     return [row]
 
 
+# --------------------------------------------------------------------------
+# slice 6: the training loop (kernel 7; f32 forms of kernels 1/3, 4, 6)
+# --------------------------------------------------------------------------
+
+
+def _f32(d: dict) -> dict:
+    return {k: v.float() if v.dtype == torch.bfloat16 else v
+            for k, v in d.items()}
+
+
+def _check_parts(label, name, parts, shape, tol_of, extra=None):
+    """Emit one kernels line for ``parts`` = [(part, got, want)]; raise if
+    any part is off its tolerance.  Returns the largest error."""
+    errs, ok = {}, True
+    for part, g, w in parts:
+        tol = tol_of(w)                    # by the output's own dtype
+        g, w = g.float(), w.float()
+        err = (g - w).abs().max().item()
+        amax = w.abs().max().item()
+        errs[part] = {"max_abs_err": err, "tol": tol, "max_abs_out": amax,
+                      "rel_err": err / amax if amax else 0.0,
+                      "bit_equal": (g == w).float().mean().item()}
+        ok = ok and bool(torch.isfinite(g).all()) and err <= tol
+    ok = ok and (extra is None or all(extra.values()))
+    emit({"phase": "kernels", "case": label, "kernel": name, "shape": shape,
+          "parts": errs, **(extra or {}), "ok": ok})
+    if not ok:
+        raise AssertionError(f"{name} disagrees with its plain version on "
+                             f"{label}: {errs} {extra or ''}")
+    return max(e["max_abs_err"] for e in errs.values())
+
+
+def _f32_tol(w):
+    return F32_TOL * w.abs().max().item()
+
+
+def phase_kernels_train(dev) -> dict:
+    """The f32 forms of kernels 1/3, 4 and 6 against their plain versions
+    at ViT-B (B = 2, 3 and the f32 step's 32; Tp 200, valid_len 197) and
+    a ragged shape, within F32_TOL of each output's largest magnitude;
+    kernel 7 at bf16 (2 bf16 ulps; f32 inv within F32_TOL) and f32, erf
+    and tanh, at the main path's rows (B = 128 x 197) and ragged ones.
+    Returns the main path's errors."""
+    rng = np.random.default_rng(SEED + 30)
+    main_err = {}
+    cases = [("vit_b_b2", 2, TP, T, D, HEADS), ("vit_b_b3", 3, TP, T, D, HEADS),
+             ("main_path_b32", F32_B, TP, T, D, HEADS),
+             ("ragged", 2, 40, 33, 64, 4)]
+    for label, b, tp, valid, d, heads in cases:
+        a_in = _f32(block_inputs(rng, b, tp, d, 4 * d, dev)[0])
+        bwd, ln = (_f32(x) for x in train_inputs(rng, b, tp, valid, d, dev))
+        kw = dict(num_heads=heads, valid_len=valid)
+        got = att.attention_block_train_padded(**a_in, **kw)
+        want = att.attention_block_train_padded_plain(**a_in, **kw)
+        serve = att.fused_attention_block_padded(**a_in, **kw)
+        torch.cuda.synchronize()
+        errs = {"attention_block_train_f32": _check_parts(
+            label, "attention_block_train_f32",
+            list(zip(("out", "qkv", "attn", "xhat", "inv"), got, want)),
+            list(a_in["xp"].shape), _f32_tol),
+            "attention_block_f32": _check_parts(
+            label, "attention_block_f32", [("out", serve, want[0])],
+            list(a_in["xp"].shape), _f32_tol)}
+        del got, want, serve
+        got = att.attention_qkv_bwd(**bwd, **kw)
+        want = att.attention_qkv_bwd_plain(**bwd, **kw)
+        torch.cuda.synchronize()
+        errs["attention_qkv_bwd_f32"] = _check_parts(
+            label, "attention_qkv_bwd_f32",
+            [(part, got[..., i * d:(i + 1) * d], want[..., i * d:(i + 1) * d])
+             for i, part in enumerate(("dq", "dk", "dv"))],
+            list(bwd["qkv"].shape), _f32_tol)
+        del got, want
+        got = ln_bwd.ln_residual_bwd(**ln)
+        again = ln_bwd.ln_residual_bwd(**ln)
+        want = ln_bwd.ln_residual_bwd_plain(**ln)
+        torch.cuda.synchronize()
+        repeat = all(torch.equal(u, v) for u, v in zip(got, again))
+        errs["ln_res_bwd_f32"] = _check_parts(
+            label, "ln_res_bwd_f32", list(zip(("dx", "dscale", "dbias"),
+                                              got, want)),
+            list(ln["xh"].shape), _f32_tol,
+            {"bit_equal_across_runs": repeat})
+        if label.startswith("main_path"):
+            main_err.update(errs)
+        del a_in, bwd, ln, got, again, want
+
+    k7 = [("main_path_b128", torch.bfloat16, MAIN_B * T, D, HIDDEN, False),
+          ("vit_b_b128", torch.bfloat16, MAIN_B * T, D, HIDDEN, True),
+          ("main_path_b32", torch.float32, F32_B * T, D, HIDDEN, False),
+          ("vit_b_b2", torch.float32, 2 * T, D, HIDDEN, True),
+          ("ragged", torch.bfloat16, 3 * 33, 64, 256, False),
+          ("ragged", torch.float32, 3 * 33, 64, 256, True)]
+    for label, dt, rows, d, hidden, approx in k7:
+        m_in = block_inputs(rng, 1, rows, d, hidden, dev)[1]
+        m_in["x"] = m_in["x"][0]
+        if dt == torch.float32:
+            m_in = _f32(m_in)
+        got = att.mlp_block_train(**m_in, approximate=approx)
+        want = att.mlp_block_train_plain(**m_in, approximate=approx)
+        torch.cuda.synchronize()
+        name = "mlp_block_train" + ("_f32" if dt == torch.float32 else "")
+        err = _check_parts(
+            f"{label}_{'tanh' if approx else 'erf'}", name,
+            list(zip(("y", "xhat", "inv", "h"), got, want)), [rows, d],
+            lambda w: (bf16_tol(w) if w.dtype == torch.bfloat16
+                       else _f32_tol(w)))
+        if label.startswith("main_path") and not approx:
+            main_err[name] = err
+        del m_in, got, want
+    return main_err
+
+
+def _module_f32_grads(model, images, labels, loss_fn, dev):
+    """Loss and ``{path: gradient}`` of f32 autograd through the port's
+    module with the attention core on its plain version (TF32 off)."""
+    with exact_f32_matmul(), plain_attention_qkv():
+        model.to(dev).eval()
+        loss = loss_fn(model(images), labels)
+        loss.backward()
+        ref = antispoof_from_torch({k: p.grad for k, p in
+                                    model.named_parameters()})["params"]
+        model.zero_grad(set_to_none=True)
+        model.cpu()
+    leaves, paths = tree_flatten(ref)
+    return loss.item(), {p: torch.from_numpy(np.asarray(r)).to(dev)
+                         for p, r in zip(paths, leaves)}
+
+
+def _leaf_gaps(grads, ref) -> dict:
+    """Per leaf relative L2 of ``grads`` against ``ref``, the key third of
+    each qkv bias left out (its gradient is zero in exact arithmetic, so
+    both sides hold rounding noise there; tests/test_torch_train_step.py)."""
+    gaps = {}
+    for path, r in ref.items():
+        g = grads[path]
+        if path[-2:] == ("qkv", "bias"):
+            d = r.shape[0] // 3
+            keep = torch.ones(r.shape[0], dtype=torch.bool, device=r.device)
+            keep[d:2 * d] = False
+            g, r = g[keep], r[keep]
+        gaps["/".join(path)] = _rel_l2(g, r)
+    return gaps
+
+
+def _want(**counts) -> dict:
+    out = {k: 0 for k in att.LAUNCHES}
+    out.update(counts)
+    return out
+
+
+def phase_train_modes(dev):
+    """Step 0 of full ViT-B/16 at B = 128 bf16 in each mlp_vjp mode, every
+    gradient leaf within GRAD_REL_TOL of f32 autograd and exact launches;
+    then at f32, B = 32, on the f32 kernels ("hidden" and "fused") within
+    F32_GRAD_REL_TOL; the f32 training forward under no-grad (kernel 1's
+    f32 form); one module-path f32 step (kernel 8 and kernel 4's f32
+    form).  Returns the launches of each run and what times needs."""
+    rng = np.random.default_rng(SEED + 31)
+    params = random_params(rng)
+    u8 = rng.integers(0, 256, (MAIN_B, IMG, IMG, 3), dtype=np.uint8)
+    images = normalize(to_float(torch.from_numpy(u8).to(dev)))
+    labels = torch.from_numpy(rng.integers(0, 2, MAIN_B)).to(dev)
+    model = load_jax_params(ViTAntiSpoof(
+        patch_size=PATCH, embed_dim=D, depth=DEPTH, num_heads=HEADS,
+        hidden=HEAD_HIDDEN, img_size=IMG, gelu="erf", dropout=0.0), params)
+    loss_fn = make_loss_fn("focal")
+    loss_ref, ref = _module_f32_grads(model, images, labels, loss_fn, dev)
+
+    def step0(apply_fn, imgs, lbls):
+        """Loss, gradients and launches of one forward and backward on
+        fresh parameters: the counts from 0 just before, read after."""
+        state = create_train_state(model, make_optimizer(3e-4), SEED,
+                                   variables=params, apply_fn=apply_fn,
+                                   device=dev)
+        leaves, paths = tree_flatten(state.params)
+        reset_launches()
+        loss = loss_fn(apply_fn({"params": state.params}, imgs, train=True),
+                       lbls)
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        return loss.item(), dict(zip(paths, grads)), dict(att.LAUNCHES)
+
+    train3 = dict(attention_block_train=DEPTH, attention_qkv_bwd=DEPTH)
+    want = {"hidden": _want(**train3, ln_res_bwd=2 * DEPTH),
+            "autodiff": _want(**train3, ln_res_bwd=DEPTH),
+            "xhat": _want(**train3, ln_res_bwd=DEPTH),
+            "fused": _want(**train3, ln_res_bwd=2 * DEPTH,
+                           mlp_block_train=DEPTH)}
+    launches, out, ok = {}, {}, True
+    for mode in fasttrain.MLP_MODES:
+        loss, grads, counts = step0(fasttrain.make_apply(
+            model, dtype=torch.bfloat16, mlp_mode=mode), images, labels)
+        gaps = _leaf_gaps(grads, ref)
+        del grads
+        worst = max(gaps, key=gaps.get)
+        good = (counts == want[mode] and math.isfinite(loss)
+                and gaps[worst] <= GRAD_REL_TOL)
+        ok = ok and good
+        launches[mode] = counts
+        out[mode] = {"loss": loss, "loss_f32": loss_ref,
+                     "max_leaf_rel_l2_vs_f32": gaps[worst],
+                     "worst_leaf": worst,
+                     "launches": {k: v for k, v in counts.items() if v},
+                     "ok": good}
+    emit({"phase": "train_modes", "part": "bf16_b128", "tol": GRAD_REL_TOL,
+          "modes": out, "ok": ok})
+    if not ok:
+        raise AssertionError(f"train modes at bf16: {out}")
+
+    imgs, lbls = images[:F32_B], labels[:F32_B]
+    loss_ref32, ref32 = _module_f32_grads(model, imgs, lbls, loss_fn, dev)
+    f3 = dict(attention_block_train_f32=DEPTH, attention_qkv_bwd_f32=DEPTH,
+              ln_res_bwd_f32=2 * DEPTH)
+    runs = {
+        "fasttrain_hidden": (fasttrain.make_apply(model, dtype=torch.float32),
+                             _want(**f3)),
+        "fasttrain_fused": (fasttrain.make_apply(
+            model, dtype=torch.float32, mlp_mode="fused"),
+            _want(**f3, mlp_block_train_f32=DEPTH)),
+        # the module path (fused_train_forward=False): kernel 8 forward,
+        # kernel 4's f32 form backward
+        "module_path": (module_tree_apply(model),
+                        _want(attention_qkv=DEPTH,
+                              attention_qkv_bwd_f32=DEPTH)),
+    }
+    out, ok = {}, True
+    for run, (apply_fn, want_run) in runs.items():
+        loss, grads, counts = step0(apply_fn, imgs, lbls)
+        gaps = _leaf_gaps(grads, ref32)
+        del grads
+        worst = max(gaps, key=gaps.get)
+        good = (counts == want_run and math.isfinite(loss)
+                and gaps[worst] <= F32_GRAD_REL_TOL)
+        ok = ok and good
+        launches[f"f32_{run}"] = counts
+        out[run] = {"loss": loss, "loss_f32": loss_ref32,
+                    "loss_gap": abs(loss - loss_ref32),
+                    "max_leaf_rel_l2_vs_f32": gaps[worst],
+                    "median_leaf_rel_l2_vs_f32": statistics.median(
+                        gaps.values()),
+                    "worst_leaf": worst,
+                    "launches": {k: v for k, v in counts.items() if v},
+                    "ok": good}
+    # the f32 training forward with grad off: kernel 1's f32 form
+    p32 = tree_map_tensor(params, dev)
+    reset_launches()
+    with torch.no_grad():
+        logits = fasttrain.make_apply(model, dtype=torch.float32)(p32, imgs)
+    torch.cuda.synchronize()
+    counts = dict(att.LAUNCHES)
+    launches["f32_eval"] = counts
+    with torch.no_grad(), exact_f32_matmul(), plain_attention_qkv():
+        want_logits = model.to(dev)(imgs)
+        model.cpu()
+    err = (logits - want_logits).abs().max().item()
+    good = (counts == _want(attention_block_f32=DEPTH)
+            and err <= 1e-3 * want_logits.abs().max().item())
+    ok = ok and good
+    out["fasttrain_eval_no_grad"] = {
+        "launches": {k: v for k, v in counts.items() if v},
+        "logits_max_abs_err_vs_f32_module": err, "ok": good}
+    emit({"phase": "train_modes", "part": "f32_b32", "batch": F32_B,
+          "tol": F32_GRAD_REL_TOL, "runs": out, "ok": ok})
+    if not ok:
+        raise AssertionError(f"f32 training: {out}")
+    return {"model": model, "params": params, "images": images,
+            "labels": labels, "loss_fn": loss_fn}, launches
+
+
+def tree_map_tensor(tree, dev):
+    if isinstance(tree, dict):
+        return {k: tree_map_tensor(v, dev) for k, v in tree.items()}
+    return torch.from_numpy(np.asarray(tree)).to(dev)
+
+
+class _Record:
+    """The MetricLogger interface, recording every record."""
+
+    def __init__(self):
+        self.records = []
+
+    def log(self, record, step=None):
+        self.records.append(dict(record))
+
+
+def loop_faces(n: int, salt: int):
+    """``n`` seeded uint8 faces and their labels.  A face is noise 0-95
+    over a brightness drawn from N(64 + 40 * label, 20): the classes
+    overlap (the best brightness rule errs on ~16% of faces), so the loss
+    stays well above zero through the run and every step's gradients move
+    the weights, which is what gives the resume's bit-equality its
+    power."""
+    rng = np.random.default_rng([SEED, salt])
+    labels = rng.integers(0, 2, n).astype(np.int32)
+    level = np.clip(rng.normal(64.0 + 40.0 * labels, 20.0), 0, 159)
+    u8 = rng.integers(0, 96, (n, IMG, IMG, 3), dtype=np.uint8)
+    u8 += level.astype(np.uint8)[:, None, None, None]
+    return u8, labels
+
+
+def phase_train_loop(dev, tmp: Path):
+    """Trainer.fit over full ViT-B/16 at bf16, dropout 0.1, the default
+    mlp_vjp, EMA 0.9: LOOP_EPOCHS epochs of LOOP_STEPS steps at B =
+    LOOP_B on seeded faces, validation on LOOP_VAL held-out faces, best-k
+    checkpoints (max_to_keep 2, a save every epoch) in a temp dir.  Then
+    a run preempted at LOOP_PREEMPT through request_preemption() and
+    resumed from its checkpoint must end bit-equal to the uninterrupted
+    run, and build_model(checkpoint_path=<dir>, ema=True) must load the
+    EMA shadow.  Two resumes with a planted fault are the check's
+    controls and must NOT end bit-equal: one with the dropout seed off by
+    one (the masks of an unseeded generator), one fed the epoch's batches
+    one position early (a wrong data position).  Host decoding is
+    bypassed (seeded faces: no PIL)."""
+    params = random_params(np.random.default_rng(SEED + 32))
+    u8, y = loop_faces(LOOP_B * LOOP_STEPS, 1)
+    vu8, vy = loop_faces(LOOP_VAL, 2)
+    cfg = Config().with_overrides({
+        "seed": SEED, "data.img_size": IMG, "model.dropout": 0.1,
+        "model.compute_dtype": "bfloat16", "optim.num_epochs": LOOP_EPOCHS,
+        "optim.learning_rate": 1e-4, "optim.warmup_epochs": 0,
+        "optim.ema_decay": 0.9, "checkpoint.max_to_keep": 2,
+        "checkpoint.save_every_epochs": 1, "telemetry.log_interval": 2})
+
+    def feeds(preempt=None, shift=0):
+        def train_batches(epoch, skip=0):
+            idx = np.random.default_rng([SEED, epoch]).permutation(len(y))
+            for bi in range(skip, LOOP_STEPS):
+                if preempt is not None and (epoch, bi) == LOOP_PREEMPT:
+                    preempt[0].request_preemption()
+                at = bi - shift if skip else bi     # the resumed epoch only
+                j = idx[at * LOOP_B:(at + 1) * LOOP_B]
+                yield {"image": u8[j], "label": y[j]}
+
+        def val_batches():
+            for i in range(0, LOOP_VAL, LOOP_B):
+                x = torch.from_numpy(vu8[i:i + LOOP_B]).to(dev)
+                yield {"image": normalize(to_float(x)),
+                       "label": vy[i:i + LOOP_B]}
+
+        return train_batches, val_batches
+
+    def trainer(ckpt_dir=None, preempt=None, logger=None, shift=0):
+        module = ViTAntiSpoof(patch_size=PATCH, embed_dim=D, depth=DEPTH,
+                              num_heads=HEADS, hidden=HEAD_HIDDEN,
+                              img_size=IMG, gelu="erf", dropout=0.1,
+                              dtype=torch.bfloat16)
+        tb, vb = feeds(preempt, shift)
+        return Trainer(
+            cfg, module, train_batches=tb, val_batches=vb,
+            steps_per_epoch=LOOP_STEPS, variables=params, device=dev,
+            logger=logger or _Record(), batch_prep=make_prep_fn([]),
+            checkpoints=(CheckpointManager(str(ckpt_dir), max_to_keep=2)
+                         if ckpt_dir else None))
+
+    # the main path: counts from 0 just before fit, read just after
+    rec = _Record()
+    full = trainer(tmp / "loop_a", logger=rec)
+    reset_launches()
+    t0 = time.perf_counter()
+    best = full.fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = dict(att.LAUNCHES)
+    steps = LOOP_EPOCHS * LOOP_STEPS
+    val_fwd = LOOP_EPOCHS * -(-LOOP_VAL // LOOP_B)
+    want = _want(attention_block_train=DEPTH * steps,
+                 attention_qkv_bwd=DEPTH * steps,
+                 ln_res_bwd=2 * DEPTH * steps, attention_qkv=DEPTH * val_fwd)
+    epochs = [r for r in rec.records if "train/epoch" in r]
+    sweeps = [r for r in rec.records if "threshold_sweep/f1" in r]
+    grid = threshold_grid(0.3, 0.7, 41).numpy()
+    mgr = full.checkpoints
+    kept = mgr.all_steps()
+    losses = [e["train/loss"] for e in epochs]
+    thresholds = [e["val/optimal_threshold"] for e in epochs]
+
+    # the EMA shadow of the latest checkpoint through the registry
+    m = registry.build_model("Custom_ViT_FineTuned",
+                             checkpoint_path=str(tmp / "loop_a"), ema=True,
+                             dtype=torch.bfloat16, img_size=IMG)
+    shadow, shadow_step, _ = load_checkpoint_bundle(str(tmp / "loop_a"),
+                                                    ema=True)
+    want_sd = antispoof_to_torch(shadow)
+    ema_equal = all(torch.equal(v.cpu(), torch.from_numpy(want_sd[k]))
+                    for k, v in m.state_dict().items())
+    with torch.no_grad():
+        s = torch.softmax(m(normalize(to_float(torch.from_numpy(
+            vu8[:LOOP_B]).to(dev)))).float(), -1)[:, 1]
+    del m
+
+    # preempted, then resumed from the pinned checkpoint
+    ref = [None]
+    part = trainer(tmp / "loop_b", preempt=ref)
+    ref[0] = part
+    pbest = part.fit()
+    pstep = part.checkpoints.latest_step()
+
+    def resume(seed_off=0, shift=0):
+        t = trainer(shift=shift)
+        t.state = part.checkpoints.restore(t.state)
+        t.state.seed += seed_off
+        t.fit(start_epoch=pstep // LOOP_STEPS, start_batch=pstep % LOOP_STEPS)
+        torch.cuda.synchronize()
+        return t, [p for p, a, b in zip(full.state.paths,
+                                        full.state.leaves(), t.state.leaves())
+                   if not torch.equal(a, b)]
+
+    resumed, diff = resume()
+    opt_equal = all(torch.equal(a, b) for key in ("mu", "nu", "ema")
+                    for a, b in zip(full.state.opt_state[key],
+                                    resumed.state.opt_state[key]))
+    # the controls: each planted fault must show in the same comparison
+    controls = {"dropout_seed_off_by_one": len(resume(seed_off=1)[1]),
+                "batches_one_position_early": len(resume(shift=1)[1])}
+    ok = (launches == want and len(epochs) == LOOP_EPOCHS
+          and all(math.isfinite(v) for v in losses)
+          and losses[-1] < losses[0]
+          and len(sweeps) == 41 * LOOP_EPOCHS
+          and all(np.any(np.float32(t) == grid) for t in thresholds)
+          and all("val/f1" in e and "val/auc" in e for e in epochs)
+          and len(kept) == 2 and ema_equal
+          and bool(torch.isfinite(s).all())
+          and pbest.get("preempted") is True
+          and pstep == LOOP_PREEMPT[0] * LOOP_STEPS + LOOP_PREEMPT[1]
+          and not diff and opt_equal and min(controls.values()) > 0
+          and resumed.state.step == full.state.step == steps)
+    emit({"phase": "train_loop", "batch": LOOP_B, "epochs": LOOP_EPOCHS,
+          "steps_per_epoch": LOOP_STEPS, "val_images": LOOP_VAL,
+          "decoding": "bypassed: seeded faces (no PIL on this machine)",
+          "fit_s": fit_s, "train_loss": losses,
+          "val_loss": [e["val/loss"] for e in epochs],
+          "val_f1": [e["val/f1"] for e in epochs],
+          "val_auc": [e["val/auc"] for e in epochs],
+          "optimal_threshold": thresholds,
+          "best": {k: best[k] for k in ("val_f1", "epoch")},
+          "sweep_records": len(sweeps), "checkpoints_kept": kept,
+          "ema_checkpoint_step": shadow_step, "ema_loads_equal": ema_equal,
+          "launches": {k: v for k, v in launches.items() if v},
+          "launches_ok": launches == want, "preempted_at_step": pstep,
+          "resumed_leaves_not_bit_equal": diff,
+          "resumed_optimizer_bit_equal": opt_equal,
+          "leaves": len(full.state.paths),
+          "control_leaves_not_bit_equal": controls, "ok": bool(ok)})
+    if not ok:
+        raise AssertionError(
+            f"train loop: launches {launches} (want {want}), losses "
+            f"{losses}, kept {kept}, EMA load {ema_equal}, preempted at "
+            f"{pstep}, leaves off after resume {diff[:4]}, controls "
+            f"{controls}")
+    return full, launches
+
+
+def _mlp_train_work(rows, d, hidden, itemsize):
+    """Kernel 7's two products; x in, y, xhat and h out, inv out (f32),
+    the weights and vectors in."""
+    return (4 * rows * d * hidden,
+            (4 * rows * d + rows * hidden + 2 * d * hidden) * itemsize
+            + rows * 4 + (3 * d + hidden) * 4)
+
+
+def phase_times_train_loop(dev, ctx, loop_trainer, main_err, launches):
+    """Step ms of each MLP mode at B = 128 bf16 and of the f32 step at
+    B = 32; the Trainer's img/s over an epoch with its validation;
+    checkpoint saves (sync, async); kernel 7 and the f32 kernels beside
+    their plain versions, bounds and library calls (SDPA backward for
+    kernel 4, LN backward plus the add for kernel 6; none for 1/3 and
+    7)."""
+    model, params = ctx["model"], ctx["params"]
+    batch = {"image": ctx["images"], "label": ctx["labels"]}
+    step = make_train_step(ctx["loss_fn"])
+    step_ms = {}
+    for mode in fasttrain.MLP_MODES:
+        state = create_train_state(model, make_optimizer(1e-5), SEED,
+                                   variables=params,
+                                   apply_fn=fasttrain.make_apply(
+                                       model, dtype=torch.bfloat16,
+                                       mlp_mode=mode), device=dev)
+        step_ms[mode] = time_ms(lambda: step(state, batch), windows=3,
+                                per_window=3, warmup=2)
+        del state
+    b32 = {"image": ctx["images"][:F32_B], "label": ctx["labels"][:F32_B]}
+    state = create_train_state(model, make_optimizer(1e-5), SEED,
+                               variables=params,
+                               apply_fn=fasttrain.make_apply(
+                                   model, dtype=torch.float32), device=dev)
+    f32_ms = time_ms(lambda: step(state, b32), windows=3, per_window=2,
+                     warmup=1)
+    f32_profile = profile_step(lambda: step(state, b32))
+    del state
+
+    # one more epoch of the loop's Trainer, with its validation
+    t = loop_trainer
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    t.train_epoch(LOOP_EPOCHS)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    t.validate()
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+
+    saves = {}
+    with tempfile.TemporaryDirectory() as d:
+        for mode in (False, True):
+            mgr = CheckpointManager(d, max_to_keep=None, async_save=mode)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mgr.save(int(t.state.step) + 100 + mode, t.state,
+                     metrics={"val_f1": 0.0})
+            returned = time.perf_counter() - t0
+            mgr.wait_until_finished()
+            saves["async" if mode else "sync"] = {
+                "save_returns_s": returned,
+                "written_s": time.perf_counter() - t0}
+        nbytes_ckpt = sum(f.stat().st_size for f in Path(d).rglob("*")
+                          if f.is_file()) / 2
+
+    emit({"phase": "times_train_loop", "step_ms_b128_bf16": step_ms,
+          "img_per_s_b128_bf16": {k: MAIN_B / (v / 1e3)
+                                  for k, v in step_ms.items()},
+          "step_ms_b32_f32": f32_ms,
+          "img_per_s_b32_f32": F32_B / (f32_ms / 1e3),
+          "f32_step_profile": f32_profile,
+          "trainer_epoch": {"steps": LOOP_STEPS, "batch": LOOP_B,
+                            "train_s": train_s, "with_validation_s": epoch_s,
+                            "val_images": LOOP_VAL,
+                            "train_img_per_s": LOOP_STEPS * LOOP_B / train_s,
+                            "train_img_per_s_with_validation":
+                                LOOP_STEPS * LOOP_B / epoch_s},
+          "checkpoint_save": saves, "checkpoint_mbytes": nbytes_ckpt / 1e6})
+
+    # the kernels at the main paths' shapes
+    rng = np.random.default_rng(SEED + 33)
+    a_in = _f32(block_inputs(rng, F32_B, TP, D, HIDDEN, dev)[0])
+    bwd, ln = (_f32(x) for x in train_inputs(rng, F32_B, TP, T, D, dev))
+    m_bf = block_inputs(rng, 1, MAIN_B * T, D, HIDDEN, dev)[1]
+    m_bf["x"] = m_bf["x"][0]
+    m_32 = block_inputs(rng, 1, F32_B * T, D, HIDDEN, dev)[1]
+    m_32["x"] = m_32["x"][0]
+    m_32 = _f32(m_32)
+    with exact_f32_matmul():
+        library = _library_calls(bwd, ln, HEADS, T)
+    kw = dict(num_heads=HEADS, valid_len=T)
+    fl, _ = attention_work(F32_B, TP, D, HEADS)
+    w_bytes = (4 * D * D + 6 * D) * 4
+    timed = {
+        "mlp_block_train": (
+            lambda: att.mlp_block_train(**m_bf, approximate=False),
+            lambda: att.mlp_block_train_plain(**m_bf, approximate=False),
+            _mlp_train_work(MAIN_B * T, D, HIDDEN, 2), PEAK_BF16_FLOPS),
+        "mlp_block_train_f32": (
+            lambda: att.mlp_block_train(**m_32, approximate=False),
+            lambda: att.mlp_block_train_plain(**m_32, approximate=False),
+            _mlp_train_work(F32_B * T, D, HIDDEN, 4), PEAK_F32_FLOPS),
+        "attention_block_f32": (
+            lambda: att.fused_attention_block_padded(**a_in, **kw),
+            lambda: att.fused_attention_block_padded_plain(**a_in, **kw),
+            (fl, 2 * F32_B * TP * D * 4 + w_bytes), PEAK_F32_FLOPS),
+        "attention_block_train_f32": (
+            lambda: att.attention_block_train_padded(**a_in, **kw),
+            lambda: att.attention_block_train_padded_plain(**a_in, **kw),
+            (fl, 7 * F32_B * TP * D * 4 + F32_B * TP * 4 + w_bytes),
+            PEAK_F32_FLOPS),
+        "attention_qkv_bwd_f32": (
+            lambda: att.attention_qkv_bwd(**bwd, **kw),
+            lambda: att.attention_qkv_bwd_plain(**bwd, **kw),
+            (attention_bwd_work(F32_B, TP, D, HEADS)[0],
+             F32_B * TP * 7 * D * 4), PEAK_F32_FLOPS),
+        "ln_res_bwd_f32": (
+            lambda: ln_bwd.ln_residual_bwd(**ln),
+            lambda: ln_bwd.ln_residual_bwd_plain(**ln),
+            (10 * F32_B * TP * D,
+             F32_B * TP * D * 4 * 4 + F32_B * TP * 4 + 3 * D * 4),
+            PEAK_F32_FLOPS),
+    }
+    lib_of = {"attention_qkv_bwd_f32": library["attention_qkv_bwd"],
+              "ln_res_bwd_f32": library["ln_res_bwd"]}
+    count_of = {"mlp_block_train": launches["fused"],
+                "mlp_block_train_f32": launches["f32_fasttrain_fused"],
+                "attention_block_f32": launches["f32_eval"]}
+    rows = []
+    for name, (kernel, plain, (flops, nb), peak) in timed.items():
+        ms, plain_ms = time_ms(kernel), time_ms(plain, per_window=2)
+        lib = lib_of.get(name)
+        with exact_f32_matmul():
+            lib_ms = time_ms(lib) if lib else None
+        bound_ms, bound_by = bound(flops, nb, peak)
+        runs = count_of.get(name, launches["f32_fasttrain_hidden"])
+        rows.append({"name": name, "route": "cuda", **KERNELS[name],
+                     "launches": runs[name], "max_abs_err": main_err[name],
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": lib_ms})
+    emit({"phase": "times_train_kernels",
+          "kernels": {r["name"]: {k: r[k] for k in (
+              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+              "launches")} for r in rows}})
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card "
@@ -2207,7 +2891,7 @@ def main() -> int:
     phase_serving(model, serve128)
     low_err, progs = phase_kernels_lowlat(dev, model)
     fns, small_launches = phase_slice_small(dev, model)
-    phase_http(model, fns)
+    phase_http(model)
     train_state, train_step, train_batch, train_launches = phase_train(dev)
     rows, step_ms = phase_times(dev, model, serve128, u8, main_err, launches,
                                 train_launches, train_state, train_step,
@@ -2223,6 +2907,14 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         ectx, eval_launches = phase_slice_eval(dev, Path(tmp))
         rows += phase_times_eval(dev, ectx, qkv_err, eval_launches)
+    del ectx
+    train_err = phase_kernels_train(dev)
+    tctx, mode_launches = phase_train_modes(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        loop_trainer, _loop_launches = phase_train_loop(dev, Path(tmp))
+        rows += phase_times_train_loop(dev, tctx, loop_trainer, train_err,
+                                       mode_launches)
+    del tctx, loop_trainer
     idle = [r["name"] for r in rows if not r["launches"]]
     if idle:
         raise AssertionError(f"kernels never launched on their paths: {idle}")

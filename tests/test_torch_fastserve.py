@@ -140,20 +140,23 @@ def test_make_serving_fn_needs_a_card_unless_cpu_is_asked(model):
                                     ("auto", 1), ("auto", 16)])
 def test_small_batch_regimes_match_jax(model, mode, b):
     """The lowlat and batch-grid regimes (also forced at B = 32) against
-    JAX ``make_serving_fn(..., interpret=True)`` on the same weights."""
+    JAX ``make_serving_fn(..., interpret=True)`` on the same weights; with
+    ``mode="auto"`` the port's regime for B (the H100's table: lowlat at
+    B = 1, fastserve at B = 16) against the same regime in JAX."""
     jm, variables, _f, tm = model
     u8 = _images(30 + b, b)
+    regime = tfast.auto_serving_mode(b) if mode == "auto" else mode
     got = tfast.make_serving_fn(tm, batch_size=b, mode=mode,
                                 device="cpu")(u8)
-    want = jfast.make_serving_fn(jm, variables, batch_size=b, mode=mode,
+    want = jfast.make_serving_fn(jm, variables, batch_size=b, mode=regime,
                                  interpret=True)(jnp.asarray(u8))
     assert got.dtype == torch.float32 and got.shape == (b,)
     np.testing.assert_allclose(got.numpy(), np.asarray(want, np.float32),
                                atol=BF16_SCORE_ATOL, rtol=0)
-    regime = tfast.auto_serving_mode(b) if mode == "auto" else mode
     _w, raw, _kw = tfast.serving_program(tm, mode=regime, device="cpu")
-    assert raw is (tfast.serving_forward_lowlat if regime == "lowlat"
-                   else tfast.serving_forward_lowlat_batch)
+    assert raw is {"lowlat": tfast.serving_forward_lowlat,
+                   "batch_grid": tfast.serving_forward_lowlat_batch,
+                   "fastserve": tfast.serving_forward}[regime]
 
 
 def test_serving_modes_are_validated(model):
@@ -172,8 +175,17 @@ def test_serving_modes_are_validated(model):
 
 
 def test_auto_serving_mode_matches_jax():
-    for b in (1, 2, 8, 16, 17, 32, 128, 1024):
+    """The regime table, pinned: the port's follows the H100's
+    measurements (``chip_smoke.py`` ``times_small``: fastserve beats
+    batch-grid at every B = 2-16 there), so it matches JAX's TPU table at
+    B = 1 (lowlat) and B >= 17 (fastserve) and differs at B = 2-16, where
+    JAX serves batch-grid."""
+    for b in (1, 17, 32, 128, 1024):
         assert tfast.auto_serving_mode(b) == jfast.auto_serving_mode(b)
+    for b in (2, 4, 8, 16):
+        assert jfast.auto_serving_mode(b) == "batch_grid"
+        assert tfast.auto_serving_mode(b) == "fastserve"
+    assert tfast.auto_serving_mode(1) == "lowlat"
     with pytest.raises(ValueError):
         tfast.auto_serving_mode(0)
 

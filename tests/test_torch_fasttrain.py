@@ -344,13 +344,29 @@ def test_train_with_dropout_needs_a_generator():
 
 @pytest.mark.parametrize("mode", ["xhat", "fused"])
 def test_unported_mlp_modes_raise(mode):
+    """The two modes that raised before the training loop was ported now
+    train: at f32 on the CPU their logits and every gradient leaf equal
+    the "hidden" mode's within 1e-6 (the same f32 math, other sum
+    orders; tests/test_torch_mlp_modes.py holds them against JAX).  An
+    unknown mode still raises, at make_apply and at train_forward."""
     _, variables, tm = _models()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TFT.make_apply(tm, mlp_mode=mode)(
-            {"params": _torch_params(variables)}, torch.tensor(_batch()))
+    x = torch.tensor(_batch())
+    out = {}
+    for m in (mode, "hidden"):
+        params = _torch_params(variables)
+        logits = TFT.make_apply(tm, dtype=torch.float32, mlp_mode=m)(
+            {"params": params}, x)
+        (logits ** 2).sum().backward()
+        out[m] = (logits, [p.grad for p in tree_flatten(params)[0]])
+    np.testing.assert_allclose(_np(out[mode][0]), _np(out["hidden"][0]),
+                               atol=1e-6, rtol=1e-6)
+    for g, h in zip(out[mode][1], out["hidden"][1]):
+        np.testing.assert_allclose(g.numpy(), h.numpy(), atol=1e-6,
+                                   rtol=1e-5)
     with pytest.raises(ValueError, match="unknown mlp_mode"):
-        TFT.train_forward(_torch_params(variables), torch.tensor(_batch()),
-                          mlp_mode="dense")
+        TFT.make_apply(tm, mlp_mode="dense")
+    with pytest.raises(ValueError, match="unknown mlp_mode"):
+        TFT.train_forward(_torch_params(variables), x, mlp_mode="dense")
 
 
 def test_make_apply_takes_only_the_antispoof_model():

@@ -504,7 +504,8 @@ def test_attention_qkv_kernel_matches_plain_on_card(cuda_device, dtype, b, t,
 @pytest.mark.cuda
 def test_attention_qkv_backward_on_card(cuda_device):
     """bf16: kernel 4 behind the autograd function, within 2 bf16 ulps of
-    its plain version; f32: raises naming the missing kernel."""
+    its plain version; f32: kernel 4's f32 form on the unpadded T = 197
+    stream, within f32 noise of its plain version."""
     rng = np.random.default_rng(5)
     x = rng.standard_normal((2, 197, 3 * 768)).astype(np.float32)
     g = torch.tensor(rng.standard_normal((2, 197, 768)).astype(np.float32),
@@ -514,8 +515,15 @@ def test_attention_qkv_backward_on_card(cuda_device):
     _assert_close(qkv.grad, tatt.attention_qkv_bwd_plain(
         qkv.detach(), g, 12, valid_len=197))
     q32 = torch.tensor(x, device=cuda_device, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        tatt.fused_attention_qkv(q32, 12).backward(g.float())
+    n0 = tatt.LAUNCHES["attention_qkv_bwd_f32"]
+    tatt.fused_attention_qkv(q32, 12).backward(g.float())
+    torch.cuda.synchronize()
+    assert tatt.LAUNCHES["attention_qkv_bwd_f32"] == n0 + 1
+    want = tatt.attention_qkv_bwd_plain(q32.detach(), g.float(), 12,
+                                        valid_len=197)
+    for part in range(3):
+        cols = slice(part * 768, (part + 1) * 768)
+        _assert_close_f32(q32.grad[..., cols], want[..., cols])
 
 
 @pytest.mark.cuda
@@ -532,3 +540,125 @@ def test_attention_qkv_kernel_rejects_what_it_cannot_take(cuda_device):
     with pytest.raises(ValueError, match="shared memory"):
         tatt.fused_attention_qkv(torch.zeros((1, 400, 3 * 64),
                                              device=cuda_device), 1)
+
+
+# --------------------------------------------------------------------------
+# the f32 forms of the training kernels, and kernel 7 (the training MLP)
+# --------------------------------------------------------------------------
+
+# ViT-B at B = 2, 3 and the f32 step's 32, and the ragged shape
+F32_CASES = [(2, 200, 197, 768, 12), (3, 200, 197, 768, 12),
+             (32, 200, 197, 768, 12), (2, 40, 33, 64, 4)]
+
+
+def _f32(tensors):
+    return [t.float() if t.dtype == torch.bfloat16 else t for t in tensors]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,tp,valid,d,heads", F32_CASES)
+def test_attention_block_f32_kernels_match_plain_on_card(
+        cuda_device, b, tp, valid, d, heads):
+    """Kernels 1 and 3 at f32 (one library, with and without the
+    residual outputs): within 1e-5 of each output's largest magnitude,
+    f32 sum-order noise."""
+    a = _attn_inputs(21, cuda_device, b, tp, d)
+    x, *w = _f32(a.values())
+    n0 = dict(tatt.LAUNCHES)
+    got = tatt.attention_block_train_padded(x, *w, heads, valid_len=valid)
+    out = tatt.fused_attention_block_padded(x, *w, heads, valid_len=valid)
+    want = tatt.attention_block_train_padded_plain(x, *w, heads,
+                                                   valid_len=valid)
+    torch.cuda.synchronize()
+    assert tatt.LAUNCHES["attention_block_train_f32"] == (
+        n0["attention_block_train_f32"] + 1)
+    assert tatt.LAUNCHES["attention_block_f32"] == (
+        n0["attention_block_f32"] + 1)
+    for gg, ww in zip(got, want):          # out, qkv, attn, xhat, inv
+        assert gg.dtype == ww.dtype == torch.float32
+        _assert_close_f32(gg, ww)
+    assert torch.equal(out, got[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,tp,valid,d,heads", F32_CASES)
+def test_attention_qkv_bwd_f32_kernel_matches_plain_on_card(
+        cuda_device, b, tp, valid, d, heads):
+    qkv, g = _f32(_qkv_bwd_inputs(22, cuda_device, b, tp, valid, d))
+    n0 = tatt.LAUNCHES["attention_qkv_bwd_f32"]
+    got = tatt.attention_qkv_bwd(qkv, g, heads, valid_len=valid)
+    want = tatt.attention_qkv_bwd_plain(qkv, g, heads, valid_len=valid)
+    torch.cuda.synchronize()
+    assert tatt.LAUNCHES["attention_qkv_bwd_f32"] == n0 + 1
+    for part in range(3):                   # dq, dk, dv
+        cols = slice(part * d, (part + 1) * d)
+        _assert_close_f32(got[..., cols], want[..., cols])
+    assert (got[:, :, 2 * d:][:, valid:] == 0).all()   # masked keys: dv 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,tp,valid,d,heads", F32_CASES)
+def test_ln_res_bwd_f32_kernel_matches_plain_on_card(
+        cuda_device, b, tp, valid, d, heads):
+    xh, inv, dxn, g, lns = _ln_bwd_inputs(23, cuda_device, b, tp, d,
+                                          torch.float32)
+    xh, g = xh.float(), g.float()
+    dxn[:, valid:] = 0
+    g[:, valid:] = 0
+    n0 = tatt.LAUNCHES["ln_res_bwd_f32"]
+    got = tln.ln_residual_bwd(xh, inv, dxn, g, lns)
+    again = tln.ln_residual_bwd(xh, inv, dxn, g, lns)
+    want = tln.ln_residual_bwd_plain(xh, inv, dxn, g, lns)
+    torch.cuda.synchronize()
+    assert tatt.LAUNCHES["ln_res_bwd_f32"] == n0 + 2
+    assert got[0].dtype == torch.float32
+    for gg, ww in zip(got, want):           # dx, dscale, dbias
+        _assert_close_f32(gg, ww)
+    assert (got[0][:, valid:] == 0).all()
+    assert all(torch.equal(u, v) for u, v in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("approximate", [False, True])
+@pytest.mark.parametrize("rows,d,hidden", [
+    (2 * 197, 768, 3072),    # ViT-B/16
+    (3 * 33, 64, 256),       # rows not a multiple of the 128-row tile
+    (2 * 33, 40, 72),        # widths not multiples of the tiles
+])
+def test_mlp_block_train_kernel_matches_plain_on_card(
+        cuda_device, dtype, approximate, rows, d, hidden):
+    """Kernel 7: bf16 within 2 bf16 ulps of each output's largest
+    magnitude, f32 within 1e-5 of it."""
+    m = _mlp_inputs(24, cuda_device, 1, rows, d, hidden)
+    x, *w = m.values()
+    x = x[0]
+    if dtype == torch.float32:
+        x, *w = _f32([x, *w])
+    name = "mlp_block_train" + ("_f32" if dtype == torch.float32 else "")
+    n0 = tatt.LAUNCHES[name]
+    got = tatt.mlp_block_train(x, *w, approximate=approximate)
+    want = tatt.mlp_block_train_plain(x, *w, approximate=approximate)
+    torch.cuda.synchronize()
+    assert tatt.LAUNCHES[name] == n0 + 1
+    for gg, ww in zip(got, want):           # y, xhat, inv, h
+        assert gg.dtype == ww.dtype and gg.shape == ww.shape
+        if gg.dtype == torch.bfloat16:
+            _assert_close(gg, ww)
+        else:
+            _assert_close_f32(gg, ww)
+
+
+@pytest.mark.cuda
+def test_f32_kernels_reject_what_they_cannot_take(cuda_device):
+    qkv, g = _f32(_qkv_bwd_inputs(25, cuda_device, 1, 400, 197, 768))
+    with pytest.raises(ValueError, match="shared memory"):
+        tatt.attention_qkv_bwd(qkv, g, 12, valid_len=197)
+    xh, inv, dxn, g, lns = _ln_bwd_inputs(26, cuda_device, 1, 8, 64,
+                                          torch.bfloat16)
+    with pytest.raises(TypeError, match="f32"):      # f32 xh, bf16 dxn
+        tln.ln_residual_bwd(xh.float(), inv, dxn, g.float(), lns)
+    m = _mlp_inputs(27, cuda_device, 1, 8, 64, 256)
+    x, *w = m.values()
+    with pytest.raises(TypeError):                   # f32 x, bf16 weights
+        tatt.mlp_block_train(x[0].float(), *w, approximate=False)

@@ -73,12 +73,28 @@ def test_missing_file_warns(tmp_path, caplog):
         caplog.text)
 
 
-def test_orbax_directory_and_ema_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+def test_orbax_directory_and_ema_raise(tmp_path, monkeypatch):
+    """Checkpoint directories load since the training loop was ported
+    (tests/test_torch_checkpoint.py); what still raises: a directory with
+    no checkpoint, ``ema=True`` without a directory (a file carries no
+    EMA shadow), and a JAX Orbax directory where ``orbax`` does not
+    import."""
+    from vit_spoof_detection_pda_tpu_torch.utils import checkpoint as tck
+
+    with pytest.raises(FileNotFoundError, match="no checkpoints"):
         treg.build_model("Custom_ViT_FineTuned", checkpoint_path=str(tmp_path),
                          device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    with pytest.raises(ValueError, match="ema=True"):
         treg.build_model("Custom_ViT_FineTuned", ema=True, device="cpu")
+    (tmp_path / "5" / "tree").mkdir(parents=True)        # Orbax's layout
+
+    def no_orbax():
+        raise ImportError("No module named 'orbax'")
+
+    monkeypatch.setattr(tck, "_orbax", no_orbax)
+    with pytest.raises(NotImplementedError, match="orbax"):
+        treg.build_model("Custom_ViT_FineTuned", checkpoint_path=str(tmp_path),
+                         device="cpu")
 
 
 def test_jax_exported_pth_loads_in_both_registries(tmp_path):

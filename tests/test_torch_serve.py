@@ -186,24 +186,27 @@ def jax_model():
 @pytest.mark.parametrize("shapes", [(16, 32), (1, 2, 4, 8, 16)])
 def test_live_programs_serve_the_small_batch_regimes(model, jax_model,
                                                       shapes):
-    """Each shape runs the JAX package's regime for it, reported in the
-    metas, and scores as JAX ``build_programs_live(..., interpret=True)``
-    does on the same weights (5e-3: the bf16 score tolerance of
+    """Each shape runs the port's regime for it (the H100's table,
+    ``fastserve.auto_serving_mode``), reported in the metas, and scores as
+    JAX ``make_serving_fn(..., mode=<that regime>, interpret=True)`` does
+    on the same weights (5e-3: the bf16 score tolerance of
     tests/test_torch_fastserve.py)."""
-    from vit_spoof_detection_pda_tpu.serve import \
-        build_programs_live as jax_build_programs_live
+    from vit_spoof_detection_pda_tpu.models import fastserve as jfast
+    from vit_spoof_detection_pda_tpu_torch.models.fastserve import \
+        auto_serving_mode
 
     programs, _sz, metas = build_programs_live(model, shapes=shapes,
                                                img_size=SIZE, device="cpu")
-    jprograms, _jsz, jmetas = jax_build_programs_live(
-        *jax_model, shapes=shapes, img_size=SIZE, interpret=True)
-    assert metas[0]["shapes"] == jmetas[0]["shapes"]
-    assert sorted(programs) == sorted(jprograms) == sorted(shapes)
+    assert metas[0]["shapes"] == {s: auto_serving_mode(s) for s in shapes}
+    assert sorted(programs) == sorted(shapes)
     rng = np.random.default_rng(3)
     for s in (min(shapes), 16):
         batch = rng.integers(0, 256, (s, SIZE, SIZE, 3), dtype=np.uint8)
-        got, want = programs[s](batch), jprograms[s](batch)
-        np.testing.assert_allclose(got["prob1"], want["prob1"], atol=5e-3)
+        got = programs[s](batch)
+        want = np.asarray(jfast.make_serving_fn(
+            *jax_model, batch_size=s, mode=auto_serving_mode(s),
+            interpret=True)(jnp.asarray(batch)), np.float32)
+        np.testing.assert_allclose(got["prob1"], want, atol=5e-3)
         assert got["prob1"].dtype == np.float32
         assert got["pred"].dtype == np.int32
 
@@ -220,9 +223,10 @@ def test_build_programs_live_defaults_to_the_jax_shapes(model):
     programs, _sz, metas = build_programs_live(model, img_size=SIZE,
                                                device="cpu")
     assert sorted(programs) == [1, 2, 4, 8, 16]
-    assert metas[0]["shapes"] == {1: "lowlat", 2: "batch_grid",
-                                  4: "batch_grid", 8: "batch_grid",
-                                  16: "batch_grid"}
+    # the H100's regime table (fastserve.auto_serving_mode)
+    assert metas[0]["shapes"] == {1: "lowlat", 2: "fastserve",
+                                  4: "fastserve", 8: "fastserve",
+                                  16: "fastserve"}
 
 
 def test_live_programs_need_a_card_unless_cpu_is_asked(model):

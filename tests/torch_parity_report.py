@@ -1,7 +1,7 @@
 """Print the port's parity gaps against the JAX package on the CPU, one
 JSON line per comparison (the numbers the tests bound).
 
-    python tests/torch_parity_report.py [kernels serving training small_batch augment eval]
+    python tests/torch_parity_report.py [kernels serving training small_batch augment eval train_loop]
 
 The port runs its plain PyTorch versions (CPU tensors); the JAX side runs
 its Pallas kernels in interpret mode, as the test files do.  Inputs come
@@ -471,6 +471,79 @@ def eval():  # noqa: A001 - the section's name on the command line
         got = run_inference(tm, scan_test(root), batch_size=5, img_size=32)
         emit(what="run_inference.prob1", dtype="f32",
              **gap(got["prob1"], want["prob1"]))
+
+
+def train_loop():
+    """The training-loop slice: the two new MLP modes (kernel 7's plain
+    version for "fused") against JAX, the tensor metrics, and the port's
+    Trainer against the JAX Trainer per epoch (the sweep and early-stop
+    case and the EMA case of tests/test_torch_trainer.py)."""
+    import test_torch_mlp_modes as tmm
+    import test_torch_trainer as ttr
+    from vit_spoof_detection_pda_tpu.config import Config as JConfig
+    from vit_spoof_detection_pda_tpu.metrics import device as jdev
+    from vit_spoof_detection_pda_tpu.parallel import make_mesh
+    from vit_spoof_detection_pda_tpu.train import Trainer as JTrainer
+    from vit_spoof_detection_pda_tpu_torch.metrics import device as tdev
+    from vit_spoof_detection_pda_tpu_torch.models.convert import (
+        train_state_arrays)
+
+    for mode, jfn, jst, tfn in (
+            ("xhat", jft.mlp_block_train, (False, 1e-6),
+             tft.MlpBlockTrainX.apply),
+            ("fused", jft.mlp_block_train_p, (False, 1e-6, True),
+             tft.MlpBlockTrainP.apply)):
+        out, want_out, got, want = tmm._grads(jfn, jst, tfn, (False, 1e-6),
+                                              tmm._args(3), 4)
+        emit(what=f"mlp_{mode}.y", dtype="f32", **gap(tmm._np(out),
+                                                      want_out))
+        for name, g_, w_ in zip(tmm.NAMES, got, want):
+            emit(what=f"mlp_{mode}.grad_{name}", dtype="f32",
+                 **gap(tmm._np(g_), w_))
+    for dtype, jdt, tdt in (("f32", jnp.float32, torch.float32),
+                            ("bf16", jnp.bfloat16, torch.bfloat16)):
+        args = tmm._args(5, 2, 17)
+        y, xh, inv, h = jft._mlp_fwd_pallas(*tmm._jax(args, jdt), False,
+                                            1e-6, True)
+        ta_ = tmm._torch(args, tdt)
+        got = tatt.mlp_block_train_plain(ta_[0].reshape(34, -1), *ta_[1:],
+                                         approximate=False)
+        for name, g_, w_ in zip(("y", "xhat", "inv", "h"), got,
+                                (np.asarray(y, np.float32).reshape(34, -1),
+                                 *(np.asarray(a, np.float32)[:34]
+                                   for a in (xh, inv, h)))):
+            emit(what=f"kernel7_plain.{name}", dtype=dtype,
+                 **gap(tmm._np(g_), w_))
+    rng = np.random.default_rng(0)
+    s, y = rng.random(200).astype(np.float32), rng.integers(0, 2, 200)
+    emit(what="metrics.auc", dtype="f32",
+         **gap(tdev.auc(torch.tensor(s), torch.tensor(y)),
+               jdev.auc(jnp.asarray(s), jnp.asarray(y))))
+    emit(what="metrics.threshold_grid", dtype="f32",
+         **gap(tdev.threshold_grid(0.3, 0.7, 41), jnp.linspace(0.3, 0.7, 41)))
+    for over in ({"optim.num_epochs": 5, "early_stop.patience": 1},
+                 {"optim.num_epochs": 2, "optim.ema_decay": 0.5}):
+        images, labels = ttr._synthetic(64, seed=1)
+        val = ttr._synthetic(48, seed=2)
+        tb, vb = ttr._feeds(images, labels, val)
+        jlog, tlog = ttr._Log(), ttr._Log()
+        jt = JTrainer(JConfig().with_overrides(
+            {**ttr.BASE, "model.dropout": 0.0, **over}),
+            jvit.ViTAntiSpoof(patch_size=16, dropout=0.0, **ttr.GEOM),
+            train_batches=tb, val_batches=vb, steps_per_epoch=4,
+            mesh=make_mesh(devices=jax.devices()[:1]), logger=jlog)
+        arrays = train_state_arrays(jt.state)
+        jt.fit()
+        ttr._port(over, images, labels, val, opt_arrays=arrays,
+                  logger=tlog).fit()
+        for e, (a, b) in enumerate(zip(jlog.epochs(), tlog.epochs())):
+            emit(what="trainer_epoch", case=sorted(over)[-1], epoch=e,
+                 **{k: {"jax": a[k], "port": b[k],
+                        "abs_diff": abs(a[k] - b[k])}
+                    for k in ("train/loss", "val/loss", "val/auc",
+                              "val/f1", "val/optimal_threshold")})
+        emit(what="trainer_epochs_run", case=sorted(over)[-1],
+             jax=len(jlog.epochs()), port=len(tlog.epochs()))
 
 
 if __name__ == "__main__":

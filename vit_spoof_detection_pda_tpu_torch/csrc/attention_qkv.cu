@@ -40,201 +40,8 @@
 // memory for every FMA (1.25 16-byte loads per 4 FMAs in step 1), so
 // shared-memory bandwidth, not the FMA rate, is its limit; register-tiled
 // K and V blocks are later work.
-#include <math_constants.h>
-
 #include "attention_core.cuh"
-
-namespace vsd {
-namespace {
-
-constexpr int kF32Warps = 8;      // warps of a block
-constexpr int kF32Rows = 4;       // query rows of a warp at a time
-constexpr int kF32TileRows = 128; // query rows of a block at most
-
-__host__ __device__ inline size_t f32_smem_bytes(int t, int dh) {
-  return (2 * static_cast<size_t>(t) * (dh + 4) +
-          static_cast<size_t>(kF32Warps) * kF32Rows * (dh + t)) *
-         sizeof(float);
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-template <int DH>
-__global__ void __launch_bounds__(kF32Warps * 32)
-    attention_f32_kernel(const float* __restrict__ qkv, float* __restrict__ out, int t, int d,
-                         int valid_len, float scale, int tile_rows) {
-  constexpr int LD = DH + 4;          // shared row stride (floats), 16-byte multiple
-  constexpr int C4 = DH / 4;          // float4 chunks of a head row
-  constexpr int NJ = (DH + 31) / 32;  // output columns of a lane
-  extern __shared__ __align__(16) float smf[];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  float* Ks = smf;
-  float* Vs = Ks + static_cast<size_t>(t) * LD;
-  float* Qw = Vs + static_cast<size_t>(t) * LD +
-              static_cast<size_t>(warp) * kF32Rows * (DH + t);  // [4][DH]
-  float* Pw = Qw + kF32Rows * DH;                               // [t][4]
-  const int h = blockIdx.y, b = blockIdx.z;
-  const size_t stride = 3 * static_cast<size_t>(d);
-  const float* base = qkv + static_cast<size_t>(b) * t * stride + static_cast<size_t>(h) * DH;
-
-  for (int c = tid; c < t * C4; c += blockDim.x) {
-    const int r = c / C4, col = (c % C4) * 4;
-    const float* src = base + r * stride + col;
-    *reinterpret_cast<float4*>(Ks + r * LD + col) = __ldg(reinterpret_cast<const float4*>(src + d));
-    *reinterpret_cast<float4*>(Vs + r * LD + col) =
-        __ldg(reinterpret_cast<const float4*>(src + 2 * d));
-  }
-  __syncthreads();
-
-  const int tile = static_cast<int>(blockIdx.x);
-  const int q_end = min(t, (tile + 1) * tile_rows);
-  for (int r0 = tile * tile_rows + warp * kF32Rows; r0 < q_end;
-       r0 += kF32Warps * kF32Rows) {
-    // the 4 query rows; rows past the tile are zeros and are not written
-    for (int c = lane; c < kF32Rows * C4; c += 32) {
-      const int rr = c / C4, col = (c % C4) * 4;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (r0 + rr < q_end) v = __ldg(reinterpret_cast<const float4*>(base + (r0 + rr) * stride + col));
-      *reinterpret_cast<float4*>(Qw + rr * DH + col) = v;
-    }
-    __syncwarp();
-
-    // 1. logits of this lane's keys, and the row max
-    float m[kF32Rows];
-#pragma unroll
-    for (int rr = 0; rr < kF32Rows; ++rr) m[rr] = -CUDART_INF_F;
-    for (int key = lane; key < t; key += 32) {
-      float s[kF32Rows] = {0.f, 0.f, 0.f, 0.f};
-      const float* kr = Ks + key * LD;
-#pragma unroll
-      for (int c = 0; c < DH; c += 4) {
-        const float4 kv = *reinterpret_cast<const float4*>(kr + c);
-#pragma unroll
-        for (int rr = 0; rr < kF32Rows; ++rr) {
-          const float4 qv = *reinterpret_cast<const float4*>(Qw + rr * DH + c);
-          s[rr] = fmaf(qv.x, kv.x, s[rr]);
-          s[rr] = fmaf(qv.y, kv.y, s[rr]);
-          s[rr] = fmaf(qv.z, kv.z, s[rr]);
-          s[rr] = fmaf(qv.w, kv.w, s[rr]);
-        }
-      }
-#pragma unroll
-      for (int rr = 0; rr < kF32Rows; ++rr) {
-        s[rr] = key < valid_len ? s[rr] * scale : -1e30f;
-        m[rr] = fmaxf(m[rr], s[rr]);
-      }
-      *reinterpret_cast<float4*>(Pw + key * 4) = make_float4(s[0], s[1], s[2], s[3]);
-    }
-#pragma unroll
-    for (int rr = 0; rr < kF32Rows; ++rr) m[rr] = warp_max(m[rr]);
-
-    // 2. e = exp(s - m), l = sum e, w = e / l
-    float l[kF32Rows] = {0.f, 0.f, 0.f, 0.f};
-    for (int key = lane; key < t; key += 32) {
-      float4 e = *reinterpret_cast<const float4*>(Pw + key * 4);
-      e.x = expf(e.x - m[0]);
-      e.y = expf(e.y - m[1]);
-      e.z = expf(e.z - m[2]);
-      e.w = expf(e.w - m[3]);
-      l[0] += e.x;
-      l[1] += e.y;
-      l[2] += e.z;
-      l[3] += e.w;
-      *reinterpret_cast<float4*>(Pw + key * 4) = e;
-    }
-#pragma unroll
-    for (int rr = 0; rr < kF32Rows; ++rr) l[rr] = warp_sum(l[rr]);
-    for (int key = lane; key < t; key += 32) {
-      float4 w = *reinterpret_cast<const float4*>(Pw + key * 4);
-      w.x /= l[0];
-      w.y /= l[1];
-      w.z /= l[2];
-      w.w /= l[3];
-      *reinterpret_cast<float4*>(Pw + key * 4) = w;
-    }
-    __syncwarp();
-
-    // 3. O = w V
-    float o[kF32Rows][NJ];
-#pragma unroll
-    for (int rr = 0; rr < kF32Rows; ++rr) {
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) o[rr][j] = 0.f;
-    }
-    for (int key = 0; key < t; ++key) {
-      const float4 w = *reinterpret_cast<const float4*>(Pw + key * 4);
-      const float* vr = Vs + key * LD;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int c = lane + 32 * j;
-        if (c < DH) {
-          const float v = vr[c];
-          o[0][j] = fmaf(w.x, v, o[0][j]);
-          o[1][j] = fmaf(w.y, v, o[1][j]);
-          o[2][j] = fmaf(w.z, v, o[2][j]);
-          o[3][j] = fmaf(w.w, v, o[3][j]);
-        }
-      }
-    }
-#pragma unroll
-    for (int rr = 0; rr < kF32Rows; ++rr) {
-      if (r0 + rr >= q_end) continue;
-      float* orow = out + (static_cast<size_t>(b) * t + r0 + rr) * d + static_cast<size_t>(h) * DH;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int c = lane + 32 * j;
-        if (c < DH) orow[c] = o[rr][j];
-      }
-    }
-    __syncwarp();  // Qw and Pw are rewritten by the next rows
-  }
-}
-
-template <int DH>
-cudaError_t launch_attention_f32(const float* qkv, float* out, int batch, int t, int d,
-                                 int heads, int valid_len, float scale, cudaStream_t stream) {
-  const size_t smem = f32_smem_bytes(t, DH);
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(attention_f32_kernel<DH>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(smem));
-  if (e != cudaSuccess) return e;
-  // query rows split evenly into tiles of at most kF32TileRows, in whole
-  // 4-row groups
-  const int tiles = (t + kF32TileRows - 1) / kF32TileRows;
-  const int rows = ((t + tiles - 1) / tiles + kF32Rows - 1) / kF32Rows * kF32Rows;
-  const dim3 grid((t + rows - 1) / rows, heads, batch);
-  attention_f32_kernel<DH><<<grid, kF32Warps * 32, smem, stream>>>(qkv, out, t, d, valid_len,
-                                                                   scale, rows);
-  return cudaGetLastError();
-}
-
-cudaError_t attention_f32(const float* qkv, float* out, int batch, int t, int d, int heads,
-                          int valid_len, float scale, cudaStream_t stream) {
-  switch (d / heads) {
-#define VSD_HEAD_DIM(DH) \
-  case DH:               \
-    return launch_attention_f32<DH>(qkv, out, batch, t, d, heads, valid_len, scale, stream);
-    VSD_HEAD_DIM(16)
-    VSD_HEAD_DIM(32)
-    VSD_HEAD_DIM(48)
-    VSD_HEAD_DIM(64)
-    VSD_HEAD_DIM(80)
-    VSD_HEAD_DIM(96)
-    VSD_HEAD_DIM(112)
-    VSD_HEAD_DIM(128)
-#undef VSD_HEAD_DIM
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
-}  // namespace
-}  // namespace vsd
+#include "attention_f32.cuh"
 
 // qkv [B, T, 3D] and out [B, T, D], both bf16 (dtype 0) or f32 (dtype 1),
 // contiguous and 16-byte aligned.  Needs a head dim that is a multiple of

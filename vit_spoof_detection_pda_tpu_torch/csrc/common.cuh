@@ -71,6 +71,13 @@ __device__ __forceinline__ float gelu_tanh(float x) {
   return x * (0.5f * (1.0f + tanhf(inner)));
 }
 
+// erf GELU in f32, the formula of jax.nn.gelu(approximate=False) and of
+// torch's gelu: 0.5 x (1 + erf(x / sqrt 2)), with CUDA's erff (the TPU
+// kernel had to emulate erf with the A&S rational; CUDA has it).
+__device__ __forceinline__ float gelu_erf(float x) {
+  return 0.5f * x * (1.0f + erff(x * 0.7071067811865476f));
+}
+
 // ---------------------------------------------------------------------------
 // LayerNorm: one warp per row of d bf16 values (d % 8 == 0).  Mean and
 // variance in f32, (x - mu) * rsqrt(var + eps) * gamma + beta, rounded to
@@ -241,9 +248,20 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&a)[4], const bf16* 
 //   kEpiBias          acc + bias
 //   kEpiBiasGelu      gelu_tanh(acc + bias)
 //   kEpiBiasResidual  (residual + acc) + bias
+// and the training MLP's stored-hidden epilogues, which write two outputs:
+//   kEpiBiasHGeluErf  H = bf16(acc + bias), C = bf16(gelu_erf(H))
+//   kEpiBiasHGeluTanh H = bf16(acc + bias), C = bf16(gelu_tanh(H))
+// (the GELU reads the rounded hidden, so the stored H, the activation and
+// the backward's recompute of the gate all see one tensor).
 // ---------------------------------------------------------------------------
 
-enum { kEpiBias = 0, kEpiBiasGelu = 1, kEpiBiasResidual = 2 };
+enum {
+  kEpiBias = 0,
+  kEpiBiasGelu = 1,
+  kEpiBiasResidual = 2,
+  kEpiBiasHGeluErf = 3,
+  kEpiBiasHGeluTanh = 4
+};
 
 constexpr int kGemmBM = 128, kGemmBN = 128, kGemmBK = 64, kGemmStages = 3;
 constexpr int kGemmThreads = 256;
@@ -317,7 +335,7 @@ template <int EPI>
 __global__ void __launch_bounds__(kGemmThreads, 2)
     gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
                      const float* __restrict__ bias, const bf16* __restrict__ R,
-                     bf16* __restrict__ C, int M, int N, int K) {
+                     bf16* __restrict__ C, bf16* __restrict__ H, int M, int N, int K) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const uint32_t base = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
   bf16* As = reinterpret_cast<bf16*>(smem_raw + ((1024 - (base & 1023)) & 1023));
@@ -394,6 +412,12 @@ __global__ void __launch_bounds__(kGemmThreads, 2)
         const float2 r = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(R + off));
         v0 = (r.x + v0) + bb.x;
         v1 = (r.y + v1) + bb.y;
+      } else if (EPI == kEpiBiasHGeluErf || EPI == kEpiBiasHGeluTanh) {
+        const __nv_bfloat162 hv = __floats2bfloat162_rn(v0 + bb.x, v1 + bb.y);
+        *reinterpret_cast<__nv_bfloat162*>(H + off) = hv;
+        const float2 hf = __bfloat1622float2(hv);
+        v0 = EPI == kEpiBiasHGeluErf ? gelu_erf(hf.x) : gelu_tanh(hf.x);
+        v1 = EPI == kEpiBiasHGeluErf ? gelu_erf(hf.y) : gelu_tanh(hf.y);
       } else {
         v0 += bb.x;
         v1 += bb.y;
@@ -407,9 +431,11 @@ __global__ void __launch_bounds__(kGemmThreads, 2)
   }
 }
 
+// H is written only by the stored-hidden epilogues.
 template <int EPI>
 inline cudaError_t launch_gemm(const bf16* A, const bf16* W, const float* bias, const bf16* R,
-                               bf16* C, int M, int N, int K, cudaStream_t stream) {
+                               bf16* C, int M, int N, int K, cudaStream_t stream,
+                               bf16* H = nullptr) {
   if (M <= 0) return cudaSuccess;
   if (N <= 0 || N % 8 || K <= 0 || K % 8) return cudaErrorInvalidValue;
   const int grid_m = (M + kGemmBM - 1) / kGemmBM;
@@ -419,7 +445,8 @@ inline cudaError_t launch_gemm(const bf16* A, const bf16* W, const float* bias, 
                                        static_cast<int>(kGemmSmem));
   if (e != cudaSuccess) return e;
   const dim3 grid((N + kGemmBN - 1) / kGemmBN, grid_m);
-  gemm_bf16_kernel<EPI><<<grid, kGemmThreads, kGemmSmem, stream>>>(A, W, bias, R, C, M, N, K);
+  gemm_bf16_kernel<EPI><<<grid, kGemmThreads, kGemmSmem, stream>>>(A, W, bias, R, C, H, M, N,
+                                                                   K);
   return cudaGetLastError();
 }
 

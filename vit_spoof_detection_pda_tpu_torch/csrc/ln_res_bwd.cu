@@ -1,6 +1,6 @@
 // LayerNorm + residual backward on Hopper: for y = x + f(LN(x)), given the
-// stored xhat (bf16) and inv = rsqrt(var + eps) (f32) of each row, the
-// cotangent dxn of the LN's affine output and g of y,
+// stored xhat and inv = rsqrt(var + eps) (f32) of each row, the cotangent
+// dxn of the LN's affine output and g of y,
 //
 //   dxh = dxn * scale
 //   dx  = g + inv * (dxh - mean(dxh) - xhat * mean(dxh * xhat))
@@ -12,6 +12,8 @@
 // Bound on the H100: bytes.  At ViT-B, B = 128, Tp = 200 (25,600 rows of
 // 768) it reads xhat, dxn, g (bf16) and inv and writes dx: about 157 MB,
 // >= 0.047 ms at 3.35 TB/s; its ~10 operations per element are nothing.
+// The f32 form (xhat, g, dx and dxn f32; the f32 training path) moves
+// twice the bytes: at B = 32, 79 MB, >= 0.024 ms.
 //
 // Design: one warp per row, each lane holding 8 columns of every 256, so
 // the row's two means are two warp reductions and each operand is read
@@ -21,7 +23,9 @@
 // warps through shared memory) into a partial row, and a second launch
 // adds the partials in block order.  No atomics: the sums are the same
 // from run to run.  Rows with dxn = g = 0 (padding) give dx = 0 and add
-// nothing.  D must be a multiple of 8 up to 1024; dxn is bf16 or f32.
+// nothing.  D must be a multiple of 8 up to 1024.  Types: xhat, g and dx
+// are bf16 (dxn bf16 or f32) or all four are f32; one template covers
+// both, so the f32 form sums in the same fixed order.
 #include "common.cuh"
 
 namespace vsd {
@@ -42,12 +46,22 @@ __device__ __forceinline__ void load8(const float* p, float* f) {
   f[4] = b.x, f[5] = b.y, f[6] = b.z, f[7] = b.w;
 }
 
+__device__ __forceinline__ void store8(bf16* p, const float* f) {
+  *reinterpret_cast<uint4*>(p) = pack8(f);
+}
+
+__device__ __forceinline__ void store8(float* p, const float* f) {
+  *reinterpret_cast<float4*>(p) = make_float4(f[0], f[1], f[2], f[3]);
+  *reinterpret_cast<float4*>(p + 4) = make_float4(f[4], f[5], f[6], f[7]);
+}
+
 // NCH: 256-column chunks of a row (lane holds columns 256j + 8 lane .. + 7).
-template <typename TD, int NCH>
+// TX: the type of xh, g and dx; TD: of dxn.
+template <typename TX, typename TD, int NCH>
 __global__ void __launch_bounds__(kWarps * 32)
-    ln_res_bwd_kernel(const bf16* __restrict__ xh, const float* __restrict__ inv,
-                      const TD* __restrict__ dxn, const bf16* __restrict__ g,
-                      const float* __restrict__ lns, bf16* __restrict__ dx,
+    ln_res_bwd_kernel(const TX* __restrict__ xh, const float* __restrict__ inv,
+                      const TD* __restrict__ dxn, const TX* __restrict__ g,
+                      const float* __restrict__ lns, TX* __restrict__ dx,
                       float* __restrict__ partial, int rows, int d) {
   __shared__ float red[kWarps][kMaxD];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -102,7 +116,7 @@ __global__ void __launch_bounds__(kWarps * 32)
         const float dh = dv[j][i] * sc[j][i];
         o[i] = gv[i] + iv * ((dh - m1) - xv[j][i] * m2);
       }
-      *reinterpret_cast<uint4*>(dx + off + c) = pack8(o);
+      store8(dx + off + c, o);
     }
   }
 
@@ -146,15 +160,15 @@ __global__ void ln_res_bwd_sum_kernel(const float* __restrict__ partial, int blo
   dbias[c] = b;
 }
 
-template <typename TD>
-cudaError_t launch(const bf16* xh, const float* inv, const TD* dxn, const bf16* g,
-                   const float* lns, bf16* dx, float* partial, int blocks, int rows, int d,
+template <typename TX, typename TD>
+cudaError_t launch(const TX* xh, const float* inv, const TD* dxn, const TX* g,
+                   const float* lns, TX* dx, float* partial, int blocks, int rows, int d,
                    cudaStream_t s) {
   switch ((d + 255) / 256) {
 #define VSD_CHUNKS(N)                                                                   \
   case N:                                                                               \
-    ln_res_bwd_kernel<TD, N><<<blocks, kWarps * 32, 0, s>>>(xh, inv, dxn, g, lns, dx, \
-                                                            partial, rows, d);          \
+    ln_res_bwd_kernel<TX, TD, N><<<blocks, kWarps * 32, 0, s>>>(xh, inv, dxn, g, lns,  \
+                                                                dx, partial, rows, d); \
     break;
     VSD_CHUNKS(1)
     VSD_CHUNKS(2)
@@ -170,20 +184,28 @@ cudaError_t launch(const bf16* xh, const float* inv, const TD* dxn, const bf16* 
 }  // namespace
 }  // namespace vsd
 
-// xh, g, dx [rows, d] bf16; inv [rows] f32; dxn [rows, d] bf16 (dxn_f32 = 0)
-// or f32 (dxn_f32 = 1); lns, dscale, dbias [d] f32; partial
-// [2, ceil(rows / 128), d] f32 scratch.  Returns the first CUDA error of
-// the two launches (0 on success).
+// xh, g, dx [rows, d] bf16 (x_f32 = 0) or f32 (x_f32 = 1); inv [rows] f32;
+// dxn [rows, d] bf16 (dxn_f32 = 0) or f32 (dxn_f32 = 1), f32 when x_f32;
+// lns, dscale, dbias [d] f32; partial [2, ceil(rows / 128), d] f32
+// scratch.  Returns the first CUDA error of the two launches (0 on
+// success).
 extern "C" int vsd_ln_res_bwd(const void* xh, const void* inv, const void* dxn, const void* g,
                               const void* lns, void* dx, void* partial, void* dscale,
-                              void* dbias, int rows, int d, int dxn_f32, void* stream) {
+                              void* dbias, int rows, int d, int dxn_f32, int x_f32,
+                              void* stream) {
   using namespace vsd;
-  if (rows < 0 || d <= 0 || d % 8 || d > kMaxD) return cudaErrorInvalidValue;
+  if (rows < 0 || d <= 0 || d % 8 || d > kMaxD || (x_f32 && !dxn_f32))
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int blocks = rows > 0 ? (rows + kRowsPerBlock - 1) / kRowsPerBlock : 1;
   cudaError_t e;
   if (rows == 0) {
     e = cudaMemsetAsync(partial, 0, 2 * sizeof(float) * d, s);
+  } else if (x_f32) {
+    e = launch(static_cast<const float*>(xh), static_cast<const float*>(inv),
+               static_cast<const float*>(dxn), static_cast<const float*>(g),
+               static_cast<const float*>(lns), static_cast<float*>(dx),
+               static_cast<float*>(partial), blocks, rows, d, s);
   } else if (dxn_f32) {
     e = launch(static_cast<const bf16*>(xh), static_cast<const float*>(inv),
                static_cast<const float*>(dxn), static_cast<const bf16*>(g),

@@ -16,6 +16,17 @@ numbers through these):
   ``strict=True``.
 - :func:`antispoof_from_torch`: the inverse of the first, used by the
   serving path to lay the module's weights out for the kernels.
+- :func:`antispoof_state_from_tree`: the first as torch ops on tensors,
+  differentiable (the module path's training forward over the tree).
+- :func:`train_state_arrays`: a JAX ``TrainState``'s params, AdamW
+  moments and EMA shadow as numpy, in the order the port's
+  ``TrainState`` keeps its leaves (``create_train_state(opt_arrays=)``).
+
+Reference-format ``.pth`` files (SURVEY §2.4: ``model_state_dict``,
+``epoch``, ``metrics``, ``config``): :func:`save_torch_checkpoint` and
+:func:`load_torch_checkpoint` (``torch.load(weights_only=True)`` with
+numpy's scalar, array and dtype reconstructors allowed, since the
+reference's metrics are numpy values).
 
 Upstream state dicts -> the port's key sets (the converters
 ``models/registry.py`` names; each raises ``KeyError`` on a missing
@@ -224,6 +235,97 @@ def resnet50_to_torch(variables) -> dict:
     return sd
 
 
+def antispoof_state_from_tree(params, patch_size: int = 16,
+                              channels: int = 3) -> dict:
+    """:func:`antispoof_to_torch` as torch ops: a JAX-layout ViTAntiSpoof
+    tree of tensors (``{"vit": ..., "head": ...}``) -> the module's state
+    dict, each entry a view or transpose of its leaf, so gradients flow
+    back to the tree (``torch.func.functional_call`` over the module)."""
+    vit, head = params["vit"], params["head"]
+    k = vit["patch_embed"]["kernel"]                     # [p*p*c, D]
+    sd = {"vit.patch_embed.proj.weight": k.reshape(
+              patch_size, patch_size, channels, k.shape[1]).permute(3, 2, 0, 1),
+          "vit.patch_embed.proj.bias": vit["patch_embed"]["bias"],
+          "vit.cls_token": vit["cls_token"], "vit.pos_embed": vit["pos_embed"],
+          "vit.norm.weight": vit["norm"]["scale"],
+          "vit.norm.bias": vit["norm"]["bias"]}
+    i = 0
+    while f"block{i}" in vit:
+        blk = vit[f"block{i}"]
+        for mod, node in ((f"blocks.{i}.norm1", blk["norm1"]),
+                          (f"blocks.{i}.norm2", blk["norm2"])):
+            sd[f"vit.{mod}.weight"], sd[f"vit.{mod}.bias"] = (
+                node["scale"], node["bias"])
+        for mod, node in ((f"blocks.{i}.attn.qkv", blk["attn"]["qkv"]),
+                          (f"blocks.{i}.attn.proj", blk["attn"]["proj"]),
+                          (f"blocks.{i}.mlp.fc1", blk["mlp"]["fc1"]),
+                          (f"blocks.{i}.mlp.fc2", blk["mlp"]["fc2"])):
+            sd[f"vit.{mod}.weight"] = node["kernel"].t()
+            sd[f"vit.{mod}.bias"] = node["bias"]
+        i += 1
+    sd["classifier.0.weight"] = head["norm"]["scale"]
+    sd["classifier.0.bias"] = head["norm"]["bias"]
+    for idx, name in ((2, "fc1"), (5, "fc2")):
+        sd[f"classifier.{idx}.weight"] = head[name]["kernel"].t()
+        sd[f"classifier.{idx}.bias"] = head[name]["bias"]
+    return sd
+
+
+def train_state_arrays(jax_state) -> dict:
+    """A JAX ``TrainState`` as numpy, laid out for the port's
+    ``TrainState``: ``{"params": tree, "step": int, "count": int, "mu":
+    [...], "nu": [...], "ema": [...] | None}``, the moment and EMA lists
+    in the port's leaf order (the tree's sorted keys, JAX's order for
+    dicts).  Reads the optax chain's state by its node types (AdamW's
+    ``mu``/``nu``/``count``, the EMA's ``polyak_shadow``) without
+    importing optax; ``gradient_accumulation_steps > 1`` is refused.
+    Feed it to ``train.state.create_train_state(opt_arrays=...)``."""
+    from ..train.state import tree_flatten
+
+    found = {}
+
+    def walk(node):
+        if hasattr(node, "mu") and hasattr(node, "nu") and hasattr(
+                node, "count"):
+            found["adam"] = node
+        elif hasattr(node, "polyak_shadow"):
+            found["ema"] = node.polyak_shadow
+        elif hasattr(node, "mini_step"):
+            raise ValueError("a JAX state under gradient accumulation "
+                             "(optax.MultiSteps) is not carried across")
+        if isinstance(node, dict):
+            children = node.values()
+        elif isinstance(node, (list, tuple)):
+            children = node
+        else:
+            return
+        for child in children:
+            walk(child)
+
+    walk(jax_state.opt_state)
+    if "adam" not in found:
+        raise ValueError("no AdamW state (mu, nu, count) in the JAX "
+                         "opt_state")
+    adam = found["adam"]
+
+    def leaves(tree):
+        return tree_flatten(_as_dict(tree))[0]
+
+    return {"params": _as_dict(jax_state.params),
+            "step": int(np.asarray(jax_state.step)),
+            "count": int(np.asarray(adam.count)),
+            "mu": leaves(adam.mu), "nu": leaves(adam.nu),
+            "ema": leaves(found["ema"]) if "ema" in found else None}
+
+
+def _as_dict(tree):
+    """A nested mapping (flax ``FrozenDict`` included) as plain dicts of
+    numpy arrays."""
+    if hasattr(tree, "items"):
+        return {k: _as_dict(v) for k, v in tree.items()}
+    return np.array(tree, np.float32)
+
+
 def load_jax_params(module: torch.nn.Module, variables) -> torch.nn.Module:
     """Load a JAX-layout tree into its port module with ``strict=True``:
     ``ViTAntiSpoof`` and ``ViTLinearHead`` take ``{"params": ...}`` or
@@ -388,3 +490,58 @@ def convert_partial(converter: Callable, sd: Mapping,
                     len(converted), ", ".join(missing[:8])
                     + ("..." if len(missing) > 8 else ""))
     return merged, missing
+
+
+# --------------------------------------------------------------------------
+# Reference-format checkpoint files
+# --------------------------------------------------------------------------
+
+
+def _numpy_safe_globals() -> list:
+    """numpy's scalar, array and dtype reconstructors for
+    ``torch.serialization.safe_globals``, under the names numpy 1.x
+    (``numpy.core``) and 2.x (``numpy._core``) pickle them with."""
+    try:
+        from numpy._core import multiarray as ma
+    except ImportError:                              # numpy < 2
+        from numpy.core import multiarray as ma
+    out = [np.ndarray, np.dtype]
+    for fn in (ma.scalar, ma._reconstruct):
+        out += [(fn, f"numpy.core.multiarray.{fn.__name__}"),
+                (fn, f"numpy._core.multiarray.{fn.__name__}")]
+    dtypes = getattr(np, "dtypes", None)             # numpy >= 1.25
+    if dtypes is not None:
+        out += [getattr(dtypes, n) for n in dir(dtypes) if n.endswith("DType")]
+    return out
+
+
+def load_torch_checkpoint(path: str) -> dict:
+    """A torch ``.pth`` -> its flat state dict: the reference's checkpoint
+    dict (``model_state_dict`` + ``epoch`` + ``metrics`` + ``config``,
+    train_advanced.py:475-489) or a bare state dict.
+
+    ``torch.load(weights_only=True)``, with numpy's scalar, array and
+    dtype reconstructors allowed (the reference's validation metrics are
+    numpy values next to the state dicts); every other class is still
+    refused.  The JAX package loads with ``weights_only=False``, as
+    test.py:174 does."""
+    with torch.serialization.safe_globals(_numpy_safe_globals()):
+        obj = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(obj, dict) and "model_state_dict" in obj:
+        return obj["model_state_dict"]
+    return obj
+
+
+def save_torch_checkpoint(path: str, variables, *, epoch: int = 0,
+                          metrics: dict | None = None,
+                          config: dict | None = None) -> dict:
+    """Write a reference-format ``.pth`` (the dict layout of
+    train_advanced.py:475-489: epoch + model_state_dict + metrics +
+    config) of a ViTAntiSpoof tree, loadable by the reference's
+    ``load_checkpoint`` (test.py:167-188) and by
+    :func:`load_torch_checkpoint`.  Returns the exported state dict."""
+    sd = {k: torch.from_numpy(np.ascontiguousarray(v.astype(np.float32)))
+          for k, v in antispoof_to_torch(variables).items()}
+    torch.save({"epoch": epoch, "model_state_dict": sd,
+                "metrics": metrics or {}, "config": config or {}}, path)
+    return sd

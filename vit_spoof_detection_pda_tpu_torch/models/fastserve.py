@@ -1,14 +1,16 @@
 """bf16 serving path: uint8 faces in, P(live) out (counterpart of the JAX
-package's ``models/fastserve.py``), in its three regimes:
+package's ``models/fastserve.py``), in its three regimes
+(:func:`auto_serving_mode` picks one by batch size, from the H100's
+measured table):
 
-- ``fastserve`` (B >= 17): each encoder layer on the two hand-written
+- ``fastserve`` (B >= 2): each encoder layer on the two hand-written
   kernels, composed as below.
 - ``lowlat`` (B = 1): the whole forward, patch rows to logits, in one
   launch of ``csrc/lowlat_encoder.cu`` (:func:`serving_forward_lowlat`,
   packs from :func:`prepare_lowlat`).
-- ``batch_grid`` (B = 2-16): the whole encoder in one launch of
-  ``csrc/lowlat_batchgrid.cu`` per chunk of up to 4 items
-  (:func:`serving_forward_lowlat_batch`).
+- ``batch_grid`` (B = 2-16 on the TPU; on the card by ``mode=`` only):
+  the whole encoder in one launch of ``csrc/lowlat_batchgrid.cu`` per
+  chunk of up to 4 items (:func:`serving_forward_lowlat_batch`).
 
 Composition (the math of ``models/vit.py`` at serving dtypes):
   x <- pad(embed_patches(batch))        # once, 197 -> 200 rows
@@ -352,15 +354,17 @@ def serving_program(model, *, mode: str, dtype=torch.bfloat16,
 
 
 def auto_serving_mode(batch_size: int) -> str:
-    """The JAX package's regime table: B = 1 ``lowlat``, 2..16
-    ``batch_grid``, >= 17 ``fastserve`` (measured there on the TPU; the
-    port keeps it, and ``PERF.md`` records how the regimes compare on the
-    H100)."""
+    """The regime table measured on the H100 (``NVIDIA H100 80GB HBM3``,
+    700 W; ``chip_smoke.py``'s ``times_small`` phase, which times each
+    regime at B = 1, 2, 4, 8, 16): B = 1 ``lowlat`` (2.30 ms a forward),
+    B >= 2 ``fastserve`` (0.21-0.95 ms an image at B = 2-16, against
+    ``batch_grid``'s 1.32-1.46).  The JAX package's TPU table serves
+    B = 2-16 on ``batch_grid``; ``make_serving_fn(mode=...)`` still picks
+    any regime explicitly.  B = 1 stays on ``lowlat`` while fastserve's
+    host-bound B = 1 time (1.9-4.4 ms across runs) is unexplained."""
     if batch_size < 1:
         raise ValueError(f"batch_size must be >= 1, got {batch_size}")
-    if batch_size == 1:
-        return "lowlat"
-    return "batch_grid" if batch_size <= 16 else "fastserve"
+    return "lowlat" if batch_size == 1 else "fastserve"
 
 
 def make_serving_fn(model, *, batch_size: int, mode: str = "auto",
@@ -369,8 +373,7 @@ def make_serving_fn(model, *, batch_size: int, mode: str = "auto",
     """Serving factory: fold normalization, cast or pack the weights once,
     and return ``uint8 [B, H, W, 3] -> P(live) [B]`` (an f32 tensor on the
     device) on the regime for ``batch_size`` (:func:`auto_serving_mode`:
-    B = 1 ``lowlat``, 2-16 ``batch_grid``, >= 17 ``fastserve``); ``mode``
-    overrides it.
+    B = 1 ``lowlat``, >= 2 ``fastserve``); ``mode`` overrides it.
 
     ``model``: the port's ``ViTAntiSpoof`` holding its unfolded weights.
     Runs on the card unless ``device="cpu"``, and raises when no card is

@@ -13,7 +13,15 @@ Per encoder layer:
   (``csrc/ln_res_bwd.cu``).  With grad off it runs the serving kernel.
 - :class:`MlpBlockTrainH`: the MLP sub-layer with the stored-hidden
   backward: ``torch`` products, and the LN/residual-backward kernel for
-  its tail.
+  its tail (``mlp_mode="hidden"``, the default).
+- :class:`MlpBlockTrainP`: the same backward under the training MLP
+  kernel's forward (``csrc/mlp_block_train.cu``, ``mlp_mode="fused"``).
+- :class:`MlpBlockTrainX`: the recompute-hidden backward that keeps only
+  ``x`` and ``xhat`` (``mlp_mode="xhat"``; plain ops, no kernel).
+- ``mlp_mode="autodiff"``: plain differentiable ops.
+
+Every kernel takes bf16 or f32 (``compute_dtype``); f32 runs their f32
+forms, never TF32.
 
 Products in the compute dtype go through :func:`_mm32`: an f32 result of
 the compute-dtype operands, as JAX's ``preferred_element_type=float32``
@@ -35,15 +43,14 @@ import torch.nn.functional as F
 
 from ..device import exact_f32_matmul
 from ..ops.attention import (_round_up, attention_block_train_padded,
-                             attention_qkv_bwd, fused_attention_block)
+                             attention_qkv_bwd, fused_attention_block,
+                             mlp_block_train)
 from ..ops.gelu import gelu as _gelu
 from ..ops.gelu import gelu_lean
 from ..ops.ln_bwd import ln_residual_bwd
 from .fastserve import embed_patches
 
-MLP_MODES = ("hidden", "autodiff")
-_MLP_TODO = ("the {!r} MLP mode is not ported yet: ROADMAP Queue 2 items "
-             "15 (mlp_mode='fused') and Queue 1 item 3 (mlp_mode='xhat')")
+MLP_MODES = ("hidden", "autodiff", "xhat", "fused")
 
 
 def _mm32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -222,6 +229,81 @@ def mlp_block_train_h(x, lns, lnb, w1, b1, w2, b2, approx: bool,
     return MlpBlockTrainH.apply(x, lns, lnb, w1, b1, w2, b2, approx, eps)
 
 
+class MlpBlockTrainP(MlpBlockTrainH):
+    """:class:`MlpBlockTrainH` with the whole forward as the training MLP
+    kernel (kernel 7) over the flat ``B*T`` rows, which writes the same
+    residuals (``xhat``, ``inv``, ``h``); the backward is the stored-hidden
+    one (the JAX ``mlp_block_train_p``: ``_mbp_fwd`` / ``_mbp_bwd``).  The
+    kernel's GELU is exact erf where the TPU kernel emulated it, so the
+    forward and the backward's gate recompute agree."""
+
+    @staticmethod
+    def forward(ctx, x, lns, lnb, w1, b1, w2, b2, approx, eps):
+        b, t, d = x.shape
+        y, xh, inv, h = mlp_block_train(
+            x.reshape(b * t, d), lns, lnb, w1, b1, w2, b2,
+            approximate=approx, eps=eps)
+        ctx.save_for_backward(xh.view(b, t, d), inv.view(b, t, 1), h, lns,
+                              lnb, w1, w2)
+        ctx.approx = approx
+        return y.view(b, t, d)
+
+
+def mlp_block_train_p(x, lns, lnb, w1, b1, w2, b2, approx: bool,
+                      eps: float):
+    return MlpBlockTrainP.apply(x, lns, lnb, w1, b1, w2, b2, approx, eps)
+
+
+class MlpBlockTrainX(torch.autograd.Function):
+    """``x + fc2(gelu(fc1(LN2(x))))`` keeping only ``x`` and ``xhat``: the
+    backward rebuilds the hidden with one more product instead of reading
+    it back (the JAX ``mlp_block_train``: ``_mbt_fwd`` / ``_mbt_bwd``, the
+    memory-lean mode).  Its LayerNorm tail is plain f32 ops on the
+    recomputed ``inv``, as JAX's is (no kernel)."""
+
+    @staticmethod
+    def forward(ctx, x, lns, lnb, w1, b1, w2, b2, approx, eps):
+        y, xh, _, _ = _mlp_fwd(x, lns, lnb, w1, b1, w2, b2, approx, eps)
+        ctx.save_for_backward(x, xh.to(x.dtype), lns, lnb, w1, b1, w2)
+        ctx.approx, ctx.eps = approx, eps
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, xh, lns, lnb, w1, b1, w2 = ctx.saved_tensors
+        b, t, d = x.shape
+        cdt = x.dtype
+        mode = _gelu_mode(ctx.approx)
+        g32 = g.float()
+        gc = g.to(cdt).reshape(b * t, d)
+        xh32 = xh.float()
+        xn = (xh32 * lns + lnb).to(cdt).view(b * t, d)
+        h = (_mm32(xn, w1) + b1.float()).to(cdt)              # the recompute
+        a = F.gelu(h, approximate=mode)
+        da = _mm32(gc, w2.t()).to(cdt)
+        dw2 = _mm32(a.t(), gc).to(w2.dtype)
+        db2 = g32.sum((0, 1))
+        dh = torch.ops.aten.gelu_backward(da, h, approximate=mode)
+        dw1 = _mm32(xn.t(), dh).to(w1.dtype)
+        db1 = dh.sum(0, dtype=torch.float32)
+        dxn = _mm32(dh, w1.t()).view(b, t, d)                 # f32
+        dlns = (dxn * xh32).sum((0, 1))
+        dlnb = dxn.sum((0, 1))
+        dxh = dxn * lns
+        x32 = x.float()
+        inv = torch.rsqrt(x32.var(-1, unbiased=False, keepdim=True)
+                          + ctx.eps)
+        dx_ln = inv * (dxh - dxh.mean(-1, keepdim=True)
+                       - xh32 * (dxh * xh32).mean(-1, keepdim=True))
+        dx = (g32 + dx_ln).to(cdt)
+        return dx, dlns, dlnb, dw1, db1, dw2, db2, None, None
+
+
+def mlp_block_train_x(x, lns, lnb, w1, b1, w2, b2, approx: bool,
+                      eps: float):
+    return MlpBlockTrainX.apply(x, lns, lnb, w1, b1, w2, b2, approx, eps)
+
+
 def _mlp_autodiff(x, lns, lnb, w1, b1, w2, b2, approx: bool, eps: float):
     """The MLP sub-layer as plain differentiable ops, the GELU through
     :func:`gelu_lean` (the JAX ``"autodiff"`` mode)."""
@@ -261,21 +343,21 @@ def train_forward(params, batch, *, generator=None, train: bool = False,
     parameters' device.
 
     ``mlp_mode``: "hidden" (stored-hidden backward with the LN-tail
-    kernel; the default) or "autodiff" (plain ops, lean GELU).  "xhat"
-    and "fused" are not ported and raise ``NotImplementedError``.
+    kernel; the default), "fused" (the same backward under the training
+    MLP kernel's forward), "xhat" (recompute-hidden backward, keeps only
+    ``x`` and ``xhat``) or "autodiff" (plain ops, lean GELU).
     ``train=True`` with ``dropout > 0`` needs ``generator``."""
-    if mlp_mode in ("xhat", "fused"):
-        raise NotImplementedError(_MLP_TODO.format(mlp_mode))
     if mlp_mode not in MLP_MODES:
         raise ValueError(f"unknown mlp_mode {mlp_mode!r} (expected "
-                         "hidden | autodiff)")
+                         f"{' | '.join(MLP_MODES)})")
     if train and generator is None and dropout > 0.0:
         raise ValueError("train=True with dropout > 0 requires a dropout "
                          "generator")
     vit = params["vit"]
     x = embed_patches(vit, batch, dtype=dtype, patch_size=patch_size)
     approx = gelu == "tanh"
-    mlp = mlp_block_train_h if mlp_mode == "hidden" else _mlp_autodiff
+    mlp = {"hidden": mlp_block_train_h, "fused": mlp_block_train_p,
+           "xhat": mlp_block_train_x, "autodiff": _mlp_autodiff}[mlp_mode]
     for i in range(depth):
         blk = vit[f"block{i}"]
         at, ml = blk["attn"], blk["mlp"]
@@ -310,14 +392,21 @@ def fast_apply_available(module) -> bool:
     return isinstance(module, ViTAntiSpoof)
 
 
-def make_apply(module, *, dtype=torch.bfloat16, mlp_mode: str = "hidden"):
+def make_apply(module, *, dtype=None, mlp_mode: str = "hidden"):
     """``apply_fn(variables, batch, *, train=False, generator=None)`` over
     :func:`train_forward` for the port's ``ViTAntiSpoof`` (its geometry,
-    GELU and dropout rate), computing in ``dtype``.  There is no
-    module-path fallback: on the card the kernels are the path."""
+    GELU and dropout rate), computing in ``dtype``: the module's own
+    ``dtype`` unless given, as JAX's ``make_apply`` reads
+    ``module.dtype``.  ``mlp_mode`` as :func:`train_forward`.  There is
+    no module-path fallback: on the card the kernels are the path."""
     if not fast_apply_available(module):
         raise TypeError(f"make_apply takes the port's ViTAntiSpoof; got "
                         f"{type(module).__name__}")
+    if dtype is None:
+        dtype = module.dtype
+    if mlp_mode not in MLP_MODES:
+        raise ValueError(f"unknown mlp_mode {mlp_mode!r} (expected "
+                         f"{' | '.join(MLP_MODES)})")
     if dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"compute dtype {dtype} (bfloat16 | float32)")
 

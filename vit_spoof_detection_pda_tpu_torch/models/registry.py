@@ -5,8 +5,11 @@ port module's key set.
 
 :func:`build_model` returns the module with its weights loaded, in eval
 mode, on the card unless ``device="cpu"``.  Weights come from a ``.pth``
-(``torch.load(weights_only=True)``) or a ``.safetensors`` file (where the
-``safetensors`` package imports); without a file the
+(``torch.load(weights_only=True)``, numpy values in its ``metrics``
+allowed), a ``.safetensors`` file (where the ``safetensors`` package
+imports), or a checkpoint directory of the port's Trainer (its last
+iterate, or its EMA shadow with ``ema=True``; a JAX Orbax directory where
+``orbax`` imports); without a file the
 module keeps a random init seeded from ``seed`` (the default generator
 reseeded inside ``torch.random.fork_rng``, so the caller's stream is
 untouched).  That init does not reproduce flax's bitstream: the tests
@@ -29,12 +32,6 @@ from .vit import ViTAntiSpoof, ViTLinearHead
 
 log = logging.getLogger(__name__)
 
-_ORBAX_TODO = (
-    "{name}: {what} is the JAX Trainer's Orbax checkpoint format; the "
-    "port reads it with the training loop and its checkpoints (ROADMAP "
-    "Queue 1 item 4)")
-
-
 @dataclasses.dataclass(frozen=True)
 class ModelEntry:
     """One registry row (JAX :27).
@@ -54,6 +51,19 @@ class ModelEntry:
 
 def _build_vit_antispoof(dropout=0.1, dtype=torch.float32, img_size=224):
     return ViTAntiSpoof(dropout=dropout, dtype=dtype, img_size=img_size)
+
+
+def build_vit_from_config(model_cfg, dtype=torch.float32,
+                          img_size: int = 224) -> ViTAntiSpoof:
+    """A ``ModelConfig`` onto ``ViTAntiSpoof`` (JAX :50): the one mapping
+    the train driver and the eval paths share."""
+    return ViTAntiSpoof(
+        patch_size=model_cfg.patch_size, embed_dim=model_cfg.embed_dim,
+        depth=model_cfg.depth, num_heads=model_cfg.num_heads,
+        mlp_ratio=model_cfg.mlp_ratio, hidden=model_cfg.head_hidden,
+        num_classes=model_cfg.num_classes, dropout=model_cfg.dropout,
+        dtype=dtype, gelu=getattr(model_cfg, "gelu", "erf"),
+        img_size=img_size)
 
 
 def _build_vit_linear(dropout=0.1, dtype=torch.float32, img_size=224):
@@ -121,19 +131,28 @@ def build_model(name: str, *, checkpoint_path: Optional[str] = None,
     module keep its init (``ignore_mismatched_sizes``: a 1000-way
     ImageNet head is not P(live)).  Otherwise a random init from ``seed``
     with a warning (placeholder entries warn that they are untrained).
-    An Orbax directory or ``ema=True`` raises ``NotImplementedError``."""
+
+    A directory is a training run's ``save_dir``: the port's checkpoints
+    (``utils/checkpoint.py``), or a JAX Orbax directory where ``orbax``
+    imports; its tree must match the module exactly (a mismatch is a
+    wrong architecture, never a partial load).  ``ema=True`` loads the
+    EMA shadow from such a directory and raises for a file, whose one
+    weight set carries no shadow."""
     entry = MODEL_REGISTRY[name]
     device = resolve_device(device)
     module = _seeded_build(entry, seed, dropout=dropout, dtype=dtype,
                            img_size=img_size)
     path = checkpoint_path if entry.weights == "checkpoint" else pretrained_path
-    if ema:
-        raise NotImplementedError(_ORBAX_TODO.format(
-            name=name, what="the EMA shadow (ema=True)"))
+    if ema and not (path and os.path.isdir(path)):
+        raise ValueError(
+            f"{name}: ema=True needs a checkpoint directory (got {path!r}) "
+            "— the EMA shadow lives in the optimizer state, which "
+            "file-format checkpoints do not carry")
     if path and os.path.isdir(path):
-        raise NotImplementedError(_ORBAX_TODO.format(
-            name=name, what=f"the checkpoint directory {path}"))
-    if path and os.path.exists(path) and entry.weight_converter:
+        step = _load_checkpoint_dir(module, path, ema=ema)
+        log.info("loaded %s checkpoint step %d from %s%s", name, step, path,
+                 " (EMA shadow)" if ema else "")
+    elif path and os.path.exists(path) and entry.weight_converter:
         sd = _load_state_dict(path)
         try:
             weights = entry.weight_converter(sd)
@@ -186,12 +205,64 @@ def _drop_mismatched(weights: dict, module: torch.nn.Module):
 def _load_state_dict(path: str) -> dict:
     """A flat state dict from ``path`` (JAX :283): ``.safetensors``
     through the ``safetensors`` package, anything else through
-    ``torch.load(weights_only=True)``, unwrapping the reference's
+    :func:`convert.load_torch_checkpoint` (``weights_only=True`` with
+    numpy's reconstructors allowed), unwrapping the reference's
     ``{"model_state_dict": ...}`` layout."""
     if path.endswith(".safetensors"):
         from safetensors.torch import load_file
         return load_file(path)
-    obj = torch.load(path, map_location="cpu", weights_only=True)
-    if isinstance(obj, dict) and "model_state_dict" in obj:
-        return obj["model_state_dict"]
-    return obj
+    return convert.load_torch_checkpoint(path)
+
+
+def _load_checkpoint_dir(module, path: str, *, ema: bool) -> int:
+    """Load a checkpoint directory into ``module`` strictly; returns the
+    step."""
+    from ..utils.checkpoint import load_checkpoint_bundle
+
+    variables, step, _ = load_checkpoint_bundle(path, ema=ema)
+    if isinstance(module, ViTAntiSpoof):
+        want = convert.antispoof_from_torch(module.state_dict())
+    elif isinstance(module, ViTLinearHead):
+        raise NotImplementedError(
+            "checkpoint directories hold ViTAntiSpoof trees; the Trainer "
+            "trains no other model")
+    else:
+        raise NotImplementedError(
+            f"{type(module).__name__} from a checkpoint directory")
+    structure_err, mismatched = geometry_mismatches(want, variables)
+    if structure_err or mismatched:
+        raise ValueError(
+            f"checkpoint {path} does not match the module's parameter tree "
+            f"({structure_err or mismatched[:3]}) — wrong architecture for "
+            "this entry")
+    convert.load_jax_params(module, variables)
+    return step
+
+
+def geometry_mismatches(want, got):
+    """Compare two variable trees' geometry (structure and leaf shapes;
+    JAX :224).  Returns ``(structure_error, mismatched)``:
+    ``structure_error`` is a string when the structures disagree (else
+    None), ``mismatched`` lists ``path: got_shape vs want_shape``."""
+    want = want.get("params", want) if isinstance(want, dict) else want
+    got = got.get("params", got) if isinstance(got, dict) else got
+    mismatched = []
+
+    def walk(w, g, path):
+        if isinstance(w, dict) or isinstance(g, dict):
+            if not (isinstance(w, dict) and isinstance(g, dict)):
+                return f"{'/'.join(path)}: a subtree on one side only"
+            if set(w) != set(g):
+                return (f"{'/'.join(path) or '<root>'}: keys "
+                        f"{sorted(set(g) ^ set(w))} differ")
+            for k in sorted(w):
+                err = walk(w[k], g[k], path + (k,))
+                if err:
+                    return err
+            return None
+        if tuple(g.shape) != tuple(w.shape):
+            mismatched.append("/".join(path) + f": {tuple(g.shape)} vs "
+                              f"{tuple(w.shape)}")
+        return None
+
+    return walk(want, got, ()), mismatched

@@ -8,9 +8,10 @@ lists ``build/``), keyed on a hash of every source in ``csrc/`` and of
 the flags, and are built at first use; a library already built for the
 same hash is reused.  A failed build raises with nvcc's stderr.
 
-:data:`LAUNCHES` holds one count per kernel: each wrapper adds one where
-it launches its kernel and nowhere else, so a run can show that its main
-path went through the kernels.
+:data:`LAUNCHES` holds one count per kernel form (a library, or an f32
+form beside a bf16 one): each wrapper adds one where it launches its
+kernel and nowhere else, so a run can show that its main path went
+through the kernels.
 
 Nothing here runs when the module is imported, so the CPU tests, which
 have no ``nvcc``, import it freely.
@@ -31,8 +32,15 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 KERNELS = ("attention_block", "mlp_block", "attention_block_train",
            "attention_qkv_bwd", "ln_res_bwd", "lowlat_encoder",
            "lowlat_batchgrid", "pool_gather", "warp_pass", "nlm",
-           "attention_qkv")
-LAUNCHES = {name: 0 for name in KERNELS}
+           "attention_qkv", "attention_block_f32", "attention_qkv_bwd_f32",
+           "mlp_block_train")
+# one count per kernel form: each library's name, and the f32 forms that
+# share a library with another form (the f32 training attention block is
+# attention_block_f32's entry with its residual outputs; the LN backward
+# and the training MLP block take bf16 or f32 in one library)
+LAUNCHES = {name: 0 for name in KERNELS + ("attention_block_train_f32",
+                                           "ln_res_bwd_f32",
+                                           "mlp_block_train_f32")}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

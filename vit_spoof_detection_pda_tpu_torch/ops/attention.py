@@ -13,9 +13,10 @@
 Each wrapper takes the JAX layouts (``[in, out]`` kernels, f32 LN and
 bias vectors).  A CPU tensor goes to the plain PyTorch version beside it
 (``*_plain``); a CUDA tensor goes to the kernel, which takes bf16
-activations and weights and raises on anything else.  ``LAUNCHES``
-counts the kernel calls (one per wrapper call on the card), so a run can
-show that its main path went through the kernels.
+activations and weights (the training kernels also f32) and raises on
+anything else.  ``LAUNCHES`` counts the kernel calls (one per wrapper
+call on the card, the f32 forms under their own ``*_f32`` names), so a
+run can show that its main path went through the kernels.
 
 Training adds two kernels:
 
@@ -26,14 +27,24 @@ Training adds two kernels:
 - :func:`attention_qkv_bwd`: ``dqkv`` of the attention core from ``qkv``
   and the head outputs' cotangent.  Kernel: ``csrc/attention_qkv_bwd.cu``;
   replaces ``_attn_qkv_bwd_kernel`` (JAX ``ops/attention.py:199``).
+- :func:`mlp_block_train`: the MLP block with the stored-hidden
+  backward's residuals (``xhat``, ``inv``, the hidden ``h``), erf or tanh
+  GELU.  Kernel: ``csrc/mlp_block_train.cu``; replaces
+  ``_mlp_block_train_p_kernel`` (JAX ``models/fasttrain.py:508``).
+
+f32 training (``compute_dtype="float32"``) runs f32 forms in plain f32
+FMAs, never TF32: the attention blocks (serving and training) on
+``csrc/attention_block_f32.cu``, the attention backward on
+``csrc/attention_qkv_bwd_f32.cu`` and the MLP block on the f32 route of
+``csrc/mlp_block_train.cu``.
 
 The module path (``models/vit.py::Attention``, eval and the Trainer's
 validation) adds one:
 
 - :func:`fused_attention_qkv`: ``softmax(Q K^T / sqrt(dh)) V`` per head
   on the fused projection ``qkv [B, T, 3D]`` -> ``[B, T, D]``, in bf16
-  and in f32, differentiable (its backward is :func:`attention_qkv_bwd`
-  at bf16).  Kernel: ``csrc/attention_qkv.cu``; replaces
+  and in f32, differentiable (its backward is :func:`attention_qkv_bwd`,
+  bf16 or f32).  Kernel: ``csrc/attention_qkv.cu``; replaces
   ``_attn_qkv_kernel`` (JAX ``ops/attention.py:119``).  The module
   reaches it through :func:`dispatch_attention_qkv`.
 
@@ -67,7 +78,15 @@ _SIGNATURES = {
     "attention_qkv_bwd": ("vsd_attention_qkv_bwd",
                           [_P] * 3 + [_I] * 5 + [_F, _P]),
     "attention_qkv": ("vsd_attention_qkv", [_P] * 2 + [_I] * 6 + [_F, _P]),
+    "attention_block_f32": ("vsd_attention_block_f32",
+                            [_P] * 13 + [_I] * 5 + [_F, _F, _P]),
+    "attention_qkv_bwd_f32": ("vsd_attention_qkv_bwd_f32",
+                              [_P] * 4 + [_I] * 5 + [_F, _P]),
+    "mlp_block_train": ("vsd_mlp_block_train",
+                        [_P] * 13 + [_I] * 3 + [_F] + [_I] * 2 + [_P]),
 }
+# the f32 kernels' blocks: 8 warps, each on 4 query rows (or keys) at a time
+_F32_WARPS, _F32_ROWS = 8, 4
 
 
 def _round_up(x: int, m: int) -> int:
@@ -173,7 +192,8 @@ def fused_attention_block_padded_plain(xp, ln_scale, ln_bias, w_qkv, b_qkv,
 def _check_attention_block_args(xp, ln_scale, ln_bias, w_qkv, b_qkv,
                                 w_proj, b_proj, num_heads, valid_len):
     """Raise on what the attention-block kernels do not take; returns
-    ``(b, tp, d, dh)``."""
+    ``(b, tp, d, dh)``.  bf16 or f32 (the stream and the matrices in one
+    dtype)."""
     b, tp, d = xp.shape
     d = _check_head_geometry(d, num_heads)
     dh = d // num_heads
@@ -182,21 +202,54 @@ def _check_attention_block_args(xp, ln_scale, ln_bias, w_qkv, b_qkv,
             f"the attention kernel takes a head dim that is a multiple of "
             f"16 up to 128, Tp % 8 == 0 and 0 <= valid_len <= Tp; got head "
             f"dim {dh}, Tp {tp}, valid_len {valid_len}")
-    smem = 2 * _round_up(tp, 16) * (dh + 8) * 2            # K and V
+    cdt = xp.dtype
+    if cdt not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"x is {cdt}; the attention-block kernels take "
+                        "bfloat16 or float32")
+    smem = _attention_qkv_smem(tp, dh, cdt)                # K and V (+ f32 rows)
     if smem > _MAX_SMEM:
         raise ValueError(f"Tp {tp} at head dim {dh} needs {smem} bytes of "
                          f"shared memory per block; the card has {_MAX_SMEM}")
     if not 0 < b <= 65535 or num_heads > 65535:
         raise ValueError(f"batch {b} / heads {num_heads} outside the grid")
-    bf, f32, dev = torch.bfloat16, torch.float32, xp.device
-    _require(xp, "x", bf, (b, tp, d), dev)
+    f32, dev = torch.float32, xp.device
+    _require(xp, "x", cdt, (b, tp, d), dev)
     _require(ln_scale, "ln_scale", f32, (d,), dev)
     _require(ln_bias, "ln_bias", f32, (d,), dev)
-    _require(w_qkv, "w_qkv", bf, (d, 3 * d), dev)
+    _require(w_qkv, "w_qkv", cdt, (d, 3 * d), dev)
     _require(b_qkv, "b_qkv", f32, (3 * d,), dev)
-    _require(w_proj, "w_proj", bf, (d, d), dev)
+    _require(w_proj, "w_proj", cdt, (d, d), dev)
     _require(b_proj, "b_proj", f32, (d,), dev)
     return b, tp, d, dh
+
+
+def _attention_block_f32(xp, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj,
+                         num_heads, valid_len, eps, *, train: bool):
+    """Launch the f32 attention block (``csrc/attention_block_f32.cu``):
+    ``out`` alone (``train=False``, kernel 1's f32 form) or ``(out, qkv,
+    attn, xhat, inv)`` (kernel 3's)."""
+    b, tp, d, dh = _check_attention_block_args(
+        xp, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj, num_heads,
+        valid_len)
+    lib, fn = _entry("attention_block_f32")
+    dev, f32 = xp.device, torch.float32
+    out = torch.empty_like(xp)
+    xn = torch.empty((b, tp, d), dtype=f32, device=dev)      # scratch
+    qkv = torch.empty((b, tp, 3 * d), dtype=f32, device=dev)
+    attn = torch.empty((b, tp, d), dtype=f32, device=dev)
+    xh = torch.empty((b, tp, d), dtype=f32, device=dev) if train else None
+    inv = torch.empty((b, tp, 1), dtype=f32, device=dev) if train else None
+    err = fn(xp.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
+             w_qkv.data_ptr(), b_qkv.data_ptr(), w_proj.data_ptr(),
+             b_proj.data_ptr(), xn.data_ptr(), qkv.data_ptr(),
+             attn.data_ptr(), xh.data_ptr() if train else None,
+             inv.data_ptr() if train else None, out.data_ptr(),
+             b, tp, d, num_heads, valid_len, eps, float(dh) ** -0.5,
+             torch.cuda.current_stream(dev).cuda_stream)
+    name = "attention_block_train_f32" if train else "attention_block_f32"
+    _build.check(lib, name, err)
+    LAUNCHES[name] += 1
+    return (out, qkv, attn, xh, inv) if train else out
 
 
 def fused_attention_block_padded(xp, ln_scale, ln_bias, w_qkv, b_qkv,
@@ -211,13 +264,18 @@ def fused_attention_block_padded(xp, ln_scale, ln_bias, w_qkv, b_qkv,
     f32 ``ln_scale``, ``ln_bias``, ``b_qkv`` and ``b_proj``; any B,
     ``Tp % 8 == 0`` (up to 800 at head dim 64, where one head's K and V
     stop fitting in shared memory) and a head dim that is a multiple of
-    16 up to 128."""
+    16 up to 128.  f32 ``xp`` and matrices run the f32 kernel
+    (``LAUNCHES["attention_block_f32"]``; Tp up to 328 at head dim 64)."""
     if xp.device.type == "cpu":
         return fused_attention_block_padded_plain(
             xp, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj, num_heads,
             valid_len=valid_len, eps=eps)
     if xp.device.type != "cuda":
         raise ValueError(f"no kernel for device {xp.device}")
+    if xp.dtype == torch.float32:
+        return _attention_block_f32(xp, ln_scale, ln_bias, w_qkv, b_qkv,
+                                    w_proj, b_proj, num_heads, valid_len, eps,
+                                    train=False)
     b, tp, d, dh = _check_attention_block_args(
         xp, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj, num_heads,
         valid_len)
@@ -241,13 +299,18 @@ def attention_block_train_padded(xp, ln_scale, ln_bias, w_qkv, b_qkv,
     """:func:`fused_attention_block_padded` that also returns the
     backward's residuals: ``(out, qkv, attn, xhat, inv)`` as
     :func:`attention_block_train_padded_plain` describes, all at the Tp
-    rows of ``xp``.  Takes what the serving kernel takes."""
+    rows of ``xp``.  Takes what the serving kernel takes; f32 runs the f32
+    kernel (``LAUNCHES["attention_block_train_f32"]``)."""
     if xp.device.type == "cpu":
         return attention_block_train_padded_plain(
             xp, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj, num_heads,
             valid_len=valid_len, eps=eps)
     if xp.device.type != "cuda":
         raise ValueError(f"no kernel for device {xp.device}")
+    if xp.dtype == torch.float32:
+        return _attention_block_f32(xp, ln_scale, ln_bias, w_qkv, b_qkv,
+                                    w_proj, b_proj, num_heads, valid_len, eps,
+                                    train=True)
     b, tp, d, dh = _check_attention_block_args(
         xp, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj, num_heads,
         valid_len)
@@ -324,12 +387,17 @@ def attention_qkv_bwd(qkv, g, num_heads: int, *, valid_len: int):
     On the card: bf16 ``qkv`` and ``g``, any B, ``Tp % 8 == 0``, a head
     dim of 16, 32 or 64, and one head's K and V and the ``[Tp, Tp]`` bf16
     weights and their gradient within shared memory (Tp up to 208 at
-    head dim 64)."""
+    head dim 64).  f32 ``qkv`` and ``g`` run the f32 kernel
+    (``LAUNCHES["attention_qkv_bwd_f32"]``): any Tp whose head operands
+    fit (up to 264 at head dim 64), a head dim that is a multiple of 16
+    up to 128."""
     if qkv.device.type == "cpu":
         return attention_qkv_bwd_plain(qkv, g, num_heads,
                                        valid_len=valid_len)
     if qkv.device.type != "cuda":
         raise ValueError(f"no kernel for device {qkv.device}")
+    if qkv.dtype == torch.float32:
+        return _attention_qkv_bwd_f32(qkv, g, num_heads, valid_len)
     b, tp, d3 = qkv.shape
     d = _check_head_geometry(d3, num_heads, fused=3)
     dh = d // num_heads
@@ -358,18 +426,47 @@ def attention_qkv_bwd(qkv, g, num_heads: int, *, valid_len: int):
     return dqkv
 
 
+def _attention_qkv_bwd_f32_smem(tp: int, dh: int) -> int:
+    """Shared memory of each launch of ``csrc/attention_qkv_bwd_f32.cu``:
+    two ``[Tp][dh + 4]`` head tiles, the rows' stats ``[Tp][4]``, and per
+    warp two ``[4][dh]`` rows and two ``[Tp][4]`` columns."""
+    return 4 * (2 * tp * (dh + 4) + 4 * tp
+                + _F32_WARPS * (2 * _F32_ROWS * dh + 8 * tp))
+
+
+def _attention_qkv_bwd_f32(qkv, g, num_heads: int, valid_len: int):
+    """Launch the f32 attention backward on CUDA ``qkv`` and ``g``."""
+    b, tp, d3 = qkv.shape
+    d = _check_head_geometry(d3, num_heads, fused=3)
+    dh = d // num_heads
+    if dh % 16 or dh > 128 or not 0 < valid_len <= tp:
+        raise ValueError(
+            f"the f32 attention backward takes a head dim that is a multiple "
+            f"of 16 up to 128 and 0 < valid_len <= Tp; got head dim {dh}, "
+            f"Tp {tp}, valid_len {valid_len}")
+    smem = _attention_qkv_bwd_f32_smem(tp, dh)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"Tp {tp} at head dim {dh} needs {smem} bytes of "
+                         f"shared memory per block; the card has {_MAX_SMEM}")
+    if not 0 < b <= 65535 or num_heads > 65535:
+        raise ValueError(f"batch {b} / heads {num_heads} outside the grid")
+    f32, dev = torch.float32, qkv.device
+    _require(qkv, "qkv", f32, (b, tp, d3), dev)
+    _require(g, "g", f32, (b, tp, d), dev)
+    lib, fn = _entry("attention_qkv_bwd_f32")
+    dqkv = torch.empty_like(qkv)
+    stats = torch.empty((b, num_heads, tp, 4), dtype=f32, device=dev)
+    err = fn(qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(), stats.data_ptr(),
+             b, tp, d, num_heads, valid_len, float(dh) ** -0.5,
+             torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, "attention_qkv_bwd_f32", err)
+    LAUNCHES["attention_qkv_bwd_f32"] += 1
+    return dqkv
+
+
 # --------------------------------------------------------------------------
 # Attention core on the fused projection (the module path)
 # --------------------------------------------------------------------------
-
-# the f32 kernel's block: 8 warps, each on 4 query rows at a time
-_F32_WARPS, _F32_ROWS = 8, 4
-# module-path training on the card at f32 has no backward kernel yet
-_F32_BWD_TODO = (
-    "the f32 attention backward on the card has no kernel yet: module-path "
-    "training comes with slice 6 (ROADMAP Queue 1 item 9); train at bf16, "
-    "or through models/fasttrain.py")
-
 
 def fused_attention_qkv_plain(qkv, num_heads: int):
     """Plain PyTorch version of kernel 8 (JAX ``_attn_qkv_kernel``): per
@@ -433,15 +530,14 @@ def _attention_qkv_kernel(qkv, num_heads: int):
 
 
 def _attention_qkv_backward(qkv, g, num_heads: int):
-    """JAX ``_qkv_bwd``: ``dqkv`` of the attention core.  On the card
-    (bf16) the stream is zero-padded to a multiple of 8 rows for kernel 4
-    and sliced back; on the CPU its plain version runs unpadded."""
+    """JAX ``_qkv_bwd``: ``dqkv`` of the attention core.  On the card at
+    bf16 the stream is zero-padded to a multiple of 8 rows for kernel 4
+    and sliced back; kernel 4's f32 form and the CPU's plain version run
+    unpadded."""
     b, t, _ = qkv.shape
     g = g.to(qkv.dtype).contiguous()
-    if qkv.device.type == "cpu":
-        return attention_qkv_bwd_plain(qkv, g, num_heads, valid_len=t)
-    if qkv.dtype == torch.float32:
-        raise NotImplementedError(_F32_BWD_TODO)
+    if qkv.device.type == "cpu" or qkv.dtype == torch.float32:
+        return attention_qkv_bwd(qkv, g, num_heads, valid_len=t)
     tp = _round_up(t, 8)
     pad = (0, 0, 0, tp - t)
     dqkv = attention_qkv_bwd(
@@ -478,8 +574,8 @@ def fused_attention_qkv(qkv, num_heads: int):
     kernel 8 on bf16 or f32, any B and T, a head dim that is a multiple
     of 16 from 16 to 128 and one head's K and V within shared memory (T
     up to 333 at head dim 64 in f32).  Differentiable: the backward is
-    the attention-backward kernel at bf16 on the card and its plain
-    version on the CPU; at f32 on the card it raises."""
+    the attention-backward kernel (bf16 or f32) on the card and its plain
+    version on the CPU."""
     if not qkv.is_contiguous():
         qkv = qkv.contiguous()
     return _AttentionQKV.apply(qkv, num_heads)
@@ -489,12 +585,13 @@ def dispatch_attention_qkv(qkv, num_heads: int, *, mesh=None):
     """The attention core of ``models/vit.py::Attention`` (JAX
     ``dispatch_attention_qkv`` :663, its single-device step): a CUDA
     tensor goes to kernel 8, a CPU tensor to its plain version.  The
-    mesh, sequence-, head-parallel and ``manual_attention`` branches come
-    with slice 6; passing a mesh raises."""
+    mesh, sequence-, head-parallel and ``manual_attention`` branches are
+    not ported; passing a mesh raises."""
     if mesh is not None:
         raise NotImplementedError(
             "attention under a device mesh (data, sequence or head "
-            "parallel) comes with slice 6 (ROADMAP Queue 1 item 9)")
+            "parallel) is not ported: ROADMAP Queue 1 item 9 (slice 6, "
+            "parallelism)")
     return fused_attention_qkv(qkv, num_heads)
 
 
@@ -554,3 +651,80 @@ def fused_mlp_block(x, ln_scale, ln_bias, w_fc1, b_fc1, w_fc2, b_fc2, *,
     _build.check(lib, "mlp_block", err)
     LAUNCHES["mlp_block"] += 1
     return out
+
+
+# --------------------------------------------------------------------------
+# MLP block for training (the stored-hidden residuals)
+# --------------------------------------------------------------------------
+
+
+def mlp_block_train_plain(x, ln_scale, ln_bias, w_fc1, b_fc1, w_fc2, b_fc2,
+                          *, approximate: bool, eps: float = 1e-6):
+    """Plain PyTorch version of kernel 7 over the flat rows ``x [rows,
+    D]``: ``(y, xhat, inv, h)`` with the TPU kernel's rounding points (to
+    ``x.dtype``): xn, xhat, the hidden ``h = xn @ W1 + b1`` before the GELU
+    and the GELU output (f32 math on the rounded ``h``); ``y = (x + a @ W2)
+    + b2`` summed in f32 and rounded once; ``inv [rows, 1]`` f32."""
+    cdt = x.dtype
+    with exact_f32_matmul():
+        x32 = x.float()
+        mu = x32.mean(-1, keepdim=True)
+        inv = torch.rsqrt(((x32 - mu) ** 2).mean(-1, keepdim=True) + eps)
+        xh = (x32 - mu) * inv
+        xn = (xh * ln_scale.float() + ln_bias.float()).to(cdt)
+        h = (_mm(xn, w_fc1) + b_fc1.float()).to(cdt)
+        a = torch.nn.functional.gelu(
+            h.float(), approximate="tanh" if approximate else "none").to(cdt)
+        y = ((x32 + _mm(a, w_fc2)) + b_fc2.float()).to(cdt)
+        return y, xh.to(cdt), inv, h
+
+
+def mlp_block_train(x, ln_scale, ln_bias, w_fc1, b_fc1, w_fc2, b_fc2, *,
+                    approximate: bool, eps: float = 1e-6):
+    """``x [rows, D]`` -> ``(y [rows, D], xhat [rows, D], inv [rows, 1],
+    h [rows, hidden])`` of ``y = x + fc2(gelu(fc1(LN(x))))``, the
+    residuals of the stored-hidden backward (the counterpart of JAX
+    ``_mlp_fwd_pallas``, unpadded); erf GELU, or tanh with
+    ``approximate``.
+
+    On the card: ``x``, ``w_fc1 [D, hidden]`` and ``w_fc2 [hidden, D]``
+    all bf16 (``LAUNCHES["mlp_block_train"]``) or all f32
+    (``"mlp_block_train_f32"``); f32 LN and bias vectors; any row count,
+    D and hidden multiples of 8."""
+    if x.device.type == "cpu":
+        return mlp_block_train_plain(x, ln_scale, ln_bias, w_fc1, b_fc1,
+                                     w_fc2, b_fc2, approximate=approximate,
+                                     eps=eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    rows, d = x.shape
+    hidden = w_fc1.shape[-1]
+    if d % 8 or hidden % 8:
+        raise ValueError(f"the MLP kernel takes D and hidden that are "
+                         f"multiples of 8; got D {d}, hidden {hidden}")
+    cdt = x.dtype
+    if cdt not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"x is {cdt}; kernel 7 takes bfloat16 or float32")
+    f32, dev = torch.float32, x.device
+    _require(x, "x", cdt, (rows, d), dev)
+    _require(ln_scale, "ln_scale", f32, (d,), dev)
+    _require(ln_bias, "ln_bias", f32, (d,), dev)
+    _require(w_fc1, "w_fc1", cdt, (d, hidden), dev)
+    _require(b_fc1, "b_fc1", f32, (hidden,), dev)
+    _require(w_fc2, "w_fc2", cdt, (hidden, d), dev)
+    _require(b_fc2, "b_fc2", f32, (d,), dev)
+    lib, fn = _entry("mlp_block_train")
+    y, xh, xn = (torch.empty_like(x) for _ in range(3))
+    h = torch.empty((rows, hidden), dtype=cdt, device=dev)
+    act = torch.empty((rows, hidden), dtype=cdt, device=dev)     # scratch
+    inv = torch.empty((rows, 1), dtype=f32, device=dev)
+    err = fn(x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
+             w_fc1.data_ptr(), b_fc1.data_ptr(), w_fc2.data_ptr(),
+             b_fc2.data_ptr(), xn.data_ptr(), act.data_ptr(), h.data_ptr(),
+             xh.data_ptr(), inv.data_ptr(), y.data_ptr(), rows, d, hidden,
+             eps, int(not approximate), int(cdt == f32),
+             torch.cuda.current_stream(dev).cuda_stream)
+    name = "mlp_block_train_f32" if cdt == f32 else "mlp_block_train"
+    _build.check(lib, name, err)
+    LAUNCHES[name] += 1
+    return y, xh, inv, h

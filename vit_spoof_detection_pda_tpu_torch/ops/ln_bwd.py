@@ -13,7 +13,9 @@ per row.  Kernel: ``csrc/ln_res_bwd.cu``; replaces ``_ln_res_bwd_kernel``
 (JAX ``ops/ln_bwd.py:45``).  The TPU kernel summed ``dscale`` and
 ``dbias`` across its sequential grid; the CUDA kernel writes per-block
 partial sums and reduces them in a second launch in a fixed order, so
-the sums are the same from run to run.
+the sums are the same from run to run.  The f32 form (f32 ``xh``, ``g``
+and ``dxn``, for ``compute_dtype="float32"``) is the same kernel
+templated on the type.
 
 Padding contract: rows with ``dxn = g = 0`` come out with ``dx`` exactly
 0 and add nothing to the sums, so row-padded operands need no masking.
@@ -32,7 +34,7 @@ LAUNCHES = _build.LAUNCHES
 _LN_ROWS_PER_BLOCK = 128     # rows of one partial sum (csrc/ln_res_bwd.cu)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIGNATURE = ("vsd_ln_res_bwd", [_P] * 9 + [_I] * 3 + [_P])
+_SIGNATURE = ("vsd_ln_res_bwd", [_P] * 9 + [_I] * 4 + [_P])
 
 
 def ln_residual_bwd_plain(xh, inv, dxn, g, lns):
@@ -61,8 +63,10 @@ def ln_residual_bwd(xh, inv, dxn, g, lns):
     lns  [D] f32 LN scale
 
     Returns ``dx [B, Tq, D]`` in ``xh.dtype``, ``dscale [D]`` and
-    ``dbias [D]`` f32.  On the card: bf16 ``xh`` and ``g``, bf16 or f32
-    ``dxn``, contiguous, D a multiple of 8 up to 1024."""
+    ``dbias [D]`` f32.  On the card: bf16 ``xh`` and ``g`` with bf16 or
+    f32 ``dxn``, or f32 ``xh``, ``g`` and ``dxn`` (the f32 form,
+    ``LAUNCHES["ln_res_bwd_f32"]``); contiguous, D a multiple of 8 up to
+    1024."""
     if xh.device.type == "cpu":
         return ln_residual_bwd_plain(xh, inv, dxn, g, lns)
     if xh.device.type != "cuda":
@@ -71,14 +75,16 @@ def ln_residual_bwd(xh, inv, dxn, g, lns):
     if d % 8 or d > 1024:
         raise ValueError(f"the LN backward kernel takes D a multiple of 8 "
                          f"up to 1024; got {d}")
-    if dxn.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"dxn is {dxn.dtype}; the kernel takes bfloat16 or "
-                        "float32")
     bf, f32, dev = torch.bfloat16, torch.float32, xh.device
-    _require(xh, "xh", bf, (b, tq, d), dev)
+    xdt = xh.dtype
+    if xdt not in (bf, f32) or dxn.dtype not in (bf, f32) or (
+            xdt == f32 and dxn.dtype != f32):
+        raise TypeError(f"xh {xdt}, dxn {dxn.dtype}: the kernel takes bf16 "
+                        "xh with bf16 or f32 dxn, or f32 xh and dxn")
+    _require(xh, "xh", xdt, (b, tq, d), dev)
     _require(inv, "inv", f32, (b, tq, 1), dev)
     _require(dxn, "dxn", dxn.dtype, (b, tq, d), dev)
-    _require(g, "g", bf, (b, tq, d), dev)
+    _require(g, "g", xdt, (b, tq, d), dev)
     _require(lns, "lns", f32, (d,), dev)
     rows = b * tq
     blocks = max(1, -(-rows // _LN_ROWS_PER_BLOCK))
@@ -89,7 +95,9 @@ def ln_residual_bwd(xh, inv, dxn, g, lns):
     err = fn(xh.data_ptr(), inv.data_ptr(), dxn.data_ptr(), g.data_ptr(),
              lns.data_ptr(), dx.data_ptr(), partial.data_ptr(),
              sums[0].data_ptr(), sums[1].data_ptr(), rows, d,
-             int(dxn.dtype == f32), torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, "ln_res_bwd", err)
-    LAUNCHES["ln_res_bwd"] += 1
+             int(dxn.dtype == f32), int(xdt == f32),
+             torch.cuda.current_stream(dev).cuda_stream)
+    name = "ln_res_bwd_f32" if xdt == f32 else "ln_res_bwd"
+    _build.check(lib, name, err)
+    LAUNCHES[name] += 1
     return dx, sums[0], sums[1]

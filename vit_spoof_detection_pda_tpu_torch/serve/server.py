@@ -20,9 +20,9 @@ dispatcher thread of the batcher owns the card):
   and the old one drains its queue.
 
 :func:`build_programs_live` gives each batch shape the regime of
-``fastserve.auto_serving_mode`` (B = 1 ``lowlat``, 2-16 ``batch_grid``,
->= 17 ``fastserve``); the dispatcher picks the smallest shape that fits
-each window.
+``fastserve.auto_serving_mode`` (B = 1 ``lowlat``, >= 2 ``fastserve``,
+the H100's measured table); the dispatcher picks the smallest shape that
+fits each window.
 """
 
 from __future__ import annotations

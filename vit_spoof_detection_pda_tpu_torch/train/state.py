@@ -192,7 +192,8 @@ class TrainState:
 
 def create_train_state(module, tx: Optimizer, seed: int = 0, *,
                        variables: Any = None, apply_fn=None,
-                       device=None) -> TrainState:
+                       device=None, opt_arrays: Optional[dict] = None
+                       ) -> TrainState:
     """A :class:`TrainState` for the port's ``ViTAntiSpoof``: parameters
     from ``variables`` (a JAX-layout ``{"params": ...}`` tree of arrays
     or tensors) or from the module's own weights, as f32 tensors on
@@ -202,12 +203,41 @@ def create_train_state(module, tx: Optimizer, seed: int = 0, *,
     from ..models.fasttrain import make_apply
 
     device = resolve_device(device)
+    if opt_arrays is not None:
+        variables = {"params": opt_arrays["params"]}
     if variables is None:
         variables = antispoof_from_torch(module.state_dict())
     leaves, paths = tree_flatten(variables["params"])
-    leaves = [torch.as_tensor(a).to(device=device, dtype=torch.float32)
+    leaves = [torch.as_tensor(np.asarray(a) if not isinstance(
+        a, torch.Tensor) else a).to(device=device, dtype=torch.float32)
               .clone().requires_grad_() for a in leaves]
-    return TrainState(step=0, params=tree_unflatten(paths, leaves),
-                      opt_state=tx.init(leaves), seed=seed,
-                      apply_fn=apply_fn or make_apply(module), tx=tx,
-                      paths=paths)
+    state = TrainState(step=0, params=tree_unflatten(paths, leaves),
+                       opt_state=tx.init(leaves), seed=seed,
+                       apply_fn=apply_fn or make_apply(module), tx=tx,
+                       paths=paths)
+    if opt_arrays is not None:
+        load_opt_arrays(state, opt_arrays)
+    return state
+
+
+def load_opt_arrays(state: TrainState, arrays: dict) -> TrainState:
+    """Carry a JAX ``TrainState`` across (``models/convert.py::
+    train_state_arrays``): its step, AdamW count and moments, and EMA
+    shadow, copied in place into ``state`` (the parameters come through
+    ``create_train_state``).  Raises where the two optimizers' shapes
+    disagree (EMA on one side only, another leaf count)."""
+    opt = state.opt_state
+    if (arrays["ema"] is None) != (opt["ema"] is None):
+        raise ValueError("EMA is on in one optimizer and off in the other")
+    with torch.no_grad():
+        for key in ("mu", "nu", "ema"):
+            if opt[key] is None:
+                continue
+            if len(arrays[key]) != len(opt[key]):
+                raise ValueError(f"{key}: {len(arrays[key])} leaves for "
+                                 f"{len(opt[key])} parameters")
+            for dst, src in zip(opt[key], arrays[key]):
+                dst.copy_(torch.as_tensor(np.asarray(src)).to(dst))
+    opt["count"] = int(arrays["count"])
+    state.step = int(arrays["step"])
+    return state
