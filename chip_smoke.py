@@ -175,6 +175,36 @@ runs these phases, each printing one JSON line and raising on failure:
             versions, bounds and the PyTorch call for the same function
             where there is one (SDPA's backward for kernel 4, the LN
             backward plus the add for kernel 6).
+20. kernels (again) kernel 17 (the doctor's probe, o = 2 x on [8, 128]
+            f32) against 2 x exactly; kernel 5 (the phased attention
+            backward) against attention_qkv_bwd_plain, bf16 at B = 2, 3,
+            128 (Tp 200, valid_len 197) and ragged within 2 bf16 ulps,
+            f32 at B = 32 and ragged within F32_TOL of each output's
+            largest magnitude, pad rows zero; beside kernel 4 on the same
+            inputs (the gap printed, not bounded).
+21. train_phased step 0 at bf16 B = 128 and f32 B = 32 with BWD_PHASED
+            set: every gradient leaf within GRAD_REL_TOL / F32_GRAD_REL_TOL
+            of train_modes' f32 autograd, kernel 5 exactly 12 launches a
+            step and kernel 4 none; the flag restored after.
+22. cli      the verbs in process through ``__main__.main(argv)`` at
+            ViT-B/16 on seeded faces over trees of empty files: config
+            --diff; doctor --json (no FAIL, pallas ok, kernel 17 once);
+            train (B = 32, 2 epochs of 4 steps, EMA, a checkpoint an
+            epoch; kernels 3 / 4 / 6 exactly 12 / 12 / 24 a step), train
+            --resume (a third epoch), train --sweep (2 trials of 2 steps);
+            test of the directory, with --ema and with --fastserve
+            (kernel 8, or kernels 1-2, 12 times a forward); export and
+            test of the .pth (per-image scores equal to the directory's);
+            evaluate-all of the four models at f32; describe; benchmark in
+            every mode (throughput, --device-latency on the module path,
+            --fastserve, --loop-iters as a CUDA graph, --lowlat flavors,
+            --all-models, --train-step with and without the fused
+            forward and with BWD_PHASED, --profile), each printing its
+            JSON line and launching only its mode's kernels.
+23. times_cli kernel 5 (bf16 B = 128, f32 B = 32) beside kernel 4, its
+            bound (kernel 4's work), its plain version and SDPA's
+            backward; kernel 17 beside 2 x and torch.mul; the training
+            step with the flag off and on, in turns; each verb's wall s.
 
 Then it prints the kernel table as one JSON line, the card's name and
 power limit as nvidia-smi gives them, and last
@@ -202,6 +232,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from vit_spoof_detection_pda_tpu_torch.__main__ import main as cli_main
 from vit_spoof_detection_pda_tpu_torch.augment.engine import AugmentEngine
 from vit_spoof_detection_pda_tpu_torch.augment.policy import (
     make_batch_augmenter)
@@ -225,6 +256,7 @@ from vit_spoof_detection_pda_tpu_torch.ops import gather
 from vit_spoof_detection_pda_tpu_torch.ops import ln_bwd
 from vit_spoof_detection_pda_tpu_torch.ops import lowlat as low
 from vit_spoof_detection_pda_tpu_torch.ops import nlm
+from vit_spoof_detection_pda_tpu_torch.ops import probe
 from vit_spoof_detection_pda_tpu_torch.ops import warp
 from vit_spoof_detection_pda_tpu_torch.ops.image import (
     IMAGENET_STD, normalize, preprocess_eval, to_float, to_uint8)
@@ -316,6 +348,15 @@ KERNELS = {
     "mlp_block_train_f32": dict(
         source="vit_spoof_detection_pda_tpu_torch/csrc/mlp_block_train.cu",
         replaces="vit_spoof_detection_pda_tpu/models/fasttrain.py:508"),
+    "attention_qkv_bwd_phased": dict(
+        source="vit_spoof_detection_pda_tpu_torch/csrc/attention_qkv_bwd_phased.cu",
+        replaces="vit_spoof_detection_pda_tpu/ops/attention.py:259"),
+    "attention_qkv_bwd_phased_f32": dict(
+        source="vit_spoof_detection_pda_tpu_torch/csrc/attention_qkv_bwd_phased.cu",
+        replaces="vit_spoof_detection_pda_tpu/ops/attention.py:259"),
+    "doctor_probe": dict(
+        source="vit_spoof_detection_pda_tpu_torch/csrc/doctor_probe.cu",
+        replaces="vit_spoof_detection_pda_tpu/cli/doctor.py:115"),
 }
 SERVING_KERNELS = ("attention_block", "mlp_block")
 TRAIN_KERNELS = ("attention_block_train", "attention_qkv_bwd", "ln_res_bwd")
@@ -2422,6 +2463,21 @@ def _leaf_gaps(grads, ref) -> dict:
     return gaps
 
 
+def _step0(model, params, apply_fn, imgs, lbls, loss_fn, dev):
+    """Loss, gradients and launches of one forward and backward on fresh
+    parameters: the counts from 0 just before, read after."""
+    state = create_train_state(model, make_optimizer(3e-4), SEED,
+                               variables=params, apply_fn=apply_fn,
+                               device=dev)
+    leaves, paths = tree_flatten(state.params)
+    reset_launches()
+    loss = loss_fn(apply_fn({"params": state.params}, imgs, train=True),
+                   lbls)
+    grads = torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    return loss.item(), dict(zip(paths, grads)), dict(att.LAUNCHES)
+
+
 def _want(**counts) -> dict:
     out = {k: 0 for k in att.LAUNCHES}
     out.update(counts)
@@ -2447,18 +2503,7 @@ def phase_train_modes(dev):
     loss_ref, ref = _module_f32_grads(model, images, labels, loss_fn, dev)
 
     def step0(apply_fn, imgs, lbls):
-        """Loss, gradients and launches of one forward and backward on
-        fresh parameters: the counts from 0 just before, read after."""
-        state = create_train_state(model, make_optimizer(3e-4), SEED,
-                                   variables=params, apply_fn=apply_fn,
-                                   device=dev)
-        leaves, paths = tree_flatten(state.params)
-        reset_launches()
-        loss = loss_fn(apply_fn({"params": state.params}, imgs, train=True),
-                       lbls)
-        grads = torch.autograd.grad(loss, leaves)
-        torch.cuda.synchronize()
-        return loss.item(), dict(zip(paths, grads)), dict(att.LAUNCHES)
+        return _step0(model, params, apply_fn, imgs, lbls, loss_fn, dev)
 
     train3 = dict(attention_block_train=DEPTH, attention_qkv_bwd=DEPTH)
     want = {"hidden": _want(**train3, ln_res_bwd=2 * DEPTH),
@@ -2544,7 +2589,9 @@ def phase_train_modes(dev):
     if not ok:
         raise AssertionError(f"f32 training: {out}")
     return {"model": model, "params": params, "images": images,
-            "labels": labels, "loss_fn": loss_fn}, launches
+            "labels": labels, "loss_fn": loss_fn, "ref": ref,
+            "loss_ref": loss_ref, "ref32": ref32,
+            "loss_ref32": loss_ref32}, launches
 
 
 def tree_map_tensor(tree, dev):
@@ -2877,6 +2924,469 @@ def phase_times_train_loop(dev, ctx, loop_trainer, main_err, launches):
     return rows
 
 
+# --------------------------------------------------------------------------
+# slice 7: the command line, kernels 5 and 17
+# --------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def bwd_phased(on: bool = True):
+    """Select the phased attention backward (kernel 5) for the block, as
+    JAX's module flag does; the flag is restored after."""
+    saved = att.BWD_PHASED
+    att.BWD_PHASED = on
+    try:
+        yield
+    finally:
+        att.BWD_PHASED = saved
+
+
+def _bwd_parts(got, want, d):
+    return [(part, got[..., i * d:(i + 1) * d], want[..., i * d:(i + 1) * d])
+            for i, part in enumerate(("dq", "dk", "dv"))]
+
+
+def phase_kernels_cli(dev) -> dict:
+    """Kernel 17 (the doctor's probe) against 2 x exactly; kernel 5 (the
+    phased attention backward) against attention_qkv_bwd_plain at bf16
+    (B = 2, 3, 128; Tp 200, valid_len 197; ragged) within 2 bf16 ulps and
+    at f32 (B = 32; ragged) within F32_TOL of each output's magnitude, and
+    beside kernel 4 on the same inputs (the gap printed, not bounded).
+    Returns the main paths' errors."""
+    x = torch.ones((8, 128), device=dev)
+    got = probe.doctor_probe(x)
+    torch.cuda.synchronize()
+    exact = bool(torch.equal(got, probe.doctor_probe_plain(x)))
+    total = got.sum().item()
+    emit({"phase": "kernels", "case": "doctor", "kernel": "doctor_probe",
+          "shape": [8, 128], "sum": total, "equal_to_plain": exact,
+          "ok": exact and total == 2048.0})
+    if not (exact and total == 2048.0):
+        raise AssertionError(f"doctor_probe: sum {total}, exact {exact}")
+    main_err = {"doctor_probe": 0.0}
+
+    rng = np.random.default_rng(SEED + 40)
+    cases = [("vit_b_b2", torch.bfloat16, 2, TP, T, D, HEADS),
+             ("vit_b_b3", torch.bfloat16, 3, TP, T, D, HEADS),
+             ("ragged", torch.bfloat16, 2, 40, 33, 64, 4),
+             ("main_path_b128", torch.bfloat16, MAIN_B, TP, T, D, HEADS),
+             ("ragged", torch.float32, 3, 40, 33, 64, 4),
+             ("main_path_b32", torch.float32, F32_B, TP, T, D, HEADS)]
+    for label, dt, b, tp, valid, d, heads in cases:
+        bwd = train_inputs(rng, b, tp, valid, d, dev)[0]
+        if dt == torch.float32:
+            bwd = _f32(bwd)
+        kw = dict(num_heads=heads, valid_len=valid)
+        got = att.attention_qkv_bwd_phased(**bwd, **kw)
+        want = att.attention_qkv_bwd_plain(**bwd, **kw)
+        k4 = att.attention_qkv_bwd(**bwd, **kw)
+        torch.cuda.synchronize()
+        name = "attention_qkv_bwd_phased" + ("_f32" if dt == torch.float32
+                                             else "")
+        gap_k4 = (got.float() - k4.float()).abs().max().item()
+        err = _check_parts(
+            label, name, _bwd_parts(got, want, d), list(bwd["qkv"].shape),
+            bf16_tol if dt == torch.bfloat16 else _f32_tol,
+            {"pad_rows_zero": bool((got[:, valid:] == 0).all())})
+        emit({"phase": "kernels", "case": label, "kernel": name,
+              "vs_kernel_4_max_abs_diff": gap_k4,
+              "chunk": att.phased_chunk(b, heads, tp)})
+        if label.startswith("main_path"):
+            main_err[name] = err
+        del bwd, got, want, k4
+    return main_err
+
+
+def phase_train_phased(dev, ctx) -> dict:
+    """Step 0 of full ViT-B/16 with BWD_PHASED set: bf16 at B = 128 and
+    f32 at B = 32 ("hidden"), every gradient leaf within GRAD_REL_TOL /
+    F32_GRAD_REL_TOL of f32 autograd of the module (train_modes'
+    references), kernel 5 launched exactly 12 times a step and kernel 4
+    never.  Returns the launches of each run."""
+    model, params, loss_fn = ctx["model"], ctx["params"], ctx["loss_fn"]
+    runs = {
+        "bf16_b128": (torch.bfloat16, ctx["images"], ctx["labels"],
+                      ctx["ref"], ctx["loss_ref"], GRAD_REL_TOL,
+                      _want(attention_block_train=DEPTH,
+                            attention_qkv_bwd_phased=DEPTH,
+                            ln_res_bwd=2 * DEPTH)),
+        "f32_b32": (torch.float32, ctx["images"][:F32_B],
+                    ctx["labels"][:F32_B], ctx["ref32"], ctx["loss_ref32"],
+                    F32_GRAD_REL_TOL,
+                    _want(attention_block_train_f32=DEPTH,
+                          attention_qkv_bwd_phased_f32=DEPTH,
+                          ln_res_bwd_f32=2 * DEPTH)),
+    }
+    out, launches, ok = {}, {}, True
+    with bwd_phased():
+        for run, (dt, imgs, lbls, ref, loss_ref, tol, want) in runs.items():
+            loss, grads, counts = _step0(
+                model, params, fasttrain.make_apply(model, dtype=dt), imgs,
+                lbls, loss_fn, dev)
+            gaps = _leaf_gaps(grads, ref)
+            del grads
+            worst = max(gaps, key=gaps.get)
+            good = (counts == want and math.isfinite(loss)
+                    and gaps[worst] <= tol)
+            ok = ok and good
+            launches[run] = counts
+            out[run] = {"loss": loss, "loss_f32": loss_ref, "tol": tol,
+                        "max_leaf_rel_l2_vs_f32": gaps[worst],
+                        "worst_leaf": worst,
+                        "launches": {k: v for k, v in counts.items() if v},
+                        "ok": good}
+    emit({"phase": "train_phased", "flag_restored": att.BWD_PHASED is False,
+          "runs": out, "ok": ok and att.BWD_PHASED is False})
+    if not ok:
+        raise AssertionError(f"train_phased: {out}")
+    return launches
+
+
+CLI_B, CLI_STEPS, CLI_EPOCHS = 32, 4, 2
+CLI_TRAIN_N, CLI_TEST_N, CLI_EVAL_B = 400, 64, 32
+
+
+def _run_verb(argv) -> tuple:
+    """One verb through the dispatcher, in process: ``(stdout lines,
+    wall seconds, rc)``; the output is echoed to this script's stderr."""
+    import io
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    text = buf.getvalue()
+    print(text, file=sys.stderr, end="", flush=True)
+    return text.splitlines(), seconds, rc
+
+
+def _json_lines(lines) -> list:
+    out = []
+    for ln in lines:
+        try:
+            out.append(json.loads(ln))
+        except json.JSONDecodeError:
+            continue
+    return out
+
+
+def _empty_tree(root: Path, n: int, salt: int) -> Path:
+    """``root/{live,spoof}/<i>.png`` as empty files (the labels from the
+    seed): seeded_faces decodes ``<i>.png`` to face i, so the tree needs no
+    image bytes and this machine no PIL."""
+    labels = np.random.default_rng([SEED, salt]).integers(0, 2, n)
+    for i, y in enumerate(labels):
+        d = root / ("live" if y else "spoof")
+        d.mkdir(parents=True, exist_ok=True)
+        (d / f"{i}.png").touch()
+    return root
+
+
+def phase_cli(dev, tmp: Path):
+    """The verbs in process through ``__main__.main(argv)`` at ViT-B/16
+    full width, decoding bypassed by seeded_faces over trees of empty
+    files: config --diff; doctor --json; train (B = 32, 2 epochs of 4
+    steps, EMA, a checkpoint an epoch), train --resume for a third epoch,
+    train --sweep of 2 trials; test of the directory (and --ema, and
+    --fastserve); export of the directory and test of the .pth (scores
+    equal); evaluate-all of the four models at f32; describe; benchmark in
+    each mode.  Exact launches where the verb's work fixes them.  Returns
+    the verbs' wall seconds and the doctor's launches."""
+    walls, results, ok_all = {}, {}, True
+    train_root = _empty_tree(tmp / "train", CLI_TRAIN_N, 70)
+    test_root = _empty_tree(tmp / "test", CLI_TEST_N, 71)
+    save_dir = tmp / "ckpts"
+
+    def verb(key, argv, check, expect_rc=0):
+        nonlocal ok_all
+        reset_launches()
+        lines, seconds, rc = _run_verb(argv)
+        launches = {k: v for k, v in att.LAUNCHES.items() if v}
+        good, detail = check(lines, launches)
+        good = good and rc == expect_rc
+        walls[key] = seconds
+        results[key] = {"ok": good, "rc": rc, "wall_s": seconds,
+                        "launches": launches, **detail}
+        emit({"phase": "cli", "verb": key, **results[key]})
+        ok_all = ok_all and good
+        return lines, launches
+
+    # config
+    verb("config --diff", ["config", "--diff", "--set",
+                           "optim.learning_rate=1e-5"],
+         lambda lines, _: (json.loads("\n".join(lines))
+                           == {"optim.learning_rate": 1e-05}, {}))
+
+    # doctor
+    def doctor_ok(lines, launches):
+        rows = {r["check"]: r for r in _json_lines(lines)}
+        good = (len(rows) == 9 and all(r["status"] != "fail"
+                                       for r in rows.values())
+                and rows.get("pallas", {}).get("status") == "ok"
+                and launches == {"doctor_probe": 1})
+        return good, {"statuses": {k: r["status"] for k, r in rows.items()}}
+    _, doctor_launches = verb("doctor --json", ["doctor", "--json"],
+                              doctor_ok)
+
+    data = ["--set", f'data.data_root="{train_root}"',
+            "--set", f"data.batch_size={CLI_B}",
+            "--set", f"data.eval_batch_size={CLI_B}",
+            "--set", "data.num_workers=4",
+            "--set", f'checkpoint.save_dir="{save_dir}"',
+            "--set", "checkpoint.save_every_epochs=1",
+            "--set", "optim.ema_decay=0.9",
+            "--set", "telemetry.log_interval=1000"]
+    n_val = CLI_TRAIN_N - int(round(CLI_TRAIN_N * 0.85))
+
+    def train_check(epochs):
+        def check(lines, launches):
+            steps = epochs * CLI_STEPS
+            want = {"attention_block_train": DEPTH * steps,
+                    "attention_qkv_bwd": DEPTH * steps,
+                    "ln_res_bwd": 2 * DEPTH * steps}
+            got = {k: launches.get(k, 0) for k in want}
+            val_fwd = launches.get("attention_qkv", 0) // DEPTH
+            good = (got == want and any(ln.startswith("best:")
+                                        for ln in lines)
+                    and "attention_qkv_bwd_phased" not in launches)
+            return good, {"steps": steps, "validation_forwards": val_fwd}
+        return check
+
+    with seeded_faces(70):
+        verb("train", ["train", *data, "--set",
+                       f"optim.num_epochs={CLI_EPOCHS}",
+                       "--max-steps-per-epoch", str(CLI_STEPS)],
+             train_check(CLI_EPOCHS))
+        steps_saved = sorted(int(p.name) for p in save_dir.iterdir()
+                             if p.name.isdigit())
+        results["train"]["checkpoints"] = steps_saved
+        ok_all = ok_all and steps_saved == [CLI_STEPS, 2 * CLI_STEPS]
+        verb("train --resume", ["train", *data, "--set",
+                                f"optim.num_epochs={CLI_EPOCHS + 1}",
+                                "--max-steps-per-epoch", str(CLI_STEPS),
+                                "--resume"], train_check(1))
+        sweep_dir = tmp / "sweep"
+        verb("train --sweep", [
+            "train", *data, "--set", f'checkpoint.save_dir="{sweep_dir}"',
+            "--set", "optim.num_epochs=1", "--set", "optim.ema_decay=null",
+            "--max-steps-per-epoch", "2", "--sweep", "--sweep-count", "2"],
+            lambda lines, launches: (
+                launches.get("attention_qkv_bwd", 0) == 2 * 2 * DEPTH
+                and sorted(p.name for p in sweep_dir.iterdir())
+                == ["trial_00", "trial_01"], {}))
+
+    test_args = ["--set", f'data.test_root="{test_root}"',
+                 "--set", f"eval.batch_size={CLI_EVAL_B}", "--no-plots"]
+    n_fwd = -(-CLI_TEST_N // CLI_EVAL_B)
+
+    def per_image(out_dir: Path) -> list:
+        (path,) = out_dir.glob("per_image_results_*.csv")
+        with open(path, newline="") as f:
+            return [(r["image_path"], r["probability_live"])
+                    for r in csv.DictReader(f)]
+
+    def test_check(out_dir, want):
+        def check(lines, launches):
+            rows = per_image(out_dir)
+            good = (launches == want and len(rows) == CLI_TEST_N
+                    and all(0.0 <= float(p) <= 1.0 for _, p in rows))
+            return good, {"images": len(rows), "forwards": n_fwd}
+        return check
+
+    module_fwd = {"attention_qkv": DEPTH * n_fwd}
+    serve_fwd = {"attention_block": DEPTH * n_fwd, "mlp_block": DEPTH * n_fwd}
+    out_pth = tmp / "exported.pth"
+    with seeded_faces(71):
+        for key, extra, want in (
+                ("test <dir>", [], module_fwd),
+                ("test <dir> --ema", ["--ema"], module_fwd),
+                ("test <dir> --fastserve", ["--fastserve"], serve_fwd)):
+            out_dir = tmp / key.replace(" ", "_").replace("<", "").replace(
+                ">", "").replace("-", "")
+            verb(key, ["test", "--checkpoint", str(save_dir), *test_args,
+                       "--set", f'eval.output_dir="{out_dir}"', *extra],
+                 test_check(out_dir, want))
+        verb("export", ["export", str(save_dir), str(out_pth)],
+             lambda lines, launches: (out_pth.exists() and not launches
+                                      and "exported 156 tensors" in lines[-1],
+                                      {}))
+        pth_dir = tmp / "test_pth"
+        verb("test <pth>", ["test", "--checkpoint", str(out_pth), *test_args,
+                            "--set", f'eval.output_dir="{pth_dir}"'],
+             test_check(pth_dir, module_fwd))
+        same = per_image(pth_dir) == per_image(tmp / "test_dir")
+        results["test <pth>"]["scores_equal_to_dir"] = same
+        ok_all = ok_all and same
+
+        ea_dir = tmp / "evaluate_all"
+
+        def ea_check(lines, launches):
+            names = ["Custom_ViT_FineTuned", "Base_ViT_Pretrained",
+                     "ResNet50_Pretrained", "SigNet_F"]
+            files = all((ea_dir / n / "per_image_predictions.csv").exists()
+                        for n in names)
+            return (files and launches == {"attention_qkv": 2 * DEPTH * n_fwd}
+                    and (ea_dir / "model_comparison.json").exists(),
+                    {"models": names})
+        verb("evaluate-all", ["evaluate-all", "--checkpoint", str(out_pth),
+                              "--set", f'data.test_root="{test_root}"',
+                              "--set", f"eval.batch_size={CLI_EVAL_B}",
+                              "--set", f'eval.output_dir="{ea_dir}"'],
+             ea_check)
+
+    verb("describe", ["describe", str(save_dir), str(out_pth), "--json"],
+         lambda lines, _: (
+             [r["kind"] for r in _json_lines(lines)]
+             == ["checkpoint_dir", "torch_checkpoint"]
+             and _json_lines(lines)[0]["latest_step"] == 3 * CLI_STEPS, {}))
+
+    # benchmark, each mode; every one prints its JSON line last
+    profile_dir = tmp / "profile"
+    bench = [
+        ("throughput b128", ["--batch-size", "128", "--iters", "5"],
+         {"attention_qkv"}),
+        ("throughput b128 --fastserve", ["--batch-size", "128", "--iters",
+                                         "5", "--fastserve", "--profile",
+                                         str(profile_dir)],
+         {"attention_block", "mlp_block"}),
+        ("device-latency b128", ["--batch-size", "128", "--device-latency",
+                                 "--n1", "5"], {"attention_qkv"}),
+        ("device-latency b128 --fastserve", [
+            "--batch-size", "128", "--device-latency", "--fastserve",
+            "--n1", "5"], {"attention_block", "mlp_block"}),
+        ("device-latency b128 --fastserve --loop-iters 5", [
+            "--batch-size", "128", "--device-latency", "--fastserve",
+            "--n1", "10", "--loop-iters", "5"],
+         {"attention_block", "mlp_block"}),
+        ("device-latency b1", ["--batch-size", "1", "--device-latency",
+                               "--n1", "20"], {"attention_qkv"}),
+        ("device-latency b1 --lowlat", ["--batch-size", "1",
+                                        "--device-latency", "--lowlat",
+                                        "--n1", "20"], {"lowlat_encoder"}),
+        ("device-latency b1 --lowlat-encoder-only", [
+            "--batch-size", "1", "--device-latency", "--lowlat",
+            "--lowlat-encoder-only", "--n1", "20"], {"lowlat_encoder"}),
+        ("device-latency b2 --lowlat-batch-grid", [
+            "--batch-size", "2", "--device-latency", "--lowlat",
+            "--lowlat-batch-grid", "--n1", "20"], {"lowlat_batchgrid"}),
+        ("device-latency b1 --all-models", [
+            "--batch-size", "1", "--device-latency", "--all-models",
+            "--n1", "10"], {"attention_qkv"}),
+        ("train-step b128", ["--batch-size", "128", "--train-step",
+                             "--iters", "3"],
+         {"attention_block_train", "attention_qkv_bwd", "ln_res_bwd"}),
+        ("train-step b128 --no-fused-forward", [
+            "--batch-size", "128", "--train-step", "--iters", "3",
+            "--no-fused-forward"], {"attention_qkv", "attention_qkv_bwd"}),
+    ]
+    bench_out = {}
+
+    def bench_check(kernels):
+        def check(lines, launches):
+            rows = _json_lines(lines)
+            last = rows[-1] if rows else {}
+            # --all-models prints {model: result}, the others one result
+            results = [last] if "device" in last else list(last.values())
+            good = (bool(results) and set(launches) == kernels
+                    and all(r.get("device") == torch.cuda.get_device_name(0)
+                            for r in results))
+            return good, {"result": last}
+        return check
+
+    for key, argv, kernels in bench:
+        verb(f"benchmark {key}", ["benchmark", *argv], bench_check(kernels))
+        bench_out[key] = results[f"benchmark {key}"]["result"]
+    results["benchmark throughput b128 --fastserve"]["profile_written"] = (
+        profile_dir / "trace.json").exists()
+    ok_all = ok_all and (profile_dir / "trace.json").exists()
+    with bwd_phased():
+        verb("benchmark train-step b128 (BWD_PHASED)", [
+            "benchmark", "--batch-size", "128", "--train-step", "--iters",
+            "3"], bench_check({"attention_block_train",
+                               "attention_qkv_bwd_phased", "ln_res_bwd"}))
+    emit({"phase": "cli", "verb": "augment",
+          "note": "not run on this machine: it writes JPEGs through PIL, "
+                  "which this machine lacks; tests/test_torch_cli_eval.py "
+                  "runs it on the CPU"})
+    emit({"phase": "cli", "verbs": len(results),
+          "ok": ok_all and all(r["ok"] for r in results.values())})
+    if not (ok_all and all(r["ok"] for r in results.values())):
+        raise AssertionError(
+            f"cli: {[k for k, r in results.items() if not r['ok']]}")
+    return walls, doctor_launches, bench_out
+
+
+def phase_times_cli(dev, ctx, main_err, phased_launches, doctor_launches,
+                    walls) -> list:
+    """Kernel 5 at bf16 B = 128 and f32 B = 32 beside kernel 4, its bound
+    (kernel 4's work), its plain version and SDPA's backward; kernel 17
+    beside ``2 * x`` and ``torch.mul``; the training step with the flag on
+    and off; each verb's wall seconds.  Returns the kernel rows."""
+    rng = np.random.default_rng(SEED + 41)
+    kw = dict(num_heads=HEADS, valid_len=T)
+    bwd = train_inputs(rng, MAIN_B, TP, T, D, dev)[0]
+    bwd32 = _f32(train_inputs(rng, F32_B, TP, T, D, dev)[0])
+    ln_dummy = train_inputs(rng, 2, TP, T, D, dev)[1]
+    rows, k4 = [], {}
+    for name, b_in, b, peak in (
+            ("attention_qkv_bwd_phased", bwd, MAIN_B, PEAK_BF16_FLOPS),
+            ("attention_qkv_bwd_phased_f32", bwd32, F32_B, PEAK_F32_FLOPS)):
+        ms = time_ms(lambda: att.attention_qkv_bwd_phased(**b_in, **kw))
+        k4[name] = time_ms(lambda: att.attention_qkv_bwd(**b_in, **kw))
+        plain_ms = time_ms(lambda: att.attention_qkv_bwd_plain(**b_in, **kw),
+                           per_window=2)
+        with exact_f32_matmul():
+            lib = _library_calls(b_in, ln_dummy, HEADS, T)["attention_qkv_bwd"]
+            lib_ms = time_ms(lib)
+        flops, _ = attention_bwd_work(b, TP, D, HEADS)
+        itemsize = 4 if name.endswith("_f32") else 2
+        bound_ms, bound_by = bound(flops, b * TP * 7 * D * itemsize, peak)
+        run = "f32_b32" if name.endswith("_f32") else "bf16_b128"
+        rows.append({"name": name, "route": "cuda", **KERNELS[name],
+                     "launches": phased_launches[run][name],
+                     "max_abs_err": main_err[name], "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": lib_ms})
+    x = torch.ones((8, 128), device=dev)
+    bound_ms, bound_by = bound(x.numel(), 2 * nbytes(x), PEAK_F32_FLOPS)
+    rows.append({"name": "doctor_probe", "route": "cuda",
+                 **KERNELS["doctor_probe"],
+                 "launches": doctor_launches["doctor_probe"],
+                 "max_abs_err": main_err["doctor_probe"],
+                 "ms": time_ms(lambda: probe.doctor_probe(x)),
+                 "plain_ms": time_ms(lambda: probe.doctor_probe_plain(x)),
+                 "bound_ms": bound_ms, "bound_by": bound_by,
+                 "library_ms": time_ms(lambda: torch.mul(x, 2.0))})
+
+    model, params = ctx["model"], ctx["params"]
+    step = make_train_step(ctx["loss_fn"])
+    step_ms = {}
+    for dt, b in ((torch.bfloat16, MAIN_B), (torch.float32, F32_B)):
+        batch = {"image": ctx["images"][:b], "label": ctx["labels"][:b]}
+        for on in (False, True, True, False):
+            state = create_train_state(model, make_optimizer(1e-5), SEED,
+                                       variables=params,
+                                       apply_fn=fasttrain.make_apply(
+                                           model, dtype=dt), device=dev)
+            with bwd_phased(on):
+                t = time_ms(lambda: step(state, batch), windows=3,
+                            per_window=2, warmup=1)
+            key = f"{'bf16' if dt == torch.bfloat16 else 'f32'}_b{b}_" + (
+                "phased" if on else "kernel4")
+            step_ms.setdefault(key, []).append(t)
+            del state
+    emit({"phase": "times_cli",
+          "kernels": {r["name"]: {k: r[k] for k in (
+              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+              "launches")} for r in rows},
+          "kernel_4_ms": k4,
+          "step_ms_in_turns": step_ms,
+          "verb_wall_s": walls})
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card "
@@ -2914,7 +3424,14 @@ def main() -> int:
         loop_trainer, _loop_launches = phase_train_loop(dev, Path(tmp))
         rows += phase_times_train_loop(dev, tctx, loop_trainer, train_err,
                                        mode_launches)
-    del tctx, loop_trainer
+    del loop_trainer
+    cli_err = phase_kernels_cli(dev)
+    phased_launches = phase_train_phased(dev, tctx)
+    with tempfile.TemporaryDirectory() as tmp:
+        walls, doctor_launches, _ = phase_cli(dev, Path(tmp))
+    rows += phase_times_cli(dev, tctx, cli_err, phased_launches,
+                            doctor_launches, walls)
+    del tctx
     idle = [r["name"] for r in rows if not r["launches"]]
     if idle:
         raise AssertionError(f"kernels never launched on their paths: {idle}")

@@ -662,3 +662,70 @@ def test_f32_kernels_reject_what_they_cannot_take(cuda_device):
     x, *w = m.values()
     with pytest.raises(TypeError):                   # f32 x, bf16 weights
         tatt.mlp_block_train(x[0].float(), *w, approximate=False)
+
+
+# --------------------------------------------------------------------------
+# The phased attention backward (kernel 5) and the doctor's probe (17)
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,b,tp,valid,d,heads", [
+    (torch.bfloat16, 2, 40, 33, 64, 4),      # ragged, head dim 16
+    (torch.bfloat16, 3, 200, 197, 768, 12),  # ViT-B/16, odd B
+    (torch.bfloat16, 17, 200, 197, 768, 12),  # two chunks of the workspace
+    (torch.float32, 2, 40, 33, 64, 4),
+    (torch.float32, 2, 200, 197, 768, 12),
+])
+def test_attention_qkv_bwd_phased_kernel_matches_plain_on_card(
+        cuda_device, dtype, b, tp, valid, d, heads):
+    rng = np.random.default_rng(40)
+    qkv = torch.tensor(rng.standard_normal((b, tp, 3 * d)).astype(np.float32),
+                       device=cuda_device, dtype=dtype)
+    g = torch.tensor(rng.standard_normal((b, tp, d)).astype(np.float32),
+                     device=cuda_device, dtype=dtype)
+    g[:, valid:] = 0
+    name = "attention_qkv_bwd_phased" + (
+        "_f32" if dtype == torch.float32 else "")
+    n0 = tatt.LAUNCHES[name]
+    got = tatt.attention_qkv_bwd_phased(qkv, g, heads, valid_len=valid)
+    want = tatt.attention_qkv_bwd_plain(qkv, g, heads, valid_len=valid)
+    torch.cuda.synchronize()
+    assert tatt.LAUNCHES[name] == n0 + 1
+    assert (got[:, valid:] == 0).all()
+    for i in range(3):
+        part_got, part_want = got[..., i * d:(i + 1) * d], want[
+            ..., i * d:(i + 1) * d]
+        if dtype == torch.bfloat16:
+            _assert_close(part_got, part_want)
+        else:
+            err = (part_got - part_want).abs().max().item()
+            assert err <= 1e-5 * part_want.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_bwd_phased_flag_selects_kernel_5(cuda_device, monkeypatch):
+    rng = np.random.default_rng(41)
+    qkv = torch.tensor(rng.standard_normal((2, 40, 192)).astype(np.float32),
+                       device=cuda_device, dtype=torch.bfloat16)
+    g = torch.tensor(rng.standard_normal((2, 40, 64)).astype(np.float32),
+                     device=cuda_device, dtype=torch.bfloat16)
+    monkeypatch.setattr(tatt, "BWD_PHASED", True)
+    n4, n5 = (tatt.LAUNCHES["attention_qkv_bwd"],
+              tatt.LAUNCHES["attention_qkv_bwd_phased"])
+    tatt.attention_qkv_bwd(qkv, g, 4, valid_len=40)
+    assert tatt.LAUNCHES["attention_qkv_bwd"] == n4
+    assert tatt.LAUNCHES["attention_qkv_bwd_phased"] == n5 + 1
+
+
+@pytest.mark.cuda
+def test_doctor_probe_kernel_on_card(cuda_device):
+    from vit_spoof_detection_pda_tpu_torch.ops import probe
+
+    n0 = probe.LAUNCHES["doctor_probe"]
+    x = torch.ones((8, 128), device=cuda_device)
+    out = probe.doctor_probe(x)
+    torch.cuda.synchronize()
+    assert probe.LAUNCHES["doctor_probe"] == n0 + 1
+    assert out.sum().item() == 2048.0
+    assert torch.equal(out, probe.doctor_probe_plain(x))

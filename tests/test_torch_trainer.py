@@ -277,13 +277,20 @@ def test_preemption_flag_clears_between_fits():
     assert trainer.state.step == 2
 
 
-def test_parallel_and_profile_settings_raise():
+def test_parallel_and_profile_settings_raise(tmp_path):
+    """The parallel settings raise; ``telemetry.profile_dir`` no longer
+    does: the first epoch is traced into it (utils/profiling.py)."""
     images, labels = _synthetic(16, seed=8)
     for over in ({"sharding.model_parallel": 2}, {"sharding.fsdp": True},
-                 {"sharding.pipeline_parallel": 2},
-                 {"telemetry.profile_dir": "/nonexistent"}):
+                 {"sharding.pipeline_parallel": 2}):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
             _port(over, images, labels, (images, labels))
+    trace_dir = tmp_path / "trace"
+    trainer = _port({"telemetry.profile_dir": str(trace_dir),
+                     "optim.num_epochs": 1}, images, labels,
+                    (images, labels))
+    trainer.fit()
+    assert (trace_dir / "trace.json").stat().st_size > 0
 
 
 def test_jax_train_state_carries_across_with_moments():

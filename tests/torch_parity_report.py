@@ -1,7 +1,7 @@
 """Print the port's parity gaps against the JAX package on the CPU, one
 JSON line per comparison (the numbers the tests bound).
 
-    python tests/torch_parity_report.py [kernels serving training small_batch augment eval train_loop]
+    python tests/torch_parity_report.py [kernels serving training small_batch augment eval train_loop cli]
 
 The port runs its plain PyTorch versions (CPU tensors); the JAX side runs
 its Pallas kernels in interpret mode, as the test files do.  Inputs come
@@ -544,6 +544,80 @@ def train_loop():
                               "val/f1", "val/optimal_threshold")})
         emit(what="trainer_epochs_run", case=sorted(over)[-1],
              jax=len(jlog.epochs()), port=len(tlog.epochs()))
+
+
+def cli():
+    """Slice 7: kernel 5's plain path against JAX's phased kernel
+    (interpret mode); the ``test`` and ``evaluate-all`` verbs' per-image
+    scores against JAX's verbs on the same .pth; the sweep's EI."""
+    import tempfile
+
+    import test_torch_attention_phased as tap
+    import test_torch_cli_eval as tce
+    from util_synthetic import make_subject_tree
+    from vit_spoof_detection_pda_tpu.cli import evaluate_all as jev
+    from vit_spoof_detection_pda_tpu.cli import test as jtest
+    from vit_spoof_detection_pda_tpu.models import convert as jconvert
+    from vit_spoof_detection_pda_tpu.train import sweep as jsweep
+    from vit_spoof_detection_pda_tpu_torch.cli import evaluate_all as tev
+    from vit_spoof_detection_pda_tpu_torch.cli import test as ttest
+    from vit_spoof_detection_pda_tpu_torch.train import sweep as tsweep
+
+    saved = jatt.BWD_PHASED
+    jatt.BWD_PHASED = True
+    try:
+        for dtype, jdt, tdt in (("float32", jnp.float32, torch.float32),
+                                ("bfloat16", jnp.bfloat16, torch.bfloat16)):
+            for b, tp, valid, d, heads in ((2, 16, 13, 32, 2),
+                                           (2, 40, 33, 64, 4)):
+                qkv, g = tap._inputs(b * tp + d, b, tp, valid, d)
+                want = jatt._backward_qkv(
+                    jnp.asarray(qkv, jdt), jnp.asarray(g, jdt), heads,
+                    interpret=True, valid_len=valid).astype(jnp.float32)
+                got = tatt.attention_qkv_bwd_plain(
+                    torch.tensor(qkv, dtype=tdt), torch.tensor(g, dtype=tdt),
+                    heads, valid_len=valid).float()
+                emit(what="attention_qkv_bwd_phased", dtype=dtype,
+                     shape=[b, tp, 3 * d], valid_len=valid,
+                     **gap(got.numpy(), want))
+    finally:
+        jatt.BWD_PHASED = saved
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = pathlib.Path(tmp)
+        make_subject_tree(root / "test", subjects=2, per_class=3, size=64)
+        params = jax.tree.map(np.asarray, jvit.ViTAntiSpoof().init(
+            jax.random.PRNGKey(7), jnp.zeros((1, 224, 224, 3))))["params"]
+        params["head"]["fc2"]["kernel"] = params["head"]["fc2"]["kernel"] * 4
+        jconvert.save_torch_checkpoint(str(root / "vit.pth"),
+                                       {"params": params})
+        argv = ["--checkpoint", str(root / "vit.pth"),
+                "--set", f'data.test_root="{root / "test"}"', "--no-plots"]
+        jtest.main(argv + ["--set", f'eval.output_dir="{root / "j"}"'])
+        ttest.main(argv + ["--set", f'eval.output_dir="{root / "t"}"',
+                           "--device", "cpu"])
+        want = tce._column(tce._only(root / "j", "per_image_results_*.csv"),
+                           "probability_live")
+        got = tce._column(tce._only(root / "t", "per_image_results_*.csv"),
+                          "probability_live")
+        emit(what="test_verb_bf16_scores", images=len(want),
+             **gap([got[k] for k in want], list(want.values())))
+        argv = argv[:-1] + ["--models", "Custom_ViT_FineTuned"]
+        jev.main(argv + ["--set", f'eval.output_dir="{root / "je"}"'])
+        tev.main(argv + ["--set", f'eval.output_dir="{root / "te"}"',
+                         "--device", "cpu"])
+        name = "Custom_ViT_FineTuned"
+        want = tce._column(root / "je" / name / "per_image_predictions.csv",
+                           "spoof_score")
+        got = tce._column(root / "te" / name / "per_image_predictions.csv",
+                          "spoof_score")
+        emit(what="evaluate_all_f32_scores", model=name,
+             **gap([got[k] for k in want], list(want.values())))
+
+    rng = np.random.default_rng(0)
+    xs, ys, xc = rng.random((7, 11)), rng.random(7), rng.random((512, 11))
+    emit(what="sweep_gp_ei", **gap(tsweep._gp_ei(xs, ys, xc),
+                                   np.asarray(jsweep._gp_ei(xs, ys, xc))))
 
 
 if __name__ == "__main__":

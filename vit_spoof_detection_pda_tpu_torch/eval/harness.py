@@ -70,14 +70,17 @@ def run_cross_model_eval(records: Sequence[Record], *, output_dir: str,
                          batch_size: int = 32, img_size: int = 224,
                          write_reports: bool = True,
                          fastserve: bool = False,
+                         ema: bool = False,
                          thresholds: Optional[Sequence[float]] = None,
                          cm_thresholds: Optional[Sequence[float]] = None,
                          device=None) -> Dict[str, dict]:
     """Evaluate every registry model (f32) on ``records``; returns
     ``{model_name: summary_dict}`` (JAX :64).  ``fastserve=True`` scores
     the anti-spoof ViT on the serving path (bf16, ``eval/runner.py``);
-    the other entries keep the module path.  Models run on ``device``
-    (the card unless ``"cpu"``)."""
+    the other entries keep the module path.  ``ema=True`` scores the EMA
+    shadow of the checkpoint-loading entries (``checkpoint_path`` a
+    training run's directory); the other entries are unaffected.  Models
+    run on ``device`` (the card unless ``"cpu"``)."""
     from ..models.vit import ViTAntiSpoof
 
     outp = Path(output_dir)
@@ -91,6 +94,7 @@ def run_cross_model_eval(records: Sequence[Record], *, output_dir: str,
             module = build_model(
                 name, checkpoint_path=checkpoint_path,
                 pretrained_path=pretrained_paths.get(name),
+                ema=ema and MODEL_REGISTRY[name].weights == "checkpoint",
                 img_size=img_size, device=device)
             out = run_inference(
                 module, records, batch_size=batch_size, img_size=img_size,

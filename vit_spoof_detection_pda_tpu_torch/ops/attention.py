@@ -27,6 +27,10 @@ Training adds two kernels:
 - :func:`attention_qkv_bwd`: ``dqkv`` of the attention core from ``qkv``
   and the head outputs' cotangent.  Kernel: ``csrc/attention_qkv_bwd.cu``;
   replaces ``_attn_qkv_bwd_kernel`` (JAX ``ops/attention.py:199``).
+- :func:`attention_qkv_bwd_phased`: the same ``dqkv`` on the TPU's
+  opt-in phase-split schedule, selected by :data:`BWD_PHASED`.  Kernel:
+  ``csrc/attention_qkv_bwd_phased.cu`` (bf16 and f32); replaces
+  ``_attn_qkv_bwd_kernel_phased`` (JAX ``ops/attention.py:259``).
 - :func:`mlp_block_train`: the MLP block with the stored-hidden
   backward's residuals (``xhat``, ``inv``, the hidden ``h``), erf or tanh
   GELU.  Kernel: ``csrc/mlp_block_train.cu``; replaces
@@ -84,6 +88,8 @@ _SIGNATURES = {
                               [_P] * 4 + [_I] * 5 + [_F, _P]),
     "mlp_block_train": ("vsd_mlp_block_train",
                         [_P] * 13 + [_I] * 3 + [_F] + [_I] * 2 + [_P]),
+    "attention_qkv_bwd_phased": ("vsd_attention_qkv_bwd_phased",
+                                 [_P] * 4 + [_I] * 7 + [_F, _P]),
 }
 # the f32 kernels' blocks: 8 warps, each on 4 query rows (or keys) at a time
 _F32_WARPS, _F32_ROWS = 8, 4
@@ -376,6 +382,19 @@ def attention_qkv_bwd_plain(qkv, g, num_heads: int, *, valid_len: int):
         return dqkv.permute(0, 3, 2, 1, 4).reshape(b, tp, d3).to(cdt)
 
 
+# Selects the phase-split attention backward (JAX ``BWD_PHASED``,
+# ``ops/attention.py:341``): with it set, :func:`attention_qkv_bwd` launches
+# kernel 5 (``csrc/attention_qkv_bwd_phased.cu``) instead of kernel 4 on the
+# card, bf16 and f32 alike; the CPU runs the plain version either way.  It
+# is read on each call, so setting it takes effect at the next backward
+# (JAX reads it at trace time, where a jitted step keeps the kernel it was
+# traced with).
+BWD_PHASED = False
+# workspace of one chunk of the phased backward: f32 [chunk * H, Tp, Tp]
+# kept within the 50 MB L2 between its four phases (16 items at ViT-B)
+_PHASED_WORKSPACE_BYTES = 32_000_000
+
+
 def attention_qkv_bwd(qkv, g, num_heads: int, *, valid_len: int):
     """``dqkv [B, Tp, 3D]`` of the attention core on the fused projection
     ``qkv [B, Tp, 3D]`` given the head outputs' cotangent
@@ -396,6 +415,9 @@ def attention_qkv_bwd(qkv, g, num_heads: int, *, valid_len: int):
                                        valid_len=valid_len)
     if qkv.device.type != "cuda":
         raise ValueError(f"no kernel for device {qkv.device}")
+    if BWD_PHASED:
+        return attention_qkv_bwd_phased(qkv, g, num_heads,
+                                        valid_len=valid_len)
     if qkv.dtype == torch.float32:
         return _attention_qkv_bwd_f32(qkv, g, num_heads, valid_len)
     b, tp, d3 = qkv.shape
@@ -423,6 +445,59 @@ def attention_qkv_bwd(qkv, g, num_heads: int, *, valid_len: int):
              torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, "attention_qkv_bwd", err)
     LAUNCHES["attention_qkv_bwd"] += 1
+    return dqkv
+
+
+def phased_chunk(batch: int, num_heads: int, tp: int) -> int:
+    """Items a chunk of the phased backward: as many as keep its f32
+    workspace ``[chunk * H, Tp, Tp]`` within 32 MB (16 at ViT-B)."""
+    per_item = num_heads * tp * tp * 4
+    return max(1, min(batch, _PHASED_WORKSPACE_BYTES // per_item))
+
+
+def attention_qkv_bwd_phased(qkv, g, num_heads: int, *, valid_len: int):
+    """:func:`attention_qkv_bwd` on the phase-split schedule of the TPU
+    kernel ``_attn_qkv_bwd_kernel_phased`` (JAX ``ops/attention.py:259``):
+    the same function, the same rounding points.  On the card: bf16 or f32
+    ``qkv`` and ``g`` (``LAUNCHES["attention_qkv_bwd_phased"]`` or
+    ``..._phased_f32``), a head dim of 16, 32, 64 or 128, any Tp up to 908;
+    the items run in chunks of :func:`phased_chunk` over an f32 workspace,
+    four launches a chunk on the current stream.  A CPU tensor runs
+    :func:`attention_qkv_bwd_plain`, the plain version of both kernels."""
+    if qkv.device.type == "cpu":
+        return attention_qkv_bwd_plain(qkv, g, num_heads,
+                                       valid_len=valid_len)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"no kernel for device {qkv.device}")
+    b, tp, d3 = qkv.shape
+    d = _check_head_geometry(d3, num_heads, fused=3)
+    dh = d // num_heads
+    if dh not in (16, 32, 64, 128) or not 0 < valid_len <= tp:
+        raise ValueError(
+            f"the phased attention backward takes a head dim of 16, 32, 64 "
+            f"or 128 and 0 < valid_len <= Tp; got head dim {dh}, Tp {tp}, "
+            f"valid_len {valid_len}")
+    if 4 * 16 * tp * 4 > _MAX_SMEM:
+        raise ValueError(f"Tp {tp} needs {4 * 16 * tp * 4} bytes of shared "
+                         f"memory per block; the card has {_MAX_SMEM}")
+    if num_heads > 65535:
+        raise ValueError(f"heads {num_heads} outside the grid")
+    if qkv.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"qkv is {qkv.dtype}; the kernel takes bf16 or f32")
+    dt, dev = qkv.dtype, qkv.device
+    _require(qkv, "qkv", dt, (b, tp, d3), dev)
+    _require(g, "g", dt, (b, tp, d), dev)
+    chunk = phased_chunk(b, num_heads, tp)
+    work = torch.empty((chunk * num_heads, tp, tp), dtype=torch.float32,
+                       device=dev)
+    lib, fn = _entry("attention_qkv_bwd_phased")
+    dqkv = torch.empty_like(qkv)
+    f32 = dt == torch.float32
+    err = fn(qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(), work.data_ptr(),
+             chunk, int(f32), b, tp, d, num_heads, valid_len,
+             float(dh) ** -0.5, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, "attention_qkv_bwd_phased", err)
+    LAUNCHES["attention_qkv_bwd_phased" + ("_f32" if f32 else "")] += 1
     return dqkv
 
 

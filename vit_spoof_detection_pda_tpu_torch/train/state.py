@@ -208,9 +208,12 @@ def create_train_state(module, tx: Optimizer, seed: int = 0, *,
     if variables is None:
         variables = antispoof_from_torch(module.state_dict())
     leaves, paths = tree_flatten(variables["params"])
+    # contiguous copies: the converter hands the kernels' [in, out]
+    # matrices back as transposed views, which the card's kernels refuse
     leaves = [torch.as_tensor(np.asarray(a) if not isinstance(
         a, torch.Tensor) else a).to(device=device, dtype=torch.float32)
-              .clone().requires_grad_() for a in leaves]
+              .clone(memory_format=torch.contiguous_format).requires_grad_()
+              for a in leaves]
     state = TrainState(step=0, params=tree_unflatten(paths, leaves),
                        opt_state=tx.init(leaves), seed=seed,
                        apply_fn=apply_fn or make_apply(module), tx=tx,

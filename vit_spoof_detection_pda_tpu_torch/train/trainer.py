@@ -17,8 +17,9 @@ float32 (normalized) or uint8 for a ``batch_prep``, "label": [B] int}``
 ``train_batches(epoch, skip=n)``: the source starts ``n`` batches into
 the epoch (exact mid-epoch resume).
 
-One card: a mesh, FSDP, the pipeline and a profiler trace are not ported
-and raise.
+One card: a mesh, FSDP and the pipeline are not ported and raise.
+``telemetry.profile_dir`` traces the first epoch with ``torch.profiler``
+(``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ from ..device import resolve_device
 from ..metrics import device as dmetrics
 from ..ops import losses
 from ..utils.checkpoint import CheckpointManager
+from ..utils.profiling import profile_trace
 from ..utils.telemetry import MetricLogger
 from .early_stop import EarlyStopping
 from .schedule import make_lr_schedule
@@ -48,9 +50,6 @@ log = logging.getLogger(__name__)
 _PARALLEL_TODO = (
     "{what} is not ported: the port trains on one card (ROADMAP Queue 1 "
     "item 9, parallelism)")
-_PROFILE_TODO = (
-    "telemetry.profile_dir (a profiler trace of the first epoch) is not "
-    "ported: ROADMAP Queue 1 item 10 (utils/profiling.py)")
 
 
 class _Preempted(Exception):
@@ -119,8 +118,6 @@ class Trainer:
         ``models/convert.py::train_state_arrays`` (params, step, AdamW
         moments, EMA).  Runs on the card unless ``device="cpu"``."""
         check_single_device(config, mesh)
-        if config.telemetry.profile_dir:
-            raise NotImplementedError(_PROFILE_TODO)
         self.config = config
         self.module = module
         self.train_batches = train_batches
@@ -265,9 +262,12 @@ class Trainer:
             if self._preempt.is_set():
                 raise _Preempted
             t0 = time.time()
-            train_metrics = self.train_epoch(
-                epoch, skip_batches=start_batch if epoch == start_epoch
-                else 0)
+            # a profiler trace of the first epoch when configured
+            with profile_trace(cfg.telemetry.profile_dir
+                               if epoch == start_epoch else None):
+                train_metrics = self.train_epoch(
+                    epoch, skip_batches=start_batch if epoch == start_epoch
+                    else 0)
             val_metrics = self.validate(epoch=epoch)
             summary = {
                 "epoch": epoch, "epoch_time_s": time.time() - t0,
