@@ -4,12 +4,14 @@
 - ``config`` prints the same bytes for the presets, ``--set`` overrides,
   ``--diff`` and ``PAD_*`` environment overrides;
 - the command map names every JAX verb; each verb not ported yet exits 2
-  naming its ROADMAP item; a verb that computes exits non-zero before it
+  naming its ROADMAP item, a ported serving verb's ``--help`` exits 0;
+  a verb that computes exits non-zero before it
   loads a model or data when it asks for the card and none is present;
 - ``benchmark``: the same argv gives ``SystemExit`` in both CLIs for
-  every ``parser.error`` rule, and tiny runs on the CPU print JSON with
-  the JAX verb's keys;
-- ``describe`` of a ``.pth``: the same keys and values as JAX's;
+  every ``parser.error`` rule, and tiny runs on the CPU (``--artifact``
+  and ``--lowlat-int8`` among them) print JSON with the JAX verb's keys;
+- ``describe`` of a ``.pth`` and of a serving-artifact descriptor: the
+  same keys and values as JAX's (the artifact's plus ``torch_version``);
 - ``utils/profiling.py``: ``profile_trace`` writes a trace.
 """
 
@@ -81,18 +83,26 @@ def test_command_map_names_every_jax_verb():
     assert list(tmain.COMMANDS) == list(jmain.COMMANDS)
     ported = {v for v, m in tmain.COMMANDS.items() if m}
     assert ported == {"augment", "train", "test", "evaluate-all",
-                      "benchmark", "export", "describe", "config", "doctor"}
+                      "benchmark", "export", "export-serving", "predict",
+                      "serve", "serve-bench", "describe", "config", "doctor"}
     assert set(tmain.NOT_PORTED) == set(tmain.COMMANDS) - ported
 
 
 @pytest.mark.parametrize("verb,item", [
-    ("analyze", "Queue 1 item 10"), ("export-serving", "Queue 1 item 8"),
-    ("predict", "Queue 1 item 8"), ("serve", "Queue 1 item 8"),
-    ("serve-bench", "Queue 1 item 8"), ("demo", "Queue 1 item 10")])
+    ("analyze", "Queue 1 item 10"), ("demo", "Queue 1 item 10")])
 def test_unported_verbs_exit_2_naming_their_item(capsys, verb, item):
     assert tmain.main([verb, "--help"]) == 2
     captured = capsys.readouterr()
     assert item in captured.err and "usage" not in captured.out
+
+
+@pytest.mark.parametrize("verb", ["export-serving", "predict", "serve",
+                                  "serve-bench"])
+def test_serving_verbs_help_exits_0(capsys, verb):
+    with pytest.raises(SystemExit) as e:
+        tmain.main([verb, "--help"])
+    assert e.value.code == 0
+    assert "usage" in capsys.readouterr().out
 
 
 def test_dispatcher_help_and_unknown(capsys):
@@ -169,15 +179,32 @@ def test_benchmark_rejects_what_jax_rejects(argv, capsys):
     assert te.value.code == 2            # the port: a parser error
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["--device-latency", "--artifact", "x"], "Queue 1 item 8"),
-    (["--device-latency", "--lowlat", "--lowlat-int8", "--device", "cpu"],
-     "Queue 2 item 17"),
-])
-def test_benchmark_unported_modes_name_their_item(argv, item):
-    with pytest.raises(SystemExit) as e:
-        tbench.main(argv)
-    assert item in str(e.value.code)
+@pytest.mark.parametrize("mode", ["artifact", "lowlat_int8"])
+def test_benchmark_artifact_and_int8_modes_run(mode, tmp_path, capsys):
+    """--artifact times a frozen program (a module artifact of a tiny ViT,
+    whose fixed batch overrides --batch-size) and --lowlat-int8 the int8
+    stream, here on the plain versions."""
+    if mode == "artifact":
+        from vit_spoof_detection_pda_tpu_torch.models import artifact
+        from vit_spoof_detection_pda_tpu_torch.models.vit import ViTAntiSpoof
+        torch.manual_seed(0)
+        model = ViTAntiSpoof(patch_size=16, embed_dim=64, depth=1,
+                             num_heads=2, hidden=16, img_size=32).eval()
+        artifact.save_serving_artifact(tmp_path / "art", model, batch_size=3,
+                                       img_size=32)
+        argv = ["--device-latency", "--artifact", str(tmp_path / "art"),
+                "--n1", "1", "--device", "cpu"]
+    else:
+        argv = ["--device-latency", "--lowlat", "--lowlat-int8", "--n1", "1",
+                "--batch-size", "1", "--device", "cpu", "--set",
+                "data.img_size=32"]
+    out = tbench.main(argv)
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line == json.loads(json.dumps(out))
+    assert LATENCY_KEYS <= set(line) and line["device"] == "cpu"
+    assert line["batch_size"] == (3 if mode == "artifact" else 1)
+    if mode == "artifact":
+        assert line["artifact_mode"] == "module"
 
 
 TINY = ["--device", "cpu", "--batch-size", "2", "--set", "data.img_size=32"]
@@ -231,14 +258,16 @@ def test_describe_pth_matches_jax(tmp_path):
         str(bare))
 
 
-def test_describe_refuses_a_serving_artifact(tmp_path, capsys):
+def test_describe_reads_a_serving_artifact(tmp_path, capsys):
+    """A bare descriptor (no weights spec, no files): the JAX verb's
+    census of what there is, plus the port's torch_version key."""
     art = tmp_path / "art"
     art.mkdir()
     (art / "meta.json").write_text(json.dumps({"format_version": 1}))
-    with pytest.raises(SystemExit) as e:
-        tdescribe.main([str(art)])
-    assert e.value.code == 2
-    assert "Queue 1 item 8" in capsys.readouterr().err
+    got = tdescribe.main([str(art)])
+    assert got == [{**jdescribe.describe_path(str(art)),
+                    "torch_version": None}]
+    assert "serving artifact" in capsys.readouterr().out
 
 
 def test_profile_trace_writes_a_trace(tmp_path):

@@ -169,9 +169,11 @@ def test_serving_modes_are_validated(model):
     with pytest.raises(ValueError, match="int8_weights"):
         tfast.serving_program(tm, mode="batch_grid", int8_weights=True,
                               device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 2 item 17"):
-        tfast.make_serving_fn(tm, batch_size=1, int8_weights=True,
-                              device="cpu")
+    # the int8 stream is ported: the B = 1 regime takes it
+    fn = tfast.make_serving_fn(tm, batch_size=1, int8_weights=True,
+                               device="cpu")
+    score = fn(_images(3, 1))
+    assert score.shape == (1,) and torch.isfinite(score).all()
 
 
 def test_auto_serving_mode_matches_jax():

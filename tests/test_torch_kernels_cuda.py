@@ -729,3 +729,69 @@ def test_doctor_probe_kernel_on_card(cuda_device):
     assert probe.LAUNCHES["doctor_probe"] == n0 + 1
     assert out.sum().item() == 2048.0
     assert torch.equal(out, probe.doctor_probe_plain(x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,b,t,heads,dh,strided", [
+    (torch.bfloat16, 2, 33, 4, 16, False),   # ragged query and key tiles
+    (torch.bfloat16, 3, 197, 12, 64, True),  # the int8 path's views
+    (torch.float32, 2, 197, 12, 64, True),
+    (torch.float32, 2, 33, 4, 16, False),
+])
+def test_attention_kernel_matches_plain_on_card(cuda_device, dtype, b, t,
+                                                heads, dh, strided):
+    """Kernel 9 (q/k/v attention): bf16 within 2 ulps, f32 within 1e-5
+    of the largest output magnitude; strided q/k/v are the three slices
+    of one [B, T, 3, H, Dh] projection."""
+    rng = np.random.default_rng(50)
+    x = torch.tensor(rng.standard_normal((b, t, 3, heads, dh)).astype(
+        np.float32), device=cuda_device, dtype=dtype)
+    q, k, v = x.unbind(2)
+    if not strided:
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    name = "attention" if dtype == torch.bfloat16 else "attention_f32"
+    n0 = tatt.LAUNCHES[name]
+    got = tatt.fused_attention(q, k, v)
+    want = tatt.fused_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert tatt.LAUNCHES[name] == n0 + 1
+    if dtype == torch.bfloat16:
+        _assert_close(got, want)
+    else:
+        assert ((got - want).abs().max().item()
+                <= 1e-5 * want.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 2])
+def test_lowlat_encoder_int8_matches_plain_on_card(cuda_device, b):
+    """Kernel 10 on the int8 pack (the _wblk dequant in the weight
+    stage), one ragged layer: within 2 bf16 ulps of the plain version."""
+    rng = np.random.default_rng(51)
+    d, hidden = 64, 256
+
+    def dense(i, o):
+        return {"kernel": (rng.standard_normal((i, o)) * i ** -0.5).astype(
+            np.float32), "bias": (0.1 * rng.standard_normal(o)).astype(
+            np.float32)}
+
+    def ln():
+        return {"scale": (1 + 0.1 * rng.standard_normal(d)).astype(
+            np.float32), "bias": (0.1 * rng.standard_normal(d)).astype(
+            np.float32)}
+
+    vit = {"block0": {"norm1": ln(), "norm2": ln(),
+                      "attn": {"qkv": dense(d, 3 * d), "proj": dense(d, d)},
+                      "mlp": {"fc1": dense(d, hidden),
+                              "fc2": dense(hidden, d)}}}
+    w, s = tlow.pack_encoder_weights(vit, depth=1, device=cuda_device,
+                                     weight_dtype=torch.int8)
+    x = torch.tensor(rng.standard_normal((b, 40, d)).astype(np.float32),
+                     device=cuda_device, dtype=torch.bfloat16)
+    n0 = tlow.LAUNCHES["lowlat_encoder_int8"]
+    got = tlow.encoder_forward_lowlat(x, w, s, num_heads=4, valid_len=33)
+    want = tlow.encoder_forward_lowlat_plain(x, w, s, num_heads=4,
+                                             valid_len=33)
+    torch.cuda.synchronize()
+    assert tlow.LAUNCHES["lowlat_encoder_int8"] == n0 + 1
+    _assert_close(got, want)

@@ -295,21 +295,23 @@ def test_batchgrid_takes_at_most_four_items(small):
             valid_len=5)
 
 
-def test_int8_requests_name_the_roadmap_item(small):
-    with pytest.raises(NotImplementedError, match="Queue 2 item 17"):
-        tlow.pack_encoder_weights(small["np"]["vit"], depth=2,
-                                  weight_dtype=torch.int8)
+def test_int8_requests_are_served_or_refused_as_jax(small):
+    """The int8 stream is ported: the per-item pack, prepare_lowlat and the
+    encoder take it (the parity is in tests/test_torch_int8.py); what the
+    JAX package refuses stays refused."""
+    w, s = tlow.pack_encoder_weights(small["np"]["vit"], depth=2,
+                                     weight_dtype=torch.int8)
+    assert w.dtype == torch.int8 and tuple(s.shape) == (6, 5, 256)
     with pytest.raises(ValueError, match="int8 or None"):
         tlow.pack_encoder_weights(small["np"]["vit"], depth=2,
                                   weight_dtype=torch.float16)
-    with pytest.raises(NotImplementedError, match="Queue 2 item 17"):
-        tfast.prepare_lowlat(small["np"], depth=2, int8_weights=True,
-                             device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 2 item 17"):
-        tlow.encoder_forward_lowlat(
-            torch.zeros((1, 8, 64)),
-            torch.zeros((6, 64, 256), dtype=torch.int8),
-            torch.zeros((6, 5, 256)), num_heads=2, valid_len=5)
+    prep = tfast.prepare_lowlat(small["np"], depth=2, int8_weights=True,
+                                device="cpu")
+    assert prep["packed_w"].dtype == torch.int8
+    out = tlow.encoder_forward_lowlat(
+        torch.zeros((1, 8, 64), dtype=torch.bfloat16), w, s, num_heads=2,
+        valid_len=5)
+    assert out.shape == (1, 8, 64) and torch.isfinite(out.float()).all()
     # the JAX package's own refusals, kept
     with pytest.raises(ValueError, match="int8_weights"):
         tfast.prepare_lowlat(small["np"], depth=2, per_item=False,

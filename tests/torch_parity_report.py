@@ -1,7 +1,7 @@
 """Print the port's parity gaps against the JAX package on the CPU, one
 JSON line per comparison (the numbers the tests bound).
 
-    python tests/torch_parity_report.py [kernels serving training small_batch augment eval train_loop cli]
+    python tests/torch_parity_report.py [kernels serving training small_batch augment eval train_loop cli artifact int8_vitb]
 
 The port runs its plain PyTorch versions (CPU tensors); the JAX side runs
 its Pallas kernels in interpret mode, as the test files do.  Inputs come
@@ -618,6 +618,175 @@ def cli():
     xs, ys, xc = rng.random((7, 11)), rng.random(7), rng.random((512, 11))
     emit(what="sweep_gp_ei", **gap(tsweep._gp_ei(xs, ys, xc),
                                    np.asarray(jsweep._gp_ei(xs, ys, xc))))
+
+
+def artifact():
+    """Slice 8: kernel 9's plain version against JAX's interpret-mode
+    kernel; the int8 packs, the int8 lowlat forward and the int8 module
+    path against JAX's; a port module artifact against a JAX module
+    artifact on the same weights."""
+    import tempfile
+
+    import test_torch_artifact as tart
+    import test_torch_fused_attention as tfa
+    import test_torch_int8 as ti8
+    from vit_spoof_detection_pda_tpu.models import artifact as JA
+    from vit_spoof_detection_pda_tpu.models import serving as jserv
+    from vit_spoof_detection_pda_tpu_torch.models import artifact as A
+    from vit_spoof_detection_pda_tpu_torch.models import serving as tserv
+
+    for (jdt, tdt), name in zip(tfa.DTYPES, tfa.DTYPE_IDS):
+        for t in (197, 33, 5):
+            q, k, v = tfa._qkv(t, 2, t, 4, 16)
+            want = jatt.fused_attention(
+                *(jnp.asarray(x, jdt) for x in (q, k, v)), True
+            ).astype(jnp.float32)
+            got = tatt.fused_attention(
+                *(torch.from_numpy(x).to(tdt) for x in (q, k, v))).float()
+            emit(what="fused_attention", dtype=name, t=t,
+                 **gap(got.numpy(), want))
+    q, k, v = tfa._qkv(3, 1, 33, 2, 16)
+    want = jax.grad(lambda q, k, v: jnp.sum(
+        jatt.fused_attention(q, k, v, True) ** 2), argnums=(0, 1, 2))(
+        *(jnp.asarray(x) for x in (q, k, v)))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    (tatt.fused_attention(tq, tk, tv) ** 2).sum().backward()
+    for n, g, w in zip("qkv", (tq.grad, tk.grad, tv.grad), want):
+        emit(what="fused_attention_grad", wrt=n, **gap(g.numpy(), w))
+
+    for geom in ("small", "foldable"):
+        g = ti8._geometry(geom)
+        for (jdt, tdt), name in zip(ti8.DTYPES, ti8.DTYPE_IDS):
+            (jw, js), (tw, ts) = ti8._int8_packs(g, 2, jdt, tdt)
+            emit(what="int8_pack", geom=geom, dtype=name,
+                 w_bytes_equal=bool((tw.numpy() == np.asarray(jw)).all()),
+                 s_bytes_equal=bool((ts.numpy() == np.asarray(js)).all()))
+            u8 = np.random.default_rng(9).integers(
+                0, 256, (1, g["img"], g["img"], 3), dtype=np.uint8)
+            jp = jfast.prepare_lowlat(g["folded"]["params"], depth=2,
+                                      dtype=jdt, int8_weights=True)
+            tp = tfast.prepare_lowlat(g["np"], depth=2, dtype=tdt,
+                                      int8_weights=True, device="cpu")
+            kw = dict(num_heads=2, patch_size=g["patch"])
+            want = jfast.serving_forward_lowlat(jp, jnp.asarray(u8),
+                                                dtype=jdt, interpret=True,
+                                                **kw)
+            got = tfast.serving_forward_lowlat(tp, u8, dtype=tdt,
+                                               device="cpu", **kw)
+            emit(what="int8_lowlat_scores", geom=geom, dtype=name,
+                 fold_ends="aux" in tp, **gap(got.numpy(), want))
+
+    module = jvit.ViTAntiSpoof(patch_size=8, embed_dim=64, depth=2,
+                               num_heads=2, hidden=32)
+    variables = module.init(jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 3)))
+    x = np.random.default_rng(2).standard_normal((4, 32, 32, 3)).astype(
+        np.float32)
+    rng = np.random.default_rng(1)
+    w = rng.standard_normal((128, 64)).astype(np.float32) * 0.05
+    b = rng.standard_normal(64).astype(np.float32) * 0.01
+    xd = rng.standard_normal((2, 16, 128)).astype(np.float32)
+    emit(what="dense_int8", **gap(
+        tserv.dense_int8(torch.from_numpy(xd),
+                         tserv.quantize_dense(w, b, device="cpu")).numpy(),
+        jserv.dense_int8(jnp.asarray(xd), jserv.quantize_dense(w, b))))
+    qp = jserv.quantize_vit_params(variables["params"], depth=2)
+    tqp = tserv.quantize_vit_params(
+        jax.tree.map(np.asarray, variables["params"]), depth=2, device="cpu")
+    emit(what="int8_apply_logits", **gap(
+        tserv.vit_antispoof_int8_apply(tqp, torch.from_numpy(x),
+                                       num_heads=2, patch_size=8).numpy(),
+        jserv.vit_antispoof_int8_apply(qp, jnp.asarray(x), num_heads=2,
+                                       patch_size=8, interpret=True)))
+
+    jm, variables, tm = tart._models(tart.GEOM, tart.IMG)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = pathlib.Path(tmp)
+        for label, kw in (("default", {}),
+                          ("t0.3_T1.7", {"threshold": 0.3,
+                                         "temperature": 1.7})):
+            JA.save_serving_artifact(root / f"j{label}", jm, variables,
+                                     mode="module", img_size=tart.IMG, **kw)
+            A.save_serving_artifact(root / f"t{label}", tm, mode="module",
+                                    img_size=tart.IMG, **kw)
+            ja = JA.load_serving_artifact(root / f"j{label}")
+            ta_ = A.load_serving_artifact(root / f"t{label}", device="cpu")
+            for bsz in (1, 3, 5):
+                u8 = tart._u8(bsz, bsz)
+                want, got = ja(jnp.asarray(u8)), ta_(u8)
+                emit(what="module_artifact_prob1", case=label, batch=bsz,
+                     pred_equal=bool((got["pred"].numpy() == np.asarray(
+                         want["pred"])).all()),
+                     **gap(got["prob1"].numpy(), want["prob1"]))
+
+
+def int8_vitb():
+    """The int8 module path at ViT-B/16 on chip_smoke.py's slice_int8
+    inputs (phase 4's numpy-seeded weights, its 128 faces): the JAX
+    package's int8 path (dense attention reference on the CPU) and the
+    port's plain int8 path against JAX's f32 module, the JAX test's
+    criterion (max |d logit| / std, argmax agreement), and the two int8
+    paths against each other.  About a minute on 8 cores."""
+    import chip_smoke as cs
+    from vit_spoof_detection_pda_tpu.models import serving as jserv
+    from vit_spoof_detection_pda_tpu_torch.models import serving as tserv
+    from vit_spoof_detection_pda_tpu_torch.ops.image import (normalize,
+                                                             to_float)
+
+    params = cs.random_params(np.random.default_rng(cs.SEED + 1))
+    u8 = np.random.default_rng(cs.SEED + 81).integers(
+        0, 256, (cs.MAIN_B, cs.IMG, cs.IMG, 3), dtype=np.uint8)
+    x = normalize(to_float(torch.from_numpy(u8))).numpy()
+    jp = jax.tree.map(jnp.asarray, params)
+    f32 = jax.jit(lambda p, x: jvit.ViTAntiSpoof().apply(p, x))
+    i8 = jax.jit(lambda q, x: jserv.vit_antispoof_int8_apply(q, x))
+    qp = jserv.quantize_vit_params(jp["params"])
+    tqp = tserv.quantize_vit_params(params["params"], device="cpu")
+    chunks = range(0, len(x), 16)
+    ref = np.concatenate([np.asarray(f32(jp, jnp.asarray(x[i:i + 16])))
+                          for i in chunks])
+    jout = np.concatenate([np.asarray(i8(qp, jnp.asarray(x[i:i + 16])))
+                           for i in chunks])
+    tout = torch.cat([tserv.vit_antispoof_int8_apply(
+        tqp, torch.from_numpy(x[i:i + 16])) for i in chunks]).numpy()
+
+    def score(lg):
+        return 1.0 / (1.0 + np.exp(-(lg[:, 1] - lg[:, 0])))
+
+    for name, out in (("jax_int8", jout), ("port_plain_int8", tout)):
+        emit(what="int8_vitb_vs_jax_f32", path=name, faces=len(x),
+             drift_over_std=float(np.abs(out - ref).max() / ref.std()),
+             argmax_agreement=float((out.argmax(-1) == ref.argmax(-1))
+                                    .mean()))
+    emit(what="int8_vitb_port_vs_jax_int8_scores",
+         mean_abs=float(np.abs(score(tout) - score(jout)).mean()),
+         **gap(score(tout), score(jout)))
+
+    # the int8 lowlat stream (weight-only) on slice_int8's first 64 faces:
+    # the port's plain path (equal to JAX's interpret-mode kernel in
+    # tests/test_torch_int8.py) against the f32 module, tanh GELU as served
+    from vit_spoof_detection_pda_tpu_torch.device import exact_f32_matmul
+    from vit_spoof_detection_pda_tpu_torch.models.convert import (
+        load_jax_params)
+    from vit_spoof_detection_pda_tpu_torch.models.vit import ViTAntiSpoof
+
+    model = load_jax_params(ViTAntiSpoof(gelu="tanh").eval(), params)
+    faces = u8[:cs.ARTIFACT_FACES]
+    with torch.no_grad(), exact_f32_matmul():
+        want = model(torch.from_numpy(x[:len(faces)]))
+    want = torch.sigmoid(want[:, 1] - want[:, 0]).numpy()
+    got = {}
+    for name, int8 in (("bf16", False), ("int8", True)):
+        fn = tfast.make_serving_fn(model, batch_size=1, int8_weights=int8,
+                                   mode="lowlat", device="cpu")
+        got[name] = np.concatenate([fn(faces[i:i + 16]).numpy()
+                                    for i in range(0, len(faces), 16)])
+        emit(what="lowlat_vitb_vs_f32_module_scores", stream=name,
+             faces=len(faces), mean_abs=float(np.abs(got[name] - want)
+                                              .mean()),
+             **gap(got[name], want))
+    emit(what="lowlat_vitb_int8_vs_bf16_scores",
+         mean_abs=float(np.abs(got["int8"] - got["bf16"]).mean()),
+         **gap(got["int8"], got["bf16"]))
 
 
 if __name__ == "__main__":

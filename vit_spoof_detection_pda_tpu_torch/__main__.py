@@ -15,10 +15,10 @@ COMMANDS = {
     "analyze": None,
     "benchmark": "vit_spoof_detection_pda_tpu_torch.cli.benchmark",
     "export": "vit_spoof_detection_pda_tpu_torch.cli.export",
-    "export-serving": None,
-    "predict": None,
-    "serve": None,
-    "serve-bench": None,
+    "export-serving": "vit_spoof_detection_pda_tpu_torch.cli.export_serving",
+    "predict": "vit_spoof_detection_pda_tpu_torch.cli.predict",
+    "serve": "vit_spoof_detection_pda_tpu_torch.cli.serve",
+    "serve-bench": "vit_spoof_detection_pda_tpu_torch.cli.serve_bench",
     "describe": "vit_spoof_detection_pda_tpu_torch.cli.describe",
     "config": "vit_spoof_detection_pda_tpu_torch.cli.config_cmd",
     "doctor": "vit_spoof_detection_pda_tpu_torch.cli.doctor",
@@ -28,12 +28,8 @@ COMMANDS = {
 # the ROADMAP item that brings each verb not ported yet
 NOT_PORTED = {
     "analyze": "ROADMAP Queue 1 item 10 (the analysis modules)",
-    "export-serving": "ROADMAP Queue 1 item 8 (export and artifact serving)",
-    "predict": "ROADMAP Queue 1 item 8 (export and artifact serving)",
-    "serve": "ROADMAP Queue 1 item 8 (export and artifact serving)",
-    "serve-bench": "ROADMAP Queue 1 item 8 (export and artifact serving)",
-    "demo": "ROADMAP Queue 1 item 10 (it drives analyze and export-serving, "
-            "which wait for items 10 and 8)",
+    "demo": "ROADMAP Queue 1 item 10 (it drives analyze, which waits for "
+            "item 10)",
 }
 
 

@@ -57,8 +57,8 @@ def main(argv=None):
                              "anti-spoof head only")
     parser.add_argument("--lowlat-int8", action="store_true",
                         help="with --lowlat: stream the encoder weights "
-                             "weight-only int8 — not ported (ROADMAP Queue "
-                             "2 item 17)")
+                             "weight-only int8 (half the weight bytes of "
+                             "the B=1 kernel; opt-in quantized numerics)")
     parser.add_argument("--interpret", action="store_true",
                         help="run the kernels' plain PyTorch versions on "
                              "the CPU (the same as --device cpu)")
@@ -71,8 +71,9 @@ def main(argv=None):
                              "replays (dispatch-free device latency)")
     parser.add_argument("--artifact", default=None,
                         help="with --device-latency: time a FROZEN "
-                             "serving artifact directory — not ported "
-                             "(ROADMAP Queue 1 item 8)")
+                             "serving artifact directory (export-serving) "
+                             "instead of a live model; a fixed-batch "
+                             "artifact pins --batch-size")
     parser.add_argument("--train-step", action="store_true",
                         help="time the TRAIN step (forward + backward + "
                              "clip + AdamW + metrics) at --batch-size on "
@@ -140,12 +141,6 @@ def main(argv=None):
         if args.interpret:
             parser.error("--interpret cannot apply to a frozen program "
                          "(the mode was compiled at export time)")
-        raise SystemExit("--artifact: serving artifacts are not ported: "
-                         "ROADMAP Queue 1 item 8")
-    if args.lowlat_int8:
-        raise SystemExit("--lowlat-int8: the int8 weight stream of the "
-                         "B = 1 kernel is not ported: ROADMAP Queue 2 "
-                         "item 17")
     # fail BEFORE the model load, like validate_fastserve
     device = resolve_device(parser, args)
     setup_logging()
@@ -169,6 +164,18 @@ def _dispatch(args, cfg, parser, device):
             img_size=cfg.data.img_size, iters=args.iters or 10,
             loss_type=cfg.loss.loss_type, gelu=cfg.model.gelu,
             fused=False if args.no_fused_forward else None, device=device)
+        print(json.dumps(out))
+        return out
+
+    if args.artifact:
+        from ..models.artifact import load_serving_artifact
+        art = load_serving_artifact(args.artifact, device=device)
+        bs = art.meta.get("batch_size") or args.batch_size
+        out = benchmark_device_latency(
+            lambda _w, batch: art(batch), None, batch_size=bs,
+            img_size=art.meta.get("img_size", 224), n1=args.n1,
+            loop_iters=args.loop_iters, device=device)
+        out["artifact_mode"] = art.meta["mode"]
         print(json.dumps(out))
         return out
 
@@ -243,6 +250,9 @@ def _lowlat_infer(args, parser, module, device):
         parser.error("--lowlat-batch-grid packs the anti-spoof "
                      "head layout; use plain --lowlat for "
                      f"{type(module).__name__}")
+    if args.lowlat_int8 and not isinstance(module, ViTAntiSpoof):
+        parser.error("--lowlat-int8 packs the anti-spoof layout; use plain "
+                     f"--lowlat for {type(module).__name__}")
     if not isinstance(module, ViTAntiSpoof):
         raise SystemExit("--lowlat on ViTLinearHead needs its serving "
                          "forward (serving_forward_lowlat_linear), not "
@@ -255,7 +265,8 @@ def _lowlat_infer(args, parser, module, device):
         folded["params"], depth=module.depth,
         fold_ends=not args.lowlat_encoder_only,
         batch_grid=args.lowlat_batch_grid,
-        per_item=not args.lowlat_batch_grid, device=device)
+        per_item=not args.lowlat_batch_grid,
+        int8_weights=args.lowlat_int8, device=device)
     print("lowlat flavor:",
           "batch-grid (per-chunk weight streaming)"
           if args.lowlat_batch_grid else

@@ -1,15 +1,16 @@
-"""`describe` command (JAX ``cli/describe.py``): inspect training
-checkpoints and torch exports WITHOUT loading weights onto a device.
+"""`describe` command (JAX ``cli/describe.py``): inspect serving
+artifacts, training checkpoints and torch exports WITHOUT loading
+programs or weights onto a device.
 
+- serving-artifact directories (``meta.json`` descriptor, the port's and
+  the JAX package's alike: both are JSON), with ``--verify`` re-hashing
+  the program and weight bytes,
 - checkpoint directories: the port's Trainer output (and JAX Orbax
   directories where ``orbax`` imports), a per-step metrics table
   (epoch, val_f1, optimal_threshold, ema_decay, preempted),
 - reference-format ``.pth`` exports (epoch / metrics / tensor census),
   read with ``torch.load(weights_only=True)`` and numpy's reconstructors
   allowed (``models/convert.py::load_torch_checkpoint``).
-
-Serving-artifact directories wait for their module (ROADMAP Queue 1
-item 8); ``describe`` names that item for one.
 """
 
 from __future__ import annotations
@@ -17,11 +18,80 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import sys
 from pathlib import Path
 
-_ARTIFACT_TODO = ("serving artifacts (models/artifact.py) are not ported: "
-                  "ROADMAP Queue 1 item 8")
+_DTYPE_BYTES = {"float32": 4, "bfloat16": 2, "float16": 2, "int8": 1,
+                "uint8": 1, "int32": 4, "int64": 8, "bool": 1,
+                "float64": 8}
+
+
+def _weights_census(spec):
+    """(leaf_count, total_bytes) from an artifact's weights_spec, counting
+    what it can of a missing or malformed spec."""
+    leaves, total = 0, 0
+    stack = [spec]
+    while stack:
+        node = stack.pop()
+        if not isinstance(node, dict):
+            continue
+        kind = node.get("kind")
+        if kind == "leaf":
+            leaves += 1
+            n = 1
+            for s in node.get("shape", []):
+                n *= int(s)
+            total += n * _DTYPE_BYTES.get(node.get("dtype"), 4)
+        elif kind == "dict":
+            stack.extend(node.get("items", {}).values())
+        else:
+            items = node.get("items", [])
+            stack.extend(items.values() if isinstance(items, dict)
+                         else items)
+    return leaves, total
+
+
+def _describe_artifact(path: Path, verify: bool) -> dict:
+    """The JAX verb's keys, plus ``torch_version`` (the port's artifacts
+    carry it where the JAX package's carry ``jax_version``)."""
+    meta = json.loads((path / "meta.json").read_text())
+    n_leaves, n_bytes = _weights_census(meta.get("weights_spec", {}))
+    out = {
+        "kind": "serving_artifact",
+        "path": str(path),
+        "mode": meta.get("mode"),
+        "platforms": meta.get("platforms"),
+        "batch_size": meta.get("batch_size", "symbolic"),
+        "img_size": meta.get("img_size"),
+        "compute_dtype": meta.get("compute_dtype"),
+        "threshold": meta.get("threshold", 0.5),
+        "temperature": meta.get("temperature"),
+        "int8_weights": meta.get("int8_weights", False),
+        "model": meta.get("model"),
+        "geometry": meta.get("geometry"),
+        "mesh": meta.get("mesh"),
+        "weight_leaves": n_leaves,
+        "weight_bytes": n_bytes,
+        "jax_version": meta.get("jax_version"),
+        "torch_version": meta.get("torch_version"),
+    }
+    if verify:
+        import hashlib
+        ok, missing = True, []
+        for fname, want in meta.get("checksums", {}).items():
+            try:
+                got = hashlib.sha256(
+                    (path / fname).read_bytes()).hexdigest()
+            except FileNotFoundError:
+                # a missing file is a corrupt artifact, not a crash
+                ok = False
+                missing.append(fname)
+                continue
+            if got != want:
+                ok = False
+        out["checksums_ok"] = ok
+        if missing:
+            out["missing_files"] = missing
+    return out
 
 
 def _describe_checkpoint_dir(path: Path) -> dict:
@@ -58,14 +128,14 @@ def _describe_torch_file(path: Path) -> dict:
 
 
 def describe_path(target: str, verify: bool = False) -> dict:
-    """``verify`` re-hashes a serving artifact's bytes in the JAX verb;
-    the port has no artifacts yet (see the module docstring)."""
+    """``verify`` re-hashes a serving artifact's program and weight
+    bytes against its descriptor's checksums."""
     p = Path(target)
     if p.is_dir():
         if (p / "meta.json").exists():
             meta = json.loads((p / "meta.json").read_text())
             if "format_version" in meta:
-                raise NotImplementedError(_ARTIFACT_TODO)
+                return _describe_artifact(p, verify)
         return _describe_checkpoint_dir(p)
     if p.is_file():
         return _describe_torch_file(p)
@@ -81,7 +151,26 @@ def _fmt_bytes(n):
 
 def _print_human(info: dict):
     kind = info["kind"]
-    if kind in ("orbax_checkpoint", "checkpoint_dir"):
+    if kind == "serving_artifact":
+        b = info["batch_size"]
+        print(f"serving artifact  {info['path']}")
+        print(f"  mode={info['mode']}  platforms="
+              f"{','.join(info['platforms'] or [])}  "
+              f"batch={'symbolic' if b is None else b}  "
+              f"img={info['img_size']}  dtype={info['compute_dtype']}")
+        line = f"  threshold={info['threshold']}"
+        if info.get("temperature") is not None:
+            line += f"  temperature={info['temperature']}"
+        if info.get("int8_weights"):
+            line += "  int8-weights"
+        print(line)
+        print(f"  model={info['model']}  weights={info['weight_leaves']} "
+              f"leaves / {_fmt_bytes(info['weight_bytes'])}")
+        if info.get("mesh"):
+            print(f"  fleet mesh: {info['mesh']}")
+        if "checksums_ok" in info:
+            print(f"  checksums: {'OK' if info['checksums_ok'] else 'CORRUPT'}")
+    elif kind in ("orbax_checkpoint", "checkpoint_dir"):
         print(f"{kind.replace('_', ' ')}  {info['path']}  "
               f"(latest step {info['latest_step']})")
         for row in info["steps"]:
@@ -102,14 +191,14 @@ def _print_human(info: dict):
 
 def main(argv=None):
     parser = argparse.ArgumentParser(
-        description="Inspect checkpoints / torch exports (no device, no "
-                    "weights loaded onto it)")
+        description="Inspect checkpoints / serving artifacts / torch "
+                    "exports (no device, no program load)")
     parser.add_argument("targets", nargs="+",
-                        help="checkpoint directories and/or .pth files")
+                        help="artifact dirs, checkpoint directories "
+                        "and/or .pth files")
     parser.add_argument("--verify", action="store_true",
-                        help="re-hash serving-artifact bytes against the "
-                        "descriptor checksums (artifacts: ROADMAP Queue 1 "
-                        "item 8)")
+                        help="re-hash artifact program/weight bytes "
+                        "against the descriptor checksums")
     parser.add_argument("--json", action="store_true",
                         help="machine-readable output (one JSON object "
                         "per line)")
@@ -119,11 +208,7 @@ def main(argv=None):
     for target in args.targets:
         if not os.path.exists(target):
             parser.error(f"no such checkpoint/artifact: {target}")
-        try:
-            info = describe_path(target, verify=args.verify)
-        except NotImplementedError as e:
-            print(f"{target}: {e}", file=sys.stderr)
-            sys.exit(2)
+        info = describe_path(target, verify=args.verify)
         results.append(info)
         if args.json:
             print(json.dumps(info, default=str))

@@ -48,22 +48,25 @@ __device__ __forceinline__ uint32_t ld_q_u32(const bf16* p) {
 // the TPU kernel's mask, columns past the stream (>= Tp) are -inf so they
 // add nothing to m or l.
 //
-// attention_tile is one query tile of one (head, item): the block's warps
-// own query rows q0 + 16w .. q0 + 16w + 15; Ks and Vs are the block's
-// shared memory.
+// attention_rows is one query tile of one (head, item) over three base
+// pointers: q, k and v point at that head's slice of row 0 (row r at
+// + r * ld), out at the head's slice of output row 0 (row r at + r * ldo).
+// The block's warps own query rows q0 + 16w .. q0 + 16w + 15; Ks and Vs
+// are the block's shared memory.  ld and ldo are multiples of 8 and the
+// pointers 16-byte aligned (the 16-byte K/V copies).
 template <int DH, bool kCoherent>
-__device__ __forceinline__ void attention_tile(const bf16* __restrict__ qkv,
-                                               bf16* __restrict__ out, int tp, int d,
-                                               int valid_len, float scale, int q0, int h, int b,
-                                               bf16* Ks, bf16* Vs) {
+__device__ __forceinline__ void attention_rows(const bf16* __restrict__ q,
+                                               const bf16* __restrict__ k,
+                                               const bf16* __restrict__ v, size_t ld,
+                                               bf16* __restrict__ out, size_t ldo, int tp,
+                                               int valid_len, float scale, int q0, bf16* Ks,
+                                               bf16* Vs) {
   constexpr int LD = DH + 8;   // shared row stride (elements), 16-byte multiple
   constexpr int KK = DH / 16;  // k-steps of Q K^T
   constexpr int NO = DH / 8;   // 8-column output tiles
   constexpr int CPR = DH / 8;  // 16-byte chunks per head row
   const int tk = att_keys(tp);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const size_t stride = 3 * static_cast<size_t>(d);
-  const bf16* base = qkv + static_cast<size_t>(b) * tp * stride + static_cast<size_t>(h) * DH;
 
   // Every key/value row; rows past Tp are zeros so that zero weights never
   // meet uninitialised values.
@@ -72,8 +75,8 @@ __device__ __forceinline__ void attention_tile(const bf16* __restrict__ qkv,
     bf16* dk = Ks + r * LD + col;
     bf16* dv = Vs + r * LD + col;
     if (r < tp) {
-      cp_async16(dk, base + r * stride + d + col);
-      cp_async16(dv, base + r * stride + 2 * d + col);
+      cp_async16(dk, k + r * ld + col);
+      cp_async16(dv, v + r * ld + col);
     } else {
       store_zero16(dk);
       store_zero16(dv);
@@ -90,8 +93,8 @@ __device__ __forceinline__ void attention_tile(const bf16* __restrict__ qkv,
   // Q as the A fragments of Q K^T (rows r0 + g and r0 + g + 8); rows past
   // Tp are zeros.
   uint32_t qa[KK][4];
-  const bf16* qlo = base + static_cast<size_t>(r0 + g) * stride + t4 * 2;
-  const bf16* qhi = qlo + 8 * stride;
+  const bf16* qlo = q + static_cast<size_t>(r0 + g) * ld + t4 * 2;
+  const bf16* qhi = qlo + 8 * ld;
   const bool lo_in = r0 + g < tp, hi_in = r0 + g + 8 < tp;
 #pragma unroll
   for (int kk = 0; kk < KK; ++kk) {
@@ -176,15 +179,30 @@ __device__ __forceinline__ void attention_tile(const bf16* __restrict__ qkv,
 
   // Each head's output columns, rounded to bf16 once.
   const int row = r0 + g;
-  bf16* orow = out + (static_cast<size_t>(b) * tp + row) * d + static_cast<size_t>(h) * DH + t4 * 2;
+  bf16* orow = out + static_cast<size_t>(row) * ldo + t4 * 2;
 #pragma unroll
   for (int n = 0; n < NO; ++n) {
     if (row < tp)
       *reinterpret_cast<uint32_t*>(orow + n * 8) = pack_bf16x2(o[n][0], o[n][1]);
     if (row + 8 < tp)
-      *reinterpret_cast<uint32_t*>(orow + 8 * static_cast<size_t>(d) + n * 8) =
+      *reinterpret_cast<uint32_t*>(orow + 8 * ldo + n * 8) =
           pack_bf16x2(o[n][2], o[n][3]);
   }
+}
+
+// attention_tile: the same on the fused projection qkv [B, Tp, 3D] (q | k |
+// v, heads contiguous inside each) for head h of item b, written to out
+// [B, Tp, D].
+template <int DH, bool kCoherent>
+__device__ __forceinline__ void attention_tile(const bf16* __restrict__ qkv,
+                                               bf16* __restrict__ out, int tp, int d,
+                                               int valid_len, float scale, int q0, int h, int b,
+                                               bf16* Ks, bf16* Vs) {
+  const size_t stride = 3 * static_cast<size_t>(d);
+  const bf16* base = qkv + static_cast<size_t>(b) * tp * stride + static_cast<size_t>(h) * DH;
+  attention_rows<DH, kCoherent>(base, base + d, base + 2 * d, stride,
+                                out + static_cast<size_t>(b) * tp * d + static_cast<size_t>(h) * DH,
+                                d, tp, valid_len, scale, q0, Ks, Vs);
 }
 
 template <int DH>

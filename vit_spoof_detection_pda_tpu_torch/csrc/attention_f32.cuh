@@ -33,10 +33,16 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// One query tile (blockIdx.x, tile_rows rows) of one (head, item) over three
+// base pointers: q, k and v point at that head's slice of row 0 (row r at
+// + r * ld), out at the head's slice of output row 0 (row r at + r * ldo).
+// ld and the pointers keep 16-byte float4 rows (ld a multiple of 4).
 template <int DH>
-__global__ void __launch_bounds__(kF32Warps * 32)
-    attention_f32_kernel(const float* __restrict__ qkv, float* __restrict__ out, int t, int d,
-                         int valid_len, float scale, int tile_rows) {
+__device__ __forceinline__ void attention_f32_rows(const float* __restrict__ q,
+                                                   const float* __restrict__ k,
+                                                   const float* __restrict__ v, size_t ld,
+                                                   float* __restrict__ out, size_t ldo, int t,
+                                                   int valid_len, float scale, int tile_rows) {
   constexpr int LD = DH + 4;          // shared row stride (floats), 16-byte multiple
   constexpr int C4 = DH / 4;          // float4 chunks of a head row
   constexpr int NJ = (DH + 31) / 32;  // output columns of a lane
@@ -47,16 +53,13 @@ __global__ void __launch_bounds__(kF32Warps * 32)
   float* Qw = Vs + static_cast<size_t>(t) * LD +
               static_cast<size_t>(warp) * kF32Rows * (DH + t);  // [4][DH]
   float* Pw = Qw + kF32Rows * DH;                               // [t][4]
-  const int h = blockIdx.y, b = blockIdx.z;
-  const size_t stride = 3 * static_cast<size_t>(d);
-  const float* base = qkv + static_cast<size_t>(b) * t * stride + static_cast<size_t>(h) * DH;
 
   for (int c = tid; c < t * C4; c += blockDim.x) {
     const int r = c / C4, col = (c % C4) * 4;
-    const float* src = base + r * stride + col;
-    *reinterpret_cast<float4*>(Ks + r * LD + col) = __ldg(reinterpret_cast<const float4*>(src + d));
+    *reinterpret_cast<float4*>(Ks + r * LD + col) =
+        __ldg(reinterpret_cast<const float4*>(k + r * ld + col));
     *reinterpret_cast<float4*>(Vs + r * LD + col) =
-        __ldg(reinterpret_cast<const float4*>(src + 2 * d));
+        __ldg(reinterpret_cast<const float4*>(v + r * ld + col));
   }
   __syncthreads();
 
@@ -67,9 +70,9 @@ __global__ void __launch_bounds__(kF32Warps * 32)
     // the 4 query rows; rows past the tile are zeros and are not written
     for (int c = lane; c < kF32Rows * C4; c += 32) {
       const int rr = c / C4, col = (c % C4) * 4;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (r0 + rr < q_end) v = __ldg(reinterpret_cast<const float4*>(base + (r0 + rr) * stride + col));
-      *reinterpret_cast<float4*>(Qw + rr * DH + col) = v;
+      float4 qv = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (r0 + rr < q_end) qv = __ldg(reinterpret_cast<const float4*>(q + (r0 + rr) * ld + col));
+      *reinterpret_cast<float4*>(Qw + rr * DH + col) = qv;
     }
     __syncwarp();
 
@@ -142,18 +145,18 @@ __global__ void __launch_bounds__(kF32Warps * 32)
       for (int j = 0; j < NJ; ++j) {
         const int c = lane + 32 * j;
         if (c < DH) {
-          const float v = vr[c];
-          o[0][j] = fmaf(w.x, v, o[0][j]);
-          o[1][j] = fmaf(w.y, v, o[1][j]);
-          o[2][j] = fmaf(w.z, v, o[2][j]);
-          o[3][j] = fmaf(w.w, v, o[3][j]);
+          const float vv = vr[c];
+          o[0][j] = fmaf(w.x, vv, o[0][j]);
+          o[1][j] = fmaf(w.y, vv, o[1][j]);
+          o[2][j] = fmaf(w.z, vv, o[2][j]);
+          o[3][j] = fmaf(w.w, vv, o[3][j]);
         }
       }
     }
 #pragma unroll
     for (int rr = 0; rr < kF32Rows; ++rr) {
       if (r0 + rr >= q_end) continue;
-      float* orow = out + (static_cast<size_t>(b) * t + r0 + rr) * d + static_cast<size_t>(h) * DH;
+      float* orow = out + static_cast<size_t>(r0 + rr) * ldo;
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
         const int c = lane + 32 * j;
@@ -162,6 +165,27 @@ __global__ void __launch_bounds__(kF32Warps * 32)
     }
     __syncwarp();  // Qw and Pw are rewritten by the next rows
   }
+}
+
+// Kernel 8's f32 route: the fused projection qkv [B, T, 3D] -> out [B, T, D],
+// grid (query tiles, heads, B).
+template <int DH>
+__global__ void __launch_bounds__(kF32Warps * 32)
+    attention_f32_kernel(const float* __restrict__ qkv, float* __restrict__ out, int t, int d,
+                         int valid_len, float scale, int tile_rows) {
+  const int h = blockIdx.y, b = blockIdx.z;
+  const size_t stride = 3 * static_cast<size_t>(d);
+  const float* base = qkv + static_cast<size_t>(b) * t * stride + static_cast<size_t>(h) * DH;
+  attention_f32_rows<DH>(base, base + d, base + 2 * d, stride,
+                         out + static_cast<size_t>(b) * t * d + static_cast<size_t>(h) * DH, d,
+                         t, valid_len, scale, tile_rows);
+}
+
+// The query tiles of a launch: rows split evenly into tiles of at most
+// kF32TileRows, in whole 4-row groups.
+inline int f32_tile_rows(int t) {
+  const int tiles = (t + kF32TileRows - 1) / kF32TileRows;
+  return ((t + tiles - 1) / tiles + kF32Rows - 1) / kF32Rows * kF32Rows;
 }
 
 template <int DH>
@@ -173,10 +197,7 @@ cudaError_t launch_attention_f32(const float* qkv, float* out, int batch, int t,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  // query rows split evenly into tiles of at most kF32TileRows, in whole
-  // 4-row groups
-  const int tiles = (t + kF32TileRows - 1) / kF32TileRows;
-  const int rows = ((t + tiles - 1) / tiles + kF32Rows - 1) / kF32Rows * kF32Rows;
+  const int rows = f32_tile_rows(t);
   const dim3 grid((t + rows - 1) / rows, heads, batch);
   attention_f32_kernel<DH><<<grid, kF32Warps * 32, smem, stream>>>(qkv, out, t, d, valid_len,
                                                                    scale, rows);

@@ -42,7 +42,7 @@ __global__ void __launch_bounds__(kThreads) lowlat_batchgrid_kernel(const Params
     const float* s0 = p.s + static_cast<size_t>(3 * l) * 4 * h4;
     const bf16 *wa = w0 + static_cast<size_t>(d) * h4, *wb = wa + static_cast<size_t>(d) * h4;
     const float *sa = s0 + 4 * h4, *sb = sa + 4 * h4;
-    attention_sublayer(p, cur, w0, s0, smem);
+    attention_sublayer<false>(p, cur, w0, nullptr, nullptr, s0, smem);
     cur = p.x;
     ln_phase(p.x, sa, sa + h4, p.xn, rows, d, p.eps);
     grid_sync(p.bar, p.trace);

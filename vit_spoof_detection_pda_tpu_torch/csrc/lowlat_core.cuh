@@ -20,6 +20,12 @@
 //     block streams one k-tile every ~2.5 us, so a phase with few tiles
 //     splits each tile's K over several blocks (deterministic split-K,
 //     gemm_phase);
+//   - int8 weights (the opt-in int8 pack of the per-item kernel: W int8,
+//     each column's f32 scale in S row 4): the superblock streams from
+//     device memory as int8, 16 bytes of global reads in flight a thread
+//     one k-tile ahead in registers, and is converted into the same bf16
+//     stage as bf16(float(q) * float(bf16(scale))) (one rounding, the TPU
+//     kernel's bf16 product in _wblk); the wgmma path is unchanged;
 //   - attention: one 64-row query tile of one (head, item) per block
 //     (attention_core.cuh attention_tile), K and V in shared memory.
 // So at B = 1 (200 rows, 4 row tiles) a QKV phase has 72 tiles, fc1 96,
@@ -145,6 +151,8 @@ struct Params {
   bf16* x;           // the residual stream and output [B*Tp, D]
   const bf16* w;     // packs W [3*depth, D, 4D], S [3*depth, 4, 4D]
   const float* s;
+  const int8_t* wq;  // or the per-item kernel's int8 pack in place of w, with
+                     // S [3*depth, 5, 4D] (the columns' scales as row 4)
   bf16* xn;          // [B*Tp, D]: LN output, then the head outputs
   bf16* qkv;         // [B*Tp, 3D]
   bf16* hid;         // [B*Tp, 4D]
@@ -169,6 +177,8 @@ struct Gemm {
   int lda;
   const bf16* w;  // W(k, n) = w[(k % kc) * ldw + (k / kc) * kc + n]
   int ldw, kc;
+  const int8_t* wq;     // int8 W in the same layout in place of w, or null,
+  const float* wscale;  // with W(k, n)'s scale at wscale[(k / kc) * kc + n]
   const float* bias;  // [N]
   const float* aux;   // [aux_rows, N]
   int aux_rows;
@@ -237,16 +247,39 @@ __device__ __forceinline__ void tile_origin(const Gemm& g, int tile, int& m0, in
   n0 = (tile / mtiles) * kBN;
 }
 
+// Eight int8 weights (one 8-byte chunk) times their columns' scales, as
+// bf16: bf16(float(q) * float(bf16(s))), exact in f32 before the one
+// rounding (|q| <= 127 times an 8-bit mantissa).
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+__device__ __forceinline__ uint4 dequant8(uint2 raw, float4 s0, float4 s1) {
+  const float sc[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
+  uint32_t out[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const uint32_t word = j < 2 ? raw.x : raw.y;
+    const int sh = (j & 1) * 16;
+    const float lo = static_cast<float>(static_cast<int8_t>((word >> sh) & 0xffu));
+    const float hi = static_cast<float>(static_cast<int8_t>((word >> (sh + 8)) & 0xffu));
+    out[j] = pack_bf16x2(lo * bf16_round(sc[2 * j]), hi * bf16_round(sc[2 * j + 1]));
+  }
+  return make_uint4(out[0], out[1], out[2], out[3]);
+}
+
 // k-tiles kt0 .. kt1 of one 64 x 128 output tile: the epilogue into C, or,
 // with a split-K slot, the f32 partial sums into it ([64][128] row-major).
-template <int EPI>
+// Q8: the weights come from the int8 pack (g.wq), converted in the stage;
+// a template parameter, so the bf16 path holds no int8 registers.
+template <int EPI, bool Q8>
 __device__ __forceinline__ void gemm_tile(const Gemm& g, int tile, int kt0, int kt1, bf16* As,
                                           bf16* Ws, float* slot) {
   int m0, n0;
   tile_origin(g, tile, m0, n0);
   const int tid = threadIdx.x;
 
-  auto load_tile = [&](int stage, int kt) {
+  auto load_tile = [&](int stage, int kt) {  // bf16: A and W by cp.async
     const int k0 = kt * kBK;
     bf16* as = As + stage * kAStage;
     bf16* ws = Ws + stage * kWStage;
@@ -271,22 +304,90 @@ __device__ __forceinline__ void gemm_tile(const Gemm& g, int tile, int kt0, int 
         store_zero16(dst);
     }
   };
+  // int8: A by cp.async as above; the k-tile's W bytes into registers
+  // (in flight until put_w), then converted with their columns' scales
+  // into the stage's swizzled slots
+  auto load_a = [&](int stage, int kt) {
+    const int k0 = kt * kBK;
+    bf16* as = As + stage * kAStage;
+#pragma unroll
+    for (int i = 0; i < kBM * 8 / kThreads; ++i) {
+      const int c = tid + i * kThreads, r = c >> 3, ch = c & 7;
+      bf16* dst = as + r * 64 + ((ch ^ (r & 7)) << 3);
+      if (m0 + r < g.m && k0 + ch * 8 < g.k)
+        cp_async16(dst, g.a + static_cast<size_t>(m0 + r) * g.lda + k0 + ch * 8);
+      else
+        store_zero16(dst);
+    }
+  };
+  uint2 wreg[kBN * 8 / kThreads];
+  auto fetch_w = [&](int kt) {
+#pragma unroll
+    for (int i = 0; i < kBN * 8 / kThreads; ++i) {
+      const int c = tid + i * kThreads, nb = c >> 9, kr = (c >> 3) & 63, ch = c & 7;
+      const int k = kt * kBK + kr, col = n0 + nb * 64 + ch * 8;
+      wreg[i] = (k < g.k && col < g.n)
+                    ? __ldg(reinterpret_cast<const uint2*>(
+                          g.wq + static_cast<size_t>(k % g.kc) * g.ldw +
+                          static_cast<size_t>(k / g.kc) * g.kc + col))
+                    : make_uint2(0u, 0u);
+    }
+  };
+  auto put_w = [&](int stage, int kt) {
+    bf16* ws = Ws + stage * kWStage;
+#pragma unroll
+    for (int i = 0; i < kBN * 8 / kThreads; ++i) {
+      const int c = tid + i * kThreads, nb = c >> 9, kr = (c >> 3) & 63, ch = c & 7;
+      bf16* dst = ws + nb * 64 * 64 + kr * 64 + ((ch ^ (kr & 7)) << 3);
+      const int k = kt * kBK + kr, col = n0 + nb * 64 + ch * 8;
+      if (k < g.k && col < g.n) {
+        const float* sc = g.wscale + (k / g.kc) * g.kc + col;
+        *reinterpret_cast<uint4*>(dst) =
+            dequant8(wreg[i], __ldg(reinterpret_cast<const float4*>(sc)),
+                     __ldg(reinterpret_cast<const float4*>(sc + 4)));
+      } else {
+        store_zero16(dst);
+      }
+    }
+  };
 
   float acc[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = 0.f;
 
   __syncthreads();  // the ring's previous readers are done
-  load_tile(0, kt0);
-  cp_async_commit();
-  if (kt0 + 1 < kt1) load_tile(1, kt0 + 1);
-  cp_async_commit();
+  if constexpr (Q8) {
+    load_a(0, kt0);
+    fetch_w(kt0);
+    put_w(0, kt0);
+    cp_async_commit();
+    if (kt0 + 1 < kt1) {
+      load_a(1, kt0 + 1);
+      fetch_w(kt0 + 1);
+      put_w(1, kt0 + 1);
+    }
+    cp_async_commit();
+    if (kt0 + 2 < kt1) fetch_w(kt0 + 2);
+  } else {
+    load_tile(0, kt0);
+    cp_async_commit();
+    if (kt0 + 1 < kt1) load_tile(1, kt0 + 1);
+    cp_async_commit();
+  }
   for (int kt = kt0; kt < kt1; ++kt) {
     const int i = kt - kt0;
     cp_async_wait<1>();  // tile kt has landed (this thread's part) ...
-    fence_proxy_async();
+    fence_proxy_async(); // (and, int8, this thread's stores reach wgmma)
     __syncthreads();     // ... everyone's, and wgmma kt - 2 has retired
-    if (kt + 2 < kt1) load_tile((i + 2) % kStages, kt + 2);
+    if constexpr (Q8) {
+      if (kt + 2 < kt1) {
+        load_a((i + 2) % kStages, kt + 2);
+        put_w((i + 2) % kStages, kt + 2);
+        if (kt + 3 < kt1) fetch_w(kt + 3);
+      }
+    } else {
+      if (kt + 2 < kt1) load_tile((i + 2) % kStages, kt + 2);
+    }
     cp_async_commit();
 
     const bf16* as = As + (i % kStages) * kAStage;
@@ -348,16 +449,16 @@ __device__ __forceinline__ void reduce_tile(const Gemm& g, int tile, const float
 
 // One unit of a GEMM phase: slice sl of tile t (of `split`), the fixup by
 // the tile's last unit to arrive.
-template <int EPI>
+template <int EPI, bool Q8>
 __device__ __forceinline__ void gemm_unit(const Params& p, const Gemm& g, int t, int tile,
                                           int sl, int split, int ktiles, bf16* As, bf16* Ws,
                                           unsigned* last) {
   if (split == 1) {
-    gemm_tile<EPI>(g, tile, 0, ktiles, As, Ws, nullptr);
+    gemm_tile<EPI, Q8>(g, tile, 0, ktiles, As, Ws, nullptr);
     return;
   }
   float* slots = p.splitk + static_cast<size_t>(t) * split * kBM * kBN;
-  gemm_tile<EPI>(g, tile, sl * ktiles / split, (sl + 1) * ktiles / split, As, Ws,
+  gemm_tile<EPI, Q8>(g, tile, sl * ktiles / split, (sl + 1) * ktiles / split, As, Ws,
                  slots + static_cast<size_t>(sl) * kBM * kBN);
   __threadfence();  // this unit's partials before its arrival
   __syncthreads();
@@ -377,8 +478,10 @@ __device__ __forceinline__ void gemm_unit(const Params& p, const Gemm& g, int t,
 // at least two k-tiles, so that more blocks stream weights at once; every
 // (tile, slice) unit writes f32 partials, and the last unit of a tile to
 // arrive (a per-tile counter) sums them and applies the epilogue.  This
-// changes the f32 summation order only, and repeats bit for bit.
-template <int EPI>
+// changes the f32 summation order only, and repeats bit for bit.  kQ8: the
+// phase's weights are the int8 pack (g0.wq; one GEMM a phase), a template
+// parameter so that a bf16 kernel compiles no int8 path.
+template <int EPI, bool kQ8 = false>
 __device__ __forceinline__ void gemm_phase(const Params& p, const Gemm& g0, const Gemm* g1,
                                            unsigned char* smem) {
   __shared__ unsigned last;
@@ -388,12 +491,18 @@ __device__ __forceinline__ void gemm_phase(const Params& p, const Gemm& g0, cons
   const int ktiles = (g0.k + kBK - 1) / kBK;
   const int room = min(static_cast<int>(gridDim.x), p.splitk_units) / total;
   const int split = max(1, min(min(ktiles / 2, kMaxSplit), room));
+  if constexpr (kQ8) {
+    for (int u = blockIdx.x; u < total * split; u += gridDim.x)
+      gemm_unit<EPI, true>(p, g0, u / split, u / split, u % split, split, ktiles, As, Ws,
+                           &last);
+    return;
+  }
   for (int u = blockIdx.x; u < total * split; u += gridDim.x) {
     const int t = u / split, sl = u % split;
     if (t < t0)
-      gemm_unit<EPI>(p, g0, t, t, sl, split, ktiles, As, Ws, &last);
+      gemm_unit<EPI, false>(p, g0, t, t, sl, split, ktiles, As, Ws, &last);
     else
-      gemm_unit<EPI>(p, *g1, t, t - t0, sl, split, ktiles, As, Ws, &last);
+      gemm_unit<EPI, false>(p, *g1, t, t - t0, sl, split, ktiles, As, Ws, &last);
   }
 }
 
@@ -438,24 +547,30 @@ __device__ __forceinline__ void attention_phase(const bf16* qkv, bf16* out, int 
 
 // x <- cur + proj(MHA(LN1(cur))) for superblock w0 / s0 (step 3l), ending
 // with a barrier.  cur is x itself after the first layer.
+// With the int8 pack (kQ8), q0 is the step's int8 superblock and sc0 its
+// scale row (both null for bf16).
+template <bool kQ8>
 __device__ __forceinline__ void attention_sublayer(const Params& p, const bf16* cur,
-                                                   const bf16* w0, const float* s0,
+                                                   const bf16* w0, const int8_t* q0,
+                                                   const float* sc0, const float* s0,
                                                    unsigned char* smem) {
   const int rows = p.batch * p.tp, d = p.d, h4 = 4 * d;
   ln_phase(cur, s0, s0 + h4, p.xn, rows, d, p.eps);
   grid_sync(p.bar, p.trace);
   Gemm qkv{};
   qkv.a = p.xn, qkv.lda = d, qkv.w = w0, qkv.ldw = h4, qkv.kc = d, qkv.bias = s0 + 2 * h4;
+  qkv.wq = q0, qkv.wscale = sc0;
   qkv.c = p.qkv, qkv.ldc = 3 * d, qkv.m = rows, qkv.n = 3 * d, qkv.k = d;
-  gemm_phase<kBias>(p, qkv, nullptr, smem);
+  gemm_phase<kBias, kQ8>(p, qkv, nullptr, smem);
   grid_sync(p.bar, p.trace);
   attention_phase(p.qkv, p.xn, p.batch, p.tp, d, p.heads, p.valid_len, p.scale, smem);
   grid_sync(p.bar, p.trace);
   Gemm proj{};
   proj.a = p.xn, proj.lda = d, proj.w = w0 + 3 * d, proj.ldw = h4, proj.kc = d;
   proj.bias = s0 + 3 * h4, proj.r = cur, proj.c = p.x, proj.ldc = d;
+  if (q0) proj.wq = q0 + 3 * d, proj.wscale = sc0 + 3 * d;
   proj.m = rows, proj.n = d, proj.k = d;
-  gemm_phase<kRes>(p, proj, nullptr, smem);
+  gemm_phase<kRes, kQ8>(p, proj, nullptr, smem);
   grid_sync(p.bar, p.trace);
 }
 

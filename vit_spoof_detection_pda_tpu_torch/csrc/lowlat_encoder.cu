@@ -11,7 +11,11 @@
 // Bound on the H100 at ViT-B, B = 1: the bytes.  One forward reads the 36
 // superblocks W [768, 3072] bf16 (169.9 MB) and the 2.0 MB stem/head block,
 // 0.051 ms at 3.35 TB/s; its 35.5 GFLOP of products take 0.036 ms at
-// 989 TFLOP/s.
+// 989 TFLOP/s.  With the int8 pack (ops/lowlat.py pack_encoder_weights
+// weight_dtype=int8; the TPU kernel's _wblk branch, :197) the stream is
+// 84.9 MB of int8 plus 2.2 MB of S, 0.026 ms; the weights are converted to
+// bf16 in the GEMM's shared-memory stage (lowlat_core.cuh), so everything
+// after the stage is the bf16 kernel's.
 //
 // Design (a first, simple one; lowlat_core.cuh has the phase loop): one
 // cooperative launch of a persistent grid, phases separated by a grid
@@ -116,6 +120,9 @@ __device__ __forceinline__ void head_fc2_phase(const Params& p, unsigned char* s
   }
 }
 
+// kQ8: the encoder's superblocks come from the int8 pack (p.wq); the bf16
+// instantiation compiles no int8 path.
+template <bool kQ8>
 __global__ void __launch_bounds__(kThreads) lowlat_encoder_kernel(const Params p) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
@@ -132,24 +139,32 @@ __global__ void __launch_bounds__(kThreads) lowlat_encoder_kernel(const Params p
     grid_sync(p.bar, p.trace);
     cur = p.x;
   }
+  // a step's superblock, and its S rows: 4, or 5 with the int8 pack's scales
+  const size_t wstep = static_cast<size_t>(d) * h4, sstep = (kQ8 ? 5 : 4) * h4;
   for (int l = 0; l < p.depth; ++l) {
-    const bf16* w0 = p.w + static_cast<size_t>(3 * l) * d * h4;
-    const float* s0 = p.s + static_cast<size_t>(3 * l) * 4 * h4;
-    const bf16 *w1 = w0 + static_cast<size_t>(d) * h4, *w2 = w1 + static_cast<size_t>(d) * h4;
-    const float *s1 = s0 + 4 * h4, *s2 = s1 + 4 * h4;
-    attention_sublayer(p, cur, w0, s0, smem);
+    const size_t st = 3 * static_cast<size_t>(l);
+    const bf16* w0 = p.w + st * wstep;  // bf16 pack (unused with int8)
+    const bf16 *w1 = w0 + wstep, *w2 = w1 + wstep;
+    const int8_t* q0 = kQ8 ? p.wq + st * wstep : nullptr;  // int8 pack
+    const float* s0 = p.s + st * sstep;
+    const float *s1 = s0 + sstep, *s2 = s1 + sstep;
+    // the int8 pack's per-column scales: S row 4 of each step
+    const float* sc0 = q0 ? s0 + 4 * h4 : nullptr;
+    attention_sublayer<kQ8>(p, cur, w0, q0, sc0, s0, smem);
     cur = p.x;
     ln_phase(p.x, s1, s1 + h4, p.xn, rows, d, p.eps);
     grid_sync(p.bar, p.trace);
     Gemm fc1{};
     fc1.a = p.xn, fc1.lda = d, fc1.w = w1, fc1.ldw = h4, fc1.kc = d, fc1.bias = s1 + 2 * h4;
     fc1.c = p.hid, fc1.ldc = h4, fc1.m = rows, fc1.n = h4, fc1.k = d;
-    gemm_phase<kGelu>(p, fc1, nullptr, smem);
+    if (q0) fc1.wq = q0 + wstep, fc1.wscale = s1 + 4 * h4;
+    gemm_phase<kGelu, kQ8>(p, fc1, nullptr, smem);
     grid_sync(p.bar, p.trace);
     Gemm fc2{};  // fc2's row chunk c sits in columns cD .. cD + D of w2
     fc2.a = p.hid, fc2.lda = h4, fc2.w = w2, fc2.ldw = h4, fc2.kc = d, fc2.bias = s2;
     fc2.r = p.x, fc2.c = p.x, fc2.ldc = d, fc2.m = rows, fc2.n = d, fc2.k = h4;
-    gemm_phase<kRes>(p, fc2, nullptr, smem);
+    if (q0) fc2.wq = q0 + 2 * wstep, fc2.wscale = s2 + 4 * h4;
+    gemm_phase<kRes, kQ8>(p, fc2, nullptr, smem);
     if (fold_ends || l + 1 < p.depth) grid_sync(p.bar, p.trace);
   }
   if (fold_ends) {
@@ -165,8 +180,9 @@ __global__ void __launch_bounds__(kThreads) lowlat_encoder_kernel(const Params p
 }  // namespace vsd
 
 // x_in [B, Tp, D] bf16 (fold-ends: patch rows, row 0 zeros); x [B, Tp, D]
-// bf16 out; w [3*depth, D, 4D] bf16, s [3*depth, 4, 4D] f32 (the per-item
-// pack); w_end [D, D+hh] bf16, s_end [4, 4D] f32, aux [Tp, D] f32 for
+// bf16 out; the per-item pack: w [3*depth, D, 4D] bf16 and s [3*depth, 4,
+// 4D] f32, or (w_int8 = 1) w [3*depth, D, 4D] int8 and s [3*depth, 5, 4D]
+// f32 with the columns' scales as row 4; w_end [D, D+hh] bf16, s_end [4, 4D] f32, aux [Tp, D] f32 for
 // fold-ends (all three null for encoder-only); scratch xn [B*Tp, D],
 // qkv [B*Tp, 3D], hid [B*Tp, 4D] bf16, h1 [B, hh] f32; logits [B, 2] f32
 // out (fold-ends); bar: 2 + splitk_units 32-bit words; splitk
@@ -174,7 +190,8 @@ __global__ void __launch_bounds__(kThreads) lowlat_encoder_kernel(const Params p
 // one per barrier (lowlat_core.cuh).  Needs a head dim of 16, 32 or 64, D
 // and Tp multiples of 8, 0 < valid_len <= Tp; fold-ends also hh % 8 == 0
 // and 2D + hh <= 4D.  Returns the CUDA error of the launch (0 on success).
-extern "C" int vsd_lowlat_encoder(const void* x_in, void* x, const void* w, const void* s,
+extern "C" int vsd_lowlat_encoder(const void* x_in, void* x, const void* w, int w_int8,
+                                  const void* s,
                                   const void* w_end, const void* s_end, const void* aux,
                                   void* xn, void* qkv, void* hid, void* h1, void* logits,
                                   void* bar, void* splitk, int splitk_units, void* trace,
@@ -190,7 +207,10 @@ extern "C" int vsd_lowlat_encoder(const void* x_in, void* x, const void* w, cons
   Params p{};
   p.x_in = static_cast<const bf16*>(x_in);
   p.x = static_cast<bf16*>(x);
-  p.w = static_cast<const bf16*>(w);
+  if (w_int8)
+    p.wq = static_cast<const int8_t*>(w);
+  else
+    p.w = static_cast<const bf16*>(w);
   p.s = static_cast<const float*>(s);
   p.xn = static_cast<bf16*>(xn);
   p.qkv = static_cast<bf16*>(qkv);
@@ -208,6 +228,7 @@ extern "C" int vsd_lowlat_encoder(const void* x_in, void* x, const void* w, cons
   p.depth = depth, p.batch = batch, p.tp = tp, p.d = d, p.heads = heads;
   p.valid_len = valid_len, p.hh = fold_ends ? hh : 0;
   p.eps = eps, p.head_eps = head_eps, p.scale = scale;
-  return launch_persistent(reinterpret_cast<const void*>(&lowlat_encoder_kernel), p,
-                           static_cast<cudaStream_t>(stream));
+  const void* kernel = w_int8 ? reinterpret_cast<const void*>(&lowlat_encoder_kernel<true>)
+                             : reinterpret_cast<const void*>(&lowlat_encoder_kernel<false>);
+  return launch_persistent(kernel, p, static_cast<cudaStream_t>(stream));
 }

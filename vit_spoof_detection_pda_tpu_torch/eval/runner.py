@@ -56,26 +56,38 @@ def make_infer_fn(module, *, normalize: bool = True,
     @torch.inference_mode()
     def infer(batch):
         batch = torch.as_tensor(batch).to(dev)
-        if not normalize:
-            x = I.to_float(batch)
-        elif batch.dtype == torch.uint8:
-            x = I.normalize_u8_fused(batch, dtype=input_dtype)
-        else:
-            x = I.normalize(I.to_float(batch)).to(input_dtype)
         with exact_f32_matmul():
-            logits = module(x)
-        if temperature is not None:
-            margin = (logits[:, 1] - logits[:, 0]).float()
-            prob1 = torch.sigmoid(margin / float(temperature))
-        else:
-            prob1 = torch.softmax(logits.float(), dim=-1)[:, 1]
-        if threshold == 0.5 and temperature is None:
-            pred = logits.argmax(-1).to(torch.int32)
-        else:
-            pred = (prob1 > threshold).to(torch.int32)
-        return {"prob1": prob1, "pred": pred}
+            return infer_body(module, batch, normalize=normalize,
+                              input_dtype=input_dtype, threshold=threshold,
+                              temperature=temperature)
 
     return infer
+
+
+def infer_body(forward, batch: torch.Tensor, *, normalize: bool = True,
+               input_dtype=torch.float32, threshold: float = 0.5,
+               temperature: Optional[float] = None) -> dict:
+    """The scoring program of :func:`make_infer_fn` on a batch already on
+    the device: normalize, ``forward`` (the module, or a call of it on
+    other weights), P(live) and ``pred``.  The frozen module-mode
+    artifact (``models/artifact.py``) traces this same function."""
+    if not normalize:
+        x = I.to_float(batch)
+    elif batch.dtype == torch.uint8:
+        x = I.normalize_u8_fused(batch, dtype=input_dtype)
+    else:
+        x = I.normalize(I.to_float(batch)).to(input_dtype)
+    logits = forward(x)
+    if temperature is not None:
+        margin = (logits[:, 1] - logits[:, 0]).float()
+        prob1 = torch.sigmoid(margin / float(temperature))
+    else:
+        prob1 = torch.softmax(logits.float(), dim=-1)[:, 1]
+    if threshold == 0.5 and temperature is None:
+        pred = logits.argmax(-1).to(torch.int32)
+    else:
+        pred = (prob1 > threshold).to(torch.int32)
+    return {"prob1": prob1, "pred": pred}
 
 
 def make_fastserve_infer(module, *, device=None):

@@ -200,10 +200,12 @@ def prepare_lowlat(params, *, depth: int = 12, dtype=torch.bfloat16,
     that cannot ride that layout, patch_dim != embed_dim, fall back to the
     encoder-only kernel with a warning, as in the JAX package), plus
     ``"bg_w"``, ``"bg_s"`` with ``batch_grid``.  ``per_item=False`` skips
-    the per-item and fold-ends packs.  ``int8_weights`` (the opt-in int8
-    stream) raises ``NotImplementedError``.  Packs go to ``device`` (the
-    card unless ``device="cpu"``)."""
-    from ..ops.lowlat import (_INT8_TODO, pack_encoder_weights,
+    the per-item and fold-ends packs.  ``int8_weights`` packs the per-item
+    encoder stream weight-only int8 (``ops/lowlat.py``
+    ``pack_encoder_weights(weight_dtype=torch.int8)``: half the weight
+    bytes; the stem/head block and the activations stay ``dtype``).
+    Packs go to ``device`` (the card unless ``device="cpu"``)."""
+    from ..ops.lowlat import (pack_encoder_weights,
                               pack_encoder_weights_batchgrid,
                               pack_end_weights)
 
@@ -214,13 +216,12 @@ def prepare_lowlat(params, *, depth: int = 12, dtype=torch.bfloat16,
         raise ValueError("int8_weights quantizes the per-item stream; "
                          "the batch-grid pack stays full-precision "
                          "(weights already amortize per chunk there)")
-    if int8_weights:
-        raise NotImplementedError(_INT8_TODO)
     device = resolve_device(device)
     out = {"params": prepare_params(params, dtype=dtype, device=device)}
     if per_item:
-        w, s = pack_encoder_weights(params["vit"], depth=depth, dtype=dtype,
-                                    device=device)
+        w, s = pack_encoder_weights(
+            params["vit"], depth=depth, dtype=dtype, device=device,
+            weight_dtype=torch.int8 if int8_weights else None)
         out.update(packed_w=w, packed_s=s)
     if batch_grid:
         bg_w, bg_s = pack_encoder_weights_batchgrid(
@@ -321,8 +322,8 @@ def serving_program(model, *, mode: str, dtype=torch.bfloat16,
     module's weights into the JAX layout, fold the normalization into
     the patch-embed GEMM, and cast once for the per-layer kernels
     (``fastserve``) or pack for the whole-encoder ones (``lowlat``,
-    ``batch_grid``).  ``int8_weights`` (``lowlat`` only) is the opt-in
-    int8 stream, not ported: it raises ``NotImplementedError``."""
+    ``batch_grid``).  ``int8_weights`` (``lowlat`` only) packs the opt-in
+    int8 encoder stream (:func:`prepare_lowlat`)."""
     from .convert import antispoof_from_torch
     from .vit import ViTAntiSpoof, fold_normalization
 

@@ -74,6 +74,31 @@ def _gelu(x: torch.Tensor, approximate: bool) -> torch.Tensor:
     return (0.5 * x) * torch.erfc(-x.float() * c(_SQRT_HALF)).to(dt)
 
 
+def _single_device() -> bool:
+    """No process group of more than one rank (JAX's
+    ``jax.device_count() == 1``: a kernel per device, nothing sharded)."""
+    import torch.distributed as dist
+    return not (dist.is_available() and dist.is_initialized()
+                and dist.get_world_size() > 1)
+
+
+def dot_product_attention(q, k, v, *, dtype=torch.float32, use_fused=None):
+    """Attention core over ``[B, T, H, Dh]`` inputs, softmax in f32 (JAX
+    :38).  ``use_fused=None`` takes kernel 9 (``ops/attention.py::
+    fused_attention``) on a CUDA tensor on a single device and the dense
+    einsum path otherwise; ``use_fused=True`` takes ``fused_attention``
+    on any device (its plain version on the CPU)."""
+    if use_fused is None:
+        use_fused = q.device.type == "cuda" and _single_device()
+    if use_fused:
+        return att.fused_attention(q, k, v)
+    dh = q.shape[-1]
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    weights = torch.softmax(logits * float(dh) ** -0.5, dim=-1).to(dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", weights.float(), v.float())
+    return out.to(torch.promote_types(dtype, v.dtype))
+
+
 class Attention(nn.Module):
     """Multi-head self-attention with a fused QKV projection; the core
     goes through ``dispatch_attention_qkv``.  ``capture=True`` takes the

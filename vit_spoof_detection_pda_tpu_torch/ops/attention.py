@@ -52,6 +52,18 @@ validation) adds one:
   ``_attn_qkv_kernel`` (JAX ``ops/attention.py:119``).  The module
   reaches it through :func:`dispatch_attention_qkv`.
 
+The int8 module path (``models/serving.py``) and
+``models/vit.py::dot_product_attention`` add one more:
+
+- :func:`fused_attention`: the same core on three tensors ``q, k, v
+  [B, T, H, Dh]`` (strided views of one projection allowed), in bf16 and
+  in f32, differentiable (the dense recompute backward).  Kernel:
+  ``csrc/attention.cu``, sharing kernel 8's core; replaces
+  ``_attn_kernel`` (JAX ``ops/attention.py:58``).
+
+The serving kernels (1, 2, 8, 9) are also ``vsd::`` operators (the end
+of this module) for frozen programs (``models/artifact.py``).
+
 The block kernels are bound by the tensor cores on the H100, the
 backward by its bytes; the source notes in ``csrc/`` give the bounds and
 what the first design does about them.
@@ -73,6 +85,7 @@ _MAX_SMEM = 232448          # dynamic shared memory one H100 block may use
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_LL = ctypes.c_longlong
 _SIGNATURES = {
     "attention_block": ("vsd_attention_block",
                         [_P] * 10 + [_I] * 5 + [_F, _F, _P]),
@@ -82,6 +95,7 @@ _SIGNATURES = {
     "attention_qkv_bwd": ("vsd_attention_qkv_bwd",
                           [_P] * 3 + [_I] * 5 + [_F, _P]),
     "attention_qkv": ("vsd_attention_qkv", [_P] * 2 + [_I] * 6 + [_F, _P]),
+    "attention": ("vsd_attention", [_P] * 4 + [_I] * 5 + [_LL] * 2 + [_F, _P]),
     "attention_block_f32": ("vsd_attention_block_f32",
                             [_P] * 13 + [_I] * 5 + [_F, _F, _P]),
     "attention_qkv_bwd_f32": ("vsd_attention_qkv_bwd_f32",
@@ -272,10 +286,20 @@ def fused_attention_block_padded(xp, ln_scale, ln_bias, w_qkv, b_qkv,
     stop fitting in shared memory) and a head dim that is a multiple of
     16 up to 128.  f32 ``xp`` and matrices run the f32 kernel
     (``LAUNCHES["attention_block_f32"]``; Tp up to 328 at head dim 64)."""
+    if torch.compiler.is_exporting():
+        return attention_block_op(xp, ln_scale, ln_bias, w_qkv, b_qkv,
+                                  w_proj, b_proj, num_heads, valid_len, eps)
     if xp.device.type == "cpu":
         return fused_attention_block_padded_plain(
             xp, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj, num_heads,
             valid_len=valid_len, eps=eps)
+    return _attention_block_cuda(xp, ln_scale, ln_bias, w_qkv, b_qkv,
+                                 w_proj, b_proj, num_heads, valid_len, eps)
+
+
+def _attention_block_cuda(xp, ln_scale, ln_bias, w_qkv, b_qkv, w_proj,
+                          b_proj, num_heads, valid_len, eps):
+    """Kernel 1 (its bf16 or f32 form) on CUDA tensors."""
     if xp.device.type != "cuda":
         raise ValueError(f"no kernel for device {xp.device}")
     if xp.dtype == torch.float32:
@@ -653,6 +677,8 @@ def fused_attention_qkv(qkv, num_heads: int):
     version on the CPU."""
     if not qkv.is_contiguous():
         qkv = qkv.contiguous()
+    if torch.compiler.is_exporting():
+        return attention_qkv_op(qkv, num_heads)
     return _AttentionQKV.apply(qkv, num_heads)
 
 
@@ -668,6 +694,137 @@ def dispatch_attention_qkv(qkv, num_heads: int, *, mesh=None):
             "parallel) is not ported: ROADMAP Queue 1 item 9 (slice 6, "
             "parallelism)")
     return fused_attention_qkv(qkv, num_heads)
+
+
+# --------------------------------------------------------------------------
+# Generic q/k/v attention (kernel 9: the int8 module path and
+# models/vit.py::dot_product_attention)
+# --------------------------------------------------------------------------
+
+
+def fused_attention_plain(q, k, v):
+    """Plain PyTorch version of kernel 9 (JAX ``_attn_kernel`` :58, whose
+    reference is ``_dense_reference`` :1065): ``q, k, v [B, T, H, Dh]``
+    -> ``[B, T, H, Dh]`` in ``q.dtype``.  Per head the f32 logits
+    ``q k^T * Dh^-0.5`` (exact f32 products of the input values), the f32
+    softmax, the weights rounded to ``v.dtype``, ``@ v`` with f32 sums,
+    the output rounded once.  The TPU kernel pads T to a multiple of 8
+    and masks the pad keys at -1e30, which add exactly 0; no key is
+    masked here."""
+    b, t, h, dh = q.shape
+    with exact_f32_matmul():
+        w = _softmax_weights(q.transpose(1, 2), k.transpose(1, 2),
+                             float(dh) ** -0.5, t)           # [B,H,T,T]
+        out = _mm(w.to(v.dtype), v.transpose(1, 2))           # [B,H,T,Dh]
+        return out.transpose(1, 2).to(q.dtype).contiguous()
+
+
+def _attention_strides(q, k, v):
+    """``(ld, bs)``: the row and batch strides (elements) that q, k and v
+    share with heads and head columns contiguous, or None when they do
+    not (the wrapper then copies them)."""
+    b, t, h, dh = q.shape
+    align = 8 if q.dtype == torch.bfloat16 else 4
+    st = q.stride()
+    if st[3] != 1 or st[2] != dh or st[1] % align:
+        return None
+    if any(x.stride() != st or x.data_ptr() % 16 for x in (q, k, v)):
+        return None
+    return st[1], (st[0] if b > 1 else t * st[1])
+
+
+def _attention_kernel(q, k, v):
+    """Launch kernel 9 on CUDA ``q, k, v [B, T, H, Dh]`` of one dtype;
+    raises on what it does not take."""
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"q is {q.dtype}; kernel 9 takes bfloat16 or "
+                        "float32")
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)} and v "
+                         f"{tuple(v.shape)} must share one shape")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k and v must share one dtype; got {q.dtype}, "
+                        f"{k.dtype}, {v.dtype}")
+    if not (q.device == k.device == v.device):
+        raise ValueError("q, k and v must be on one device")
+    b, t, h, dh = q.shape
+    if dh % 16 or not 16 <= dh <= 128:
+        raise ValueError(f"kernel 9 takes a head dim that is a multiple of "
+                         f"16 from 16 to 128; got {dh}")
+    smem = _attention_qkv_smem(t, dh, q.dtype)           # kernel 8's core
+    if smem > _MAX_SMEM:
+        raise ValueError(f"T {t} at head dim {dh} needs {smem} bytes of "
+                         f"shared memory per block; the card has {_MAX_SMEM}")
+    if not 0 < b <= 65535 or not 0 < h <= 65535 or t < 1:
+        raise ValueError(f"batch {b} / heads {h} / T {t} outside the grid")
+    strides = _attention_strides(q, k, v)
+    if strides is None:
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        strides = _attention_strides(q, k, v)
+    lib, fn = _entry("attention")
+    out = torch.empty((b, t, h, dh), dtype=q.dtype, device=q.device)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             0 if q.dtype == torch.bfloat16 else 1, b, t, h, dh, *strides,
+             float(dh) ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
+    name = "attention" if q.dtype == torch.bfloat16 else "attention_f32"
+    _build.check(lib, name, err)
+    LAUNCHES[name] += 1
+    return out
+
+
+def fused_attention_backward(q, k, v, g):
+    """JAX ``_bwd`` (:1085): the dense recompute of ``(dq, dk, dv)`` in
+    f32, each rounded to its input's dtype.  Plain PyTorch on both
+    devices: the TPU package's backward is XLA, not a kernel."""
+    dh = q.shape[-1]
+    scale = float(dh) ** -0.5
+    with exact_f32_matmul():
+        q32, k32, v32 = q.float(), k.float(), v.float()
+        w = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q32, k32) * scale,
+                          dim=-1)
+        g32 = g.float()
+        dv = torch.einsum("bhqk,bqhd->bkhd", w, g32)
+        dw = torch.einsum("bqhd,bkhd->bhqk", g32, v32)
+        dlogits = w * (dw - (dw * w).sum(-1, keepdim=True))
+        dq = torch.einsum("bhqk,bkhd->bqhd", dlogits, k32) * scale
+        dk = torch.einsum("bhqk,bqhd->bkhd", dlogits, q32) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _Attention(torch.autograd.Function):
+    """Kernel 9 forward, the dense recompute backward (the JAX
+    ``custom_vjp``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.save_for_backward(q, k, v)
+        if q.device.type == "cpu":
+            return fused_attention_plain(q, k, v)
+        if q.device.type != "cuda":
+            raise ValueError(f"no kernel for device {q.device}")
+        return _attention_kernel(q, k, v)
+
+    @staticmethod
+    def backward(ctx, g):
+        return fused_attention_backward(*ctx.saved_tensors, g)
+
+
+def fused_attention(q, k, v):
+    """``q, k, v [B, T, H, Dh]`` -> ``[B, T, H, Dh]`` in ``q.dtype``
+    (counterpart of the JAX ``fused_attention`` :1076).
+
+    A CPU tensor runs :func:`fused_attention_plain`; a CUDA one runs
+    kernel 9 (``csrc/attention.cu``; ``LAUNCHES["attention"]``, the f32
+    form ``"attention_f32"``) on bf16 or f32, any B and T, a head
+    dim that is a multiple of 16 from 16 to 128 and one head's K and V
+    within shared memory.  q, k and v may be strided views (the int8
+    path passes the three slices of one ``[B, T, 3, H, Dh]`` projection)
+    as long as they share strides with heads and head columns contiguous;
+    otherwise they are copied.  Differentiable: the backward is
+    :func:`fused_attention_backward`."""
+    if torch.compiler.is_exporting():
+        return attention_op(q, k, v)
+    return _Attention.apply(q, k, v)
 
 
 # --------------------------------------------------------------------------
@@ -695,9 +852,18 @@ def fused_mlp_block(x, ln_scale, ln_bias, w_fc1, b_fc1, w_fc2, b_fc2, *,
     On the card: bf16 ``x``, ``w_fc1 [D, hidden]`` and
     ``w_fc2 [hidden, D]``; f32 LN and bias vectors; any row count, with
     D and hidden multiples of 8."""
+    if torch.compiler.is_exporting():
+        return mlp_block_op(x, ln_scale, ln_bias, w_fc1, b_fc1, w_fc2, b_fc2,
+                            eps)
     if x.device.type == "cpu":
         return fused_mlp_block_plain(x, ln_scale, ln_bias, w_fc1, b_fc1,
                                      w_fc2, b_fc2, eps=eps)
+    return _mlp_block_cuda(x, ln_scale, ln_bias, w_fc1, b_fc1, w_fc2, b_fc2,
+                           eps)
+
+
+def _mlp_block_cuda(x, ln_scale, ln_bias, w_fc1, b_fc1, w_fc2, b_fc2, eps):
+    """Kernel 2 on CUDA tensors."""
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     b, t, d = x.shape
@@ -803,3 +969,79 @@ def mlp_block_train(x, ln_scale, ln_bias, w_fc1, b_fc1, w_fc2, b_fc2, *,
     _build.check(lib, name, err)
     LAUNCHES[name] += 1
     return y, xh, inv, h
+
+
+# --------------------------------------------------------------------------
+# The serving kernels as PyTorch operators (vsd::)
+# --------------------------------------------------------------------------
+# A frozen serving program (models/artifact.py, torch.export) cannot trace
+# the ctypes launches, so each serving kernel is also an operator: its CPU
+# implementation is the plain version, its CUDA one the function that
+# launches the kernel, and a fake one gives the output's shape for the
+# trace.  The wrappers above call the operator while a program is being
+# exported (torch.compiler.is_exporting()) and the same two functions
+# directly otherwise, so the frozen and the live paths cannot differ.
+_T = torch.Tensor
+
+
+@torch.library.custom_op("vsd::attention_block", mutates_args=(),
+                         device_types="cpu")
+def attention_block_op(xp: _T, ln_scale: _T, ln_bias: _T, w_qkv: _T,
+                       b_qkv: _T, w_proj: _T, b_proj: _T, num_heads: int,
+                       valid_len: int, eps: float) -> _T:
+    return fused_attention_block_padded_plain(
+        xp, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj, num_heads,
+        valid_len=valid_len, eps=eps)
+
+
+attention_block_op.register_kernel("cuda")(_attention_block_cuda)
+
+
+@attention_block_op.register_fake
+def _(xp, *args):
+    return torch.empty_like(xp)
+
+
+@torch.library.custom_op("vsd::mlp_block", mutates_args=(),
+                         device_types="cpu")
+def mlp_block_op(x: _T, ln_scale: _T, ln_bias: _T, w_fc1: _T, b_fc1: _T,
+                 w_fc2: _T, b_fc2: _T, eps: float) -> _T:
+    return fused_mlp_block_plain(x, ln_scale, ln_bias, w_fc1, b_fc1, w_fc2,
+                                 b_fc2, eps=eps)
+
+
+mlp_block_op.register_kernel("cuda")(_mlp_block_cuda)
+
+
+@mlp_block_op.register_fake
+def _(x, *args):
+    return torch.empty_like(x)
+
+
+@torch.library.custom_op("vsd::attention_qkv", mutates_args=(),
+                         device_types="cpu")
+def attention_qkv_op(qkv: _T, num_heads: int) -> _T:
+    return fused_attention_qkv_plain(qkv, num_heads)
+
+
+attention_qkv_op.register_kernel("cuda")(_attention_qkv_kernel)
+
+
+@attention_qkv_op.register_fake
+def _(qkv, num_heads):
+    b, t, d3 = qkv.shape
+    return qkv.new_empty((b, t, d3 // 3))
+
+
+@torch.library.custom_op("vsd::attention", mutates_args=(),
+                         device_types="cpu")
+def attention_op(q: _T, k: _T, v: _T) -> _T:
+    return fused_attention_plain(q, k, v)
+
+
+attention_op.register_kernel("cuda")(_attention_kernel)
+
+
+@attention_op.register_fake
+def _(q, k, v):
+    return q.new_empty(q.shape)

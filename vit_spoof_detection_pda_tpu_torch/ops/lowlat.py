@@ -16,7 +16,11 @@
 
 The packs keep the JAX layout element for element: ``W [3*depth, D, 4D]``
 superblocks (``[Wqkv | Wproj]``, fc1, fc2's row chunks side by side) and
-``S [3*depth, 4, 4D]`` f32 rows of LN and bias vectors.  The kernels read
+``S [3*depth, 4, 4D]`` f32 rows of LN and bias vectors.  The per-item
+pack has an int8 form (``weight_dtype=torch.int8``, the opt-in int8
+stream): W int8, one f32 scale per superblock column as S row 4
+(``S [3*depth, 5, 4D]``); the encoder kernel converts each streamed
+superblock tile to bf16 as the TPU kernel's ``_wblk`` (:197) does.  The kernels read
 that layout as it is; its VMEM-driven shape is not what they are built
 around (the source notes in ``csrc/`` give their design).
 
@@ -27,8 +31,11 @@ uses ``erf`` (the TPU kernel's A&S rational differs by at most 1.5e-7
 before a bf16 rounding).
 
 A CPU tensor goes to the plain PyTorch version beside each wrapper
-(``*_plain``); a CUDA tensor goes to the kernel, which takes bf16 and
-raises on anything else.  :data:`LAUNCHES` counts the kernel calls.
+(``*_plain``); a CUDA tensor goes to the kernel, which takes bf16 (and
+the int8 pack) and raises on anything else.  :data:`LAUNCHES` counts the
+kernel calls (the int8 pack's under ``"lowlat_encoder_int8"``).  Each
+kernel form is also a ``vsd::`` operator for frozen programs (see
+``ops/attention.py``).
 """
 
 from __future__ import annotations
@@ -47,14 +54,12 @@ from .gelu import gelu
 
 LAUNCHES = _build.LAUNCHES
 
-_INT8_TODO = ("int8 weight streaming (kernel 10's dequant branch) is not "
-              "ported yet: ROADMAP Queue 2 item 17")
-
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "lowlat_encoder": ("vsd_lowlat_encoder", [_P] * 14 + [_I, _P]
+    "lowlat_encoder": ("vsd_lowlat_encoder", [_P] * 3 + [_I] + [_P] * 11
+                       + [_I, _P]
                        + [_I] * 7 + [_F] * 3 + [_P]),
     "lowlat_batchgrid": ("vsd_lowlat_batchgrid", [_P] * 10 + [_I, _P]
                          + [_I] * 6 + [_F] * 2 + [_P]),
@@ -76,14 +81,6 @@ def _leaf(x, dtype, device=None) -> torch.Tensor:
         x = torch.from_numpy(np.array(x, dtype=np.float32))
     return x.to(device=device if device is not None else x.device,
                 dtype=dtype)
-
-
-def _check_weight_dtype(weight_dtype):
-    if weight_dtype is None:
-        return
-    if weight_dtype == torch.int8:
-        raise NotImplementedError(_INT8_TODO)
-    raise ValueError(f"weight_dtype must be int8 or None, got {weight_dtype}")
 
 
 def _pack_geom(vit_params):
@@ -119,9 +116,17 @@ def pack_encoder_weights(vit_params, *, depth: int = 12,
     """The per-item pack: ``(W [3*depth, D, 4D] dtype, S [3*depth, 4, 4D]
     f32)``, step ``3l`` = ``[Wqkv | Wproj]``, ``3l+1`` = fc1, ``3l+2`` =
     fc2's four ``[D, D]`` row chunks side by side; S rows as the JAX
-    package packs them.  ``weight_dtype=torch.int8`` (the opt-in int8
-    stream) raises ``NotImplementedError``."""
-    _check_weight_dtype(weight_dtype)
+    package packs them.
+
+    ``weight_dtype=torch.int8`` emits the weight-only int8 stream of the
+    B = 1 regime (JAX :482-493): each superblock column gets the f32
+    scale ``max(|w|, 1e-12) / 127`` over the W already rounded to
+    ``dtype``, stored as S row 4 (``S [3*depth, 5, 4D]``), and ``W`` is
+    ``clip(round(w / scale), -127, 127)`` as int8, rounding half to
+    even."""
+    if weight_dtype is not None and weight_dtype != torch.int8:
+        raise ValueError(f"weight_dtype must be int8 or None, got "
+                         f"{weight_dtype}")
     d, hidden = _pack_geom(vit_params)
     f32 = torch.float32
     ws, ss = [], []
@@ -140,7 +145,14 @@ def pack_encoder_weights(vit_params, *, depth: int = 12,
                torch.cat([fc2[c * d:(c + 1) * d] for c in range(hidden // d)],
                          1)]
         ss += [s0, s1, s2]
-    return torch.stack(ws).contiguous(), torch.stack(ss).contiguous()
+    w, s = torch.stack(ws).contiguous(), torch.stack(ss).contiguous()
+    if weight_dtype is None:
+        return w, s
+    wf = w.to(f32)
+    scale = torch.clamp(wf.abs().amax(dim=1), min=1e-12) / 127.0
+    q = torch.clamp(torch.round(wf / scale[:, None, :]), -127, 127)
+    return (q.to(torch.int8).contiguous(),
+            torch.cat([s, scale[:, None, :]], 1).contiguous())
 
 
 def pack_encoder_weights_batchgrid(vit_params, *, depth: int = 12,
@@ -253,6 +265,16 @@ def _attn_sublayer_plain(x32, w_blk, s_blk, *, num_heads: int,
             + s_blk[3, :d]).to(out_dtype)
 
 
+def _wblk(w_packed, s_packed, step, cdt):
+    """Superblock ``step`` in the compute dtype: the bf16 (or f32) pack as
+    it is; the int8 pack dequantized as the TPU kernel's ``_wblk`` (:197),
+    ``q.to(cdt) * scale.to(cdt)`` with the product rounded to ``cdt``."""
+    w = w_packed[step]
+    if w.dtype != torch.int8:
+        return w
+    return w.to(cdt) * s_packed[step, 4].to(cdt)
+
+
 def _ln_rows(x32, s_blk, d, eps):
     return _layernorm_f32(x32, s_blk[0, :d], s_blk[1, :d], eps)
 
@@ -262,14 +284,16 @@ def _encoder_plain(x, w_packed, s_packed, *, num_heads, valid_len, eps):
     cdt = x.dtype
     d = x.shape[-1]
     for step in range(0, w_packed.shape[0], 3):
-        x = _attn_sublayer_plain(x.float(), w_packed[step], s_packed[step],
-                                 num_heads=num_heads, valid_len=valid_len,
-                                 eps=eps, out_dtype=cdt)
+        x = _attn_sublayer_plain(x.float(), _wblk(w_packed, s_packed, step,
+                                                  cdt),
+                                 s_packed[step], num_heads=num_heads,
+                                 valid_len=valid_len, eps=eps, out_dtype=cdt)
         x32 = x.float()
-        s1, w2, s2 = s_packed[step + 1], w_packed[step + 2], s_packed[step + 2]
+        s1, s2 = s_packed[step + 1], s_packed[step + 2]
+        w2 = _wblk(w_packed, s_packed, step + 2, cdt)
         xn = _ln_rows(x32, s1, d, eps).to(cdt)
-        h = gelu(_mm(xn, w_packed[step + 1]) + s1[2], approximate=True
-                 ).to(cdt)
+        h = gelu(_mm(xn, _wblk(w_packed, s_packed, step + 1, cdt)) + s1[2],
+                 approximate=True).to(cdt)
         acc = x32 + s2[0, :d]
         for c in range(w2.shape[1] // d):
             cols = slice(c * d, (c + 1) * d)
@@ -372,8 +396,12 @@ def _check_encoder_args(xp, w_packed, s_packed, num_heads, valid_len):
                          f"{tp}, valid_len {valid_len}, B {b}")
     bf, dev = torch.bfloat16, xp.device
     _require(xp, "x", bf, (b, tp, d), dev)
-    _require(w_packed, "w_packed", bf, (steps, d, 4 * d), dev)
-    _require(s_packed, "s_packed", torch.float32, (steps, 4, 4 * d), dev)
+    # the bf16 pack with 4 S rows, or the int8 pack with its scales as a 5th
+    int8 = w_packed.dtype == torch.int8
+    _require(w_packed, "w_packed", torch.int8 if int8 else bf,
+             (steps, d, 4 * d), dev)
+    _require(s_packed, "s_packed", torch.float32,
+             (steps, 5 if int8 else 4, 4 * d), dev)
     return b, tp, d, steps // 3
 
 
@@ -444,21 +472,36 @@ def _launch_encoder(x_in, w_packed, s_packed, ends, *, num_heads,
     end_ptrs = ([t.data_ptr() for t in ends] if ends is not None
                 else [None, None, None])
     tr = _trace_ptr(trace, trace_slots(depth, fold_ends=ends is not None), dev)
+    int8 = w_packed.dtype == torch.int8
     lib, fn = _entry("lowlat_encoder")
-    err = fn(x_in.data_ptr(), x.data_ptr(), w_packed.data_ptr(),
+    err = fn(x_in.data_ptr(), x.data_ptr(), w_packed.data_ptr(), int(int8),
              s_packed.data_ptr(), *end_ptrs, xn.data_ptr(), qkv.data_ptr(),
              hid.data_ptr(), h1.data_ptr(), logits.data_ptr(), bar.data_ptr(),
              splitk.data_ptr(), units, tr, depth, b, tp, d, num_heads,
              valid_len, hh, eps, head_eps, float(d // num_heads) ** -0.5,
              _stream(dev))
-    _build.check(lib, "lowlat_encoder", err)
-    LAUNCHES["lowlat_encoder"] += 1
+    name = "lowlat_encoder_int8" if int8 else "lowlat_encoder"
+    _build.check(lib, name, err)
+    LAUNCHES[name] += 1
     return x if ends is None else logits
 
 
-def _refuse_int8(w_packed):
-    if w_packed.dtype == torch.int8:
-        raise NotImplementedError(_INT8_TODO)
+def _lowlat_encoder_cuda(xp, w_packed, s_packed, num_heads, valid_len, eps,
+                         trace=None):
+    if xp.device.type != "cuda":
+        raise ValueError(f"no kernel for device {xp.device}")
+    return _launch_encoder(xp, w_packed, s_packed, None,
+                           num_heads=num_heads, valid_len=valid_len,
+                           eps=eps, head_eps=0.0, trace=trace)
+
+
+def _lowlat_e2e_cuda(xp, w_packed, s_packed, w_end, s_end, aux, num_heads,
+                     eps, head_eps, valid_len, trace=None):
+    if xp.device.type != "cuda":
+        raise ValueError(f"no kernel for device {xp.device}")
+    return _launch_encoder(xp, w_packed, s_packed, (w_end, s_end, aux),
+                           num_heads=num_heads, valid_len=valid_len,
+                           eps=eps, head_eps=head_eps, trace=trace)
 
 
 def encoder_forward_lowlat(xp, w_packed, s_packed, *, num_heads: int,
@@ -466,20 +509,20 @@ def encoder_forward_lowlat(xp, w_packed, s_packed, *, num_heads: int,
     """Padded residual stream ``[B, Tp, D]`` -> ``[B, Tp, D]`` through the
     whole per-item pack in one launch.
 
-    On the card: bf16 stream and W, f32 S, a head dim of 16, 32 or 64,
-    D and Tp multiples of 8.  ``trace`` (measurement only): an int64
-    tensor of at least :func:`trace_slots` elements on the card that
-    receives a global-timer stamp (ns) at each grid barrier."""
-    _refuse_int8(w_packed)
+    On the card: bf16 stream, the bf16 pack (W bf16, 4 S rows) or the
+    int8 pack (W int8, 5 S rows), a head dim of 16, 32 or 64, D and Tp
+    multiples of 8.  ``trace`` (measurement only): an int64 tensor of at
+    least :func:`trace_slots` elements on the card that receives a
+    global-timer stamp (ns) at each grid barrier."""
+    if torch.compiler.is_exporting():
+        return lowlat_encoder_op(xp, w_packed, s_packed, num_heads,
+                                 valid_len, eps)
     if xp.device.type == "cpu":
         return encoder_forward_lowlat_plain(
             xp, w_packed, s_packed, num_heads=num_heads,
             valid_len=valid_len, eps=eps)
-    if xp.device.type != "cuda":
-        raise ValueError(f"no kernel for device {xp.device}")
-    return _launch_encoder(xp, w_packed, s_packed, None,
-                           num_heads=num_heads, valid_len=valid_len,
-                           eps=eps, head_eps=0.0, trace=trace)
+    return _lowlat_encoder_cuda(xp, w_packed, s_packed, num_heads, valid_len,
+                                eps, trace=trace)
 
 
 def forward_lowlat_e2e(xp, w_packed, s_packed, w_end, s_end, aux, *,
@@ -488,18 +531,17 @@ def forward_lowlat_e2e(xp, w_packed, s_packed, w_end, s_end, aux, *,
     """Patch rows ``[B, Tp, D]`` (row 0 zeros for the CLS slot, tail rows
     zero padding) -> anti-spoof logits ``[B, 2]`` f32: patch-embed, every
     layer, final LN and the head in one launch.  ``w_end``/``s_end``/
-    ``aux`` come from :func:`pack_end_weights`; ``trace`` as in
-    :func:`encoder_forward_lowlat`."""
-    _refuse_int8(w_packed)
+    ``aux`` come from :func:`pack_end_weights`; the encoder pack is bf16
+    or int8; ``trace`` as in :func:`encoder_forward_lowlat`."""
+    if torch.compiler.is_exporting():
+        return lowlat_e2e_op(xp, w_packed, s_packed, w_end, s_end, aux,
+                             num_heads, eps, head_eps, valid_len)
     if xp.device.type == "cpu":
         return forward_lowlat_e2e_plain(
             xp, w_packed, s_packed, w_end, s_end, aux, num_heads=num_heads,
             eps=eps, head_eps=head_eps, valid_len=valid_len)
-    if xp.device.type != "cuda":
-        raise ValueError(f"no kernel for device {xp.device}")
-    return _launch_encoder(xp, w_packed, s_packed, (w_end, s_end, aux),
-                           num_heads=num_heads, valid_len=valid_len,
-                           eps=eps, head_eps=head_eps, trace=trace)
+    return _lowlat_e2e_cuda(xp, w_packed, s_packed, w_end, s_end, aux,
+                            num_heads, eps, head_eps, valid_len, trace=trace)
 
 
 def encoder_forward_lowlat_batchgrid(xp, w_packed, s_packed, *,
@@ -519,10 +561,19 @@ def encoder_forward_lowlat_batchgrid(xp, w_packed, s_packed, *,
             f"{w_packed.dtype} / {s_packed.shape[1]} S rows) — int8 "
             "weight streaming is the per-item lowlat flavor "
             "(prepare_lowlat(int8_weights=True))")
+    if torch.compiler.is_exporting():
+        return lowlat_batchgrid_op(xp, w_packed, s_packed, num_heads,
+                                   valid_len, eps)
     if xp.device.type == "cpu":
         return encoder_forward_lowlat_batchgrid_plain(
             xp, w_packed, s_packed, num_heads=num_heads,
             valid_len=valid_len, eps=eps)
+    return _lowlat_batchgrid_cuda(xp, w_packed, s_packed, num_heads,
+                                  valid_len, eps, trace=trace)
+
+
+def _lowlat_batchgrid_cuda(xp, w_packed, s_packed, num_heads, valid_len,
+                           eps, trace=None):
     if xp.device.type != "cuda":
         raise ValueError(f"no kernel for device {xp.device}")
     b, tp, d, depth = _check_encoder_args(xp, w_packed, s_packed, num_heads,
@@ -546,3 +597,61 @@ def encoder_forward_lowlat_batchgrid(xp, w_packed, s_packed, *,
     _build.check(lib, "lowlat_batchgrid", err)
     LAUNCHES["lowlat_batchgrid"] += 1
     return x
+
+
+# --------------------------------------------------------------------------
+# The kernels as PyTorch operators (vsd::; see ops/attention.py)
+# --------------------------------------------------------------------------
+_T = torch.Tensor
+
+
+@torch.library.custom_op("vsd::lowlat_encoder", mutates_args=(),
+                         device_types="cpu")
+def lowlat_encoder_op(xp: _T, w_packed: _T, s_packed: _T, num_heads: int,
+                      valid_len: int, eps: float) -> _T:
+    return encoder_forward_lowlat_plain(xp, w_packed, s_packed,
+                                        num_heads=num_heads,
+                                        valid_len=valid_len, eps=eps)
+
+
+lowlat_encoder_op.register_kernel("cuda")(_lowlat_encoder_cuda)
+
+
+@lowlat_encoder_op.register_fake
+def _(xp, *args):
+    return torch.empty_like(xp)
+
+
+@torch.library.custom_op("vsd::lowlat_e2e", mutates_args=(),
+                         device_types="cpu")
+def lowlat_e2e_op(xp: _T, w_packed: _T, s_packed: _T, w_end: _T, s_end: _T,
+                  aux: _T, num_heads: int, eps: float, head_eps: float,
+                  valid_len: int) -> _T:
+    return forward_lowlat_e2e_plain(xp, w_packed, s_packed, w_end, s_end,
+                                    aux, num_heads=num_heads, eps=eps,
+                                    head_eps=head_eps, valid_len=valid_len)
+
+
+lowlat_e2e_op.register_kernel("cuda")(_lowlat_e2e_cuda)
+
+
+@lowlat_e2e_op.register_fake
+def _(xp, *args):
+    return xp.new_empty((xp.shape[0], 2), dtype=torch.float32)
+
+
+@torch.library.custom_op("vsd::lowlat_batchgrid", mutates_args=(),
+                         device_types="cpu")
+def lowlat_batchgrid_op(xp: _T, w_packed: _T, s_packed: _T, num_heads: int,
+                        valid_len: int, eps: float) -> _T:
+    return encoder_forward_lowlat_batchgrid_plain(
+        xp, w_packed, s_packed, num_heads=num_heads, valid_len=valid_len,
+        eps=eps)
+
+
+lowlat_batchgrid_op.register_kernel("cuda")(_lowlat_batchgrid_cuda)
+
+
+@lowlat_batchgrid_op.register_fake
+def _(xp, *args):
+    return torch.empty_like(xp)

@@ -1,6 +1,5 @@
 """Dependency-free HTTP front end over the MicroBatcher (the port's
-counterpart of the JAX package's ``serve/server.py``; the artifact-backed
-table and ``make_server``/``serve`` wait for the port's artifacts).
+counterpart of the JAX package's ``serve/server.py``).
 
 Endpoints (stdlib ``http.server``, one thread per connection; the single
 dispatcher thread of the batcher owns the card):
@@ -19,10 +18,14 @@ dispatcher thread of the batcher owns the card):
   source and swap it in; the new batcher warms before it takes traffic
   and the old one drains its queue.
 
-:func:`build_programs_live` gives each batch shape the regime of
-``fastserve.auto_serving_mode`` (B = 1 ``lowlat``, >= 2 ``fastserve``,
-the H100's measured table); the dispatcher picks the smallest shape that
-fits each window.
+The program table comes from frozen serving artifacts
+(:func:`build_programs_from_artifacts`, ``models/artifact.py``): one
+symbolic-batch module artifact serves every batch size, and fixed-batch
+kernel artifacts (e.g. lowlat B = 1 and fastserve B = 32) each add their
+shape; or from a live model (:func:`build_programs_live`), where each
+batch shape gets the regime of ``fastserve.auto_serving_mode`` (B = 1
+``lowlat``, >= 2 ``fastserve``, the H100's measured table).  The
+dispatcher picks the smallest shape that fits each window.
 """
 
 from __future__ import annotations
@@ -331,6 +334,48 @@ class PADServer(ThreadingHTTPServer):
         self.batcher.close()
 
 
+def build_programs_from_artifacts(artifact_dirs: Sequence[str], *,
+                                  max_batch: int = 16, device=None):
+    """Load artifacts and assemble the MicroBatcher program table (JAX
+    :92): ``(programs, img_size, metas)``.  A fixed-batch artifact adds
+    exactly its batch size; a symbolic-batch one fans across power-of-two
+    buckets ``1, 2, 4, ... <= max_batch``.  When two artifacts claim one
+    size the last listed wins (so a kernel artifact can take over a module
+    artifact's bucket).  Artifacts load onto the card unless
+    ``device="cpu"``."""
+    from ..models.artifact import load_serving_artifact
+
+    if not artifact_dirs:
+        raise ValueError("need at least one artifact directory")
+    programs, metas = {}, []
+    img_size = None
+    for d in artifact_dirs:
+        art = load_serving_artifact(d, device=device)
+        metas.append({"path": str(d), **art.meta})
+        size = int(art.meta.get("img_size", 224))
+        if img_size is None:
+            img_size = size
+        elif img_size != size:
+            raise ValueError(
+                f"artifact {d} has img_size {size}; earlier artifacts "
+                f"use {img_size} — a server instance serves one size")
+
+        def call(batch, art=art):
+            out = art(batch)
+            return {"prob1": out["prob1"].float().cpu().numpy(),
+                    "pred": out["pred"].cpu().numpy()}
+
+        fixed = art.meta.get("batch_size")
+        if fixed is not None:
+            programs[int(fixed)] = call
+        else:
+            b = 1
+            while b <= max_batch:
+                programs[b] = call      # last listed wins, uniformly
+                b *= 2
+    return programs, img_size, metas
+
+
 def build_programs_live(model, *, shapes: Sequence[int] = (1, 2, 4, 8, 16),
                         img_size: int = 224, threshold: float = 0.5,
                         temperature=None, device=None):
@@ -391,6 +436,23 @@ def make_server_from_programs(programs, img_size, metas, *,
                      max_wait_ms=max_wait_ms)
 
 
+def make_server(artifact_dirs: Sequence[str], *, host: str = "127.0.0.1",
+                port: int = 8417, max_batch: int = 16,
+                max_wait_ms: float = 2.0, request_timeout: float = 60.0,
+                device=None) -> PADServer:
+    """Programs from artifacts, batcher and HTTP server (JAX :473; not
+    yet serving).  ``port=0`` picks a free port
+    (``server.server_address[1]``); ``/admin/reload`` re-reads the same
+    artifact directories."""
+    programs, img_size, metas = build_programs_from_artifacts(
+        artifact_dirs, max_batch=max_batch, device=device)
+    return make_server_from_programs(
+        programs, img_size, metas, host=host, port=port,
+        max_wait_ms=max_wait_ms, request_timeout=request_timeout,
+        rebuild=lambda: build_programs_from_artifacts(
+            artifact_dirs, max_batch=max_batch, device=device))
+
+
 def run_server(server: PADServer, *, warmup: bool = True):
     """Warm every batch shape with a zero batch (so the first request
     does not pay for kernel builds), then block in the accept loop until
@@ -414,3 +476,13 @@ def run_server(server: PADServer, *, warmup: bool = True):
         server.server_close()
         server.batcher.close()
     return server
+
+
+def serve(artifact_dirs: Sequence[str], *, host: str = "127.0.0.1",
+          port: int = 8417, max_batch: int = 16, max_wait_ms: float = 2.0,
+          warmup: bool = True, device=None):
+    """Blocking entry point (the ``serve`` verb, artifact flavor)."""
+    server = make_server(artifact_dirs, host=host, port=port,
+                         max_batch=max_batch, max_wait_ms=max_wait_ms,
+                         device=device)
+    return run_server(server, warmup=warmup)
