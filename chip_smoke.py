@@ -246,6 +246,28 @@ runs these phases, each printing one JSON line and raising on failure:
             int8 module forward at B = 128 beside fastserve (with a
             profile); each artifact's call beside its live regime; export
             and load seconds; the HTTP latencies.
+28. kernels_cp kernels 12 and 13 (the sequence-parallel attention and
+            its backward) against their plain versions: bf16 at the SP
+            step's blocks (B = 128: Tq 104 / Tk 208 at two sequence
+            ranks, Tq 56 / Tk 224 at four), f32 at B = 32 and an odd
+            Tq 33 / Tk 197 at both, valid_len 197; within 2 bf16 ulps
+            (f32: F32_TOL) of each output's largest magnitude, the
+            masked keys' dk and dv exactly 0.
+29. slice_sp  ViT-B/16 training on a (data, seq) mesh, the ranks spawned
+            processes sharing this card over gloo: 2 ranks (data 1 x seq
+            2) at B = 128 run 3 Trainer-built steps with exact launches
+            (kernel 12 and kernel 13 12 times a step, kernels 8 and 4
+            never), step 0's every gradient leaf within 0.1 relative L2
+            and its scores within phase 4's bounds of the single-process
+            module-path step, and an f32 SP forward at B = 32 within 1e-5
+            of the f32 module; 4 ranks (data 2 x seq 2) at B = 32 one
+            step with the same checks; a one-rank NCCL group's data-only
+            step and run_inference(mesh=) bit-equal to the no-mesh path.
+30. times_sp  kernels 12 (bf16 and f32) and 13 beside their plain
+            versions, bounds, scaled_dot_product_attention on the real
+            keys and its backward; each rank's step ms (ranks sharing one
+            card: no yardstick of multi-card speed) and kernels 12 and 13
+            inside rank 0's profiled step.
 
 Then it prints the kernel table as one JSON line, the card's name and
 power limit as nvidia-smi gives them, and last
@@ -302,6 +324,7 @@ from vit_spoof_detection_pda_tpu_torch.ops import warp
 from vit_spoof_detection_pda_tpu_torch.ops.image import (
     IMAGENET_STD, normalize, preprocess_eval, to_float, to_uint8)
 from vit_spoof_detection_pda_tpu_torch.ops.losses import make_loss_fn
+from vit_spoof_detection_pda_tpu_torch.parallel.dryrun import run_ranks
 from vit_spoof_detection_pda_tpu_torch.serve import (
     MicroBatcher, build_programs_live, make_server_from_programs, run_load)
 from vit_spoof_detection_pda_tpu_torch.serve.loadgen import sample_frame
@@ -407,6 +430,15 @@ KERNELS = {
     "lowlat_encoder_int8": dict(
         source="vit_spoof_detection_pda_tpu_torch/csrc/lowlat_encoder.cu",
         replaces="vit_spoof_detection_pda_tpu/ops/lowlat.py:94"),
+    "attention_cp": dict(
+        source="vit_spoof_detection_pda_tpu_torch/csrc/attention_cp.cu",
+        replaces="vit_spoof_detection_pda_tpu/ops/attention.py:836"),
+    "attention_cp_f32": dict(
+        source="vit_spoof_detection_pda_tpu_torch/csrc/attention_cp.cu",
+        replaces="vit_spoof_detection_pda_tpu/ops/attention.py:836"),
+    "attention_cp_bwd": dict(
+        source="vit_spoof_detection_pda_tpu_torch/csrc/attention_cp_bwd.cu",
+        replaces="vit_spoof_detection_pda_tpu/ops/attention.py:865"),
 }
 SERVING_KERNELS = ("attention_block", "mlp_block")
 TRAIN_KERNELS = ("attention_block_train", "attention_qkv_bwd", "ln_res_bwd")
@@ -1369,27 +1401,43 @@ def _library_calls(bwd, ln, heads, valid):
 
 
 def profile_step(fn, top: int = 15) -> dict:
-    """Device time of one call of ``fn`` by kernel, from torch.profiler:
-    the wall time of the call, the summed device time of its kernels (so
-    the device's idle share) and the ``top`` kernels by device time."""
-    from torch.profiler import ProfilerActivity, profile
+    """Device time of one call of ``fn`` by kernel, from torch.profiler,
+    after one unprofiled call: see :func:`profile_once`."""
     fn()
     torch.cuda.synchronize()
+    out = profile_once(fn, top)
+    del out["result"]
+    return out
+
+
+def profile_once(fn, top: int = 15, needles=()) -> dict:
+    """``fn()`` once under torch.profiler: its result, the wall time of
+    the call, the summed device time of its kernels (so the device's idle
+    share), the ``top`` kernels by device time and, for each of
+    ``needles``, the kernels whose name holds it."""
+    from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fn()
+        result = fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     kernels.sort(key=lambda e: -e.self_device_time_total)
-    return {"profile_wall_ms": wall_ms, "profile_device_busy_ms": busy_ms,
-            "profile_idle_share": max(0.0, 1 - busy_ms / wall_ms),
-            "profile_top": [{"name": e.key[:90], "calls": e.count,
-                             "ms": e.self_device_time_total / 1e3}
-                            for e in kernels[:top]]}
+    out = {"result": result, "profile_wall_ms": wall_ms,
+           "profile_device_busy_ms": busy_ms,
+           "profile_idle_share": max(0.0, 1 - busy_ms / wall_ms),
+           "profile_top": [{"name": e.key[:90], "calls": e.count,
+                            "ms": e.self_device_time_total / 1e3}
+                           for e in kernels[:top]]}
+    for needle in needles:
+        hits = [e for e in kernels if needle in e.key]
+        out[needle] = {"calls": sum(e.count for e in hits),
+                       "ms": sum(e.self_device_time_total
+                                 for e in hits) / 1e3}
+    return out
 
 
 def phase_times(dev, model, serve128, u8, main_err, launches,
@@ -4129,6 +4177,434 @@ def phase_times_artifact(dev, ictx, actx, main_err) -> list:
     return rows
 
 
+# --------------------------------------------------------------------------
+# slice 9: data and sequence parallelism (kernels 12 and 13)
+# --------------------------------------------------------------------------
+
+SP_B = 128                           # the 2-rank (data 1 x seq 2) step's batch
+SP4_B = 32                           # the 4-rank (data 2 x seq 2) step's batch
+SP_STEPS = 3
+SP_F32_TOL = 1e-5                    # f32 SP forward vs the f32 module, of
+                                     # the largest logit magnitude
+SP_TIMEOUT = 900                     # s for one group of ranks
+
+
+def cp_work(b, tq, tk, valid, d, heads, itemsize, *, backward=False):
+    """Kernel 12 (or 13): the [Tq, valid] x dh products per head (2, or
+    the backward's 5) that this data needs; q and kv in and the output
+    out (13: q, kv and g in, dq and dkv out), each once."""
+    dh = d // heads
+    flops = (10 if backward else 4) * b * heads * tq * valid * dh
+    q, kv = b * tq * d * itemsize, b * tk * 2 * d * itemsize
+    return flops, (3 * q + 2 * kv if backward else 2 * q + kv)
+
+
+def _cp_inputs(rng, b, tq, tk, d, dt, dev):
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(
+            shape, dtype=np.float32)).to(dev, dt)
+    return t(b, tq, d), t(b, tk, 2 * d), t(b, tq, d)
+
+
+def phase_kernels_cp(dev) -> dict:
+    """Kernels 12 and 13 against their plain versions: bf16 at the SP
+    step's blocks (B = 128: Tq 104 / Tk 208 at two sequence ranks, Tq 56 /
+    Tk 224 at four), f32 at B = 32 (Tq 104 / Tk 208) and an odd shape
+    (Tq 33, Tk 197) at both; valid_len 197.  bf16 within 2 ulps of each
+    output's largest magnitude (out, dq, dkv), f32 within F32_TOL of it;
+    the masked keys' dk and dv exactly 0.  Returns the main paths'
+    errors."""
+    rng = np.random.default_rng(SEED + 90)
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = [("sp2_main_path", bf, SP_B, 104, 208),
+             ("sp4", bf, SP_B, 56, 224),
+             ("sp2_main_path", f32, F32_B, 104, 208),
+             ("odd", bf, 2, 33, 197), ("odd", f32, 2, 33, 197)]
+    main_err = {}
+    for label, dt, b, tq, tk in cases:
+        q, kv, g = _cp_inputs(rng, b, tq, tk, D, dt, dev)
+        got = att.fused_attention_qkv_cp(q, kv, HEADS, T)
+        dq, dkv = att.attention_cp_bwd(q, kv, g, HEADS, T)
+        want = att.fused_attention_qkv_cp_plain(q, kv, HEADS, T)
+        wdq, wdkv = att.attention_cp_bwd_plain(q, kv, g, HEADS, T)
+        torch.cuda.synchronize()
+        errs, ok = {}, True
+        for part, a, w in (("out", got, want), ("dq", dq, wdq),
+                           ("dkv", dkv, wdkv)):
+            a, w = a.float(), w.float()
+            err = (a - w).abs().max().item()
+            tol = (bf16_tol(w) if dt == bf else F32_TOL * w.abs().max().item())
+            errs[part] = {"max_abs_err": err, "tol": tol,
+                          "bit_equal": (a == w).float().mean().item()}
+            ok = ok and bool(torch.isfinite(a).all()) and err <= tol
+        pad_zero = not dkv[:, T:].any().item()
+        ok = ok and pad_zero and got.dtype == dq.dtype == dkv.dtype == dt
+        name = "bf16" if dt == bf else "f32"
+        emit({"phase": "kernels_cp", "case": f"{label}_{name}",
+              "kernels": ["attention_cp", "attention_cp_bwd"],
+              "shape": {"b": b, "tq": tq, "tk": tk, "valid": T, "d": D,
+                        "heads": HEADS}, "parts": errs,
+              "pad_keys_dk_dv_zero": pad_zero, "ok": ok})
+        if not ok:
+            raise AssertionError(f"kernels 12 / 13 disagree with their plain "
+                                 f"versions on {label} {name}: {errs}, pad "
+                                 f"keys zero {pad_zero}")
+        if label == "sp2_main_path":
+            sfx = "" if dt == bf else "_f32"
+            main_err["attention_cp" + sfx] = errs["out"]["max_abs_err"]
+            main_err["attention_cp_bwd" + sfx] = max(
+                errs["dq"]["max_abs_err"], errs["dkv"]["max_abs_err"])
+    return main_err
+
+
+def sp_config(**sharding):
+    """The default bf16 training config (focal loss, AdamW) at ViT-B/16,
+    dropout 0.1, the module path, with ``sharding``."""
+    return Config().with_overrides({
+        "seed": SEED, "data.img_size": IMG, "model.dropout": 0.1,
+        "model.compute_dtype": "bfloat16", "optim.learning_rate": 1e-4,
+        "optim.warmup_epochs": 0, "model.fused_train_forward": False,
+        **{f"sharding.{k}": v for k, v in sharding.items()}})
+
+
+def sp_model(dtype=torch.bfloat16):
+    return ViTAntiSpoof(patch_size=PATCH, embed_dim=D, depth=DEPTH,
+                        num_heads=HEADS, hidden=HEAD_HIDDEN, img_size=IMG,
+                        gelu="erf", dropout=0.1, dtype=dtype)
+
+
+def sp_trainer(cfg, params, dev):
+    """A Trainer of ``cfg`` on ``params`` whose train step takes uint8
+    faces (make_prep_fn([]) normalizes them on the card)."""
+    return Trainer(cfg, sp_model(), train_batches=lambda e, skip=0: iter(()),
+                   val_batches=lambda: iter(()), steps_per_epoch=1,
+                   variables=params, device=dev, logger=_Record(),
+                   batch_prep=make_prep_fn([]))
+
+
+def sp_step0(trainer, batch) -> dict:
+    """Step 0 of ``trainer``'s train step on ``batch`` with its loss, its
+    gradients (the reduced ones under a mesh: what the optimizer gets)
+    and the model's logits (this rank's rows) captured."""
+    st = trainer.state
+    seen = {}
+    apply_fn, apply_grads = st.apply_fn, st.apply_gradients
+
+    def apply_rec(*a, **k):
+        seen["logits"] = apply_fn(*a, **k)
+        return seen["logits"]
+
+    def grads_rec(grads):
+        seen["grads"] = {p: g.detach().clone() for p, g in
+                         zip(st.paths, grads)}
+        return apply_grads(grads)
+
+    st.apply_fn, st.apply_gradients = apply_rec, grads_rec
+    try:
+        trainer.state, metrics = trainer.train_steps[None](st, batch)
+    finally:
+        st.apply_fn, st.apply_gradients = apply_fn, apply_grads
+    torch.cuda.synchronize()
+    return {"loss": metrics["loss"].item(), "grads": seen["grads"],
+            "logits": seen["logits"].detach().float()}
+
+
+def _score_gaps(logits, ref_logits) -> dict:
+    s = torch.softmax(logits.float(), -1)[:, 1]
+    r = torch.softmax(ref_logits.float(), -1)[:, 1]
+    diff = (s - r).abs()
+    return {"max": diff.max().item(), "mean": diff.mean().item()}
+
+
+def _sp_rank(rank, world, seq, tmp, port, out):
+    """One rank of a slice_sp group (spawned; gloo on cuda:0)."""
+    import traceback
+
+    import torch.distributed as dist
+
+    from vit_spoof_detection_pda_tpu_torch.parallel import mesh as pm
+
+    try:
+        dev = torch.device("cuda", 0)
+        pm.init_multi_host("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                           rank=rank, world_size=world)
+        out.put((rank, _sp_rank_body(rank, world, seq, Path(tmp), dev)))
+    except BaseException:                       # noqa: BLE001 - reported
+        out.put((rank, {"error": traceback.format_exc()}))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _sp_rank_body(rank, world, seq, tmp: Path, dev) -> dict:
+    from vit_spoof_detection_pda_tpu_torch.parallel import mesh as pm
+
+    data = world // seq
+    b = SP_B if world == 2 else SP4_B
+    params = random_params(np.random.default_rng(SEED + 91))
+    u8, y = loop_faces(b, 91)
+    cfg = sp_config(seq_parallel=seq, data_parallel=-1)
+    trainer = sp_trainer(cfg, params, dev)
+    mesh = trainer.mesh
+    rows = pm.shard_batch({"image": u8, "label": y}, mesh)
+    batch = {"image": rows["image"].to(dev), "label": rows["label"].to(dev)}
+    per = b // data
+    lo = pm.axis_rank(mesh, pm.DATA_AXIS) * per
+    ref = torch.load(tmp / f"sp_ref_b{b}.pt", map_location=dev)
+    res = {"mesh": pm.axis_sizes(mesh), "backend": "gloo", "batch": b}
+
+    # the main path: counts from 0 just before the steps, read after
+    reset_launches()
+    calls0 = att._context["cp_calls"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s0 = sp_step0(trainer, batch)
+    step_ms = [(time.perf_counter() - t0) * 1e3]
+    profile = None
+    steps = SP_STEPS if world == 2 else 1
+    for i in range(1, steps):
+        t0 = time.perf_counter()
+        if rank == 0 and i == steps - 1:
+            profile = profile_once(
+                lambda: trainer.train_steps[None](trainer.state, batch),
+                top=10, needles=("attention_cp_kernel",
+                                 "attention_cp_bwd_kernel"))
+            trainer.state = profile.pop("result")[0]
+        else:
+            trainer.state, _m = trainer.train_steps[None](trainer.state,
+                                                         batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(att.LAUNCHES)
+    res["cp_dispatches"] = att._context["cp_calls"] - calls0
+    res["launches"] = {k: v for k, v in launches.items() if v}
+    res["launches_ok"] = launches == _want(attention_cp=DEPTH * steps,
+                                           attention_cp_bwd=DEPTH * steps)
+    res["step_ms"] = step_ms
+    res["profile"] = profile
+
+    gaps = _leaf_gaps(s0["grads"], ref["grads"])
+    worst = max(gaps, key=gaps.get)
+    res["loss"], res["loss_single"] = s0["loss"], ref["loss"]
+    res["max_leaf_rel_l2"], res["worst_leaf"] = gaps[worst], worst
+    res["scores"] = _score_gaps(s0["logits"], ref["logits"][lo:lo + per])
+    del trainer, s0, ref
+
+    if world == 2:
+        # f32: the SP forward at B = F32_B against the f32 module forward
+        m32 = load_jax_params(sp_model(torch.float32), params).to(dev).eval()
+        x = normalize(to_float(torch.from_numpy(u8[:F32_B]).to(dev)))
+        before = att.LAUNCHES["attention_cp_f32"]
+        with torch.no_grad(), exact_f32_matmul(), att.attention_sharding(mesh):
+            logits = m32(x)
+        torch.cuda.synchronize()
+        want = torch.load(tmp / "sp_ref_f32.pt", map_location=dev)
+        err = (logits - want).abs().max().item()
+        res["f32_forward"] = {
+            "max_abs_err": err,
+            "tol": SP_F32_TOL * want.abs().max().item(),
+            "attention_cp_f32_launches":
+                att.LAUNCHES["attention_cp_f32"] - before}
+    return res
+
+
+def _nccl_rank(rank, world, tmp, port, out):
+    """The one-rank NCCL group: the data-only step and run_inference on a
+    (data 1, model 1) mesh, each against the no-mesh path bit for bit."""
+    import traceback
+
+    import torch.distributed as dist
+
+    from vit_spoof_detection_pda_tpu_torch.parallel import mesh as pm
+
+    try:
+        dev = torch.device("cuda", 0)
+        pm.init_multi_host("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                           rank=rank, world_size=world)
+        out.put((rank, _nccl_body(dev)))
+    except BaseException:                       # noqa: BLE001 - reported
+        out.put((rank, {"error": traceback.format_exc()}))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _nccl_body(dev) -> dict:
+    """The one-rank group's checks on ``dev`` (see :func:`_nccl_rank`)."""
+    import torch.distributed as dist
+
+    from vit_spoof_detection_pda_tpu_torch.parallel import mesh as pm
+
+    mesh = pm.make_mesh(device_type=dev.type)
+    params = random_params(np.random.default_rng(SEED + 91))
+    u8, y = loop_faces(SP4_B, 92)
+    batch = {"image": torch.from_numpy(u8).to(dev),
+             "label": torch.from_numpy(y).to(dev)}
+    runs = {}
+    for label, m in (("mesh", mesh), ("no_mesh", None)):
+        t = sp_trainer(sp_config(), params, dev)
+        step = make_train_step(make_loss_fn("focal"),
+                               batch_prep=make_prep_fn([]), mesh=m)
+        t.state, metrics = step(t.state, batch)
+        runs[label] = (metrics, t.state.leaves())
+    (ma, la), (mb, lb) = runs["mesh"], runs["no_mesh"]
+    step_equal = (all(torch.equal(ma[k], mb[k]) for k in ma)
+                  and all(torch.equal(a, b) for a, b in zip(la, lb)))
+    model = load_jax_params(sp_model(), params).to(dev).eval()
+    recs = seeded_records(40, 93)
+    with seeded_faces(93):
+        got = runner.run_inference(model, recs, batch_size=16, img_size=IMG,
+                                   num_workers=2, mesh=mesh)
+        want = runner.run_inference(model, recs, batch_size=16, img_size=IMG,
+                                    num_workers=2)
+    infer_equal = all(np.array_equal(got[k], want[k]) for k in want)
+    return {"backend": dist.get_backend(), "mesh": pm.axis_sizes(mesh),
+            "step_bit_equal": step_equal, "loss": ma["loss"].item(),
+            "run_inference_bit_equal": infer_equal}
+
+
+def phase_slice_sp(dev, tmp: Path) -> dict:
+    """Data- and sequence-parallel training of ViT-B/16 (12 layers, bf16,
+    dropout 0.1, focal loss, AdamW; numpy-seeded weights and faces),
+    ranks as spawned processes on this one card over gloo (NCCL refuses
+    two ranks on one GPU):
+
+    (a) 2 ranks (data 1 x seq 2), global B = SP_B: SP_STEPS Trainer-built
+        steps (the Trainer builds the mesh from sharding.seq_parallel=2);
+        exact launches from 0 before the steps: kernel 12 DEPTH times a
+        forward, kernel 13 DEPTH times a step, kernels 8 and 4 never;
+        step 0's gradient leaves within GRAD_REL_TOL relative L2 of the
+        single-process module-path step's (on kernels 8 and 4) on the
+        same weights and batch, the scores within SCORE_TOL / mean
+        SCORE_MEAN_TOL; then an f32 SP forward at B = F32_B within
+        SP_F32_TOL of the f32 module forward (kernel 8's f32 form);
+    (b) 4 ranks (data 2 x seq 2), global B = SP4_B: one step, the same
+        checks against the single-process step at B = SP4_B;
+    (c) a one-rank NCCL group: the data-only step and
+        run_inference(mesh=) bit-equal to the no-mesh path.
+
+    The references run here first; the kernels were built before any
+    rank starts (phase build).  Returns what times_sp needs."""
+    params = random_params(np.random.default_rng(SEED + 91))
+    for b in (SP_B, SP4_B):
+        u8, y = loop_faces(b, 91)
+        t = sp_trainer(sp_config(), params, dev)
+        s0 = sp_step0(t, {"image": torch.from_numpy(u8).to(dev),
+                          "label": torch.from_numpy(y).to(dev)})
+        torch.save({"loss": s0["loss"], "logits": s0["logits"].cpu(),
+                    "grads": {p: g.cpu() for p, g in s0["grads"].items()}},
+                   tmp / f"sp_ref_b{b}.pt")
+        del t, s0
+    m32 = load_jax_params(sp_model(torch.float32), params).to(dev).eval()
+    u8, _y = loop_faces(SP_B, 91)
+    with torch.no_grad(), exact_f32_matmul():
+        ref32 = m32(normalize(to_float(torch.from_numpy(u8[:F32_B]).to(dev))))
+    torch.save(ref32.cpu(), tmp / "sp_ref_f32.pt")
+    del m32, ref32
+    torch.cuda.empty_cache()
+
+    out = {}
+    for label, world, seq in (("data1_seq2", 2, 2), ("data2_seq2", 4, 2)):
+        reports = run_ranks(_sp_rank, world, seq, str(tmp),
+                            timeout=SP_TIMEOUT)
+        rep = {r: {k: v for k, v in reports[r].items() if k != "profile"}
+               for r in sorted(reports)}
+        steps = SP_STEPS if world == 2 else 1
+        ok = True
+        for r, v in reports.items():
+            good = (v["launches_ok"] and v["cp_dispatches"] == DEPTH * steps
+                    and math.isfinite(v["loss"])
+                    and v["max_leaf_rel_l2"] <= GRAD_REL_TOL
+                    and v["scores"]["max"] <= SCORE_TOL
+                    and v["scores"]["mean"] <= SCORE_MEAN_TOL)
+            if "f32_forward" in v:
+                f = v["f32_forward"]
+                good = (good and f["max_abs_err"] <= f["tol"]
+                        and f["attention_cp_f32_launches"] == DEPTH)
+            rep[r]["ok"] = good
+            ok = ok and good
+        losses = {v["loss"] for v in reports.values()}
+        ok = ok and len(losses) == 1
+        emit({"phase": "slice_sp", "part": label, "ranks": world,
+              "backend": "gloo (ranks share cuda:0)",
+              "grad_tol": GRAD_REL_TOL, "score_tol": SCORE_TOL,
+              "score_mean_tol": SCORE_MEAN_TOL, "reports": rep, "ok": ok})
+        if not ok:
+            raise AssertionError(f"slice_sp {label}: {rep}")
+        out[label] = reports
+    (nccl,) = run_ranks(_nccl_rank, 1, str(tmp),
+                       timeout=SP_TIMEOUT).values()
+    ok = nccl["step_bit_equal"] and nccl["run_inference_bit_equal"]
+    emit({"phase": "slice_sp", "part": "nccl_one_rank_data_mesh", **nccl,
+          "ok": ok})
+    if not ok:
+        raise AssertionError(f"slice_sp nccl one-rank: {nccl}")
+    return out
+
+
+def phase_times_sp(dev, ctx, main_err) -> list:
+    """Kernel 12 (bf16 at the 2-rank step's block, B = SP_B, Tq 104, Tk
+    208; f32 at B = F32_B) and kernel 13 (bf16, same block) beside their
+    plain versions, bounds, and scaled_dot_product_attention on the
+    unpadded keys (no mask: the masked keys add exactly 0) and its
+    backward; each rank's step ms of the 2- and 4-rank runs (the ranks
+    share one card: no yardstick of multi-card speed) and kernels 12 and
+    13 inside rank 0's profiled step.  Returns the kernel rows."""
+    rng = np.random.default_rng(SEED + 94)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    launches = ctx["data1_seq2"][0]["launches"]
+    rows, per = [], {}
+    tq, tk, dh = 104, 208, D // HEADS
+    for name, dt, b, peak in (("attention_cp", torch.bfloat16, SP_B,
+                               PEAK_BF16_FLOPS),
+                              ("attention_cp_bwd", torch.bfloat16, SP_B,
+                               PEAK_BF16_FLOPS),
+                              ("attention_cp_f32", torch.float32, F32_B,
+                               PEAK_F32_FLOPS)):
+        q, kv, g = _cp_inputs(rng, b, tq, tk, D, dt, dev)
+        qh = q.view(b, tq, HEADS, dh).transpose(1, 2).contiguous()
+        kh, vh = (t.view(b, tk, HEADS, dh).transpose(1, 2)[:, :, :T]
+                  .contiguous() for t in kv.split(D, -1))
+        bwd = name == "attention_cp_bwd"
+        if bwd:
+            ms = time_ms(lambda: att.attention_cp_bwd(q, kv, g, HEADS, T))
+            plain_ms = time_ms(lambda: att.attention_cp_bwd_plain(
+                q, kv, g, HEADS, T), windows=3, per_window=3)
+            qh, kh, vh = (t.requires_grad_() for t in (qh, kh, vh))
+            o = sdpa(qh, kh, vh)
+            go = g.view(b, tq, HEADS, dh).transpose(1, 2)
+            lib_ms = time_ms(lambda: torch.autograd.grad(
+                o, (qh, kh, vh), go, retain_graph=True))
+        else:
+            ms = time_ms(lambda: att.fused_attention_qkv_cp(q, kv, HEADS, T))
+            plain_ms = time_ms(lambda: att.fused_attention_qkv_cp_plain(
+                q, kv, HEADS, T), windows=3, per_window=3)
+            lib_ms = time_ms(lambda: sdpa(qh, kh, vh))
+        flops, nb = cp_work(b, tq, tk, T, D, HEADS, q.element_size(),
+                            backward=bwd)
+        bound_ms, bound_by = bound(flops, nb, peak)
+        per[name] = {"batch": b, "tq": tq, "tk": tk, "ms": ms,
+                     "plain_ms": plain_ms, "library_ms": lib_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "gflop": flops / 1e9, "mbytes": nb / 1e6}
+        n = (ctx["data1_seq2"][0]["f32_forward"]["attention_cp_f32_launches"]
+             if name == "attention_cp_f32" else launches[name])
+        rows.append({"name": name, "route": "cuda", **KERNELS[name],
+                     "launches": n, "max_abs_err": main_err[name], "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": lib_ms})
+        del q, kv, g, qh, kh, vh
+    steps = {label: {r: rep["step_ms"] for r, rep in reports.items()}
+             for label, reports in ctx.items()}
+    prof = ctx["data1_seq2"][0]["profile"]
+    emit({"phase": "times_sp", "kernels": per,
+          "step_ms_by_rank": steps,
+          "note": "ranks share one card over gloo: step times are no "
+                  "yardstick of multi-card speed",
+          "rank0_profiled_step": prof})
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card "
@@ -4180,6 +4656,11 @@ def main() -> int:
         actx = phase_artifact(dev, Path(tmp))
         rows += phase_times_artifact(dev, ictx, actx, art_err)
     del ictx, actx
+    cp_err = phase_kernels_cp(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        sctx = phase_slice_sp(dev, Path(tmp))
+    rows += phase_times_sp(dev, sctx, cp_err)
+    del sctx
     idle = [r["name"] for r in rows if not r["launches"]]
     if idle:
         raise AssertionError(f"kernels never launched on their paths: {idle}")

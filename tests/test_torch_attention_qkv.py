@@ -92,9 +92,21 @@ def test_dispatch_cpu_takes_the_plain_version_and_counts_no_launch():
 
 
 def test_dispatch_with_a_mesh_raises_naming_slice_6():
+    """Meshes came with the parallelism slice; what it left, a model axis
+    (head-sharded attention), raises naming ROADMAP Queue 1 item 9b."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from vit_spoof_detection_pda_tpu_torch.parallel.mesh import make_mesh
+
     x = torch.tensor(_qkv(12, 2, 17, 64))
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        tatt.dispatch_attention_qkv(x, 4, mesh=object())
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=2)
+    try:
+        mesh = make_mesh(data=1, model=2, device_type="cpu")
+        with pytest.raises(NotImplementedError, match="item 9b"):
+            tatt.dispatch_attention_qkv(x, 4, mesh=mesh)
+    finally:
+        dist.destroy_process_group()
 
 
 def test_non_contiguous_input_is_taken_as_its_values():

@@ -258,8 +258,10 @@ def test_score_batches_pads_the_tail_and_keeps_order():
 
 
 def test_mesh_and_fastserve_options_raise():
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        run_inference(TBright(), [], mesh=object())
+    # data-parallel scoring came with the parallelism slice; fastserve
+    # scoring over a mesh is ROADMAP Queue 1 item 9b
+    with pytest.raises(NotImplementedError, match="item 9b"):
+        run_inference(TBright(), [], mesh=object(), fastserve=True)
     with pytest.raises(TypeError, match="anti-spoof"):
         trunner.make_fastserve_infer(TBright())
 

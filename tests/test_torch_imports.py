@@ -150,3 +150,29 @@ def test_eval_slice_has_no_module_level_pandas(mod):
                  if isinstance(node, ast.ImportFrom) else [])
         assert not any(n.split(".")[0] == "pandas" for n in names), (
             f"{path.name}:{node.lineno} imports pandas")
+
+
+# the parallel layer: imported by the Trainer, the eval runner and the
+# model on every path, it must import where JAX and PIL cannot, and join
+# no process group (nor start a process) while importing
+PARALLEL_MODULES = ("parallel", "parallel.mesh", "parallel.collectives",
+                    "parallel.dryrun")
+
+
+def test_parallel_modules_import_without_jax_or_pil():
+    mods = [f"vit_spoof_detection_pda_tpu_torch.{m}"
+            for m in PARALLEL_MODULES]
+    assert set(mods) <= set(_modules())
+    code = ("import sys, importlib\n"
+            f"for name in {FORBIDDEN + ('PIL',)!r}:\n"
+            "    sys.modules[name] = None\n"
+            f"for mod in {mods!r}:\n"
+            "    importlib.import_module(mod)\n"
+            "import torch.distributed as dist, multiprocessing as mp\n"
+            "assert not dist.is_initialized()\n"
+            "assert not mp.active_children()\n"
+            "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"

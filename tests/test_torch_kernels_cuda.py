@@ -795,3 +795,79 @@ def test_lowlat_encoder_int8_matches_plain_on_card(cuda_device, b):
     torch.cuda.synchronize()
     assert tlow.LAUNCHES["lowlat_encoder_int8"] == n0 + 1
     _assert_close(got, want)
+
+
+# --------------------------------------------------------------------------
+# kernels 12 and 13: the sequence-parallel rectangular attention
+# --------------------------------------------------------------------------
+
+# (dtype, b, tq, tk, valid, heads, dh): the SP step's blocks at ViT-B with
+# two and four sequence ranks, the f32 shape, an odd shape (no multiple of
+# 8 or 16 on either side) and a small ragged one
+CP_CASES = [(torch.bfloat16, 128, 104, 208, 197, 12, 64),
+            (torch.bfloat16, 128, 56, 224, 197, 12, 64),
+            (torch.float32, 32, 104, 208, 197, 12, 64),
+            (torch.bfloat16, 2, 33, 197, 197, 12, 64),
+            (torch.float32, 2, 33, 197, 197, 12, 64),
+            (torch.bfloat16, 3, 13, 40, 35, 4, 16),
+            (torch.float32, 3, 13, 40, 35, 4, 16)]
+
+
+def _close(got, want, dtype):
+    if dtype == torch.bfloat16:
+        _assert_close(got, want)
+    else:
+        got, want = got.float(), want.float()
+        assert torch.isfinite(got).all()
+        assert ((got - want).abs().max().item()
+                <= 1e-5 * want.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,b,tq,tk,valid,heads,dh", CP_CASES)
+def test_attention_cp_kernels_match_plain_on_card(cuda_device, dtype, b, tq,
+                                                  tk, valid, heads, dh):
+    """Kernel 12 (forward) and kernel 13 (backward) against their plain
+    versions: bf16 within 2 ulps, f32 within 1e-5 of the largest output
+    magnitude (dq and dkv each); the masked keys' dk and dv exactly 0."""
+    rng = np.random.default_rng(60)
+    d = heads * dh
+
+    def t(*shape):
+        return torch.tensor(rng.standard_normal(shape).astype(np.float32),
+                            device=cuda_device, dtype=dtype)
+
+    q, kv, g = t(b, tq, d), t(b, tk, 2 * d), t(b, tq, d)
+    f32 = dtype == torch.float32
+    fwd, bwd = (("attention_cp_f32", "attention_cp_bwd_f32") if f32
+                else ("attention_cp", "attention_cp_bwd"))
+    n0 = dict(tatt.LAUNCHES)
+    got = tatt.fused_attention_qkv_cp(q, kv, heads, valid)
+    dq, dkv = tatt.attention_cp_bwd(q, kv, g, heads, valid)
+    want = tatt.fused_attention_qkv_cp_plain(q, kv, heads, valid)
+    want_dq, want_dkv = tatt.attention_cp_bwd_plain(q, kv, g, heads, valid)
+    torch.cuda.synchronize()
+    assert tatt.LAUNCHES[fwd] == n0[fwd] + 1
+    assert tatt.LAUNCHES[bwd] == n0[bwd] + 1
+    _close(got, want, dtype)
+    _close(dq, want_dq, dtype)
+    _close(dkv, want_dkv, dtype)
+    assert not dkv[:, valid:].any()
+
+
+@pytest.mark.cuda
+def test_attention_cp_kernels_reject_what_they_cannot_take(cuda_device):
+    q = torch.zeros((2, 104, 768), device=cuda_device, dtype=torch.bfloat16)
+    kv = torch.zeros((2, 208, 1536), device=cuda_device,
+                     dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="valid_len"):
+        tatt.fused_attention_qkv_cp(q, kv, 12, 209)
+    with pytest.raises(TypeError):
+        tatt.fused_attention_qkv_cp(q, kv.float(), 12, 197)
+    with pytest.raises(ValueError, match="head dim"):      # dh 96 in bf16
+        tatt.attention_cp_bwd(q, kv, q, 8, 197)
+    big = torch.zeros((1, 8, 768), device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="up to 256"):
+        tatt.attention_cp_bwd(big, torch.zeros(
+            (1, 264, 1536), device=cuda_device, dtype=torch.bfloat16), big,
+            12, 264)

@@ -1,7 +1,7 @@
 """Print the port's parity gaps against the JAX package on the CPU, one
 JSON line per comparison (the numbers the tests bound).
 
-    python tests/torch_parity_report.py [kernels serving training small_batch augment eval train_loop cli artifact int8_vitb]
+    python tests/torch_parity_report.py [kernels serving training small_batch augment eval train_loop cli artifact int8_vitb parallel]
 
 The port runs its plain PyTorch versions (CPU tensors); the JAX side runs
 its Pallas kernels in interpret mode, as the test files do.  Inputs come
@@ -787,6 +787,65 @@ def int8_vitb():
     emit(what="lowlat_vitb_int8_vs_bf16_scores",
          mean_abs=float(np.abs(got["int8"] - got["bf16"]).mean()),
          **gap(got["int8"], got["bf16"]))
+
+
+def parallel():
+    """Slice 9: kernels 12 and 13's plain versions against JAX's
+    fused_attention_qkv_cp (interpret mode) and its VJP, and the
+    multi-process runs of tests/test_torch_sequence_parallel.py (SP
+    forward, DP 2 x SP 2 step, data-parallel scoring) against JAX's and
+    the single-process results."""
+    import tempfile
+
+    import test_torch_attention_cp as tcp
+    import test_torch_sequence_parallel as tsp
+
+    for dtype in tcp.DTYPES:
+        jdt, tdt = tcp.DTYPES[dtype]
+        for b, tq, tk, heads, dh, valid in tcp.SHAPES:
+            q, kv = tcp._pair(tq * 100 + tk, b, tq, tk, heads, dh)
+            want = jatt.fused_attention_qkv_cp(
+                jnp.asarray(q, jdt), jnp.asarray(kv, jdt), heads, valid, True)
+            got = tatt.fused_attention_qkv_cp_plain(
+                torch.tensor(q).to(tdt), torch.tensor(kv).to(tdt), heads,
+                valid)
+            emit(what="cp_forward_plain_vs_jax_kernel", dtype=dtype,
+                 shape=[b, tq, tk, heads, dh, valid],
+                 **gap(got.float().numpy(), np.asarray(want, np.float32)))
+            g = np.random.default_rng(tq).standard_normal(
+                (b, tq, heads * dh)).astype(np.float32)
+            wdq, wdkv = tcp._jax_grads(q, kv, g, heads, valid, jdt)
+            dq, dkv = tatt.attention_cp_bwd_plain(
+                torch.tensor(q).to(tdt), torch.tensor(kv).to(tdt),
+                torch.tensor(g).to(tdt), heads, valid)
+            for name, a, w in (("dq", dq, wdq), ("dkv", dkv, wdkv)):
+                emit(what=f"cp_backward_{name}_plain_vs_jax_vjp",
+                     dtype=dtype, shape=[b, tq, tk, heads, dh, valid],
+                     pad_keys_zero=not dkv[:, valid:].any().item(),
+                     **gap(a.float().numpy(), w))
+    with tempfile.TemporaryDirectory() as d:
+        runs = tsp.launch(pathlib.Path(d))
+        variables = {"params": runs["params"]}
+        jm = tsp.JViT(**tsp.JGEOM)
+        single = np.asarray(jm.apply(variables, jnp.asarray(runs["x"])))
+        for dp, sp, job in ((1, 2, "fwd2"), (2, 2, "fwd4"), (1, 4, "fwd4")):
+            got = tsp._assembled(runs["res"], job, dp, sp)
+            emit(what="sp_forward_vs_jax_single_device", mesh=[dp, sp],
+                 **gap(got, single))
+        got = tsp._mesh_step(runs["res"], 0.1)
+        loss, params = tsp._port_single_step(runs["params"], runs["x"],
+                                             runs["y"], 0.1)
+        worst = max(float(np.abs(got["p/" + k] - v).max())
+                    for k, v in params.items())
+        emit(what="sp_step_dp2_sp2_vs_single_dropout", loss_gap=abs(
+            float(got["loss"]) - loss), max_param_abs=worst)
+        recs = [tsp.Record(path=str(pathlib.Path(d) / f"face{i}.png"),
+                           label=int(lab))
+                for i, lab in enumerate(runs["rec_y"])]
+        want = tsp.run_inference(tsp.W.module(runs["params"]).eval(), recs,
+                                 batch_size=4, img_size=32, num_workers=1)
+        emit(what="run_inference_dp2_vs_single",
+             **gap(runs["res"]["fwd2_0"]["score/prob1"], want["prob1"]))
 
 
 if __name__ == "__main__":

@@ -2,7 +2,9 @@
 
 The JAX package's verbs (``vit_spoof_detection_pda_tpu/__main__.py``).
 Those whose modules are not ported yet exit with status 2 and name the
-ROADMAP item that brings them.
+ROADMAP item that brings them.  ``train`` and ``test`` also run under
+``torchrun --nproc-per-node N -m vit_spoof_detection_pda_tpu_torch ...``,
+one rank per process on the mesh the config's ``sharding.*`` describes.
 """
 
 import sys
@@ -51,7 +53,14 @@ def main(argv=None):
     import importlib
 
     mod = importlib.import_module(COMMANDS[cmd])
-    mod.main(argv[1:])
+    try:
+        mod.main(argv[1:])
+    finally:
+        # a verb run under torchrun joined a process group
+        # (cli/common.py::join_process_group): leave it before exiting
+        import torch.distributed as dist
+        if dist.is_available() and dist.is_initialized():
+            dist.destroy_process_group()
     return 0
 
 

@@ -1,5 +1,5 @@
 """Shared CLI plumbing (JAX ``cli/common.py``): config resolution, the
-device flag and logging setup."""
+device flag, joining a ``torchrun`` process group and logging setup."""
 
 from __future__ import annotations
 
@@ -58,6 +58,19 @@ def resolve_device(parser: argparse.ArgumentParser, args) -> str:
                 "this verb runs on a CUDA card and none is available; pass "
                 "--device cpu to run the kernels' plain versions")
     return device
+
+
+def join_process_group(device: str) -> int:
+    """Under ``torchrun`` (``WORLD_SIZE`` > 1 in the environment): join the
+    process group, NCCL on the card (each rank on its ``LOCAL_RANK``
+    card) and gloo with ``--device cpu``, so the verb runs on the mesh
+    ``sharding.*`` describes.  Returns the world size (1 otherwise)."""
+    import os
+
+    if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        return 1
+    from ..parallel.mesh import init_multi_host
+    return init_multi_host(backend="nccl" if device == "cuda" else "gloo")[1]
 
 
 def add_fastserve_args(parser: argparse.ArgumentParser):

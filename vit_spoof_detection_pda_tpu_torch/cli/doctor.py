@@ -96,12 +96,31 @@ def check_device_memory():
 
 @_check("mesh")
 def check_mesh():
+    """The process group (world size, backend; one rank without one), the
+    mesh ``parallel/mesh.py::mesh_from_config`` would build over it from
+    the default config and, over several ranks, a summed all-reduce."""
     import torch
 
-    return WARN, {"devices": torch.cuda.device_count(),
-                  "note": "device meshes (parallel/mesh.py) are not ported: "
-                          "ROADMAP Queue 1 item 9; the port trains and "
-                          "serves on one card"}
+    from ..config import Config
+    from ..parallel import mesh as pmesh
+
+    n = pmesh.world_size()
+    shape = pmesh.config_layout(Config().sharding, n)
+    backend = None
+    if n > 1:
+        import torch.distributed as dist
+        backend = dist.get_backend()
+        dev = "cuda" if backend == "nccl" else "cpu"
+        x = torch.tensor([float(pmesh.rank())], device=dev)
+        dist.all_reduce(x)
+        if x.item() != n * (n - 1) / 2:
+            return FAIL, {"error": "all-reduce over the ranks mismatched"}
+    info = {"world_size": n, "backend": backend,
+            "devices": torch.cuda.device_count(), "mesh": shape,
+            "note": "data and sequence parallelism run one process per "
+                    "rank (torchrun); tensor parallelism, FSDP and the "
+                    "pipeline are ROADMAP Queue 1 item 9b"}
+    return (OK if torch.cuda.is_available() else WARN), info
 
 
 @_check("pallas")

@@ -1,6 +1,7 @@
 """`test` command (JAX ``cli/test.py``): single-model evaluation with the
 test.py artifact contract (reference test.py main, :455-518), bf16 on
-the card unless ``--device cpu``."""
+the card unless ``--device cpu``; under ``torchrun`` the ranks share out
+the records (rank 0 writes the files)."""
 
 from __future__ import annotations
 
@@ -12,8 +13,9 @@ import torch
 from ..data.manifest import scan_test
 from ..eval import run_single_model_eval
 from ..models.registry import build_model
-from .common import (add_config_args, add_fastserve_args, resolve_config,
-                     setup_logging, validate_fastserve)
+from .common import (add_config_args, add_fastserve_args,
+                     join_process_group, resolve_config, setup_logging,
+                     validate_fastserve)
 
 
 def main(argv=None):
@@ -34,6 +36,11 @@ def main(argv=None):
     setup_logging()
     device = validate_fastserve(parser, args)
     cfg = resolve_config(args)
+    mesh = None
+    if join_process_group(device) > 1:
+        # under torchrun: data-parallel scoring on the configured mesh
+        from ..parallel.mesh import mesh_from_config
+        mesh = mesh_from_config(cfg.sharding, device_type=device)
 
     ckpt = args.checkpoint or cfg.eval.checkpoint_path
     if ckpt and os.path.isdir(ckpt):
@@ -61,7 +68,7 @@ def main(argv=None):
         module, records, output_dir=cfg.eval.output_dir,
         batch_size=cfg.eval.batch_size, img_size=cfg.data.img_size,
         checkpoint_name=str(ckpt), write_plots=not args.no_plots,
-        fastserve=args.fastserve)
+        fastserve=args.fastserve, mesh=mesh)
     print({k: round(v, 4) if isinstance(v, float) else v
            for k, v in metrics.items()})
     return metrics

@@ -1,13 +1,15 @@
 """`train` command (JAX ``cli/train.py``): full fine-tune or
-hyperparameter sweep (``--sweep``), on the card unless ``--device cpu``."""
+hyperparameter sweep (``--sweep``), on the card unless ``--device cpu``;
+under ``torchrun --nproc-per-node N`` one rank per process on the mesh
+``sharding.*`` describes (data and sequence parallelism)."""
 
 from __future__ import annotations
 
 import argparse
 
 from ..train.driver import train_from_config
-from .common import (add_config_args, resolve_config, resolve_device,
-                     setup_logging)
+from .common import (add_config_args, join_process_group, resolve_config,
+                     resolve_device, setup_logging)
 
 
 def main(argv=None):
@@ -36,6 +38,11 @@ def main(argv=None):
         parser.error("--resume applies to a single run, not --sweep "
                      "(each trial gets its own checkpoint directory)")
     device = resolve_device(parser, args)
+    # under torchrun every rank joins the process group and trains on the
+    # mesh cfg.sharding describes (train_from_config builds it)
+    if join_process_group(device) > 1 and args.sweep:
+        parser.error("--sweep runs its trials in one process, not under "
+                     "torchrun")
 
     if args.sweep:
         from ..train.sweep import run_sweep

@@ -22,7 +22,7 @@
 // attention_rows (bf16: mma.sync Q K^T, a two-pass softmax normalized
 // before the bf16 rounding, ldmatrix P V) and attention_f32.cuh::
 // attention_f32_rows (f32: plain FMAs, no TF32), which take three base
-// pointers and a row stride.  Only the addressing differs.
+// pointers and their row strides.  Only the addressing differs.
 //
 // Bound on the H100 at the int8 module path's shape (ViT-B, B = 128,
 // T = 197, 12 heads of 64, bf16): q, k, v and the output are
@@ -47,9 +47,10 @@ __global__ void __launch_bounds__(kAttMaxWarps * 32)
   bf16* Vs = Ks + att_keys(t) * (DH + 8);
   const int h = blockIdx.y, b = blockIdx.z;
   const size_t off = static_cast<size_t>(b) * bs + static_cast<size_t>(h) * DH;
-  attention_rows<DH, false>(q + off, k + off, v + off, static_cast<size_t>(ld),
+  attention_rows<DH, false>(q + off, static_cast<size_t>(ld), k + off, v + off,
+                            static_cast<size_t>(ld),
                             out + static_cast<size_t>(b) * t * d + static_cast<size_t>(h) * DH,
-                            d, t, t, scale, blockIdx.x * blockDim.x / 2, Ks, Vs);
+                            d, t, t, t, scale, blockIdx.x * blockDim.x / 2, Ks, Vs);
 }
 
 template <int DH>
@@ -59,9 +60,10 @@ __global__ void __launch_bounds__(kF32Warps * 32)
                           long long ld, long long bs, float scale, int tile_rows) {
   const int h = blockIdx.y, b = blockIdx.z;
   const size_t off = static_cast<size_t>(b) * bs + static_cast<size_t>(h) * DH;
-  attention_f32_rows<DH>(q + off, k + off, v + off, static_cast<size_t>(ld),
+  attention_f32_rows<DH>(q + off, static_cast<size_t>(ld), k + off, v + off,
+                         static_cast<size_t>(ld),
                          out + static_cast<size_t>(b) * t * d + static_cast<size_t>(h) * DH, d,
-                         t, t, scale, tile_rows);
+                         t, t, t, scale, tile_rows);
 }
 
 template <int DH>

@@ -15,11 +15,11 @@ namespace {
 constexpr int kAttMaxWarps = 8;    // a block: up to 8 warps of 16 query rows
 constexpr int kAttKeyChunk = 64;   // keys per step of the score loops
 
-__host__ __device__ inline int att_keys(int tp) { return (tp + 15) / 16 * 16; }
+__host__ __device__ inline int att_keys(int tk) { return (tk + 15) / 16 * 16; }
 
-// Shared memory of one block: K and V [tk][dh + 8] bf16.
-__host__ __device__ inline size_t att_smem_bytes(int tp, int dh) {
-  return 2 * static_cast<size_t>(att_keys(tp)) * (dh + 8) * sizeof(bf16);
+// Shared memory of one block over tk keys: K and V [tk rounded up to 16][dh + 8] bf16.
+__host__ __device__ inline size_t att_smem_bytes(int tk, int dh) {
+  return 2 * static_cast<size_t>(att_keys(tk)) * (dh + 8) * sizeof(bf16);
 }
 
 // Q's 32-bit fragments: through the read-only path in a standalone launch;
@@ -49,34 +49,38 @@ __device__ __forceinline__ uint32_t ld_q_u32(const bf16* p) {
 // add nothing to m or l.
 //
 // attention_rows is one query tile of one (head, item) over three base
-// pointers: q, k and v point at that head's slice of row 0 (row r at
-// + r * ld), out at the head's slice of output row 0 (row r at + r * ldo).
-// The block's warps own query rows q0 + 16w .. q0 + 16w + 15; Ks and Vs
-// are the block's shared memory.  ld and ldo are multiples of 8 and the
-// pointers 16-byte aligned (the 16-byte K/V copies).
+// pointers: q points at that head's slice of query row 0 (row r at
+// + r * ldq), k and v at its slice of key row 0 (row r at + r * ldk), out
+// at the head's slice of output row 0 (row r at + r * ldo).  There are tq
+// query rows and tk keys (equal in self-attention; the sequence-parallel
+// kernel 12 has a local query block against the gathered keys).  The
+// block's warps own query rows q0 + 16w .. q0 + 16w + 15; Ks and Vs are
+// the block's shared memory (att_smem_bytes(tk, DH)).  ldq, ldk and ldo
+// are multiples of 8 and the pointers 16-byte aligned (the 16-byte K/V
+// copies).
 template <int DH, bool kCoherent>
-__device__ __forceinline__ void attention_rows(const bf16* __restrict__ q,
+__device__ __forceinline__ void attention_rows(const bf16* __restrict__ q, size_t ldq,
                                                const bf16* __restrict__ k,
-                                               const bf16* __restrict__ v, size_t ld,
-                                               bf16* __restrict__ out, size_t ldo, int tp,
-                                               int valid_len, float scale, int q0, bf16* Ks,
-                                               bf16* Vs) {
+                                               const bf16* __restrict__ v, size_t ldk,
+                                               bf16* __restrict__ out, size_t ldo, int tq,
+                                               int tk, int valid_len, float scale, int q0,
+                                               bf16* Ks, bf16* Vs) {
   constexpr int LD = DH + 8;   // shared row stride (elements), 16-byte multiple
   constexpr int KK = DH / 16;  // k-steps of Q K^T
   constexpr int NO = DH / 8;   // 8-column output tiles
   constexpr int CPR = DH / 8;  // 16-byte chunks per head row
-  const int tk = att_keys(tp);
+  const int nk = att_keys(tk);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
 
-  // Every key/value row; rows past Tp are zeros so that zero weights never
+  // Every key/value row; rows past tk are zeros so that zero weights never
   // meet uninitialised values.
-  for (int c = tid; c < tk * CPR; c += blockDim.x) {
+  for (int c = tid; c < nk * CPR; c += blockDim.x) {
     const int r = c / CPR, col = (c % CPR) * 8;
     bf16* dk = Ks + r * LD + col;
     bf16* dv = Vs + r * LD + col;
-    if (r < tp) {
-      cp_async16(dk, k + r * ld + col);
-      cp_async16(dv, v + r * ld + col);
+    if (r < tk) {
+      cp_async16(dk, k + r * ldk + col);
+      cp_async16(dv, v + r * ldk + col);
     } else {
       store_zero16(dk);
       store_zero16(dv);
@@ -87,15 +91,15 @@ __device__ __forceinline__ void attention_rows(const bf16* __restrict__ q,
   __syncthreads();
 
   const int r0 = q0 + warp * 16;
-  if (r0 >= tp) return;  // all of this warp's rows are past the stream
+  if (r0 >= tq) return;  // all of this warp's rows are past the queries
   const int g = lane >> 2, t4 = lane & 3;  // fragment row group, column pair
 
   // Q as the A fragments of Q K^T (rows r0 + g and r0 + g + 8); rows past
-  // Tp are zeros.
+  // tq are zeros.
   uint32_t qa[KK][4];
-  const bf16* qlo = q + static_cast<size_t>(r0 + g) * ld + t4 * 2;
-  const bf16* qhi = qlo + 8 * ld;
-  const bool lo_in = r0 + g < tp, hi_in = r0 + g + 8 < tp;
+  const bf16* qlo = q + static_cast<size_t>(r0 + g) * ldq + t4 * 2;
+  const bf16* qhi = qlo + 8 * ldq;
+  const bool lo_in = r0 + g < tq, hi_in = r0 + g + 8 < tq;
 #pragma unroll
   for (int kk = 0; kk < KK; ++kk) {
     qa[kk][0] = lo_in ? ld_q_u32<kCoherent>(qlo + kk * 16) : 0u;
@@ -110,7 +114,7 @@ __device__ __forceinline__ void attention_rows(const bf16* __restrict__ q,
     for (int j = 0; j < 8; ++j) {
       s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
       const int key0 = kc0 + j * 8;
-      if (key0 < tk) {
+      if (key0 < nk) {
         const bf16* kp = Ks + (key0 + g) * LD + t4 * 2;
 #pragma unroll
         for (int kk = 0; kk < KK; ++kk)
@@ -119,14 +123,14 @@ __device__ __forceinline__ void attention_rows(const bf16* __restrict__ q,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int key = key0 + t4 * 2 + (e & 1);
-        s[j][e] = key < valid_len ? s[j][e] * scale : (key < tp ? -1e30f : -CUDART_INF_F);
+        s[j][e] = key < valid_len ? s[j][e] * scale : (key < tk ? -1e30f : -CUDART_INF_F);
       }
     }
   };
 
   // Pass 1: row max and sum.  The four lanes of a quad share a row.
   float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
-  for (int kc0 = 0; kc0 < tk; kc0 += kAttKeyChunk) {
+  for (int kc0 = 0; kc0 < nk; kc0 += kAttKeyChunk) {
     float s[8][4];
     scores(s, kc0);
 #pragma unroll
@@ -152,13 +156,13 @@ __device__ __forceinline__ void attention_rows(const bf16* __restrict__ q,
   float o[NO][4];
 #pragma unroll
   for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  for (int kc0 = 0; kc0 < tk; kc0 += kAttKeyChunk) {
+  for (int kc0 = 0; kc0 < nk; kc0 += kAttKeyChunk) {
     float s[8][4];
     scores(s, kc0);
 #pragma unroll
     for (int t = 0; t < kAttKeyChunk / 16; ++t) {
       const int key0 = kc0 + t * 16;
-      if (key0 < tk) {
+      if (key0 < nk) {
         const float(&lo)[4] = s[2 * t];
         const float(&hi)[4] = s[2 * t + 1];
         const uint32_t pa[4] = {
@@ -182,9 +186,9 @@ __device__ __forceinline__ void attention_rows(const bf16* __restrict__ q,
   bf16* orow = out + static_cast<size_t>(row) * ldo + t4 * 2;
 #pragma unroll
   for (int n = 0; n < NO; ++n) {
-    if (row < tp)
+    if (row < tq)
       *reinterpret_cast<uint32_t*>(orow + n * 8) = pack_bf16x2(o[n][0], o[n][1]);
-    if (row + 8 < tp)
+    if (row + 8 < tq)
       *reinterpret_cast<uint32_t*>(orow + 8 * ldo + n * 8) =
           pack_bf16x2(o[n][2], o[n][3]);
   }
@@ -200,9 +204,9 @@ __device__ __forceinline__ void attention_tile(const bf16* __restrict__ qkv,
                                                bf16* Ks, bf16* Vs) {
   const size_t stride = 3 * static_cast<size_t>(d);
   const bf16* base = qkv + static_cast<size_t>(b) * tp * stride + static_cast<size_t>(h) * DH;
-  attention_rows<DH, kCoherent>(base, base + d, base + 2 * d, stride,
+  attention_rows<DH, kCoherent>(base, stride, base + d, base + 2 * d, stride,
                                 out + static_cast<size_t>(b) * tp * d + static_cast<size_t>(h) * DH,
-                                d, tp, valid_len, scale, q0, Ks, Vs);
+                                d, tp, tp, valid_len, scale, q0, Ks, Vs);
 }
 
 template <int DH>

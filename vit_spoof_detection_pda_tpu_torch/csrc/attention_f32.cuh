@@ -21,9 +21,11 @@ constexpr int kF32Warps = 8;      // warps of a block
 constexpr int kF32Rows = 4;       // query rows of a warp at a time
 constexpr int kF32TileRows = 128; // query rows of a block at most
 
-__host__ __device__ inline size_t f32_smem_bytes(int t, int dh) {
-  return (2 * static_cast<size_t>(t) * (dh + 4) +
-          static_cast<size_t>(kF32Warps) * kF32Rows * (dh + t)) *
+// Shared memory of one block over tk keys: K and V [tk][dh + 4], and per
+// warp 4 query rows [4][dh] and their weights [tk][4].
+__host__ __device__ inline size_t f32_smem_bytes(int tk, int dh) {
+  return (2 * static_cast<size_t>(tk) * (dh + 4) +
+          static_cast<size_t>(kF32Warps) * kF32Rows * (dh + tk)) *
          sizeof(float);
 }
 
@@ -34,44 +36,47 @@ __device__ __forceinline__ float warp_max(float v) {
 }
 
 // One query tile (blockIdx.x, tile_rows rows) of one (head, item) over three
-// base pointers: q, k and v point at that head's slice of row 0 (row r at
-// + r * ld), out at the head's slice of output row 0 (row r at + r * ldo).
-// ld and the pointers keep 16-byte float4 rows (ld a multiple of 4).
+// base pointers: q points at that head's slice of query row 0 (row r at
+// + r * ldq), k and v at its slice of key row 0 (row r at + r * ldk), out at
+// the head's slice of output row 0 (row r at + r * ldo); tq query rows
+// against tk keys (f32_smem_bytes(tk, DH) of shared memory).  ldq, ldk and
+// the pointers keep 16-byte float4 rows (multiples of 4).
 template <int DH>
-__device__ __forceinline__ void attention_f32_rows(const float* __restrict__ q,
+__device__ __forceinline__ void attention_f32_rows(const float* __restrict__ q, size_t ldq,
                                                    const float* __restrict__ k,
-                                                   const float* __restrict__ v, size_t ld,
-                                                   float* __restrict__ out, size_t ldo, int t,
-                                                   int valid_len, float scale, int tile_rows) {
+                                                   const float* __restrict__ v, size_t ldk,
+                                                   float* __restrict__ out, size_t ldo, int tq,
+                                                   int tk, int valid_len, float scale,
+                                                   int tile_rows) {
   constexpr int LD = DH + 4;          // shared row stride (floats), 16-byte multiple
   constexpr int C4 = DH / 4;          // float4 chunks of a head row
   constexpr int NJ = (DH + 31) / 32;  // output columns of a lane
   extern __shared__ __align__(16) float smf[];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   float* Ks = smf;
-  float* Vs = Ks + static_cast<size_t>(t) * LD;
-  float* Qw = Vs + static_cast<size_t>(t) * LD +
-              static_cast<size_t>(warp) * kF32Rows * (DH + t);  // [4][DH]
-  float* Pw = Qw + kF32Rows * DH;                               // [t][4]
+  float* Vs = Ks + static_cast<size_t>(tk) * LD;
+  float* Qw = Vs + static_cast<size_t>(tk) * LD +
+              static_cast<size_t>(warp) * kF32Rows * (DH + tk);  // [4][DH]
+  float* Pw = Qw + kF32Rows * DH;                                // [tk][4]
 
-  for (int c = tid; c < t * C4; c += blockDim.x) {
+  for (int c = tid; c < tk * C4; c += blockDim.x) {
     const int r = c / C4, col = (c % C4) * 4;
     *reinterpret_cast<float4*>(Ks + r * LD + col) =
-        __ldg(reinterpret_cast<const float4*>(k + r * ld + col));
+        __ldg(reinterpret_cast<const float4*>(k + r * ldk + col));
     *reinterpret_cast<float4*>(Vs + r * LD + col) =
-        __ldg(reinterpret_cast<const float4*>(v + r * ld + col));
+        __ldg(reinterpret_cast<const float4*>(v + r * ldk + col));
   }
   __syncthreads();
 
   const int tile = static_cast<int>(blockIdx.x);
-  const int q_end = min(t, (tile + 1) * tile_rows);
+  const int q_end = min(tq, (tile + 1) * tile_rows);
   for (int r0 = tile * tile_rows + warp * kF32Rows; r0 < q_end;
        r0 += kF32Warps * kF32Rows) {
     // the 4 query rows; rows past the tile are zeros and are not written
     for (int c = lane; c < kF32Rows * C4; c += 32) {
       const int rr = c / C4, col = (c % C4) * 4;
       float4 qv = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (r0 + rr < q_end) qv = __ldg(reinterpret_cast<const float4*>(q + (r0 + rr) * ld + col));
+      if (r0 + rr < q_end) qv = __ldg(reinterpret_cast<const float4*>(q + (r0 + rr) * ldq + col));
       *reinterpret_cast<float4*>(Qw + rr * DH + col) = qv;
     }
     __syncwarp();
@@ -80,7 +85,7 @@ __device__ __forceinline__ void attention_f32_rows(const float* __restrict__ q,
     float m[kF32Rows];
 #pragma unroll
     for (int rr = 0; rr < kF32Rows; ++rr) m[rr] = -CUDART_INF_F;
-    for (int key = lane; key < t; key += 32) {
+    for (int key = lane; key < tk; key += 32) {
       float s[kF32Rows] = {0.f, 0.f, 0.f, 0.f};
       const float* kr = Ks + key * LD;
 #pragma unroll
@@ -107,7 +112,7 @@ __device__ __forceinline__ void attention_f32_rows(const float* __restrict__ q,
 
     // 2. e = exp(s - m), l = sum e, w = e / l
     float l[kF32Rows] = {0.f, 0.f, 0.f, 0.f};
-    for (int key = lane; key < t; key += 32) {
+    for (int key = lane; key < tk; key += 32) {
       float4 e = *reinterpret_cast<const float4*>(Pw + key * 4);
       e.x = expf(e.x - m[0]);
       e.y = expf(e.y - m[1]);
@@ -121,7 +126,7 @@ __device__ __forceinline__ void attention_f32_rows(const float* __restrict__ q,
     }
 #pragma unroll
     for (int rr = 0; rr < kF32Rows; ++rr) l[rr] = warp_sum(l[rr]);
-    for (int key = lane; key < t; key += 32) {
+    for (int key = lane; key < tk; key += 32) {
       float4 w = *reinterpret_cast<const float4*>(Pw + key * 4);
       w.x /= l[0];
       w.y /= l[1];
@@ -138,7 +143,7 @@ __device__ __forceinline__ void attention_f32_rows(const float* __restrict__ q,
 #pragma unroll
       for (int j = 0; j < NJ; ++j) o[rr][j] = 0.f;
     }
-    for (int key = 0; key < t; ++key) {
+    for (int key = 0; key < tk; ++key) {
       const float4 w = *reinterpret_cast<const float4*>(Pw + key * 4);
       const float* vr = Vs + key * LD;
 #pragma unroll
@@ -176,9 +181,9 @@ __global__ void __launch_bounds__(kF32Warps * 32)
   const int h = blockIdx.y, b = blockIdx.z;
   const size_t stride = 3 * static_cast<size_t>(d);
   const float* base = qkv + static_cast<size_t>(b) * t * stride + static_cast<size_t>(h) * DH;
-  attention_f32_rows<DH>(base, base + d, base + 2 * d, stride,
+  attention_f32_rows<DH>(base, stride, base + d, base + 2 * d, stride,
                          out + static_cast<size_t>(b) * t * d + static_cast<size_t>(h) * DH, d,
-                         t, valid_len, scale, tile_rows);
+                         t, t, valid_len, scale, tile_rows);
 }
 
 // The query tiles of a launch: rows split evenly into tiles of at most

@@ -6,8 +6,8 @@ and normalization run on the device.  A thread pool decodes ahead through
 a bounded queue, and :func:`prefetch_to_device` keeps batches in flight
 on the card.  Corrupt files decode to a black image with a logged
 warning.  The port decodes through PIL only (the JAX package's native
-libjpeg decoder is not ported), and runs as one process, so
-:func:`shard_for_host` is the identity.
+libjpeg decoder is not ported).  In a multi-rank run
+:func:`shard_for_host` gives each data rank its equal share.
 
 PIL is imported inside the functions, so the module imports where PIL
 is not installed; only decoding needs it.
@@ -81,10 +81,31 @@ def decode_image_bytes(data: bytes, size: int,
         raise ValueError(f"undecodable image bytes ({e})") from e
 
 
-def shard_for_host(records: Sequence[Record]) -> List[Record]:
-    """This process's share of the dataset: all of it (the port runs one
-    process; the JAX package slices by ``jax.process_index()``)."""
-    return list(records)
+def shard_for_host(records: Sequence[Record], mesh=None) -> List[Record]:
+    """This rank's share of the dataset in a multi-rank run (JAX :114):
+    every rank gets EXACTLY ``n // ranks`` records, ``records[i::ranks]``
+    (the tail remainder, fewer than ``ranks`` records, is dropped: a
+    one-record skew would make the ranks' steps per epoch differ, and the
+    rank with one more step would hang in its gradient all-reduce).  The
+    ranks are the process group's, or with ``mesh`` its data axis (the
+    ranks of one sequence group share their rows).  One rank: all of
+    it."""
+    from ..parallel import mesh as pmesh
+    if mesh is not None:
+        n, idx = (pmesh.axis_sizes(mesh).get(pmesh.DATA_AXIS, 1),
+                  pmesh.axis_rank(mesh, pmesh.DATA_AXIS))
+    else:
+        n, idx = pmesh.world_size(), pmesh.rank()
+    if n == 1:
+        return list(records)
+    per = len(records) // n
+    if per == 0 and records:
+        # every rank would get [] and die later inside the splitter with an
+        # unrelated-looking error
+        raise ValueError(
+            f"dataset of {len(records)} records is smaller than the "
+            f"{n}-rank data axis — nothing to shard")
+    return list(records)[idx::n][:per]
 
 
 def epoch_order(n: int, epoch: int, seed: int,

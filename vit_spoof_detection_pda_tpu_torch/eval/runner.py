@@ -1,5 +1,5 @@
 """Batched inference over a dataset (counterpart of the JAX package's
-``eval/runner.py``, without a mesh).
+``eval/runner.py``).
 
 Host threads decode (``data/loader.py::DataPipeline``); per batch the
 device runs normalize -> the module's forward -> P(live), and only the
@@ -13,7 +13,9 @@ The module holds its weights (a port ``nn.Module`` from
 ``models/registry.py::build_model`` or loaded through
 ``models/convert.py``); batches go to the device its parameters are on.
 On the card the ViT's attention core is kernel 8 (``ops/attention.py::
-dispatch_attention_qkv``); on the CPU its plain version.
+dispatch_attention_qkv``); on the CPU its plain version.  Under a mesh
+(one process per rank) each data rank scores its share of the records
+and the scores are gathered back into record order.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from ..data.loader import DataPipeline
 from ..data.manifest import Record
 from ..device import exact_f32_matmul
 from ..ops import image as I
+from ..ops.attention import attention_sharding
 
 log = logging.getLogger(__name__)
 
@@ -38,7 +41,7 @@ def module_device(module: torch.nn.Module) -> torch.device:
 
 def make_infer_fn(module, *, normalize: bool = True,
                   input_dtype=torch.float32, threshold: float = 0.5,
-                  temperature: Optional[float] = None):
+                  temperature: Optional[float] = None, mesh=None):
     """``infer(batch) -> {"prob1", "pred"}`` (tensors on the module's
     device): uint8 batches take the fused one-pass normalize, float
     batches in [0, 1] the to_float + normalize path, both in
@@ -47,7 +50,9 @@ def make_infer_fn(module, *, normalize: bool = True,
 
     ``threshold``: ``pred`` is P(live) > threshold; the default 0.5 is
     the argmax of the logits, the reference's rule.  ``temperature``:
-    P(live) = sigmoid((l1 - l0) / T), and ``pred`` cuts that."""
+    P(live) = sigmoid((l1 - l0) / T), and ``pred`` cuts that.  ``mesh``:
+    the forward runs under ``attention_sharding(mesh)`` on this rank's
+    rows."""
     if temperature is not None and float(temperature) <= 0.0:
         raise ValueError(f"temperature must be > 0, got {temperature}")
     dev = module_device(module)
@@ -56,7 +61,7 @@ def make_infer_fn(module, *, normalize: bool = True,
     @torch.inference_mode()
     def infer(batch):
         batch = torch.as_tensor(batch).to(dev)
-        with exact_f32_matmul():
+        with exact_f32_matmul(), attention_sharding(mesh):
             return infer_body(module, batch, normalize=normalize,
                               input_dtype=input_dtype, threshold=threshold,
                               temperature=temperature)
@@ -174,22 +179,49 @@ def run_inference(module, records: Sequence[Record], *,
     ``records`` (labels canonical 1 = live, prob1 = P(live)).
 
     ``fastserve=True`` scores on the serving path (bf16 kernel numerics,
-    opt-in throughput mode; :func:`make_fastserve_infer`).  A device
-    mesh comes with slice 6 and raises."""
-    if mesh is not None:
-        raise NotImplementedError("eval on a device mesh comes with slice 6 "
-                                  "(ROADMAP Queue 1 item 9)")
+    opt-in throughput mode; :func:`make_fastserve_infer`).
+
+    ``mesh`` (JAX :147-175): data-parallel scoring.  ``batch_size`` is the
+    global batch and must divide by the data axis; data rank r scores the
+    records ``r, r + n, ...`` at ``batch_size / n`` a batch (the ranks of
+    one sequence group alike, through the sequence-parallel forward) and
+    every rank returns all the scores in record order.  The fastserve
+    path over a mesh (JAX ``serving_forward_sharded``) raises: ROADMAP
+    Queue 1 item 9b."""
+    if mesh is not None and fastserve:
+        raise NotImplementedError(
+            "fastserve scoring over a mesh (serving_forward_sharded) is not "
+            "ported: ROADMAP Queue 1 item 9b")
     if fastserve and not normalize:
         raise ValueError("fastserve always folds normalization into the "
                          "weights; normalize=False is only supported on "
                          "the standard path")
-    pipe = DataPipeline(records, batch_size=batch_size, img_size=img_size,
-                        resize="exact", num_workers=num_workers,
-                        shuffle=False, drop_last=False)
-    infer = (make_fastserve_infer(module) if fastserve
-             else make_infer_fn(module, normalize=normalize))
-    prob1, pred = score_batches(infer, pipe.batches(), len(records),
-                                batch_size=batch_size,
-                                device=module_device(module))
     labels = np.asarray([r.label for r in records], np.int32)
+    mine = np.arange(len(records))
+    if mesh is not None:
+        from ..parallel.mesh import DATA_AXIS, axis_rank, axis_sizes
+        n_data = axis_sizes(mesh).get(DATA_AXIS, 1)
+        if batch_size % n_data:
+            raise ValueError(f"batch_size {batch_size} not divisible by the "
+                             f"{n_data}-way data axis of the eval mesh")
+        mine = mine[axis_rank(mesh, DATA_AXIS)::n_data]
+        batch_size //= n_data
+    pipe = DataPipeline([records[i] for i in mine], batch_size=batch_size,
+                        img_size=img_size, resize="exact",
+                        num_workers=num_workers, shuffle=False,
+                        drop_last=False)
+    infer = (make_fastserve_infer(module) if fastserve
+             else make_infer_fn(module, normalize=normalize, mesh=mesh))
+    dev = module_device(module)
+    prob1, pred = score_batches(infer, pipe.batches(), len(mine),
+                                batch_size=batch_size, device=dev)
+    if mesh is not None:
+        from ..parallel.collectives import all_gather_rows
+        from ..parallel.mesh import DATA_AXIS
+        group = mesh.get_group(DATA_AXIS)
+        got = [all_gather_rows(torch.from_numpy(a).to(dev), group).cpu()
+               .numpy() for a in (mine, prob1, pred)]
+        prob1, pred = np.zeros_like(prob1, shape=len(records)), np.zeros_like(
+            pred, shape=len(records))
+        prob1[got[0]], pred[got[0]] = got[1], got[2]
     return {"labels": labels, "prob1": prob1, "pred": pred}

@@ -74,13 +74,18 @@ def run_single_model_eval(module, records: Sequence[Record], *,
                           output_dir: str, batch_size: int = 128,
                           img_size: int = 224, threshold: float = 0.5,
                           checkpoint_name: str = "",
-                          write_plots: bool = True,
+                          write_plots: bool = True, mesh=None,
                           fastserve: bool = False):
     """Score ``records`` with ``module`` and write the artifact set (JAX
     :29); returns ``(metrics, paths)``.  ``fastserve=True`` scores on the
-    serving path (opt-in bf16 throughput mode, ``eval/runner.py``)."""
+    serving path (opt-in bf16 throughput mode, ``eval/runner.py``).
+    ``mesh``: data-parallel scoring (``run_inference``); every rank gets
+    the metrics, rank 0 alone writes the files (``paths`` is empty
+    elsewhere)."""
+    from ..parallel.mesh import is_primary
+
     out = run_inference(module, records, batch_size=batch_size,
-                        img_size=img_size, fastserve=fastserve)
+                        img_size=img_size, fastserve=fastserve, mesh=mesh)
     y_true = out["labels"]
     y_prob = out["prob1"]           # P(live)
     # decisions at the requested operating point (reference test.py uses
@@ -88,8 +93,10 @@ def run_single_model_eval(module, records: Sequence[Record], *,
     y_pred = (out["pred"] if threshold == 0.5 else
               (np.asarray(y_prob) > threshold).astype(np.int32))
     metrics, cm = parity.calculate_metrics(y_true, y_pred, y_prob)
-    paths = _save_results(metrics, cm, y_true, y_pred, y_prob, records,
-                          Path(output_dir), checkpoint_name, write_plots)
+    paths = {}
+    if is_primary():
+        paths = _save_results(metrics, cm, y_true, y_pred, y_prob, records,
+                              Path(output_dir), checkpoint_name, write_plots)
     return metrics, paths
 
 

@@ -61,7 +61,7 @@ _META_FILE = "meta.json"
 
 _KERNEL_MODES = ("fastserve", "lowlat", "batch_grid")
 _FLEET_TODO = ("fleet (mesh) artifacts are not ported: ROADMAP Queue 1 "
-               "item 9 (parallelism)")
+               "item 9b")
 
 
 # ---------------------------------------------------------------------------

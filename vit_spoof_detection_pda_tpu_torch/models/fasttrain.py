@@ -386,10 +386,13 @@ def train_forward(params, batch, *, generator=None, train: bool = False,
                 + head["fc2"]["bias"])
 
 
-def fast_apply_available(module) -> bool:
-    """The fused training forward applies to the port's ``ViTAntiSpoof``."""
+def fast_apply_available(module, mesh=None) -> bool:
+    """The fused training forward applies to the port's ``ViTAntiSpoof``
+    on one rank (JAX :822): a mesh of more than one rank keeps the module
+    path, whose attention dispatch knows the mesh."""
     from .vit import ViTAntiSpoof
-    return isinstance(module, ViTAntiSpoof)
+    return isinstance(module, ViTAntiSpoof) and (mesh is None
+                                                 or mesh.size() == 1)
 
 
 def make_apply(module, *, dtype=None, mlp_mode: str = "hidden"):

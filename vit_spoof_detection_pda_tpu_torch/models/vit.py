@@ -20,7 +20,17 @@ conv's weights as one GEMM over :func:`patchify`'s rows, as in JAX.
 The attention core goes through ``ops/attention.py::
 dispatch_attention_qkv``: kernel 8 (``csrc/attention_qkv.cu``) on a CUDA
 tensor, its plain version on a CPU one.  The dense einsum path remains
-only for ``capture=True``, the attention-map tap.  The serving path
+only for ``capture=True``, the attention-map tap.
+
+Under a mesh (``ops/attention.py::attention_sharding``, one process per
+rank): with a ``seq`` axis, :class:`ViT` pads the tokens to a multiple
+of ``8 n_seq`` and runs the blocks on this rank's contiguous block of
+them, the attention on kernel 12 against the gathered keys; the heads'
+logits are seq rank 0's (the CLS token lives there), on every rank of the
+sequence group, with their gradient on seq rank 0 only, so each image's
+loss counts once.  With a ``data`` axis the head's dropout masks are
+drawn at the global batch shape and this rank's rows kept, so a run
+replays the single-card masks.  The serving path
 (``models/fastserve.py``) runs the same function on the block kernels
 over weights from :func:`fold_normalization`.
 """
@@ -35,6 +45,7 @@ from torch import nn
 from ..ops import attention as att
 from ..ops.gelu import _SQRT_2_OVER_PI, _SQRT_HALF, GELU, gelu
 from ..ops.image import IMAGENET_MEAN, IMAGENET_STD
+from ..parallel.mesh import DATA_AXIS, SEQ_AXIS, axis_rank, axis_sizes
 
 
 def _dense(x, weight, bias, dtype) -> torch.Tensor:
@@ -72,6 +83,40 @@ def _gelu(x: torch.Tensor, approximate: bool) -> torch.Tensor:
         inner = c(_SQRT_2_OVER_PI) * (x + c(0.044715) * x ** 3)
         return x * (0.5 * (1.0 + torch.tanh(inner)))
     return (0.5 * x) * torch.erfc(-x.float() * c(_SQRT_HALF)).to(dt)
+
+
+def _mesh_axes():
+    """``(mesh, {axis: size})`` of the enclosing ``attention_sharding``
+    (``(None, {})`` on the single-card path)."""
+    mesh = att.current_mesh()
+    return (None, {}) if mesh is None else (mesh, axis_sizes(mesh))
+
+
+def _dropout_rows(drop: nn.Dropout, x: torch.Tensor) -> torch.Tensor:
+    """``drop(x)`` over this rank's rows ``x [B_l, F]`` as the single-card
+    run over the global batch draws it: under a data axis of n ranks the
+    mask comes from a ``[n B_l, F]`` tensor (the same generator state on
+    every rank) holding ``x`` at this rank's block, and the block is
+    kept."""
+    mesh, sizes = _mesh_axes()
+    n = sizes.get(DATA_AXIS, 1)
+    if not (drop.training and drop.p > 0 and n > 1):
+        return drop(x)
+    b = x.shape[0]
+    lo = axis_rank(mesh, DATA_AXIS) * b
+    full = F.pad(x, (0, 0, lo, (n - 1) * b - lo))
+    return drop(full)[lo:lo + b]
+
+
+def _seq_logits(logits: torch.Tensor) -> torch.Tensor:
+    """Under a seq axis: seq rank 0's logits (its row 0 is the CLS token)
+    on every rank of the sequence group, the gradient on seq rank 0
+    only."""
+    mesh, sizes = _mesh_axes()
+    if sizes.get(SEQ_AXIS, 1) == 1:
+        return logits
+    from ..parallel.collectives import from_seq_rank0
+    return from_seq_rank0(logits, mesh.get_group(SEQ_AXIS))
 
 
 def _single_device() -> bool:
@@ -116,7 +161,9 @@ class Attention(nn.Module):
         self.proj = nn.Linear(dim, dim)
         self.attn_probs = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, valid_len=None) -> torch.Tensor:
+        """``valid_len``: under a seq mesh, the real token count of the
+        whole stream (``x`` is this rank's block of it)."""
         b, t, d = x.shape
         qkv = _linear(x, self.qkv, self.dtype)                  # [B, T, 3D]
         if self.capture:
@@ -128,7 +175,8 @@ class Attention(nn.Module):
             out = torch.einsum("bhqk,bkhd->bqhd", weights.to(self.dtype), v)
             out = out.reshape(b, t, d)
         else:
-            out = att.dispatch_attention_qkv(qkv, self.num_heads)
+            out = att.dispatch_attention_qkv(qkv, self.num_heads,
+                                             valid_len=valid_len)
         return _linear(out, self.proj, self.dtype)
 
 
@@ -159,8 +207,8 @@ class EncoderBlock(nn.Module):
         self.norm2 = nn.LayerNorm(dim, eps=norm_eps)
         self.mlp = MlpBlock(dim, int(dim * mlp_ratio), gelu, dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(_layer_norm(x, self.norm1, self.dtype))
+    def forward(self, x: torch.Tensor, valid_len=None) -> torch.Tensor:
+        x = x + self.attn(_layer_norm(x, self.norm1, self.dtype), valid_len)
         return x + self.mlp(_layer_norm(x, self.norm2, self.dtype))
 
 
@@ -223,12 +271,40 @@ class ViT(nn.Module):
         x = self.patch_embed(x, dt)
         cls = self.cls_token.to(dt).expand(x.shape[0], -1, -1)
         x = torch.cat([cls, x], dim=1) + self.pos_embed.to(dt)
+        mesh, sizes = _mesh_axes()
+        n_seq = sizes.get(SEQ_AXIS, 1)
+        if n_seq > 1:
+            return self._forward_seq(x, mesh, n_seq)
         for blk in self.blocks:
             x = blk(x)
         x = _layer_norm(x, self.norm, dt)
         if self.pool == "token":
             return x[:, 0]
         return x[:, 1:].float().mean(1).to(dt)
+
+    def _forward_seq(self, x, mesh, n_seq: int) -> torch.Tensor:
+        """The blocks on this rank's block of the tokens (JAX
+        ``_sp_sharded`` :1024 shards the same stream): ``[B, T, D]``
+        padded to ``Tp = round_up(T, 8 n_seq)`` (197 -> 208 at two ranks,
+        224 at four, 256 at eight), rows ``r Tp / n .. (r + 1) Tp / n``
+        kept.  LayerNorm, the GEMMs and the MLP are token-local; pad rows
+        run through them (a zero row's LayerNorm is finite), are masked
+        as keys and never read as outputs.  Returns row 0 of the block
+        after the final LayerNorm: the CLS feature on seq rank 0."""
+        if self.pool != "token":
+            raise NotImplementedError(
+                "sequence parallelism pools the CLS token; pool='mean' "
+                "under a seq axis is not ported (ROADMAP Queue 1 item 9b)")
+        if any(blk.attn.capture for blk in self.blocks):
+            raise ValueError("capture_attention reads the whole attention "
+                             "map, which no rank holds under a seq axis")
+        t = x.shape[1]
+        tl = att._round_up(t, 8 * n_seq) // n_seq
+        lo = axis_rank(mesh, SEQ_AXIS) * tl
+        x = F.pad(x, (0, 0, 0, n_seq * tl - t))[:, lo:lo + tl]
+        for blk in self.blocks:
+            x = blk(x, valid_len=t)
+        return _layer_norm(x, self.norm, self.dtype)[:, 0]
 
 
 class AntiSpoofHead(nn.Sequential):
@@ -247,9 +323,9 @@ class AntiSpoofHead(nn.Sequential):
 
     def forward(self, feats: torch.Tensor) -> torch.Tensor:
         norm, drop1, fc1, _act, drop2, fc2 = self
-        x = drop1(_layer_norm(feats, norm, self.dtype))
+        x = _dropout_rows(drop1, _layer_norm(feats, norm, self.dtype))
         x = _gelu(_linear(x, fc1, self.dtype), approximate=False)
-        return _linear(drop2(x), fc2, torch.float32)
+        return _linear(_dropout_rows(drop2, x), fc2, torch.float32)
 
 
 class ViTAntiSpoof(nn.Module):
@@ -278,7 +354,7 @@ class ViTAntiSpoof(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: ``[B, H, W, 3]`` normalized float -> logits ``[B, classes]``
         (f32)."""
-        return self.classifier(self.vit(x).float())
+        return _seq_logits(self.classifier(self.vit(x).float()))
 
 
 class ViTLinearHead(nn.Module):
@@ -299,7 +375,8 @@ class ViTLinearHead(nn.Module):
         self.classifier = nn.Linear(embed_dim, num_classes)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _linear(self.vit(x).float(), self.classifier, torch.float32)
+        return _seq_logits(_linear(self.vit(x).float(), self.classifier,
+                                   torch.float32))
 
 
 def module_apply(module: nn.Module):

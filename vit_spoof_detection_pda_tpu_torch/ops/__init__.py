@@ -7,8 +7,10 @@
 `losses.py`    — focal loss, weighted and label-smoothed cross entropy.
 `attention.py` — the attention-block, MLP-block, attention-backward,
                  fused-QKV and generic q/k/v attention kernels'
-                 wrappers, their plain versions and launch counts;
-                 ``dispatch_attention_qkv``; the serving kernels as
+                 wrappers, the sequence-parallel attention kernels'
+                 (forward and backward), their plain versions and launch
+                 counts; ``dispatch_attention_qkv`` and
+                 ``attention_sharding``; the serving kernels as
                  ``vsd::`` operators.
 `ln_bwd.py`    — the LayerNorm/residual-backward kernel's wrapper.
 `lowlat.py`    — the whole-encoder kernels' wrappers, packs (bf16 and

@@ -34,7 +34,7 @@ KERNELS = ("attention_block", "mlp_block", "attention_block_train",
            "lowlat_batchgrid", "pool_gather", "warp_pass", "nlm",
            "attention_qkv", "attention_block_f32", "attention_qkv_bwd_f32",
            "mlp_block_train", "attention_qkv_bwd_phased", "doctor_probe",
-           "attention")
+           "attention", "attention_cp", "attention_cp_bwd")
 # one count per kernel form: each library's name, the int8 form of the
 # per-item lowlat kernel ("lowlat_encoder_int8"), and the f32 forms that
 # share a library with another form (the f32 training attention block is
@@ -46,7 +46,9 @@ LAUNCHES = {name: 0 for name in KERNELS + ("attention_block_train_f32",
                                            "mlp_block_train_f32",
                                            "attention_qkv_bwd_phased_f32",
                                            "lowlat_encoder_int8",
-                                           "attention_f32")}
+                                           "attention_f32",
+                                           "attention_cp_f32",
+                                           "attention_cp_bwd_f32")}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -61,6 +61,17 @@ The int8 module path (``models/serving.py``) and
   ``csrc/attention.cu``, sharing kernel 8's core; replaces
   ``_attn_kernel`` (JAX ``ops/attention.py:58``).
 
+Sequence parallelism (a ``seq`` mesh axis, :func:`attention_sharding`)
+adds two:
+
+- :func:`fused_attention_qkv_cp`: the local query block ``q [B, Tq, D]``
+  against the gathered keys ``kv [B, Tk, 2D]``, bf16 and f32,
+  differentiable.  Kernel: ``csrc/attention_cp.cu`` (kernel 8's core on a
+  rectangle); replaces ``_attn_cp_kernel`` (JAX ``ops/attention.py:836``).
+- :func:`attention_cp_bwd`: its backward, ``dq`` and this rank's partial
+  ``dkv``.  Kernel: ``csrc/attention_cp_bwd.cu`` (kernel 4's body on a
+  rectangle); replaces ``_attn_cp_bwd_kernel`` (JAX :865).
+
 The serving kernels (1, 2, 8, 9) are also ``vsd::`` operators (the end
 of this module) for frozen programs (``models/artifact.py``).
 
@@ -71,6 +82,7 @@ what the first design does about them.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -104,6 +116,9 @@ _SIGNATURES = {
                         [_P] * 13 + [_I] * 3 + [_F] + [_I] * 2 + [_P]),
     "attention_qkv_bwd_phased": ("vsd_attention_qkv_bwd_phased",
                                  [_P] * 4 + [_I] * 7 + [_F, _P]),
+    "attention_cp": ("vsd_attention_cp", [_P] * 3 + [_I] * 7 + [_F, _P]),
+    "attention_cp_bwd": ("vsd_attention_cp_bwd",
+                         [_P] * 6 + [_I] * 7 + [_F, _P]),
 }
 # the f32 kernels' blocks: 8 warps, each on 4 query rows (or keys) at a time
 _F32_WARPS, _F32_ROWS = 8, 4
@@ -682,17 +697,285 @@ def fused_attention_qkv(qkv, num_heads: int):
     return _AttentionQKV.apply(qkv, num_heads)
 
 
-def dispatch_attention_qkv(qkv, num_heads: int, *, mesh=None):
+# --------------------------------------------------------------------------
+# Sequence parallelism: a local query block against the gathered keys
+# (kernels 12 and 13)
+# --------------------------------------------------------------------------
+
+
+def _cp_heads(q, kv, num_heads: int):
+    """``(b, tq, tk, d, dh)`` of a query block ``q [B, Tq, D]`` and the
+    gathered ``kv [B, Tk, 2D]``; raises on mismatched shapes."""
+    b, tq, d = q.shape
+    d = _check_head_geometry(d, num_heads)
+    if kv.dim() != 3 or kv.shape[0] != b or kv.shape[2] != 2 * d:
+        raise ValueError(f"kv has shape {tuple(kv.shape)}; expected "
+                         f"[{b}, Tk, {2 * d}] for q {tuple(q.shape)}")
+    return b, tq, kv.shape[1], d, d // num_heads
+
+
+def _cp_views(q, kv, num_heads: int):
+    """Per-head views: q ``[B, H, Tq, dh]``, k and v ``[B, H, Tk, dh]``."""
+    b, tq, tk, d, dh = _cp_heads(q, kv, num_heads)
+    qh = q.reshape(b, tq, num_heads, dh).transpose(1, 2)
+    k, v = kv.reshape(b, tk, 2, num_heads, dh).permute(2, 0, 3, 1, 4)
+    return qh, k, v
+
+
+def fused_attention_qkv_cp_plain(q, kv, num_heads: int, valid_len: int):
+    """Plain PyTorch version of kernel 12 (JAX ``_attn_cp_kernel`` :836,
+    whose oracle is ``_cp_dense_reference`` :1006): per head the f32
+    logits ``q k^T * dh^-0.5`` of the local queries ``q [B, Tq, D]``
+    against the gathered keys ``kv [B, Tk, 2D]`` (``[k | v]``), key
+    columns at or past ``valid_len`` at -1e30, the f32 softmax, the
+    weights rounded to ``kv.dtype`` before ``@ v`` with f32 sums, the
+    output ``[B, Tq, D]`` rounded once to ``q.dtype``."""
+    b, tq, _tk, d, dh = _cp_heads(q, kv, num_heads)
+    with exact_f32_matmul():
+        qh, k, v = _cp_views(q, kv, num_heads)
+        w = _softmax_weights(qh, k, float(dh) ** -0.5, valid_len)
+        heads = _mm(w.to(kv.dtype), v)                        # [B,H,Tq,dh]
+        return heads.transpose(1, 2).reshape(b, tq, d).to(q.dtype)
+
+
+def attention_cp_bwd_plain(q, kv, g, num_heads: int, valid_len: int):
+    """Plain PyTorch version of kernel 13 (JAX ``_attn_cp_bwd_kernel``
+    :865): ``(dq [B, Tq, D], dkv [B, Tk, 2D])`` of kernel 12 given the
+    cotangent ``g [B, Tq, D]`` of its output.  Per head the f32 softmax
+    ``w`` recomputed, ``dv = w^T g``, ``dw = g v^T``, ``dl = w (dw -
+    rowsum(dw w))``, ``dq = dl k s``, ``dk = dl^T q s``, rounding where
+    the TPU kernel does (to the input dtype): ``w`` before ``dv``, ``dl``
+    (from the f32 ``w`` and ``dw``) before ``dq`` and ``dk``, and the
+    outputs.  Key columns at or past ``valid_len`` get exactly zero ``dk``
+    and ``dv``; ``dkv`` is this block's contribution to every key."""
+    b, tq, tk, d, dh = _cp_heads(q, kv, num_heads)
+    cdt = q.dtype
+    scale = float(dh) ** -0.5
+    with exact_f32_matmul():
+        qh, k, v = _cp_views(q, kv, num_heads)
+        gh = g.to(cdt).reshape(b, tq, num_heads, dh).transpose(1, 2)
+        w = _softmax_weights(qh, k, scale, valid_len)          # [B,H,Tq,Tk]
+        dv = _mm(w.to(cdt).transpose(-1, -2), gh)
+        dw = _mm(gh, v.transpose(-1, -2))
+        dl = (w * (dw - (dw * w).sum(-1, keepdim=True))).to(cdt)
+        dq = _mm(dl, k) * scale
+        dk = _mm(dl.transpose(-1, -2), qh) * scale
+        dq = dq.transpose(1, 2).reshape(b, tq, d).to(cdt)
+        dkv = torch.stack([dk, dv], dim=2)                     # [B,H,2,Tk,dh]
+        return dq, dkv.permute(0, 3, 2, 1, 4).reshape(b, tk, 2 * d).to(cdt)
+
+
+def _check_cp_args(q, kv, num_heads, valid_len, what):
+    """Raise on what kernels 12 and 13 share: dtype, device, shapes, the
+    mask bound, the grid; returns ``(b, tq, tk, d, dh)``."""
+    b, tq, tk, d, dh = _cp_heads(q, kv, num_heads)
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"q is {q.dtype}; {what} takes bfloat16 or float32")
+    if kv.dtype != q.dtype or kv.device != q.device:
+        raise TypeError(f"q and kv must share dtype and device; got "
+                        f"{q.dtype} on {q.device}, {kv.dtype} on {kv.device}")
+    if not 0 < valid_len <= tk:
+        raise ValueError(f"{what} takes 0 < valid_len <= Tk; got valid_len "
+                         f"{valid_len}, Tk {tk}")
+    if not 0 < b <= 65535 or num_heads > 65535 or tq < 1:
+        raise ValueError(f"batch {b} / heads {num_heads} / Tq {tq} outside "
+                         "the grid")
+    _require(q, "q", q.dtype, (b, tq, d), q.device)
+    _require(kv, "kv", q.dtype, (b, tk, 2 * d), q.device)
+    return b, tq, tk, d, dh
+
+
+def _attention_cp_kernel(q, kv, num_heads: int, valid_len: int):
+    """Launch kernel 12 (``csrc/attention_cp.cu``) on CUDA ``q [B, Tq, D]``
+    and ``kv [B, Tk, 2D]``; raises on what it does not take."""
+    b, tq, tk, d, dh = _check_cp_args(q, kv, num_heads, valid_len,
+                                      "kernel 12")
+    if dh % 16 or not 16 <= dh <= 128:
+        raise ValueError(f"kernel 12 takes a head dim that is a multiple of "
+                         f"16 from 16 to 128; got {dh}")
+    smem = _attention_qkv_smem(tk, dh, q.dtype)          # kernel 8's core
+    if smem > _MAX_SMEM:
+        raise ValueError(f"Tk {tk} at head dim {dh} needs {smem} bytes of "
+                         f"shared memory per block; the card has {_MAX_SMEM}")
+    lib, fn = _entry("attention_cp")
+    out = torch.empty((b, tq, d), dtype=q.dtype, device=q.device)
+    f32 = q.dtype == torch.float32
+    err = fn(q.data_ptr(), kv.data_ptr(), out.data_ptr(), int(f32), b, tq,
+             tk, d, num_heads, valid_len, float(dh) ** -0.5,
+             torch.cuda.current_stream(q.device).cuda_stream)
+    name = "attention_cp_f32" if f32 else "attention_cp"
+    _build.check(lib, name, err)
+    LAUNCHES[name] += 1
+    return out
+
+
+def _attention_cp_bwd_smem(tq: int, tk: int, dh: int, dtype) -> int:
+    """Shared memory of kernel 13's blocks: bf16, two ``[max(nq, nk)][dh]``
+    operand tiles and the bf16 ``w`` and ``dl [nq][nk]`` (``nq``, ``nk``:
+    Tq and Tk rounded up to 16); f32, kernel 4's f32 launches at the
+    larger of Tq and Tk."""
+    if dtype == torch.bfloat16:
+        nq, nk = _round_up(tq, 16), _round_up(tk, 16)
+        return 2 * (2 * max(nq, nk) * dh + 2 * nq * nk)
+    return _attention_qkv_bwd_f32_smem(max(tq, tk), dh)
+
+
+def _attention_cp_bwd_kernel(q, kv, g, num_heads: int, valid_len: int):
+    """Launch kernel 13 (``csrc/attention_cp_bwd.cu``): ``(dq, dkv)`` on
+    CUDA ``q``, ``kv`` and ``g [B, Tq, D]``; raises on what it does not
+    take."""
+    b, tq, tk, d, dh = _check_cp_args(q, kv, num_heads, valid_len,
+                                      "kernel 13")
+    f32 = q.dtype == torch.float32
+    if (dh % 16 or dh > 128) if f32 else dh not in (16, 32, 64):
+        raise ValueError(
+            f"kernel 13 takes a head dim of 16, 32 or 64 in bf16 and a "
+            f"multiple of 16 up to 128 in f32; got {dh} in {q.dtype}")
+    if not f32 and max(_round_up(tq, 16), _round_up(tk, 16)) > 256:
+        raise ValueError(f"kernel 13 takes Tq and Tk up to 256 in bf16; got "
+                         f"Tq {tq}, Tk {tk}")
+    smem = _attention_cp_bwd_smem(tq, tk, dh, q.dtype)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"Tq {tq} x Tk {tk} at head dim {dh} needs {smem} "
+                         f"bytes of shared memory per block; the card has "
+                         f"{_MAX_SMEM}")
+    _require(g, "g", q.dtype, (b, tq, d), q.device)
+    lib, fn = _entry("attention_cp_bwd")
+    dq = torch.empty_like(q)
+    dkv = torch.empty_like(kv)
+    stats = (torch.empty((b, num_heads, tq, 4), dtype=torch.float32,
+                         device=q.device) if f32 else None)
+    err = fn(q.data_ptr(), kv.data_ptr(), g.data_ptr(), dq.data_ptr(),
+             dkv.data_ptr(), stats.data_ptr() if f32 else None, int(f32), b,
+             tq, tk, d, num_heads, valid_len, float(dh) ** -0.5,
+             torch.cuda.current_stream(q.device).cuda_stream)
+    name = "attention_cp_bwd_f32" if f32 else "attention_cp_bwd"
+    _build.check(lib, name, err)
+    LAUNCHES[name] += 1
+    return dq, dkv
+
+
+def attention_cp_bwd(q, kv, g, num_heads: int, valid_len: int):
+    """``(dq, dkv)`` of :func:`fused_attention_qkv_cp` given its output's
+    cotangent ``g``: kernel 13 on a CUDA tensor, its plain version on a
+    CPU one."""
+    g = g.to(q.dtype).contiguous()
+    if q.device.type == "cpu":
+        return attention_cp_bwd_plain(q, kv, g, num_heads, valid_len)
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    return _attention_cp_bwd_kernel(q, kv, g, num_heads, valid_len)
+
+
+class _AttentionCP(torch.autograd.Function):
+    """Kernel 12 forward, kernel 13 backward (the JAX ``custom_vjp`` of
+    ``fused_attention_qkv_cp``)."""
+
+    @staticmethod
+    def forward(ctx, q, kv, num_heads, valid_len):
+        ctx.num_heads, ctx.valid_len = num_heads, valid_len
+        ctx.save_for_backward(q, kv)
+        if q.device.type == "cpu":
+            return fused_attention_qkv_cp_plain(q, kv, num_heads, valid_len)
+        if q.device.type != "cuda":
+            raise ValueError(f"no kernel for device {q.device}")
+        return _attention_cp_kernel(q, kv, num_heads, valid_len)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, kv = ctx.saved_tensors
+        dq, dkv = attention_cp_bwd(q, kv, g, ctx.num_heads, ctx.valid_len)
+        return dq, dkv, None, None
+
+
+def fused_attention_qkv_cp(q, kv, num_heads: int, valid_len: int):
+    """Rectangular attention of sequence parallelism (counterpart of the
+    JAX ``fused_attention_qkv_cp`` :987): the local query block ``q [B,
+    Tq, D]`` against the gathered ``kv [B, Tk, 2D]`` (``[k | v]``, heads
+    contiguous inside each), keys at or past ``valid_len`` masked ->
+    ``[B, Tq, D]`` in ``q.dtype``.
+
+    A CPU tensor runs :func:`fused_attention_qkv_cp_plain`; a CUDA one
+    runs kernel 12 (``LAUNCHES["attention_cp"]``, f32
+    ``"attention_cp_f32"``) on bf16 or f32, any Tq and Tk (the TPU
+    kernel's zero padding to multiples of 8 adds nothing), a head dim
+    that is a multiple of 16 from 16 to 128.  Differentiable: the backward
+    is kernel 13 (bf16 head dims 16, 32, 64; Tq and Tk up to 256 and
+    within shared memory) or its plain version."""
+    return _AttentionCP.apply(q.contiguous(), kv.contiguous(), num_heads,
+                              valid_len)
+
+
+# the mesh model code runs under, and the sequence-parallel dispatches
+# made (on any device; JAX's ``pallas_calls``), which tests and
+# parallel/dryrun.py read to see that the CP path ran
+_context = {"mesh": None, "cp_calls": 0}
+
+
+@contextlib.contextmanager
+def attention_sharding(mesh=None):
+    """The mesh that model code runs under (JAX ``attention_sharding``
+    :645): :func:`dispatch_attention_qkv` and ``models/vit.py::ViT``
+    read it, so the module needs no mesh argument.  ``None`` restores the
+    single-card path."""
+    prev = _context["mesh"]
+    _context["mesh"] = mesh
+    try:
+        yield
+    finally:
+        _context["mesh"] = prev
+
+
+def current_mesh():
+    """The mesh of the enclosing :func:`attention_sharding`, or None."""
+    return _context["mesh"]
+
+
+def _sp_sharded(qkv, num_heads: int, mesh, valid_len: int):
+    """Attention under sequence parallelism (JAX ``_sp_sharded`` :1024):
+    the all-gather-KV form of context parallelism.  ``qkv [B_l, Tl, 3D]``
+    is this rank's contiguous block of the padded token stream; its K and
+    V (2/3 of the stream) are gathered along the ``seq`` group into
+    ``[B_l, Tp, 2D]`` and kernel 12 runs the local queries against them,
+    keys at or past ``valid_len`` (the real token count) masked.  In the
+    backward, kernel 13's partial dkv reduce-scatters back to the rank
+    that owns each key.  No ring schedule: at T = 197 one gather of the
+    keys is all the exchange there is."""
+    from ..parallel.collectives import all_gather_seq
+    from ..parallel.mesh import SEQ_AXIS
+
+    d = qkv.shape[-1] // 3
+    _context["cp_calls"] += 1
+    kv = all_gather_seq(qkv[..., d:], mesh.get_group(SEQ_AXIS))
+    return fused_attention_qkv_cp(qkv[..., :d], kv, num_heads, valid_len)
+
+
+def dispatch_attention_qkv(qkv, num_heads: int, *, mesh=None,
+                           valid_len=None):
     """The attention core of ``models/vit.py::Attention`` (JAX
-    ``dispatch_attention_qkv`` :663, its single-device step): a CUDA
-    tensor goes to kernel 8, a CPU tensor to its plain version.  The
-    mesh, sequence-, head-parallel and ``manual_attention`` branches are
-    not ported; passing a mesh raises."""
+    ``dispatch_attention_qkv`` :663) under ``mesh`` (by default the
+    :func:`attention_sharding` context's):
+
+    - no mesh, or a data-only mesh: kernel 8 on this rank's rows (its
+      plain version on a CPU tensor);
+    - a ``seq`` axis larger than 1: :func:`_sp_sharded`, kernel 12 on the
+      local query block against the gathered keys; ``valid_len`` is the
+      real token count of the gathered stream (pad keys past it masked);
+    - a ``model`` axis larger than 1 (head-sharded attention) raises:
+      ROADMAP Queue 1 item 9b, as does JAX's ``manual_attention``."""
+    mesh = _context["mesh"] if mesh is None else mesh
     if mesh is not None:
-        raise NotImplementedError(
-            "attention under a device mesh (data, sequence or head "
-            "parallel) is not ported: ROADMAP Queue 1 item 9 (slice 6, "
-            "parallelism)")
+        from ..parallel.mesh import MODEL_AXIS, SEQ_AXIS, axis_sizes
+        sizes = axis_sizes(mesh)
+        if sizes.get(MODEL_AXIS, 1) > 1:
+            raise NotImplementedError(
+                "head-sharded attention under a model axis (tensor "
+                "parallelism) is not ported: ROADMAP Queue 1 item 9b")
+        if sizes.get(SEQ_AXIS, 1) > 1:
+            if valid_len is None:
+                raise ValueError("sequence-parallel attention needs "
+                                 "valid_len, the real token count")
+            return _sp_sharded(qkv, num_heads, mesh, valid_len)
     return fused_attention_qkv(qkv, num_heads)
 
 

@@ -11,8 +11,13 @@ on the card -> checkpoints and early stop.  The chain builders take the
 ``TrainAugConfig`` fields as keyword arguments with its defaults;
 :func:`train_from_config` maps a ``Config`` onto them.
 
-One card: ``data.shard_cache`` (the memmapped shard store) and a mesh are
-not ported and raise.
+Several ranks (``parallel/mesh.py``, one process each): the records are
+shared out by data rank (``data/loader.py::shard_for_host``; the pool
+mode stages every original on each rank and shares out its index
+batches instead), each rank's batches are its rows of the global batch
+and the Trainer trains on the mesh ``config.sharding`` describes.
+``data.shard_cache`` (the memmapped shard store) is not ported and
+raises.
 """
 
 from __future__ import annotations
@@ -115,17 +120,20 @@ def _train_aug(cfg) -> dict:
                 random_erase_prob=ta.random_erase_prob)
 
 
-def _make_online_data(cfg):
+def _make_online_data(cfg, mesh=None):
     """Online differential augmentation (JAX ``_make_online_data``): raw
     store -> severity groups decoded on the host -> each group's chain
     inside the step."""
     from ..data.manifest import class_counts, scan_raw, stratified_split
     from .online import OnlineAugmentedData
 
+    from ..data.loader import shard_for_host
+
     records = scan_raw(cfg.augment.input_dir)
     if not records:
         raise FileNotFoundError(
             f"online augmentation: no images under {cfg.augment.input_dir}")
+    records = shard_for_host(records, mesh)
     train_recs, val_recs = stratified_split(
         records, cfg.data.train_split, cfg.data.split_seed)
     data = OnlineAugmentedData(
@@ -147,13 +155,15 @@ def _make_online_data(cfg):
     return train_batches, val_recs, data.steps_per_epoch, counts, preps
 
 
-def _make_pool_data(cfg, device):
+def _make_pool_data(cfg, device, mesh=None):
     """Online differential augmentation from a pool of the originals on
     the card (JAX ``_make_pool_data``): decode the unique originals once,
-    stage them, feed the epoch as per-group index batches."""
+    stage them, feed the epoch as per-group index batches.  Under a mesh
+    every rank stages the same pool and takes its data rank's rows of
+    each index batch; validation streams this rank's share."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from ..data.loader import decode_image
+    from ..data.loader import decode_image, shard_for_host
     from ..data.manifest import scan_raw, stratified_split
     from .pool import DevicePoolData
 
@@ -177,12 +187,22 @@ def _make_pool_data(cfg, device):
     preps = {g: data.wrap_prep(p) for g, p in make_group_preps(
         aug_dtype=cfg.train_aug.aug_dtype, enabled=cfg.train_aug.enabled,
         **_train_aug(cfg)).items()}
-    return (lambda epoch, skip=0: data.batches(epoch, skip=skip), val_recs,
+    def train_batches(epoch, skip=0):
+        for batch in data.batches(epoch, skip=skip):
+            if mesh is not None:
+                from ..parallel.mesh import shard_batch
+                rows = shard_batch({"index": batch["index"],
+                                    "label": batch["label"]}, mesh)
+                batch = {**batch, **rows}
+            yield batch
+
+    return (train_batches, shard_for_host(val_recs, mesh),
             data.steps_per_epoch, counts, preps)
 
 
 def _run_training(cfg, train_batches, val_recs, steps, counts,
-                  max_steps_per_epoch, batch_prep=None, device=None):
+                  max_steps_per_epoch, batch_prep=None, device=None,
+                  mesh=None):
     """Shared tail (JAX :221): the validation pipeline, the model, the
     checkpoints, the Trainer, resume; returns ``(best, trainer)``."""
     from ..data.loader import DataPipeline
@@ -250,7 +270,8 @@ def _run_training(cfg, train_batches, val_recs, steps, counts,
     trainer = Trainer(cfg, module, train_batches=train_batches,
                       val_batches=val_batches, steps_per_epoch=steps,
                       class_counts=counts, variables=variables,
-                      checkpoints=ckpt, batch_prep=batch_prep, device=dev)
+                      checkpoints=ckpt, batch_prep=batch_prep, device=dev,
+                      mesh=mesh)
     start_epoch = start_batch = 0
     if cfg.checkpoint.resume:
         latest = ckpt.latest_step()
@@ -278,30 +299,33 @@ def train_from_config(cfg, *, mesh=None, records=None,
                       max_steps_per_epoch: Optional[int] = None,
                       device=None):
     """Run the full training lifecycle (JAX :328); returns ``(best,
-    trainer)``, as JAX's does.  On the card unless ``device="cpu"``."""
-    from ..data.loader import DataPipeline
+    trainer)``, as JAX's does.  On the card unless ``device="cpu"``; in a
+    process group of more than one rank, on the mesh ``cfg.sharding``
+    describes (or ``mesh``)."""
+    from ..data.loader import DataPipeline, shard_for_host
     from ..data.manifest import class_counts, scan_augmented, stratified_split
-    from .trainer import check_single_device
+    from .trainer import resolve_mesh
 
-    check_single_device(cfg, mesh)
+    mesh = resolve_mesh(cfg, mesh, device)
     if cfg.data.shard_cache:
         raise NotImplementedError(_SHARD_TODO)
     if cfg.augment.online:
         if cfg.augment.device_pool:
             from ..device import resolve_device
-            parts = _make_pool_data(cfg, resolve_device(device))
+            parts = _make_pool_data(cfg, resolve_device(device), mesh)
         else:
-            parts = _make_online_data(cfg)
+            parts = _make_online_data(cfg, mesh)
         train_batches, val_recs, steps, counts, preps = parts
         return _run_training(cfg, train_batches, val_recs, steps, counts,
                              max_steps_per_epoch, batch_prep=preps,
-                             device=device)
+                             device=device, mesh=mesh)
     if records is None:
         records = scan_augmented(cfg.data.data_root)
     if not records:
         raise FileNotFoundError(
             f"no images found under {cfg.data.data_root} "
             "(expected live/ and spoof/ subdirectories)")
+    records = shard_for_host(records, mesh)
     counts = class_counts(records)
     log.info("dataset: %d images (spoof=%d live=%d)", len(records),
              counts[0], counts[1])
@@ -324,4 +348,5 @@ def train_from_config(cfg, *, mesh=None, records=None,
     prep = make_prep_fn(chain, aug_dtype=cfg.train_aug.aug_dtype)
     return _run_training(cfg, train_batches, val_recs,
                          train_pipe.steps_per_epoch, counts,
-                         max_steps_per_epoch, batch_prep=prep, device=device)
+                         max_steps_per_epoch, batch_prep=prep, device=device,
+                         mesh=mesh)

@@ -1,5 +1,5 @@
 """Train and eval steps (counterpart of the JAX package's
-``train/step.py``, without a mesh).
+``train/step.py``).
 
 A step runs the forward and the backward through ``state.apply_fn``
 (the kernels on the card), the optimizer in place, and returns the
@@ -11,6 +11,15 @@ Pool mode (``train/pool.py``): a batch with ``index`` carries the
 device-resident pool as its ``image``; the step gathers its rows on the
 card with ``ops/gather.py::pool_gather`` (kernel 14) before
 ``batch_prep``.
+
+Under a mesh (``parallel/mesh.py``; one process per rank) a step takes
+this rank's rows of the batch (its data block; every rank of a sequence
+group the same rows) and runs the forward under ``attention_sharding``.
+The logits of the data group's ranks are gathered, so every rank
+computes the loss and metrics of the GLOBAL batch; each rank's gradient
+is then its own rows' and tokens' share of the global gradient, and one
+all-reduce (sum) over the whole data x seq group gives every rank the
+single-card gradient of the global-batch loss.
 """
 
 from __future__ import annotations
@@ -20,6 +29,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..ops.attention import attention_sharding
 from ..ops.gather import pool_gather
 from .state import TrainState, global_norm_f32, tree_flatten
 
@@ -43,7 +53,8 @@ def _to(x, device) -> torch.Tensor:
     return x.to(device)
 
 
-def make_train_step(loss_fn: Callable, *, batch_prep: Optional[Callable] = None):
+def make_train_step(loss_fn: Callable, *, batch_prep: Optional[Callable] = None,
+                    mesh=None):
     """``step(state, batch) -> (state, metrics)``.
 
     ``loss_fn(logits, labels) -> scalar``.  ``batch``: ``{"image":
@@ -55,7 +66,14 @@ def make_train_step(loss_fn: Callable, *, batch_prep: Optional[Callable] = None)
     generator of its own derived from the step.  The state's parameters
     and optimizer state are updated in place.  Metrics: ``loss``,
     ``accuracy`` and ``grad_norm`` (the global norm of the raw gradients,
-    squares summed in f32)."""
+    squares summed in f32).  Under ``mesh`` the batch holds this rank's
+    rows and the metrics are the global batch's (the module docstring)."""
+    data_group = None
+    if mesh is not None:
+        from ..parallel.collectives import (all_gather_rows, all_reduce_sum,
+                                            gather_rows)
+        from ..parallel.mesh import DATA_AXIS
+        data_group = mesh.get_group(DATA_AXIS)
 
     def step(state: TrainState, batch):
         leaves = state.leaves()
@@ -69,10 +87,16 @@ def make_train_step(loss_fn: Callable, *, batch_prep: Optional[Callable] = None)
                 step_generator(state.seed, state.step, dev, _PREP_SALT),
                 images)
         gen = step_generator(state.seed, state.step, dev)
-        logits = state.apply_fn({"params": state.params}, images, train=True,
-                                generator=gen)
+        with attention_sharding(mesh):
+            logits = state.apply_fn({"params": state.params}, images,
+                                    train=True, generator=gen)
+        if data_group is not None:
+            logits = gather_rows(logits, data_group)
+            labels = all_gather_rows(labels, data_group)
         loss = loss_fn(logits, labels)
         grads = torch.autograd.grad(loss, leaves)
+        if mesh is not None:
+            grads = all_reduce_sum(list(grads))
         metrics = {
             "loss": loss.detach(),
             "accuracy": (logits.detach().argmax(-1) == labels).float().mean(),
@@ -84,15 +108,18 @@ def make_train_step(loss_fn: Callable, *, batch_prep: Optional[Callable] = None)
     return step
 
 
-def make_eval_step(apply_fn: Callable, *, positive_index: int = 1):
+def make_eval_step(apply_fn: Callable, *, positive_index: int = 1,
+                   mesh=None):
     """``step(params, images) -> {"pred", "score", "logits"}`` with grad
     off: ``score`` is column ``positive_index`` of the softmax (P(live)
-    in the train/test stack)."""
+    in the train/test stack).  Under ``mesh``: this rank's rows, the
+    forward under ``attention_sharding``."""
 
     @torch.no_grad()
     def step(params, images):
         dev = tree_flatten(params)[0][0].device
-        logits = apply_fn({"params": params}, _to(images, dev))
+        with attention_sharding(mesh):
+            logits = apply_fn({"params": params}, _to(images, dev))
         probs = torch.softmax(logits.float(), dim=-1)
         return {"pred": logits.argmax(-1), "score": probs[:, positive_index],
                 "logits": logits}

@@ -17,9 +17,15 @@ float32 (normalized) or uint8 for a ``batch_prep``, "label": [B] int}``
 ``train_batches(epoch, skip=n)``: the source starts ``n`` batches into
 the epoch (exact mid-epoch resume).
 
-One card: a mesh, FSDP and the pipeline are not ported and raise.
-``telemetry.profile_dir`` traces the first epoch with ``torch.profiler``
-(``utils/profiling.py``).
+Several ranks (one process each, ``parallel/mesh.py``): the Trainer
+takes a ``mesh`` or, in a process group of more than one rank, builds the
+one ``config.sharding`` describes (data and sequence parallelism; tensor
+parallelism, FSDP and the pipeline raise: ROADMAP Queue 1 item 9b).
+Batches are then this rank's rows, the step's metrics the global batch's,
+validation gathers every data rank's scores so its metrics, the best-k
+choice and the early stop are the same on every rank, and only rank 0
+writes checkpoints and telemetry.  ``telemetry.profile_dir`` traces the
+first epoch with ``torch.profiler`` (``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ from ..config import Config
 from ..device import resolve_device
 from ..metrics import device as dmetrics
 from ..ops import losses
+from ..parallel import mesh as pmesh
 from ..utils.checkpoint import CheckpointManager
 from ..utils.profiling import profile_trace
 from ..utils.telemetry import MetricLogger
@@ -47,9 +54,7 @@ from .step import _to, make_eval_step, make_train_step
 
 log = logging.getLogger(__name__)
 
-_PARALLEL_TODO = (
-    "{what} is not ported: the port trains on one card (ROADMAP Queue 1 "
-    "item 9, parallelism)")
+_ITEM_9B = "{what} is not ported: ROADMAP Queue 1 item 9b"
 
 
 class _Preempted(Exception):
@@ -57,22 +62,39 @@ class _Preempted(Exception):
     request; the fit loop checkpoints and returns."""
 
 
-def check_single_device(config: Config, mesh=None):
-    """Raise ``NotImplementedError`` for what needs more than one card: a
-    mesh, data / model / sequence / pipeline parallelism, FSDP."""
+def check_sharding(config: Config, mesh=None):
+    """The JAX Trainer's sharding rules (JAX ``train/trainer.py``
+    :119-190, ``parallel/mesh.py::mesh_from_config``): ``ValueError`` for
+    layouts that cannot compose (seq with model or pipeline, fsdp beyond
+    pure data parallelism) or that do not fit the process group's ranks;
+    ``NotImplementedError`` naming ROADMAP Queue 1 item 9b for tensor
+    parallelism (a model axis), FSDP and the pipeline.  Data and sequence
+    parallelism pass."""
     sh = config.sharding
-    if mesh is not None:
-        raise NotImplementedError(_PARALLEL_TODO.format(what="a device mesh"))
-    for field in ("model_parallel", "seq_parallel", "pipeline_parallel"):
-        if getattr(sh, field) > 1:
-            raise NotImplementedError(_PARALLEL_TODO.format(
-                what=f"sharding.{field}={getattr(sh, field)}"))
-    if sh.data_parallel > 1:
-        raise NotImplementedError(_PARALLEL_TODO.format(
-            what=f"sharding.data_parallel={sh.data_parallel}"))
+    data, model, seq = pmesh.check_sharding(sh)
+    if model > 1:
+        raise NotImplementedError(_ITEM_9B.format(
+            what=f"sharding.model_parallel={model} (Megatron TP with the "
+                 "head-sharded attention)"))
     if sh.fsdp:
-        raise NotImplementedError(_PARALLEL_TODO.format(
-            what="sharding.fsdp"))
+        raise NotImplementedError(_ITEM_9B.format(
+            what="sharding.fsdp (FSDP2)"))
+    if mesh is None:
+        pmesh.mesh_shape(data, seq, pmesh.world_size(), "seq")
+    elif pmesh.axis_sizes(mesh).get(pmesh.MODEL_AXIS, 1) > 1:
+        raise NotImplementedError(_ITEM_9B.format(
+            what="training on a mesh with a model axis > 1"))
+
+
+def resolve_mesh(config: Config, mesh=None, device=None):
+    """The mesh a run trains on: ``mesh`` as given, else the one
+    ``config.sharding`` describes over a process group of more than one
+    rank, else None (one rank: the single-card path, no collectives)."""
+    check_sharding(config, mesh)
+    if mesh is None and pmesh.world_size() > 1:
+        mesh = pmesh.mesh_from_config(
+            config.sharding, device_type=resolve_device(device).type)
+    return mesh
 
 
 def module_tree_apply(module):
@@ -117,19 +139,21 @@ class Trainer:
         weights); ``opt_arrays``: a JAX ``TrainState`` carried across by
         ``models/convert.py::train_state_arrays`` (params, step, AdamW
         moments, EMA).  Runs on the card unless ``device="cpu"``."""
-        check_single_device(config, mesh)
         self.config = config
         self.module = module
         self.train_batches = train_batches
         self.val_batches = val_batches
         self.steps_per_epoch = steps_per_epoch
         self.device = resolve_device(device)
+        self.mesh = resolve_mesh(config, mesh, self.device)
         self._preempt = threading.Event()
-        self.logger = logger or MetricLogger(
+        # telemetry from rank 0 only; the other ranks log nowhere
+        self.logger = logger or (MetricLogger(
             jsonl_path=config.telemetry.jsonl_path,
             wandb_project=config.telemetry.wandb_project,
             wandb_entity=config.telemetry.wandb_entity,
-            config=config.to_dict())
+            config=config.to_dict()) if pmesh.is_primary()
+            else MetricLogger(echo=False))
         self.checkpoints = checkpoints
 
         # the accumulation applies one update per k micro-steps, and the
@@ -164,13 +188,21 @@ class Trainer:
         # kernels (JAX make_apply; model.mlp_vjp picks the MLP backward),
         # or the module path; validation always runs the module path
         from ..models.fasttrain import fast_apply_available, make_apply
-        if config.model.fused_train_forward and fast_apply_available(module):
+        if config.model.fused_train_forward and fast_apply_available(
+                module, self.mesh):
             train_apply = make_apply(module, mlp_mode=config.model.mlp_vjp)
         else:
             train_apply = module_tree_apply(module)
         self.state = create_train_state(
             module, tx, config.seed, variables=variables,
             apply_fn=train_apply, device=self.device, opt_arrays=opt_arrays)
+        if self.mesh is not None:
+            # every rank starts from rank 0's parameters and optimizer state
+            from ..parallel.collectives import broadcast_params
+            opt = self.state.opt_state
+            broadcast_params(self.state.leaves() + [
+                t for key in ("mu", "nu", "ema", "acc")
+                for t in (opt.get(key) or [])])
         self._eval_loss = loss_fn
 
         # batch_prep: on-card augmentation inside the step (a callable, or
@@ -178,9 +210,11 @@ class Trainer:
         # carry a "group" key selecting their step)
         preps = (batch_prep if isinstance(batch_prep, dict)
                  else {None: batch_prep})
-        self.train_steps = {tag: make_train_step(loss_fn, batch_prep=prep)
+        self.train_steps = {tag: make_train_step(loss_fn, batch_prep=prep,
+                                                 mesh=self.mesh)
                             for tag, prep in preps.items()}
-        self.eval_step = make_eval_step(module_tree_apply(module))
+        self.eval_step = make_eval_step(module_tree_apply(module),
+                                        mesh=self.mesh)
 
     # ------------------------------------------------------------------
 
@@ -189,6 +223,27 @@ class Trainer:
         boundary (safe point).  Called from the SIGTERM handler fit()
         installs, or directly by a cluster manager integration."""
         self._preempt.set()
+
+    def _preemption_agreed(self) -> bool:
+        """Whether to preempt at this safe point (JAX :236): the local
+        flag on one rank; under a mesh any rank's flag, agreed by an
+        all-reduce, so every rank stops at the same batch (a rank that
+        stopped while the others enter the gradient all-reduce would hang
+        them)."""
+        local = self._preempt.is_set()
+        if self.mesh is None:
+            return local
+        import torch.distributed as dist
+        flag = torch.tensor([float(local)], device=self.device)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        return bool(flag.item())
+
+    def _barrier(self):
+        """Under a mesh, wait for every rank (after rank 0's checkpoint
+        saves, so no rank reads a directory mid-save)."""
+        if self.mesh is not None:
+            import torch.distributed as dist
+            dist.barrier()
 
     def fit(self, start_epoch: int = 0, start_batch: int = 0):
         """Run the training lifecycle (JAX :253).  ``start_epoch`` > 0
@@ -250,6 +305,7 @@ class Trainer:
                         config=cfg.to_dict(), pin=True,
                         data=self._data_position(step))
                 self.checkpoints.wait_until_finished()
+                self._barrier()
             return {**best, "preempted": True}
 
     def _data_position(self, step: int) -> dict:
@@ -259,7 +315,7 @@ class Trainer:
 
     def _fit_epochs(self, cfg, stopper, best, start_epoch=0, start_batch=0):
         for epoch in range(start_epoch, cfg.optim.num_epochs):
-            if self._preempt.is_set():
+            if self._preemption_agreed():
                 raise _Preempted
             t0 = time.time()
             # a profiler trace of the first epoch when configured
@@ -297,11 +353,13 @@ class Trainer:
                         step, self.state, metrics=ckpt_metrics,
                         config=cfg.to_dict(),
                         data=self._data_position(step))
+                    self._barrier()
             elif self.checkpoints and (
                     (epoch + 1) % cfg.checkpoint.save_every_epochs == 0):
                 self.checkpoints.save(
                     step, self.state, metrics=ckpt_metrics,
                     config=cfg.to_dict(), data=self._data_position(step))
+                self._barrier()
 
             if stopper.update(val_f1):
                 log.info("early stopping at epoch %d (best %.4f @ %d)",
@@ -311,6 +369,7 @@ class Trainer:
             # an async save may still be writing: fit() must not return
             # before the checkpoint a caller will read exists
             self.checkpoints.wait_until_finished()
+            self._barrier()
         return best
 
     # ------------------------------------------------------------------
@@ -326,7 +385,7 @@ class Trainer:
         t_last = time.perf_counter()
         batches = self.train_batches(epoch, skip=skip_batches)
         for i, batch in enumerate(batches):
-            if self._preempt.is_set():
+            if self._preemption_agreed():
                 raise _Preempted         # safe point: between queued steps
             batch = dict(batch)
             group = batch.pop("group", None)
@@ -400,6 +459,19 @@ class Trainer:
             labels.append(lbl)
         scores = torch.cat(scores)
         labels = torch.cat(labels)
+        if self.mesh is not None:
+            # every data rank's scores, in rank order: the metrics below
+            # are the whole validation set's, the same on every rank
+            import torch.distributed as dist
+
+            from ..parallel.collectives import all_gather_rows
+            group = self.mesh.get_group(pmesh.DATA_AXIS)
+            scores = all_gather_rows(scores, group)
+            labels = all_gather_rows(labels, group)
+            sums = torch.stack([loss_sum.detach().float(), torch.tensor(
+                float(n_seen), device=loss_sum.device)])
+            dist.all_reduce(sums, group=group)
+            loss_sum, n_seen = sums[0], int(sums[1].item())
 
         table = dmetrics.threshold_table(
             scores, labels, torch.tensor([0.5], device=scores.device))

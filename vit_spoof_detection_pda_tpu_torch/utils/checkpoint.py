@@ -85,7 +85,12 @@ class CheckpointManager:
     ``async_save=True`` writes on a background thread: ``save`` returns
     once the state is copied off the card, and every read, every later
     save and :meth:`wait_until_finished` wait for the write first, so the
-    directory is always consistent."""
+    directory is always consistent.
+
+    In a multi-rank run (``parallel/mesh.py``) the ranks hold the same
+    state: rank 0 writes it and the other ranks' ``save`` writes nothing
+    (the Trainer waits at a barrier after each save); every rank restores
+    from the shared directory."""
 
     def __init__(self, directory: str, *, max_to_keep: int = 3,
                  best_metric: str = "val_f1", best_mode: str = "max",
@@ -116,7 +121,11 @@ class CheckpointManager:
         deleted, or ``latest_step`` would keep serving them.  A save
         merely below the latest step keeps the later ones (branch
         resume) and warns.  ``pin=True`` exempts the checkpoint from
-        best-k retention (the preemption save)."""
+        best-k retention (the preemption save).  On a rank other than 0
+        nothing is written and False is returned."""
+        from ..parallel.mesh import is_primary
+        if not is_primary():
+            return False
         self.wait_until_finished()
         existing = self.all_steps()
         if existing and step <= existing[-1]:
@@ -448,7 +457,7 @@ def _orbax_bundle(directory: str, step: Optional[int], ema: bool):
         if "blocks" in params.get("vit", {}):
             raise NotImplementedError(
                 "a pipeline-parallel (packed) JAX checkpoint is not read by "
-                "the port: ROADMAP Queue 1 item 9")
+                "the port: ROADMAP Queue 1 item 9b")
         params = _map_tree(lambda a: torch.from_numpy(np.array(a)), params)
         return {"params": params}, int(step), dict(restored["metrics"] or {})
     finally:
