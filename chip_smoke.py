@@ -181,11 +181,14 @@ runs these phases, each printing one JSON line and raising on failure:
             128 (Tp 200, valid_len 197) and ragged within 2 bf16 ulps,
             f32 at B = 32 and ragged within F32_TOL of each output's
             largest magnitude, pad rows zero; beside kernel 4 on the same
-            inputs (the gap printed, not bounded).
+            inputs (the gap printed, not bounded); its long-Tp route
+            (Tp 584, ViT-B/16 at 384 px) at bf16 and f32 the same way.
 21. train_phased step 0 at bf16 B = 128 and f32 B = 32 with BWD_PHASED
             set: every gradient leaf within GRAD_REL_TOL / F32_GRAD_REL_TOL
             of train_modes' f32 autograd, kernel 5 exactly 12 launches a
-            step and kernel 4 none; the flag restored after.
+            step and kernel 4 none; bf16 at 384 px (B = 8, Tp 584) within
+            GRAD_REL_TOL of that model's f32 autograd, kernel 5's long-Tp
+            route 12 launches; the flag restored after.
 22. cli      the verbs in process through ``__main__.main(argv)`` at
             ViT-B/16 on seeded faces over trees of empty files: config
             --diff; doctor --json (no FAIL, pallas ok, kernel 17 once);
@@ -201,10 +204,11 @@ runs these phases, each printing one JSON line and raising on failure:
             --all-models, --train-step with and without the fused
             forward and with BWD_PHASED, --profile), each printing its
             JSON line and launching only its mode's kernels.
-23. times_cli kernel 5 (bf16 B = 128, f32 B = 32) beside kernel 4, its
-            bound (kernel 4's work), its plain version and SDPA's
-            backward; kernel 17 beside 2 x and torch.mul; the training
-            step with the flag off and on, in turns; each verb's wall s.
+23. times_cli kernel 5 (bf16 B = 128, f32 B = 32, and the long-Tp route
+            at 384 px) in turns with kernel 4 (where it runs) and SDPA's
+            backward, its bound (kernel 4's work) and its plain version;
+            kernel 17 beside 2 x and torch.mul; the training step with the
+            flag off and on, in turns; each verb's wall s.
 24. kernels (again) kernel 9 (q/k/v attention) against its plain
             version: bf16 at ViT-B (B = 2 on contiguous q/k/v, B = 3 and
             the int8 path's 128 on the strided slices of one [B, T, 3,
@@ -259,13 +263,16 @@ runs these phases, each printing one JSON line and raising on failure:
             (kernel 12 and kernel 13 12 times a step, kernels 8 and 4
             never), step 0's every gradient leaf within 0.1 relative L2
             and its scores within phase 4's bounds of the single-process
-            module-path step, and an f32 SP forward at B = 32 within 1e-5
-            of the f32 module; 4 ranks (data 2 x seq 2) at B = 32 one
+            module-path step, an f32 SP forward at B = 32 within 1e-5 of
+            the f32 module and an f32 SP step at B = 32 (kernels 12 and 13
+            in f32, 12 launches each) within 1e-3 of the single-process
+            f32 step, leaf by leaf; 4 ranks (data 2 x seq 2) at B = 32 one
             step with the same checks; a one-rank NCCL group's data-only
             step and run_inference(mesh=) bit-equal to the no-mesh path.
-30. times_sp  kernels 12 (bf16 and f32) and 13 beside their plain
-            versions, bounds, scaled_dot_product_attention on the real
-            keys and its backward; each rank's step ms (ranks sharing one
+30. times_sp  kernels 12 and 13 (bf16 and f32) beside their plain
+            versions and bounds, each in turns with
+            scaled_dot_product_attention on the real keys or its
+            backward; each rank's step ms (ranks sharing one
             card: no yardstick of multi-card speed) and kernels 12 and 13
             inside rank 0's profiled step.
 
@@ -418,6 +425,9 @@ KERNELS = {
     "attention_qkv_bwd_phased_f32": dict(
         source="vit_spoof_detection_pda_tpu_torch/csrc/attention_qkv_bwd_phased.cu",
         replaces="vit_spoof_detection_pda_tpu/ops/attention.py:259"),
+    "attention_qkv_bwd_phased_long": dict(
+        source="vit_spoof_detection_pda_tpu_torch/csrc/attention_qkv_bwd_phased_long.cu",
+        replaces="vit_spoof_detection_pda_tpu/ops/attention.py:259"),
     "doctor_probe": dict(
         source="vit_spoof_detection_pda_tpu_torch/csrc/doctor_probe.cu",
         replaces="vit_spoof_detection_pda_tpu/cli/doctor.py:115"),
@@ -437,6 +447,9 @@ KERNELS = {
         source="vit_spoof_detection_pda_tpu_torch/csrc/attention_cp.cu",
         replaces="vit_spoof_detection_pda_tpu/ops/attention.py:836"),
     "attention_cp_bwd": dict(
+        source="vit_spoof_detection_pda_tpu_torch/csrc/attention_cp_bwd.cu",
+        replaces="vit_spoof_detection_pda_tpu/ops/attention.py:865"),
+    "attention_cp_bwd_f32": dict(
         source="vit_spoof_detection_pda_tpu_torch/csrc/attention_cp_bwd.cu",
         replaces="vit_spoof_detection_pda_tpu/ops/attention.py:865"),
 }
@@ -465,6 +478,10 @@ F32_TOL = 1e-5                       # f32 kernels, of each output's largest
 F32_B = 32                           # the f32 step's batch
 F32_GRAD_REL_TOL = 1e-3              # f32 step, per leaf relative L2 vs f32
                                      # autograd (f32 noise, ~1e-5 expected)
+# kernel 5's long-Tp route on a path of its own: ViT-B/16 at 384 px
+LONG_IMG, LONG_B = 384, 8
+LONG_T = (LONG_IMG // PATCH) ** 2 + 1  # 577 tokens
+LONG_TP = att._round_up(LONG_T, 8)     # 584 rows: past the one launch's 208
 LOOP_B, LOOP_STEPS, LOOP_EPOCHS, LOOP_VAL = 32, 4, 3, 96
 LOOP_PREEMPT = (1, 2)                # (epoch, batch) of the preemption
 
@@ -603,7 +620,7 @@ def train_inputs(rng, b, tp, valid, d, dev):
     return bwd, ln
 
 
-def random_params(rng, *, d=D, depth=DEPTH, hidden=HIDDEN) -> dict:
+def random_params(rng, *, d=D, depth=DEPTH, hidden=HIDDEN, t=T) -> dict:
     """ViTAntiSpoof parameters in the JAX layout (ViT-B/16 by default):
     encoder matrices N(0, 0.02), LN scales near 1, head sized so scores
     spread."""
@@ -618,7 +635,7 @@ def random_params(rng, *, d=D, depth=DEPTH, hidden=HIDDEN) -> dict:
 
     vit = {"patch_embed": dense(PATCH * PATCH * 3, d, 0.02),
            "cls_token": n(1, 1, d, std=0.02),
-           "pos_embed": n(1, T, d, std=0.02), "norm": ln(d)}
+           "pos_embed": n(1, t, d, std=0.02), "norm": ln(d)}
     for i in range(depth):
         vit[f"block{i}"] = {
             "norm1": ln(d),
@@ -636,9 +653,9 @@ def random_params(rng, *, d=D, depth=DEPTH, hidden=HIDDEN) -> dict:
 # --------------------------------------------------------------------------
 
 
-def time_ms(fn, *, windows=5, per_window=10, warmup=3) -> float:
-    """Median over ``windows`` of the mean time of ``per_window`` calls
-    queued back to back between two CUDA events."""
+def time_windows(fn, *, windows=5, per_window=10, warmup=3) -> list:
+    """The mean time of ``per_window`` calls queued back to back between two
+    CUDA events, in each of ``windows`` windows."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -652,7 +669,22 @@ def time_ms(fn, *, windows=5, per_window=10, warmup=3) -> float:
         end.record()
         end.synchronize()
         out.append(start.elapsed_time(end) / per_window)
-    return statistics.median(out)
+    return out
+
+
+def time_ms(fn, **kw) -> float:
+    """Median over the windows of :func:`time_windows`."""
+    return statistics.median(time_windows(fn, **kw))
+
+
+def time_in_turns(*fns, **kw) -> list:
+    """The median ms of each of ``fns`` timed in turns: in order, then in
+    reverse order (kernel, library, library, kernel for two), each turn
+    :func:`time_windows`; one median over both turns of each."""
+    wins = [[] for _ in fns]
+    for i in list(range(len(fns))) + list(reversed(range(len(fns)))):
+        wins[i] += time_windows(fns[i], **kw)
+    return [statistics.median(w) for w in wins]
 
 
 def clocks_during(fn, seconds: float = 1.0) -> dict:
@@ -3049,8 +3081,9 @@ def phase_kernels_cli(dev) -> dict:
     phased attention backward) against attention_qkv_bwd_plain at bf16
     (B = 2, 3, 128; Tp 200, valid_len 197; ragged) within 2 bf16 ulps and
     at f32 (B = 32; ragged) within F32_TOL of each output's magnitude, and
-    beside kernel 4 on the same inputs (the gap printed, not bounded).
-    Returns the main paths' errors."""
+    beside kernel 4 on the same inputs (the gap printed, not bounded); its
+    long-Tp route at ViT-B/16, 384 px (Tp 584: bf16 B = LONG_B, f32 B = 2),
+    where kernel 4 does not run.  Returns the main paths' errors."""
     x = torch.ones((8, 128), device=dev)
     got = probe.doctor_probe(x)
     torch.cuda.synchronize()
@@ -3069,7 +3102,9 @@ def phase_kernels_cli(dev) -> dict:
              ("ragged", torch.bfloat16, 2, 40, 33, 64, 4),
              ("main_path_b128", torch.bfloat16, MAIN_B, TP, T, D, HEADS),
              ("ragged", torch.float32, 3, 40, 33, 64, 4),
-             ("main_path_b32", torch.float32, F32_B, TP, T, D, HEADS)]
+             ("main_path_b32", torch.float32, F32_B, TP, T, D, HEADS),
+             ("long_path", torch.bfloat16, LONG_B, LONG_TP, LONG_T, D, HEADS),
+             ("long_tp", torch.float32, 2, LONG_TP, LONG_T, D, HEADS)]
     for label, dt, b, tp, valid, d, heads in cases:
         bwd = train_inputs(rng, b, tp, valid, d, dev)[0]
         if dt == torch.float32:
@@ -3077,19 +3112,21 @@ def phase_kernels_cli(dev) -> dict:
         kw = dict(num_heads=heads, valid_len=valid)
         got = att.attention_qkv_bwd_phased(**bwd, **kw)
         want = att.attention_qkv_bwd_plain(**bwd, **kw)
-        k4 = att.attention_qkv_bwd(**bwd, **kw)
+        plan = att.phased_plan(b, tp, heads, d // heads, dt)
+        long = plan["route"] == "long"
+        k4 = None if long else att.attention_qkv_bwd(**bwd, **kw)
         torch.cuda.synchronize()
-        name = "attention_qkv_bwd_phased" + ("_f32" if dt == torch.float32
-                                             else "")
-        gap_k4 = (got.float() - k4.float()).abs().max().item()
+        name = "attention_qkv_bwd_phased" + (
+            "_long" if long else "_f32" if dt == torch.float32 else "")
+        gap_k4 = (None if long
+                  else (got.float() - k4.float()).abs().max().item())
         err = _check_parts(
             label, name, _bwd_parts(got, want, d), list(bwd["qkv"].shape),
             bf16_tol if dt == torch.bfloat16 else _f32_tol,
             {"pad_rows_zero": bool((got[:, valid:] == 0).all())})
         emit({"phase": "kernels", "case": label, "kernel": name,
-              "vs_kernel_4_max_abs_diff": gap_k4,
-              "chunk": att.phased_chunk(b, heads, tp)})
-        if label.startswith("main_path"):
+              "vs_kernel_4_max_abs_diff": gap_k4, "plan": plan})
+        if label.startswith(("main_path", "long_path")):
             main_err[name] = err
         del bwd, got, want, k4
     return main_err
@@ -3100,27 +3137,47 @@ def phase_train_phased(dev, ctx) -> dict:
     f32 at B = 32 ("hidden"), every gradient leaf within GRAD_REL_TOL /
     F32_GRAD_REL_TOL of f32 autograd of the module (train_modes'
     references), kernel 5 launched exactly 12 times a step and kernel 4
-    never.  Returns the launches of each run."""
+    never; then bf16 at 384 px (B = LONG_B, Tp 584) against f32 autograd
+    of that model, kernel 5's long-Tp route launched 12 times.  Returns
+    the launches of each run."""
     model, params, loss_fn = ctx["model"], ctx["params"], ctx["loss_fn"]
+    rng = np.random.default_rng(SEED + 42)
+    params_l = random_params(rng, t=LONG_T)
+    model_l = load_jax_params(ViTAntiSpoof(
+        patch_size=PATCH, embed_dim=D, depth=DEPTH, num_heads=HEADS,
+        hidden=HEAD_HIDDEN, img_size=LONG_IMG, gelu="erf", dropout=0.0),
+        params_l)
+    u8 = rng.integers(0, 256, (LONG_B, LONG_IMG, LONG_IMG, 3), dtype=np.uint8)
+    imgs_l = normalize(to_float(torch.from_numpy(u8).to(dev)))
+    lbls_l = torch.from_numpy(rng.integers(0, 2, LONG_B)).to(dev)
+    loss_ref_l, ref_l = _module_f32_grads(model_l, imgs_l, lbls_l, loss_fn,
+                                          dev)
     runs = {
-        "bf16_b128": (torch.bfloat16, ctx["images"], ctx["labels"],
-                      ctx["ref"], ctx["loss_ref"], GRAD_REL_TOL,
+        "bf16_b128": (model, params, torch.bfloat16, ctx["images"],
+                      ctx["labels"], ctx["ref"], ctx["loss_ref"],
+                      GRAD_REL_TOL,
                       _want(attention_block_train=DEPTH,
                             attention_qkv_bwd_phased=DEPTH,
                             ln_res_bwd=2 * DEPTH)),
-        "f32_b32": (torch.float32, ctx["images"][:F32_B],
+        "f32_b32": (model, params, torch.float32, ctx["images"][:F32_B],
                     ctx["labels"][:F32_B], ctx["ref32"], ctx["loss_ref32"],
                     F32_GRAD_REL_TOL,
                     _want(attention_block_train_f32=DEPTH,
                           attention_qkv_bwd_phased_f32=DEPTH,
                           ln_res_bwd_f32=2 * DEPTH)),
+        "bf16_long_384": (model_l, params_l, torch.bfloat16, imgs_l, lbls_l,
+                          ref_l, loss_ref_l, GRAD_REL_TOL,
+                          _want(attention_block_train=DEPTH,
+                                attention_qkv_bwd_phased_long=DEPTH,
+                                ln_res_bwd=2 * DEPTH)),
     }
     out, launches, ok = {}, {}, True
     with bwd_phased():
-        for run, (dt, imgs, lbls, ref, loss_ref, tol, want) in runs.items():
+        for run, (mdl, prm, dt, imgs, lbls, ref, loss_ref, tol,
+                  want) in runs.items():
             loss, grads, counts = _step0(
-                model, params, fasttrain.make_apply(model, dtype=dt), imgs,
-                lbls, loss_fn, dev)
+                mdl, prm, fasttrain.make_apply(mdl, dtype=dt), imgs, lbls,
+                loss_fn, dev)
             gaps = _leaf_gaps(grads, ref)
             del grads
             worst = max(gaps, key=gaps.get)
@@ -3418,35 +3475,47 @@ def phase_cli(dev, tmp: Path):
 
 def phase_times_cli(dev, ctx, main_err, phased_launches, doctor_launches,
                     walls) -> list:
-    """Kernel 5 at bf16 B = 128 and f32 B = 32 beside kernel 4, its bound
-    (kernel 4's work), its plain version and SDPA's backward; kernel 17
-    beside ``2 * x`` and ``torch.mul``; the training step with the flag on
-    and off; each verb's wall seconds.  Returns the kernel rows."""
+    """Kernel 5 at bf16 B = 128 and f32 B = 32 and its long-Tp route at
+    384 px, each in turns with kernel 4 (where kernel 4 runs) and SDPA's
+    backward (kernel, kernel 4, library, library, kernel 4, kernel), its
+    bound (kernel 4's work) and its plain version; kernel 17 beside
+    ``2 * x`` and ``torch.mul``; the training step with the flag on and
+    off; each verb's wall seconds.  Returns the kernel rows."""
     rng = np.random.default_rng(SEED + 41)
-    kw = dict(num_heads=HEADS, valid_len=T)
     bwd = train_inputs(rng, MAIN_B, TP, T, D, dev)[0]
     bwd32 = _f32(train_inputs(rng, F32_B, TP, T, D, dev)[0])
+    bwd_long = train_inputs(rng, LONG_B, LONG_TP, LONG_T, D, dev)[0]
     ln_dummy = train_inputs(rng, 2, TP, T, D, dev)[1]
     rows, k4 = [], {}
-    for name, b_in, b, peak in (
-            ("attention_qkv_bwd_phased", bwd, MAIN_B, PEAK_BF16_FLOPS),
-            ("attention_qkv_bwd_phased_f32", bwd32, F32_B, PEAK_F32_FLOPS)):
-        ms = time_ms(lambda: att.attention_qkv_bwd_phased(**b_in, **kw))
-        k4[name] = time_ms(lambda: att.attention_qkv_bwd(**b_in, **kw))
+    for name, b_in, b, tp, valid, peak, run in (
+            ("attention_qkv_bwd_phased", bwd, MAIN_B, TP, T, PEAK_BF16_FLOPS,
+             "bf16_b128"),
+            ("attention_qkv_bwd_phased_f32", bwd32, F32_B, TP, T,
+             PEAK_F32_FLOPS, "f32_b32"),
+            ("attention_qkv_bwd_phased_long", bwd_long, LONG_B, LONG_TP,
+             LONG_T, PEAK_BF16_FLOPS, "bf16_long_384")):
+        kw = dict(num_heads=HEADS, valid_len=valid)
+        fns = [lambda: att.attention_qkv_bwd_phased(**b_in, **kw)]
+        if tp == TP:                     # kernel 4 takes Tp up to 208
+            fns.append(lambda: att.attention_qkv_bwd(**b_in, **kw))
+        with exact_f32_matmul():
+            fns.append(_library_calls(b_in, ln_dummy, HEADS,
+                                      valid)["attention_qkv_bwd"])
+            times = time_in_turns(*fns)
+        ms, lib_ms = times[0], times[-1]
+        if tp == TP:
+            k4[name] = times[1]
         plain_ms = time_ms(lambda: att.attention_qkv_bwd_plain(**b_in, **kw),
                            per_window=2)
-        with exact_f32_matmul():
-            lib = _library_calls(b_in, ln_dummy, HEADS, T)["attention_qkv_bwd"]
-            lib_ms = time_ms(lib)
-        flops, _ = attention_bwd_work(b, TP, D, HEADS)
-        itemsize = 4 if name.endswith("_f32") else 2
-        bound_ms, bound_by = bound(flops, b * TP * 7 * D * itemsize, peak)
-        run = "f32_b32" if name.endswith("_f32") else "bf16_b128"
+        flops, _ = attention_bwd_work(b, tp, D, HEADS)
+        itemsize = b_in["qkv"].element_size()
+        bound_ms, bound_by = bound(flops, b * tp * 7 * D * itemsize, peak)
         rows.append({"name": name, "route": "cuda", **KERNELS[name],
                      "launches": phased_launches[run][name],
                      "max_abs_err": main_err[name], "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": lib_ms})
+    del bwd, bwd32, bwd_long
     x = torch.ones((8, 128), device=dev)
     bound_ms, bound_by = bound(x.numel(), 2 * nbytes(x), PEAK_F32_FLOPS)
     rows.append({"name": "doctor_probe", "route": "cuda",
@@ -3479,7 +3548,7 @@ def phase_times_cli(dev, ctx, main_err, phased_launches, doctor_launches,
           "kernels": {r["name"]: {k: r[k] for k in (
               "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
               "launches")} for r in rows},
-          "kernel_4_ms": k4,
+          "kernel_4_ms_in_turns": k4,
           "step_ms_in_turns": step_ms,
           "verb_wall_s": walls})
     return rows
@@ -4257,12 +4326,13 @@ def phase_kernels_cp(dev) -> dict:
     return main_err
 
 
-def sp_config(**sharding):
-    """The default bf16 training config (focal loss, AdamW) at ViT-B/16,
-    dropout 0.1, the module path, with ``sharding``."""
+def sp_config(dtype="bfloat16", **sharding):
+    """The default training config (focal loss, AdamW) at ViT-B/16 in
+    ``dtype`` (bf16 unless asked), dropout 0.1, the module path, with
+    ``sharding``."""
     return Config().with_overrides({
         "seed": SEED, "data.img_size": IMG, "model.dropout": 0.1,
-        "model.compute_dtype": "bfloat16", "optim.learning_rate": 1e-4,
+        "model.compute_dtype": dtype, "optim.learning_rate": 1e-4,
         "optim.warmup_epochs": 0, "model.fused_train_forward": False,
         **{f"sharding.{k}": v for k, v in sharding.items()}})
 
@@ -4273,10 +4343,11 @@ def sp_model(dtype=torch.bfloat16):
                         gelu="erf", dropout=0.1, dtype=dtype)
 
 
-def sp_trainer(cfg, params, dev):
-    """A Trainer of ``cfg`` on ``params`` whose train step takes uint8
-    faces (make_prep_fn([]) normalizes them on the card)."""
-    return Trainer(cfg, sp_model(), train_batches=lambda e, skip=0: iter(()),
+def sp_trainer(cfg, params, dev, dtype=torch.bfloat16):
+    """A Trainer of ``cfg`` on ``params`` (a ``dtype`` module) whose train
+    step takes uint8 faces (make_prep_fn([]) normalizes them on the
+    card)."""
+    return Trainer(cfg, sp_model(dtype), train_batches=lambda e, skip=0: iter(()),
                    val_batches=lambda: iter(()), steps_per_epoch=1,
                    variables=params, device=dev, logger=_Record(),
                    batch_prep=make_prep_fn([]))
@@ -4405,6 +4476,28 @@ def _sp_rank_body(rank, world, seq, tmp: Path, dev) -> dict:
             "tol": SP_F32_TOL * want.abs().max().item(),
             "attention_cp_f32_launches":
                 att.LAUNCHES["attention_cp_f32"] - before}
+        del m32, logits, want
+        # f32: one Trainer step at B = F32_B against the single-card f32
+        # step (kernels 12 and 13 in their f32 forms)
+        t32 = sp_trainer(sp_config("float32", seq_parallel=seq,
+                                   data_parallel=-1), params, dev,
+                         torch.float32)
+        rows32 = pm.shard_batch({"image": u8[:F32_B], "label": y[:F32_B]},
+                                t32.mesh)
+        ref32 = torch.load(tmp / "sp_ref_f32_step.pt", map_location=dev)
+        reset_launches()
+        s32 = sp_step0(t32, {"image": rows32["image"].to(dev),
+                             "label": rows32["label"].to(dev)})
+        counts = dict(att.LAUNCHES)
+        gaps32 = _leaf_gaps(s32["grads"], ref32["grads"])
+        worst32 = max(gaps32, key=gaps32.get)
+        res["f32_step"] = {
+            "loss": s32["loss"], "loss_single": ref32["loss"],
+            "max_leaf_rel_l2": gaps32[worst32], "worst_leaf": worst32,
+            "launches": {k: v for k, v in counts.items() if v},
+            "launches_ok": counts == _want(attention_cp_f32=DEPTH,
+                                           attention_cp_bwd_f32=DEPTH)}
+        del t32, s32, ref32
     return res
 
 
@@ -4477,7 +4570,10 @@ def phase_slice_sp(dev, tmp: Path) -> dict:
         single-process module-path step's (on kernels 8 and 4) on the
         same weights and batch, the scores within SCORE_TOL / mean
         SCORE_MEAN_TOL; then an f32 SP forward at B = F32_B within
-        SP_F32_TOL of the f32 module forward (kernel 8's f32 form);
+        SP_F32_TOL of the f32 module forward (kernel 8's f32 form), and
+        an f32 SP step at B = F32_B (kernels 12 and 13 in f32, DEPTH
+        launches each) within F32_GRAD_REL_TOL of the single-process f32
+        step;
     (b) 4 ranks (data 2 x seq 2), global B = SP4_B: one step, the same
         checks against the single-process step at B = SP4_B;
     (c) a one-rank NCCL group: the data-only step and
@@ -4496,11 +4592,18 @@ def phase_slice_sp(dev, tmp: Path) -> dict:
                    tmp / f"sp_ref_b{b}.pt")
         del t, s0
     m32 = load_jax_params(sp_model(torch.float32), params).to(dev).eval()
-    u8, _y = loop_faces(SP_B, 91)
+    u8, y = loop_faces(SP_B, 91)
     with torch.no_grad(), exact_f32_matmul():
         ref32 = m32(normalize(to_float(torch.from_numpy(u8[:F32_B]).to(dev))))
     torch.save(ref32.cpu(), tmp / "sp_ref_f32.pt")
     del m32, ref32
+    t = sp_trainer(sp_config("float32"), params, dev, torch.float32)
+    s0 = sp_step0(t, {"image": torch.from_numpy(u8[:F32_B]).to(dev),
+                      "label": torch.from_numpy(y[:F32_B]).to(dev)})
+    torch.save({"loss": s0["loss"],
+                "grads": {p: g.cpu() for p, g in s0["grads"].items()}},
+               tmp / "sp_ref_f32_step.pt")
+    del t, s0
     torch.cuda.empty_cache()
 
     out = {}
@@ -4518,9 +4621,11 @@ def phase_slice_sp(dev, tmp: Path) -> dict:
                     and v["scores"]["max"] <= SCORE_TOL
                     and v["scores"]["mean"] <= SCORE_MEAN_TOL)
             if "f32_forward" in v:
-                f = v["f32_forward"]
+                f, st = v["f32_forward"], v["f32_step"]
                 good = (good and f["max_abs_err"] <= f["tol"]
-                        and f["attention_cp_f32_launches"] == DEPTH)
+                        and f["attention_cp_f32_launches"] == DEPTH
+                        and st["launches_ok"] and math.isfinite(st["loss"])
+                        and st["max_leaf_rel_l2"] <= F32_GRAD_REL_TOL)
             rep[r]["ok"] = good
             ok = ok and good
         losses = {v["loss"] for v in reports.values()}
@@ -4543,16 +4648,22 @@ def phase_slice_sp(dev, tmp: Path) -> dict:
 
 
 def phase_times_sp(dev, ctx, main_err) -> list:
-    """Kernel 12 (bf16 at the 2-rank step's block, B = SP_B, Tq 104, Tk
-    208; f32 at B = F32_B) and kernel 13 (bf16, same block) beside their
-    plain versions, bounds, and scaled_dot_product_attention on the
-    unpadded keys (no mask: the masked keys add exactly 0) and its
-    backward; each rank's step ms of the 2- and 4-rank runs (the ranks
-    share one card: no yardstick of multi-card speed) and kernels 12 and
-    13 inside rank 0's profiled step.  Returns the kernel rows."""
+    """Kernels 12 and 13 at the 2-rank step's block (Tq 104, Tk 208), bf16
+    at B = SP_B and f32 at B = F32_B, each timed in turns with
+    scaled_dot_product_attention on the unpadded keys (no mask: the masked
+    keys add exactly 0) or its backward (kernel, library, library,
+    kernel), beside their plain versions and bounds; each rank's step ms
+    of the 2- and 4-rank runs (the ranks share one card: no yardstick of
+    multi-card speed) and kernels 12 and 13 inside rank 0's profiled step.
+    Returns the kernel rows."""
     rng = np.random.default_rng(SEED + 94)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    launches = ctx["data1_seq2"][0]["launches"]
+    rank0 = ctx["data1_seq2"][0]
+    launches = {**rank0["launches"],
+                "attention_cp_f32":
+                    rank0["f32_forward"]["attention_cp_f32_launches"],
+                "attention_cp_bwd_f32":
+                    rank0["f32_step"]["launches"]["attention_cp_bwd_f32"]}
     rows, per = [], {}
     tq, tk, dh = 104, 208, D // HEADS
     for name, dt, b, peak in (("attention_cp", torch.bfloat16, SP_B,
@@ -4560,37 +4671,41 @@ def phase_times_sp(dev, ctx, main_err) -> list:
                               ("attention_cp_bwd", torch.bfloat16, SP_B,
                                PEAK_BF16_FLOPS),
                               ("attention_cp_f32", torch.float32, F32_B,
+                               PEAK_F32_FLOPS),
+                              ("attention_cp_bwd_f32", torch.float32, F32_B,
                                PEAK_F32_FLOPS)):
         q, kv, g = _cp_inputs(rng, b, tq, tk, D, dt, dev)
         qh = q.view(b, tq, HEADS, dh).transpose(1, 2).contiguous()
         kh, vh = (t.view(b, tk, HEADS, dh).transpose(1, 2)[:, :, :T]
                   .contiguous() for t in kv.split(D, -1))
-        bwd = name == "attention_cp_bwd"
-        if bwd:
-            ms = time_ms(lambda: att.attention_cp_bwd(q, kv, g, HEADS, T))
-            plain_ms = time_ms(lambda: att.attention_cp_bwd_plain(
-                q, kv, g, HEADS, T), windows=3, per_window=3)
-            qh, kh, vh = (t.requires_grad_() for t in (qh, kh, vh))
-            o = sdpa(qh, kh, vh)
-            go = g.view(b, tq, HEADS, dh).transpose(1, 2)
-            lib_ms = time_ms(lambda: torch.autograd.grad(
-                o, (qh, kh, vh), go, retain_graph=True))
-        else:
-            ms = time_ms(lambda: att.fused_attention_qkv_cp(q, kv, HEADS, T))
-            plain_ms = time_ms(lambda: att.fused_attention_qkv_cp_plain(
-                q, kv, HEADS, T), windows=3, per_window=3)
-            lib_ms = time_ms(lambda: sdpa(qh, kh, vh))
+        bwd = name.startswith("attention_cp_bwd")
+        with exact_f32_matmul():
+            if bwd:
+                qh, kh, vh = (t.requires_grad_() for t in (qh, kh, vh))
+                o = sdpa(qh, kh, vh)
+                go = g.view(b, tq, HEADS, dh).transpose(1, 2)
+                ms, lib_ms = time_in_turns(
+                    lambda: att.attention_cp_bwd(q, kv, g, HEADS, T),
+                    lambda: torch.autograd.grad(o, (qh, kh, vh), go,
+                                                retain_graph=True))
+                plain_ms = time_ms(lambda: att.attention_cp_bwd_plain(
+                    q, kv, g, HEADS, T), windows=3, per_window=3)
+            else:
+                ms, lib_ms = time_in_turns(
+                    lambda: att.fused_attention_qkv_cp(q, kv, HEADS, T),
+                    lambda: sdpa(qh, kh, vh))
+                plain_ms = time_ms(lambda: att.fused_attention_qkv_cp_plain(
+                    q, kv, HEADS, T), windows=3, per_window=3)
         flops, nb = cp_work(b, tq, tk, T, D, HEADS, q.element_size(),
                             backward=bwd)
         bound_ms, bound_by = bound(flops, nb, peak)
         per[name] = {"batch": b, "tq": tq, "tk": tk, "ms": ms,
-                     "plain_ms": plain_ms, "library_ms": lib_ms,
+                     "plain_ms": plain_ms, "library_ms_in_turns": lib_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by,
                      "gflop": flops / 1e9, "mbytes": nb / 1e6}
-        n = (ctx["data1_seq2"][0]["f32_forward"]["attention_cp_f32_launches"]
-             if name == "attention_cp_f32" else launches[name])
         rows.append({"name": name, "route": "cuda", **KERNELS[name],
-                     "launches": n, "max_abs_err": main_err[name], "ms": ms,
+                     "launches": launches[name],
+                     "max_abs_err": main_err[name], "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": lib_ms})
         del q, kv, g, qh, kh, vh

@@ -149,3 +149,44 @@ def test_shape_and_device_errors():
         tatt.fused_attention_qkv_cp(q, torch.zeros(2, 16, 64), 4, 16)
     with pytest.raises(ValueError, match="not divisible"):
         tatt.fused_attention_qkv_cp(q, torch.zeros(2, 16, 128), 5, 16)
+
+
+# (dtype, tq, tk, dh) -> form, tiles, warps, shared memory: the one-pass
+# limit (208 keys) and one key past it, the SP blocks of ViT-B/16, an
+# uneven tiling with an idle warp, the largest Tk of each form
+CP_PLANS = [
+    ((torch.bfloat16, 104, 208, 64), ("one_pass", 1, 7, 76032)),
+    ((torch.bfloat16, 104, 209, 64), ("two_pass", 1, 7, 64512)),
+    ((torch.bfloat16, 52, 208, 64), ("one_pass", 1, 4, 69120)),
+    ((torch.bfloat16, 56, 224, 64), ("two_pass", 1, 4, 64512)),
+    ((torch.bfloat16, 208, 208, 64), ("one_pass", 2, 7, 76032)),
+    ((torch.bfloat16, 128, 208, 64), ("one_pass", 2, 4, 69120)),
+    ((torch.bfloat16, 16, 800, 64), ("two_pass", 1, 1, 230400)),
+    ((torch.bfloat16, 13, 416, 128), ("two_pass", 1, 1, 226304)),
+    ((torch.float32, 104, 208, 64), ("one_pass", 1, 16, 188928)),
+    ((torch.float32, 104, 209, 64), ("two_pass", 1, 8, 137984)),
+    ((torch.float32, 200, 384, 64), ("two_pass", 2, 8, 229376)),
+    ((torch.float32, 33, 112, 128), ("one_pass", 1, 16, 226816)),
+    ((torch.float32, 33, 113, 128), ("two_pass", 1, 8, 147200)),
+    ((torch.float32, 33, 200, 128), ("two_pass", 1, 8, 231680)),
+]
+
+
+@pytest.mark.parametrize("shape,want", CP_PLANS)
+def test_cp_plan_at_the_instance_boundaries(shape, want):
+    dtype, tq, tk, dh = shape
+    plan = tatt.cp_plan(tq, tk, dh, dtype)
+    assert (plan["form"], plan["tiles"], plan["warps"], plan["smem"]) == want
+    assert plan["tiles"] * plan["warps"] * 16 >= tq
+
+
+@pytest.mark.parametrize("dtype,tq,tk,dh,limit", [
+    (torch.bfloat16, 16, 801, 64, "shared memory per block"),
+    (torch.float32, 16, 385, 64, "shared memory per block"),
+    (torch.float32, 16, 201, 128, "shared memory per block"),
+    (torch.bfloat16, 16, 64, 40, "multiple of 16 from 16 to 128"),
+    (torch.float32, 16, 64, 144, "multiple of 16 from 16 to 128"),
+])
+def test_cp_plan_names_the_limit(dtype, tq, tk, dh, limit):
+    with pytest.raises(ValueError, match=limit):
+        tatt.cp_plan(tq, tk, dh, dtype)

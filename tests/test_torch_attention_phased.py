@@ -94,8 +94,55 @@ def test_flag_on_the_cpu_runs_the_plain_version(phased):
     assert tatt.LAUNCHES == before
 
 
-def test_phased_chunk_keeps_the_workspace_in_l2():
-    assert tatt.phased_chunk(128, 12, 200) == 16     # 30.7 MB at ViT-B
-    assert tatt.phased_chunk(3, 12, 200) == 3
-    assert tatt.phased_chunk(4, 12, 4000) == 1       # one item over budget
-    assert 16 * 12 * 200 * 200 * 4 <= tatt._PHASED_WORKSPACE_BYTES
+# (dtype, b, tp, heads, dh) -> route, the instance / chunk, shared memory:
+# each on-chip instance at its largest Tp and one past it, the f32 bound,
+# the head dims the one launch does not take, the long route's largest Tp
+BF, F32 = torch.bfloat16, torch.float32
+PLANS = [
+    ((BF, 128, 200, 12, 64), {"route": "on_chip", "keys": 208, "warps": 7,
+                              "smem": 226304}),
+    ((BF, 2, 64, 4, 16), {"route": "on_chip", "keys": 64, "warps": 4,
+                          "smem": 20480}),
+    ((BF, 2, 65, 4, 16), {"route": "on_chip", "keys": 128, "warps": 5,
+                          "smem": 30720}),
+    ((BF, 2, 128, 4, 32), {"route": "on_chip", "keys": 128, "warps": 7,
+                           "smem": 81920}),
+    ((BF, 2, 129, 4, 32), {"route": "on_chip", "keys": 208, "warps": 7,
+                           "smem": 101376}),
+    ((BF, 1, 208, 12, 64), {"route": "on_chip", "keys": 208, "warps": 7,
+                            "smem": 226304}),
+    ((BF, 1, 209, 12, 64), {"route": "long", "chunk": 1, "smem": 53504}),
+    ((BF, 3, 208, 4, 16), {"route": "on_chip", "keys": 208, "warps": 7,
+                           "smem": 186368}),
+    ((BF, 3, 209, 4, 16), {"route": "long", "chunk": 3, "smem": 53504}),
+    ((BF, 2, 40, 2, 128), {"route": "long", "chunk": 2, "smem": 10240}),
+    ((F32, 32, 200, 12, 64), {"route": "on_chip", "warps": 8,
+                              "smem": 151808}),
+    ((F32, 1, 256, 12, 64), {"route": "on_chip", "warps": 8,
+                             "smem": 189440}),
+    ((F32, 1, 257, 12, 64), {"route": "long", "chunk": 1, "smem": 65792}),
+    ((F32, 2, 40, 2, 48), {"route": "long", "chunk": 2, "smem": 10240}),
+    ((BF, 128, 908, 12, 64), {"route": "long", "chunk": 1, "smem": 232448}),
+    ((F32, 128, 400, 12, 64), {"route": "long", "chunk": 4,
+                               "smem": 102400}),
+]
+
+
+@pytest.mark.parametrize("shape,want", PLANS)
+def test_phased_plan_at_the_instance_boundaries(shape, want):
+    dtype, b, tp, heads, dh = shape
+    assert tatt.phased_plan(b, tp, heads, dh, dtype) == want
+    if want["route"] == "long":               # the workspace stays in L2
+        assert (want["chunk"] * heads * tp * tp * 4
+                <= max(tatt._PHASED_LONG_WORKSPACE_BYTES, heads * tp * tp * 4))
+
+
+@pytest.mark.parametrize("dtype", [BF, F32])
+@pytest.mark.parametrize("tp,dh,limit", [
+    (909, 64, "Tp up to 908"),                # the long route's dl phase
+    (200, 72, "multiple of 16 from 16 to 128"),
+    (200, 144, "multiple of 16 from 16 to 128"),
+])
+def test_phased_plan_names_the_limit(dtype, tp, dh, limit):
+    with pytest.raises(ValueError, match=limit):
+        tatt.phased_plan(2, tp, 4, dh, dtype)

@@ -673,25 +673,44 @@ def test_f32_kernels_reject_what_they_cannot_take(cuda_device):
 @pytest.mark.parametrize("dtype,b,tp,valid,d,heads", [
     (torch.bfloat16, 2, 40, 33, 64, 4),      # ragged, head dim 16
     (torch.bfloat16, 3, 200, 197, 768, 12),  # ViT-B/16, odd B
-    (torch.bfloat16, 17, 200, 197, 768, 12),  # two chunks of the workspace
+    (torch.bfloat16, 17, 200, 197, 768, 12),  # B = 17
+    (torch.bfloat16, 1, 200, 197, 768, 12),  # B = 1
+    (torch.bfloat16, 2, 37, 30, 64, 4),      # Tp not a multiple of 16 (or 8)
+    (torch.bfloat16, 2, 64, 60, 64, 4),      # the 64-key instance's largest Tp
+    (torch.bfloat16, 2, 128, 120, 128, 4),   # the 128-key instance's largest
+    (torch.bfloat16, 2, 208, 197, 768, 12),  # the 208-key instance's largest
+    (torch.bfloat16, 2, 208, 200, 64, 4),    # ... at head dim 16
+    (torch.bfloat16, 2, 209, 197, 768, 12),  # one past it: the long route
+    (torch.bfloat16, 2, 40, 33, 256, 2),     # head dim 128: the long route
+    (torch.bfloat16, 1, 908, 900, 64, 4),    # the long route's largest Tp
     (torch.float32, 2, 40, 33, 64, 4),
     (torch.float32, 2, 200, 197, 768, 12),
+    (torch.float32, 1, 37, 30, 64, 4),       # B = 1, Tp not a multiple of 4
+    (torch.float32, 2, 256, 250, 768, 12),   # the f32 launch's largest Tp
+    (torch.float32, 2, 257, 250, 768, 12),   # one past it: the long route
+    (torch.float32, 2, 40, 33, 96, 2),       # head dim 48: the long route
 ])
 def test_attention_qkv_bwd_phased_kernel_matches_plain_on_card(
         cuda_device, dtype, b, tp, valid, d, heads):
+    """Kernel 5 on the route its shape takes (phased_plan): bf16 within 2
+    ulps, f32 within 1e-5 of each part's largest magnitude; every row at
+    or past valid_len exactly 0 (the pad rows' dq, the masked keys' dk
+    and dv)."""
     rng = np.random.default_rng(40)
     qkv = torch.tensor(rng.standard_normal((b, tp, 3 * d)).astype(np.float32),
                        device=cuda_device, dtype=dtype)
     g = torch.tensor(rng.standard_normal((b, tp, d)).astype(np.float32),
                      device=cuda_device, dtype=dtype)
     g[:, valid:] = 0
-    name = "attention_qkv_bwd_phased" + (
-        "_f32" if dtype == torch.float32 else "")
-    n0 = tatt.LAUNCHES[name]
+    plan = tatt.phased_plan(b, tp, heads, d // heads, dtype)
+    name = ("attention_qkv_bwd_phased_long" if plan["route"] == "long" else
+            "attention_qkv_bwd_phased" + (
+                "_f32" if dtype == torch.float32 else ""))
+    n0 = dict(tatt.LAUNCHES)
     got = tatt.attention_qkv_bwd_phased(qkv, g, heads, valid_len=valid)
     want = tatt.attention_qkv_bwd_plain(qkv, g, heads, valid_len=valid)
     torch.cuda.synchronize()
-    assert tatt.LAUNCHES[name] == n0 + 1
+    assert tatt.LAUNCHES == {**n0, name: n0[name] + 1}
     assert (got[:, valid:] == 0).all()
     for i in range(3):
         part_got, part_want = got[..., i * d:(i + 1) * d], want[
@@ -701,6 +720,18 @@ def test_attention_qkv_bwd_phased_kernel_matches_plain_on_card(
         else:
             err = (part_got - part_want).abs().max().item()
             assert err <= 1e-5 * part_want.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_attention_qkv_bwd_phased_rejects_what_it_cannot_take(cuda_device):
+    qkv = torch.zeros((1, 909, 192), device=cuda_device, dtype=torch.bfloat16)
+    g = torch.zeros((1, 909, 64), device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="Tp up to 908"):
+        tatt.attention_qkv_bwd_phased(qkv, g, 4, valid_len=909)
+    with pytest.raises(ValueError, match="multiple of 16"):     # head dim 8
+        tatt.attention_qkv_bwd_phased(qkv[:, :40], g[:, :40], 8, valid_len=40)
+    with pytest.raises(TypeError):
+        tatt.attention_qkv_bwd_phased(qkv.half(), g.half(), 4, valid_len=909)
 
 
 @pytest.mark.cuda
@@ -803,15 +834,25 @@ def test_lowlat_encoder_int8_matches_plain_on_card(cuda_device, b):
 
 # (dtype, b, tq, tk, valid, heads, dh): the SP step's blocks at ViT-B with
 # two and four sequence ranks, the f32 shape, an odd shape (no multiple of
-# 8 or 16 on either side) and a small ragged one
+# 8 or 16 on either side) and a small ragged one; kernel 12's one-pass
+# limit (Tk 208) and one key past it, Tq 52 (four ranks), Tq = Tk (two
+# tiles, one warp idle), B = 1
 CP_CASES = [(torch.bfloat16, 128, 104, 208, 197, 12, 64),
             (torch.bfloat16, 128, 56, 224, 197, 12, 64),
             (torch.float32, 32, 104, 208, 197, 12, 64),
             (torch.bfloat16, 2, 33, 197, 197, 12, 64),
             (torch.float32, 2, 33, 197, 197, 12, 64),
             (torch.bfloat16, 3, 13, 40, 35, 4, 16),
-            (torch.float32, 3, 13, 40, 35, 4, 16)]
-
+            (torch.float32, 3, 13, 40, 35, 4, 16),
+            (torch.bfloat16, 2, 104, 208, 200, 12, 64),
+            (torch.bfloat16, 2, 104, 209, 200, 12, 64),
+            (torch.float32, 2, 104, 208, 200, 12, 64),
+            (torch.float32, 2, 104, 209, 200, 12, 64),
+            (torch.bfloat16, 128, 52, 208, 197, 12, 64),
+            (torch.bfloat16, 2, 208, 208, 197, 12, 64),
+            (torch.float32, 2, 208, 208, 197, 12, 64),
+            (torch.bfloat16, 1, 104, 208, 197, 12, 64),
+            (torch.float32, 1, 52, 208, 197, 12, 64)]
 
 def _close(got, want, dtype):
     if dtype == torch.bfloat16:
@@ -856,6 +897,36 @@ def test_attention_cp_kernels_match_plain_on_card(cuda_device, dtype, b, tq,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,b,tq,tk,valid,heads,dh", [
+    (torch.bfloat16, 1, 16, 800, 700, 12, 64),   # the two-pass form's largest
+    (torch.bfloat16, 2, 13, 416, 400, 2, 128),   # ... at head dim 128
+    (torch.bfloat16, 2, 104, 208, 200, 2, 128),  # one pass at head dim 128
+    (torch.float32, 1, 16, 384, 300, 12, 64),    # the f32 two-pass largest
+    (torch.float32, 2, 33, 112, 100, 2, 128),    # f32 one pass, head dim 128
+    (torch.float32, 2, 33, 200, 190, 2, 128),    # ... past its shared memory
+    (torch.bfloat16, 2, 20, 64, 50, 3, 48),      # head dims 48 and 80
+    (torch.float32, 2, 20, 300, 250, 3, 80),
+])
+def test_attention_cp_forms_match_plain_on_card(cuda_device, dtype, b, tq,
+                                                tk, valid, heads, dh):
+    """Kernel 12 alone at the shapes kernel 13 does not take: the largest
+    Tk of each form and the head dims past 64, against its plain version
+    (bf16 within 2 ulps, f32 within 1e-5 of the largest magnitude)."""
+    rng = np.random.default_rng(61)
+    d = heads * dh
+    q, kv = (torch.tensor(rng.standard_normal(shape).astype(np.float32),
+                          device=cuda_device, dtype=dtype)
+             for shape in ((b, tq, d), (b, tk, 2 * d)))
+    name = "attention_cp_f32" if dtype == torch.float32 else "attention_cp"
+    n0 = tatt.LAUNCHES[name]
+    got = tatt.fused_attention_qkv_cp(q, kv, heads, valid)
+    want = tatt.fused_attention_qkv_cp_plain(q, kv, heads, valid)
+    torch.cuda.synchronize()
+    assert tatt.LAUNCHES[name] == n0 + 1
+    _close(got, want, dtype)
+
+
+@pytest.mark.cuda
 def test_attention_cp_kernels_reject_what_they_cannot_take(cuda_device):
     q = torch.zeros((2, 104, 768), device=cuda_device, dtype=torch.bfloat16)
     kv = torch.zeros((2, 208, 1536), device=cuda_device,
@@ -871,3 +942,6 @@ def test_attention_cp_kernels_reject_what_they_cannot_take(cuda_device):
         tatt.attention_cp_bwd(big, torch.zeros(
             (1, 264, 1536), device=cuda_device, dtype=torch.bfloat16), big,
             12, 264)
+    with pytest.raises(ValueError, match="shared memory per block"):
+        tatt.fused_attention_qkv_cp(big, torch.zeros(
+            (1, 801, 1536), device=cuda_device, dtype=torch.bfloat16), 12, 801)

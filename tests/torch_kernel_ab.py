@@ -1,32 +1,60 @@
-"""The bf16 attention backwards of several checkouts, timed in turns on
-one card: kernel 4 (``csrc/attention_qkv_bwd.cu``) and, where the
-checkout has it, kernel 13 (``csrc/attention_cp_bwd.cu``).
+"""The attention kernels of several checkouts, timed in turns on one card,
+each beside the PyTorch call that computes the same function:
+
+- kernel 4 (``attention_qkv_bwd``) and kernel 5 (``attention_qkv_bwd_phased``)
+  at the fasttrain step's shape (ViT-B/16: B 128, Tp 200, D 768, 12 heads,
+  197 valid rows; f32 at B 32), beside the backward of
+  ``scaled_dot_product_attention`` with the same key mask;
+- kernel 12 (``fused_attention_qkv_cp``) and kernel 13
+  (``attention_cp_bwd``) at the 2-rank sequence-parallel step's block
+  (B 128, Tq 104, Tk 208, 197 valid keys; kernel 12's f32 form at B 32),
+  beside ``scaled_dot_product_attention`` on the 197 real keys (the masked
+  keys add exactly 0) and its backward.
 
     python tests/torch_kernel_ab.py TREE [TREE ...]
 
 Each TREE is the root of a checkout (a ``git archive`` unpacked into a
 directory that ``.gitignore`` lists, or ``.`` for this one); name them in
 the order to run, e.g. ``parent . . parent``.  For each, one process
-imports that tree's port, builds both kernels from its sources (into
-that tree's ``build/``), prints ptxas's register and spill report for each
-head-dim-64 instantiation, and times ``ops.attention.attention_qkv_bwd``
-at the fasttrain step's shape (ViT-B/16: B 128, Tp 200, D 768, 12 heads,
-197 valid rows) and ``ops.attention.attention_cp_bwd`` at the 2-rank
-sequence-parallel step's (B 128, Tq 104, Tk 208, 197 valid keys), on
-numpy-seeded operands, the same in every tree, each as the median of 5
-windows of 20 calls between CUDA events.  Prints one JSON line per tree,
-then the card's name and power limit.  Needs a CUDA card.
+imports that tree's port, builds the kernels from its sources (into that
+tree's ``build/``), prints ptxas's register and spill report for each
+head-dim-64 instantiation of those kernels, and times each kernel and its
+library call in turns (kernel, library, library, kernel), each turn 5
+windows of 20 calls between CUDA events, on numpy-seeded operands that
+are the same in every tree.  Prints one JSON line per tree (the medians
+over both turns, in ms, and the sums of each output's magnitudes), then
+the card's name and power limit.  Needs a CUDA card.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 
-B, TP, T, D, HEADS = 128, 200, 197, 768, 12
+B, B32, TP, T, D, HEADS = 128, 32, 200, 197, 768, 12
 TQ, TK = 104, 208                  # one of two sequence ranks' blocks
+NAMES = ("attention_qkv_bwd", "attention_qkv_bwd_f32",
+         "attention_qkv_bwd_phased", "attention_cp", "attention_cp_bwd")
+
+
+def _ptxas(log: str) -> list:
+    """(kernel, registers, spill line) of each head-dim-64 entry point."""
+    out, entry, spill = [], None, ""
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            entry = m.group(1) if "Li64E" in m.group(1) else None
+        elif entry and "spill" in ln:
+            spill = ln.split(":", 1)[-1].strip()
+        elif entry and "registers" in ln:
+            name = re.sub(r"^_ZN3vsd\d+_GLOBAL__N__\w+?_cu_\w{8}\d+", "", entry)
+            out.append([name[:48], ln.split("Used")[1].split(",")[0].strip(),
+                        spill])
+            entry = None
+    return out
 
 
 def _child(tree: str) -> None:
@@ -39,53 +67,86 @@ def _child(tree: str) -> None:
     from vit_spoof_detection_pda_tpu_torch.ops import _build
     from vit_spoof_detection_pda_tpu_torch.ops import attention as att
 
-    names = [n for n in ("attention_qkv_bwd", "attention_cp_bwd")
-             if n in _build.KERNELS]
+    names = [n for n in NAMES if n in _build.KERNELS]
     _build.build(names)
-    ptxas = {}
-    for name in names:
-        lines = _build.build_log(name).splitlines()
-        ptxas[name] = [
-            ln.split(":", 1)[-1].strip() for i, ln in enumerate(lines)
-            if ("registers" in ln or "spill" in ln)
-            and any("ILi64E" in prev and "bwd" in prev
-                    for prev in lines[max(0, i - 2):i])]
+    ptxas = {n: _ptxas(_build.build_log(n)) for n in names}
     rng = np.random.default_rng(0)
     dev = torch.device("cuda")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
 
-    def bf(*shape):
+    def rand(*shape, dt=torch.bfloat16):
         return torch.from_numpy(rng.standard_normal(
-            shape, dtype=np.float32)).to(dev, torch.bfloat16)
+            shape, dtype=np.float32)).to(dev, dt)
 
-    qkv, g = bf(B, TP, 3 * D), bf(B, TP, D)
-    g[:, T:] = 0
-    runs = {"attention_qkv_bwd": lambda: att.attention_qkv_bwd(
-        qkv, g, HEADS, valid_len=T)}
-    if "attention_cp_bwd" in names:
-        q, kv, gq = bf(B, TQ, D), bf(B, TK, 2 * D), bf(B, TQ, D)
-        runs["attention_cp_bwd"] = lambda: att.attention_cp_bwd(
-            q, kv, gq, HEADS, T)
-    ms, sums = {}, {}
-    for name, run in runs.items():
+    def sdpa_bwd(qkv, g, tk, valid):
+        """SDPA's backward on the heads of ``qkv`` (keys past ``valid``
+        masked) for the cotangent ``g``."""
+        b, tq, d3 = qkv.shape
+        q, k, v = (t.contiguous().requires_grad_() for t in qkv.view(
+            b, tq, 3, HEADS, d3 // 3 // HEADS).permute(2, 0, 3, 1, 4))
+        mask = (torch.arange(tk, device=dev) < valid).view(1, 1, 1, tk)
+        o = sdpa(q, k, v, attn_mask=mask)
+        go = g.view(b, tq, HEADS, -1).transpose(1, 2)
+        return lambda: torch.autograd.grad(o, (q, k, v), go,
+                                           retain_graph=True)
+
+    runs = {}
+    for dt, b, sfx in ((torch.bfloat16, B, ""), (torch.float32, B32, "_f32")):
+        qkv, g = rand(b, TP, 3 * D, dt=dt), rand(b, TP, D, dt=dt)
+        g[:, T:] = 0
+        lib = sdpa_bwd(qkv, g, TP, T)
+        runs["attention_qkv_bwd" + sfx] = (
+            lambda qkv=qkv, g=g: att.attention_qkv_bwd(
+                qkv, g, HEADS, valid_len=T), lib)
+        runs["attention_qkv_bwd_phased" + sfx] = (
+            lambda qkv=qkv, g=g: att.attention_qkv_bwd_phased(
+                qkv, g, HEADS, valid_len=T), lib)
+        q, kv = rand(b, TQ, D, dt=dt), rand(b, TK, 2 * D, dt=dt)
+        qh = q.view(b, TQ, HEADS, -1).transpose(1, 2).contiguous()
+        kh, vh = (t.view(b, TK, HEADS, -1).transpose(1, 2)[:, :, :T]
+                  .contiguous() for t in kv.split(D, -1))
+        runs["attention_cp" + sfx] = (
+            lambda q=q, kv=kv: att.fused_attention_qkv_cp(q, kv, HEADS, T),
+            lambda qh=qh, kh=kh, vh=vh: sdpa(qh, kh, vh))
+        if not sfx:
+            gq = rand(b, TQ, D)
+            qg, kg, vg = (t.requires_grad_() for t in (qh.clone(), kh.clone(),
+                                                       vh.clone()))
+            o = sdpa(qg, kg, vg)
+            go = gq.view(b, TQ, HEADS, -1).transpose(1, 2)
+            runs["attention_cp_bwd"] = (
+                lambda q=q, kv=kv, gq=gq: att.attention_cp_bwd(
+                    q, kv, gq, HEADS, T),
+                lambda: torch.autograd.grad(o, (qg, kg, vg), go,
+                                            retain_graph=True))
+
+    def windows(fn):
         for _ in range(3):
-            run()
+            fn()
         torch.cuda.synchronize()
-        windows = []
+        out = []
         for _ in range(5):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
             for _ in range(20):
-                run()
+                fn()
             end.record()
             end.synchronize()
-            windows.append(start.elapsed_time(end) / 20)
-        ms[name] = statistics.median(windows)
+            out.append(start.elapsed_time(end) / 20)
+        return out
+
+    ms, lib_ms, sums = {}, {}, {}
+    for name, (run, lib) in runs.items():
+        wk, wl = [], []
+        for fn, acc in ((run, wk), (lib, wl), (lib, wl), (run, wk)):
+            acc += windows(fn)
+        ms[name], lib_ms[name] = statistics.median(wk), statistics.median(wl)
         out = run()
         out = out if isinstance(out, tuple) else (out,)
         sums[name] = [float(o.float().abs().sum()) for o in out]
-    print(json.dumps({"tree": tree, "ms": ms, "ptxas": ptxas,
-                      "out_abs_sums": sums}))
+    print(json.dumps({"tree": tree, "ms": ms, "library_ms": lib_ms,
+                      "ptxas": ptxas, "out_abs_sums": sums}))
 
 
 def main(argv) -> int:

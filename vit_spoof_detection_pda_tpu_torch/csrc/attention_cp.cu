@@ -12,97 +12,147 @@
 // device's query block against the all-gathered K and V.
 //
 // The TPU kernel pads Tq and Tk to multiples of 8 with zeros; this one
-// takes the rows as they are (the cores zero-fill keys past Tk and give
-// them no weight, and skip query rows past Tq), which equals the padded
-// form because pad keys are masked and pad queries are sliced off.
+// takes the rows as they are (keys past Tk are zero rows with no weight,
+// query rows past Tq are neither read nor written), which equals the
+// padded form because pad keys are masked and pad queries are sliced off.
 // Rounding points are the TPU kernel's: f32 logits q . k * Dh^-0.5, the
-// f32 softmax, the weights rounded to v's dtype before @ v, f32 sums, the
-// output rounded once.
-//
-// The arithmetic is kernel 8's (csrc/attention_qkv.cu) and kernel 9's
-// (csrc/attention.cu) on a rectangle: all three run attention_core.cuh::
-// attention_rows (bf16: mma.sync Q K^T, a two-pass softmax normalized before
-// the bf16 rounding, ldmatrix P V) and attention_f32.cuh::attention_f32_rows
-// (f32: plain FMAs, no TF32), which take a query count apart from the key
-// count and separate row strides for q (D) and kv (2D).  Grid (query tiles,
-// heads, B); each block stages one head's K and V rows once for up to 128
-// queries.
+// f32 softmax, the weights normalised and then rounded to v's dtype before
+// @ v, f32 sums, the output rounded once.
 //
 // Bound on the H100 at the sequence-parallel step's shape (ViT-B/16, two
 // sequence ranks: B = 128, Tq = 104, Tk = 208, 12 heads of 64, bf16): q in,
 // kv in and out are 20.4 + 81.8 + 20.4 = 122.7 MB, 0.037 ms at 3.35 TB/s,
-// against 4 B H Tq Tk Dh = 8.5 GFLOP, 0.009 ms at 989 TFLOP/s: the bytes
-// bind.  In f32 (B = 32) the 2.1 GFLOP on the FMA units (67 TFLOP/s) take
-// 0.032 ms against 61.3 MB (0.018 ms): the operations bind.  Each block
-// reads its head's K and V once per query tile, so with Tq <= 128 the
-// gathered kv is read once; the first design inherits kernel 8's limits.
-#include "attention_core.cuh"
-#include "attention_f32.cuh"
+// against 8.06 GFLOP over the 197 real keys, 0.008 ms at 989 TFLOP/s: the
+// bytes bind.  In f32 (B = 32) the 2.01 GFLOP on the FMA units (67
+// TFLOP/s) take 0.030 ms against 61.3 MB (0.018 ms): the operations bind.
+//
+// Design (csrc/attention_cp_core.cuh), grid (query tiles, heads, B): a
+// block stages one head's K and V once for up to 7 (bf16) or 8 (f32) groups
+// of 16 query rows (Tq = 104: one tile of 7 groups), so the gathered kv is
+// read once.  The first design (kernel 8's core) ran two passes, Q K^T in
+// each, over K and V copied whole before any product: 0.167 ms bf16 at the
+// shape above (3.3x SDPA on the same keys).
+//   bf16, one pass where the keys fit the registers (Tk rounded to 16 <=
+//   208: the sequence-parallel blocks of ViT-B/16, Tq 104 or 52): Q is
+//   staged once by 16-byte cp.async and read by ldmatrix; K arrives in
+//   64-key chunks, each its own cp.async group, and Q K^T (mma.sync
+//   m16n8k16) runs on a chunk as soon as it lands while the next ones are
+//   in flight; V, the last group, lands during the softmax.  Each warp
+//   keeps its 16 rows' f32 scores in registers (104 a thread at 208 keys),
+//   takes the exact row max and sum, normalises, rounds to bf16 and packs
+//   the P fragments (52 registers) before P V, so scores and the output
+//   sums are never live together.  The softmax runs in base 2 (the scale
+//   times log2 e folded into the logits, exp2f, one reciprocal a row): with
+//   IEEE expf and a division per weight it was most of the instructions.
+//   The output goes through the warp's own Q rows to 16-byte row stores.
+//   Budget at DH 64, Tk 208, 7 warps: 74 KB of shared memory (Q 16 KB, K
+//   and V 58 KB) and 128 registers a thread (launch bounds of 2 blocks of
+//   224 threads, which ptxas sizes as 256; ~200 B of spills): 2 blocks an
+//   SM, up to 148 KB of loads in flight on each.  A third block would need
+//   fewer than 100 registers a thread, below the scores alone: the issue of
+//   loads ahead of the products is what keeps the bytes moving instead.
+//   bf16, two passes for longer key blocks (any Tk whose K and V fit, as
+//   the first design took): Q fragments from device memory, K then V in two
+//   groups, pass 1 the online max and sum, pass 2 the scores again.
+//   f32, in FMAs: a lane holds 4 query rows against every 8th key, so each
+//   16-byte K read feeds 16 FMAs (the first design read Q from shared
+//   memory for every key: 80 loads for 256 FMAs); the weights go through a
+//   per-warp buffer to P V, where a lane sums 4 rows by DH / 8 columns,
+//   read 16 bytes at a time.  One pass at Tk rounded to 8 <= 208: two warps
+//   share each 16-row group, one on the even 8-key tiles, one on the odd,
+//   and trade row max and sum and the second's partial output through
+//   shared memory (16 warps, 14 busy at Tq 104; one warp a group left 7 an
+//   SM); K arrives in 16-column groups (every key), so each q read feeds
+//   all of a warp's keys while the next columns land.  Loops around the
+//   unrolled key tiles stay rolled: fully unrolled, the code outgrew the
+//   instruction cache and ran 1.5x slower.  Past 208 keys (or where that
+//   block does not fit), two passes over 32-key chunks, a warp a group.
+//   The shared-memory pipe, not the FMAs, sets the pace: a lane reads 4
+//   floats of q and 52 of K for 208 FMAs in Q K^T, and 12 for 32 in P V,
+//   each lane of a quad of rows reading the same K and V values.  Budget at
+//   DH 64, Tk 208: 185 KB (K and V 110 KB, weight chunks 40 KB, partial
+//   outputs 32 KB), one block of 16 warps an SM, 118 registers a thread.
+#include "attention_cp_core.cuh"
 
 namespace vsd {
 namespace {
 
-template <int DH>
-__global__ void __launch_bounds__(kAttMaxWarps * 32)
+template <int DH, int KEYS>
+__global__ void __launch_bounds__(kCpMaxWarps * 32, KEYS > 0 ? 2 : 1)
     attention_cp_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
                         bf16* __restrict__ out, int tq, int tk, int d, int valid_len,
                         float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + att_keys(tk) * (DH + 8);
   const int h = blockIdx.y, b = blockIdx.z;
   const size_t hoff = static_cast<size_t>(h) * DH;
   const bf16* kb = kv + static_cast<size_t>(b) * tk * 2 * d + hoff;
-  bf16* ob = out + static_cast<size_t>(b) * tq * d + hoff;
-  attention_rows<DH, false>(q + static_cast<size_t>(b) * tq * d + hoff, d, kb, kb + d, 2 * d,
-                            ob, d, tq, tk, valid_len, scale, blockIdx.x * blockDim.x / 2, Ks,
-                            Vs);
+  cp_rows_bf16<DH, KEYS>(q + static_cast<size_t>(b) * tq * d + hoff, d, kb, kb + d, 2 * d,
+                         out + static_cast<size_t>(b) * tq * d + hoff, d, tq, tk, valid_len,
+                         scale, blockIdx.x * (blockDim.x >> 5) * 16,
+                         reinterpret_cast<bf16*>(smem));
 }
 
-template <int DH>
-__global__ void __launch_bounds__(kF32Warps * 32)
+template <int DH, int KEYS>
+__global__ void __launch_bounds__(KEYS > 0 ? kCpF32SplitWarps * 32 : kCpF32Warps * 32, 1)
     attention_cp_f32_kernel(const float* __restrict__ q, const float* __restrict__ kv,
                             float* __restrict__ out, int tq, int tk, int d, int valid_len,
-                            float scale, int tile_rows) {
+                            float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
   const int h = blockIdx.y, b = blockIdx.z;
   const size_t hoff = static_cast<size_t>(h) * DH;
   const float* kb = kv + static_cast<size_t>(b) * tk * 2 * d + hoff;
-  attention_f32_rows<DH>(q + static_cast<size_t>(b) * tq * d + hoff, d, kb, kb + d, 2 * d,
-                         out + static_cast<size_t>(b) * tq * d + hoff, d, tq, tk, valid_len,
-                         scale, tile_rows);
+  const float* qb = q + static_cast<size_t>(b) * tq * d + hoff;
+  float* ob = out + static_cast<size_t>(b) * tq * d + hoff;
+  const int q0 = blockIdx.x * 8 * 16;  // 8 row groups a block in both forms
+  if constexpr (KEYS > 0)
+    cp_rows_f32_split<DH, KEYS>(qb, d, kb, kb + d, 2 * d, ob, d, tq, tk, valid_len, scale, q0,
+                                reinterpret_cast<float*>(smem));
+  else
+    cp_rows_f32_two_pass<DH>(qb, d, kb, kb + d, 2 * d, ob, d, tq, tk, valid_len, scale, q0,
+                             reinterpret_cast<float*>(smem));
+}
+
+// Query tiles of 16-row groups, split evenly over at most max_warps warps.
+inline void cp_tiles(int tq, int max_warps, int* tiles, int* warps) {
+  const int groups = (tq + 15) / 16;
+  *tiles = (groups + max_warps - 1) / max_warps;
+  *warps = (groups + *tiles - 1) / *tiles;
 }
 
 template <int DH>
 cudaError_t launch_cp(const void* q, const void* kv, void* out, int dtype, int batch, int tq,
                       int tk, int heads, int valid_len, float scale, cudaStream_t stream) {
   const int d = heads * DH;
+  int tiles, warps;
+  cudaError_t e;
   if (dtype == 0) {
-    const size_t smem = att_smem_bytes(tk, DH);
+    cp_tiles(tq, kCpMaxWarps, &tiles, &warps);
+    const bool one_pass = cp_keys16(tk) <= kCpOnePassKeys;
+    const size_t smem = cp_smem_bytes(one_pass, warps, tk, DH);
     if (smem > kMaxSmem) return cudaErrorInvalidValue;
-    cudaError_t e = cudaFuncSetAttribute(attention_cp_kernel<DH>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+    auto kernel = one_pass ? attention_cp_kernel<DH, kCpOnePassKeys> : attention_cp_kernel<DH, 0>;
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
     if (e != cudaSuccess) return e;
-    const int groups = (tq + 15) / 16;  // 16-row query groups, one warp each
-    const int tiles = (groups + kAttMaxWarps - 1) / kAttMaxWarps;
-    const int warps = (groups + tiles - 1) / tiles;
-    attention_cp_kernel<DH><<<dim3(tiles, heads, batch), warps * 32, smem, stream>>>(
+    kernel<<<dim3(tiles, heads, batch), warps * 32, smem, stream>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(kv), static_cast<bf16*>(out), tq,
         tk, d, valid_len, scale);
     return cudaGetLastError();
   }
-  const size_t smem = f32_smem_bytes(tk, DH);
+  cp_tiles(tq, 8, &tiles, &warps);
+  const bool one_pass =
+      cp_keys8(tk) <= kCpOnePassKeys && cp_f32_split_smem_bytes(tk, DH) <= kMaxSmem;
+  const size_t smem = one_pass ? cp_f32_split_smem_bytes(tk, DH) : cp_f32_smem_bytes(tk, DH);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(attention_cp_f32_kernel<DH>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(smem));
+  auto kernel = one_pass ? attention_cp_f32_kernel<DH, kCpOnePassKeys>
+                         : attention_cp_f32_kernel<DH, 0>;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  const int rows = f32_tile_rows(tq);
-  attention_cp_f32_kernel<DH><<<dim3((tq + rows - 1) / rows, heads, batch), kF32Warps * 32, smem,
-                                stream>>>(static_cast<const float*>(q),
-                                          static_cast<const float*>(kv),
-                                          static_cast<float*>(out), tq, tk, d, valid_len, scale,
-                                          rows);
+  // a block holds 8 row groups: a warp each (two-pass) or two (one pass)
+  kernel<<<dim3(tiles, heads, batch), (one_pass ? kCpF32SplitWarps : kCpF32Warps) * 32, smem,
+           stream>>>(static_cast<const float*>(q), static_cast<const float*>(kv),
+                     static_cast<float*>(out), tq, tk, d, valid_len, scale);
   return cudaGetLastError();
 }
 
@@ -111,8 +161,9 @@ cudaError_t launch_cp(const void* q, const void* kv, void* out, int dtype, int b
 
 // q [B, Tq, D], kv [B, Tk, 2D] and out [B, Tq, D], all bf16 (dtype 0) or all
 // f32 (dtype 1), contiguous and 16-byte aligned.  Needs a head dim that is
-// a multiple of 16 up to 128, 0 < valid_len <= Tk and one head's K and V
-// within shared memory.  Returns the launch's CUDA error (0 on success).
+// a multiple of 16 up to 128, 0 < valid_len <= Tk and the block's shared
+// memory within the card's (cp_smem_bytes / cp_f32_smem_bytes).  Returns
+// the launch's CUDA error (0 on success).
 extern "C" int vsd_attention_cp(const void* q, const void* kv, void* out, int dtype, int batch,
                                 int tq, int tk, int d, int num_heads, int valid_len, float scale,
                                 void* stream) {

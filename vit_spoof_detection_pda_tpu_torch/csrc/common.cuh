@@ -11,6 +11,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math_constants.h>
 #include <stdint.h>
 
 namespace vsd {
@@ -225,6 +226,35 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&a)[4], const bf16* 
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
                : "r"(s));
+}
+
+// The same at a shared-memory byte address (smem_addr): a base register plus
+// an offset that is a constant after unrolling, so that no address is held
+// live across a loop.
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_at(uint32_t (&a)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans_at(uint32_t (&a)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(addr));
+}
+
+// An attention logit in base 2 for exp2f (scale2 = scale * log2 e, so that
+// exp2(s2 - max) = exp(s - max)): key columns >= valid_len at -1e30 as the
+// TPU kernels mask them, columns past the keys (>= tk) at -inf.
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ float masked_logit2(float s, int key, int valid_len, int tk,
+                                               float scale2) {
+  return key < valid_len ? s * scale2 : (key < tk ? -1e30f : -CUDART_INF_F);
 }
 
 // ---------------------------------------------------------------------------

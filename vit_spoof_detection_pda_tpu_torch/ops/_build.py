@@ -34,13 +34,15 @@ KERNELS = ("attention_block", "mlp_block", "attention_block_train",
            "lowlat_batchgrid", "pool_gather", "warp_pass", "nlm",
            "attention_qkv", "attention_block_f32", "attention_qkv_bwd_f32",
            "mlp_block_train", "attention_qkv_bwd_phased", "doctor_probe",
-           "attention", "attention_cp", "attention_cp_bwd")
+           "attention", "attention_cp", "attention_cp_bwd",
+           "attention_qkv_bwd_phased_long")
 # one count per kernel form: each library's name, the int8 form of the
 # per-item lowlat kernel ("lowlat_encoder_int8"), and the f32 forms that
 # share a library with another form (the f32 training attention block is
 # attention_block_f32's entry with its residual outputs; the LN backward,
 # the training MLP block and the phased attention backward take bf16 or f32
-# in one library)
+# in one library; the phased backward's long-Tp library counts both dtypes
+# under its own name)
 LAUNCHES = {name: 0 for name in KERNELS + ("attention_block_train_f32",
                                            "ln_res_bwd_f32",
                                            "mlp_block_train_f32",

@@ -29,8 +29,9 @@ Training adds two kernels:
   replaces ``_attn_qkv_bwd_kernel`` (JAX ``ops/attention.py:199``).
 - :func:`attention_qkv_bwd_phased`: the same ``dqkv`` on the TPU's
   opt-in phase-split schedule, selected by :data:`BWD_PHASED`.  Kernel:
-  ``csrc/attention_qkv_bwd_phased.cu`` (bf16 and f32); replaces
-  ``_attn_qkv_bwd_kernel_phased`` (JAX ``ops/attention.py:259``).
+  ``csrc/attention_qkv_bwd_phased.cu`` (one launch, bf16 and f32; longer
+  Tp on ``csrc/attention_qkv_bwd_phased_long.cu``, :func:`phased_plan`);
+  replaces ``_attn_qkv_bwd_kernel_phased`` (JAX ``ops/attention.py:259``).
 - :func:`mlp_block_train`: the MLP block with the stored-hidden
   backward's residuals (``xhat``, ``inv``, the hidden ``h``), erf or tanh
   GELU.  Kernel: ``csrc/mlp_block_train.cu``; replaces
@@ -66,8 +67,9 @@ adds two:
 
 - :func:`fused_attention_qkv_cp`: the local query block ``q [B, Tq, D]``
   against the gathered keys ``kv [B, Tk, 2D]``, bf16 and f32,
-  differentiable.  Kernel: ``csrc/attention_cp.cu`` (kernel 8's core on a
-  rectangle); replaces ``_attn_cp_kernel`` (JAX ``ops/attention.py:836``).
+  differentiable.  Kernel: ``csrc/attention_cp.cu`` (its own core,
+  ``attention_cp_core.cuh``, :func:`cp_plan`); replaces ``_attn_cp_kernel``
+  (JAX ``ops/attention.py:836``).
 - :func:`attention_cp_bwd`: its backward, ``dq`` and this rank's partial
   ``dkv``.  Kernel: ``csrc/attention_cp_bwd.cu`` (kernel 4's body on a
   rectangle); replaces ``_attn_cp_bwd_kernel`` (JAX :865).
@@ -115,7 +117,9 @@ _SIGNATURES = {
     "mlp_block_train": ("vsd_mlp_block_train",
                         [_P] * 13 + [_I] * 3 + [_F] + [_I] * 2 + [_P]),
     "attention_qkv_bwd_phased": ("vsd_attention_qkv_bwd_phased",
-                                 [_P] * 4 + [_I] * 7 + [_F, _P]),
+                                 [_P] * 3 + [_I] * 6 + [_F, _P]),
+    "attention_qkv_bwd_phased_long": ("vsd_attention_qkv_bwd_phased_long",
+                                      [_P] * 4 + [_I] * 7 + [_F, _P]),
     "attention_cp": ("vsd_attention_cp", [_P] * 3 + [_I] * 7 + [_F, _P]),
     "attention_cp_bwd": ("vsd_attention_cp_bwd",
                          [_P] * 6 + [_I] * 7 + [_F, _P]),
@@ -429,9 +433,13 @@ def attention_qkv_bwd_plain(qkv, g, num_heads: int, *, valid_len: int):
 # (JAX reads it at trace time, where a jitted step keeps the kernel it was
 # traced with).
 BWD_PHASED = False
-# workspace of one chunk of the phased backward: f32 [chunk * H, Tp, Tp]
-# kept within the 50 MB L2 between its four phases (16 items at ViT-B)
-_PHASED_WORKSPACE_BYTES = 32_000_000
+_PHASED_WARPS = 7              # kernel 5, bf16: warps a block
+_PHASED_MAX_KEYS = 208         # ... Tp rounded up to 16 that a block holds
+_PHASED_F32_MAX_KEYS = 256     # kernel 5, f32: Tp that a block holds
+_PHASED_F32_THREADS, _PHASED_F32_ROWS = 256, 16
+# the long-Tp route's workspace of one chunk, f32 [chunk * H, Tp, Tp], kept
+# within the 50 MB L2 between its four phases
+_PHASED_LONG_WORKSPACE_BYTES = 32_000_000
 
 
 def attention_qkv_bwd(qkv, g, num_heads: int, *, valid_len: int):
@@ -487,22 +495,62 @@ def attention_qkv_bwd(qkv, g, num_heads: int, *, valid_len: int):
     return dqkv
 
 
-def phased_chunk(batch: int, num_heads: int, tp: int) -> int:
-    """Items a chunk of the phased backward: as many as keep its f32
-    workspace ``[chunk * H, Tp, Tp]`` within 32 MB (16 at ViT-B)."""
+def phased_plan(batch: int, tp: int, num_heads: int, dh: int,
+                dtype) -> dict:
+    """How kernel 5 runs a backward of ``batch`` items of Tp rows at head
+    dim ``dh``, chosen by shape before any launch.  ``route``:
+
+    - ``"on_chip"``: one launch of ``csrc/attention_qkv_bwd_phased.cu``,
+      a block per (head, item) holding it on chip; head dims 16, 32 and
+      64, bf16 up to Tp 208 (``keys``: the instance, 64, 128 or 208 keys a
+      warp holds in registers; ``warps`` a block) and f32 up to Tp 256;
+    - ``"long"``: the four-launch schedule over an f32 workspace of
+      ``chunk`` items (``csrc/attention_qkv_bwd_phased_long.cu``) for
+      every other head dim that is a multiple of 16 up to 128 and Tp up to
+      908 (its dl phase's shared memory).
+
+    ``smem`` is a block's dynamic shared memory.  Raises ``ValueError``
+    naming the limit on a shape neither route takes."""
+    if dh % 16 or not 16 <= dh <= 128:
+        raise ValueError(f"the phased attention backward takes a head dim "
+                         f"that is a multiple of 16 from 16 to 128; got {dh}")
+    if not 0 < batch or num_heads > 65535:
+        raise ValueError(f"batch {batch} / heads {num_heads} outside the grid")
+    if dh in (16, 32, 64) and batch <= 65535:
+        if dtype == torch.bfloat16:
+            nk = _round_up(tp, 16)
+            smem = 2 * (2 * nk * dh + 2 * nk * nk)
+            if nk <= _PHASED_MAX_KEYS and smem <= _MAX_SMEM:
+                keys = next(k for k in (64, 128, _PHASED_MAX_KEYS) if nk <= k)
+                return {"route": "on_chip", "keys": keys,
+                        "warps": min(_PHASED_WARPS, nk // 16), "smem": smem}
+        elif dtype == torch.float32:
+            nkp, ldf = _round_up(tp, 4), dh + 4
+            smem = 4 * (2 * nkp * ldf + 4 * _PHASED_F32_ROWS * ldf
+                        + 2 * _PHASED_F32_ROWS * nkp)
+            if tp <= _PHASED_F32_MAX_KEYS and smem <= _MAX_SMEM:
+                return {"route": "on_chip", "warps": _PHASED_F32_THREADS // 32,
+                        "smem": smem}
+    smem = 4 * 16 * tp * 4             # the dl phase: 4 warps' [16][Tp] f32
+    if smem > _MAX_SMEM:
+        raise ValueError(f"the phased attention backward takes Tp up to "
+                         f"{_MAX_SMEM // 256}; Tp {tp} needs {smem} bytes of "
+                         f"shared memory per block, the card has {_MAX_SMEM}")
     per_item = num_heads * tp * tp * 4
-    return max(1, min(batch, _PHASED_WORKSPACE_BYTES // per_item))
+    chunk = max(1, min(batch, _PHASED_LONG_WORKSPACE_BYTES // per_item))
+    return {"route": "long", "chunk": chunk, "smem": smem}
 
 
 def attention_qkv_bwd_phased(qkv, g, num_heads: int, *, valid_len: int):
     """:func:`attention_qkv_bwd` on the phase-split schedule of the TPU
     kernel ``_attn_qkv_bwd_kernel_phased`` (JAX ``ops/attention.py:259``):
     the same function, the same rounding points.  On the card: bf16 or f32
-    ``qkv`` and ``g`` (``LAUNCHES["attention_qkv_bwd_phased"]`` or
-    ``..._phased_f32``), a head dim of 16, 32, 64 or 128, any Tp up to 908;
-    the items run in chunks of :func:`phased_chunk` over an f32 workspace,
-    four launches a chunk on the current stream.  A CPU tensor runs
-    :func:`attention_qkv_bwd_plain`, the plain version of both kernels."""
+    ``qkv`` and ``g``, the route of :func:`phased_plan`: one launch
+    (``LAUNCHES["attention_qkv_bwd_phased"]`` or ``..._phased_f32``), or,
+    past what a block holds, the four-launch schedule
+    (``LAUNCHES["attention_qkv_bwd_phased_long"]``, either dtype).  A CPU
+    tensor runs :func:`attention_qkv_bwd_plain`, the plain version of
+    both kernels."""
     if qkv.device.type == "cpu":
         return attention_qkv_bwd_plain(qkv, g, num_heads,
                                        valid_len=valid_len)
@@ -511,32 +559,33 @@ def attention_qkv_bwd_phased(qkv, g, num_heads: int, *, valid_len: int):
     b, tp, d3 = qkv.shape
     d = _check_head_geometry(d3, num_heads, fused=3)
     dh = d // num_heads
-    if dh not in (16, 32, 64, 128) or not 0 < valid_len <= tp:
-        raise ValueError(
-            f"the phased attention backward takes a head dim of 16, 32, 64 "
-            f"or 128 and 0 < valid_len <= Tp; got head dim {dh}, Tp {tp}, "
-            f"valid_len {valid_len}")
-    if 4 * 16 * tp * 4 > _MAX_SMEM:
-        raise ValueError(f"Tp {tp} needs {4 * 16 * tp * 4} bytes of shared "
-                         f"memory per block; the card has {_MAX_SMEM}")
-    if num_heads > 65535:
-        raise ValueError(f"heads {num_heads} outside the grid")
     if qkv.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"qkv is {qkv.dtype}; the kernel takes bf16 or f32")
+    if not 0 < valid_len <= tp:
+        raise ValueError(f"the phased attention backward takes 0 < valid_len "
+                         f"<= Tp; got valid_len {valid_len}, Tp {tp}")
+    plan = phased_plan(b, tp, num_heads, dh, qkv.dtype)
     dt, dev = qkv.dtype, qkv.device
     _require(qkv, "qkv", dt, (b, tp, d3), dev)
     _require(g, "g", dt, (b, tp, d), dev)
-    chunk = phased_chunk(b, num_heads, tp)
-    work = torch.empty((chunk * num_heads, tp, tp), dtype=torch.float32,
-                       device=dev)
-    lib, fn = _entry("attention_qkv_bwd_phased")
     dqkv = torch.empty_like(qkv)
     f32 = dt == torch.float32
-    err = fn(qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(), work.data_ptr(),
-             chunk, int(f32), b, tp, d, num_heads, valid_len,
-             float(dh) ** -0.5, torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, "attention_qkv_bwd_phased", err)
-    LAUNCHES["attention_qkv_bwd_phased" + ("_f32" if f32 else "")] += 1
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if plan["route"] == "long":
+        name = "attention_qkv_bwd_phased_long"
+        work = torch.empty((plan["chunk"] * num_heads, tp, tp),
+                           dtype=torch.float32, device=dev)
+        lib, fn = _entry(name)
+        err = fn(qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(),
+                 work.data_ptr(), plan["chunk"], int(f32), b, tp, d,
+                 num_heads, valid_len, float(dh) ** -0.5, stream)
+    else:
+        name = "attention_qkv_bwd_phased" + ("_f32" if f32 else "")
+        lib, fn = _entry("attention_qkv_bwd_phased")
+        err = fn(qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(), int(f32), b,
+                 tp, d, num_heads, valid_len, float(dh) ** -0.5, stream)
+    _build.check(lib, name, err)
+    LAUNCHES[name] += 1
     return dqkv
 
 
@@ -785,18 +834,53 @@ def _check_cp_args(q, kv, num_heads, valid_len, what):
     return b, tq, tk, d, dh
 
 
+_CP_WARPS = 7                     # kernel 12, bf16: warps of 16 query rows
+_CP_ONE_PASS_KEYS = 208           # keys a one-pass block holds in registers
+
+
+def cp_plan(tq: int, tk: int, dh: int, dtype) -> dict:
+    """How kernel 12 (``csrc/attention_cp.cu``) runs Tq query rows against
+    Tk keys at head dim ``dh``, chosen by shape before the launch: its
+    ``form`` (``"one_pass"`` where the keys, rounded up to 16 in bf16 or 8
+    in f32, are at most 208 and every score stays in registers;
+    ``"two_pass"`` past them, and in f32 wherever the one-pass block does
+    not fit), the query ``tiles`` of a (head, item), the ``warps`` of a
+    block and its dynamic shared memory ``smem``.  Raises
+    ``ValueError`` naming the limit on what it does not take."""
+    if dh % 16 or not 16 <= dh <= 128:
+        raise ValueError(f"kernel 12 takes a head dim that is a multiple of "
+                         f"16 from 16 to 128; got {dh}")
+    groups = -(-tq // 16)
+    if dtype == torch.bfloat16:
+        tiles = -(-groups // _CP_WARPS)
+        warps = -(-groups // tiles)
+        nk = _round_up(tk, 16)
+        one_pass = nk <= _CP_ONE_PASS_KEYS
+        smem = ((warps * 16 if one_pass else 0) + 2 * nk) * (dh + 8) * 2
+    else:                      # 8 groups of 16 rows a block
+        tiles = -(-groups // 8)
+        nk = _round_up(tk, 8)
+        # one pass, two warps a group: K and V [nk][dh + 4], 16 weight
+        # chunks [32][20], the halves' row max and sum, the second half's
+        # partial outputs [8][16][dh]; two passes, a warp a group: K and V
+        # and 8 weight chunks
+        one = (2 * nk * (dh + 4) + 16 * 32 * 20 + 512 + 8 * 16 * dh) * 4
+        one_pass = nk <= _CP_ONE_PASS_KEYS and one <= _MAX_SMEM
+        warps = 16 if one_pass else 8
+        smem = one if one_pass else (2 * nk * (dh + 4) + 8 * 32 * 20) * 4
+    if smem > _MAX_SMEM:
+        raise ValueError(f"Tk {tk} at head dim {dh} needs {smem} bytes of "
+                         f"shared memory per block; the card has {_MAX_SMEM}")
+    return {"form": "one_pass" if one_pass else "two_pass", "tiles": tiles,
+            "warps": warps, "smem": smem}
+
+
 def _attention_cp_kernel(q, kv, num_heads: int, valid_len: int):
     """Launch kernel 12 (``csrc/attention_cp.cu``) on CUDA ``q [B, Tq, D]``
     and ``kv [B, Tk, 2D]``; raises on what it does not take."""
     b, tq, tk, d, dh = _check_cp_args(q, kv, num_heads, valid_len,
                                       "kernel 12")
-    if dh % 16 or not 16 <= dh <= 128:
-        raise ValueError(f"kernel 12 takes a head dim that is a multiple of "
-                         f"16 from 16 to 128; got {dh}")
-    smem = _attention_qkv_smem(tk, dh, q.dtype)          # kernel 8's core
-    if smem > _MAX_SMEM:
-        raise ValueError(f"Tk {tk} at head dim {dh} needs {smem} bytes of "
-                         f"shared memory per block; the card has {_MAX_SMEM}")
+    cp_plan(tq, tk, dh, q.dtype)
     lib, fn = _entry("attention_cp")
     out = torch.empty((b, tq, d), dtype=q.dtype, device=q.device)
     f32 = q.dtype == torch.float32
@@ -897,9 +981,10 @@ def fused_attention_qkv_cp(q, kv, num_heads: int, valid_len: int):
 
     A CPU tensor runs :func:`fused_attention_qkv_cp_plain`; a CUDA one
     runs kernel 12 (``LAUNCHES["attention_cp"]``, f32
-    ``"attention_cp_f32"``) on bf16 or f32, any Tq and Tk (the TPU
-    kernel's zero padding to multiples of 8 adds nothing), a head dim
-    that is a multiple of 16 from 16 to 128.  Differentiable: the backward
+    ``"attention_cp_f32"``) on bf16 or f32, any Tq and Tk within shared
+    memory (:func:`cp_plan`; the TPU kernel's zero padding to multiples
+    of 8 adds nothing), a head dim that is a multiple of 16 from 16 to
+    128.  Differentiable: the backward
     is kernel 13 (bf16 head dims 16, 32, 64; Tq and Tk up to 256 and
     within shared memory) or its plain version."""
     return _AttentionCP.apply(q.contiguous(), kv.contiguous(), num_heads,
