@@ -111,7 +111,9 @@ runs these phases, each printing one JSON line and raising on failure:
             grad_norm within 1e-6 relative).  (c) preprocess_eval(denoise=
             True) at B = 64: kernel 16 once, the output held against plain.
 12. times_aug kernels 14-16 beside their plain versions, bounds and
-            ``torch.index_select`` for kernel 14; the tiers' images/s
+            ``torch.index_select`` for kernel 14 (both on indices already
+            on the card, in turns; the wrapper with its host check and
+            upload timed apart); the tiers' images/s
             (uint8 out); the pool step per group beside phase 9's bare
             step, with a profile of a heavy step; preprocess_eval at B = 64.
 13. kernels (again) kernel 8, the module path's attention core, against
@@ -135,7 +137,8 @@ runs these phases, each printing one JSON line and raising on failure:
             make_eval_step over the bf16 module: 12 launches.  Host
             decoding is replaced by a seed-backed reader (no PIL here).
 15. times_eval kernel 8 at B = 128 bf16 and B = 32 f32 beside its plain
-            version, bound and scaled_dot_product_attention; the bf16
+            version, bound and scaled_dot_product_attention (unmasked,
+            the two in turns); the bf16
             module forward and the scoring loop with the upload at B = 128;
             the f32 ViTLinearHead and ResNet50 forwards at B = 32; a
             profile of one bf16 module forward.
@@ -181,14 +184,11 @@ runs these phases, each printing one JSON line and raising on failure:
             128 (Tp 200, valid_len 197) and ragged within 2 bf16 ulps,
             f32 at B = 32 and ragged within F32_TOL of each output's
             largest magnitude, pad rows zero; beside kernel 4 on the same
-            inputs (the gap printed, not bounded); its long-Tp route
-            (Tp 584, ViT-B/16 at 384 px) at bf16 and f32 the same way.
+            inputs (the gap printed, not bounded).
 21. train_phased step 0 at bf16 B = 128 and f32 B = 32 with BWD_PHASED
             set: every gradient leaf within GRAD_REL_TOL / F32_GRAD_REL_TOL
             of train_modes' f32 autograd, kernel 5 exactly 12 launches a
-            step and kernel 4 none; bf16 at 384 px (B = 8, Tp 584) within
-            GRAD_REL_TOL of that model's f32 autograd, kernel 5's long-Tp
-            route 12 launches; the flag restored after.
+            step and kernel 4 none; the flag restored after.
 22. cli      the verbs in process through ``__main__.main(argv)`` at
             ViT-B/16 on seeded faces over trees of empty files: config
             --diff; doctor --json (no FAIL, pallas ok, kernel 17 once);
@@ -204,8 +204,8 @@ runs these phases, each printing one JSON line and raising on failure:
             --all-models, --train-step with and without the fused
             forward and with BWD_PHASED, --profile), each printing its
             JSON line and launching only its mode's kernels.
-23. times_cli kernel 5 (bf16 B = 128, f32 B = 32, and the long-Tp route
-            at 384 px) in turns with kernel 4 (where it runs) and SDPA's
+23. times_cli kernel 5 (bf16 B = 128, f32 B = 32) in turns with kernel 4
+            and SDPA's
             backward, its bound (kernel 4's work) and its plain version;
             kernel 17 beside 2 x and torch.mul; the training step with the
             flag off and on, in turns; each verb's wall s.
@@ -245,7 +245,7 @@ runs these phases, each printing one JSON line and raising on failure:
             program that served it; describe --verify of each directory,
             a truncated weights file refused; benchmark --artifact.
 27. times_artifact kernel 9 (bf16 B = 128, f32 B = 32) beside its plain
-            version, bound and SDPA; kernel 10 int8 at B = 1 beside its
+            version, bound and SDPA (in turns); kernel 10 int8 at B = 1 beside its
             bound, its plain version and kernel 10 bf16, in turns; the
             int8 module forward at B = 128 beside fastserve (with a
             profile); each artifact's call beside its live regime; export
@@ -275,6 +275,34 @@ runs these phases, each printing one JSON line and raising on failure:
             backward; each rank's step ms (ranks sharing one
             card: no yardstick of multi-card speed) and kernels 12 and 13
             inside rank 0's profiled step.
+31. kernels (again) every key-tiled route against its plain version at
+            the shapes ViT-B/16 at 384 px gives it (T 577, Tp 584; two
+            sequence ranks: Tq 296, Tk 592): the backward on the fused
+            projection (bf16 B = 8, f32 B = 2) and on kernel 13's
+            rectangle with kernel 12 (bf16 B = 4, f32 B = 2), the f32
+            blocks (kernels 1, 3), kernels 8 and 9 at f32; 2 bf16 ulps or
+            F32_TOL of each output's largest magnitude.
+32. long     ViT-B/16 at 384 px through the entry points with BWD_PHASED
+            off, launches counted from 0 for each run: a bf16 training
+            step at B = 8 (kernel 3, the key-tiled backward 12 times,
+            kernel 4 never; leaves within GRAD_REL_TOL of f32 autograd),
+            an f32 step at B = 2 (the f32 block on its key-tiled core and
+            the key-tiled f32 backward; within F32_GRAD_REL_TOL), the f32
+            module forward (kernel 8 key-tiled) and the f32 grad-off
+            training forward (kernel 1 key-tiled) at B = 2 and
+            dot_product_attention at f32 (kernel 9 key-tiled), each
+            within F32_TOL of its largest output of the same forward on
+            the plain version.
+33. slice_sp (again) the 2-rank step at 384 px (Tq 296, Tk 592), bf16 at
+            B = 4 and f32 at B = 2, the ranks sharing the card over gloo:
+            kernel 12 and kernel 13's key-tiled route 12 times each,
+            step 0 within the bounds of phase 29 of the single-card step.
+34. times_long each key-tiled route beside its plain version and bound,
+            and where one PyTorch call computes the same function (SDPA
+            or its backward) that call in turns: the backward at B = 8,
+            Tp 584 (bf16 and f32), kernel 13's key-tiled route and kernel
+            12's f32 key tiles at B = 8, Tq 296, Tk 592, kernels 8 and 9
+            f32 at B = 8, T 577; the f32 blocks at B = 2.
 
 Then it prints the kernel table as one JSON line, the card's name and
 power limit as nvidia-smi gives them, and last
@@ -425,9 +453,36 @@ KERNELS = {
     "attention_qkv_bwd_phased_f32": dict(
         source="vit_spoof_detection_pda_tpu_torch/csrc/attention_qkv_bwd_phased.cu",
         replaces="vit_spoof_detection_pda_tpu/ops/attention.py:259"),
-    "attention_qkv_bwd_phased_long": dict(
-        source="vit_spoof_detection_pda_tpu_torch/csrc/attention_qkv_bwd_phased_long.cu",
-        replaces="vit_spoof_detection_pda_tpu/ops/attention.py:259"),
+    # the key-tiled routes past what the one-block forms hold (slice 11):
+    # the backward of kernels 4 / 5 and 13, the f32 forward core under
+    # kernels 1 / 3, 8 and 9, kernel 12's key-tiled two passes
+    "attention_bwd_tiled": dict(
+        source="vit_spoof_detection_pda_tpu_torch/csrc/attention_bwd_tiled.cu",
+        replaces="vit_spoof_detection_pda_tpu/ops/attention.py:199"),
+    "attention_bwd_tiled_f32": dict(
+        source="vit_spoof_detection_pda_tpu_torch/csrc/attention_bwd_tiled.cu",
+        replaces="vit_spoof_detection_pda_tpu/ops/attention.py:199"),
+    "attention_cp_bwd_tiled": dict(
+        source="vit_spoof_detection_pda_tpu_torch/csrc/attention_bwd_tiled.cu",
+        replaces="vit_spoof_detection_pda_tpu/ops/attention.py:865"),
+    "attention_cp_bwd_tiled_f32": dict(
+        source="vit_spoof_detection_pda_tpu_torch/csrc/attention_bwd_tiled.cu",
+        replaces="vit_spoof_detection_pda_tpu/ops/attention.py:865"),
+    "attention_block_train_f32_tiled": dict(
+        source="vit_spoof_detection_pda_tpu_torch/csrc/attention_f32.cuh",
+        replaces="vit_spoof_detection_pda_tpu/models/fasttrain.py:70"),
+    "attention_block_f32_tiled": dict(
+        source="vit_spoof_detection_pda_tpu_torch/csrc/attention_f32.cuh",
+        replaces="vit_spoof_detection_pda_tpu/ops/attention.py:412"),
+    "attention_qkv_f32_tiled": dict(
+        source="vit_spoof_detection_pda_tpu_torch/csrc/attention_f32.cuh",
+        replaces="vit_spoof_detection_pda_tpu/ops/attention.py:119"),
+    "attention_f32_tiled": dict(
+        source="vit_spoof_detection_pda_tpu_torch/csrc/attention_f32.cuh",
+        replaces="vit_spoof_detection_pda_tpu/ops/attention.py:58"),
+    "attention_cp_tiled_f32": dict(
+        source="vit_spoof_detection_pda_tpu_torch/csrc/attention_cp_core.cuh",
+        replaces="vit_spoof_detection_pda_tpu/ops/attention.py:836"),
     "doctor_probe": dict(
         source="vit_spoof_detection_pda_tpu_torch/csrc/doctor_probe.cu",
         replaces="vit_spoof_detection_pda_tpu/cli/doctor.py:115"),
@@ -478,10 +533,16 @@ F32_TOL = 1e-5                       # f32 kernels, of each output's largest
 F32_B = 32                           # the f32 step's batch
 F32_GRAD_REL_TOL = 1e-3              # f32 step, per leaf relative L2 vs f32
                                      # autograd (f32 noise, ~1e-5 expected)
-# kernel 5's long-Tp route on a path of its own: ViT-B/16 at 384 px
+# ViT-B/16 at 384 px: past every one-block attention kernel's limit, so
+# every attention kernel of the training, module and sequence-parallel
+# paths takes its key-tiled route (slice 11)
 LONG_IMG, LONG_B = 384, 8
 LONG_T = (LONG_IMG // PATCH) ** 2 + 1  # 577 tokens
 LONG_TP = att._round_up(LONG_T, 8)     # 584 rows: past the one launch's 208
+LONG_F32_B = 2                         # the f32 runs' batch at 384 px
+LONG_SP_B = 4                          # the 2-rank SP step's batch at 384 px
+LONG_SP_TK = att._round_up(LONG_T, 16)  # 592: the stream padded for 2 ranks
+LONG_SP_TQ = LONG_SP_TK // 2            # 296 query rows a rank
 LOOP_B, LOOP_STEPS, LOOP_EPOCHS, LOOP_VAL = 32, 4, 3, 96
 LOOP_PREEMPT = (1, 2)                # (epoch, batch) of the preemption
 
@@ -2017,6 +2078,9 @@ def phase_times_aug(dev, ctx, main_err, launches, bare_step_ms) -> list:
     pool = ctx["data"].pool
     idx = np.random.default_rng(SEED + 12).integers(0, POOL_N, MAIN_B)
     idx_dev = torch.from_numpy(idx).to(dev)
+    idx_dev32 = idx_dev.int()
+    rows_out = torch.empty((MAIN_B,) + tuple(pool.shape[1:]),
+                           dtype=pool.dtype, device=dev)
     img = torch.rand((MAIN_B, IMG, IMG, 3), generator=gen,
                      device=dev).bfloat16()
     kmax = aug._perspective_kmax(0.2, IMG)
@@ -2027,8 +2091,11 @@ def phase_times_aug(dev, ctx, main_err, launches, bare_step_ms) -> list:
     # weight 5 (exp as one), the sums 2C + 1; C divisions at the end
     pix = EVAL_B * IMG * IMG
     nlm_ops = (3 * 3 - 1 + 8 + 5 + 2 * 3 + 1) * 11 * 11 * pix + 3 * pix
+    # kernel 14 and index_select alike: one launch each on indices
+    # already on the card, in turns (the wrapper's host check and upload
+    # are timed apart, below)
     timed = {
-        "pool_gather": (lambda: gather.pool_gather(pool, idx),
+        "pool_gather": (lambda: gather.gather_rows(pool, idx_dev32, rows_out),
                         lambda: gather.pool_gather_plain(pool, idx),
                         0, 2 * MAIN_B * pool[0].numel(),
                         lambda: pool.index_select(0, idx_dev)),
@@ -2041,17 +2108,18 @@ def phase_times_aug(dev, ctx, main_err, launches, bare_step_ms) -> list:
     }
     rows = []
     for name, (kernel, plain, flops, nb, lib) in timed.items():
-        ms = time_ms(kernel)
+        ms, lib_ms = time_in_turns(kernel, lib) if lib else (
+            time_ms(kernel), None)
         plain_ms = time_ms(plain, windows=3, per_window=1, warmup=1)
         bound_ms, bound_by = bound(flops, nb, PEAK_F32_FLOPS)
         rows.append({"name": name, "route": "cuda", **KERNELS[name],
                      "launches": launches[name],
                      "max_abs_err": main_err[name], "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by,
-                     "library_ms": time_ms(lib) if lib else None})
-    # the gather's CUDA-event time is its wrapper's host work (the index
-    # check and upload); the kernel alone: its device time in a profile
+                     "bound_by": bound_by, "library_ms": lib_ms})
+    # the wrapper the step calls (the host check and upload of the
+    # indices, then the launch), and the kernel's device time in a profile
+    wrapper_ms = time_ms(lambda: gather.pool_gather(pool, idx))
     gather_device_ms = [t["ms"] / t["calls"] for t in profile_step(
         timed["pool_gather"][0])["profile_top"] if "pool_gather" in t["name"]]
     rot = (-torch.tan(torch.full((MAIN_B,), math.radians(10.0), device=dev)
@@ -2092,6 +2160,7 @@ def phase_times_aug(dev, ctx, main_err, launches, bare_step_ms) -> list:
                                   ("ms", "plain_ms", "bound_ms", "bound_by",
                                    "library_ms")} for r in rows},
           "pool_gather_kernel_device_ms": gather_device_ms,
+          "pool_gather_wrapper_ms": wrapper_ms,
           "warp_pass_other_shapes": warp_extra,
           "tiers_b64_uint8_out": tiers, "pool_step": pool_steps,
           "bare_step_ms": bare_step_ms, "heavy_step_profile": profile,
@@ -2373,8 +2442,10 @@ def _share(top, *needles) -> float:
 
 def phase_times_eval(dev, ctx, main_err, launches) -> list:
     """Kernel 8 at B = 128 bf16 and B = 32 f32 beside its plain version,
-    bound and scaled_dot_product_attention on the same q/k/v views with
-    the key mask (timed only); the bf16 module forward and the scoring
+    bound and scaled_dot_product_attention on the same q/k/v views (no
+    mask: every key is real), the two timed in turns (kernel, library,
+    library, kernel; the library timed only); the bf16 module forward and
+    the scoring
     loop with the upload at B = 128; the f32 ViTLinearHead and ResNet50
     forwards at B = 32; a profile of one bf16 module forward."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 22)
@@ -2384,12 +2455,13 @@ def phase_times_eval(dev, ctx, main_err, launches) -> list:
                          ("f32_b32", torch.float32, EVAL_HARNESS_B)):
         qkv = torch.randn((b, T, 3 * D), generator=gen, device=dev).to(dt)
         q, k, v = qkv.view(b, T, 3, HEADS, D // HEADS).permute(2, 0, 3, 1, 4)
-        mask = (torch.arange(T, device=dev) < T).view(1, 1, 1, T)
         flops, nb = qkv_work(b, T, D, HEADS, qkv.element_size())
-        ms = time_ms(lambda: att.fused_attention_qkv(qkv, HEADS))
+        with exact_f32_matmul():
+            ms, lib_ms = time_in_turns(
+                lambda: att.fused_attention_qkv(qkv, HEADS),
+                lambda: sdpa(q, k, v))
         plain_ms = time_ms(lambda: att.fused_attention_qkv_plain(qkv, HEADS),
                            per_window=3)
-        lib_ms = time_ms(lambda: sdpa(q, k, v, attn_mask=mask))
         bound_ms, bound_by = bound(flops, nb, PEAK_BF16_FLOPS
                                    if dt == torch.bfloat16 else PEAK_F32_FLOPS)
         per[label] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
@@ -2740,7 +2812,7 @@ class _Record:
         self.records.append(dict(record))
 
 
-def loop_faces(n: int, salt: int):
+def loop_faces(n: int, salt: int, img: int = IMG):
     """``n`` seeded uint8 faces and their labels.  A face is noise 0-95
     over a brightness drawn from N(64 + 40 * label, 20): the classes
     overlap (the best brightness rule errs on ~16% of faces), so the loss
@@ -2750,7 +2822,7 @@ def loop_faces(n: int, salt: int):
     rng = np.random.default_rng([SEED, salt])
     labels = rng.integers(0, 2, n).astype(np.int32)
     level = np.clip(rng.normal(64.0 + 40.0 * labels, 20.0), 0, 159)
-    u8 = rng.integers(0, 96, (n, IMG, IMG, 3), dtype=np.uint8)
+    u8 = rng.integers(0, 96, (n, img, img, 3), dtype=np.uint8)
     u8 += level.astype(np.uint8)[:, None, None, None]
     return u8, labels
 
@@ -3081,9 +3153,10 @@ def phase_kernels_cli(dev) -> dict:
     phased attention backward) against attention_qkv_bwd_plain at bf16
     (B = 2, 3, 128; Tp 200, valid_len 197; ragged) within 2 bf16 ulps and
     at f32 (B = 32; ragged) within F32_TOL of each output's magnitude, and
-    beside kernel 4 on the same inputs (the gap printed, not bounded); its
-    long-Tp route at ViT-B/16, 384 px (Tp 584: bf16 B = LONG_B, f32 B = 2),
-    where kernel 4 does not run.  Returns the main paths' errors."""
+    beside kernel 4 on the same inputs (the gap printed, not bounded).
+    Past its one launch (ViT-B/16 at 384 px) it runs the key-tiled
+    backward, which kernels_long checks.  Returns the main paths'
+    errors."""
     x = torch.ones((8, 128), device=dev)
     got = probe.doctor_probe(x)
     torch.cuda.synchronize()
@@ -3102,9 +3175,7 @@ def phase_kernels_cli(dev) -> dict:
              ("ragged", torch.bfloat16, 2, 40, 33, 64, 4),
              ("main_path_b128", torch.bfloat16, MAIN_B, TP, T, D, HEADS),
              ("ragged", torch.float32, 3, 40, 33, 64, 4),
-             ("main_path_b32", torch.float32, F32_B, TP, T, D, HEADS),
-             ("long_path", torch.bfloat16, LONG_B, LONG_TP, LONG_T, D, HEADS),
-             ("long_tp", torch.float32, 2, LONG_TP, LONG_T, D, HEADS)]
+             ("main_path_b32", torch.float32, F32_B, TP, T, D, HEADS)]
     for label, dt, b, tp, valid, d, heads in cases:
         bwd = train_inputs(rng, b, tp, valid, d, dev)[0]
         if dt == torch.float32:
@@ -3113,20 +3184,18 @@ def phase_kernels_cli(dev) -> dict:
         got = att.attention_qkv_bwd_phased(**bwd, **kw)
         want = att.attention_qkv_bwd_plain(**bwd, **kw)
         plan = att.phased_plan(b, tp, heads, d // heads, dt)
-        long = plan["route"] == "long"
-        k4 = None if long else att.attention_qkv_bwd(**bwd, **kw)
+        k4 = att.attention_qkv_bwd(**bwd, **kw)
         torch.cuda.synchronize()
         name = "attention_qkv_bwd_phased" + (
-            "_long" if long else "_f32" if dt == torch.float32 else "")
-        gap_k4 = (None if long
-                  else (got.float() - k4.float()).abs().max().item())
+            "_f32" if dt == torch.float32 else "")
+        gap_k4 = (got.float() - k4.float()).abs().max().item()
         err = _check_parts(
             label, name, _bwd_parts(got, want, d), list(bwd["qkv"].shape),
             bf16_tol if dt == torch.bfloat16 else _f32_tol,
             {"pad_rows_zero": bool((got[:, valid:] == 0).all())})
         emit({"phase": "kernels", "case": label, "kernel": name,
               "vs_kernel_4_max_abs_diff": gap_k4, "plan": plan})
-        if label.startswith(("main_path", "long_path")):
+        if label.startswith("main_path"):
             main_err[name] = err
         del bwd, got, want, k4
     return main_err
@@ -3137,21 +3206,10 @@ def phase_train_phased(dev, ctx) -> dict:
     f32 at B = 32 ("hidden"), every gradient leaf within GRAD_REL_TOL /
     F32_GRAD_REL_TOL of f32 autograd of the module (train_modes'
     references), kernel 5 launched exactly 12 times a step and kernel 4
-    never; then bf16 at 384 px (B = LONG_B, Tp 584) against f32 autograd
-    of that model, kernel 5's long-Tp route launched 12 times.  Returns
-    the launches of each run."""
+    never.  (Past kernel 5's one launch, at 384 px, the flag and kernel
+    4's wrapper take the same key-tiled backward, which phase long
+    drives.)  Returns the launches of each run."""
     model, params, loss_fn = ctx["model"], ctx["params"], ctx["loss_fn"]
-    rng = np.random.default_rng(SEED + 42)
-    params_l = random_params(rng, t=LONG_T)
-    model_l = load_jax_params(ViTAntiSpoof(
-        patch_size=PATCH, embed_dim=D, depth=DEPTH, num_heads=HEADS,
-        hidden=HEAD_HIDDEN, img_size=LONG_IMG, gelu="erf", dropout=0.0),
-        params_l)
-    u8 = rng.integers(0, 256, (LONG_B, LONG_IMG, LONG_IMG, 3), dtype=np.uint8)
-    imgs_l = normalize(to_float(torch.from_numpy(u8).to(dev)))
-    lbls_l = torch.from_numpy(rng.integers(0, 2, LONG_B)).to(dev)
-    loss_ref_l, ref_l = _module_f32_grads(model_l, imgs_l, lbls_l, loss_fn,
-                                          dev)
     runs = {
         "bf16_b128": (model, params, torch.bfloat16, ctx["images"],
                       ctx["labels"], ctx["ref"], ctx["loss_ref"],
@@ -3165,11 +3223,6 @@ def phase_train_phased(dev, ctx) -> dict:
                     _want(attention_block_train_f32=DEPTH,
                           attention_qkv_bwd_phased_f32=DEPTH,
                           ln_res_bwd_f32=2 * DEPTH)),
-        "bf16_long_384": (model_l, params_l, torch.bfloat16, imgs_l, lbls_l,
-                          ref_l, loss_ref_l, GRAD_REL_TOL,
-                          _want(attention_block_train=DEPTH,
-                                attention_qkv_bwd_phased_long=DEPTH,
-                                ln_res_bwd=2 * DEPTH)),
     }
     out, launches, ok = {}, {}, True
     with bwd_phased():
@@ -3475,36 +3528,30 @@ def phase_cli(dev, tmp: Path):
 
 def phase_times_cli(dev, ctx, main_err, phased_launches, doctor_launches,
                     walls) -> list:
-    """Kernel 5 at bf16 B = 128 and f32 B = 32 and its long-Tp route at
-    384 px, each in turns with kernel 4 (where kernel 4 runs) and SDPA's
-    backward (kernel, kernel 4, library, library, kernel 4, kernel), its
-    bound (kernel 4's work) and its plain version; kernel 17 beside
+    """Kernel 5 at bf16 B = 128 and f32 B = 32, each in turns with kernel
+    4 and SDPA's backward (kernel, kernel 4, library, library, kernel 4,
+    kernel), its bound (kernel 4's work) and its plain version (its route
+    at 384 px, the key-tiled backward, is timed in times_long); kernel 17
+    beside
     ``2 * x`` and ``torch.mul``; the training step with the flag on and
     off; each verb's wall seconds.  Returns the kernel rows."""
     rng = np.random.default_rng(SEED + 41)
     bwd = train_inputs(rng, MAIN_B, TP, T, D, dev)[0]
     bwd32 = _f32(train_inputs(rng, F32_B, TP, T, D, dev)[0])
-    bwd_long = train_inputs(rng, LONG_B, LONG_TP, LONG_T, D, dev)[0]
     ln_dummy = train_inputs(rng, 2, TP, T, D, dev)[1]
     rows, k4 = [], {}
     for name, b_in, b, tp, valid, peak, run in (
             ("attention_qkv_bwd_phased", bwd, MAIN_B, TP, T, PEAK_BF16_FLOPS,
              "bf16_b128"),
             ("attention_qkv_bwd_phased_f32", bwd32, F32_B, TP, T,
-             PEAK_F32_FLOPS, "f32_b32"),
-            ("attention_qkv_bwd_phased_long", bwd_long, LONG_B, LONG_TP,
-             LONG_T, PEAK_BF16_FLOPS, "bf16_long_384")):
+             PEAK_F32_FLOPS, "f32_b32")):
         kw = dict(num_heads=HEADS, valid_len=valid)
-        fns = [lambda: att.attention_qkv_bwd_phased(**b_in, **kw)]
-        if tp == TP:                     # kernel 4 takes Tp up to 208
-            fns.append(lambda: att.attention_qkv_bwd(**b_in, **kw))
         with exact_f32_matmul():
-            fns.append(_library_calls(b_in, ln_dummy, HEADS,
-                                      valid)["attention_qkv_bwd"])
-            times = time_in_turns(*fns)
-        ms, lib_ms = times[0], times[-1]
-        if tp == TP:
-            k4[name] = times[1]
+            ms, k4[name], lib_ms = time_in_turns(
+                lambda: att.attention_qkv_bwd_phased(**b_in, **kw),
+                lambda: att.attention_qkv_bwd(**b_in, **kw),
+                _library_calls(b_in, ln_dummy, HEADS,
+                               valid)["attention_qkv_bwd"])
         plain_ms = time_ms(lambda: att.attention_qkv_bwd_plain(**b_in, **kw),
                            per_window=2)
         flops, _ = attention_bwd_work(b, tp, D, HEADS)
@@ -3515,7 +3562,7 @@ def phase_times_cli(dev, ctx, main_err, phased_launches, doctor_launches,
                      "max_abs_err": main_err[name], "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": lib_ms})
-    del bwd, bwd32, bwd_long
+    del bwd, bwd32
     x = torch.ones((8, 128), device=dev)
     bound_ms, bound_by = bound(x.numel(), 2 * nbytes(x), PEAK_F32_FLOPS)
     rows.append({"name": "doctor_probe", "route": "cuda",
@@ -4142,7 +4189,8 @@ def phase_artifact(dev, tmp: Path) -> dict:
 def phase_times_artifact(dev, ictx, actx, main_err) -> list:
     """Kernel 9 (bf16 B = 128 on the int8 path's strided views, f32 B =
     32) beside its plain version, bound (kernel 8's accounting, q, k, v
-    and the output) and scaled_dot_product_attention on the same tensors;
+    and the output) and scaled_dot_product_attention on the same tensors,
+    the two in turns (kernel, library, library, kernel);
     kernel 10's int8 form at B = 1 (phase 4's weights, fold-ends) beside
     its bound, its plain version and kernel 10's bf16 form, in turns; the
     int8 module forward at B = 128 beside fastserve; each artifact's call
@@ -4160,10 +4208,11 @@ def phase_times_artifact(dev, ictx, actx, main_err) -> list:
         q, k, v = _qkv_views(rng, b, T, HEADS, D // HEADS, dt, dev)
         qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
         flops, nb = qkv_work(b, T, D, HEADS, q.element_size())
-        ms = time_ms(lambda: att.fused_attention(q, k, v))
+        with exact_f32_matmul():
+            ms, lib_ms = time_in_turns(lambda: att.fused_attention(q, k, v),
+                                       lambda: sdpa(qh, kh, vh))
         plain_ms = time_ms(lambda: att.fused_attention_plain(q, k, v),
                            per_window=3)
-        lib_ms = time_ms(lambda: sdpa(qh, kh, vh))
         bound_ms, bound_by = bound(flops, nb, peak)
         per[name] = {"batch": b, "ms": ms, "plain_ms": plain_ms,
                      "library_ms": lib_ms, "bound_ms": bound_ms,
@@ -4326,28 +4375,29 @@ def phase_kernels_cp(dev) -> dict:
     return main_err
 
 
-def sp_config(dtype="bfloat16", **sharding):
+def sp_config(dtype="bfloat16", img=IMG, **sharding):
     """The default training config (focal loss, AdamW) at ViT-B/16 in
-    ``dtype`` (bf16 unless asked), dropout 0.1, the module path, with
-    ``sharding``."""
+    ``dtype`` (bf16 unless asked) on ``img`` px faces, dropout 0.1, the
+    module path, with ``sharding``."""
     return Config().with_overrides({
-        "seed": SEED, "data.img_size": IMG, "model.dropout": 0.1,
+        "seed": SEED, "data.img_size": img, "model.dropout": 0.1,
         "model.compute_dtype": dtype, "optim.learning_rate": 1e-4,
         "optim.warmup_epochs": 0, "model.fused_train_forward": False,
         **{f"sharding.{k}": v for k, v in sharding.items()}})
 
 
-def sp_model(dtype=torch.bfloat16):
+def sp_model(dtype=torch.bfloat16, img=IMG):
     return ViTAntiSpoof(patch_size=PATCH, embed_dim=D, depth=DEPTH,
-                        num_heads=HEADS, hidden=HEAD_HIDDEN, img_size=IMG,
+                        num_heads=HEADS, hidden=HEAD_HIDDEN, img_size=img,
                         gelu="erf", dropout=0.1, dtype=dtype)
 
 
-def sp_trainer(cfg, params, dev, dtype=torch.bfloat16):
-    """A Trainer of ``cfg`` on ``params`` (a ``dtype`` module) whose train
-    step takes uint8 faces (make_prep_fn([]) normalizes them on the
-    card)."""
-    return Trainer(cfg, sp_model(dtype), train_batches=lambda e, skip=0: iter(()),
+def sp_trainer(cfg, params, dev, dtype=torch.bfloat16, img=IMG):
+    """A Trainer of ``cfg`` on ``params`` (a ``dtype`` module on ``img`` px
+    faces) whose train step takes uint8 faces (make_prep_fn([])
+    normalizes them on the card)."""
+    return Trainer(cfg, sp_model(dtype, img),
+                   train_batches=lambda e, skip=0: iter(()),
                    val_batches=lambda: iter(()), steps_per_epoch=1,
                    variables=params, device=dev, logger=_Record(),
                    batch_prep=make_prep_fn([]))
@@ -4720,6 +4770,482 @@ def phase_times_sp(dev, ctx, main_err) -> list:
     return rows
 
 
+# --------------------------------------------------------------------------
+# slice 11: every attention kernel at ViT-B/16, 384 px, on its key-tiled
+# route (the backward of kernels 4 / 5 and 13, the f32 forward core,
+# kernel 12's key tiles)
+# --------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def plain_attention_block():
+    """Run kernel 1 (the grad-off attention block of the training
+    forward) on its plain version; restores the kernel."""
+    saved = att.fused_attention_block_padded
+    att.fused_attention_block_padded = att.fused_attention_block_padded_plain
+    try:
+        yield
+    finally:
+        att.fused_attention_block_padded = saved
+
+
+def _tol_of(dt):
+    return bf16_tol if dt == torch.bfloat16 else _f32_tol
+
+
+def long_ctx(dev, loss_fn) -> dict:
+    """ViT-B/16 at LONG_IMG px (12 layers, erf GELU, numpy-seeded weights
+    with a 577-token position table), LONG_B normalized faces and labels,
+    and the f32 autograd references of its module (kernel 8 on its plain
+    version, TF32 off) at B = LONG_B and at the f32 runs' LONG_F32_B."""
+    rng = np.random.default_rng(SEED + 42)
+    params = random_params(rng, t=LONG_T)
+    model = load_jax_params(ViTAntiSpoof(
+        patch_size=PATCH, embed_dim=D, depth=DEPTH, num_heads=HEADS,
+        hidden=HEAD_HIDDEN, img_size=LONG_IMG, gelu="erf", dropout=0.0),
+        params)
+    u8 = rng.integers(0, 256, (LONG_B, LONG_IMG, LONG_IMG, 3), dtype=np.uint8)
+    imgs = normalize(to_float(torch.from_numpy(u8).to(dev)))
+    lbls = torch.from_numpy(rng.integers(0, 2, LONG_B)).to(dev)
+    loss_ref, ref = _module_f32_grads(model, imgs, lbls, loss_fn, dev)
+    loss_ref32, ref32 = _module_f32_grads(
+        model, imgs[:LONG_F32_B], lbls[:LONG_F32_B], loss_fn, dev)
+    return {"model": model, "params": params, "images": imgs,
+            "labels": lbls, "loss_fn": loss_fn, "ref": ref,
+            "loss_ref": loss_ref, "ref32": ref32, "loss_ref32": loss_ref32}
+
+
+def phase_kernels_long(dev) -> dict:
+    """Each key-tiled route against its plain version at the shapes the
+    384 px paths give it (ViT-B/16: T 577, Tp 584; two sequence ranks: Tq
+    296, Tk 592): the backward on the fused projection (bf16 B = LONG_B,
+    f32 B = LONG_F32_B) and on kernel 13's rectangle with kernel 12's
+    forward (bf16 B = LONG_SP_B, f32 B = LONG_F32_B), the f32 attention
+    blocks (kernels 1 and 3), kernel 8 and kernel 9 at f32 (B =
+    LONG_F32_B); bf16 within 2 ulps, f32 within F32_TOL of each output's
+    largest magnitude; pad rows' dq and masked keys' dk, dv exactly 0.
+    Returns each route's largest error."""
+    rng = np.random.default_rng(SEED + 110)
+    bf, f32 = torch.bfloat16, torch.float32
+    err = {}
+    for dt, b in ((bf, LONG_B), (f32, LONG_F32_B)):
+        bwd = train_inputs(rng, b, LONG_TP, LONG_T, D, dev)[0]
+        if dt == f32:
+            bwd = _f32(bwd)
+        kw = dict(num_heads=HEADS, valid_len=LONG_T)
+        plan = att.attention_qkv_bwd_plan(b, LONG_TP, HEADS, D // HEADS, dt)
+        got = att.attention_qkv_bwd(**bwd, **kw)
+        want = att.attention_qkv_bwd_plain(**bwd, **kw)
+        torch.cuda.synchronize()
+        name = "attention_bwd_tiled" + ("_f32" if dt == f32 else "")
+        err[name] = _check_parts(
+            "long_384", name, _bwd_parts(got, want, D),
+            list(bwd["qkv"].shape), _tol_of(dt),
+            {"pad_rows_zero": bool((got[:, LONG_T:] == 0).all()),
+             "route_key_tiled": plan["route"] == "key_tiled"})
+        del bwd, got, want
+    for dt, b in ((bf, LONG_SP_B), (f32, LONG_F32_B)):
+        q, kv, g = _cp_inputs(rng, b, LONG_SP_TQ, LONG_SP_TK, D, dt, dev)
+        out = att.fused_attention_qkv_cp(q, kv, HEADS, LONG_T)
+        dq, dkv = att.attention_cp_bwd(q, kv, g, HEADS, LONG_T)
+        want = att.fused_attention_qkv_cp_plain(q, kv, HEADS, LONG_T)
+        wdq, wdkv = att.attention_cp_bwd_plain(q, kv, g, HEADS, LONG_T)
+        torch.cuda.synchronize()
+        sfx = "_f32" if dt == f32 else ""
+        form = att.cp_plan(LONG_SP_TQ, LONG_SP_TK, D // HEADS, dt)["form"]
+        fwd = "attention_cp" + ("_tiled" if form == "key_tiled" else "") + sfx
+        shape = [b, LONG_SP_TQ, LONG_SP_TK, D]
+        err[fwd] = _check_parts("sp2_384", fwd, [("out", out, want)], shape,
+                                _tol_of(dt))
+        name = "attention_cp_bwd_tiled" + sfx
+        err[name] = _check_parts(
+            "sp2_384", name, [("dq", dq, wdq), ("dkv", dkv, wdkv)], shape,
+            _tol_of(dt),
+            {"pad_keys_dk_dv_zero": not dkv[:, LONG_T:].any().item()})
+        del q, kv, g, out, dq, dkv, want, wdq, wdkv
+    a_in = _f32(block_inputs(rng, LONG_F32_B, LONG_TP, D, 4 * D, dev)[0])
+    kw = dict(num_heads=HEADS, valid_len=LONG_T)
+    got = att.attention_block_train_padded(**a_in, **kw)
+    serve = att.fused_attention_block_padded(**a_in, **kw)
+    want = att.attention_block_train_padded_plain(**a_in, **kw)
+    torch.cuda.synchronize()
+    shape = list(a_in["xp"].shape)
+    err["attention_block_train_f32_tiled"] = _check_parts(
+        "long_384", "attention_block_train_f32_tiled",
+        list(zip(("out", "qkv", "attn", "xhat", "inv"), got, want)), shape,
+        _f32_tol)
+    err["attention_block_f32_tiled"] = _check_parts(
+        "long_384", "attention_block_f32_tiled", [("out", serve, want[0])],
+        shape, _f32_tol)
+    del a_in, got, serve, want
+    qkv = torch.from_numpy(rng.standard_normal(
+        (LONG_F32_B, LONG_T, 3 * D), dtype=np.float32)).to(dev)
+    got = att.fused_attention_qkv(qkv, HEADS)
+    want = att.fused_attention_qkv_plain(qkv, HEADS)
+    q, k, v = _qkv_views(rng, LONG_F32_B, LONG_T, HEADS, D // HEADS, f32,
+                         dev)
+    got9 = att.fused_attention(q, k, v)
+    want9 = att.fused_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    err["attention_qkv_f32_tiled"] = _check_parts(
+        "long_384", "attention_qkv_f32_tiled", [("out", got, want)],
+        list(qkv.shape), _f32_tol)
+    err["attention_f32_tiled"] = _check_parts(
+        "long_384", "attention_f32_tiled", [("out", got9, want9)],
+        list(q.shape), _f32_tol)
+    return err
+
+
+def phase_long(dev, lctx) -> dict:
+    """ViT-B/16 at 384 px (``lctx``) through the port's entry points with
+    BWD_PHASED off, each run's launch counts from 0 just before it and
+    read just after:
+
+    (a) a bf16 training step, B = LONG_B (fasttrain.make_apply): step 0's
+        gradient leaves within GRAD_REL_TOL relative L2 of f32 autograd of
+        the module; kernel 3 and the key-tiled backward 12 times, the LN
+        backward 24, kernel 4 never;
+    (b) an f32 training step, B = LONG_F32_B: kernel 3's f32 form on the
+        key-tiled core and the key-tiled f32 backward 12 times each, the
+        leaves within F32_GRAD_REL_TOL;
+    (c) the f32 module forward (the ``test`` verb's and ``evaluate-all``'s
+        path, kernel 8 f32 key-tiled 12 times) and (d) the f32 grad-off
+        training forward (kernel 1's f32 form, the JAX eval step's: the
+        card has no f32 fastserve MLP), B = LONG_F32_B, each within F32_TOL
+        of its largest logit of the same forward on the plain version;
+    (e) models/vit.py::dot_product_attention at f32 (kernel 9 f32
+        key-tiled, once) against its plain version.
+
+    Returns each run's launches."""
+    from vit_spoof_detection_pda_tpu_torch.models.vit import (
+        dot_product_attention)
+
+    model, params, loss_fn = lctx["model"], lctx["params"], lctx["loss_fn"]
+    imgs, lbls = lctx["images"], lctx["labels"]
+    runs = {
+        "bf16_train_b8": (torch.bfloat16, imgs, lbls, lctx["ref"],
+                          lctx["loss_ref"], GRAD_REL_TOL,
+                          _want(attention_block_train=DEPTH,
+                                attention_bwd_tiled=DEPTH,
+                                ln_res_bwd=2 * DEPTH)),
+        "f32_train_b2": (torch.float32, imgs[:LONG_F32_B],
+                         lbls[:LONG_F32_B], lctx["ref32"], lctx["loss_ref32"],
+                         F32_GRAD_REL_TOL,
+                         _want(attention_block_train_f32_tiled=DEPTH,
+                               attention_bwd_tiled_f32=DEPTH,
+                               ln_res_bwd_f32=2 * DEPTH)),
+    }
+    out, launches, ok = {}, {}, att.BWD_PHASED is False
+    for run, (dt, x, y, ref, loss_ref, tol, want) in runs.items():
+        loss, grads, counts = _step0(model, params,
+                                     fasttrain.make_apply(model, dtype=dt),
+                                     x, y, loss_fn, dev)
+        gaps = _leaf_gaps(grads, ref)
+        del grads
+        worst = max(gaps, key=gaps.get)
+        good = (counts == want and math.isfinite(loss)
+                and gaps[worst] <= tol)
+        ok = ok and good
+        launches[run] = counts
+        out[run] = {"loss": loss, "loss_f32": loss_ref, "tol": tol,
+                    "max_leaf_rel_l2_vs_f32": gaps[worst],
+                    "worst_leaf": worst,
+                    "launches": {k: v for k, v in counts.items() if v},
+                    "ok": good}
+    x = imgs[:LONG_F32_B]
+    model.to(dev).eval()
+    with torch.no_grad(), exact_f32_matmul():
+        reset_launches()
+        logits = model(x)
+        torch.cuda.synchronize()
+        counts = dict(att.LAUNCHES)
+        with plain_attention_qkv():
+            want_logits = model(x)
+    model.cpu()
+    p32 = tree_map_tensor(params, dev)
+    evalf = fasttrain.make_apply(model, dtype=torch.float32)
+    with torch.no_grad():
+        reset_launches()
+        logits_e = evalf(p32, x)
+        torch.cuda.synchronize()
+        counts_e = dict(att.LAUNCHES)
+        with plain_attention_block():
+            want_e = evalf(p32, x)
+    rng = np.random.default_rng(SEED + 113)
+    q, k, v = _qkv_views(rng, LONG_F32_B, LONG_T, HEADS, D // HEADS,
+                         torch.float32, dev)
+    reset_launches()
+    o9 = dot_product_attention(q, k, v)
+    torch.cuda.synchronize()
+    counts_9 = dict(att.LAUNCHES)
+    want_9 = att.fused_attention_plain(q, k, v)
+    for run, got, want_o, cnt, want in (
+            ("f32_module_forward_b2", logits, want_logits, counts,
+             _want(attention_qkv_f32_tiled=DEPTH)),
+            ("f32_eval_forward_b2", logits_e, want_e, counts_e,
+             _want(attention_block_f32_tiled=DEPTH)),
+            ("f32_dot_product_attention", o9, want_9, counts_9,
+             _want(attention_f32_tiled=1))):
+        err = (got - want_o).abs().max().item()
+        tol = F32_TOL * want_o.abs().max().item()
+        good = cnt == want and err <= tol and bool(torch.isfinite(got).all())
+        ok = ok and good
+        launches[run] = cnt
+        out[run] = {"max_abs_err_vs_plain": err, "tol": tol,
+                    "launches": {k: v for k, v in cnt.items() if v},
+                    "ok": good}
+    del p32, logits, want_logits, logits_e, want_e, q, k, v, o9, want_9
+    emit({"phase": "long", "img": LONG_IMG, "tokens": LONG_T,
+          "bwd_phased": att.BWD_PHASED, "runs": out, "ok": ok})
+    if not ok:
+        raise AssertionError(f"long: {out}")
+    return launches
+
+
+def _sp_long_rank(rank, world, tmp, port, out):
+    """One rank of the 384 px sequence-parallel group (spawned; gloo on
+    cuda:0)."""
+    import traceback
+
+    import torch.distributed as dist
+
+    from vit_spoof_detection_pda_tpu_torch.parallel import mesh as pm
+
+    try:
+        dev = torch.device("cuda", 0)
+        pm.init_multi_host("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                           rank=rank, world_size=world)
+        out.put((rank, _sp_long_body(Path(tmp), dev)))
+    except BaseException:                       # noqa: BLE001 - reported
+        out.put((rank, {"error": traceback.format_exc()}))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _sp_long_runs():
+    """The 384 px SP runs: (tag, dtype, config dtype, batch, the launches
+    of a step on two sequence ranks)."""
+    return (("bf16", torch.bfloat16, "bfloat16", LONG_SP_B,
+             _want(attention_cp=DEPTH, attention_cp_bwd_tiled=DEPTH)),
+            ("f32", torch.float32, "float32", LONG_F32_B,
+             _want(attention_cp_tiled_f32=DEPTH,
+                   attention_cp_bwd_tiled_f32=DEPTH)))
+
+
+def _sp_long_body(tmp: Path, dev) -> dict:
+    """Step 0 of a Trainer-built (data 1 x seq 2) step at 384 px, bf16 and
+    f32, against the single-card step the parent saved (see
+    :func:`phase_slice_sp_long`); the launch counts from 0 just before."""
+    from vit_spoof_detection_pda_tpu_torch.parallel import mesh as pm
+
+    params = random_params(np.random.default_rng(SEED + 111), t=LONG_T)
+    u8, y = loop_faces(LONG_SP_B, 111, LONG_IMG)
+    res = {}
+    for tag, dt, cdt, b, want in _sp_long_runs():
+        trainer = sp_trainer(sp_config(cdt, LONG_IMG, seq_parallel=2,
+                                       data_parallel=-1), params, dev, dt,
+                             LONG_IMG)
+        rows = pm.shard_batch({"image": u8[:b], "label": y[:b]},
+                              trainer.mesh)
+        ref = torch.load(tmp / f"sp_long_ref_{tag}.pt", map_location=dev)
+        reset_launches()
+        s0 = sp_step0(trainer, {"image": rows["image"].to(dev),
+                                "label": rows["label"].to(dev)})
+        counts = dict(att.LAUNCHES)
+        gaps = _leaf_gaps(s0["grads"], ref["grads"])
+        worst = max(gaps, key=gaps.get)
+        res[tag] = {"batch": b, "loss": s0["loss"],
+                    "loss_single": ref["loss"],
+                    "max_leaf_rel_l2": gaps[worst], "worst_leaf": worst,
+                    "scores": _score_gaps(s0["logits"], ref["logits"]),
+                    "launches": {k: v for k, v in counts.items() if v},
+                    "launches_ok": counts == want}
+        del trainer, s0, ref
+    return res
+
+
+def phase_slice_sp_long(dev, tmp: Path) -> dict:
+    """The sequence-parallel step at 384 px: two ranks (data 1 x seq 2) as
+    spawned processes on this card over gloo, the stream padded 577 ->
+    592 (Tq 296 a rank against Tk 592), bf16 at B = LONG_SP_B and f32 at
+    B = LONG_F32_B (dropout 0.1, focal loss, AdamW, the module path):
+    kernel 12 (bf16: its two passes with K and V whole; f32: key-tiled)
+    and kernel 13's key-tiled route DEPTH times each, and step 0 held
+    against the single-card step on the same weights and batch (kernel 8
+    and the key-tiled backward) within the sp phase's bounds: bf16 leaves
+    within GRAD_REL_TOL relative L2, scores within SCORE_TOL / mean
+    SCORE_MEAN_TOL; f32 leaves within F32_GRAD_REL_TOL.  Returns the rank
+    reports."""
+    params = random_params(np.random.default_rng(SEED + 111), t=LONG_T)
+    u8, y = loop_faces(LONG_SP_B, 111, LONG_IMG)
+    single = {}
+    for tag, dt, cdt, b, _want_sp in _sp_long_runs():
+        t = sp_trainer(sp_config(cdt, LONG_IMG), params, dev, dt, LONG_IMG)
+        reset_launches()
+        s0 = sp_step0(t, {"image": torch.from_numpy(u8[:b]).to(dev),
+                          "label": torch.from_numpy(y[:b]).to(dev)})
+        single[tag] = {k: v for k, v in att.LAUNCHES.items() if v}
+        torch.save({"loss": s0["loss"], "logits": s0["logits"].cpu(),
+                    "grads": {p: g.cpu() for p, g in s0["grads"].items()}},
+                   tmp / f"sp_long_ref_{tag}.pt")
+        del t, s0
+    torch.cuda.empty_cache()
+    reports = run_ranks(_sp_long_rank, 2, str(tmp), timeout=SP_TIMEOUT)
+    ok = True
+    for rep in reports.values():
+        bf, f = rep["bf16"], rep["f32"]
+        good = (bf["launches_ok"] and f["launches_ok"]
+                and math.isfinite(bf["loss"]) and math.isfinite(f["loss"])
+                and bf["max_leaf_rel_l2"] <= GRAD_REL_TOL
+                and bf["scores"]["max"] <= SCORE_TOL
+                and bf["scores"]["mean"] <= SCORE_MEAN_TOL
+                and f["max_leaf_rel_l2"] <= F32_GRAD_REL_TOL)
+        rep["ok"] = good
+        ok = ok and good
+    emit({"phase": "slice_sp", "part": "data1_seq2_384px", "ranks": 2,
+          "tq": LONG_SP_TQ, "tk": LONG_SP_TK,
+          "backend": "gloo (ranks share cuda:0)", "grad_tol": GRAD_REL_TOL,
+          "f32_grad_tol": F32_GRAD_REL_TOL, "single_card_launches": single,
+          "reports": reports, "ok": ok})
+    if not ok:
+        raise AssertionError(f"slice_sp 384 px: {reports}")
+    return reports
+
+
+def _sum_counts(*counts) -> dict:
+    """The launch counts of several main-path runs, added up by kernel."""
+    out = {}
+    for c in counts:
+        for k, v in c.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def phase_times_long(dev, main_err, launches) -> list:
+    """The key-tiled routes at 384 px beside their plain versions and
+    bounds and, where one PyTorch call computes the same function, that
+    call in turns (kernel, library, library, kernel): the backward at B =
+    LONG_B, Tp 584, bf16 and f32, against SDPA's backward with the key mask
+    (as times_cli times kernel 5); kernel 13's key-tiled route and kernel
+    12's f32 key tiles at Tq 296, Tk 592 (B = LONG_B) against SDPA's
+    backward and forward on the 577 real keys; kernel 8 and 9 f32 at T 577
+    (B = LONG_B) against SDPA f32; the f32 blocks (no single call) at B =
+    LONG_F32_B.  ``launches``: each route's count on its main path.
+    Returns the kernel rows."""
+    rng = np.random.default_rng(SEED + 114)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    bf, f32 = torch.bfloat16, torch.float32
+    dh = D // HEADS
+    rows, per = [], {}
+
+    def row(name, ms, plain_ms, flops, nb, peak, lib_ms, **extra):
+        bound_ms, bound_by = bound(flops, nb, peak)
+        per[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "gflop": flops / 1e9, "mbytes": nb / 1e6, **extra}
+        rows.append({"name": name, "route": "cuda", **KERNELS[name],
+                     "launches": launches[name],
+                     "max_abs_err": main_err[name], "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": lib_ms})
+
+    ln_dummy = train_inputs(rng, 2, TP, T, D, dev)[1]
+    for name, dt in (("attention_bwd_tiled", bf),
+                     ("attention_bwd_tiled_f32", f32)):
+        b_in = train_inputs(rng, LONG_B, LONG_TP, LONG_T, D, dev)[0]
+        if dt == f32:
+            b_in = _f32(b_in)
+        kw = dict(num_heads=HEADS, valid_len=LONG_T)
+        with exact_f32_matmul():
+            ms, lib_ms = time_in_turns(
+                lambda: att.attention_qkv_bwd(**b_in, **kw),
+                _library_calls(b_in, ln_dummy, HEADS,
+                               LONG_T)["attention_qkv_bwd"])
+        plain_ms = time_ms(lambda: att.attention_qkv_bwd_plain(**b_in, **kw),
+                           windows=3, per_window=2)
+        flops, _ = attention_bwd_work(LONG_B, LONG_TP, D, HEADS)
+        row(name, ms, plain_ms, flops,
+            LONG_B * LONG_TP * 7 * D * b_in["qkv"].element_size(),
+            PEAK_BF16_FLOPS if dt == bf else PEAK_F32_FLOPS, lib_ms,
+            batch=LONG_B, tp=LONG_TP)
+        del b_in
+    for name, dt in (("attention_cp_bwd_tiled", bf),
+                     ("attention_cp_bwd_tiled_f32", f32),
+                     ("attention_cp_tiled_f32", f32)):
+        b = LONG_B
+        q, kv, g = _cp_inputs(rng, b, LONG_SP_TQ, LONG_SP_TK, D, dt, dev)
+        qh = q.view(b, LONG_SP_TQ, HEADS, dh).transpose(1, 2).contiguous()
+        kh, vh = (t.view(b, LONG_SP_TK, HEADS, dh).transpose(1, 2)
+                  [:, :, :LONG_T].contiguous() for t in kv.split(D, -1))
+        bwd = "bwd" in name
+        with exact_f32_matmul():
+            if bwd:
+                qh, kh, vh = (t.requires_grad_() for t in (qh, kh, vh))
+                o = sdpa(qh, kh, vh)
+                go = g.view(b, LONG_SP_TQ, HEADS, dh).transpose(1, 2)
+                ms, lib_ms = time_in_turns(
+                    lambda: att.attention_cp_bwd(q, kv, g, HEADS, LONG_T),
+                    lambda: torch.autograd.grad(o, (qh, kh, vh), go,
+                                                retain_graph=True))
+                plain_ms = time_ms(lambda: att.attention_cp_bwd_plain(
+                    q, kv, g, HEADS, LONG_T), windows=3, per_window=2)
+            else:
+                ms, lib_ms = time_in_turns(
+                    lambda: att.fused_attention_qkv_cp(q, kv, HEADS, LONG_T),
+                    lambda: sdpa(qh, kh, vh))
+                plain_ms = time_ms(lambda: att.fused_attention_qkv_cp_plain(
+                    q, kv, HEADS, LONG_T), windows=3, per_window=2)
+        flops, nb = cp_work(b, LONG_SP_TQ, LONG_SP_TK, LONG_T, D, HEADS,
+                            q.element_size(), backward=bwd)
+        row(name, ms, plain_ms, flops, nb,
+            PEAK_BF16_FLOPS if dt == bf else PEAK_F32_FLOPS, lib_ms,
+            batch=b, tq=LONG_SP_TQ, tk=LONG_SP_TK)
+        del q, kv, g, qh, kh, vh
+    qkv = torch.from_numpy(rng.standard_normal(
+        (LONG_B, LONG_T, 3 * D), dtype=np.float32)).to(dev)
+    qv, kv_, vv = qkv.view(LONG_B, LONG_T, 3, HEADS, dh).permute(2, 0, 3, 1, 4)
+    q9, k9, v9 = _qkv_views(rng, LONG_B, LONG_T, HEADS, dh, f32, dev)
+    q9h, k9h, v9h = (x.transpose(1, 2) for x in (q9, k9, v9))
+    flops, nb = qkv_work(LONG_B, LONG_T, D, HEADS, 4)
+    with exact_f32_matmul():
+        ms, lib_ms = time_in_turns(lambda: att.fused_attention_qkv(qkv, HEADS),
+                                   lambda: sdpa(qv, kv_, vv))
+        plain_ms = time_ms(lambda: att.fused_attention_qkv_plain(qkv, HEADS),
+                           windows=3, per_window=2)
+        row("attention_qkv_f32_tiled", ms, plain_ms, flops, nb,
+            PEAK_F32_FLOPS, lib_ms, batch=LONG_B, t=LONG_T)
+        ms, lib_ms = time_in_turns(lambda: att.fused_attention(q9, k9, v9),
+                                   lambda: sdpa(q9h, k9h, v9h))
+        plain_ms = time_ms(lambda: att.fused_attention_plain(q9, k9, v9),
+                           windows=3, per_window=2)
+        row("attention_f32_tiled", ms, plain_ms, flops, nb, PEAK_F32_FLOPS,
+            lib_ms, batch=LONG_B, t=LONG_T)
+    del qkv, qv, kv_, vv, q9, k9, v9, q9h, k9h, v9h
+    a_in = _f32(block_inputs(rng, LONG_F32_B, LONG_TP, D, 4 * D, dev)[0])
+    kw = dict(num_heads=HEADS, valid_len=LONG_T)
+    flops, _ = attention_work(LONG_F32_B, LONG_TP, D, HEADS)
+    for name, fn, plain, outs in (
+            ("attention_block_train_f32_tiled",
+             lambda: att.attention_block_train_padded(**a_in, **kw),
+             lambda: att.attention_block_train_padded_plain(**a_in, **kw), 5),
+            ("attention_block_f32_tiled",
+             lambda: att.fused_attention_block_padded(**a_in, **kw),
+             lambda: att.fused_attention_block_padded_plain(**a_in, **kw),
+             1)):
+        n = LONG_F32_B * LONG_TP
+        # x in, out (training: qkv [3D], attn, xhat and inv too), weights
+        nb = (n * D * 4 * (2 + (5 if outs > 1 else 0)) + n * 4 * (outs > 1)
+              + 4 * D * D * 4 + 6 * D * 4)
+        ms = time_ms(fn, windows=3, per_window=5)
+        plain_ms = time_ms(plain, windows=3, per_window=2)
+        row(name, ms, plain_ms, flops, nb, PEAK_F32_FLOPS, None,
+            batch=LONG_F32_B, tp=LONG_TP)
+    del a_in
+    emit({"phase": "times_long", "img": LONG_IMG, "kernels": per})
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card "
@@ -4764,6 +5290,7 @@ def main() -> int:
         walls, doctor_launches, _ = phase_cli(dev, Path(tmp))
     rows += phase_times_cli(dev, tctx, cli_err, phased_launches,
                             doctor_launches, walls)
+    loss_fn = tctx["loss_fn"]
     del tctx
     art_err = phase_kernels_artifact(dev)
     ictx = phase_slice_int8(dev)
@@ -4776,6 +5303,13 @@ def main() -> int:
         sctx = phase_slice_sp(dev, Path(tmp))
     rows += phase_times_sp(dev, sctx, cp_err)
     del sctx
+    long_err = phase_kernels_long(dev)
+    long_launches = phase_long(dev, long_ctx(dev, loss_fn))
+    with tempfile.TemporaryDirectory() as tmp:
+        sp_long = phase_slice_sp_long(dev, Path(tmp))[0]     # rank 0
+    rows += phase_times_long(dev, long_err, _sum_counts(
+        *long_launches.values(), sp_long["bf16"]["launches"],
+        sp_long["f32"]["launches"]))
     idle = [r["name"] for r in rows if not r["launches"]]
     if idle:
         raise AssertionError(f"kernels never launched on their paths: {idle}")

@@ -153,7 +153,8 @@ def test_shape_and_device_errors():
 
 # (dtype, tq, tk, dh) -> form, tiles, warps, shared memory: the one-pass
 # limit (208 keys) and one key past it, the SP blocks of ViT-B/16, an
-# uneven tiling with an idle warp, the largest Tk of each form
+# uneven tiling with an idle warp, the largest Tk of each form whose K and
+# V fit, and one past it (which the two-pass form refused): key tiles
 CP_PLANS = [
     ((torch.bfloat16, 104, 208, 64), ("one_pass", 1, 7, 76032)),
     ((torch.bfloat16, 104, 209, 64), ("two_pass", 1, 7, 64512)),
@@ -169,6 +170,9 @@ CP_PLANS = [
     ((torch.float32, 33, 112, 128), ("one_pass", 1, 16, 226816)),
     ((torch.float32, 33, 113, 128), ("two_pass", 1, 8, 147200)),
     ((torch.float32, 33, 200, 128), ("two_pass", 1, 8, 231680)),
+    ((torch.bfloat16, 16, 801, 64), ("key_tiled", 1, 1, 73728)),
+    ((torch.float32, 16, 385, 64), ("key_tiled", 1, 8, 90112)),
+    ((torch.float32, 16, 201, 128), ("key_tiled", 1, 8, 155648)),
 ]
 
 
@@ -181,9 +185,6 @@ def test_cp_plan_at_the_instance_boundaries(shape, want):
 
 
 @pytest.mark.parametrize("dtype,tq,tk,dh,limit", [
-    (torch.bfloat16, 16, 801, 64, "shared memory per block"),
-    (torch.float32, 16, 385, 64, "shared memory per block"),
-    (torch.float32, 16, 201, 128, "shared memory per block"),
     (torch.bfloat16, 16, 64, 40, "multiple of 16 from 16 to 128"),
     (torch.float32, 16, 64, 144, "multiple of 16 from 16 to 128"),
 ])

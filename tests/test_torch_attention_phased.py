@@ -96,7 +96,9 @@ def test_flag_on_the_cpu_runs_the_plain_version(phased):
 
 # (dtype, b, tp, heads, dh) -> route, the instance / chunk, shared memory:
 # each on-chip instance at its largest Tp and one past it, the f32 bound,
-# the head dims the one launch does not take, the long route's largest Tp
+# the head dims the one launch does not take, the old long route's largest
+# Tp and one past it (which that route refused); every other shape runs
+# the key-tiled backward
 BF, F32 = torch.bfloat16, torch.float32
 PLANS = [
     ((BF, 128, 200, 12, 64), {"route": "on_chip", "keys": 208, "warps": 7,
@@ -111,20 +113,30 @@ PLANS = [
                            "smem": 101376}),
     ((BF, 1, 208, 12, 64), {"route": "on_chip", "keys": 208, "warps": 7,
                             "smem": 226304}),
-    ((BF, 1, 209, 12, 64), {"route": "long", "chunk": 1, "smem": 53504}),
+    ((BF, 1, 209, 12, 64), {"route": "key_tiled", "warps": 4, "tile": 64,
+                            "smem": 38912}),
     ((BF, 3, 208, 4, 16), {"route": "on_chip", "keys": 208, "warps": 7,
                            "smem": 186368}),
-    ((BF, 3, 209, 4, 16), {"route": "long", "chunk": 3, "smem": 53504}),
-    ((BF, 2, 40, 2, 128), {"route": "long", "chunk": 2, "smem": 10240}),
+    ((BF, 3, 209, 4, 16), {"route": "key_tiled", "warps": 4, "tile": 64,
+                           "smem": 14336}),
+    ((BF, 2, 40, 2, 128), {"route": "key_tiled", "warps": 4, "tile": 64,
+                           "smem": 71680}),
     ((F32, 32, 200, 12, 64), {"route": "on_chip", "warps": 8,
                               "smem": 151808}),
     ((F32, 1, 256, 12, 64), {"route": "on_chip", "warps": 8,
                              "smem": 189440}),
-    ((F32, 1, 257, 12, 64), {"route": "long", "chunk": 1, "smem": 65792}),
-    ((F32, 2, 40, 2, 48), {"route": "long", "chunk": 2, "smem": 10240}),
-    ((BF, 128, 908, 12, 64), {"route": "long", "chunk": 1, "smem": 232448}),
-    ((F32, 128, 400, 12, 64), {"route": "long", "chunk": 4,
-                               "smem": 102400}),
+    ((F32, 1, 257, 12, 64), {"route": "key_tiled", "warps": 8, "tile": 32,
+                             "smem": 76800}),
+    ((F32, 2, 40, 2, 48), {"route": "key_tiled", "warps": 8, "tile": 32,
+                           "smem": 68608}),
+    ((BF, 128, 908, 12, 64), {"route": "key_tiled", "warps": 4, "tile": 64,
+                              "smem": 38912}),
+    ((F32, 128, 400, 12, 64), {"route": "key_tiled", "warps": 8, "tile": 32,
+                               "smem": 76800}),
+    ((BF, 2, 909, 4, 64), {"route": "key_tiled", "warps": 4, "tile": 64,
+                           "smem": 38912}),
+    ((F32, 2, 909, 4, 64), {"route": "key_tiled", "warps": 8, "tile": 32,
+                            "smem": 76800}),
 ]
 
 
@@ -132,14 +144,12 @@ PLANS = [
 def test_phased_plan_at_the_instance_boundaries(shape, want):
     dtype, b, tp, heads, dh = shape
     assert tatt.phased_plan(b, tp, heads, dh, dtype) == want
-    if want["route"] == "long":               # the workspace stays in L2
-        assert (want["chunk"] * heads * tp * tp * 4
-                <= max(tatt._PHASED_LONG_WORKSPACE_BYTES, heads * tp * tp * 4))
+    if want["route"] == "key_tiled":          # Tp does not enter the plan
+        assert tatt.phased_plan(b, 4 * tp, heads, dh, dtype) == want
 
 
 @pytest.mark.parametrize("dtype", [BF, F32])
 @pytest.mark.parametrize("tp,dh,limit", [
-    (909, 64, "Tp up to 908"),                # the long route's dl phase
     (200, 72, "multiple of 16 from 16 to 128"),
     (200, 144, "multiple of 16 from 16 to 128"),
 ])

@@ -123,12 +123,15 @@ def test_indivisible_geometry_raises():
 
 
 def test_kernel_shared_memory_bound_matches_the_source():
-    """The wrapper's shared-memory estimate follows csrc/attention_qkv.cu:
-    ViT-B (T 197, head dim 64) fits in both dtypes; T 400 at f32 does
-    not."""
+    """The plan's shared-memory figures follow csrc/attention_qkv.cu:
+    ViT-B (T 197, head dim 64) fits whole in both dtypes; T 400 at f32
+    does not, and takes the key-tiled core within the limit."""
     limit = tatt._MAX_SMEM
-    assert tatt._attention_qkv_smem(197, 64, torch.bfloat16) == 2 * 208 * 72 * 2
-    assert tatt._attention_qkv_smem(197, 64, torch.float32) == 4 * (
-        2 * 197 * 68 + 8 * 4 * (64 + 197))
-    assert tatt._attention_qkv_smem(197, 64, torch.float32) <= limit
-    assert tatt._attention_qkv_smem(400, 64, torch.float32) > limit
+    assert tatt.forward_plan(197, 64, torch.bfloat16) == {
+        "form": "whole", "smem": 2 * 208 * 72 * 2}
+    assert tatt.forward_plan(197, 64, torch.float32) == {
+        "form": "whole", "smem": 4 * (2 * 197 * 68 + 8 * 4 * (64 + 197))}
+    assert 4 * (2 * 197 * 68 + 8 * 4 * (64 + 197)) <= limit
+    assert 4 * (2 * 400 * 68 + 8 * 4 * (64 + 400)) > limit
+    big = tatt.forward_plan(400, 64, torch.float32)
+    assert big["form"] == "key_tiled" and big["smem"] <= limit

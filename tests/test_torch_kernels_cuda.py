@@ -219,12 +219,16 @@ def test_ln_res_bwd_kernel_matches_plain_on_card(
 
 @pytest.mark.cuda
 def test_training_kernels_reject_what_they_cannot_take(cuda_device):
+    """What no route of the attention backward takes: a head dim that is
+    not a multiple of 16, a valid_len past Tp (head dim 48 and Tp 256,
+    which kernel 4 refused, now run the key-tiled backward:
+    test_attention_qkv_bwd_routes_past_kernel_4_on_card)."""
     qkv, g = _qkv_bwd_inputs(14, cuda_device, 1, 40, 33, 96)
-    with pytest.raises(ValueError, match="head dim"):     # 96 / 2 = 48
-        tatt.attention_qkv_bwd(qkv, g, 2, valid_len=33)
+    with pytest.raises(ValueError, match="head dim"):     # 96 / 4 = 24
+        tatt.attention_qkv_bwd(qkv, g, 4, valid_len=33)
     qkv, g = _qkv_bwd_inputs(14, cuda_device, 1, 256, 197, 768)
-    with pytest.raises(ValueError, match="shared memory"):
-        tatt.attention_qkv_bwd(qkv, g, 12, valid_len=197)
+    with pytest.raises(ValueError, match="valid_len"):
+        tatt.attention_qkv_bwd(qkv, g, 12, valid_len=257)
     xh, inv, dxn, g, lns = _ln_bwd_inputs(15, cuda_device, 1, 8, 44,
                                           torch.bfloat16)
     with pytest.raises(ValueError, match="multiple of 8"):
@@ -537,9 +541,9 @@ def test_attention_qkv_kernel_rejects_what_it_cannot_take(cuda_device):
         tatt.fused_attention_qkv(qkv, 3)                              # dh 256
     with pytest.raises(TypeError):
         tatt.fused_attention_qkv(qkv.half(), 12)
-    with pytest.raises(ValueError, match="shared memory"):
-        tatt.fused_attention_qkv(torch.zeros((1, 400, 3 * 64),
-                                             device=cuda_device), 1)
+    # T 400 f32 and T 801 bf16, refused before, run their key-tiled routes:
+    # test_attention_f32_key_tiled_matches_plain_on_card,
+    # test_attention_bf16_key_tiled_matches_plain_on_card
 
 
 # --------------------------------------------------------------------------
@@ -652,8 +656,8 @@ def test_mlp_block_train_kernel_matches_plain_on_card(
 @pytest.mark.cuda
 def test_f32_kernels_reject_what_they_cannot_take(cuda_device):
     qkv, g = _f32(_qkv_bwd_inputs(25, cuda_device, 1, 400, 197, 768))
-    with pytest.raises(ValueError, match="shared memory"):
-        tatt.attention_qkv_bwd(qkv, g, 12, valid_len=197)
+    with pytest.raises(ValueError, match="head dim"):  # Tp 400 now routes
+        tatt.attention_qkv_bwd(qkv, g, 32, valid_len=197)     # head dim 24
     xh, inv, dxn, g, lns = _ln_bwd_inputs(26, cuda_device, 1, 8, 64,
                                           torch.bfloat16)
     with pytest.raises(TypeError, match="f32"):      # f32 xh, bf16 dxn
@@ -680,15 +684,16 @@ def test_f32_kernels_reject_what_they_cannot_take(cuda_device):
     (torch.bfloat16, 2, 128, 120, 128, 4),   # the 128-key instance's largest
     (torch.bfloat16, 2, 208, 197, 768, 12),  # the 208-key instance's largest
     (torch.bfloat16, 2, 208, 200, 64, 4),    # ... at head dim 16
-    (torch.bfloat16, 2, 209, 197, 768, 12),  # one past it: the long route
-    (torch.bfloat16, 2, 40, 33, 256, 2),     # head dim 128: the long route
-    (torch.bfloat16, 1, 908, 900, 64, 4),    # the long route's largest Tp
+    (torch.bfloat16, 2, 209, 197, 768, 12),  # one past it: key-tiled
+    (torch.bfloat16, 2, 40, 33, 256, 2),     # head dim 128: key-tiled
+    (torch.bfloat16, 1, 908, 900, 64, 4),    # the old long route's largest Tp
+    (torch.bfloat16, 1, 909, 909, 64, 4),    # one past it (refused before)
     (torch.float32, 2, 40, 33, 64, 4),
     (torch.float32, 2, 200, 197, 768, 12),
     (torch.float32, 1, 37, 30, 64, 4),       # B = 1, Tp not a multiple of 4
     (torch.float32, 2, 256, 250, 768, 12),   # the f32 launch's largest Tp
-    (torch.float32, 2, 257, 250, 768, 12),   # one past it: the long route
-    (torch.float32, 2, 40, 33, 96, 2),       # head dim 48: the long route
+    (torch.float32, 2, 257, 250, 768, 12),   # one past it: key-tiled
+    (torch.float32, 2, 40, 33, 96, 2),       # head dim 48: key-tiled
 ])
 def test_attention_qkv_bwd_phased_kernel_matches_plain_on_card(
         cuda_device, dtype, b, tp, valid, d, heads):
@@ -703,9 +708,9 @@ def test_attention_qkv_bwd_phased_kernel_matches_plain_on_card(
                      device=cuda_device, dtype=dtype)
     g[:, valid:] = 0
     plan = tatt.phased_plan(b, tp, heads, d // heads, dtype)
-    name = ("attention_qkv_bwd_phased_long" if plan["route"] == "long" else
-            "attention_qkv_bwd_phased" + (
-                "_f32" if dtype == torch.float32 else ""))
+    name = ("attention_bwd_tiled" if plan["route"] == "key_tiled" else
+            "attention_qkv_bwd_phased") + (
+                "_f32" if dtype == torch.float32 else "")
     n0 = dict(tatt.LAUNCHES)
     got = tatt.attention_qkv_bwd_phased(qkv, g, heads, valid_len=valid)
     want = tatt.attention_qkv_bwd_plain(qkv, g, heads, valid_len=valid)
@@ -724,10 +729,12 @@ def test_attention_qkv_bwd_phased_kernel_matches_plain_on_card(
 
 @pytest.mark.cuda
 def test_attention_qkv_bwd_phased_rejects_what_it_cannot_take(cuda_device):
+    """Tp 909 (refused before) is a match case above; what still raises:
+    valid_len, the head dim, the dtype."""
     qkv = torch.zeros((1, 909, 192), device=cuda_device, dtype=torch.bfloat16)
     g = torch.zeros((1, 909, 64), device=cuda_device, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="Tp up to 908"):
-        tatt.attention_qkv_bwd_phased(qkv, g, 4, valid_len=909)
+    with pytest.raises(ValueError, match="valid_len"):
+        tatt.attention_qkv_bwd_phased(qkv, g, 4, valid_len=910)
     with pytest.raises(ValueError, match="multiple of 16"):     # head dim 8
         tatt.attention_qkv_bwd_phased(qkv[:, :40], g[:, :40], 8, valid_len=40)
     with pytest.raises(TypeError):
@@ -928,6 +935,10 @@ def test_attention_cp_forms_match_plain_on_card(cuda_device, dtype, b, tq,
 
 @pytest.mark.cuda
 def test_attention_cp_kernels_reject_what_they_cannot_take(cuda_device):
+    """What still raises: valid_len, mixed dtypes, a head dim that is not
+    a multiple of 16.  bf16 head dim 96, Tk 264 and Tk 801, refused
+    before, are match cases of test_attention_cp_tiled_routes_match_plain_
+    on_card."""
     q = torch.zeros((2, 104, 768), device=cuda_device, dtype=torch.bfloat16)
     kv = torch.zeros((2, 208, 1536), device=cuda_device,
                      dtype=torch.bfloat16)
@@ -935,13 +946,217 @@ def test_attention_cp_kernels_reject_what_they_cannot_take(cuda_device):
         tatt.fused_attention_qkv_cp(q, kv, 12, 209)
     with pytest.raises(TypeError):
         tatt.fused_attention_qkv_cp(q, kv.float(), 12, 197)
-    with pytest.raises(ValueError, match="head dim"):      # dh 96 in bf16
-        tatt.attention_cp_bwd(q, kv, q, 8, 197)
-    big = torch.zeros((1, 8, 768), device=cuda_device, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="up to 256"):
-        tatt.attention_cp_bwd(big, torch.zeros(
-            (1, 264, 1536), device=cuda_device, dtype=torch.bfloat16), big,
-            12, 264)
-    with pytest.raises(ValueError, match="shared memory per block"):
-        tatt.fused_attention_qkv_cp(big, torch.zeros(
-            (1, 801, 1536), device=cuda_device, dtype=torch.bfloat16), 12, 801)
+    with pytest.raises(ValueError, match="head dim"):      # dh 24
+        tatt.attention_cp_bwd(q, kv, q, 32, 197)
+    with pytest.raises(ValueError, match="head dim"):
+        tatt.fused_attention_qkv_cp(q, kv, 32, 197)
+
+
+# --------------------------------------------------------------------------
+# the key-tiled routes: every shape the JAX functions take, past what the
+# one-block forms hold (the first shape past each old limit, ViT-B/16 at
+# 384 px and at 512 px)
+# --------------------------------------------------------------------------
+
+
+def _randn(rng, shape, dtype, device):
+    return torch.tensor(rng.standard_normal(shape).astype(np.float32),
+                        device=device, dtype=dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,b,tp,valid,d,heads", [
+    (torch.bfloat16, 2, 216, 197, 768, 12),   # kernel 4 bf16: first past 208
+    (torch.bfloat16, 1, 256, 197, 768, 12),   # refused before (shared memory)
+    (torch.float32, 2, 272, 260, 768, 12),    # kernel 4 f32: first past 264
+    (torch.float32, 1, 400, 197, 768, 12),    # refused before (shared memory)
+    (torch.bfloat16, 2, 40, 33, 256, 2),      # bf16 head dim 128
+    (torch.bfloat16, 1, 40, 33, 96, 2),       # bf16 head dim 48
+    (torch.bfloat16, 2, 80, 70, 480, 6),      # bf16 head dim 80
+    (torch.bfloat16, 8, 584, 577, 768, 12),   # ViT-B/16 at 384 px
+    (torch.float32, 2, 584, 577, 768, 12),
+    (torch.bfloat16, 1, 1040, 1025, 768, 12),  # ViT-B/16 at 512 px
+    (torch.float32, 1, 1040, 1025, 256, 2),   # ... f32, head dim 128
+])
+def test_attention_qkv_bwd_routes_past_kernel_4_on_card(
+        cuda_device, dtype, b, tp, valid, d, heads):
+    """attention_qkv_bwd (BWD_PHASED unset) on a shape kernel 4 does not
+    hold runs phased_plan's route, the key-tiled backward, and never
+    kernel 4: bf16 within 2 ulps, f32 within 1e-5 of each part's largest
+    magnitude; rows at or past valid_len exactly 0."""
+    rng = np.random.default_rng(70)
+    qkv = _randn(rng, (b, tp, 3 * d), dtype, cuda_device)
+    g = _randn(rng, (b, tp, d), dtype, cuda_device)
+    g[:, valid:] = 0
+    plan = tatt.attention_qkv_bwd_plan(b, tp, heads, d // heads, dtype)
+    assert plan["route"] == "key_tiled"
+    name = "attention_bwd_tiled" + ("_f32" if dtype == torch.float32 else "")
+    n0 = dict(tatt.LAUNCHES)
+    got = tatt.attention_qkv_bwd(qkv, g, heads, valid_len=valid)
+    want = tatt.attention_qkv_bwd_plain(qkv, g, heads, valid_len=valid)
+    torch.cuda.synchronize()
+    assert tatt.LAUNCHES == {**n0, name: n0[name] + 1}
+    assert (got[:, valid:] == 0).all()
+    for i in range(3):
+        _close(got[..., i * d:(i + 1) * d], want[..., i * d:(i + 1) * d],
+               dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,tp,valid,d,heads", [
+    (2, 336, 330, 768, 12),     # the f32 blocks: first Tp past 328
+    (2, 584, 577, 768, 12),     # ViT-B/16 at 384 px
+    (1, 1040, 1025, 256, 2),    # 512 px rows at head dim 128
+])
+def test_attention_block_f32_key_tiled_matches_plain_on_card(
+        cuda_device, b, tp, valid, d, heads):
+    """Kernels 1 and 3 at f32 past the Tp whose K and V fit a block: the
+    key-tiled core, within 1e-5 of each output's largest magnitude."""
+    a = _attn_inputs(71, cuda_device, b, tp, d)
+    x, *w = _f32(a.values())
+    assert tatt.forward_plan(tp, d // heads, torch.float32)[
+        "form"] == "key_tiled"
+    n0 = dict(tatt.LAUNCHES)
+    got = tatt.attention_block_train_padded(x, *w, heads, valid_len=valid)
+    out = tatt.fused_attention_block_padded(x, *w, heads, valid_len=valid)
+    want = tatt.attention_block_train_padded_plain(x, *w, heads,
+                                                   valid_len=valid)
+    torch.cuda.synchronize()
+    assert tatt.LAUNCHES == {
+        **n0,
+        "attention_block_train_f32_tiled":
+            n0["attention_block_train_f32_tiled"] + 1,
+        "attention_block_f32_tiled": n0["attention_block_f32_tiled"] + 1}
+    for gg, ww in zip(got, want):          # out, qkv, attn, xhat, inv
+        _assert_close_f32(gg, ww)
+    assert torch.equal(out, got[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,heads,dh", [
+    (2, 334, 12, 64),     # kernels 8 and 9 f32: first T past 333
+    (2, 577, 12, 64),     # ViT-B/16 at 384 px
+    (1, 1025, 2, 128),    # 512 px at head dim 128
+    (2, 420, 3, 48),      # head dim 48 past its whole-K/V limit (416)
+])
+def test_attention_f32_key_tiled_matches_plain_on_card(cuda_device, b, t,
+                                                       heads, dh):
+    """Kernel 8 (fused qkv) and kernel 9 (strided q/k/v views) at f32 on
+    the key-tiled core, within 1e-5 of the largest output magnitude."""
+    rng = np.random.default_rng(72)
+    x = _randn(rng, (b, t, 3, heads, dh), torch.float32, cuda_device)
+    assert tatt.forward_plan(t, dh, torch.float32)["form"] == "key_tiled"
+    n0 = dict(tatt.LAUNCHES)
+    qkv = x.reshape(b, t, 3 * heads * dh)
+    got8 = tatt.fused_attention_qkv(qkv, heads)
+    q, k, v = x.unbind(2)
+    got9 = tatt.fused_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert tatt.LAUNCHES == {
+        **n0, "attention_qkv_f32_tiled": n0["attention_qkv_f32_tiled"] + 1,
+        "attention_f32_tiled": n0["attention_f32_tiled"] + 1}
+    _assert_close_f32(got8, tatt.fused_attention_qkv_plain(qkv, heads))
+    _assert_close_f32(got9, tatt.fused_attention_plain(q, k, v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,b,tq,tk,valid,heads,dh", [
+    (torch.float32, 2, 40, 385, 380, 12, 64),    # kernel 12 f32: first past 384
+    (torch.float32, 2, 40, 201, 190, 2, 128),    # ... at head dim 128: past 200
+    (torch.bfloat16, 1, 16, 801, 700, 12, 64),   # bf16: first past 800
+    (torch.bfloat16, 2, 40, 264, 250, 12, 64),   # kernel 13 bf16: past 256
+    (torch.bfloat16, 2, 40, 120, 110, 8, 96),    # kernel 13 bf16 head dim 96
+    (torch.float32, 2, 40, 272, 260, 12, 64),    # kernel 13 f32: past 264
+    (torch.bfloat16, 2, 296, 592, 577, 12, 64),  # 384 px at two seq ranks
+    (torch.float32, 2, 296, 592, 577, 12, 64),
+    (torch.bfloat16, 1, 520, 1040, 1025, 12, 64),  # 512 px at two ranks
+])
+def test_attention_cp_tiled_routes_match_plain_on_card(
+        cuda_device, dtype, b, tq, tk, valid, heads, dh):
+    """Kernels 12 and 13 on the routes cp_plan and cp_bwd_plan give shapes
+    their one-block forms do not hold (kernel 12 key-tiled past its K and
+    V, kernel 13 on the rectangular key-tiled backward): bf16 within 2
+    ulps, f32 within 1e-5 of the largest magnitude; masked keys' dk and dv
+    exactly 0."""
+    rng = np.random.default_rng(73)
+    d = heads * dh
+    q, kv, g = (_randn(rng, s, dtype, cuda_device)
+                for s in ((b, tq, d), (b, tk, 2 * d), (b, tq, d)))
+    f32 = "_f32" if dtype == torch.float32 else ""
+    fwd = "attention_cp" + (
+        "_tiled" if tatt.cp_plan(tq, tk, dh, dtype)["form"] == "key_tiled"
+        else "") + f32
+    bwd = "attention_cp_bwd" + (
+        "_tiled" if tatt.cp_bwd_plan(b, tq, tk, heads, dh, dtype)["route"]
+        == "key_tiled" else "") + f32
+    assert "_tiled" in fwd + bwd
+    n0 = dict(tatt.LAUNCHES)
+    got = tatt.fused_attention_qkv_cp(q, kv, heads, valid)
+    dq, dkv = tatt.attention_cp_bwd(q, kv, g, heads, valid)
+    torch.cuda.synchronize()
+    assert tatt.LAUNCHES == {**n0, fwd: n0[fwd] + 1, bwd: n0[bwd] + 1}
+    want_dq, want_dkv = tatt.attention_cp_bwd_plain(q, kv, g, heads, valid)
+    _close(got, tatt.fused_attention_qkv_cp_plain(q, kv, heads, valid), dtype)
+    _close(dq, want_dq, dtype)
+    _close(dkv, want_dkv, dtype)
+    assert not dkv[:, valid:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,heads,dh", [
+    (2, 801, 12, 64),     # kernels 8 and 9 bf16: first T past 800
+    (1, 1025, 12, 64),    # ViT-B/16 at 512 px
+    (2, 417, 2, 128),     # head dim 128: first T past 416
+])
+def test_attention_bf16_key_tiled_matches_plain_on_card(cuda_device, b, t,
+                                                        heads, dh):
+    """Kernel 8 (fused qkv) and kernel 9 (strided q/k/v views) at bf16
+    past one head's K and V: kernel 12's key-tiled two passes, within 2
+    bf16 ulps of the largest output magnitude."""
+    rng = np.random.default_rng(74)
+    x = _randn(rng, (b, t, 3, heads, dh), torch.bfloat16, cuda_device)
+    assert tatt.forward_plan(t, dh, torch.bfloat16)["form"] == "key_tiled"
+    n0 = dict(tatt.LAUNCHES)
+    qkv = x.reshape(b, t, 3 * heads * dh)
+    got8 = tatt.fused_attention_qkv(qkv, heads)
+    q, k, v = x.unbind(2)
+    got9 = tatt.fused_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert tatt.LAUNCHES == {
+        **n0, "attention_qkv_tiled": n0["attention_qkv_tiled"] + 1,
+        "attention_tiled": n0["attention_tiled"] + 1}
+    _assert_close(got8, tatt.fused_attention_qkv_plain(qkv, heads))
+    _assert_close(got9, tatt.fused_attention_plain(q, k, v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,tp,valid,d,heads", [
+    (2, 808, 801, 768, 12),     # the bf16 blocks: first Tp past 800
+    (1, 1040, 1025, 768, 12),   # ViT-B/16 at 512 px
+])
+def test_attention_block_bf16_key_tiled_matches_plain_on_card(
+        cuda_device, b, tp, valid, d, heads):
+    """Kernels 1 and 3 at bf16 past one head's K and V (their attention
+    stage on kernel 12's key tiles): within 2 bf16 ulps of each output's
+    largest magnitude."""
+    a = _attn_inputs(75, cuda_device, b, tp, d)
+    assert tatt.forward_plan(tp, d // heads, torch.bfloat16)[
+        "form"] == "key_tiled"
+    n0 = dict(tatt.LAUNCHES)
+    got = tatt.attention_block_train_padded(*a.values(), heads,
+                                            valid_len=valid)
+    out = tatt.fused_attention_block_padded(*a.values(), heads,
+                                            valid_len=valid)
+    want = tatt.attention_block_train_padded_plain(*a.values(), heads,
+                                                   valid_len=valid)
+    torch.cuda.synchronize()
+    assert tatt.LAUNCHES == {
+        **n0, "attention_block_train_tiled":
+            n0["attention_block_train_tiled"] + 1,
+        "attention_block_tiled": n0["attention_block_tiled"] + 1}
+    for gg, ww in zip(got, want):          # out, qkv, attn, xhat, inv
+        if gg.dtype == torch.bfloat16:
+            _assert_close(gg, ww)
+        else:
+            _assert_close_f32(gg, ww)
+    _assert_close(out, want[0])

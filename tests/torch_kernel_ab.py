@@ -7,9 +7,19 @@ each beside the PyTorch call that computes the same function:
   ``scaled_dot_product_attention`` with the same key mask;
 - kernel 12 (``fused_attention_qkv_cp``) and kernel 13
   (``attention_cp_bwd``) at the 2-rank sequence-parallel step's block
-  (B 128, Tq 104, Tk 208, 197 valid keys; kernel 12's f32 form at B 32),
+  (B 128, Tq 104, Tk 208, 197 valid keys; their f32 forms at B 32),
   beside ``scaled_dot_product_attention`` on the 197 real keys (the masked
-  keys add exactly 0) and its backward.
+  keys add exactly 0) and its backward;
+- kernel 8 (``fused_attention_qkv``) at f32 (B 32, T 197), beside SDPA
+  f32;
+- at ViT-B/16, 384 px (B 8, T 577, Tp 584), kernel 5's route past its one
+  launch (``..._384``: the four-launch long route before the key-tiled
+  backward replaced it, the key-tiled backward after), bf16 and f32, beside
+  SDPA's masked backward; and, in a tree that has the key-tiled routes
+  (``ops/attention.py::tiled_bwd_plan``), kernel 13's key-tiled instance
+  and kernel 12's f32 key tiles at the 2-rank block (Tq 296, Tk 592),
+  kernel 8 f32 at T 577, and at 512 px (T 1025) kernel 12's bf16 key
+  tiles (Tq 520, Tk 1040) and kernel 8 bf16 on them, beside SDPA.
 
     python tests/torch_kernel_ab.py TREE [TREE ...]
 
@@ -36,8 +46,13 @@ import sys
 
 B, B32, TP, T, D, HEADS = 128, 32, 200, 197, 768, 12
 TQ, TK = 104, 208                  # one of two sequence ranks' blocks
+B384, T384, TP384 = 8, 577, 584    # ViT-B/16 at 384 px
+TQ384, TK384 = 296, 592            # ... one of two sequence ranks' blocks
+T512, TP512 = 1025, 1040           # ViT-B/16 at 512 px
 NAMES = ("attention_qkv_bwd", "attention_qkv_bwd_f32",
-         "attention_qkv_bwd_phased", "attention_cp", "attention_cp_bwd")
+         "attention_qkv_bwd_phased", "attention_qkv_bwd_phased_long",
+         "attention_bwd_tiled", "attention_cp", "attention_cp_bwd",
+         "attention_qkv")
 
 
 def _ptxas(log: str) -> list:
@@ -90,6 +105,33 @@ def _child(tree: str) -> None:
         return lambda: torch.autograd.grad(o, (q, k, v), go,
                                            retain_graph=True)
 
+    def cp_runs(name, b, tq, tk, valid, dt, bwd):
+        """Kernel 12 (or 13 with ``bwd``) on a (tq, tk) block beside SDPA
+        (its backward) on the ``valid`` real keys."""
+        q, kv = rand(b, tq, D, dt=dt), rand(b, tk, 2 * D, dt=dt)
+        qh = q.view(b, tq, HEADS, -1).transpose(1, 2).contiguous()
+        kh, vh = (t.view(b, tk, HEADS, -1).transpose(1, 2)[:, :, :valid]
+                  .contiguous() for t in kv.split(D, -1))
+        if not bwd:
+            runs[name] = (
+                lambda: att.fused_attention_qkv_cp(q, kv, HEADS, valid),
+                lambda: sdpa(qh, kh, vh))
+            return
+        gq = rand(b, tq, D, dt=dt)
+        qg, kg, vg = (t.requires_grad_() for t in (qh, kh, vh))
+        o = sdpa(qg, kg, vg)
+        go = gq.view(b, tq, HEADS, -1).transpose(1, 2)
+        runs[name] = (
+            lambda: att.attention_cp_bwd(q, kv, gq, HEADS, valid),
+            lambda: torch.autograd.grad(o, (qg, kg, vg), go,
+                                        retain_graph=True))
+
+    def qkv_runs(name, b, t, dt):
+        qkv = rand(b, t, 3 * D, dt=dt)
+        q, k, v = qkv.view(b, t, 3, HEADS, -1).permute(2, 0, 3, 1, 4)
+        runs[name] = (lambda: att.fused_attention_qkv(qkv, HEADS),
+                      lambda: sdpa(q, k, v))
+
     runs = {}
     for dt, b, sfx in ((torch.bfloat16, B, ""), (torch.float32, B32, "_f32")):
         qkv, g = rand(b, TP, 3 * D, dt=dt), rand(b, TP, D, dt=dt)
@@ -108,17 +150,28 @@ def _child(tree: str) -> None:
         runs["attention_cp" + sfx] = (
             lambda q=q, kv=kv: att.fused_attention_qkv_cp(q, kv, HEADS, T),
             lambda qh=qh, kh=kh, vh=vh: sdpa(qh, kh, vh))
-        if not sfx:
-            gq = rand(b, TQ, D)
-            qg, kg, vg = (t.requires_grad_() for t in (qh.clone(), kh.clone(),
-                                                       vh.clone()))
-            o = sdpa(qg, kg, vg)
-            go = gq.view(b, TQ, HEADS, -1).transpose(1, 2)
-            runs["attention_cp_bwd"] = (
-                lambda q=q, kv=kv, gq=gq: att.attention_cp_bwd(
-                    q, kv, gq, HEADS, T),
-                lambda: torch.autograd.grad(o, (qg, kg, vg), go,
-                                            retain_graph=True))
+        cp_runs("attention_cp_bwd" + sfx, b, TQ, TK, T, dt, True)
+    qkv_runs("attention_qkv_f32", B32, T, torch.float32)
+    tiled = hasattr(att, "tiled_bwd_plan")
+    for dt, sfx in ((torch.bfloat16, ""), (torch.float32, "_f32")):
+        qkv, g = (rand(B384, TP384, 3 * D, dt=dt),
+                  rand(B384, TP384, D, dt=dt))
+        g[:, T384:] = 0
+        runs["attention_qkv_bwd_phased_384" + sfx] = (
+            lambda qkv=qkv, g=g: att.attention_qkv_bwd_phased(
+                qkv, g, HEADS, valid_len=T384),
+            sdpa_bwd(qkv, g, TP384, T384))
+        if tiled:
+            cp_runs("attention_cp_bwd_384" + sfx, B384, TQ384, TK384, T384,
+                    dt, True)
+    if tiled:
+        cp_runs("attention_cp_384_f32", B384, TQ384, TK384, T384,
+                torch.float32, False)
+        qkv_runs("attention_qkv_384_f32", B384, T384, torch.float32)
+        # kernel 12's bf16 key tiles, and kernel 8 bf16 on them, at 512 px
+        cp_runs("attention_cp_512", B384, TP512 // 2, TP512, T512,
+                torch.bfloat16, False)
+        qkv_runs("attention_qkv_512", B384, T512, torch.bfloat16)
 
     def windows(fn):
         for _ in range(3):

@@ -1,7 +1,7 @@
 """Print the port's parity gaps against the JAX package on the CPU, one
 JSON line per comparison (the numbers the tests bound).
 
-    python tests/torch_parity_report.py [kernels serving training small_batch augment eval train_loop cli artifact int8_vitb parallel]
+    python tests/torch_parity_report.py [kernels serving training small_batch augment eval train_loop cli artifact int8_vitb parallel long]
 
 The port runs its plain PyTorch versions (CPU tensors); the JAX side runs
 its Pallas kernels in interpret mode, as the test files do.  Inputs come
@@ -846,6 +846,64 @@ def parallel():
                                  batch_size=4, img_size=32, num_workers=1)
         emit(what="run_inference_dp2_vs_single",
              **gap(runs["res"]["fwd2_0"]["score/prob1"], want["prob1"]))
+
+
+def long():  # noqa: A001 - the section's name on the command line
+    """Slice 11: the port at T 362 (304 px, 2 heads of 64, depth 2), past
+    every one-block kernel limit of the card, against JAX, as
+    tests/test_torch_long_shapes.py compares them: the training forward's
+    logits and gradient leaves (f32), the bf16 logits, the f32 module
+    forward, and the attention core with its backward."""
+    import test_torch_long_shapes as tl
+
+    jm, variables, tm = tl._models()
+    x = tl._batch()
+    labels = np.array([1, 0])
+    with jatt.attention_sharding(interpret=True):
+        jfn = jft.make_apply(jm)
+        want_logits = np.asarray(jfn(variables, jnp.asarray(x)))
+        want = jax.grad(lambda p: tl._nll(jfn({"params": p}, jnp.asarray(x)),
+                                          jnp.asarray(labels), jnp))(
+            variables["params"])
+    params = tl._torch_params(variables)
+    logits = tft.make_apply(tm, dtype=torch.float32)({"params": params},
+                                                     torch.tensor(x))
+    emit(what="long_train_logits_f32", **gap(logits.detach().numpy(),
+                                              want_logits))
+    tl._nll(logits, torch.tensor(labels), torch).backward()
+    leaves = tstate.tree_flatten(params)[0]
+    wleaves = jax.tree_util.tree_leaves(want)
+    emit(what="long_train_grads_f32_worst_leaf", max_abs=max(
+        float(np.abs(leaf.grad.numpy() - np.asarray(w)).max())
+        for leaf, w in zip(leaves, wleaves)))
+    jmb, vb, tmb = tl._models("bf16")
+    with jatt.attention_sharding(interpret=True):
+        wb = np.asarray(jft.make_apply(jmb)(vb, jnp.asarray(x)), np.float32)
+    lb = tft.make_apply(tmb, dtype=torch.bfloat16)(
+        {"params": tl._torch_params(vb)}, torch.tensor(x))
+    emit(what="long_train_logits_bf16", **gap(lb.detach().numpy(), wb))
+    wm = np.asarray(jax.jit(jm.apply)(variables, jnp.asarray(x)))
+    tl.tconvert.load_jax_params(tm, jax.tree.map(np.asarray, variables))
+    with torch.no_grad():
+        emit(what="long_module_forward_f32",
+             **gap(tm.eval()(torch.tensor(x)).numpy(), wm))
+    for dtype, (jdt, tdt) in tl.DT.items():
+        q = np.random.default_rng(12).standard_normal(
+            (2, tl.T, 3 * tl.D)).astype(np.float32)
+        w = np.asarray(jatt.fused_attention_qkv(jnp.asarray(q, jdt), tl.HEADS,
+                                                True), np.float32)
+        got = tatt.fused_attention_qkv(torch.tensor(q).to(tdt), tl.HEADS)
+        emit(what="long_attention_core", dtype=dtype,
+             **gap(got.float().numpy(), w))
+    rng = np.random.default_rng(13)
+    q = rng.standard_normal((2, tl.T, 3 * tl.D)).astype(np.float32)
+    g = rng.standard_normal((2, tl.T, tl.D)).astype(np.float32)
+    _, vjp = jax.vjp(lambda a: jatt.fused_attention_qkv(a, tl.HEADS, True),
+                     jnp.asarray(q))
+    qt = torch.tensor(q, requires_grad=True)
+    tatt.fused_attention_qkv(qt, tl.HEADS).backward(torch.tensor(g))
+    emit(what="long_attention_core_backward_f32",
+         **gap(qt.grad.numpy(), np.asarray(vjp(jnp.asarray(g))[0])))
 
 
 if __name__ == "__main__":

@@ -30,7 +30,9 @@
 // 4 B H T^2 Dh = 15.3 GFLOP, 0.015 ms at 989 TFLOP/s: the bytes bind.  In
 // f32 at B = 32, 3.8 GFLOP at 67 TFLOP/s (0.057 ms) binds.  This first
 // design reads each head's K and V into shared memory once per query tile
-// and inherits kernel 8's limits (see attention_qkv.cu).
+// and, past the T whose K and V fit a block, runs the key-tiled routes of
+// kernel 8's cores (attention_core.cuh::launch_attention_tiled in bf16,
+// attention_f32.cuh::attention_f32_rows_tiled in f32): any T.
 #include "attention_core.cuh"
 #include "attention_f32.cuh"
 
@@ -67,13 +69,30 @@ __global__ void __launch_bounds__(kF32Warps * 32)
 }
 
 template <int DH>
+__global__ void __launch_bounds__(kF32Warps * 32)
+    attention3_f32_tiled_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                const float* __restrict__ v, float* __restrict__ out, int t,
+                                int d, long long ld, long long bs, float scale) {
+  const int h = blockIdx.y, b = blockIdx.z;
+  const size_t off = static_cast<size_t>(b) * bs + static_cast<size_t>(h) * DH;
+  attention_f32_rows_tiled<DH>(q + off, static_cast<size_t>(ld), k + off, v + off,
+                               static_cast<size_t>(ld),
+                               out + static_cast<size_t>(b) * t * d + static_cast<size_t>(h) * DH,
+                               d, t, t, t, scale);
+}
+
+template <int DH>
 cudaError_t launch3(const void* q, const void* k, const void* v, void* out, int dtype, int batch,
                     int t, int heads, long long ld, long long bs, float scale,
                     cudaStream_t stream) {
   const int d = heads * DH;
   if (dtype == 0) {
     const size_t smem = att_smem_bytes(t, DH);
-    if (smem > kMaxSmem) return cudaErrorInvalidValue;
+    if (smem > kMaxSmem)  // past one head's K and V: the key-tiled route
+      return launch_attention_tiled<DH>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                                        static_cast<const bf16*>(v), static_cast<bf16*>(out),
+                                        batch, t, heads, static_cast<int>(ld), bs, t, scale,
+                                        stream);
     cudaError_t e = cudaFuncSetAttribute(attention3_kernel<DH>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
@@ -87,7 +106,11 @@ cudaError_t launch3(const void* q, const void* k, const void* v, void* out, int 
     return cudaGetLastError();
   }
   const size_t smem = f32_smem_bytes(t, DH);
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  if (smem > kMaxSmem)  // past one head's K and V: the key-tiled form
+    return launch_f32_tiled(attention3_f32_tiled_kernel<DH>, DH, t, heads, batch, stream,
+                            static_cast<const float*>(q), static_cast<const float*>(k),
+                            static_cast<const float*>(v), static_cast<float*>(out), t, d, ld,
+                            bs, scale);
   cudaError_t e = cudaFuncSetAttribute(attention3_f32_kernel<DH>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
@@ -107,7 +130,7 @@ cudaError_t launch3(const void* q, const void* k, const void* v, void* out, int 
 // b * bs + t * ld + h * Dh + c), all bf16 (dtype 0) or f32 (dtype 1),
 // 16-byte aligned with ld a multiple of 8 (bf16) or 4 (f32); out a
 // contiguous [B, T, H, Dh] of the same dtype.  Needs a head dim that is a
-// multiple of 16 up to 128 and one head's K and V within shared memory.
+// multiple of 16 up to 128; any T.
 // Returns the launch's CUDA error (0 on success).
 extern "C" int vsd_attention(const void* q, const void* k, const void* v, void* out, int dtype,
                              int batch, int t, int heads, int dh, long long ld, long long bs,

@@ -33,9 +33,10 @@
 
 // x, out [B, Tp, D] bf16; ln_* [D] f32; w_qkv [D, 3D] and w_proj [D, D] bf16;
 // b_qkv [3D], b_proj [D] f32; scratch [B*Tp, D] and qkv [B*Tp, 3D] bf16.
-// Needs a head dim that is a multiple of 16 up to 128, Tp % 8 == 0,
-// 0 <= valid_len <= Tp, and one head's K and V within shared memory.
-// Returns the first CUDA error of the four launches (0 on success).
+// Needs a head dim that is a multiple of 16 up to 128, Tp % 8 == 0 and
+// 0 <= valid_len <= Tp; past the Tp whose K and V fit a block the attention
+// stage is key-tiled (attention_core.cuh).  Returns the first CUDA error of
+// the four launches (0 on success).
 extern "C" int vsd_attention_block(const void* x, const void* ln_scale, const void* ln_bias,
                                    const void* w_qkv, const void* b_qkv, const void* w_proj,
                                    const void* b_proj, void* scratch, void* qkv, void* out,
@@ -46,7 +47,7 @@ extern "C" int vsd_attention_block(const void* x, const void* ln_scale, const vo
       num_heads <= 0 || num_heads > 65535 || d % num_heads || valid_len < 0 || valid_len > tp)
     return cudaErrorInvalidValue;
   const int dh = d / num_heads;
-  if (dh % 16 || dh > 128 || att_smem_bytes(tp, dh) > kMaxSmem) return cudaErrorInvalidValue;
+  if (dh % 16 || dh > 128) return cudaErrorInvalidValue;
 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int rows = batch * tp;

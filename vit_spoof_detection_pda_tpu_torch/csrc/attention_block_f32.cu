@@ -21,7 +21,8 @@
 // f32 parts that never touch the tensor cores:
 //   1. the f32 LayerNorm (f32_common.cuh) -> xn (scratch), xhat, inv
 //   2. the f32 GEMM xn @ Wqkv + bqkv -> qkv
-//   3. kernel 8's f32 attention core (attention_f32.cuh) -> attn
+//   3. kernel 8's f32 attention core (attention_f32.cuh) -> attn, whole or,
+//      past the Tp whose K and V fit a block, key-tiled
 //   4. the f32 GEMM attn @ Wproj + bproj + x -> out
 // Every value stays f32 (the TPU kernel's roundings to the compute dtype
 // are no-ops at f32); only the order of the f32 sums differs from the
@@ -32,9 +33,9 @@
 // x, out, xn_scratch, attn [B, Tp, D] f32; qkv [B, Tp, 3D] f32; ln_* [D],
 // w_qkv [D, 3D], b_qkv [3D], w_proj [D, D], b_proj [D] f32; xhat [B, Tp, D]
 // and inv [B, Tp] f32, or both null (the serving form).  Needs a head dim
-// that is a multiple of 16 up to 128, Tp % 8 == 0, 0 <= valid_len <= Tp, D
-// a multiple of 4 and one head's K and V within shared memory.  Returns
-// the first CUDA error of the four launches (0 on success).
+// that is a multiple of 16 up to 128, Tp % 8 == 0, 0 <= valid_len <= Tp and D
+// a multiple of 4.  Returns the first CUDA error of the four launches (0 on
+// success).
 extern "C" int vsd_attention_block_f32(const void* x, const void* ln_scale, const void* ln_bias,
                                        const void* w_qkv, const void* b_qkv, const void* w_proj,
                                        const void* b_proj, void* xn_scratch, void* qkv,
@@ -46,7 +47,7 @@ extern "C" int vsd_attention_block_f32(const void* x, const void* ln_scale, cons
       num_heads <= 0 || num_heads > 65535 || d % num_heads || valid_len < 0 || valid_len > tp)
     return cudaErrorInvalidValue;
   const int dh = d / num_heads;
-  if (dh % 16 || dh > 128 || f32_smem_bytes(tp, dh) > kMaxSmem) return cudaErrorInvalidValue;
+  if (dh % 16 || dh > 128) return cudaErrorInvalidValue;
   if ((xhat == nullptr) != (inv == nullptr)) return cudaErrorInvalidValue;
 
   cudaStream_t s = static_cast<cudaStream_t>(stream);

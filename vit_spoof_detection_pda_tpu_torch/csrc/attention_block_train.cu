@@ -41,7 +41,7 @@ extern "C" int vsd_attention_block_train(const void* x, const void* ln_scale,
       num_heads <= 0 || num_heads > 65535 || d % num_heads || valid_len < 0 || valid_len > tp)
     return cudaErrorInvalidValue;
   const int dh = d / num_heads;
-  if (dh % 16 || dh > 128 || att_smem_bytes(tp, dh) > kMaxSmem) return cudaErrorInvalidValue;
+  if (dh % 16 || dh > 128) return cudaErrorInvalidValue;
 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int rows = batch * tp;

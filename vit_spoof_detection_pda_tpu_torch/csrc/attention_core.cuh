@@ -2,11 +2,17 @@
 // training): softmax(Q K^T * scale) V per head on the fused projection
 // qkv [B, Tp, 3D], key columns at or past valid_len masked, written as the
 // concatenated head outputs [B, Tp, D].  See attention_block.cu for the
-// design and its bounds.
+// design and its bounds.  A block holds one head's K and V whole (Tp up to
+// 800 at head dim 64); past that, attention() runs the same function on
+// kernel 12's key-tiled two passes (attention_cp_core.cuh::
+// cp_rows_bf16_tiles with Tq = Tk: f32 logits, the f32 softmax normalised
+// before the bf16 rounding, P V summed in f32, one rounding), so any Tp
+// runs.
 #pragma once
 
 #include <math_constants.h>
 
+#include "attention_cp_core.cuh"
 #include "common.cuh"
 
 namespace vsd {
@@ -220,11 +226,50 @@ __global__ void __launch_bounds__(kAttMaxWarps * 32)
                             blockIdx.y, blockIdx.z, Ks, Vs);
 }
 
+// The key-tiled route: q, k and v [B, t, H, DH] sharing row stride ld and
+// batch stride bs (elements), out [B, t, H * DH]; grid (query tiles of up
+// to kCpMaxWarps 16-row groups, heads, B), K and V in tiles of kt keys.
+template <int DH>
+__global__ void __launch_bounds__(kCpMaxWarps * 32)
+    attention_tiled_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                           const bf16* __restrict__ v, bf16* __restrict__ out, int t, int d,
+                           int ld, long long bs, int valid_len, float scale, int kt) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int h = blockIdx.y, b = blockIdx.z;
+  const size_t off = static_cast<size_t>(b) * bs + static_cast<size_t>(h) * DH;
+  cp_rows_bf16_tiles<DH>(q + off, ld, k + off, v + off, ld,
+                         out + static_cast<size_t>(b) * t * d + static_cast<size_t>(h) * DH, d,
+                         t, t, valid_len, scale, blockIdx.x * (blockDim.x >> 5) * 16, kt,
+                         reinterpret_cast<bf16*>(smem));
+}
+
+template <int DH>
+cudaError_t launch_attention_tiled(const bf16* q, const bf16* k, const bf16* v, bf16* out,
+                                   int batch, int t, int heads, int ld, long long bs,
+                                   int valid_len, float scale, cudaStream_t stream) {
+  const int kt = cp_key_tile(t, DH, false);
+  const size_t smem = cp_smem_bytes(false, 0, kt, DH);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(attention_tiled_kernel<DH>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  const int groups = (t + 15) / 16;
+  const int tiles = (groups + kCpMaxWarps - 1) / kCpMaxWarps;
+  const int warps = (groups + tiles - 1) / tiles;
+  attention_tiled_kernel<DH><<<dim3(tiles, heads, batch), warps * 32, smem, stream>>>(
+      q, k, v, out, t, heads * DH, ld, bs, valid_len, scale, kt);
+  return cudaGetLastError();
+}
+
 template <int DH>
 cudaError_t launch_attention(const bf16* qkv, bf16* out, int batch, int tp, int d, int heads,
                              int valid_len, float scale, cudaStream_t stream) {
   const size_t smem = att_smem_bytes(tp, DH);
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  if (smem > kMaxSmem)  // past one head's K and V: the key-tiled route
+    return launch_attention_tiled<DH>(qkv, qkv + d, qkv + 2 * d, out, batch, tp, heads, 3 * d,
+                                      static_cast<long long>(tp) * 3 * d, valid_len, scale,
+                                      stream);
   cudaError_t e = cudaFuncSetAttribute(attention_kernel<DH>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));

@@ -51,9 +51,12 @@
 //   SM, up to 148 KB of loads in flight on each.  A third block would need
 //   fewer than 100 registers a thread, below the scores alone: the issue of
 //   loads ahead of the products is what keeps the bytes moving instead.
-//   bf16, two passes for longer key blocks (any Tk whose K and V fit, as
-//   the first design took): Q fragments from device memory, K then V in two
-//   groups, pass 1 the online max and sum, pass 2 the scores again.
+//   bf16, two passes for longer key blocks: Q fragments from device
+//   memory, pass 1 the online max and sum, pass 2 the scores again.  Where
+//   K and V fit (Tk up to 800 at DH 64) they are staged once, K then V in
+//   two groups; past that the key-tiled form stages them in tiles of 256
+//   keys (74 KB at DH 64: several blocks an SM), K tile by tile in pass 1
+//   and K and V in pass 2, so any Tk runs.
 //   f32, in FMAs: a lane holds 4 query rows against every 8th key, so each
 //   16-byte K read feeds 16 FMAs (the first design read Q from shared
 //   memory for every key: 80 loads for 256 FMAs); the weights go through a
@@ -66,7 +69,10 @@
 //   all of a warp's keys while the next columns land.  Loops around the
 //   unrolled key tiles stay rolled: fully unrolled, the code outgrew the
 //   instruction cache and ran 1.5x slower.  Past 208 keys (or where that
-//   block does not fit), two passes over 32-key chunks, a warp a group.
+//   block does not fit), two passes over 32-key chunks, a warp a group, K
+//   and V whole where they fit (Tk up to 384 at DH 64) and past that in
+//   tiles of 128 keys as in bf16 (two blocks an SM: 1.6x faster at Tq 296,
+//   Tk 592 than tiles of the 384 keys that fit; PERF.md, PR 11).
 //   The shared-memory pipe, not the FMAs, sets the pace: a lane reads 4
 //   floats of q and 52 of K for 208 FMAs in Q K^T, and 12 for 32 in P V,
 //   each lane of a quad of rows reading the same K and V values.  Budget at
@@ -81,22 +87,27 @@ template <int DH, int KEYS>
 __global__ void __launch_bounds__(kCpMaxWarps * 32, KEYS > 0 ? 2 : 1)
     attention_cp_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
                         bf16* __restrict__ out, int tq, int tk, int d, int valid_len,
-                        float scale) {
+                        float scale, int kt) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int h = blockIdx.y, b = blockIdx.z;
   const size_t hoff = static_cast<size_t>(h) * DH;
   const bf16* kb = kv + static_cast<size_t>(b) * tk * 2 * d + hoff;
-  cp_rows_bf16<DH, KEYS>(q + static_cast<size_t>(b) * tq * d + hoff, d, kb, kb + d, 2 * d,
-                         out + static_cast<size_t>(b) * tq * d + hoff, d, tq, tk, valid_len,
-                         scale, blockIdx.x * (blockDim.x >> 5) * 16,
-                         reinterpret_cast<bf16*>(smem));
+  const bf16* qb = q + static_cast<size_t>(b) * tq * d + hoff;
+  bf16* ob = out + static_cast<size_t>(b) * tq * d + hoff;
+  const int q0 = blockIdx.x * (blockDim.x >> 5) * 16;
+  if constexpr (KEYS > 0)
+    cp_rows_bf16<DH, KEYS>(qb, d, kb, kb + d, 2 * d, ob, d, tq, tk, valid_len, scale, q0,
+                           reinterpret_cast<bf16*>(smem));
+  else
+    cp_rows_bf16_tiles<DH>(qb, d, kb, kb + d, 2 * d, ob, d, tq, tk, valid_len, scale, q0, kt,
+                           reinterpret_cast<bf16*>(smem));
 }
 
 template <int DH, int KEYS>
 __global__ void __launch_bounds__(KEYS > 0 ? kCpF32SplitWarps * 32 : kCpF32Warps * 32, 1)
     attention_cp_f32_kernel(const float* __restrict__ q, const float* __restrict__ kv,
                             float* __restrict__ out, int tq, int tk, int d, int valid_len,
-                            float scale) {
+                            float scale, int kt) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int h = blockIdx.y, b = blockIdx.z;
   const size_t hoff = static_cast<size_t>(h) * DH;
@@ -108,7 +119,7 @@ __global__ void __launch_bounds__(KEYS > 0 ? kCpF32SplitWarps * 32 : kCpF32Warps
     cp_rows_f32_split<DH, KEYS>(qb, d, kb, kb + d, 2 * d, ob, d, tq, tk, valid_len, scale, q0,
                                 reinterpret_cast<float*>(smem));
   else
-    cp_rows_f32_two_pass<DH>(qb, d, kb, kb + d, 2 * d, ob, d, tq, tk, valid_len, scale, q0,
+    cp_rows_f32_two_pass<DH>(qb, d, kb, kb + d, 2 * d, ob, d, tq, tk, valid_len, scale, q0, kt,
                              reinterpret_cast<float*>(smem));
 }
 
@@ -128,7 +139,8 @@ cudaError_t launch_cp(const void* q, const void* kv, void* out, int dtype, int b
   if (dtype == 0) {
     cp_tiles(tq, kCpMaxWarps, &tiles, &warps);
     const bool one_pass = cp_keys16(tk) <= kCpOnePassKeys;
-    const size_t smem = cp_smem_bytes(one_pass, warps, tk, DH);
+    const int kt = cp_key_tile(tk, DH, false);
+    const size_t smem = cp_smem_bytes(one_pass, warps, one_pass ? tk : kt, DH);
     if (smem > kMaxSmem) return cudaErrorInvalidValue;
     auto kernel = one_pass ? attention_cp_kernel<DH, kCpOnePassKeys> : attention_cp_kernel<DH, 0>;
     e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -136,13 +148,14 @@ cudaError_t launch_cp(const void* q, const void* kv, void* out, int dtype, int b
     if (e != cudaSuccess) return e;
     kernel<<<dim3(tiles, heads, batch), warps * 32, smem, stream>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(kv), static_cast<bf16*>(out), tq,
-        tk, d, valid_len, scale);
+        tk, d, valid_len, scale, kt);
     return cudaGetLastError();
   }
   cp_tiles(tq, 8, &tiles, &warps);
   const bool one_pass =
       cp_keys8(tk) <= kCpOnePassKeys && cp_f32_split_smem_bytes(tk, DH) <= kMaxSmem;
-  const size_t smem = one_pass ? cp_f32_split_smem_bytes(tk, DH) : cp_f32_smem_bytes(tk, DH);
+  const int kt = cp_key_tile(tk, DH, true);
+  const size_t smem = one_pass ? cp_f32_split_smem_bytes(tk, DH) : cp_f32_smem_bytes(kt, DH);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   auto kernel = one_pass ? attention_cp_f32_kernel<DH, kCpOnePassKeys>
                          : attention_cp_f32_kernel<DH, 0>;
@@ -152,7 +165,7 @@ cudaError_t launch_cp(const void* q, const void* kv, void* out, int dtype, int b
   // a block holds 8 row groups: a warp each (two-pass) or two (one pass)
   kernel<<<dim3(tiles, heads, batch), (one_pass ? kCpF32SplitWarps : kCpF32Warps) * 32, smem,
            stream>>>(static_cast<const float*>(q), static_cast<const float*>(kv),
-                     static_cast<float*>(out), tq, tk, d, valid_len, scale);
+                     static_cast<float*>(out), tq, tk, d, valid_len, scale, kt);
   return cudaGetLastError();
 }
 
@@ -161,9 +174,8 @@ cudaError_t launch_cp(const void* q, const void* kv, void* out, int dtype, int b
 
 // q [B, Tq, D], kv [B, Tk, 2D] and out [B, Tq, D], all bf16 (dtype 0) or all
 // f32 (dtype 1), contiguous and 16-byte aligned.  Needs a head dim that is
-// a multiple of 16 up to 128, 0 < valid_len <= Tk and the block's shared
-// memory within the card's (cp_smem_bytes / cp_f32_smem_bytes).  Returns
-// the launch's CUDA error (0 on success).
+// a multiple of 16 up to 128 and 0 < valid_len <= Tk; any Tq and Tk.
+// Returns the launch's CUDA error (0 on success).
 extern "C" int vsd_attention_cp(const void* q, const void* kv, void* out, int dtype, int batch,
                                 int tq, int tk, int d, int num_heads, int valid_len, float scale,
                                 void* stream) {

@@ -8,6 +8,16 @@
 // past valid_len at -1e30, in plain f32 FMAs (never the tensor cores: TF32
 // would round q, k and the weights to 10 mantissa bits).  The design and
 // its bound are described in attention_qkv.cu.
+//
+// Two forms, chosen by shape (ops/attention.py::forward_plan mirrors
+// the choice): where one head's K and V fit a block's shared memory
+// (f32_smem_bytes; T up to 333 at head dim 64), attention_f32_rows holds
+// them whole and takes the exact softmax of each row; past that,
+// attention_f32_rows_tiled walks the keys in tiles of kF32KeyTile staged
+// through shared memory, with an online softmax (the running max and sum
+// rescale the output sums at each tile, and the output is divided by the
+// sum once at the end), so any T runs.  The tiled form differs from the
+// whole one only in the order and place of f32 roundings.
 #pragma once
 
 #include <math_constants.h>
@@ -26,6 +36,15 @@ constexpr int kF32TileRows = 128; // query rows of a block at most
 __host__ __device__ inline size_t f32_smem_bytes(int tk, int dh) {
   return (2 * static_cast<size_t>(tk) * (dh + 4) +
           static_cast<size_t>(kF32Warps) * kF32Rows * (dh + tk)) *
+         sizeof(float);
+}
+
+// The key-tiled form: K and V tiles [kF32KeyTile][dh + 4] and per warp 4
+// query rows [4][dh] and their tile weights [kF32KeyTile][4].
+constexpr int kF32KeyTile = 128;
+__host__ __device__ inline size_t f32_tiled_smem_bytes(int dh) {
+  return (2 * static_cast<size_t>(kF32KeyTile) * (dh + 4) +
+          static_cast<size_t>(kF32Warps) * kF32Rows * (dh + kF32KeyTile)) *
          sizeof(float);
 }
 
@@ -172,6 +191,146 @@ __device__ __forceinline__ void attention_f32_rows(const float* __restrict__ q, 
   }
 }
 
+// The key-tiled form: a block of kF32Warps warps takes 32 query rows (4 a
+// warp) of one (head, item) against tk keys in tiles of kF32KeyTile.  Per
+// tile: K and V staged, each lane's logits of the warp's 4 rows, the tile's
+// row max; the running max m and sum l and the output sums rescaled by
+// exp(m_old - m); e = exp(s - m) into the warp's buffer; O += e V.  The
+// output is O / l.  Pointers as in attention_f32_rows; blockIdx.x is the
+// 32-row tile.
+template <int DH>
+__device__ __forceinline__ void attention_f32_rows_tiled(const float* __restrict__ q, size_t ldq,
+                                                         const float* __restrict__ k,
+                                                         const float* __restrict__ v, size_t ldk,
+                                                         float* __restrict__ out, size_t ldo,
+                                                         int tq, int tk, int valid_len,
+                                                         float scale) {
+  constexpr int LD = DH + 4;
+  constexpr int C4 = DH / 4;
+  constexpr int NJ = (DH + 31) / 32;
+  constexpr int KT = kF32KeyTile;
+  extern __shared__ __align__(16) float smf[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  float* Ks = smf;
+  float* Vs = Ks + KT * LD;
+  float* Qw = Vs + KT * LD + warp * kF32Rows * (DH + KT);  // [4][DH]
+  float* Pw = Qw + kF32Rows * DH;                          // [KT][4]
+
+  const int r0 = blockIdx.x * kF32Warps * kF32Rows + warp * kF32Rows;
+  const bool active = r0 < tq;
+  for (int c = lane; c < kF32Rows * C4; c += 32) {
+    const int rr = c / C4, col = (c % C4) * 4;
+    float4 qv = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r0 + rr < tq) qv = __ldg(reinterpret_cast<const float4*>(q + (r0 + rr) * ldq + col));
+    *reinterpret_cast<float4*>(Qw + rr * DH + col) = qv;
+  }
+  float m[kF32Rows], l[kF32Rows], o[kF32Rows][NJ];
+#pragma unroll
+  for (int rr = 0; rr < kF32Rows; ++rr) {
+    m[rr] = -CUDART_INF_F;
+    l[rr] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) o[rr][j] = 0.f;
+  }
+
+  for (int t0 = 0; t0 < tk; t0 += KT) {
+    const int n = min(KT, tk - t0);
+    __syncthreads();  // the last tile's K and V are no longer read
+    for (int c = tid; c < n * C4; c += blockDim.x) {
+      const int r = c / C4, col = (c % C4) * 4;
+      *reinterpret_cast<float4*>(Ks + r * LD + col) =
+          __ldg(reinterpret_cast<const float4*>(k + (t0 + r) * ldk + col));
+      *reinterpret_cast<float4*>(Vs + r * LD + col) =
+          __ldg(reinterpret_cast<const float4*>(v + (t0 + r) * ldk + col));
+    }
+    __syncthreads();
+    if (!active) continue;
+
+    // 1. logits of this lane's keys, the tile's row max
+    float mt[kF32Rows];
+#pragma unroll
+    for (int rr = 0; rr < kF32Rows; ++rr) mt[rr] = -CUDART_INF_F;
+    for (int key = lane; key < n; key += 32) {
+      float s[kF32Rows] = {0.f, 0.f, 0.f, 0.f};
+      const float* kr = Ks + key * LD;
+#pragma unroll
+      for (int c = 0; c < DH; c += 4) {
+        const float4 kv = *reinterpret_cast<const float4*>(kr + c);
+#pragma unroll
+        for (int rr = 0; rr < kF32Rows; ++rr) {
+          const float4 qv = *reinterpret_cast<const float4*>(Qw + rr * DH + c);
+          s[rr] = fmaf(qv.x, kv.x, s[rr]);
+          s[rr] = fmaf(qv.y, kv.y, s[rr]);
+          s[rr] = fmaf(qv.z, kv.z, s[rr]);
+          s[rr] = fmaf(qv.w, kv.w, s[rr]);
+        }
+      }
+#pragma unroll
+      for (int rr = 0; rr < kF32Rows; ++rr) {
+        s[rr] = t0 + key < valid_len ? s[rr] * scale : -1e30f;
+        mt[rr] = fmaxf(mt[rr], s[rr]);
+      }
+      *reinterpret_cast<float4*>(Pw + key * 4) = make_float4(s[0], s[1], s[2], s[3]);
+    }
+    // 2. the running max; l and O rescaled; e = exp(s - m) (key 0 is real,
+    // so m is finite from the first tile on)
+#pragma unroll
+    for (int rr = 0; rr < kF32Rows; ++rr) {
+      const float mn = fmaxf(m[rr], warp_max(mt[rr]));
+      const float corr = expf(m[rr] - mn);
+      l[rr] *= corr;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) o[rr][j] *= corr;
+      m[rr] = mn;
+    }
+    float lt[kF32Rows] = {0.f, 0.f, 0.f, 0.f};
+    for (int key = lane; key < n; key += 32) {
+      float4 e = *reinterpret_cast<const float4*>(Pw + key * 4);
+      e.x = expf(e.x - m[0]);
+      e.y = expf(e.y - m[1]);
+      e.z = expf(e.z - m[2]);
+      e.w = expf(e.w - m[3]);
+      lt[0] += e.x;
+      lt[1] += e.y;
+      lt[2] += e.z;
+      lt[3] += e.w;
+      *reinterpret_cast<float4*>(Pw + key * 4) = e;
+    }
+#pragma unroll
+    for (int rr = 0; rr < kF32Rows; ++rr) l[rr] += warp_sum(lt[rr]);
+    __syncwarp();
+
+    // 3. O += e V
+    for (int key = 0; key < n; ++key) {
+      const float4 w = *reinterpret_cast<const float4*>(Pw + key * 4);
+      const float* vr = Vs + key * LD;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int c = lane + 32 * j;
+        if (c < DH) {
+          const float vv = vr[c];
+          o[0][j] = fmaf(w.x, vv, o[0][j]);
+          o[1][j] = fmaf(w.y, vv, o[1][j]);
+          o[2][j] = fmaf(w.z, vv, o[2][j]);
+          o[3][j] = fmaf(w.w, vv, o[3][j]);
+        }
+      }
+    }
+    __syncwarp();  // Pw is rewritten by the next tile
+  }
+  if (!active) return;
+#pragma unroll
+  for (int rr = 0; rr < kF32Rows; ++rr) {
+    if (r0 + rr >= tq) continue;
+    float* orow = out + static_cast<size_t>(r0 + rr) * ldo;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int c = lane + 32 * j;
+      if (c < DH) orow[c] = o[rr][j] / l[rr];
+    }
+  }
+}
+
 // Kernel 8's f32 route: the fused projection qkv [B, T, 3D] -> out [B, T, D],
 // grid (query tiles, heads, B).
 template <int DH>
@@ -194,10 +353,39 @@ inline int f32_tile_rows(int t) {
 }
 
 template <int DH>
+__global__ void __launch_bounds__(kF32Warps * 32)
+    attention_f32_tiled_kernel(const float* __restrict__ qkv, float* __restrict__ out, int t,
+                               int d, int valid_len, float scale) {
+  const int h = blockIdx.y, b = blockIdx.z;
+  const size_t stride = 3 * static_cast<size_t>(d);
+  const float* base = qkv + static_cast<size_t>(b) * t * stride + static_cast<size_t>(h) * DH;
+  attention_f32_rows_tiled<DH>(base, stride, base + d, base + 2 * d, stride,
+                               out + static_cast<size_t>(b) * t * d + static_cast<size_t>(h) * DH,
+                               d, t, t, valid_len, scale);
+}
+
+// Launch a key-tiled kernel (grid (32-row tiles, heads, B)) with its shared
+// memory.
+template <typename Kernel, typename... Args>
+cudaError_t launch_f32_tiled(Kernel kernel, int dh, int t, int heads, int batch,
+                             cudaStream_t stream, Args... args) {
+  const size_t smem = f32_tiled_smem_bytes(dh);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  const int rows = kF32Warps * kF32Rows;
+  kernel<<<dim3((t + rows - 1) / rows, heads, batch), kF32Warps * 32, smem, stream>>>(args...);
+  return cudaGetLastError();
+}
+
+template <int DH>
 cudaError_t launch_attention_f32(const float* qkv, float* out, int batch, int t, int d,
                                  int heads, int valid_len, float scale, cudaStream_t stream) {
   const size_t smem = f32_smem_bytes(t, DH);
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  if (smem > kMaxSmem)
+    return launch_f32_tiled(attention_f32_tiled_kernel<DH>, DH, t, heads, batch, stream, qkv,
+                            out, t, d, valid_len, scale);
   cudaError_t e = cudaFuncSetAttribute(attention_f32_kernel<DH>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));

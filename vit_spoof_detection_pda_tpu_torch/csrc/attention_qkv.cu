@@ -12,6 +12,9 @@
 // (attention_core.cuh::attention, kernel 1's attention stage): mma.sync
 // Q K^T, a two-pass f32 softmax whose weights are normalized before the
 // bf16 rounding, ldmatrix P V with f32 sums, each output rounded once.
+// Past the T whose K and V fit a block (800 at head dim 64), the bf16 route
+// is kernel 12's key-tiled two passes (attention_core.cuh::
+// launch_attention_tiled).
 // The TPU kernel pads T = 197 to 200 rows for its 8-row tiling; this one
 // takes T rows as they are (the core zero-fills rows past T and gives
 // columns past T no weight), and the results equal the padded form's
@@ -31,6 +34,10 @@
 //   3. O = w V, each lane owning columns lane, lane + 32, ... of the 4
 //      rows, one float4 broadcast of the 4 rows' weights per key.
 // The weights stay f32 (JAX's weights.astype(v.dtype) is a no-op at f32).
+// Past the T whose K and V fit a block (333 at head dim 64) the f32 route
+// is the key-tiled form of the same core (attention_f32.cuh::
+// attention_f32_rows_tiled: 32 query rows a block, K and V in tiles of 128
+// keys, an online softmax), so f32 takes any T.
 //
 // Bound on the H100.  bf16 at ViT-B, B = 128, T = 197: 154.9 MB of
 // compulsory traffic (qkv in, out) = 0.046 ms at 3.35 TB/s against
@@ -45,8 +52,8 @@
 
 // qkv [B, T, 3D] and out [B, T, D], both bf16 (dtype 0) or f32 (dtype 1),
 // contiguous and 16-byte aligned.  Needs a head dim that is a multiple of
-// 16 up to 128, 0 < valid_len <= T and one head's K and V within shared
-// memory.  Returns the launch's CUDA error (0 on success).
+// 16 up to 128 and 0 < valid_len <= T; any T.  Returns the launch's CUDA
+// error (0 on success).
 extern "C" int vsd_attention_qkv(const void* qkv, void* out, int dtype, int batch, int t, int d,
                                  int num_heads, int valid_len, float scale, void* stream) {
   using namespace vsd;

@@ -35,14 +35,18 @@ KERNELS = ("attention_block", "mlp_block", "attention_block_train",
            "attention_qkv", "attention_block_f32", "attention_qkv_bwd_f32",
            "mlp_block_train", "attention_qkv_bwd_phased", "doctor_probe",
            "attention", "attention_cp", "attention_cp_bwd",
-           "attention_qkv_bwd_phased_long")
+           "attention_bwd_tiled")
 # one count per kernel form: each library's name, the int8 form of the
-# per-item lowlat kernel ("lowlat_encoder_int8"), and the f32 forms that
-# share a library with another form (the f32 training attention block is
+# per-item lowlat kernel ("lowlat_encoder_int8"), the f32 forms that share
+# a library with another form (the f32 training attention block is
 # attention_block_f32's entry with its residual outputs; the LN backward,
 # the training MLP block and the phased attention backward take bf16 or f32
-# in one library; the phased backward's long-Tp library counts both dtypes
-# under its own name)
+# in one library), and the key-tiled routes past what a block holds: the
+# key-tiled backward on the fused projection (kernels 4 and 5,
+# "attention_bwd_tiled") and on kernel 13's rectangle
+# ("attention_cp_bwd_tiled"), the key-tiled forward cores under each of
+# their four callers (bf16: kernel 12's key tiles; f32: attention_f32.cuh),
+# and kernel 12's key-tiled form
 LAUNCHES = {name: 0 for name in KERNELS + ("attention_block_train_f32",
                                            "ln_res_bwd_f32",
                                            "mlp_block_train_f32",
@@ -50,7 +54,20 @@ LAUNCHES = {name: 0 for name in KERNELS + ("attention_block_train_f32",
                                            "lowlat_encoder_int8",
                                            "attention_f32",
                                            "attention_cp_f32",
-                                           "attention_cp_bwd_f32")}
+                                           "attention_cp_bwd_f32",
+                                           "attention_bwd_tiled_f32",
+                                           "attention_cp_bwd_tiled",
+                                           "attention_cp_bwd_tiled_f32",
+                                           "attention_block_tiled",
+                                           "attention_block_train_tiled",
+                                           "attention_qkv_tiled",
+                                           "attention_tiled",
+                                           "attention_block_f32_tiled",
+                                           "attention_block_train_f32_tiled",
+                                           "attention_qkv_f32_tiled",
+                                           "attention_f32_tiled",
+                                           "attention_cp_tiled",
+                                           "attention_cp_tiled_f32")}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

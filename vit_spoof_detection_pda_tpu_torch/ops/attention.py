@@ -29,9 +29,11 @@ Training adds two kernels:
   replaces ``_attn_qkv_bwd_kernel`` (JAX ``ops/attention.py:199``).
 - :func:`attention_qkv_bwd_phased`: the same ``dqkv`` on the TPU's
   opt-in phase-split schedule, selected by :data:`BWD_PHASED`.  Kernel:
-  ``csrc/attention_qkv_bwd_phased.cu`` (one launch, bf16 and f32; longer
-  Tp on ``csrc/attention_qkv_bwd_phased_long.cu``, :func:`phased_plan`);
-  replaces ``_attn_qkv_bwd_kernel_phased`` (JAX ``ops/attention.py:259``).
+  ``csrc/attention_qkv_bwd_phased.cu`` (one launch, bf16 and f32); every
+  shape past what its block holds, and every shape kernel 4 does not hold,
+  on the key-tiled backward ``csrc/attention_bwd_tiled.cu``
+  (:func:`phased_plan`); replaces ``_attn_qkv_bwd_kernel_phased`` (JAX
+  ``ops/attention.py:259``).
 - :func:`mlp_block_train`: the MLP block with the stored-hidden
   backward's residuals (``xhat``, ``inv``, the hidden ``h``), erf or tanh
   GELU.  Kernel: ``csrc/mlp_block_train.cu``; replaces
@@ -72,14 +74,26 @@ adds two:
   (JAX ``ops/attention.py:836``).
 - :func:`attention_cp_bwd`: its backward, ``dq`` and this rank's partial
   ``dkv``.  Kernel: ``csrc/attention_cp_bwd.cu`` (kernel 4's body on a
-  rectangle); replaces ``_attn_cp_bwd_kernel`` (JAX :865).
+  rectangle; past it the key-tiled backward's rectangular instance,
+  :func:`cp_bwd_plan`); replaces ``_attn_cp_bwd_kernel`` (JAX :865).
+
+Past what one block holds, each attention kernel takes a key-tiled route
+chosen by shape before any launch (:func:`attention_qkv_bwd_plan`,
+:func:`phased_plan`, :func:`cp_plan`, :func:`cp_bwd_plan`,
+:func:`forward_plan`): the key-tiled backward
+``csrc/attention_bwd_tiled.cu`` (kernels 4, 5 and 13), the key-tiled f32
+core of ``csrc/attention_f32.cuh`` (kernels 1 / 3, 8 and 9 at f32),
+kernel 12's key tiles, which also carry kernels 1 / 3, 8 and 9 at bf16
+past one head's K and V.  So the card takes every shape the JAX
+functions take.
 
 The serving kernels (1, 2, 8, 9) are also ``vsd::`` operators (the end
 of this module) for frozen programs (``models/artifact.py``).
 
 The block kernels are bound by the tensor cores on the H100, the
-backward by its bytes; the source notes in ``csrc/`` give the bounds and
-what the first design does about them.
+backward by its bytes at 224 px and by its products past that; the
+source notes in ``csrc/`` give the bounds and what each design does about
+them.
 """
 
 from __future__ import annotations
@@ -118,8 +132,8 @@ _SIGNATURES = {
                         [_P] * 13 + [_I] * 3 + [_F] + [_I] * 2 + [_P]),
     "attention_qkv_bwd_phased": ("vsd_attention_qkv_bwd_phased",
                                  [_P] * 3 + [_I] * 6 + [_F, _P]),
-    "attention_qkv_bwd_phased_long": ("vsd_attention_qkv_bwd_phased_long",
-                                      [_P] * 4 + [_I] * 7 + [_F, _P]),
+    "attention_bwd_tiled": ("vsd_attention_bwd_tiled",
+                            [_P] * 8 + [_I] * 9 + [_LL] * 3 + [_I, _F, _P]),
     "attention_cp": ("vsd_attention_cp", [_P] * 3 + [_I] * 7 + [_F, _P]),
     "attention_cp_bwd": ("vsd_attention_cp_bwd",
                          [_P] * 6 + [_I] * 7 + [_F, _P]),
@@ -245,10 +259,6 @@ def _check_attention_block_args(xp, ln_scale, ln_bias, w_qkv, b_qkv,
     if cdt not in (torch.bfloat16, torch.float32):
         raise TypeError(f"x is {cdt}; the attention-block kernels take "
                         "bfloat16 or float32")
-    smem = _attention_qkv_smem(tp, dh, cdt)                # K and V (+ f32 rows)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"Tp {tp} at head dim {dh} needs {smem} bytes of "
-                         f"shared memory per block; the card has {_MAX_SMEM}")
     if not 0 < b <= 65535 or num_heads > 65535:
         raise ValueError(f"batch {b} / heads {num_heads} outside the grid")
     f32, dev = torch.float32, xp.device
@@ -270,6 +280,7 @@ def _attention_block_f32(xp, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj,
     b, tp, d, dh = _check_attention_block_args(
         xp, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj, num_heads,
         valid_len)
+    tiled = forward_plan(tp, dh, torch.float32)["form"] == "key_tiled"
     lib, fn = _entry("attention_block_f32")
     dev, f32 = xp.device, torch.float32
     out = torch.empty_like(xp)
@@ -285,7 +296,8 @@ def _attention_block_f32(xp, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj,
              inv.data_ptr() if train else None, out.data_ptr(),
              b, tp, d, num_heads, valid_len, eps, float(dh) ** -0.5,
              torch.cuda.current_stream(dev).cuda_stream)
-    name = "attention_block_train_f32" if train else "attention_block_f32"
+    name = ("attention_block_train_f32" if train
+            else "attention_block_f32") + ("_tiled" if tiled else "")
     _build.check(lib, name, err)
     LAUNCHES[name] += 1
     return (out, qkv, attn, xh, inv) if train else out
@@ -300,11 +312,13 @@ def fused_attention_block_padded(xp, ln_scale, ln_bias, w_qkv, b_qkv,
     last layer.
 
     On the card: bf16 ``xp``, ``w_qkv [D, 3D]`` and ``w_proj [D, D]``;
-    f32 ``ln_scale``, ``ln_bias``, ``b_qkv`` and ``b_proj``; any B,
-    ``Tp % 8 == 0`` (up to 800 at head dim 64, where one head's K and V
-    stop fitting in shared memory) and a head dim that is a multiple of
-    16 up to 128.  f32 ``xp`` and matrices run the f32 kernel
-    (``LAUNCHES["attention_block_f32"]``; Tp up to 328 at head dim 64)."""
+    f32 ``ln_scale``, ``ln_bias``, ``b_qkv`` and ``b_proj``; any B, any
+    ``Tp % 8 == 0`` and a head dim that is a multiple of 16 up to 128.
+    Past the Tp whose K and V fit a block (800 at head dim 64) the
+    attention stage runs key-tiled (:func:`forward_plan`;
+    ``LAUNCHES["attention_block_tiled"]``).  f32 ``xp`` and matrices run
+    the f32 kernel (``LAUNCHES["attention_block_f32"]``; past Tp 328 at
+    head dim 64 on the key-tiled core, ``"attention_block_f32_tiled"``)."""
     if torch.compiler.is_exporting():
         return attention_block_op(xp, ln_scale, ln_bias, w_qkv, b_qkv,
                                   w_proj, b_proj, num_heads, valid_len, eps)
@@ -328,6 +342,7 @@ def _attention_block_cuda(xp, ln_scale, ln_bias, w_qkv, b_qkv, w_proj,
     b, tp, d, dh = _check_attention_block_args(
         xp, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj, num_heads,
         valid_len)
+    tiled = forward_plan(tp, dh, xp.dtype)["form"] == "key_tiled"
     lib, fn = _entry("attention_block")
     out = torch.empty_like(xp)
     scratch = torch.empty((b * tp, d), dtype=xp.dtype, device=xp.device)
@@ -337,8 +352,9 @@ def _attention_block_cuda(xp, ln_scale, ln_bias, w_qkv, b_qkv, w_proj,
              b_proj.data_ptr(), scratch.data_ptr(), qkv.data_ptr(),
              out.data_ptr(), b, tp, d, num_heads, valid_len, eps,
              float(dh) ** -0.5, torch.cuda.current_stream(xp.device).cuda_stream)
-    _build.check(lib, "attention_block", err)
-    LAUNCHES["attention_block"] += 1
+    name = "attention_block_tiled" if tiled else "attention_block"
+    _build.check(lib, name, err)
+    LAUNCHES[name] += 1
     return out
 
 
@@ -348,8 +364,11 @@ def attention_block_train_padded(xp, ln_scale, ln_bias, w_qkv, b_qkv,
     """:func:`fused_attention_block_padded` that also returns the
     backward's residuals: ``(out, qkv, attn, xhat, inv)`` as
     :func:`attention_block_train_padded_plain` describes, all at the Tp
-    rows of ``xp``.  Takes what the serving kernel takes; f32 runs the f32
-    kernel (``LAUNCHES["attention_block_train_f32"]``)."""
+    rows of ``xp``.  Takes what the serving kernel takes
+    (``LAUNCHES["attention_block_train"]``, ``"attention_block_train_tiled"``
+    on the key-tiled route); f32 runs the f32 kernel
+    (``"attention_block_train_f32"``, or ``"attention_block_train_f32_tiled"``
+    on the key-tiled core)."""
     if xp.device.type == "cpu":
         return attention_block_train_padded_plain(
             xp, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj, num_heads,
@@ -363,6 +382,7 @@ def attention_block_train_padded(xp, ln_scale, ln_bias, w_qkv, b_qkv,
     b, tp, d, dh = _check_attention_block_args(
         xp, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj, num_heads,
         valid_len)
+    tiled = forward_plan(tp, dh, xp.dtype)["form"] == "key_tiled"
     lib, fn = _entry("attention_block_train")
     dev, cdt = xp.device, xp.dtype
     out = torch.empty_like(xp)
@@ -377,8 +397,9 @@ def attention_block_train_padded(xp, ln_scale, ln_bias, w_qkv, b_qkv,
              attn.data_ptr(), xh.data_ptr(), inv.data_ptr(), out.data_ptr(),
              b, tp, d, num_heads, valid_len, eps, float(dh) ** -0.5,
              torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, "attention_block_train", err)
-    LAUNCHES["attention_block_train"] += 1
+    name = "attention_block_train" + ("_tiled" if tiled else "")
+    _build.check(lib, name, err)
+    LAUNCHES[name] += 1
     return out, qkv, attn, xh, inv
 
 
@@ -437,9 +458,64 @@ _PHASED_WARPS = 7              # kernel 5, bf16: warps a block
 _PHASED_MAX_KEYS = 208         # ... Tp rounded up to 16 that a block holds
 _PHASED_F32_MAX_KEYS = 256     # kernel 5, f32: Tp that a block holds
 _PHASED_F32_THREADS, _PHASED_F32_ROWS = 256, 16
-# the long-Tp route's workspace of one chunk, f32 [chunk * H, Tp, Tp], kept
-# within the 50 MB L2 between its four phases
-_PHASED_LONG_WORKSPACE_BYTES = 32_000_000
+# the key-tiled backward (csrc/attention_bwd_tiled.cu): warps a block (16
+# query rows or keys each) and the rows of a staged tile, bf16 and f32
+_KT_WARPS, _KT_TILE = 4, 64
+_KT_F32_WARPS, _KT_F32_TILE = 8, 32
+_F32_WSTRIDE = 20              # a row of the f32 forms' per-warp weight chunk
+
+
+def _check_head_dim(dh: int, what: str):
+    if dh % 16 or not 16 <= dh <= 128:
+        raise ValueError(f"{what} takes a head dim that is a multiple of 16 "
+                         f"from 16 to 128; got {dh}")
+
+
+def _check_grid(batch: int, num_heads: int):
+    if not 0 < batch <= 65535 or not 0 < num_heads <= 65535:
+        raise ValueError(f"batch {batch} / heads {num_heads} outside the grid")
+
+
+def tiled_bwd_plan(batch: int, num_heads: int, dh: int, dtype) -> dict:
+    """The key-tiled attention backward (``csrc/attention_bwd_tiled.cu``):
+    any Tq and Tk, a head dim that is a multiple of 16 from 16 to 128, B
+    and heads up to 65,535.  Two launches (dq and the rows' stats; dk and
+    dv), ``warps`` a block and ``tile`` rows a staged tile; ``smem`` is the
+    larger launch's dynamic shared memory (the dk / dv launch)."""
+    _check_head_dim(dh, "the key-tiled attention backward")
+    _check_grid(batch, num_heads)
+    if dtype == torch.float32:
+        tile, warps = _KT_F32_TILE, _KT_F32_WARPS
+        smem = (2 * 2 * tile * (dh + 4) * 4 + 2 * tile * 16
+                + warps * 2 * 32 * _F32_WSTRIDE * 4)
+    else:
+        tile, warps = _KT_TILE, _KT_WARPS
+        smem = 2 * 2 * tile * (dh + 8) * 2 + 2 * tile * 16
+    return {"route": "key_tiled", "warps": warps, "tile": tile, "smem": smem}
+
+
+def attention_qkv_bwd_plan(batch: int, tp: int, num_heads: int, dh: int,
+                           dtype) -> dict:
+    """How :func:`attention_qkv_bwd` runs, chosen by shape before any
+    launch (with :data:`BWD_PHASED` unset): ``{"route": "unphased"}``,
+    kernel 4 (``csrc/attention_qkv_bwd.cu``, bf16 head dims 16, 32 and 64,
+    one head's K, V and ``[Tp, Tp]`` bf16 weights within shared memory: Tp
+    up to 208 at head dim 64; ``csrc/attention_qkv_bwd_f32.cu``, f32 Tp up
+    to 264 at head dim 64), or for every other shape the route of
+    :func:`phased_plan`, which computes the same function.  ``smem`` is a
+    block's dynamic shared memory."""
+    _check_head_dim(dh, "the attention backward")
+    _check_grid(batch, num_heads)
+    if dtype == torch.float32:
+        smem = _attention_qkv_bwd_f32_smem(tp, dh)
+    elif dh in (16, 32, 64):
+        tk = _round_up(tp, 16)     # K, V (later Q, G) and the bf16 w, dl tiles
+        smem = 2 * (2 * tk * dh + 2 * tk * tk)
+    else:
+        smem = _MAX_SMEM + 1
+    if smem <= _MAX_SMEM:
+        return {"route": "unphased", "smem": smem}
+    return phased_plan(batch, tp, num_heads, dh, dtype)
 
 
 def attention_qkv_bwd(qkv, g, num_heads: int, *, valid_len: int):
@@ -450,38 +526,34 @@ def attention_qkv_bwd(qkv, g, num_heads: int, *, valid_len: int):
     valid_len=t)``).  ``g`` must be zero on the pad rows; ``dqkv`` then
     is zero there too.
 
-    On the card: bf16 ``qkv`` and ``g``, any B, ``Tp % 8 == 0``, a head
-    dim of 16, 32 or 64, and one head's K and V and the ``[Tp, Tp]`` bf16
-    weights and their gradient within shared memory (Tp up to 208 at
-    head dim 64).  f32 ``qkv`` and ``g`` run the f32 kernel
-    (``LAUNCHES["attention_qkv_bwd_f32"]``): any Tp whose head operands
-    fit (up to 264 at head dim 64), a head dim that is a multiple of 16
-    up to 128."""
+    On the card: bf16 or f32 ``qkv`` and ``g``, B and heads up to 65,535,
+    any Tp (a multiple of 8 in bf16), a head dim that is a multiple of 16
+    from 16 to 128.  The route is :func:`attention_qkv_bwd_plan`'s: kernel
+    4 (``LAUNCHES["attention_qkv_bwd"]``, f32 ``"attention_qkv_bwd_f32"``)
+    where its block holds the head (bf16 head dims 16, 32 and 64 up to Tp
+    208 at head dim 64; f32 up to Tp 264), else :func:`phased_plan`'s (the
+    key-tiled backward past it, ``"attention_bwd_tiled"``)."""
     if qkv.device.type == "cpu":
         return attention_qkv_bwd_plain(qkv, g, num_heads,
                                        valid_len=valid_len)
     if qkv.device.type != "cuda":
         raise ValueError(f"no kernel for device {qkv.device}")
-    if BWD_PHASED:
+    b, tp, d3 = qkv.shape
+    d = _check_head_geometry(d3, num_heads, fused=3)
+    dh = d // num_heads
+    if qkv.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"qkv is {qkv.dtype}; the attention backward takes "
+                        "bfloat16 or float32")
+    if (tp % 8 and qkv.dtype == torch.bfloat16) or not 0 < valid_len <= tp:
+        raise ValueError(
+            f"the attention backward takes Tp % 8 == 0 (bf16) and 0 < "
+            f"valid_len <= Tp; got Tp {tp}, valid_len {valid_len}")
+    plan = attention_qkv_bwd_plan(b, tp, num_heads, dh, qkv.dtype)
+    if BWD_PHASED or plan["route"] != "unphased":
         return attention_qkv_bwd_phased(qkv, g, num_heads,
                                         valid_len=valid_len)
     if qkv.dtype == torch.float32:
         return _attention_qkv_bwd_f32(qkv, g, num_heads, valid_len)
-    b, tp, d3 = qkv.shape
-    d = _check_head_geometry(d3, num_heads, fused=3)
-    dh = d // num_heads
-    if dh not in (16, 32, 64) or tp % 8 or not 0 < valid_len <= tp:
-        raise ValueError(
-            f"the attention backward takes a head dim of 16, 32 or 64, "
-            f"Tp % 8 == 0 and 0 < valid_len <= Tp; got head dim {dh}, "
-            f"Tp {tp}, valid_len {valid_len}")
-    tk = _round_up(tp, 16)     # K, V (later Q, G) and the bf16 w, dl tiles
-    smem = 2 * (2 * tk * dh + 2 * tk * tk)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"Tp {tp} at head dim {dh} needs {smem} bytes of "
-                         f"shared memory per block; the card has {_MAX_SMEM}")
-    if not 0 < b <= 65535 or num_heads > 65535:
-        raise ValueError(f"batch {b} / heads {num_heads} outside the grid")
     bf, dev = torch.bfloat16, qkv.device
     _require(qkv, "qkv", bf, (b, tp, d3), dev)
     _require(g, "g", bf, (b, tp, d), dev)
@@ -504,19 +576,15 @@ def phased_plan(batch: int, tp: int, num_heads: int, dh: int,
       a block per (head, item) holding it on chip; head dims 16, 32 and
       64, bf16 up to Tp 208 (``keys``: the instance, 64, 128 or 208 keys a
       warp holds in registers; ``warps`` a block) and f32 up to Tp 256;
-    - ``"long"``: the four-launch schedule over an f32 workspace of
-      ``chunk`` items (``csrc/attention_qkv_bwd_phased_long.cu``) for
-      every other head dim that is a multiple of 16 up to 128 and Tp up to
-      908 (its dl phase's shared memory).
+    - ``"key_tiled"``: the key-tiled backward
+      (``csrc/attention_bwd_tiled.cu``, :func:`tiled_bwd_plan`) for every
+      other shape: any Tp, any head dim that is a multiple of 16 up to 128.
 
     ``smem`` is a block's dynamic shared memory.  Raises ``ValueError``
-    naming the limit on a shape neither route takes."""
-    if dh % 16 or not 16 <= dh <= 128:
-        raise ValueError(f"the phased attention backward takes a head dim "
-                         f"that is a multiple of 16 from 16 to 128; got {dh}")
-    if not 0 < batch or num_heads > 65535:
-        raise ValueError(f"batch {batch} / heads {num_heads} outside the grid")
-    if dh in (16, 32, 64) and batch <= 65535:
+    naming the limit on a head dim or a grid that no route takes."""
+    _check_head_dim(dh, "the phased attention backward")
+    _check_grid(batch, num_heads)
+    if dh in (16, 32, 64):
         if dtype == torch.bfloat16:
             nk = _round_up(tp, 16)
             smem = 2 * (2 * nk * dh + 2 * nk * nk)
@@ -531,14 +599,25 @@ def phased_plan(batch: int, tp: int, num_heads: int, dh: int,
             if tp <= _PHASED_F32_MAX_KEYS and smem <= _MAX_SMEM:
                 return {"route": "on_chip", "warps": _PHASED_F32_THREADS // 32,
                         "smem": smem}
-    smem = 4 * 16 * tp * 4             # the dl phase: 4 warps' [16][Tp] f32
-    if smem > _MAX_SMEM:
-        raise ValueError(f"the phased attention backward takes Tp up to "
-                         f"{_MAX_SMEM // 256}; Tp {tp} needs {smem} bytes of "
-                         f"shared memory per block, the card has {_MAX_SMEM}")
-    per_item = num_heads * tp * tp * 4
-    chunk = max(1, min(batch, _PHASED_LONG_WORKSPACE_BYTES // per_item))
-    return {"route": "long", "chunk": chunk, "smem": smem}
+    return tiled_bwd_plan(batch, num_heads, dh, dtype)
+
+
+def _launch_bwd_tiled(name, q, k, v, g, dq, dk, dv, *, batch, heads, dh, tq,
+                      tk, ldq, ldk, ldg, bsq, bsk, bsg, valid_len):
+    """Launch the key-tiled backward (``csrc/attention_bwd_tiled.cu``) on
+    head-slice addresses (ints: data pointers plus element offsets) with
+    their row and batch strides (elements; dq shares q's, dk and dv
+    share k's), counted under ``name``."""
+    f32 = g.dtype == torch.float32
+    stats = torch.empty((batch, heads, tq, 4), dtype=torch.float32,
+                        device=g.device)
+    lib, fn = _entry("attention_bwd_tiled")
+    err = fn(q, k, v, g.data_ptr(), dq, dk, dv, stats.data_ptr(), int(f32),
+             batch, heads, dh, tq, tk, ldq, ldk, ldg, bsq, bsk, bsg,
+             valid_len, float(dh) ** -0.5,
+             torch.cuda.current_stream(g.device).cuda_stream)
+    _build.check(lib, name, err)
+    LAUNCHES[name] += 1
 
 
 def attention_qkv_bwd_phased(qkv, g, num_heads: int, *, valid_len: int):
@@ -547,10 +626,10 @@ def attention_qkv_bwd_phased(qkv, g, num_heads: int, *, valid_len: int):
     the same function, the same rounding points.  On the card: bf16 or f32
     ``qkv`` and ``g``, the route of :func:`phased_plan`: one launch
     (``LAUNCHES["attention_qkv_bwd_phased"]`` or ``..._phased_f32``), or,
-    past what a block holds, the four-launch schedule
-    (``LAUNCHES["attention_qkv_bwd_phased_long"]``, either dtype).  A CPU
-    tensor runs :func:`attention_qkv_bwd_plain`, the plain version of
-    both kernels."""
+    past what a block holds, the key-tiled backward
+    (``LAUNCHES["attention_bwd_tiled"]`` or ``..._tiled_f32``): any Tp,
+    head dims that are multiples of 16 up to 128.  A CPU tensor runs
+    :func:`attention_qkv_bwd_plain`, the plain version of both kernels."""
     if qkv.device.type == "cpu":
         return attention_qkv_bwd_plain(qkv, g, num_heads,
                                        valid_len=valid_len)
@@ -570,20 +649,20 @@ def attention_qkv_bwd_phased(qkv, g, num_heads: int, *, valid_len: int):
     _require(g, "g", dt, (b, tp, d), dev)
     dqkv = torch.empty_like(qkv)
     f32 = dt == torch.float32
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    if plan["route"] == "long":
-        name = "attention_qkv_bwd_phased_long"
-        work = torch.empty((plan["chunk"] * num_heads, tp, tp),
-                           dtype=torch.float32, device=dev)
-        lib, fn = _entry(name)
-        err = fn(qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(),
-                 work.data_ptr(), plan["chunk"], int(f32), b, tp, d,
-                 num_heads, valid_len, float(dh) ** -0.5, stream)
-    else:
-        name = "attention_qkv_bwd_phased" + ("_f32" if f32 else "")
-        lib, fn = _entry("attention_qkv_bwd_phased")
-        err = fn(qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(), int(f32), b,
-                 tp, d, num_heads, valid_len, float(dh) ** -0.5, stream)
+    if plan["route"] == "key_tiled":
+        name = "attention_bwd_tiled" + ("_f32" if f32 else "")
+        p, o, es = qkv.data_ptr(), dqkv.data_ptr(), qkv.element_size()
+        _launch_bwd_tiled(
+            name, p, p + d * es, p + 2 * d * es, g, o, o + d * es,
+            o + 2 * d * es, batch=b, heads=num_heads, dh=dh, tq=tp, tk=tp,
+            ldq=d3, ldk=d3, ldg=d, bsq=tp * d3, bsk=tp * d3, bsg=tp * d,
+            valid_len=valid_len)
+        return dqkv
+    name = "attention_qkv_bwd_phased" + ("_f32" if f32 else "")
+    lib, fn = _entry("attention_qkv_bwd_phased")
+    err = fn(qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(), int(f32), b, tp,
+             d, num_heads, valid_len, float(dh) ** -0.5,
+             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, name, err)
     LAUNCHES[name] += 1
     return dqkv
@@ -598,21 +677,11 @@ def _attention_qkv_bwd_f32_smem(tp: int, dh: int) -> int:
 
 
 def _attention_qkv_bwd_f32(qkv, g, num_heads: int, valid_len: int):
-    """Launch the f32 attention backward on CUDA ``qkv`` and ``g``."""
+    """Launch kernel 4's f32 form on CUDA ``qkv`` and ``g`` (a shape that
+    :func:`attention_qkv_bwd_plan` gave it)."""
     b, tp, d3 = qkv.shape
-    d = _check_head_geometry(d3, num_heads, fused=3)
+    d = d3 // 3
     dh = d // num_heads
-    if dh % 16 or dh > 128 or not 0 < valid_len <= tp:
-        raise ValueError(
-            f"the f32 attention backward takes a head dim that is a multiple "
-            f"of 16 up to 128 and 0 < valid_len <= Tp; got head dim {dh}, "
-            f"Tp {tp}, valid_len {valid_len}")
-    smem = _attention_qkv_bwd_f32_smem(tp, dh)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"Tp {tp} at head dim {dh} needs {smem} bytes of "
-                         f"shared memory per block; the card has {_MAX_SMEM}")
-    if not 0 < b <= 65535 or num_heads > 65535:
-        raise ValueError(f"batch {b} / heads {num_heads} outside the grid")
     f32, dev = torch.float32, qkv.device
     _require(qkv, "qkv", f32, (b, tp, d3), dev)
     _require(g, "g", f32, (b, tp, d), dev)
@@ -649,14 +718,32 @@ def fused_attention_qkv_plain(qkv, num_heads: int):
         return heads.permute(0, 2, 1, 3).reshape(b, t, d).to(cdt)
 
 
-def _attention_qkv_smem(t: int, dh: int, dtype) -> int:
-    """Shared memory of one block of ``csrc/attention_qkv.cu``: bf16, one
-    head's K and V rows padded to 16 (``attention_core.cuh``); f32, K and
-    V ``[T][dh + 4]`` plus each warp's 4 query rows and their ``[T][4]``
-    weights."""
-    if dtype == torch.bfloat16:
-        return 2 * _round_up(t, 16) * (dh + 8) * 2
-    return 4 * (2 * t * (dh + 4) + _F32_WARPS * _F32_ROWS * (dh + t))
+_F32_KEY_TILE = 128            # keys a tile of the key-tiled f32 core
+
+
+def forward_plan(t: int, dh: int, dtype) -> dict:
+    """How the attention core of kernels 1 and 3 (the blocks), 8 and 9
+    runs T rows at head dim ``dh``, chosen by shape before the launch:
+    ``"whole"``, a block holding one head's K and V (bf16,
+    ``attention_core.cuh``: rows padded to 16, T up to 800 at head dim 64;
+    f32, ``attention_f32.cuh``: ``[T][dh + 4]`` plus each warp's 4 query
+    rows and their ``[T][4]`` weights, T up to 333 at head dim 64), else
+    ``"key_tiled"``, any T: in bf16 kernel 12's two passes over key tiles
+    of ``keys`` (``attention_cp_core.cuh::cp_rows_bf16_tiles`` with Tq =
+    Tk), in f32 tiles of 128 keys with an online softmax.  ``smem`` is a
+    block's dynamic shared memory."""
+    _check_head_dim(dh, "the attention core")
+    if dtype == torch.float32:
+        whole = 4 * (2 * t * (dh + 4) + _F32_WARPS * _F32_ROWS * (dh + t))
+        kt = _F32_KEY_TILE
+        tiled = 4 * (2 * kt * (dh + 4) + _F32_WARPS * _F32_ROWS * (dh + kt))
+    else:
+        whole = 2 * _round_up(t, 16) * (dh + 8) * 2
+        kt = _cp_key_tile(t, dh, False)
+        tiled = 2 * kt * (dh + 8) * 2
+    if whole <= _MAX_SMEM:
+        return {"form": "whole", "smem": whole}
+    return {"form": "key_tiled", "keys": kt, "smem": tiled}
 
 
 def _attention_qkv_kernel(qkv, num_heads: int):
@@ -671,24 +758,21 @@ def _attention_qkv_kernel(qkv, num_heads: int):
     # a head dim that is a multiple of 16 also keeps every qkv row (3D
     # values) and head slice 16-byte aligned for the kernels' 16-byte
     # loads, given a 16-byte aligned base (_require)
-    if dh % 16 or not 16 <= dh <= 128:
-        raise ValueError(f"kernel 8 takes a head dim that is a multiple of "
-                         f"16 from 16 to 128; got {dh}")
-    smem = _attention_qkv_smem(t, dh, qkv.dtype)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"T {t} at head dim {dh} needs {smem} bytes of "
-                         f"shared memory per block; the card has {_MAX_SMEM}")
+    _check_head_dim(dh, "kernel 8")
+    f32 = qkv.dtype == torch.float32
+    tiled = forward_plan(t, dh, qkv.dtype)["form"] == "key_tiled"
     if not 0 < b <= 65535 or num_heads > 65535 or t < 1:
         raise ValueError(f"batch {b} / heads {num_heads} / T {t} outside "
                          "the grid")
     _require(qkv, "qkv", qkv.dtype, (b, t, d3), qkv.device)
     lib, fn = _entry("attention_qkv")
     out = torch.empty((b, t, d), dtype=qkv.dtype, device=qkv.device)
-    err = fn(qkv.data_ptr(), out.data_ptr(),
-             0 if qkv.dtype == torch.bfloat16 else 1, b, t, d, num_heads, t,
+    err = fn(qkv.data_ptr(), out.data_ptr(), int(f32), b, t, d, num_heads, t,
              float(dh) ** -0.5, torch.cuda.current_stream(qkv.device).cuda_stream)
-    _build.check(lib, "attention_qkv", err)
-    LAUNCHES["attention_qkv"] += 1
+    name = ("attention_qkv_f32_tiled" if f32 else "attention_qkv_tiled") if (
+        tiled) else "attention_qkv"
+    _build.check(lib, name, err)
+    LAUNCHES[name] += 1
     return out
 
 
@@ -734,11 +818,13 @@ def fused_attention_qkv(qkv, num_heads: int):
     (counterpart of the JAX ``fused_attention_qkv`` :194).
 
     A CPU tensor runs :func:`fused_attention_qkv_plain`; a CUDA one runs
-    kernel 8 on bf16 or f32, any B and T, a head dim that is a multiple
-    of 16 from 16 to 128 and one head's K and V within shared memory (T
-    up to 333 at head dim 64 in f32).  Differentiable: the backward is
-    the attention-backward kernel (bf16 or f32) on the card and its plain
-    version on the CPU."""
+    kernel 8 (``LAUNCHES["attention_qkv"]``) on bf16 or f32, any B and T,
+    a head dim that is a multiple of 16 from 16 to 128; past the T whose K
+    and V fit a block (800 at head dim 64 in bf16, 333 in f32) on the
+    key-tiled route of :func:`forward_plan` (``"attention_qkv_tiled"``,
+    ``"attention_qkv_f32_tiled"``).  Differentiable: the
+    backward is :func:`attention_qkv_bwd` (bf16 or f32, any T) on the card
+    and its plain version on the CPU."""
     if not qkv.is_contiguous():
         qkv = qkv.contiguous()
     if torch.compiler.is_exporting():
@@ -838,41 +924,62 @@ _CP_WARPS = 7                     # kernel 12, bf16: warps of 16 query rows
 _CP_ONE_PASS_KEYS = 208           # keys a one-pass block holds in registers
 
 
+_CP_KEY_TILE, _CP_F32_KEY_TILE = 256, 128   # kernel 12's key tiles
+
+
+def _cp_key_tile(tk: int, dh: int, f32: bool) -> int:
+    """Keys a two-pass block of kernel 12 stages at once
+    (``attention_cp_core.cuh::cp_key_tile``): all of them (Tk rounded up to
+    16 in bf16, 8 in f32) where K and V fit beside the f32 form's weight
+    chunks, else tiles of 256 keys (bf16) or 128 (f32), small enough for
+    two or more blocks an SM."""
+    if not f32:
+        nk = _round_up(tk, 16)
+        return nk if nk * 2 * (dh + 8) * 2 <= _MAX_SMEM else _CP_KEY_TILE
+    nk = _round_up(tk, 8)
+    if 8 * 32 * _F32_WSTRIDE * 4 + nk * 2 * (dh + 4) * 4 <= _MAX_SMEM:
+        return nk
+    return _CP_F32_KEY_TILE
+
+
 def cp_plan(tq: int, tk: int, dh: int, dtype) -> dict:
     """How kernel 12 (``csrc/attention_cp.cu``) runs Tq query rows against
     Tk keys at head dim ``dh``, chosen by shape before the launch: its
     ``form`` (``"one_pass"`` where the keys, rounded up to 16 in bf16 or 8
     in f32, are at most 208 and every score stays in registers;
     ``"two_pass"`` past them, and in f32 wherever the one-pass block does
-    not fit), the query ``tiles`` of a (head, item), the ``warps`` of a
-    block and its dynamic shared memory ``smem``.  Raises
-    ``ValueError`` naming the limit on what it does not take."""
-    if dh % 16 or not 16 <= dh <= 128:
-        raise ValueError(f"kernel 12 takes a head dim that is a multiple of "
-                         f"16 from 16 to 128; got {dh}")
+    not fit, with K and V staged whole; ``"key_tiled"``, the two passes
+    over tiles of ``keys`` keys (256 bf16, 128 f32), where K and V do not
+    fit: bf16 past Tk 800 at head dim 64, f32 past 384), the query
+    ``tiles`` of a (head, item),
+    the ``warps`` of a block, the ``keys`` a block stages at once and its
+    dynamic shared memory ``smem``.  Any Tq and Tk.  Raises
+    ``ValueError`` naming the limit on a head dim it does not take."""
+    _check_head_dim(dh, "kernel 12")
     groups = -(-tq // 16)
-    if dtype == torch.bfloat16:
+    f32 = dtype == torch.float32
+    kt = _cp_key_tile(tk, dh, f32)
+    if not f32:
         tiles = -(-groups // _CP_WARPS)
         warps = -(-groups // tiles)
         nk = _round_up(tk, 16)
         one_pass = nk <= _CP_ONE_PASS_KEYS
-        smem = ((warps * 16 if one_pass else 0) + 2 * nk) * (dh + 8) * 2
+        smem = (warps * 16 + 2 * nk if one_pass else 2 * kt) * (dh + 8) * 2
     else:                      # 8 groups of 16 rows a block
         tiles = -(-groups // 8)
         nk = _round_up(tk, 8)
         # one pass, two warps a group: K and V [nk][dh + 4], 16 weight
         # chunks [32][20], the halves' row max and sum, the second half's
         # partial outputs [8][16][dh]; two passes, a warp a group: K and V
-        # and 8 weight chunks
+        # (or their tiles) and 8 weight chunks
         one = (2 * nk * (dh + 4) + 16 * 32 * 20 + 512 + 8 * 16 * dh) * 4
         one_pass = nk <= _CP_ONE_PASS_KEYS and one <= _MAX_SMEM
         warps = 16 if one_pass else 8
-        smem = one if one_pass else (2 * nk * (dh + 4) + 8 * 32 * 20) * 4
-    if smem > _MAX_SMEM:
-        raise ValueError(f"Tk {tk} at head dim {dh} needs {smem} bytes of "
-                         f"shared memory per block; the card has {_MAX_SMEM}")
-    return {"form": "one_pass" if one_pass else "two_pass", "tiles": tiles,
-            "warps": warps, "smem": smem}
+        smem = one if one_pass else (2 * kt * (dh + 4) + 8 * 32 * 20) * 4
+    form = ("one_pass" if one_pass else
+            "two_pass" if kt >= nk else "key_tiled")
+    return {"form": form, "tiles": tiles, "warps": warps,
+            "keys": nk if kt >= nk else kt, "smem": smem}
 
 
 def _attention_cp_kernel(q, kv, num_heads: int, valid_len: int):
@@ -880,53 +987,65 @@ def _attention_cp_kernel(q, kv, num_heads: int, valid_len: int):
     and ``kv [B, Tk, 2D]``; raises on what it does not take."""
     b, tq, tk, d, dh = _check_cp_args(q, kv, num_heads, valid_len,
                                       "kernel 12")
-    cp_plan(tq, tk, dh, q.dtype)
+    plan = cp_plan(tq, tk, dh, q.dtype)
     lib, fn = _entry("attention_cp")
     out = torch.empty((b, tq, d), dtype=q.dtype, device=q.device)
     f32 = q.dtype == torch.float32
     err = fn(q.data_ptr(), kv.data_ptr(), out.data_ptr(), int(f32), b, tq,
              tk, d, num_heads, valid_len, float(dh) ** -0.5,
              torch.cuda.current_stream(q.device).cuda_stream)
-    name = "attention_cp_f32" if f32 else "attention_cp"
+    name = ("attention_cp" + ("_tiled" if plan["form"] == "key_tiled" else "")
+            + ("_f32" if f32 else ""))
     _build.check(lib, name, err)
     LAUNCHES[name] += 1
     return out
 
 
-def _attention_cp_bwd_smem(tq: int, tk: int, dh: int, dtype) -> int:
-    """Shared memory of kernel 13's blocks: bf16, two ``[max(nq, nk)][dh]``
-    operand tiles and the bf16 ``w`` and ``dl [nq][nk]`` (``nq``, ``nk``:
-    Tq and Tk rounded up to 16); f32, kernel 4's f32 launches at the
-    larger of Tq and Tk."""
+def cp_bwd_plan(batch: int, tq: int, tk: int, num_heads: int, dh: int,
+                dtype) -> dict:
+    """How kernel 13 runs, chosen by shape before any launch:
+    ``{"route": "on_chip"}``, ``csrc/attention_cp_bwd.cu``, a block per
+    (head, item) holding the head on chip (bf16: head dims 16, 32 and 64,
+    Tq and Tk up to 256 and the ``[Tq, Tk]`` bf16 weights within shared
+    memory; f32: kernel 4's f32 launches, the larger of Tq and Tk up to
+    264 at head dim 64), else the rectangular instance of the key-tiled
+    backward (:func:`tiled_bwd_plan`): any Tq and Tk.  ``smem`` is a
+    block's dynamic shared memory."""
+    _check_head_dim(dh, "kernel 13")
+    _check_grid(batch, num_heads)
     if dtype == torch.bfloat16:
         nq, nk = _round_up(tq, 16), _round_up(tk, 16)
-        return 2 * (2 * max(nq, nk) * dh + 2 * nq * nk)
-    return _attention_qkv_bwd_f32_smem(max(tq, tk), dh)
+        smem = 2 * (2 * max(nq, nk) * dh + 2 * nq * nk)
+        fits = dh in (16, 32, 64) and max(nq, nk) <= 256
+    else:
+        smem = _attention_qkv_bwd_f32_smem(max(tq, tk), dh)
+        fits = True
+    if fits and smem <= _MAX_SMEM:
+        return {"route": "on_chip", "smem": smem}
+    return tiled_bwd_plan(batch, num_heads, dh, dtype)
 
 
 def _attention_cp_bwd_kernel(q, kv, g, num_heads: int, valid_len: int):
-    """Launch kernel 13 (``csrc/attention_cp_bwd.cu``): ``(dq, dkv)`` on
-    CUDA ``q``, ``kv`` and ``g [B, Tq, D]``; raises on what it does not
+    """Launch kernel 13 on the route of :func:`cp_bwd_plan`: ``(dq, dkv)``
+    on CUDA ``q``, ``kv`` and ``g [B, Tq, D]``; raises on what it does not
     take."""
     b, tq, tk, d, dh = _check_cp_args(q, kv, num_heads, valid_len,
                                       "kernel 13")
     f32 = q.dtype == torch.float32
-    if (dh % 16 or dh > 128) if f32 else dh not in (16, 32, 64):
-        raise ValueError(
-            f"kernel 13 takes a head dim of 16, 32 or 64 in bf16 and a "
-            f"multiple of 16 up to 128 in f32; got {dh} in {q.dtype}")
-    if not f32 and max(_round_up(tq, 16), _round_up(tk, 16)) > 256:
-        raise ValueError(f"kernel 13 takes Tq and Tk up to 256 in bf16; got "
-                         f"Tq {tq}, Tk {tk}")
-    smem = _attention_cp_bwd_smem(tq, tk, dh, q.dtype)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"Tq {tq} x Tk {tk} at head dim {dh} needs {smem} "
-                         f"bytes of shared memory per block; the card has "
-                         f"{_MAX_SMEM}")
+    plan = cp_bwd_plan(b, tq, tk, num_heads, dh, q.dtype)
     _require(g, "g", q.dtype, (b, tq, d), q.device)
-    lib, fn = _entry("attention_cp_bwd")
     dq = torch.empty_like(q)
     dkv = torch.empty_like(kv)
+    if plan["route"] == "key_tiled":
+        es, pk, pd = q.element_size(), kv.data_ptr(), dkv.data_ptr()
+        _launch_bwd_tiled(
+            "attention_cp_bwd_tiled" + ("_f32" if f32 else ""),
+            q.data_ptr(), pk, pk + d * es, g, dq.data_ptr(), pd, pd + d * es,
+            batch=b, heads=num_heads, dh=dh, tq=tq, tk=tk, ldq=d, ldk=2 * d,
+            ldg=d, bsq=tq * d, bsk=tk * 2 * d, bsg=tq * d,
+            valid_len=valid_len)
+        return dq, dkv
+    lib, fn = _entry("attention_cp_bwd")
     stats = (torch.empty((b, num_heads, tq, 4), dtype=torch.float32,
                          device=q.device) if f32 else None)
     err = fn(q.data_ptr(), kv.data_ptr(), g.data_ptr(), dq.data_ptr(),
@@ -981,12 +1100,14 @@ def fused_attention_qkv_cp(q, kv, num_heads: int, valid_len: int):
 
     A CPU tensor runs :func:`fused_attention_qkv_cp_plain`; a CUDA one
     runs kernel 12 (``LAUNCHES["attention_cp"]``, f32
-    ``"attention_cp_f32"``) on bf16 or f32, any Tq and Tk within shared
-    memory (:func:`cp_plan`; the TPU kernel's zero padding to multiples
-    of 8 adds nothing), a head dim that is a multiple of 16 from 16 to
-    128.  Differentiable: the backward
-    is kernel 13 (bf16 head dims 16, 32, 64; Tq and Tk up to 256 and
-    within shared memory) or its plain version."""
+    ``"attention_cp_f32"``; its key tiles past the Tk whose K and V fit,
+    ``"attention_cp_tiled"``, ``"attention_cp_tiled_f32"``) on bf16 or
+    f32, any Tq and Tk (:func:`cp_plan`; the TPU kernel's zero padding to
+    multiples of 8 adds nothing), a head dim that is a multiple of 16
+    from 16 to 128.  Differentiable: the backward is kernel 13 (one block
+    a (head, item) for bf16 head dims 16, 32, 64 and Tq, Tk up to 256,
+    f32 up to 264; the key-tiled backward past that, :func:`cp_bwd_plan`)
+    or its plain version."""
     return _AttentionCP.apply(q.contiguous(), kv.contiguous(), num_heads,
                               valid_len)
 
@@ -1116,13 +1237,9 @@ def _attention_kernel(q, k, v):
     if not (q.device == k.device == v.device):
         raise ValueError("q, k and v must be on one device")
     b, t, h, dh = q.shape
-    if dh % 16 or not 16 <= dh <= 128:
-        raise ValueError(f"kernel 9 takes a head dim that is a multiple of "
-                         f"16 from 16 to 128; got {dh}")
-    smem = _attention_qkv_smem(t, dh, q.dtype)           # kernel 8's core
-    if smem > _MAX_SMEM:
-        raise ValueError(f"T {t} at head dim {dh} needs {smem} bytes of "
-                         f"shared memory per block; the card has {_MAX_SMEM}")
+    _check_head_dim(dh, "kernel 9")
+    f32 = q.dtype == torch.float32
+    tiled = forward_plan(t, dh, q.dtype)["form"] == "key_tiled"
     if not 0 < b <= 65535 or not 0 < h <= 65535 or t < 1:
         raise ValueError(f"batch {b} / heads {h} / T {t} outside the grid")
     strides = _attention_strides(q, k, v)
@@ -1134,7 +1251,8 @@ def _attention_kernel(q, k, v):
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              0 if q.dtype == torch.bfloat16 else 1, b, t, h, dh, *strides,
              float(dh) ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
-    name = "attention" if q.dtype == torch.bfloat16 else "attention_f32"
+    name = ("attention_f32" if f32 else "attention") + (
+        "_tiled" if tiled else "")
     _build.check(lib, name, err)
     LAUNCHES[name] += 1
     return out
@@ -1183,13 +1301,14 @@ def fused_attention(q, k, v):
 
     A CPU tensor runs :func:`fused_attention_plain`; a CUDA one runs
     kernel 9 (``csrc/attention.cu``; ``LAUNCHES["attention"]``, the f32
-    form ``"attention_f32"``) on bf16 or f32, any B and T, a head
-    dim that is a multiple of 16 from 16 to 128 and one head's K and V
-    within shared memory.  q, k and v may be strided views (the int8
-    path passes the three slices of one ``[B, T, 3, H, Dh]`` projection)
-    as long as they share strides with heads and head columns contiguous;
-    otherwise they are copied.  Differentiable: the backward is
-    :func:`fused_attention_backward`."""
+    form ``"attention_f32"``) on bf16 or f32, any B and T, a head dim
+    that is a multiple of 16 from 16 to 128; past the T whose K and V fit
+    a block on kernel 8's key-tiled routes (``"attention_tiled"``,
+    ``"attention_f32_tiled"``).  q,
+    k and v may be strided views (the int8 path passes the three slices
+    of one ``[B, T, 3, H, Dh]`` projection) as long as they share strides
+    with heads and head columns contiguous; otherwise they are copied.
+    Differentiable: the backward is :func:`fused_attention_backward`."""
     if torch.compiler.is_exporting():
         return attention_op(q, k, v)
     return _Attention.apply(q, k, v)

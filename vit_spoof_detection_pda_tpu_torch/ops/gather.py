@@ -66,10 +66,21 @@ def pool_gather(pool: torch.Tensor, idx) -> torch.Tensor:
     if idx.size == 0:
         return out
     dev_idx = torch.from_numpy(idx).to(pool.device, non_blocking=True)
-    row_bytes = pool[0].numel() * pool.element_size()
-    lib, fn = _build.entry("pool_gather", *_SIGNATURE)
-    err = fn(pool.data_ptr(), dev_idx.data_ptr(), out.data_ptr(), idx.size,
-             row_bytes, torch.cuda.current_stream(pool.device).cuda_stream)
-    _build.check(lib, "pool_gather", err)
+    gather_rows(pool, dev_idx, out)
     LAUNCHES["pool_gather"] += 1
     return out
+
+
+def gather_rows(pool: torch.Tensor, dev_idx: torch.Tensor,
+                out: torch.Tensor):
+    """The launch of :func:`pool_gather` alone: ``out[i] = pool[dev_idx[i]]``
+    for int32 indices already on the card and already checked (the
+    wrapper checks and uploads them); ``out`` holds ``dev_idx.numel()``
+    rows.  Lets a timing hold the kernel beside ``index_select`` on the
+    same device indices."""
+    row_bytes = pool[0].numel() * pool.element_size()
+    lib, fn = _build.entry("pool_gather", *_SIGNATURE)
+    err = fn(pool.data_ptr(), dev_idx.data_ptr(), out.data_ptr(),
+             dev_idx.numel(), row_bytes,
+             torch.cuda.current_stream(pool.device).cuda_stream)
+    _build.check(lib, "pool_gather", err)
