@@ -280,8 +280,9 @@ runs these phases, each printing one JSON line and raising on failure:
             sequence ranks: Tq 296, Tk 592): the backward on the fused
             projection (bf16 B = 8, f32 B = 2) and on kernel 13's
             rectangle with kernel 12 (bf16 B = 4, f32 B = 2), the f32
-            blocks (kernels 1, 3), kernels 8 and 9 at f32; 2 bf16 ulps or
-            F32_TOL of each output's largest magnitude.
+            blocks (kernels 1, 3), kernels 8 and 9 at f32 (B = 2) and on
+            their bf16 two-pass route (B = 4, kernel 9 on strided views);
+            2 bf16 ulps or F32_TOL of each output's largest magnitude.
 32. long     ViT-B/16 at 384 px through the entry points with BWD_PHASED
             off, launches counted from 0 for each run: a bf16 training
             step at B = 8 (kernel 3, the key-tiled backward 12 times,
@@ -302,7 +303,9 @@ runs these phases, each printing one JSON line and raising on failure:
             or its backward) that call in turns: the backward at B = 8,
             Tp 584 (bf16 and f32), kernel 13's key-tiled route and kernel
             12's f32 key tiles at B = 8, Tq 296, Tk 592, kernels 8 and 9
-            f32 at B = 8, T 577; the f32 blocks at B = 2.
+            at B = 8, T 577 in f32 and in bf16 (kernel 8's bf16 row
+            counts the launches of the single-card step of phase 33);
+            the f32 blocks at B = 2.
 
 Then it prints the kernel table as one JSON line, the card's name and
 power limit as nvidia-smi gives them, and last
@@ -483,6 +486,11 @@ KERNELS = {
     "attention_cp_tiled_f32": dict(
         source="vit_spoof_detection_pda_tpu_torch/csrc/attention_cp_core.cuh",
         replaces="vit_spoof_detection_pda_tpu/ops/attention.py:836"),
+    # kernel 8 in bf16 past the one-pass keys: kernel 12's two passes with
+    # K and V whole (the 384 px single-card step's module forward)
+    "attention_qkv_two_pass": dict(
+        source="vit_spoof_detection_pda_tpu_torch/csrc/attention_cp_core.cuh",
+        replaces="vit_spoof_detection_pda_tpu/ops/attention.py:119"),
     "doctor_probe": dict(
         source="vit_spoof_detection_pda_tpu_torch/csrc/doctor_probe.cu",
         replaces="vit_spoof_detection_pda_tpu/cli/doctor.py:115"),
@@ -2481,7 +2489,9 @@ def phase_times_eval(dev, ctx, main_err, launches) -> list:
         profile = profile_step(lambda: model(images), top=20)
     top = profile["profile_top"]
     busy = profile["profile_device_busy_ms"]
-    breakdown = {"kernel8_ms": _share(top, "attention_f32", "attention_kernel"),
+    # kernel 8's routes are attention_self.cuh's self_* kernels
+    breakdown = {"kernel8_ms": _share(top, "self_one_pass", "self_whole",
+                                      "self_key_tiled"),
                  "gemm_ms": _share(top, "gemm", "cutlass", "sm90", "xmma", "nvjet"),
                  "elementwise_ms": _share(top, "elementwise", "vectorized",
                                           "reduce", "layer_norm", "norm")}
@@ -4822,9 +4832,11 @@ def phase_kernels_long(dev) -> dict:
     f32 B = LONG_F32_B) and on kernel 13's rectangle with kernel 12's
     forward (bf16 B = LONG_SP_B, f32 B = LONG_F32_B), the f32 attention
     blocks (kernels 1 and 3), kernel 8 and kernel 9 at f32 (B =
-    LONG_F32_B); bf16 within 2 ulps, f32 within F32_TOL of each output's
-    largest magnitude; pad rows' dq and masked keys' dk, dv exactly 0.
-    Returns each route's largest error."""
+    LONG_F32_B) and on their bf16 two-pass route (B = LONG_SP_B, the
+    384 px single-card step's shape; kernel 9 on strided views); bf16
+    within 2 ulps, f32 within F32_TOL of each output's largest magnitude;
+    pad rows' dq and masked keys' dk, dv exactly 0.  Returns each route's
+    largest error."""
     rng = np.random.default_rng(SEED + 110)
     bf, f32 = torch.bfloat16, torch.float32
     err = {}
@@ -4893,6 +4905,23 @@ def phase_kernels_long(dev) -> dict:
     err["attention_f32_tiled"] = _check_parts(
         "long_384", "attention_f32_tiled", [("out", got9, want9)],
         list(q.shape), _f32_tol)
+    del qkv, got, want, q, k, v, got9, want9
+    route = {"route_two_pass": att.module_attention_plan(
+        LONG_T, D // HEADS, bf)["form"] == "two_pass"}
+    qkv = torch.from_numpy(rng.standard_normal(
+        (LONG_SP_B, LONG_T, 3 * D), dtype=np.float32)).to(dev, bf)
+    got = att.fused_attention_qkv(qkv, HEADS)
+    want = att.fused_attention_qkv_plain(qkv, HEADS)
+    q, k, v = _qkv_views(rng, LONG_SP_B, LONG_T, HEADS, D // HEADS, bf, dev)
+    got9 = att.fused_attention(q, k, v)
+    want9 = att.fused_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    err["attention_qkv_two_pass"] = _check_parts(
+        "long_384", "attention_qkv_two_pass", [("out", got, want)],
+        list(qkv.shape), bf16_tol, route)
+    err["attention_two_pass"] = _check_parts(
+        "long_384", "attention_two_pass", [("out", got9, want9)],
+        list(q.shape), bf16_tol, route)
     return err
 
 
@@ -5076,7 +5105,7 @@ def phase_slice_sp_long(dev, tmp: Path) -> dict:
     and the key-tiled backward) within the sp phase's bounds: bf16 leaves
     within GRAD_REL_TOL relative L2, scores within SCORE_TOL / mean
     SCORE_MEAN_TOL; f32 leaves within F32_GRAD_REL_TOL.  Returns the rank
-    reports."""
+    reports and, by dtype, the single-card step's launches."""
     params = random_params(np.random.default_rng(SEED + 111), t=LONG_T)
     u8, y = loop_faces(LONG_SP_B, 111, LONG_IMG)
     single = {}
@@ -5110,7 +5139,7 @@ def phase_slice_sp_long(dev, tmp: Path) -> dict:
           "reports": reports, "ok": ok})
     if not ok:
         raise AssertionError(f"slice_sp 384 px: {reports}")
-    return reports
+    return reports, single
 
 
 def _sum_counts(*counts) -> dict:
@@ -5129,8 +5158,11 @@ def phase_times_long(dev, main_err, launches) -> list:
     LONG_B, Tp 584, bf16 and f32, against SDPA's backward with the key mask
     (as times_cli times kernel 5); kernel 13's key-tiled route and kernel
     12's f32 key tiles at Tq 296, Tk 592 (B = LONG_B) against SDPA's
-    backward and forward on the 577 real keys; kernel 8 and 9 f32 at T 577
-    (B = LONG_B) against SDPA f32; the f32 blocks (no single call) at B =
+    backward and forward on the 577 real keys; kernels 8 and 9 at T 577
+    (B = LONG_B) against SDPA, f32 and bf16 (kernel 8's bf16 two-pass
+    route is a kernel row: the single-card step of slice_sp_long runs it;
+    kernel 9's is timed and reported with its error, since no main path
+    runs it at 384 px); the f32 blocks (no single call) at B =
     LONG_F32_B.  ``launches``: each route's count on its main path.
     Returns the kernel rows."""
     rng = np.random.default_rng(SEED + 114)
@@ -5221,6 +5253,31 @@ def phase_times_long(dev, main_err, launches) -> list:
                            windows=3, per_window=2)
         row("attention_f32_tiled", ms, plain_ms, flops, nb, PEAK_F32_FLOPS,
             lib_ms, batch=LONG_B, t=LONG_T)
+    # the bf16 forms at T 577: kernel 12's two passes with K and V whole,
+    # held against plain in phase_kernels_long at the single-card step's B
+    qkv = qkv.bfloat16()
+    qv, kv_, vv = qkv.view(LONG_B, LONG_T, 3, HEADS, dh).permute(2, 0, 3, 1, 4)
+    q9, k9, v9 = _qkv_views(rng, LONG_B, LONG_T, HEADS, dh, bf, dev)
+    q9h, k9h, v9h = (x.transpose(1, 2) for x in (q9, k9, v9))
+    flops, nb = qkv_work(LONG_B, LONG_T, D, HEADS, 2)
+    route = att.module_attention_plan(LONG_T, dh, bf)["form"]
+    ms, lib_ms = time_in_turns(lambda: att.fused_attention_qkv(qkv, HEADS),
+                               lambda: sdpa(qv, kv_, vv))
+    plain_ms = time_ms(lambda: att.fused_attention_qkv_plain(qkv, HEADS),
+                       windows=3, per_window=2)
+    row("attention_qkv_two_pass", ms, plain_ms, flops, nb, PEAK_BF16_FLOPS,
+        lib_ms, batch=LONG_B, t=LONG_T, route=route)
+    ms, lib_ms = time_in_turns(lambda: att.fused_attention(q9, k9, v9),
+                               lambda: sdpa(q9h, k9h, v9h))
+    bound_ms, bound_by = bound(flops, nb, PEAK_BF16_FLOPS)
+    per["attention_two_pass"] = {
+        "ms": ms, "library_ms": lib_ms,
+        "plain_ms": time_ms(lambda: att.fused_attention_plain(q9, k9, v9),
+                            windows=3, per_window=2),
+        "bound_ms": bound_ms, "bound_by": bound_by, "route": route,
+        "max_abs_err": main_err["attention_two_pass"],
+        "launches_on_main_paths": 0, "gflop": flops / 1e9,
+        "mbytes": nb / 1e6, "batch": LONG_B, "t": LONG_T}
     del qkv, qv, kv_, vv, q9, k9, v9, q9h, k9h, v9h
     a_in = _f32(block_inputs(rng, LONG_F32_B, LONG_TP, D, 4 * D, dev)[0])
     kw = dict(num_heads=HEADS, valid_len=LONG_T)
@@ -5306,10 +5363,12 @@ def main() -> int:
     long_err = phase_kernels_long(dev)
     long_launches = phase_long(dev, long_ctx(dev, loss_fn))
     with tempfile.TemporaryDirectory() as tmp:
-        sp_long = phase_slice_sp_long(dev, Path(tmp))[0]     # rank 0
+        sp_ranks, sp_single = phase_slice_sp_long(dev, Path(tmp))
+    sp_long = sp_ranks[0]
     rows += phase_times_long(dev, long_err, _sum_counts(
         *long_launches.values(), sp_long["bf16"]["launches"],
-        sp_long["f32"]["launches"]))
+        sp_long["f32"]["launches"],
+        {"attention_qkv_two_pass": sp_single["bf16"].get("attention_qkv", 0)}))
     idle = [r["name"] for r in rows if not r["launches"]]
     if idle:
         raise AssertionError(f"kernels never launched on their paths: {idle}")

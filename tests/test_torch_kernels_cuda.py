@@ -1160,3 +1160,43 @@ def test_attention_block_bf16_key_tiled_matches_plain_on_card(
         else:
             _assert_close_f32(gg, ww)
     _assert_close(out, want[0])
+
+
+# Kernels 8 and 9 on every route of module_attention_plan: ViT-B/16 at
+# 224 px (B 128, T 197), T 1 and 17 (a tile mostly of idle rows), the
+# one-pass limit (208 keys) and one past it, 256 / 288 / 384 px (T 257,
+# 325, 577), head dims 16 and 128 (at 128 the f32 one-pass block fits only
+# up to 112 keys)
+MODULE_CASES = [(128, 197, 12, 64), (2, 1, 12, 64), (3, 17, 12, 64),
+                (2, 208, 12, 64), (2, 209, 12, 64), (2, 257, 12, 64),
+                (2, 325, 12, 64), (2, 577, 12, 64), (2, 197, 4, 16),
+                (2, 112, 2, 128), (2, 208, 2, 128), (2, 209, 2, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,t,heads,dh", MODULE_CASES)
+def test_module_attention_routes_match_plain_on_card(cuda_device, dtype, b,
+                                                     t, heads, dh):
+    """Kernel 8 on the fused projection and kernel 9 on strided views of
+    the same [B, T, 3D] tensor (the int8 path's q/k/v, row stride 3D), one
+    launch each on the route module_attention_plan names: bf16 within 2
+    ulps, f32 within 1e-5 of the largest output magnitude."""
+    rng = np.random.default_rng(b * t + dh)
+    x = _randn(rng, (b, t, 3, heads, dh), dtype, cuda_device)
+    f32 = dtype == torch.float32
+    tiled = tatt.module_attention_plan(t, dh, dtype)["form"] == "key_tiled"
+    name8 = "attention_qkv" + (("_f32_tiled" if f32 else "_tiled")
+                               if tiled else "")
+    name9 = ("attention_f32" if f32 else "attention") + (
+        "_tiled" if tiled else "")
+    n0 = dict(tatt.LAUNCHES)
+    qkv = x.reshape(b, t, 3 * heads * dh)
+    got8 = tatt.fused_attention_qkv(qkv, heads)
+    q, k, v = x.unbind(2)
+    got9 = tatt.fused_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert tatt.LAUNCHES == {**n0, name8: n0[name8] + 1,
+                             name9: n0[name9] + 1}
+    _close(got8, tatt.fused_attention_qkv_plain(qkv, heads), dtype)
+    _close(got9, tatt.fused_attention_plain(q, k, v), dtype)

@@ -10,28 +10,42 @@ each beside the PyTorch call that computes the same function:
   (B 128, Tq 104, Tk 208, 197 valid keys; their f32 forms at B 32),
   beside ``scaled_dot_product_attention`` on the 197 real keys (the masked
   keys add exactly 0) and its backward;
-- kernel 8 (``fused_attention_qkv``) at f32 (B 32, T 197), beside SDPA
-  f32;
+- kernels 8 (``fused_attention_qkv``) and 9 (``fused_attention`` on the
+  strided q/k/v views of one ``[B, T, 3D]``, as the int8 path passes
+  them) at the module path's shape (B 128, T 197; f32 at B 32), beside
+  SDPA on the same views, and ``..._cp_self``: kernel 12 at Tq = Tk = T
+  (the same function on its own core);
+- the same three at B 8 past kernel 12's one-pass keys: T 257, 325 and
+  577 (ViT-B/16 at 256, 288 and 384 px) and 1025 (512 px), bf16 and f32
+  (``..._<T>[_f32]``): kernel 12 there runs its two-pass form (K and V
+  whole where they fit, else key tiles);
+- the module forwards around kernel 8: the `test` verb's bf16
+  ``ViTAntiSpoof`` at B 128 and evaluate-all's f32 ``ViTLinearHead`` at
+  B 32 (``models/registry.py::build_model`` on seeded random weights);
+- kernels 1 and 3 (``fused_attention_block_padded``,
+  ``attention_block_train_padded``) at B 128, Tp 200, and kernels 10 and
+  11 (``encoder_forward_lowlat`` at B 1, ``..._batchgrid`` at B 2) on
+  random ViT-B/16 packs, with no library call;
 - at ViT-B/16, 384 px (B 8, T 577, Tp 584), kernel 5's route past its one
   launch (``..._384``: the four-launch long route before the key-tiled
   backward replaced it, the key-tiled backward after), bf16 and f32, beside
   SDPA's masked backward; and, in a tree that has the key-tiled routes
   (``ops/attention.py::tiled_bwd_plan``), kernel 13's key-tiled instance
-  and kernel 12's f32 key tiles at the 2-rank block (Tq 296, Tk 592),
-  kernel 8 f32 at T 577, and at 512 px (T 1025) kernel 12's bf16 key
-  tiles (Tq 520, Tk 1040) and kernel 8 bf16 on them, beside SDPA.
+  and kernel 12's f32 key tiles at the 2-rank block (Tq 296, Tk 592), and
+  at 512 px kernel 12's bf16 key tiles (Tq 520, Tk 1040), beside SDPA.
 
-    python tests/torch_kernel_ab.py TREE [TREE ...]
+    python tests/torch_kernel_ab.py [--only NAME,...] TREE [TREE ...]
 
 Each TREE is the root of a checkout (a ``git archive`` unpacked into a
 directory that ``.gitignore`` lists, or ``.`` for this one); name them in
-the order to run, e.g. ``parent . . parent``.  For each, one process
+the order to run, e.g. ``parent . . parent``.  ``--only`` times just the
+named runs (the keys of the JSON lines).  For each, one process
 imports that tree's port, builds the kernels from its sources (into that
 tree's ``build/``), prints ptxas's register and spill report for each
 head-dim-64 instantiation of those kernels, and times each kernel and its
 library call in turns (kernel, library, library, kernel), each turn 5
-windows of 20 calls between CUDA events, on numpy-seeded operands that
-are the same in every tree.  Prints one JSON line per tree (the medians
+windows of at least 20 calls and 2 ms between CUDA events, on
+numpy-seeded operands that are the same in every tree.  Prints one JSON line per tree (the medians
 over both turns, in ms, and the sums of each output's magnitudes), then
 the card's name and power limit.  Needs a CUDA card.
 """
@@ -49,10 +63,12 @@ TQ, TK = 104, 208                  # one of two sequence ranks' blocks
 B384, T384, TP384 = 8, 577, 584    # ViT-B/16 at 384 px
 TQ384, TK384 = 296, 592            # ... one of two sequence ranks' blocks
 T512, TP512 = 1025, 1040           # ViT-B/16 at 512 px
+T_PAST = (257, 325, 577, 1025)      # ViT-B/16 at 256, 288, 384, 512 px
 NAMES = ("attention_qkv_bwd", "attention_qkv_bwd_f32",
          "attention_qkv_bwd_phased", "attention_qkv_bwd_phased_long",
          "attention_bwd_tiled", "attention_cp", "attention_cp_bwd",
-         "attention_qkv")
+         "attention_qkv", "attention", "attention_block",
+         "attention_block_train", "lowlat_encoder", "lowlat_batchgrid")
 
 
 def _ptxas(log: str) -> list:
@@ -72,15 +88,18 @@ def _ptxas(log: str) -> list:
     return out
 
 
-def _child(tree: str) -> None:
+def _child(tree: str, only=None) -> None:
     import statistics
 
     sys.path.insert(0, os.path.abspath(tree))
     import numpy as np
     import torch
 
+    from vit_spoof_detection_pda_tpu_torch.device import exact_f32_matmul
+    from vit_spoof_detection_pda_tpu_torch.models import registry
     from vit_spoof_detection_pda_tpu_torch.ops import _build
     from vit_spoof_detection_pda_tpu_torch.ops import attention as att
+    from vit_spoof_detection_pda_tpu_torch.ops import lowlat as low
 
     names = [n for n in NAMES if n in _build.KERNELS]
     _build.build(names)
@@ -126,11 +145,26 @@ def _child(tree: str) -> None:
             lambda: torch.autograd.grad(o, (qg, kg, vg), go,
                                         retain_graph=True))
 
-    def qkv_runs(name, b, t, dt):
+    def module_runs(sfx, b, t, dt):
+        """Kernels 8 and 9 on one [B, T, 3D] projection (9 on its strided
+        q/k/v views) and kernel 12 at Tq = Tk = T, each beside SDPA."""
         qkv = rand(b, t, 3 * D, dt=dt)
-        q, k, v = qkv.view(b, t, 3, HEADS, -1).permute(2, 0, 3, 1, 4)
-        runs[name] = (lambda: att.fused_attention_qkv(qkv, HEADS),
-                      lambda: sdpa(q, k, v))
+        q, k, v = qkv.view(b, t, 3, HEADS, -1).unbind(2)      # [B,T,H,dh]
+        qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
+        lib = lambda: sdpa(qh, kh, vh)
+        runs["attention_qkv" + sfx] = (
+            lambda: att.fused_attention_qkv(qkv, HEADS), lib)
+        runs["attention" + sfx] = (lambda: att.fused_attention(q, k, v), lib)
+        qc, kv = rand(b, t, D, dt=dt), rand(b, t, 2 * D, dt=dt)
+        qch = qc.view(b, t, HEADS, -1).transpose(1, 2)
+        kch, vch = (x.view(b, t, HEADS, -1).transpose(1, 2)
+                    for x in kv.split(D, -1))
+        runs["attention_cp_self" + sfx] = (
+            lambda: att.fused_attention_qkv_cp(qc, kv, HEADS, t),
+            lambda: sdpa(qch, kch, vch))
+
+    def scaled(*shape, scale, shift=0.0, dt=torch.bfloat16):
+        return rand(*shape, dt=torch.float32).mul_(scale).add_(shift).to(dt)
 
     runs = {}
     for dt, b, sfx in ((torch.bfloat16, B, ""), (torch.float32, B32, "_f32")):
@@ -151,7 +185,49 @@ def _child(tree: str) -> None:
             lambda q=q, kv=kv: att.fused_attention_qkv_cp(q, kv, HEADS, T),
             lambda qh=qh, kh=kh, vh=vh: sdpa(qh, kh, vh))
         cp_runs("attention_cp_bwd" + sfx, b, TQ, TK, T, dt, True)
-    qkv_runs("attention_qkv_f32", B32, T, torch.float32)
+    module_runs("", B, T, torch.bfloat16)
+    module_runs("_f32", B32, T, torch.float32)
+    for t in T_PAST:
+        module_runs(f"_{t}", B384, t, torch.bfloat16)
+        module_runs(f"_{t}_f32", B384, t, torch.float32)
+    # kernels 1 and 3 (no library call): LN scales near 1, fan-in weights
+    blk = dict(xp=rand(B, TP, D), ln_scale=scaled(D, scale=0.1, shift=1.0,
+                                                 dt=torch.float32),
+               ln_bias=scaled(D, scale=0.1, dt=torch.float32),
+               w_qkv=scaled(D, 3 * D, scale=D ** -0.5),
+               b_qkv=scaled(3 * D, scale=0.1, dt=torch.float32),
+               w_proj=scaled(D, D, scale=D ** -0.5),
+               b_proj=scaled(D, scale=0.1, dt=torch.float32))
+    runs["attention_block"] = (lambda: att.fused_attention_block_padded(
+        **blk, num_heads=HEADS, valid_len=T), None)
+    runs["attention_block_train"] = (lambda: att.attention_block_train_padded(
+        **blk, num_heads=HEADS, valid_len=T), None)
+    # the module forwards kernel 8 sits in (12 launches each): the `test`
+    # verb's bf16 ViTAntiSpoof at B 128 and evaluate-all's f32
+    # ViTLinearHead at B 32, on seeded random weights
+    images = rand(B, 224, 224, 3, dt=torch.float32)
+    for name, entry, dt, x in (
+            ("module_forward_bf16", "Custom_ViT_FineTuned", torch.bfloat16,
+             images),
+            ("vit_linear_head_f32", "Base_ViT_Pretrained", torch.float32,
+             images[:B32])):
+        model = registry.build_model(entry, dtype=dt)
+
+        def forward(model=model, x=x):
+            with torch.inference_mode(), exact_f32_matmul():
+                return model(x)
+        runs[name] = (forward, None)
+    # kernels 10 and 11 on random packs of the 12 layers (W [36, D, 4D],
+    # S [36, 4, 4D]: LN scales near 1, small biases)
+    s_pack = scaled(36, 4, 4 * D, scale=0.05, dt=torch.float32)
+    s_pack[:, 0] += 1.0
+    w_pack = scaled(36, D, 4 * D, scale=D ** -0.5)
+    for name, fn, b in (("lowlat_encoder", low.encoder_forward_lowlat, 1),
+                        ("lowlat_batchgrid",
+                         low.encoder_forward_lowlat_batchgrid, 2)):
+        xp = rand(b, TP, D)
+        runs[name] = (lambda fn=fn, xp=xp: fn(
+            xp, w_pack, s_pack, num_heads=HEADS, valid_len=T), None)
     tiled = hasattr(att, "tiled_bwd_plan")
     for dt, sfx in ((torch.bfloat16, ""), (torch.float32, "_f32")):
         qkv, g = (rand(B384, TP384, 3 * D, dt=dt),
@@ -167,34 +243,38 @@ def _child(tree: str) -> None:
     if tiled:
         cp_runs("attention_cp_384_f32", B384, TQ384, TK384, T384,
                 torch.float32, False)
-        qkv_runs("attention_qkv_384_f32", B384, T384, torch.float32)
-        # kernel 12's bf16 key tiles, and kernel 8 bf16 on them, at 512 px
+        # kernel 12's bf16 key tiles at 512 px
         cp_runs("attention_cp_512", B384, TP512 // 2, TP512, T512,
                 torch.bfloat16, False)
-        qkv_runs("attention_qkv_512", B384, T512, torch.bfloat16)
+
+    def window(fn, n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / n
 
     def windows(fn):
+        """5 windows of at least 20 calls and 2 ms each (short calls at
+        B 8 spread by tens of percent over 20-call windows)."""
         for _ in range(3):
             fn()
-        torch.cuda.synchronize()
-        out = []
-        for _ in range(5):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(20):
-                fn()
-            end.record()
-            end.synchronize()
-            out.append(start.elapsed_time(end) / 20)
-        return out
+        n = max(20, int(2.0 / window(fn, 5)) + 1)
+        return [window(fn, n) for _ in range(5)]
 
     ms, lib_ms, sums = {}, {}, {}
+    if only:
+        runs = {k: v for k, v in runs.items() if k in only}
     for name, (run, lib) in runs.items():
         wk, wl = [], []
         for fn, acc in ((run, wk), (lib, wl), (lib, wl), (run, wk)):
-            acc += windows(fn)
-        ms[name], lib_ms[name] = statistics.median(wk), statistics.median(wl)
+            if fn is not None:
+                acc += windows(fn)
+        ms[name] = statistics.median(wk)
+        lib_ms[name] = statistics.median(wl) if wl else None
         out = run()
         out = out if isinstance(out, tuple) else (out,)
         sums[name] = [float(o.float().abs().sum()) for o in out]
@@ -204,14 +284,18 @@ def _child(tree: str) -> None:
 
 def main(argv) -> int:
     if argv[:1] == ["--child"]:
-        _child(argv[1])
+        _child(argv[1], argv[2:])
         return 0
+    only = []
+    if argv[:1] == ["--only"] and len(argv) > 1:
+        only, argv = argv[1].split(","), argv[2:]
     if not argv:
         print(__doc__, file=sys.stderr)
         return 2
     for tree in argv:
-        proc = subprocess.run([sys.executable, __file__, "--child", tree],
-                              capture_output=True, text=True)
+        proc = subprocess.run(
+            [sys.executable, __file__, "--child", tree, *only],
+            capture_output=True, text=True)
         if proc.returncode:
             print(proc.stdout + proc.stderr, file=sys.stderr)
             return proc.returncode

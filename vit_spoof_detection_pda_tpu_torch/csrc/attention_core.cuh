@@ -8,6 +8,13 @@
 // cp_rows_bf16_tiles with Tq = Tk: f32 logits, the f32 softmax normalised
 // before the bf16 rounding, P V summed in f32, one rounding), so any Tp
 // runs.
+//
+// Its forward serves kernels 1 and 3 (attention() in attention_block.cu and
+// attention_block_train.cu) and kernels 10 and 11 (attention_tile in
+// lowlat_core.cuh).  Kernels 8 and 9 left it for kernel 12's cores
+// (attention_self.cuh), which were faster at every T in turns (PERF.md,
+// kernel table rows 8 and 9); they still launch attention_tiled_kernel
+// below.
 #pragma once
 
 #include <math_constants.h>

@@ -123,13 +123,6 @@ __global__ void __launch_bounds__(KEYS > 0 ? kCpF32SplitWarps * 32 : kCpF32Warps
                              reinterpret_cast<float*>(smem));
 }
 
-// Query tiles of 16-row groups, split evenly over at most max_warps warps.
-inline void cp_tiles(int tq, int max_warps, int* tiles, int* warps) {
-  const int groups = (tq + 15) / 16;
-  *tiles = (groups + max_warps - 1) / max_warps;
-  *warps = (groups + *tiles - 1) / *tiles;
-}
-
 template <int DH>
 cudaError_t launch_cp(const void* q, const void* kv, void* out, int dtype, int batch, int tq,
                       int tk, int heads, int valid_len, float scale, cudaStream_t stream) {

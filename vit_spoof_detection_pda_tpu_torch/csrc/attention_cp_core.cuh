@@ -61,6 +61,13 @@ __host__ __device__ inline int cp_key_tile(int tk, int dh, bool f32) {
              : kCpF32KeyTile;
 }
 
+// Query tiles of 16-row groups, split evenly over at most max_warps warps.
+inline void cp_tiles(int tq, int max_warps, int* tiles, int* warps) {
+  const int groups = (tq + 15) / 16;
+  *tiles = (groups + max_warps - 1) / max_warps;
+  *warps = (groups + *tiles - 1) / *tiles;
+}
+
 // cp.async.wait_group with a count that is a constant only after unrolling.
 __device__ __forceinline__ void cp_async_wait_upto(int n) {
   switch (n) {

@@ -1,16 +1,29 @@
-// The f32 attention core of the port's module path (kernel 8's f32 route,
-// csrc/attention_qkv.cu) and of the f32 attention blocks
-// (csrc/attention_block_f32.cu):
+// The f32 attention core of the f32 attention blocks
+// (csrc/attention_block_f32.cu) and of kernels 8 and 9 past the keys their
+// one-pass core holds (csrc/attention_self.cuh):
 //
 //   out[b, :, h] = softmax(Q_h K_h^T * scale) V_h
 //
 // per head h on the fused projection qkv [B, T, 3D] f32, key columns at or
 // past valid_len at -1e30, in plain f32 FMAs (never the tensor cores: TF32
-// would round q, k and the weights to 10 mantissa bits).  The design and
-// its bound are described in attention_qkv.cu.
+// would round q, k and the weights to 10 mantissa bits).  Grid (query
+// tiles, heads, B); a block of 8 warps loads one head's K and V
+// [T][dh + 4] into shared memory (16-byte rows, the +4 keeps a
+// quarter-warp's float4 reads on distinct banks), and each warp takes 4
+// query rows at a time:
+//   1. each lane scores its keys (lane, lane + 32, ...) against the 4
+//      rows, q from shared memory as float4 broadcasts; the logits go to
+//      the warp's [T][4] buffer, the row maxima to a warp reduction;
+//   2. e = exp(s - m) and l = sum e (warp reductions), then
+//      w = e / l in f32 (jax.nn.softmax's arithmetic);
+//   3. O = w V, each lane owning columns lane, lane + 32, ... of the 4
+//      rows, one float4 broadcast of the 4 rows' weights per key.
+// It reads K, V and q from shared memory for every FMA (1.25 16-byte loads
+// per 4 FMAs in step 1), so shared-memory bandwidth, not the FMA rate
+// (67 TFLOP/s), is its limit.
 //
-// Two forms, chosen by shape (ops/attention.py::forward_plan mirrors
-// the choice): where one head's K and V fit a block's shared memory
+// Two forms, chosen by shape (ops/attention.py::forward_plan and
+// module_attention_plan): where one head's K and V fit a block's shared memory
 // (f32_smem_bytes; T up to 333 at head dim 64), attention_f32_rows holds
 // them whole and takes the exact softmax of each row; past that,
 // attention_f32_rows_tiled walks the keys in tiles of kF32KeyTile staged

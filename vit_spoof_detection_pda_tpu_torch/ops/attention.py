@@ -51,9 +51,11 @@ validation) adds one:
 - :func:`fused_attention_qkv`: ``softmax(Q K^T / sqrt(dh)) V`` per head
   on the fused projection ``qkv [B, T, 3D]`` -> ``[B, T, D]``, in bf16
   and in f32, differentiable (its backward is :func:`attention_qkv_bwd`,
-  bf16 or f32).  Kernel: ``csrc/attention_qkv.cu``; replaces
-  ``_attn_qkv_kernel`` (JAX ``ops/attention.py:119``).  The module
-  reaches it through :func:`dispatch_attention_qkv`.
+  bf16 or f32).  Kernel: ``csrc/attention_qkv.cu`` on the routes of
+  ``csrc/attention_self.cuh`` (kernel 12's one-pass core up to 208 keys,
+  :func:`module_attention_plan`); replaces ``_attn_qkv_kernel`` (JAX
+  ``ops/attention.py:119``).  The module reaches it through
+  :func:`dispatch_attention_qkv`.
 
 The int8 module path (``models/serving.py``) and
 ``models/vit.py::dot_product_attention`` add one more:
@@ -80,11 +82,12 @@ adds two:
 Past what one block holds, each attention kernel takes a key-tiled route
 chosen by shape before any launch (:func:`attention_qkv_bwd_plan`,
 :func:`phased_plan`, :func:`cp_plan`, :func:`cp_bwd_plan`,
-:func:`forward_plan`): the key-tiled backward
+:func:`forward_plan`, :func:`module_attention_plan`): the key-tiled backward
 ``csrc/attention_bwd_tiled.cu`` (kernels 4, 5 and 13), the key-tiled f32
 core of ``csrc/attention_f32.cuh`` (kernels 1 / 3, 8 and 9 at f32),
 kernel 12's key tiles, which also carry kernels 1 / 3, 8 and 9 at bf16
-past one head's K and V.  So the card takes every shape the JAX
+past one head's K and V (kernels 8 and 9 choose theirs by
+:func:`module_attention_plan`).  So the card takes every shape the JAX
 functions take.
 
 The serving kernels (1, 2, 8, 9) are also ``vsd::`` operators (the end
@@ -722,8 +725,8 @@ _F32_KEY_TILE = 128            # keys a tile of the key-tiled f32 core
 
 
 def forward_plan(t: int, dh: int, dtype) -> dict:
-    """How the attention core of kernels 1 and 3 (the blocks), 8 and 9
-    runs T rows at head dim ``dh``, chosen by shape before the launch:
+    """How the attention core of kernels 1 and 3 (the blocks) runs T rows
+    at head dim ``dh``, chosen by shape before the launch:
     ``"whole"``, a block holding one head's K and V (bf16,
     ``attention_core.cuh``: rows padded to 16, T up to 800 at head dim 64;
     f32, ``attention_f32.cuh``: ``[T][dh + 4]`` plus each warp's 4 query
@@ -746,6 +749,36 @@ def forward_plan(t: int, dh: int, dtype) -> dict:
     return {"form": "key_tiled", "keys": kt, "smem": tiled}
 
 
+def module_attention_plan(t: int, dh: int, dtype) -> dict:
+    """How kernels 8 and 9, the attention forward of the module path,
+    run T rows at head dim ``dh``: the route that
+    ``csrc/attention_self.cuh::launch_self`` takes from the same shape
+    (the wrappers read it only to name the launch counter).  The bf16
+    routes and the f32 one
+    pass are :func:`cp_plan`'s, with its fields (``form``, the query
+    ``tiles`` of a (head, item), the ``warps`` of a block, the ``keys`` a
+    block stages at once, its dynamic shared memory ``smem``); the f32
+    routes past it are :func:`forward_plan`'s (``form``, ``smem``).
+
+    ``"one_pass"`` where the keys, rounded up to 16 in bf16 or 8 in f32,
+    are at most 208 and the block fits: kernel 12's one-pass core at Tq =
+    Tk = T.  Past that, the route that was faster in turns at B = 8, T
+    257, 325 and 577 (``tests/torch_kernel_ab.py``, ``PERF.md`` §6):
+    in bf16 kernel 12's own forms, ``"two_pass"`` with K and V whole (to T
+    800 at head dim 64; kernel 1's two-pass core, the route before, took
+    up to 1.6x as long) and then ``"key_tiled"`` over 256-key tiles, so
+    the bf16 plan is ``cp_plan(t, t, dh, dtype)``; in f32 the routes of
+    :func:`forward_plan`, ``"whole"`` (to T 333 at head dim 64) and then
+    ``"key_tiled"`` over 128-key tiles with an online softmax (kernel
+    12's f32 two passes took 1.6-2x as long).  Any T.  Raises
+    ``ValueError`` naming the limit on a head dim it does not take."""
+    _check_head_dim(dh, "kernels 8 and 9")
+    plan = cp_plan(t, t, dh, dtype)
+    if dtype != torch.float32 or plan["form"] == "one_pass":
+        return plan
+    return forward_plan(t, dh, dtype)
+
+
 def _attention_qkv_kernel(qkv, num_heads: int):
     """Launch kernel 8 on a CUDA ``qkv [B, T, 3D]``; raises on what it does
     not take."""
@@ -760,7 +793,7 @@ def _attention_qkv_kernel(qkv, num_heads: int):
     # loads, given a 16-byte aligned base (_require)
     _check_head_dim(dh, "kernel 8")
     f32 = qkv.dtype == torch.float32
-    tiled = forward_plan(t, dh, qkv.dtype)["form"] == "key_tiled"
+    form = module_attention_plan(t, dh, qkv.dtype)["form"]
     if not 0 < b <= 65535 or num_heads > 65535 or t < 1:
         raise ValueError(f"batch {b} / heads {num_heads} / T {t} outside "
                          "the grid")
@@ -770,7 +803,7 @@ def _attention_qkv_kernel(qkv, num_heads: int):
     err = fn(qkv.data_ptr(), out.data_ptr(), int(f32), b, t, d, num_heads, t,
              float(dh) ** -0.5, torch.cuda.current_stream(qkv.device).cuda_stream)
     name = ("attention_qkv_f32_tiled" if f32 else "attention_qkv_tiled") if (
-        tiled) else "attention_qkv"
+        form == "key_tiled") else "attention_qkv"
     _build.check(lib, name, err)
     LAUNCHES[name] += 1
     return out
@@ -819,9 +852,10 @@ def fused_attention_qkv(qkv, num_heads: int):
 
     A CPU tensor runs :func:`fused_attention_qkv_plain`; a CUDA one runs
     kernel 8 (``LAUNCHES["attention_qkv"]``) on bf16 or f32, any B and T,
-    a head dim that is a multiple of 16 from 16 to 128; past the T whose K
-    and V fit a block (800 at head dim 64 in bf16, 333 in f32) on the
-    key-tiled route of :func:`forward_plan` (``"attention_qkv_tiled"``,
+    a head dim that is a multiple of 16 from 16 to 128, on the route of
+    :func:`module_attention_plan` (kernel 12's one-pass core up to 208
+    keys; past the T whose K and V fit a block, 800 at head dim 64 in
+    bf16 and 333 in f32, the key-tiled routes ``"attention_qkv_tiled"``,
     ``"attention_qkv_f32_tiled"``).  Differentiable: the
     backward is :func:`attention_qkv_bwd` (bf16 or f32, any T) on the card
     and its plain version on the CPU."""
@@ -1239,7 +1273,7 @@ def _attention_kernel(q, k, v):
     b, t, h, dh = q.shape
     _check_head_dim(dh, "kernel 9")
     f32 = q.dtype == torch.float32
-    tiled = forward_plan(t, dh, q.dtype)["form"] == "key_tiled"
+    form = module_attention_plan(t, dh, q.dtype)["form"]
     if not 0 < b <= 65535 or not 0 < h <= 65535 or t < 1:
         raise ValueError(f"batch {b} / heads {h} / T {t} outside the grid")
     strides = _attention_strides(q, k, v)
@@ -1249,10 +1283,10 @@ def _attention_kernel(q, k, v):
     lib, fn = _entry("attention")
     out = torch.empty((b, t, h, dh), dtype=q.dtype, device=q.device)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             0 if q.dtype == torch.bfloat16 else 1, b, t, h, dh, *strides,
-             float(dh) ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
+             int(f32), b, t, h, dh, *strides, float(dh) ** -0.5,
+             torch.cuda.current_stream(q.device).cuda_stream)
     name = ("attention_f32" if f32 else "attention") + (
-        "_tiled" if tiled else "")
+        "_tiled" if form == "key_tiled" else "")
     _build.check(lib, name, err)
     LAUNCHES[name] += 1
     return out
@@ -1302,8 +1336,8 @@ def fused_attention(q, k, v):
     A CPU tensor runs :func:`fused_attention_plain`; a CUDA one runs
     kernel 9 (``csrc/attention.cu``; ``LAUNCHES["attention"]``, the f32
     form ``"attention_f32"``) on bf16 or f32, any B and T, a head dim
-    that is a multiple of 16 from 16 to 128; past the T whose K and V fit
-    a block on kernel 8's key-tiled routes (``"attention_tiled"``,
+    that is a multiple of 16 from 16 to 128, on kernel 8's routes
+    (:func:`module_attention_plan`; key-tiled: ``"attention_tiled"``,
     ``"attention_f32_tiled"``).  q,
     k and v may be strided views (the int8 path passes the three slices
     of one ``[B, T, 3, H, Dh]`` projection) as long as they share strides
