@@ -7,7 +7,10 @@ Builds the port's hand-written kernels from ``csrc/`` at first use, then
 runs these phases, each printing one JSON line and raising on failure:
 
 1. device   nvidia-smi's name and power limit, torch's view of the card.
-2. build    the nvcc build (one process per kernel source, in parallel).
+2. build    the nvcc build (one process per kernel source, in parallel);
+            the on-chip attention backward's plan (ops/attention.py) held
+            to its C launcher's own choice at every square Tp 8-1,040 and
+            the rectangles, bf16 and f32, head dims 16, 32 and 64.
 3. kernels  each kernel against its plain PyTorch version on the card in
             bf16: full ViT-B shapes (B = 2, 3 and the main path's 128;
             Tp 200, valid_len 197) and a ragged one (Tp 40, valid_len 33,
@@ -253,8 +256,9 @@ runs these phases, each printing one JSON line and raising on failure:
 28. kernels_cp kernels 12 and 13 (the sequence-parallel attention and
             its backward) against their plain versions: bf16 at the SP
             step's blocks (B = 128: Tq 104 / Tk 208 at two sequence
-            ranks, Tq 56 / Tk 224 at four), f32 at B = 32 and an odd
-            Tq 33 / Tk 197 at both, valid_len 197; within 2 bf16 ulps
+            ranks, Tq 56 / Tk 224 at four), f32 at B = 32 at both blocks,
+            and an odd Tq 33 / Tk 197 at both dtypes, valid_len 197;
+            within 2 bf16 ulps
             (f32: F32_TOL) of each output's largest magnitude, the
             masked keys' dk and dv exactly 0.
 29. slice_sp  ViT-B/16 training on a (data, seq) mesh, the ranks spawned
@@ -306,6 +310,12 @@ runs these phases, each printing one JSON line and raising on failure:
             at B = 8, T 577 in f32 and in bf16 (kernel 8's bf16 row
             counts the launches of the single-card step of phase 33);
             the f32 blocks at B = 2.
+35. f32_256  kernel 4's f32 form at ViT-B/16, 256 px (Tp 264, the on-chip
+            core's 320-key instance) against its plain version at B = 2
+            and 32 (F32_TOL), its main path (one f32 training step at B = 2:
+            kernel 4's f32 form 12 times, every leaf within
+            F32_GRAD_REL_TOL of f32 autograd), and its time in turns with
+            SDPA's masked backward, beside its plain version and bound.
 
 Then it prints the kernel table as one JSON line, the card's name and
 power limit as nvidia-smi gives them, and last
@@ -442,7 +452,12 @@ KERNELS = {
         source="vit_spoof_detection_pda_tpu_torch/csrc/attention_block_f32.cu",
         replaces="vit_spoof_detection_pda_tpu/models/fasttrain.py:70"),
     "attention_qkv_bwd_f32": dict(
-        source="vit_spoof_detection_pda_tpu_torch/csrc/attention_qkv_bwd_f32.cu",
+        source="vit_spoof_detection_pda_tpu_torch/csrc/attention_qkv_bwd.cu",
+        replaces="vit_spoof_detection_pda_tpu/ops/attention.py:199"),
+    # kernel 4's f32 form at ViT-B/16, 256 px (Tp 264): the on-chip core's
+    # 320-key instance (the 256 px f32 step of phase_f32_256)
+    "attention_qkv_bwd_264_f32": dict(
+        source="vit_spoof_detection_pda_tpu_torch/csrc/attention_qkv_bwd.cu",
         replaces="vit_spoof_detection_pda_tpu/ops/attention.py:199"),
     "ln_res_bwd_f32": dict(
         source="vit_spoof_detection_pda_tpu_torch/csrc/ln_res_bwd.cu",
@@ -551,6 +566,9 @@ LONG_F32_B = 2                         # the f32 runs' batch at 384 px
 LONG_SP_B = 4                          # the 2-rank SP step's batch at 384 px
 LONG_SP_TK = att._round_up(LONG_T, 16)  # 592: the stream padded for 2 ranks
 LONG_SP_TQ = LONG_SP_TK // 2            # 296 query rows a rank
+MID_IMG = 256                          # ViT-B/16 at 256 px: T 257, Tp 264,
+MID_T = (MID_IMG // PATCH) ** 2 + 1    # the f32 backward core's 320-key
+MID_TP = att._round_up(MID_T, 8)       # instance
 LOOP_B, LOOP_STEPS, LOOP_EPOCHS, LOOP_VAL = 32, 4, 3, 96
 LOOP_PREEMPT = (1, 2)                # (epoch, batch) of the preemption
 
@@ -808,10 +826,13 @@ def attention_train_work(b, tp, d, heads):
     return flops, nbytes
 
 
-def attention_bwd_work(b, tp, d, heads):
-    """The TPU kernel's five [Tp, Tp] x Dh products per head (scores, dv,
-    dw, dq, dk); qkv and g in, dqkv out (bf16)."""
-    flops = 5 * 2 * b * heads * tp * tp * (d // heads)
+def attention_bwd_work(b, tp, valid, d, heads):
+    """The five [valid, valid] x Dh products per head (scores, dv, dw, dq,
+    dk) that this data needs: pad query rows carry g = 0 and masked keys
+    w = 0, so the products over the Tp - valid pad rows and keys are zero,
+    as kernel 13's bound (cp_work) counts only the real keys; qkv and g
+    in, dqkv out over all Tp rows (bf16)."""
+    flops = 5 * 2 * b * heads * valid * valid * (d // heads)
     nbytes = b * tp * (3 * d + d + 3 * d) * 2
     return flops, nbytes
 
@@ -857,6 +878,22 @@ def phase_device():
     return smi
 
 
+def onchip_plan_mismatches() -> list:
+    """The shapes where ops/attention.py's plan of the on-chip attention
+    backward (instance, warps, shared memory, or None) differs from what its
+    C launcher chooses (read from the library): the squares Tp 8-1,040 in
+    steps of 8 and the rectangles of the kernels_cp and f32_256 phases, bf16
+    and f32, head dims 16, 32 and 64."""
+    shapes = [(t, t) for t in range(8, 1041, 8)] + [
+        (8, 208), (104, 208), (56, 224), (208, 16), (200, 264), (296, 592),
+        (33, 197), (MID_TP, MID_TP)]
+    return [(str(dt), dh, tq, tk)
+            for dt in (torch.bfloat16, torch.float32) for dh in (16, 32, 64)
+            for tq, tk in shapes
+            if att.onchip_bwd_plan(tq, tk, dh, dt)
+            != att.onchip_bwd_launch_config(tq, tk, dh, dt)]
+
+
 def phase_build():
     t0 = time.perf_counter()
     compiled = _build.build()
@@ -865,8 +902,13 @@ def phase_build():
                     for ln in _build.build_log(name).splitlines()
                     if "Used" in ln or "spill" in ln]
              for name in _build.KERNELS}
+    mismatches = onchip_plan_mismatches()
     emit({"phase": "build", "seconds": round(seconds, 3),
-          "compiled": compiled, "ptxas": ptxas})
+          "compiled": compiled, "ptxas": ptxas,
+          "onchip_plan_mismatches": mismatches, "ok": not mismatches})
+    if mismatches:
+        raise AssertionError(f"build: the on-chip backward's plan differs "
+                             f"from its C launcher at {mismatches}")
 
 
 def _kernel_parts(a_in, m_in, bwd, ln, heads, valid):
@@ -1569,7 +1611,7 @@ def phase_times(dev, model, serve128, u8, main_err, launches,
                                           valid_len=T),
             lambda: att.attention_qkv_bwd_plain(**bwd, num_heads=HEADS,
                                                 valid_len=T),
-            attention_bwd_work(MAIN_B, TP, D, HEADS)),
+            attention_bwd_work(MAIN_B, TP, T, D, HEADS)),
         "ln_res_bwd": (
             lambda: ln_bwd.ln_residual_bwd(**ln),
             lambda: ln_bwd.ln_residual_bwd_plain(**ln),
@@ -3103,7 +3145,7 @@ def phase_times_train_loop(dev, ctx, loop_trainer, main_err, launches):
         "attention_qkv_bwd_f32": (
             lambda: att.attention_qkv_bwd(**bwd, **kw),
             lambda: att.attention_qkv_bwd_plain(**bwd, **kw),
-            (attention_bwd_work(F32_B, TP, D, HEADS)[0],
+            (attention_bwd_work(F32_B, TP, T, D, HEADS)[0],
              F32_B * TP * 7 * D * 4), PEAK_F32_FLOPS),
         "ln_res_bwd_f32": (
             lambda: ln_bwd.ln_residual_bwd(**ln),
@@ -3564,7 +3606,7 @@ def phase_times_cli(dev, ctx, main_err, phased_launches, doctor_launches,
                                valid)["attention_qkv_bwd"])
         plain_ms = time_ms(lambda: att.attention_qkv_bwd_plain(**b_in, **kw),
                            per_window=2)
-        flops, _ = attention_bwd_work(b, tp, D, HEADS)
+        flops, _ = attention_bwd_work(b, tp, valid, D, HEADS)
         itemsize = b_in["qkv"].element_size()
         bound_ms, bound_by = bound(flops, b * tp * 7 * D * itemsize, peak)
         rows.append({"name": name, "route": "cuda", **KERNELS[name],
@@ -4337,7 +4379,8 @@ def _cp_inputs(rng, b, tq, tk, d, dt, dev):
 def phase_kernels_cp(dev) -> dict:
     """Kernels 12 and 13 against their plain versions: bf16 at the SP
     step's blocks (B = 128: Tq 104 / Tk 208 at two sequence ranks, Tq 56 /
-    Tk 224 at four), f32 at B = 32 (Tq 104 / Tk 208) and an odd shape
+    Tk 224 at four, where kernel 13 takes the key-tiled backward), f32 at
+    B = 32 (both blocks: the on-chip core) and an odd shape
     (Tq 33, Tk 197) at both; valid_len 197.  bf16 within 2 ulps of each
     output's largest magnitude (out, dq, dkv), f32 within F32_TOL of it;
     the masked keys' dk and dv exactly 0.  Returns the main paths'
@@ -4347,6 +4390,7 @@ def phase_kernels_cp(dev) -> dict:
     cases = [("sp2_main_path", bf, SP_B, 104, 208),
              ("sp4", bf, SP_B, 56, 224),
              ("sp2_main_path", f32, F32_B, 104, 208),
+             ("sp4", f32, F32_B, 56, 224),
              ("odd", bf, 2, 33, 197), ("odd", f32, 2, 33, 197)]
     main_err = {}
     for label, dt, b, tq, tk in cases:
@@ -5031,6 +5075,83 @@ def phase_long(dev, lctx) -> dict:
     return launches
 
 
+def phase_f32_256(dev, loss_fn) -> list:
+    """Kernel 4's f32 form at ViT-B/16, 256 px (T 257, Tp 264: the on-chip
+    core's 320-key instance):
+    against its plain version at B = F32_B, the timed shape, and at the
+    step's own B = LONG_F32_B (within F32_TOL of each part's largest
+    magnitude, pad rows exactly 0); its main path, one f32 training
+    step at B = LONG_F32_B through fasttrain.make_apply (counts from 0 just
+    before: kernel 3's f32 form and kernel 4's 12 times, the LN backward
+    24; every leaf within F32_GRAD_REL_TOL of f32 autograd of the module);
+    then its time in turns with SDPA's masked backward, its plain version
+    and its bound.  Returns its kernel row."""
+    rng = np.random.default_rng(SEED + 130)
+    kw = dict(num_heads=HEADS, valid_len=MID_T)
+    err = 0.0
+    for label, b in (("mid_256_b2", LONG_F32_B), ("mid_256", F32_B)):
+        b_in, ln_in = train_inputs(rng, b, MID_TP, MID_T, D, dev)
+        b_in = _f32(b_in)
+        plan = att.attention_qkv_bwd_plan(b, MID_TP, HEADS, D // HEADS,
+                                          torch.float32)
+        got = att.attention_qkv_bwd(**b_in, **kw)
+        want = att.attention_qkv_bwd_plain(**b_in, **kw)
+        torch.cuda.synchronize()
+        err = max(err, _check_parts(
+            label, "attention_qkv_bwd_264_f32", _bwd_parts(got, want, D),
+            list(b_in["qkv"].shape), _f32_tol,
+            {"pad_rows_zero": bool((got[:, MID_T:] == 0).all()),
+             "route_on_chip_320_keys": (plan["route"], plan.get("keys")) == (
+                 "unphased", 320)}))
+        del got, want
+    params = random_params(rng, t=MID_T)
+    model = load_jax_params(ViTAntiSpoof(
+        patch_size=PATCH, embed_dim=D, depth=DEPTH, num_heads=HEADS,
+        hidden=HEAD_HIDDEN, img_size=MID_IMG, gelu="erf", dropout=0.0),
+        params)
+    u8 = rng.integers(0, 256, (LONG_F32_B, MID_IMG, MID_IMG, 3),
+                      dtype=np.uint8)
+    imgs = normalize(to_float(torch.from_numpy(u8).to(dev)))
+    lbls = torch.from_numpy(rng.integers(0, 2, LONG_F32_B)).to(dev)
+    loss_ref, ref = _module_f32_grads(model, imgs, lbls, loss_fn, dev)
+    loss, grads, counts = _step0(
+        model, params, fasttrain.make_apply(model, dtype=torch.float32),
+        imgs, lbls, loss_fn, dev)
+    gaps = _leaf_gaps(grads, ref)
+    worst = max(gaps, key=gaps.get)
+    want_counts = _want(attention_block_train_f32=DEPTH,
+                        attention_qkv_bwd_f32=DEPTH, ln_res_bwd_f32=2 * DEPTH)
+    ok = (counts == want_counts and math.isfinite(loss)
+          and gaps[worst] <= F32_GRAD_REL_TOL)
+    del grads, ref, model, params
+    with exact_f32_matmul():
+        ms, lib_ms = time_in_turns(
+            lambda: att.attention_qkv_bwd(**b_in, **kw),
+            _library_calls(b_in, ln_in, HEADS, MID_T)["attention_qkv_bwd"])
+    plain_ms = time_ms(lambda: att.attention_qkv_bwd_plain(**b_in, **kw),
+                       windows=3, per_window=2)
+    flops, _ = attention_bwd_work(F32_B, MID_TP, MID_T, D, HEADS)
+    bound_ms, bound_by = bound(flops, F32_B * MID_TP * 7 * D * 4,
+                               PEAK_F32_FLOPS)
+    emit({"phase": "f32_256", "img": MID_IMG, "tokens": MID_T,
+          "step0_b2": {"loss": loss, "loss_f32": loss_ref,
+                       "max_leaf_rel_l2_vs_f32": gaps[worst],
+                       "worst_leaf": worst, "tol": F32_GRAD_REL_TOL,
+                       "launches": {k: v for k, v in counts.items() if v}},
+          "kernel_b32": {"ms": ms, "library_ms_in_turns": lib_ms,
+                         "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by, "max_abs_err": err},
+          "ok": ok})
+    if not ok:
+        raise AssertionError(f"f32_256: launches {counts}, worst leaf "
+                             f"{worst} {gaps[worst]}")
+    return [{"name": "attention_qkv_bwd_264_f32", "route": "cuda",
+             **KERNELS["attention_qkv_bwd_264_f32"],
+             "launches": counts["attention_qkv_bwd_f32"], "max_abs_err": err,
+             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+             "bound_by": bound_by, "library_ms": lib_ms}]
+
+
 def _sp_long_rank(rank, world, tmp, port, out):
     """One rank of the 384 px sequence-parallel group (spawned; gloo on
     cuda:0)."""
@@ -5196,7 +5317,7 @@ def phase_times_long(dev, main_err, launches) -> list:
                                LONG_T)["attention_qkv_bwd"])
         plain_ms = time_ms(lambda: att.attention_qkv_bwd_plain(**b_in, **kw),
                            windows=3, per_window=2)
-        flops, _ = attention_bwd_work(LONG_B, LONG_TP, D, HEADS)
+        flops, _ = attention_bwd_work(LONG_B, LONG_TP, LONG_T, D, HEADS)
         row(name, ms, plain_ms, flops,
             LONG_B * LONG_TP * 7 * D * b_in["qkv"].element_size(),
             PEAK_BF16_FLOPS if dt == bf else PEAK_F32_FLOPS, lib_ms,
@@ -5369,6 +5490,7 @@ def main() -> int:
         *long_launches.values(), sp_long["bf16"]["launches"],
         sp_long["f32"]["launches"],
         {"attention_qkv_two_pass": sp_single["bf16"].get("attention_qkv", 0)}))
+    rows += phase_f32_256(dev, loss_fn)
     idle = [r["name"] for r in rows if not r["launches"]]
     if idle:
         raise AssertionError(f"kernels never launched on their paths: {idle}")

@@ -94,8 +94,10 @@ def test_flag_on_the_cpu_runs_the_plain_version(phased):
     assert tatt.LAUNCHES == before
 
 
-# (dtype, b, tp, heads, dh) -> route, the instance / chunk, shared memory:
-# each on-chip instance at its largest Tp and one past it, the f32 bound,
+# (dtype, b, tp, heads, dh) -> route, the instance / chunk, shared memory
+# (bf16: Q and G in tiles of their own where they fit beside K, V, w and
+# dl): each on-chip instance at its largest Tp and one past it, the f32
+# instances and bound,
 # the head dims the one launch does not take, the old long route's largest
 # Tp and one past it (which that route refused); every other shape runs
 # the key-tiled backward
@@ -104,28 +106,32 @@ PLANS = [
     ((BF, 128, 200, 12, 64), {"route": "on_chip", "keys": 208, "warps": 7,
                               "smem": 226304}),
     ((BF, 2, 64, 4, 16), {"route": "on_chip", "keys": 64, "warps": 4,
-                          "smem": 20480}),
+                          "smem": 24576}),
     ((BF, 2, 65, 4, 16), {"route": "on_chip", "keys": 128, "warps": 5,
-                          "smem": 30720}),
+                          "smem": 35840}),
     ((BF, 2, 128, 4, 32), {"route": "on_chip", "keys": 128, "warps": 7,
-                           "smem": 81920}),
+                           "smem": 98304}),
     ((BF, 2, 129, 4, 32), {"route": "on_chip", "keys": 208, "warps": 7,
-                           "smem": 101376}),
+                           "smem": 119808}),
     ((BF, 1, 208, 12, 64), {"route": "on_chip", "keys": 208, "warps": 7,
                             "smem": 226304}),
     ((BF, 1, 209, 12, 64), {"route": "key_tiled", "warps": 4, "tile": 64,
                             "smem": 38912}),
     ((BF, 3, 208, 4, 16), {"route": "on_chip", "keys": 208, "warps": 7,
-                           "smem": 186368}),
+                           "smem": 199680}),
     ((BF, 3, 209, 4, 16), {"route": "key_tiled", "warps": 4, "tile": 64,
                            "smem": 14336}),
     ((BF, 2, 40, 2, 128), {"route": "key_tiled", "warps": 4, "tile": 64,
                            "smem": 71680}),
-    ((F32, 32, 200, 12, 64), {"route": "on_chip", "warps": 8,
+    ((F32, 32, 200, 12, 64), {"route": "on_chip", "keys": 256, "warps": 8,
                               "smem": 151808}),
-    ((F32, 1, 256, 12, 64), {"route": "on_chip", "warps": 8,
+    ((F32, 1, 256, 12, 64), {"route": "on_chip", "keys": 256, "warps": 8,
                              "smem": 189440}),
-    ((F32, 1, 257, 12, 64), {"route": "key_tiled", "warps": 8, "tile": 32,
+    ((F32, 1, 257, 12, 64), {"route": "on_chip", "keys": 320, "warps": 8,
+                             "smem": 192128}),
+    ((F32, 1, 320, 12, 64), {"route": "on_chip", "keys": 320, "warps": 8,
+                             "smem": 232448}),
+    ((F32, 1, 321, 12, 64), {"route": "key_tiled", "warps": 8, "tile": 32,
                              "smem": 76800}),
     ((F32, 2, 40, 2, 48), {"route": "key_tiled", "warps": 8, "tile": 32,
                            "smem": 68608}),

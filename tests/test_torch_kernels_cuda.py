@@ -691,8 +691,8 @@ def test_f32_kernels_reject_what_they_cannot_take(cuda_device):
     (torch.float32, 2, 40, 33, 64, 4),
     (torch.float32, 2, 200, 197, 768, 12),
     (torch.float32, 1, 37, 30, 64, 4),       # B = 1, Tp not a multiple of 4
-    (torch.float32, 2, 256, 250, 768, 12),   # the f32 launch's largest Tp
-    (torch.float32, 2, 257, 250, 768, 12),   # one past it: key-tiled
+    (torch.float32, 2, 256, 250, 768, 12),   # the 256-key f32 instance's largest
+    (torch.float32, 2, 257, 250, 768, 12),   # one past it: the 320-key instance
     (torch.float32, 2, 40, 33, 96, 2),       # head dim 48: key-tiled
 ])
 def test_attention_qkv_bwd_phased_kernel_matches_plain_on_card(
@@ -842,8 +842,9 @@ def test_lowlat_encoder_int8_matches_plain_on_card(cuda_device, b):
 # (dtype, b, tq, tk, valid, heads, dh): the SP step's blocks at ViT-B with
 # two and four sequence ranks, the f32 shape, an odd shape (no multiple of
 # 8 or 16 on either side) and a small ragged one; kernel 12's one-pass
-# limit (Tk 208) and one key past it, Tq 52 (four ranks), Tq = Tk (two
-# tiles, one warp idle), B = 1
+# limit (Tk 208) and one key past it (kernel 13 in bf16 then takes the
+# key-tiled backward, as at four ranks' Tk 224), Tq 52 (four ranks), Tq =
+# Tk (two tiles, one warp idle), B = 1
 CP_CASES = [(torch.bfloat16, 128, 104, 208, 197, 12, 64),
             (torch.bfloat16, 128, 56, 224, 197, 12, 64),
             (torch.float32, 32, 104, 208, 197, 12, 64),
@@ -889,6 +890,8 @@ def test_attention_cp_kernels_match_plain_on_card(cuda_device, dtype, b, tq,
     f32 = dtype == torch.float32
     fwd, bwd = (("attention_cp_f32", "attention_cp_bwd_f32") if f32
                 else ("attention_cp", "attention_cp_bwd"))
+    if tatt.cp_bwd_plan(b, tq, tk, heads, dh, dtype)["route"] == "key_tiled":
+        bwd = "attention_cp_bwd_tiled" + ("_f32" if f32 else "")  # bf16 Tk > 208
     n0 = dict(tatt.LAUNCHES)
     got = tatt.fused_attention_qkv_cp(q, kv, heads, valid)
     dq, dkv = tatt.attention_cp_bwd(q, kv, g, heads, valid)
@@ -968,7 +971,7 @@ def _randn(rng, shape, dtype, device):
 @pytest.mark.parametrize("dtype,b,tp,valid,d,heads", [
     (torch.bfloat16, 2, 216, 197, 768, 12),   # kernel 4 bf16: first past 208
     (torch.bfloat16, 1, 256, 197, 768, 12),   # refused before (shared memory)
-    (torch.float32, 2, 272, 260, 768, 12),    # kernel 4 f32: first past 264
+    (torch.float32, 2, 324, 260, 768, 12),    # kernel 4 f32: first past 320
     (torch.float32, 1, 400, 197, 768, 12),    # refused before (shared memory)
     (torch.bfloat16, 2, 40, 33, 256, 2),      # bf16 head dim 128
     (torch.bfloat16, 1, 40, 33, 96, 2),       # bf16 head dim 48
@@ -1066,7 +1069,7 @@ def test_attention_f32_key_tiled_matches_plain_on_card(cuda_device, b, t,
     (torch.bfloat16, 1, 16, 801, 700, 12, 64),   # bf16: first past 800
     (torch.bfloat16, 2, 40, 264, 250, 12, 64),   # kernel 13 bf16: past 256
     (torch.bfloat16, 2, 40, 120, 110, 8, 96),    # kernel 13 bf16 head dim 96
-    (torch.float32, 2, 40, 272, 260, 12, 64),    # kernel 13 f32: past 264
+    (torch.float32, 2, 40, 324, 260, 12, 64),    # kernel 13 f32: past 320
     (torch.bfloat16, 2, 296, 592, 577, 12, 64),  # 384 px at two seq ranks
     (torch.float32, 2, 296, 592, 577, 12, 64),
     (torch.bfloat16, 1, 520, 1040, 1025, 12, 64),  # 512 px at two ranks
@@ -1200,3 +1203,144 @@ def test_module_attention_routes_match_plain_on_card(cuda_device, dtype, b,
                              name9: n0[name9] + 1}
     _close(got8, tatt.fused_attention_qkv_plain(qkv, heads), dtype)
     _close(got9, tatt.fused_attention_plain(q, k, v), dtype)
+
+
+# --------------------------------------------------------------------------
+# kernels 4, 5 and 13 on the one-launch on-chip core
+# (csrc/attention_bwd_onchip.cuh) and the first shape past each of its
+# limits (the key-tiled backward there)
+# --------------------------------------------------------------------------
+
+# (Tq, Tk): one query tile against the 208 keys a warp holds, the 2-rank
+# sequence-parallel block, the 4-rank block (224 keys: bf16 past the core),
+# Tq past Tk, ViT-B/16 at 256 px against its 2-rank keys, the 384 px block
+ONCHIP_RECTS = [(8, 208), (104, 208), (56, 224), (208, 16), (200, 264),
+                (296, 592)]
+# (dtype, Tq, Tk, dh) at each limit: bf16 Q and G in tiles of their own up
+# to Tq 160 at Tk 208, over K and V to Tq 208, past shared memory at 209,
+# Tq past the 208 rows part B's loop unrolls (Tq 296 against 16 keys);
+# f32 any Tq, Tk up to 320 / 448 / 576 at head dims 64 / 32 / 16
+ONCHIP_LIMITS = [(torch.bfloat16, 160, 208, 64), (torch.bfloat16, 176, 208, 64),
+                 (torch.bfloat16, 296, 16, 64),
+                 (torch.bfloat16, 209, 208, 64), (torch.bfloat16, 40, 209, 64),
+                 (torch.bfloat16, 40, 209, 16),
+                 (torch.float32, 600, 320, 64), (torch.float32, 40, 321, 64),
+                 (torch.float32, 40, 448, 32), (torch.float32, 40, 449, 32),
+                 (torch.float32, 40, 576, 16), (torch.float32, 40, 577, 16)]
+
+
+def _onchip_cp_case(device, dtype, tq, tk, dh):
+    """Kernel 13 at (tq, tk), B 2, d = 4 heads of dh (12 of 64): the route
+    cp_bwd_plan names, one launch, against its plain version; g zero on
+    the last 5 query rows (their dq exactly 0), keys past valid_len = tk -
+    7 masked (their dk and dv exactly 0)."""
+    rng = np.random.default_rng(80 + tq + tk + dh)
+    heads = 12 if dh == 64 else 4
+    d, b, valid = heads * dh, 2, max(1, tk - 7)
+    q, kv, g = (_randn(rng, s, dtype, device)
+                for s in ((b, tq, d), (b, tk, 2 * d), (b, tq, d)))
+    g[:, tq - 5:] = 0
+    plan = tatt.cp_bwd_plan(b, tq, tk, heads, dh, dtype)
+    name = "attention_cp_bwd" + ("_tiled" if plan["route"] == "key_tiled"
+                                 else "") + (
+        "_f32" if dtype == torch.float32 else "")
+    n0 = dict(tatt.LAUNCHES)
+    dq, dkv = tatt.attention_cp_bwd(q, kv, g, heads, valid)
+    want_dq, want_dkv = tatt.attention_cp_bwd_plain(q, kv, g, heads, valid)
+    torch.cuda.synchronize()
+    assert tatt.LAUNCHES == {**n0, name: n0[name] + 1}
+    _close(dq, want_dq, dtype)
+    for i in range(2):                       # dk, dv
+        _close(dkv[..., i * d:(i + 1) * d], want_dkv[..., i * d:(i + 1) * d],
+               dtype)
+    assert not dkv[:, valid:].any()
+    assert not dq[:, tq - 5:].any()
+    return plan["route"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [16, 32, 64])
+@pytest.mark.parametrize("tq,tk", ONCHIP_RECTS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_attention_cp_bwd_rectangles_match_plain_on_card(cuda_device, dtype,
+                                                         tq, tk, dh):
+    """Kernel 13 on every rectangle at head dims 16, 32 and 64 (the kv
+    halves' batch stride Tk * 2D apart from Tq times their row stride):
+    bf16 within 2 ulps, f32 within 1e-5 of each output's largest
+    magnitude."""
+    _onchip_cp_case(cuda_device, dtype, tq, tk, dh)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tq,tk,dh", ONCHIP_LIMITS)
+def test_attention_cp_bwd_at_the_core_limits_on_card(cuda_device, dtype, tq,
+                                                     tk, dh):
+    """Kernel 13 at each limit of the on-chip core and the first shape
+    past it, on the route the plan names."""
+    route = _onchip_cp_case(cuda_device, dtype, tq, tk, dh)
+    past = (tq, tk) in ((209, 208), (40, 209), (40, 321), (40, 449),
+                        (40, 577))
+    assert route == ("key_tiled" if past else "on_chip")
+
+
+# (dtype, Tp, dh): the square on the core and the first Tp past it, at each
+# head dim (bf16: 208 keys; f32: 320 / 448 / 576 keys)
+ONCHIP_SQUARES = [(torch.bfloat16, 8, 16), (torch.bfloat16, 104, 32),
+                  (torch.bfloat16, 208, 64), (torch.bfloat16, 216, 64),
+                  (torch.bfloat16, 208, 16), (torch.bfloat16, 216, 16),
+                  (torch.float32, 8, 16), (torch.float32, 104, 32),
+                  (torch.float32, 264, 64), (torch.float32, 320, 64),
+                  (torch.float32, 324, 64), (torch.float32, 448, 32),
+                  (torch.float32, 452, 32), (torch.float32, 576, 16),
+                  (torch.float32, 580, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("phased", [False, True])
+@pytest.mark.parametrize("dtype,tp,dh", ONCHIP_SQUARES)
+def test_attention_qkv_bwd_core_limits_on_card(cuda_device, monkeypatch,
+                                               dtype, tp, dh, phased):
+    """Kernel 4 (BWD_PHASED unset) and kernel 5 (set) on the square, B 2,
+    valid_len Tp - 3 (g zero on the pad rows): one launch on the route the
+    plan names (the core up to its limit, the key-tiled backward past
+    it), bf16 within 2 ulps, f32 within 1e-5 of each part's largest
+    magnitude; rows at or past valid_len exactly 0."""
+    monkeypatch.setattr(tatt, "BWD_PHASED", phased)
+    rng = np.random.default_rng(90 + tp + dh)
+    heads = 12 if dh == 64 else 4
+    d, b, valid = heads * dh, 2, tp - 3
+    qkv = _randn(rng, (b, tp, 3 * d), dtype, cuda_device)
+    g = _randn(rng, (b, tp, d), dtype, cuda_device)
+    g[:, valid:] = 0
+    plan = tatt.attention_qkv_bwd_plan(b, tp, heads, dh, dtype)
+    onchip = plan["route"] == "unphased"
+    assert onchip == (tp <= (208 if dtype == torch.bfloat16 else
+                             {16: 576, 32: 448, 64: 320}[dh]))
+    name = ("attention_qkv_bwd" + ("_phased" if phased else "") if onchip
+            else "attention_bwd_tiled") + (
+        "_f32" if dtype == torch.float32 else "")
+    n0 = dict(tatt.LAUNCHES)
+    got = tatt.attention_qkv_bwd(qkv, g, heads, valid_len=valid)
+    want = tatt.attention_qkv_bwd_plain(qkv, g, heads, valid_len=valid)
+    torch.cuda.synchronize()
+    assert tatt.LAUNCHES == {**n0, name: n0[name] + 1}
+    assert (got[:, valid:] == 0).all()
+    for i in range(3):
+        _close(got[..., i * d:(i + 1) * d], want[..., i * d:(i + 1) * d],
+               dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [16, 32, 64])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_onchip_bwd_plan_matches_the_c_launcher_on_card(cuda_device, dtype,
+                                                        dh):
+    """The plan of the on-chip backward (instance, warps, shared memory,
+    or None) is what its C launcher chooses, read from the library: the
+    squares Tp 8-1,040 in steps of 8 and every rectangle above."""
+    shapes = [(t, t) for t in range(8, 1041, 8)] + ONCHIP_RECTS + [
+        (tq, tk) for _, tq, tk, _ in ONCHIP_LIMITS]
+    bad = [(tq, tk, plan, c) for tq, tk in shapes
+           if (plan := tatt.onchip_bwd_plan(tq, tk, dh, dtype))
+           != (c := tatt.onchip_bwd_launch_config(tq, tk, dh, dtype))]
+    assert not bad

@@ -19,6 +19,19 @@ each beside the PyTorch call that computes the same function:
   577 (ViT-B/16 at 256, 288 and 384 px) and 1025 (512 px), bf16 and f32
   (``..._<T>[_f32]``): kernel 12 there runs its two-pass form (K and V
   whole where they fit, else key tiles);
+- the training step around kernel 4 (``train_step_bf16`` at B 128,
+  ``train_step_f32`` at B 32: ``make_train_step`` over
+  ``fasttrain.make_apply``, 12 launches of kernel 4 a step);
+- every route of the backward at the main shapes: the key-tiled backward
+  forced where kernels 4, 5 and 13 run their own (``..._kt``), kernel 13
+  at the 4-rank block (Tq 56, Tk 224; ``attention_cp_bwd_sp4[_kt]``), and
+  kernels 4 and 5 and the forced key tiles at f32 Tp 264 (``..._264_f32``)
+  and at f32 head dims 48 and 128 (``..._dh48_f32``, ``..._dh128_f32``);
+- shapes past the one-launch on-chip backward that an older body held:
+  kernel 4 at bf16 Tp 224 and head dims 16 and 32
+  (``attention_qkv_bwd_224_dh16``, ``..._224_dh32``), kernel 13 at bf16
+  Tq 128 / Tk 256 (``attention_cp_bwd_128x256``), and both at f32 head dim
+  96 (``attention_qkv_bwd_dh96_f32``, ``attention_cp_bwd_dh96_f32``);
 - the module forwards around kernel 8: the `test` verb's bf16
   ``ViTAntiSpoof`` at B 128 and evaluate-all's f32 ``ViTLinearHead`` at
   B 32 (``models/registry.py::build_model`` on seeded random weights);
@@ -62,10 +75,13 @@ B, B32, TP, T, D, HEADS = 128, 32, 200, 197, 768, 12
 TQ, TK = 104, 208                  # one of two sequence ranks' blocks
 B384, T384, TP384 = 8, 577, 584    # ViT-B/16 at 384 px
 TQ384, TK384 = 296, 592            # ... one of two sequence ranks' blocks
+TQ4, TK4 = 56, 224                 # one of four sequence ranks' blocks
+T256, TP256 = 257, 264             # ViT-B/16 at 256 px
 T512, TP512 = 1025, 1040           # ViT-B/16 at 512 px
 T_PAST = (257, 325, 577, 1025)      # ViT-B/16 at 256, 288, 384, 512 px
-NAMES = ("attention_qkv_bwd", "attention_qkv_bwd_f32",
-         "attention_qkv_bwd_phased", "attention_qkv_bwd_phased_long",
+NAMES = ("attention_bwd_onchip", "attention_qkv_bwd",
+         "attention_qkv_bwd_f32", "attention_qkv_bwd_phased",
+         "attention_qkv_bwd_phased_long",
          "attention_bwd_tiled", "attention_cp", "attention_cp_bwd",
          "attention_qkv", "attention", "attention_block",
          "attention_block_train", "lowlat_encoder", "lowlat_batchgrid")
@@ -112,24 +128,56 @@ def _child(tree: str, only=None) -> None:
         return torch.from_numpy(rng.standard_normal(
             shape, dtype=np.float32)).to(dev, dt)
 
-    def sdpa_bwd(qkv, g, tk, valid):
+    def sdpa_bwd(qkv, g, tk, valid, heads=HEADS):
         """SDPA's backward on the heads of ``qkv`` (keys past ``valid``
         masked) for the cotangent ``g``."""
         b, tq, d3 = qkv.shape
         q, k, v = (t.contiguous().requires_grad_() for t in qkv.view(
-            b, tq, 3, HEADS, d3 // 3 // HEADS).permute(2, 0, 3, 1, 4))
+            b, tq, 3, heads, d3 // 3 // heads).permute(2, 0, 3, 1, 4))
         mask = (torch.arange(tk, device=dev) < valid).view(1, 1, 1, tk)
         o = sdpa(q, k, v, attn_mask=mask)
-        go = g.view(b, tq, HEADS, -1).transpose(1, 2)
+        go = g.view(b, tq, heads, -1).transpose(1, 2)
         return lambda: torch.autograd.grad(o, (q, k, v), go,
                                            retain_graph=True)
 
-    def cp_runs(name, b, tq, tk, valid, dt, bwd):
-        """Kernel 12 (or 13 with ``bwd``) on a (tq, tk) block beside SDPA
+    def kt_qkv(qkv, g, heads, valid):
+        """The key-tiled backward (``csrc/attention_bwd_tiled.cu``) forced
+        on the fused projection, whatever the plan would choose."""
+        b, tp, d3 = qkv.shape
+        d = d3 // 3
+        dqkv = torch.empty_like(qkv)
+        p, o, es = qkv.data_ptr(), dqkv.data_ptr(), qkv.element_size()
+        att._launch_bwd_tiled(
+            "attention_bwd_tiled" + ("_f32" if g.dtype == torch.float32
+                                     else ""),
+            p, p + d * es, p + 2 * d * es, g, o, o + d * es, o + 2 * d * es,
+            batch=b, heads=heads, dh=d // heads, tq=tp, tk=tp, ldq=d3,
+            ldk=d3, ldg=d, bsq=tp * d3, bsk=tp * d3, bsg=tp * d,
+            valid_len=valid)
+        return dqkv
+
+    def kt_cp(q, kv, g, valid, heads=HEADS):
+        """The key-tiled backward forced on kernel 13's rectangle."""
+        b, tq, d = q.shape
+        tk = kv.shape[1]
+        dq, dkv = torch.empty_like(q), torch.empty_like(kv)
+        es, pk, pd = q.element_size(), kv.data_ptr(), dkv.data_ptr()
+        att._launch_bwd_tiled(
+            "attention_cp_bwd_tiled" + ("_f32" if g.dtype == torch.float32
+                                        else ""),
+            q.data_ptr(), pk, pk + d * es, g, dq.data_ptr(), pd, pd + d * es,
+            batch=b, heads=heads, dh=d // heads, tq=tq, tk=tk, ldq=d,
+            ldk=2 * d, ldg=d, bsq=tq * d, bsk=tk * 2 * d, bsg=tq * d,
+            valid_len=valid)
+        return dq, dkv
+
+    def cp_runs(name, b, tq, tk, valid, dt, bwd, kt=False, heads=HEADS):
+        """Kernel 12 (or 13 with ``bwd``; with ``kt`` the key-tiled
+        backward forced on the same block) on a (tq, tk) block beside SDPA
         (its backward) on the ``valid`` real keys."""
         q, kv = rand(b, tq, D, dt=dt), rand(b, tk, 2 * D, dt=dt)
-        qh = q.view(b, tq, HEADS, -1).transpose(1, 2).contiguous()
-        kh, vh = (t.view(b, tk, HEADS, -1).transpose(1, 2)[:, :, :valid]
+        qh = q.view(b, tq, heads, -1).transpose(1, 2).contiguous()
+        kh, vh = (t.view(b, tk, heads, -1).transpose(1, 2)[:, :, :valid]
                   .contiguous() for t in kv.split(D, -1))
         if not bwd:
             runs[name] = (
@@ -139,9 +187,10 @@ def _child(tree: str, only=None) -> None:
         gq = rand(b, tq, D, dt=dt)
         qg, kg, vg = (t.requires_grad_() for t in (qh, kh, vh))
         o = sdpa(qg, kg, vg)
-        go = gq.view(b, tq, HEADS, -1).transpose(1, 2)
+        go = gq.view(b, tq, heads, -1).transpose(1, 2)
         runs[name] = (
-            lambda: att.attention_cp_bwd(q, kv, gq, HEADS, valid),
+            (lambda: kt_cp(q, kv, gq, valid, heads)) if kt else
+            (lambda: att.attention_cp_bwd(q, kv, gq, heads, valid)),
             lambda: torch.autograd.grad(o, (qg, kg, vg), go,
                                         retain_graph=True))
 
@@ -217,6 +266,29 @@ def _child(tree: str, only=None) -> None:
             with torch.inference_mode(), exact_f32_matmul():
                 return model(x)
         runs[name] = (forward, None)
+    # the training step around kernel 4 (12 launches a step): the bf16
+    # fasttrain step at B 128 and the f32 step at B 32 (make_train_step,
+    # focal loss, AdamW; the parameters move in place from step to step)
+    from vit_spoof_detection_pda_tpu_torch.models import fasttrain
+    from vit_spoof_detection_pda_tpu_torch.ops.losses import make_loss_fn
+    from vit_spoof_detection_pda_tpu_torch.train.state import (
+        create_train_state, make_optimizer)
+    from vit_spoof_detection_pda_tpu_torch.train.step import make_train_step
+    labels = torch.from_numpy(rng.integers(0, 2, B)).to(dev)
+    for name, dt, b in (("train_step_bf16", torch.bfloat16, B),
+                        ("train_step_f32", torch.float32, B32)):
+        model = registry.build_model("Custom_ViT_FineTuned", dropout=0.0)
+        state = create_train_state(
+            model, make_optimizer(3e-4), 0, device=dev,
+            apply_fn=fasttrain.make_apply(model, dtype=dt))
+        step = make_train_step(make_loss_fn("focal"))
+        batch = {"image": images[:b], "label": labels[:b]}
+
+        def train_step(state=state, step=step, batch=batch):
+            with exact_f32_matmul():
+                return step(state, batch)[1]["loss"]
+        runs[name] = (train_step, None)
+        del model
     # kernels 10 and 11 on random packs of the 12 layers (W [36, D, 4D],
     # S [36, 4, 4D]: LN scales near 1, small biases)
     s_pack = scaled(36, 4, 4 * D, scale=0.05, dt=torch.float32)
@@ -241,6 +313,61 @@ def _child(tree: str, only=None) -> None:
             cp_runs("attention_cp_bwd_384" + sfx, B384, TQ384, TK384, T384,
                     dt, True)
     if tiled:
+        # every route of the backward at the main shapes: the key-tiled
+        # backward forced where kernels 4, 5 and 13 run their own
+        # (``..._kt``); kernel 13 at the 4-rank block (Tq 56, Tk 224),
+        # directly and forced; kernels 4 and 5 and the forced key tiles at
+        # f32 Tp 264 (ViT-B/16 at 256 px: T 257) and at f32 head dims 48
+        # and 128 (16 and 6 heads of D 768)
+        for dt, b, sfx in ((torch.bfloat16, B, ""),
+                           (torch.float32, B32, "_f32")):
+            qkv, g = rand(b, TP, 3 * D, dt=dt), rand(b, TP, D, dt=dt)
+            g[:, T:] = 0
+            runs["attention_qkv_bwd_kt" + sfx] = (
+                lambda qkv=qkv, g=g: kt_qkv(qkv, g, HEADS, T),
+                sdpa_bwd(qkv, g, TP, T))
+            cp_runs("attention_cp_bwd_kt" + sfx, b, TQ, TK, T, dt, True,
+                    kt=True)
+        cp_runs("attention_cp_bwd_sp4", B, TQ4, TK4, T, torch.bfloat16, True)
+        cp_runs("attention_cp_bwd_sp4_kt", B, TQ4, TK4, T, torch.bfloat16,
+                True, kt=True)
+        for tp, t, heads, sfx in ((TP256, T256, HEADS, "_264_f32"),
+                                  (TP, T, 16, "_dh48_f32"),
+                                  (TP, T, 6, "_dh128_f32")):
+            qkv = rand(B32, tp, 3 * D, dt=torch.float32)
+            g = rand(B32, tp, D, dt=torch.float32)
+            g[:, t:] = 0
+            lib = sdpa_bwd(qkv, g, tp, t, heads)
+            runs["attention_qkv_bwd" + sfx] = (
+                lambda qkv=qkv, g=g, t=t, h=heads: att.attention_qkv_bwd(
+                    qkv, g, h, valid_len=t), lib)
+            runs["attention_qkv_bwd_phased" + sfx] = (
+                lambda qkv=qkv, g=g, t=t, h=heads:
+                att.attention_qkv_bwd_phased(qkv, g, h, valid_len=t), lib)
+            runs["attention_qkv_bwd_kt" + sfx] = (
+                lambda qkv=qkv, g=g, t=t, h=heads: kt_qkv(qkv, g, h, t), lib)
+        # shapes past the one-launch core that the parent's body held:
+        # kernel 4 at bf16 Tp 224 (221 valid) and head dims 16 and 32 (48
+        # and 24 heads of D 768), kernel 13 at bf16 Tq 128 / Tk 256 (250
+        # valid keys), both at f32 head dim 96 (8 heads)
+        for heads, sfx in ((48, "_224_dh16"), (24, "_224_dh32")):
+            qkv, g = rand(B, 224, 3 * D), rand(B, 224, D)
+            g[:, 221:] = 0
+            runs["attention_qkv_bwd" + sfx] = (
+                lambda qkv=qkv, g=g, h=heads: att.attention_qkv_bwd(
+                    qkv, g, h, valid_len=221),
+                sdpa_bwd(qkv, g, 224, 221, heads))
+        cp_runs("attention_cp_bwd_128x256", B, 128, 256, 250,
+                torch.bfloat16, True)
+        qkv = rand(B32, TP, 3 * D, dt=torch.float32)
+        g = rand(B32, TP, D, dt=torch.float32)
+        g[:, T:] = 0
+        runs["attention_qkv_bwd_dh96_f32"] = (
+            lambda qkv=qkv, g=g: att.attention_qkv_bwd(qkv, g, 8,
+                                                       valid_len=T),
+            sdpa_bwd(qkv, g, TP, T, 8))
+        cp_runs("attention_cp_bwd_dh96_f32", B32, TQ, TK, T, torch.float32,
+                True, heads=8)
         cp_runs("attention_cp_384_f32", B384, TQ384, TK384, T384,
                 torch.float32, False)
         # kernel 12's bf16 key tiles at 512 px
@@ -276,7 +403,7 @@ def _child(tree: str, only=None) -> None:
         ms[name] = statistics.median(wk)
         lib_ms[name] = statistics.median(wl) if wl else None
         out = run()
-        out = out if isinstance(out, tuple) else (out,)
+        out = out if isinstance(out, (tuple, list)) else (out,)
         sums[name] = [float(o.float().abs().sum()) for o in out]
     print(json.dumps({"tree": tree, "ms": ms, "library_ms": lib_ms,
                       "ptxas": ptxas, "out_abs_sums": sums}))

@@ -1,99 +1,46 @@
-// Backward of the attention core on Hopper: given the fused projection
-// qkv [B, Tp, 3D] (q | k | v, heads contiguous inside each) and the
-// cotangent g [B, Tp, D] of the concatenated head outputs (zero on pad
+// Backward of the attention core on Hopper (kernel 4): given the fused
+// projection qkv [B, Tp, 3D] (q | k | v, heads contiguous inside each) and
+// the cotangent g [B, Tp, D] of the concatenated head outputs (zero on pad
 // rows), per head
 //
 //   w  = softmax(q k^T * s), key columns >= valid_len at -1e30   (f32)
-//   dv = bf16(w)^T g,  dw = g v^T,  dl = w (dw - rowsum(dw w))
-//   dq = bf16(dl) k * s,  dk = bf16(dl)^T q * s
+//   dv = cdt(w)^T g,  dw = g v^T,  dl = w (dw - rowsum(dw w))
+//   dq = cdt(dl) k * s,  dk = cdt(dl)^T q * s
 //
-// into dqkv [B, Tp, 3D] bf16.  Replaces the TPU kernel
+// into dqkv [B, Tp, 3D], cdt being the input type (bf16, or f32 where the
+// rounding is the identity).  Replaces the TPU kernel
 // vit_spoof_detection_pda_tpu/ops/attention.py::_attn_qkv_bwd_kernel (:199)
-// and keeps its rounding points: w is rounded to bf16 before dv, dl is
-// formed from the f32 w and dw after each row's full sum, and rounded to
-// bf16 before dq and dk; every product accumulates in f32.
+// and keeps its rounding points: w rounded to cdt before dv, dl formed from
+// the f32 w and dw after each row's full sum and rounded to cdt before dq
+// and dk, every product summed in f32.
 //
-// Bound on the H100: bytes.  At ViT-B, B = 128, Tp = 200 it reads qkv and g
-// and writes dqkv, about 275 MB, >= 0.082 ms at 3.35 TB/s; its five
-// [Tp, Tp] x Dh products are 39-47 GFLOP (0.04-0.05 ms at the bf16 peak).
+// Bound on the H100: bf16 at ViT-B, B = 128, Tp = 200 reads qkv and g and
+// writes dqkv, about 275 MB, >= 0.082 ms at 3.35 TB/s (the five products
+// over the 197 real tokens, 38 GFLOP, 0.04 ms at the bf16 peak; pad rows
+// and masked keys add zeros).  f32 at B = 32: the five products are 9.5
+// GFLOP on the FMA units, >= 0.142 ms at 67 TFLOP/s.
 //
-// Design (a first, simple one): one block per (head, item), one warp per
-// 16 rows of the Tp rows rounded up to 16 (13 warps at Tp = 200).  The TPU
-// kernel held one head's f32 [Tp, Tp] weights in VMEM (160 KB); a block
-// here keeps the bf16 weights and dl [tk, tk] (173 KB at tk = 208) and one
-// pair of [tk, Dh] operands (53 KB) in shared memory, with a 16-byte-chunk
-// XOR swizzle in place of padding so that Tp = 200 fits in 227 KB:
-//   A. K and V staged; each warp owns 16 query rows, Q and G fragments in
-//      registers: pass 1 over the keys (mma.sync) gives the row max, the
-//      softmax sum and rowsum(dw w) online; pass 2 recomputes the scores
-//      and dw, forms w and dl in f32, stores both as bf16 and accumulates
-//      dq = dl k in registers.
-//   B. Q and G staged where K and V were; each warp owns 16 keys and
-//      accumulates dv = w^T g and dk = dl^T q over all the query rows in
-//      registers (ldmatrix.trans reads w^T and dl^T from the stored tiles).
-// The scores are computed twice and dw twice (7 products instead of the
-// TPU kernel's 5); one block per SM.  Making it fast is later work.  The
-// body is attention_bwd_core.cuh::attention_bwd_rows, which kernel 13
-// (attention_cp_bwd.cu) runs on a rectangle of local queries against the
-// gathered keys.
-#include "attention_bwd_core.cuh"
+// Design: the one-launch on-chip backward of attention_bwd_onchip.cuh on the
+// square Tq = Tk = Tp, the thirds of qkv and dqkv as its q, k, v and dq,
+// dk, dv (row stride 3D).  Each of the five products is computed once, the
+// head stays on chip from the first product to the last, and nothing goes
+// through device memory but the inputs and dqkv.  Kernel 5
+// (attention_qkv_bwd_phased.cu) launches the same core; the shapes past it
+// take the key-tiled backward (attention_bwd_tiled.cu), chosen by
+// ops/attention.py::attention_qkv_bwd_plan before any launch.  Built into
+// one library with kernels 5 and 13 (attention_bwd_onchip.cu).
+#include "attention_bwd_onchip.cuh"
 
-namespace vsd {
-namespace {
-
-template <int DH>
-__global__ void __launch_bounds__(kBwdMaxWarps * 32, 1)
-    attention_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ gout,
-                         bf16* __restrict__ dqkv, int tp, int d, int valid_len, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int h = blockIdx.x, b = blockIdx.y;
-  const size_t stride = 3 * static_cast<size_t>(d);
-  const bf16* qbase = qkv + static_cast<size_t>(b) * tp * stride + static_cast<size_t>(h) * DH;
-  const bf16* gbase = gout + static_cast<size_t>(b) * tp * d + static_cast<size_t>(h) * DH;
-  bf16* obase = dqkv + static_cast<size_t>(b) * tp * stride + static_cast<size_t>(h) * DH;
-  attention_bwd_rows<DH, false>(qbase, 3 * d, qbase + d, 3 * d, gbase, d, obase, 3 * d, obase + d, 3 * d, d,
-                         tp, tp, valid_len, scale, smem);
-}
-
-template <int DH>
-cudaError_t launch_bwd(const bf16* qkv, const bf16* g, bf16* dqkv, int batch, int tp, int d,
-                       int heads, int valid_len, float scale, cudaStream_t stream) {
-  size_t smem;
-  int warps;
-  cudaError_t e = prepare_bwd<DH>(reinterpret_cast<const void*>(attention_bwd_kernel<DH>), tp,
-                                  tp, &smem, &warps);
-  if (e != cudaSuccess) return e;
-  attention_bwd_kernel<DH><<<dim3(heads, batch), warps * 32, smem, stream>>>(
-      qkv, g, dqkv, tp, d, valid_len, scale);
-  return cudaGetLastError();
-}
-
-}  // namespace
-}  // namespace vsd
-
-// qkv, dqkv [B, Tp, 3D] bf16; g [B, Tp, D] bf16, zero on rows >= valid_len.
-// Needs a head dim of 16, 32 or 64, Tp % 8 == 0, 0 < valid_len <= Tp, and
-// the block's shared memory (2 (2 tk Dh + 2 tk^2) bytes, tk = Tp rounded up
-// to 16) within the card's.  Returns the launch's CUDA error (0 on success).
-extern "C" int vsd_attention_qkv_bwd(const void* qkv, const void* g, void* dqkv, int batch,
-                                     int tp, int d, int num_heads, int valid_len, float scale,
-                                     void* stream) {
-  using namespace vsd;
-  if (batch <= 0 || batch > 65535 || tp <= 0 || tp % 8 || d <= 0 || num_heads <= 0 ||
-      num_heads > 65535 || d % num_heads || valid_len <= 0 || valid_len > tp)
-    return cudaErrorInvalidValue;
-  const bf16* q = static_cast<const bf16*>(qkv);
-  const bf16* gb = static_cast<const bf16*>(g);
-  bf16* out = static_cast<bf16*>(dqkv);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (d / num_heads) {
-    case 16:
-      return launch_bwd<16>(q, gb, out, batch, tp, d, num_heads, valid_len, scale, s);
-    case 32:
-      return launch_bwd<32>(q, gb, out, batch, tp, d, num_heads, valid_len, scale, s);
-    case 64:
-      return launch_bwd<64>(q, gb, out, batch, tp, d, num_heads, valid_len, scale, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+// qkv, dqkv [B, Tp, 3D] and g [B, Tp, D], all bf16 (f32 == 0) or all f32
+// (f32 == 1), contiguous and 16-byte aligned; g zero on rows >= valid_len.
+// Needs a head dim of 16, 32 or 64, 0 < valid_len <= Tp, B and H up to
+// 65535, and Tp within the core's limits (bf16: Tp rounded up to 16 at
+// most 208, the block's tiles within shared memory; f32: Tp up to 320, 448
+// or 576 at head dims 64, 32 and 16).  One launch on ``stream``; returns
+// its CUDA error (0 on success).
+extern "C" int vsd_attention_qkv_bwd(const void* qkv, const void* g, void* dqkv, int f32,
+                                     int batch, int tp, int d, int num_heads, int valid_len,
+                                     float scale, void* stream) {
+  return vsd::onchip_qkv_bwd(qkv, g, dqkv, f32, batch, tp, d, num_heads, valid_len, scale,
+                             stream);
 }

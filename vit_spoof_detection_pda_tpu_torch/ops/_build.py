@@ -30,24 +30,31 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 KERNELS = ("attention_block", "mlp_block", "attention_block_train",
-           "attention_qkv_bwd", "ln_res_bwd", "lowlat_encoder",
+           "attention_bwd_onchip", "ln_res_bwd", "lowlat_encoder",
            "lowlat_batchgrid", "pool_gather", "warp_pass", "nlm",
-           "attention_qkv", "attention_block_f32", "attention_qkv_bwd_f32",
-           "mlp_block_train", "attention_qkv_bwd_phased", "doctor_probe",
-           "attention", "attention_cp", "attention_cp_bwd",
+           "attention_qkv", "attention_block_f32", "mlp_block_train",
+           "doctor_probe", "attention", "attention_cp",
            "attention_bwd_tiled")
-# one count per kernel form: each library's name, the int8 form of the
-# per-item lowlat kernel ("lowlat_encoder_int8"), the f32 forms that share
-# a library with another form (the f32 training attention block is
-# attention_block_f32's entry with its residual outputs; the LN backward,
-# the training MLP block and the phased attention backward take bf16 or f32
-# in one library), and the key-tiled routes past what a block holds: the
-# key-tiled backward on the fused projection (kernels 4 and 5,
-# "attention_bwd_tiled") and on kernel 13's rectangle
+# one count per kernel form: each library's name but attention_bwd_onchip's,
+# whose entry points count under their kernels' names (kernels 4, 5 and 13:
+# "attention_qkv_bwd", "attention_qkv_bwd_phased", "attention_cp_bwd"), the
+# int8 form of the per-item lowlat kernel ("lowlat_encoder_int8"), the f32
+# forms that share a library with another form (the f32 training attention
+# block is attention_block_f32's entry with its residual outputs; the LN
+# backward, the training MLP block and the attention backwards, kernels 4, 5
+# and 13, take bf16 or f32 in one library), and the key-tiled routes past
+# what a block holds: the key-tiled backward on the fused projection
+# (kernels 4 and 5, "attention_bwd_tiled") and on kernel 13's rectangle
 # ("attention_cp_bwd_tiled"), the key-tiled forward cores under each of
 # their four callers (bf16: kernel 12's key tiles; f32: attention_f32.cuh),
 # and kernel 12's key-tiled form
-LAUNCHES = {name: 0 for name in KERNELS + ("attention_block_train_f32",
+LAUNCHES = {name: 0 for name in tuple(
+    n for n in KERNELS if n != "attention_bwd_onchip") + (
+                                           "attention_qkv_bwd",
+                                           "attention_qkv_bwd_phased",
+                                           "attention_cp_bwd",
+                                           "attention_block_train_f32",
+                                           "attention_qkv_bwd_f32",
                                            "ln_res_bwd_f32",
                                            "mlp_block_train_f32",
                                            "attention_qkv_bwd_phased_f32",

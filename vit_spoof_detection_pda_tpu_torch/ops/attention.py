@@ -25,15 +25,17 @@ Training adds two kernels:
   ``xhat`` and ``inv``).  Kernel: ``csrc/attention_block_train.cu``;
   replaces ``_attn_block_train_kernel`` (JAX ``models/fasttrain.py:70``).
 - :func:`attention_qkv_bwd`: ``dqkv`` of the attention core from ``qkv``
-  and the head outputs' cotangent.  Kernel: ``csrc/attention_qkv_bwd.cu``;
-  replaces ``_attn_qkv_bwd_kernel`` (JAX ``ops/attention.py:199``).
+  and the head outputs' cotangent.  Kernel: ``csrc/attention_qkv_bwd.cu``
+  on the one-launch on-chip backward ``csrc/attention_bwd_onchip.cuh``
+  (:func:`onchip_bwd_plan`); replaces ``_attn_qkv_bwd_kernel`` (JAX
+  ``ops/attention.py:199``).
 - :func:`attention_qkv_bwd_phased`: the same ``dqkv`` on the TPU's
   opt-in phase-split schedule, selected by :data:`BWD_PHASED`.  Kernel:
-  ``csrc/attention_qkv_bwd_phased.cu`` (one launch, bf16 and f32); every
-  shape past what its block holds, and every shape kernel 4 does not hold,
-  on the key-tiled backward ``csrc/attention_bwd_tiled.cu``
-  (:func:`phased_plan`); replaces ``_attn_qkv_bwd_kernel_phased`` (JAX
-  ``ops/attention.py:259``).
+  ``csrc/attention_qkv_bwd_phased.cu``, the same on-chip core under its
+  own entry point and launch count; replaces
+  ``_attn_qkv_bwd_kernel_phased`` (JAX ``ops/attention.py:259``).  Every
+  shape past the core goes, for both, to the key-tiled backward
+  ``csrc/attention_bwd_tiled.cu`` (:func:`phased_plan`).
 - :func:`mlp_block_train`: the MLP block with the stored-hidden
   backward's residuals (``xhat``, ``inv``, the hidden ``h``), erf or tanh
   GELU.  Kernel: ``csrc/mlp_block_train.cu``; replaces
@@ -41,8 +43,8 @@ Training adds two kernels:
 
 f32 training (``compute_dtype="float32"``) runs f32 forms in plain f32
 FMAs, never TF32: the attention blocks (serving and training) on
-``csrc/attention_block_f32.cu``, the attention backward on
-``csrc/attention_qkv_bwd_f32.cu`` and the MLP block on the f32 route of
+``csrc/attention_block_f32.cu``, the attention backward on the f32 form of
+the on-chip core and the MLP block on the f32 route of
 ``csrc/mlp_block_train.cu``.
 
 The module path (``models/vit.py::Attention``, eval and the Trainer's
@@ -75,9 +77,10 @@ adds two:
   ``attention_cp_core.cuh``, :func:`cp_plan`); replaces ``_attn_cp_kernel``
   (JAX ``ops/attention.py:836``).
 - :func:`attention_cp_bwd`: its backward, ``dq`` and this rank's partial
-  ``dkv``.  Kernel: ``csrc/attention_cp_bwd.cu`` (kernel 4's body on a
-  rectangle; past it the key-tiled backward's rectangular instance,
-  :func:`cp_bwd_plan`); replaces ``_attn_cp_bwd_kernel`` (JAX :865).
+  ``dkv``.  Kernel: ``csrc/attention_cp_bwd.cu`` (kernel 4's on-chip core
+  on the ``[Tq, Tk]`` rectangle; past it the key-tiled backward's
+  rectangular instance, :func:`cp_bwd_plan`); replaces
+  ``_attn_cp_bwd_kernel`` (JAX :865).
 
 Past what one block holds, each attention kernel takes a key-tiled route
 chosen by shape before any launch (:func:`attention_qkv_bwd_plan`,
@@ -124,13 +127,11 @@ _SIGNATURES = {
     "attention_block_train": ("vsd_attention_block_train",
                               [_P] * 13 + [_I] * 5 + [_F, _F, _P]),
     "attention_qkv_bwd": ("vsd_attention_qkv_bwd",
-                          [_P] * 3 + [_I] * 5 + [_F, _P]),
+                          [_P] * 3 + [_I] * 6 + [_F, _P]),
     "attention_qkv": ("vsd_attention_qkv", [_P] * 2 + [_I] * 6 + [_F, _P]),
     "attention": ("vsd_attention", [_P] * 4 + [_I] * 5 + [_LL] * 2 + [_F, _P]),
     "attention_block_f32": ("vsd_attention_block_f32",
                             [_P] * 13 + [_I] * 5 + [_F, _F, _P]),
-    "attention_qkv_bwd_f32": ("vsd_attention_qkv_bwd_f32",
-                              [_P] * 4 + [_I] * 5 + [_F, _P]),
     "mlp_block_train": ("vsd_mlp_block_train",
                         [_P] * 13 + [_I] * 3 + [_F] + [_I] * 2 + [_P]),
     "attention_qkv_bwd_phased": ("vsd_attention_qkv_bwd_phased",
@@ -139,8 +140,16 @@ _SIGNATURES = {
                             [_P] * 8 + [_I] * 9 + [_LL] * 3 + [_I, _F, _P]),
     "attention_cp": ("vsd_attention_cp", [_P] * 3 + [_I] * 7 + [_F, _P]),
     "attention_cp_bwd": ("vsd_attention_cp_bwd",
-                         [_P] * 6 + [_I] * 7 + [_F, _P]),
+                         [_P] * 5 + [_I] * 7 + [_F, _P]),
+    "onchip_bwd_config": ("vsd_onchip_bwd_config",
+                          [_I] * 4 + [ctypes.POINTER(_I)] * 2
+                          + [ctypes.POINTER(_LL)]),
 }
+# entry points built into another kernel's library: kernels 4, 5 and 13
+# launch one core, built once (csrc/attention_bwd_onchip.cu)
+_LIBRARY = {name: "attention_bwd_onchip" for name in (
+    "attention_qkv_bwd", "attention_qkv_bwd_phased", "attention_cp_bwd",
+    "onchip_bwd_config")}
 # the f32 kernels' blocks: 8 warps, each on 4 query rows (or keys) at a time
 _F32_WARPS, _F32_ROWS = 8, 4
 
@@ -164,7 +173,7 @@ def _check_head_geometry(width: int, num_heads: int, *, fused: int = 1):
 
 
 def _entry(name: str):
-    return _build.entry(name, *_SIGNATURES[name])
+    return _build.entry(_LIBRARY.get(name, name), *_SIGNATURES[name])
 
 
 def _require(t: torch.Tensor, what: str, dtype, shape, device):
@@ -455,12 +464,16 @@ def attention_qkv_bwd_plain(qkv, g, num_heads: int, *, valid_len: int):
 # card, bf16 and f32 alike; the CPU runs the plain version either way.  It
 # is read on each call, so setting it takes effect at the next backward
 # (JAX reads it at trace time, where a jitted step keeps the kernel it was
-# traced with).
+# traced with).  Both kernels launch the same on-chip core; the flag picks
+# the entry point and the launch count.
 BWD_PHASED = False
-_PHASED_WARPS = 7              # kernel 5, bf16: warps a block
-_PHASED_MAX_KEYS = 208         # ... Tp rounded up to 16 that a block holds
-_PHASED_F32_MAX_KEYS = 256     # kernel 5, f32: Tp that a block holds
-_PHASED_F32_THREADS, _PHASED_F32_ROWS = 256, 16
+# the on-chip backward (csrc/attention_bwd_onchip.cuh): bf16 warps a block
+# and the keys (Tk rounded up to 16) a warp holds, its instances; f32
+# threads a block, query rows a chunk, keys of the smaller instance and the
+# largest Tk by head dim
+_ON_WARPS, _ON_MAX_KEYS, _ON_KEYS = 7, 208, (64, 128, 208)
+_ON_F32_THREADS, _ON_F32_ROWS, _ON_F32_KEYS = 256, 16, 256
+_ON_F32_MAX_KEYS = {16: 576, 32: 448, 64: 320}
 # the key-tiled backward (csrc/attention_bwd_tiled.cu): warps a block (16
 # query rows or keys each) and the rows of a staged tile, bf16 and f32
 _KT_WARPS, _KT_TILE = 4, 64
@@ -477,6 +490,56 @@ def _check_head_dim(dh: int, what: str):
 def _check_grid(batch: int, num_heads: int):
     if not 0 < batch <= 65535 or not 0 < num_heads <= 65535:
         raise ValueError(f"batch {batch} / heads {num_heads} outside the grid")
+
+
+def onchip_bwd_plan(tq: int, tk: int, dh: int, dtype):
+    """The one-launch on-chip backward (``csrc/attention_bwd_onchip.cuh``)
+    that kernels 4, 5 and 13 launch, for Tq query rows against Tk keys at
+    head dim ``dh``: ``{"keys", "warps", "smem"}`` (the instance, the
+    warps of a block and its dynamic shared memory), or None where it does
+    not hold the head.  Head dims 16, 32 and 64; bf16 Tk rounded up to 16
+    at most 208 (the keys a warp holds in registers) with K, V and the
+    ``[Tq, Tk]`` bf16 w and dl tiles within shared memory (Q and G in tiles
+    of their own where room is left, else over K and V); f32 Tk up to 576,
+    448 or 320 at head dims 16, 32 and 64 with K and V within shared
+    memory, any Tq.  The fields mirror the C launcher's own choice
+    (``onchip_config``); :func:`onchip_bwd_launch_config` reads that
+    choice from the library, and the card tests hold this plan to it."""
+    if dh not in (16, 32, 64):
+        return None
+    if dtype == torch.bfloat16:
+        nq, nk = _round_up(tq, 16), _round_up(tk, 16)
+        smem = 2 * (2 * nk * dh + 2 * nq * nk + 2 * nq * dh)
+        if smem > _MAX_SMEM:       # Q and G over K and V
+            smem = 2 * (2 * max(nq, nk) * dh + 2 * nq * nk)
+        if nk > _ON_MAX_KEYS or smem > _MAX_SMEM:
+            return None
+        return {"keys": next(k for k in _ON_KEYS if nk <= k),
+                "warps": min(_ON_WARPS, max(nq, nk) // 16), "smem": smem}
+    if dtype == torch.float32:
+        nkp, ldf = _round_up(tk, 4), dh + 4
+        smem = 4 * (2 * nkp * ldf + 4 * _ON_F32_ROWS * ldf
+                    + 2 * _ON_F32_ROWS * nkp)
+        if tk > _ON_F32_MAX_KEYS[dh] or smem > _MAX_SMEM:
+            return None
+        return {"keys": (_ON_F32_KEYS if tk <= _ON_F32_KEYS
+                         else _ON_F32_MAX_KEYS[dh]),
+                "warps": _ON_F32_THREADS // 32, "smem": smem}
+    return None
+
+
+def onchip_bwd_launch_config(tq: int, tk: int, dh: int, dtype):
+    """What a launch of the on-chip backward runs for Tq query rows against
+    Tk keys at head dim ``dh``, as its C launcher chooses it (the library's
+    ``vsd_onchip_bwd_config``, which launches nothing; the library is built
+    at first use, so this needs ``nvcc``): ``{"keys", "warps", "smem"}``,
+    or None where the launcher refuses the head."""
+    keys, warps, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong()
+    _, fn = _entry("onchip_bwd_config")
+    if fn(tq, tk, dh, int(dtype == torch.float32), ctypes.byref(keys),
+          ctypes.byref(warps), ctypes.byref(smem)):
+        return None
+    return {"keys": keys.value, "warps": warps.value, "smem": smem.value}
 
 
 def tiled_bwd_plan(batch: int, num_heads: int, dh: int, dtype) -> dict:
@@ -501,24 +564,39 @@ def attention_qkv_bwd_plan(batch: int, tp: int, num_heads: int, dh: int,
                            dtype) -> dict:
     """How :func:`attention_qkv_bwd` runs, chosen by shape before any
     launch (with :data:`BWD_PHASED` unset): ``{"route": "unphased"}``,
-    kernel 4 (``csrc/attention_qkv_bwd.cu``, bf16 head dims 16, 32 and 64,
-    one head's K, V and ``[Tp, Tp]`` bf16 weights within shared memory: Tp
-    up to 208 at head dim 64; ``csrc/attention_qkv_bwd_f32.cu``, f32 Tp up
-    to 264 at head dim 64), or for every other shape the route of
-    :func:`phased_plan`, which computes the same function.  ``smem`` is a
-    block's dynamic shared memory."""
+    kernel 4 (``csrc/attention_qkv_bwd.cu``) on the on-chip core where
+    :func:`onchip_bwd_plan` holds the square Tp x Tp (bf16 up to Tp 208,
+    f32 up to Tp 320 at head dim 64), with that plan's keys, warps and
+    shared memory; else the key-tiled backward (:func:`tiled_bwd_plan`),
+    which :func:`phased_plan` also names there."""
     _check_head_dim(dh, "the attention backward")
     _check_grid(batch, num_heads)
-    if dtype == torch.float32:
-        smem = _attention_qkv_bwd_f32_smem(tp, dh)
-    elif dh in (16, 32, 64):
-        tk = _round_up(tp, 16)     # K, V (later Q, G) and the bf16 w, dl tiles
-        smem = 2 * (2 * tk * dh + 2 * tk * tk)
-    else:
-        smem = _MAX_SMEM + 1
-    if smem <= _MAX_SMEM:
-        return {"route": "unphased", "smem": smem}
-    return phased_plan(batch, tp, num_heads, dh, dtype)
+    plan = onchip_bwd_plan(tp, tp, dh, dtype)
+    if plan is not None:
+        return {"route": "unphased", **plan}
+    return tiled_bwd_plan(batch, num_heads, dh, dtype)
+
+
+def _onchip_qkv_bwd(entry: str, qkv, g, num_heads: int, valid_len: int):
+    """Launch the on-chip core through kernel 4's or 5's C entry point
+    (``entry``, counted under it or its ``_f32`` form) on CUDA ``qkv``
+    and ``g`` of a shape its plan holds."""
+    b, tp, d3 = qkv.shape
+    d = d3 // 3
+    dh = d // num_heads
+    dt, dev = qkv.dtype, qkv.device
+    _require(qkv, "qkv", dt, (b, tp, d3), dev)
+    _require(g, "g", dt, (b, tp, d), dev)
+    f32 = dt == torch.float32
+    name = entry + ("_f32" if f32 else "")
+    lib, fn = _entry(entry)
+    dqkv = torch.empty_like(qkv)
+    err = fn(qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(), int(f32), b, tp,
+             d, num_heads, valid_len, float(dh) ** -0.5,
+             torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, name, err)
+    LAUNCHES[name] += 1
+    return dqkv
 
 
 def attention_qkv_bwd(qkv, g, num_heads: int, *, valid_len: int):
@@ -532,10 +610,11 @@ def attention_qkv_bwd(qkv, g, num_heads: int, *, valid_len: int):
     On the card: bf16 or f32 ``qkv`` and ``g``, B and heads up to 65,535,
     any Tp (a multiple of 8 in bf16), a head dim that is a multiple of 16
     from 16 to 128.  The route is :func:`attention_qkv_bwd_plan`'s: kernel
-    4 (``LAUNCHES["attention_qkv_bwd"]``, f32 ``"attention_qkv_bwd_f32"``)
-    where its block holds the head (bf16 head dims 16, 32 and 64 up to Tp
-    208 at head dim 64; f32 up to Tp 264), else :func:`phased_plan`'s (the
-    key-tiled backward past it, ``"attention_bwd_tiled"``)."""
+    4 on the on-chip core (``LAUNCHES["attention_qkv_bwd"]``, f32
+    ``"attention_qkv_bwd_f32"``) where it holds the head (head dims 16, 32
+    and 64; bf16 up to Tp 208; f32 up to Tp 320 at head dim 64), else
+    :func:`phased_plan`'s (the key-tiled backward past it,
+    ``"attention_bwd_tiled"``)."""
     if qkv.device.type == "cpu":
         return attention_qkv_bwd_plain(qkv, g, num_heads,
                                        valid_len=valid_len)
@@ -555,19 +634,7 @@ def attention_qkv_bwd(qkv, g, num_heads: int, *, valid_len: int):
     if BWD_PHASED or plan["route"] != "unphased":
         return attention_qkv_bwd_phased(qkv, g, num_heads,
                                         valid_len=valid_len)
-    if qkv.dtype == torch.float32:
-        return _attention_qkv_bwd_f32(qkv, g, num_heads, valid_len)
-    bf, dev = torch.bfloat16, qkv.device
-    _require(qkv, "qkv", bf, (b, tp, d3), dev)
-    _require(g, "g", bf, (b, tp, d), dev)
-    lib, fn = _entry("attention_qkv_bwd")
-    dqkv = torch.empty_like(qkv)
-    err = fn(qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(), b, tp, d,
-             num_heads, valid_len, float(dh) ** -0.5,
-             torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, "attention_qkv_bwd", err)
-    LAUNCHES["attention_qkv_bwd"] += 1
-    return dqkv
+    return _onchip_qkv_bwd("attention_qkv_bwd", qkv, g, num_heads, valid_len)
 
 
 def phased_plan(batch: int, tp: int, num_heads: int, dh: int,
@@ -575,10 +642,11 @@ def phased_plan(batch: int, tp: int, num_heads: int, dh: int,
     """How kernel 5 runs a backward of ``batch`` items of Tp rows at head
     dim ``dh``, chosen by shape before any launch.  ``route``:
 
-    - ``"on_chip"``: one launch of ``csrc/attention_qkv_bwd_phased.cu``,
-      a block per (head, item) holding it on chip; head dims 16, 32 and
-      64, bf16 up to Tp 208 (``keys``: the instance, 64, 128 or 208 keys a
-      warp holds in registers; ``warps`` a block) and f32 up to Tp 256;
+    - ``"on_chip"``: one launch of ``csrc/attention_qkv_bwd_phased.cu`` on
+      the on-chip core, where :func:`onchip_bwd_plan` holds the square
+      (head dims 16, 32 and 64; bf16 up to Tp 208, ``keys`` the instance,
+      64, 128 or 208 keys a warp holds in registers, ``warps`` a block; f32
+      up to Tp 576, 448 or 320 by head dim, ``keys`` 256 or that limit);
     - ``"key_tiled"``: the key-tiled backward
       (``csrc/attention_bwd_tiled.cu``, :func:`tiled_bwd_plan`) for every
       other shape: any Tp, any head dim that is a multiple of 16 up to 128.
@@ -587,21 +655,9 @@ def phased_plan(batch: int, tp: int, num_heads: int, dh: int,
     naming the limit on a head dim or a grid that no route takes."""
     _check_head_dim(dh, "the phased attention backward")
     _check_grid(batch, num_heads)
-    if dh in (16, 32, 64):
-        if dtype == torch.bfloat16:
-            nk = _round_up(tp, 16)
-            smem = 2 * (2 * nk * dh + 2 * nk * nk)
-            if nk <= _PHASED_MAX_KEYS and smem <= _MAX_SMEM:
-                keys = next(k for k in (64, 128, _PHASED_MAX_KEYS) if nk <= k)
-                return {"route": "on_chip", "keys": keys,
-                        "warps": min(_PHASED_WARPS, nk // 16), "smem": smem}
-        elif dtype == torch.float32:
-            nkp, ldf = _round_up(tp, 4), dh + 4
-            smem = 4 * (2 * nkp * ldf + 4 * _PHASED_F32_ROWS * ldf
-                        + 2 * _PHASED_F32_ROWS * nkp)
-            if tp <= _PHASED_F32_MAX_KEYS and smem <= _MAX_SMEM:
-                return {"route": "on_chip", "warps": _PHASED_F32_THREADS // 32,
-                        "smem": smem}
+    plan = onchip_bwd_plan(tp, tp, dh, dtype)
+    if plan is not None:
+        return {"route": "on_chip", **plan}
     return tiled_bwd_plan(batch, num_heads, dh, dtype)
 
 
@@ -627,9 +683,9 @@ def attention_qkv_bwd_phased(qkv, g, num_heads: int, *, valid_len: int):
     """:func:`attention_qkv_bwd` on the phase-split schedule of the TPU
     kernel ``_attn_qkv_bwd_kernel_phased`` (JAX ``ops/attention.py:259``):
     the same function, the same rounding points.  On the card: bf16 or f32
-    ``qkv`` and ``g``, the route of :func:`phased_plan`: one launch
-    (``LAUNCHES["attention_qkv_bwd_phased"]`` or ``..._phased_f32``), or,
-    past what a block holds, the key-tiled backward
+    ``qkv`` and ``g``, the route of :func:`phased_plan`: one launch of the
+    on-chip core (``LAUNCHES["attention_qkv_bwd_phased"]`` or
+    ``..._phased_f32``), or, past what a block holds, the key-tiled backward
     (``LAUNCHES["attention_bwd_tiled"]`` or ``..._tiled_f32``): any Tp,
     head dims that are multiples of 16 up to 128.  A CPU tensor runs
     :func:`attention_qkv_bwd_plain`, the plain version of both kernels."""
@@ -647,55 +703,20 @@ def attention_qkv_bwd_phased(qkv, g, num_heads: int, *, valid_len: int):
         raise ValueError(f"the phased attention backward takes 0 < valid_len "
                          f"<= Tp; got valid_len {valid_len}, Tp {tp}")
     plan = phased_plan(b, tp, num_heads, dh, qkv.dtype)
+    if plan["route"] == "on_chip":
+        return _onchip_qkv_bwd("attention_qkv_bwd_phased", qkv, g, num_heads,
+                               valid_len)
     dt, dev = qkv.dtype, qkv.device
     _require(qkv, "qkv", dt, (b, tp, d3), dev)
     _require(g, "g", dt, (b, tp, d), dev)
     dqkv = torch.empty_like(qkv)
-    f32 = dt == torch.float32
-    if plan["route"] == "key_tiled":
-        name = "attention_bwd_tiled" + ("_f32" if f32 else "")
-        p, o, es = qkv.data_ptr(), dqkv.data_ptr(), qkv.element_size()
-        _launch_bwd_tiled(
-            name, p, p + d * es, p + 2 * d * es, g, o, o + d * es,
-            o + 2 * d * es, batch=b, heads=num_heads, dh=dh, tq=tp, tk=tp,
-            ldq=d3, ldk=d3, ldg=d, bsq=tp * d3, bsk=tp * d3, bsg=tp * d,
-            valid_len=valid_len)
-        return dqkv
-    name = "attention_qkv_bwd_phased" + ("_f32" if f32 else "")
-    lib, fn = _entry("attention_qkv_bwd_phased")
-    err = fn(qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(), int(f32), b, tp,
-             d, num_heads, valid_len, float(dh) ** -0.5,
-             torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, name, err)
-    LAUNCHES[name] += 1
-    return dqkv
-
-
-def _attention_qkv_bwd_f32_smem(tp: int, dh: int) -> int:
-    """Shared memory of each launch of ``csrc/attention_qkv_bwd_f32.cu``:
-    two ``[Tp][dh + 4]`` head tiles, the rows' stats ``[Tp][4]``, and per
-    warp two ``[4][dh]`` rows and two ``[Tp][4]`` columns."""
-    return 4 * (2 * tp * (dh + 4) + 4 * tp
-                + _F32_WARPS * (2 * _F32_ROWS * dh + 8 * tp))
-
-
-def _attention_qkv_bwd_f32(qkv, g, num_heads: int, valid_len: int):
-    """Launch kernel 4's f32 form on CUDA ``qkv`` and ``g`` (a shape that
-    :func:`attention_qkv_bwd_plan` gave it)."""
-    b, tp, d3 = qkv.shape
-    d = d3 // 3
-    dh = d // num_heads
-    f32, dev = torch.float32, qkv.device
-    _require(qkv, "qkv", f32, (b, tp, d3), dev)
-    _require(g, "g", f32, (b, tp, d), dev)
-    lib, fn = _entry("attention_qkv_bwd_f32")
-    dqkv = torch.empty_like(qkv)
-    stats = torch.empty((b, num_heads, tp, 4), dtype=f32, device=dev)
-    err = fn(qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(), stats.data_ptr(),
-             b, tp, d, num_heads, valid_len, float(dh) ** -0.5,
-             torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, "attention_qkv_bwd_f32", err)
-    LAUNCHES["attention_qkv_bwd_f32"] += 1
+    name = "attention_bwd_tiled" + ("_f32" if dt == torch.float32 else "")
+    p, o, es = qkv.data_ptr(), dqkv.data_ptr(), qkv.element_size()
+    _launch_bwd_tiled(
+        name, p, p + d * es, p + 2 * d * es, g, o, o + d * es,
+        o + 2 * d * es, batch=b, heads=num_heads, dh=dh, tq=tp, tk=tp,
+        ldq=d3, ldk=d3, ldg=d, bsq=tp * d3, bsk=tp * d3, bsg=tp * d,
+        valid_len=valid_len)
     return dqkv
 
 
@@ -1038,24 +1059,18 @@ def _attention_cp_kernel(q, kv, num_heads: int, valid_len: int):
 def cp_bwd_plan(batch: int, tq: int, tk: int, num_heads: int, dh: int,
                 dtype) -> dict:
     """How kernel 13 runs, chosen by shape before any launch:
-    ``{"route": "on_chip"}``, ``csrc/attention_cp_bwd.cu``, a block per
-    (head, item) holding the head on chip (bf16: head dims 16, 32 and 64,
-    Tq and Tk up to 256 and the ``[Tq, Tk]`` bf16 weights within shared
-    memory; f32: kernel 4's f32 launches, the larger of Tq and Tk up to
-    264 at head dim 64), else the rectangular instance of the key-tiled
-    backward (:func:`tiled_bwd_plan`): any Tq and Tk.  ``smem`` is a
-    block's dynamic shared memory."""
+    ``{"route": "on_chip"}``, ``csrc/attention_cp_bwd.cu`` on the on-chip
+    core where :func:`onchip_bwd_plan` holds the ``[Tq, Tk]`` rectangle
+    (head dims 16, 32 and 64; bf16 Tk up to 208 with the ``[Tq, Tk]`` bf16
+    weights within shared memory; f32 Tk up to 320 at head dim 64, any
+    Tq), with that plan's keys, warps and shared memory; else the
+    rectangular instance of the key-tiled backward
+    (:func:`tiled_bwd_plan`): any Tq and Tk."""
     _check_head_dim(dh, "kernel 13")
     _check_grid(batch, num_heads)
-    if dtype == torch.bfloat16:
-        nq, nk = _round_up(tq, 16), _round_up(tk, 16)
-        smem = 2 * (2 * max(nq, nk) * dh + 2 * nq * nk)
-        fits = dh in (16, 32, 64) and max(nq, nk) <= 256
-    else:
-        smem = _attention_qkv_bwd_f32_smem(max(tq, tk), dh)
-        fits = True
-    if fits and smem <= _MAX_SMEM:
-        return {"route": "on_chip", "smem": smem}
+    plan = onchip_bwd_plan(tq, tk, dh, dtype)
+    if plan is not None:
+        return {"route": "on_chip", **plan}
     return tiled_bwd_plan(batch, num_heads, dh, dtype)
 
 
@@ -1080,11 +1095,9 @@ def _attention_cp_bwd_kernel(q, kv, g, num_heads: int, valid_len: int):
             valid_len=valid_len)
         return dq, dkv
     lib, fn = _entry("attention_cp_bwd")
-    stats = (torch.empty((b, num_heads, tq, 4), dtype=torch.float32,
-                         device=q.device) if f32 else None)
     err = fn(q.data_ptr(), kv.data_ptr(), g.data_ptr(), dq.data_ptr(),
-             dkv.data_ptr(), stats.data_ptr() if f32 else None, int(f32), b,
-             tq, tk, d, num_heads, valid_len, float(dh) ** -0.5,
+             dkv.data_ptr(), int(f32), b, tq, tk, d, num_heads, valid_len,
+             float(dh) ** -0.5,
              torch.cuda.current_stream(q.device).cuda_stream)
     name = "attention_cp_bwd_f32" if f32 else "attention_cp_bwd"
     _build.check(lib, name, err)
@@ -1138,10 +1151,10 @@ def fused_attention_qkv_cp(q, kv, num_heads: int, valid_len: int):
     ``"attention_cp_tiled"``, ``"attention_cp_tiled_f32"``) on bf16 or
     f32, any Tq and Tk (:func:`cp_plan`; the TPU kernel's zero padding to
     multiples of 8 adds nothing), a head dim that is a multiple of 16
-    from 16 to 128.  Differentiable: the backward is kernel 13 (one block
-    a (head, item) for bf16 head dims 16, 32, 64 and Tq, Tk up to 256,
-    f32 up to 264; the key-tiled backward past that, :func:`cp_bwd_plan`)
-    or its plain version."""
+    from 16 to 128.  Differentiable: the backward is kernel 13 (the
+    on-chip core, a block a (head, item), for head dims 16, 32 and 64,
+    bf16 Tk up to 208 and f32 up to 320; the key-tiled backward past that,
+    :func:`cp_bwd_plan`) or its plain version."""
     return _AttentionCP.apply(q.contiguous(), kv.contiguous(), num_heads,
                               valid_len)
 
