@@ -10,7 +10,9 @@ runs these phases, each printing one JSON line and raising on failure:
 2. build    the nvcc build (one process per kernel source, in parallel);
             the on-chip attention backward's plan (ops/attention.py) held
             to its C launcher's own choice at every square Tp 8-1,040 and
-            the rectangles, bf16 and f32, head dims 16, 32 and 64.
+            the rectangles, bf16 and f32, head dims 16, 32 and 64; the
+            whole-encoder kernels' plan (ops/lowlat.py lowlat_plan) held
+            to theirs at B = 1-4 and Tp 8-584.
 3. kernels  each kernel against its plain PyTorch version on the card in
             bf16: full ViT-B shapes (B = 2, 3 and the main path's 128;
             Tp 200, valid_len 197) and a ragged one (Tp 40, valid_len 33,
@@ -56,8 +58,9 @@ runs these phases, each printing one JSON line and raising on failure:
             its kernel swapped for its plain version and against the f32
             module, within phase 4's bounds (the mean over the 64).
 7. http     the HTTP front over build_programs_live's default shapes (1,
-            2, 4, 8, 16; B = 1 lowlat, the rest fastserve) on 127.0.0.1:
-            64 distinct raw frames from 8 threads, then loadgen.run_load
+            2, 4, 8, 16; B = 1 lowlat, 2 batch_grid, the rest
+            fastserve) on 127.0.0.1: 64 distinct raw frames from 8
+            threads, then loadgen.run_load
             in raw mode, 200 requests at 1 client and 200 at 8; every
             answer within 1e-3 of the direct make_serving_fn score of its
             frame at the dispatch size that served it (at 1 client:
@@ -84,7 +87,8 @@ runs these phases, each printing one JSON line and raising on failure:
             shapes; the stem and head; end-to-end img/s of scoring and of
             the training step at B = 128; kernel 10 at B = 1 and kernel
             11 per 2-item chunk, each with a per-phase breakdown from
-            its barrier timestamps (ops/lowlat.py ``trace``); the B = 1
+            its barrier timestamps (ops/lowlat.py ``trace``; the phases
+            of ``lowlat_plan``); the B = 1
             forward (and a profile of it), the batch-grid forward at
             B = 2, 4, 8, 16 and, as the yardstick of the regime table,
             the fastserve forward at B = 1-16.
@@ -894,6 +898,31 @@ def onchip_plan_mismatches() -> list:
             != att.onchip_bwd_launch_config(tq, tk, dh, dt)]
 
 
+def lowlat_plan_mismatches() -> list:
+    """The shapes where ops/lowlat.py's plan of a whole-encoder launch
+    (lowlat_plan, as plan_ints lays it out) differs from what its C
+    launcher chooses (read from the library): kernel 10 encoder-only and
+    fold-ends (bf16 and int8) at B = 1-4, kernel 11 at chunks 1-4, at Tp 8
+    (D 64), 40 (D 96), 64, 200, 208 and 584 (ViT-B widths)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    shapes = [(k, b, tp, d, heads, HEAD_HIDDEN if k == "lowlat_e2e" else 0,
+               int8)
+              for k, int8s in (("lowlat_encoder", (False, True)),
+                               ("lowlat_e2e", (False, True)),
+                               ("lowlat_batchgrid", (False,)))
+              for int8 in int8s for b in (1, 2, 3, 4)
+              for tp, d, heads in ((8, 64, 4), (40, 96, 3), (64, D, HEADS),
+                                   (TP, D, HEADS), (208, D, HEADS),
+                                   (584, D, HEADS))
+              if k != "lowlat_e2e" or d == D]
+    return [shape for shape in shapes
+            if low.plan_ints(low.lowlat_plan(*shape[1:5], sms, shape[0],
+                                             shape[6], depth=DEPTH,
+                                             hh=shape[5]))
+            != low.lowlat_launch_config(*shape[1:5], shape[0], shape[6],
+                                        depth=DEPTH, hh=shape[5])]
+
+
 def phase_build():
     t0 = time.perf_counter()
     compiled = _build.build()
@@ -903,12 +932,19 @@ def phase_build():
                     if "Used" in ln or "spill" in ln]
              for name in _build.KERNELS}
     mismatches = onchip_plan_mismatches()
+    lowlat_mismatches = lowlat_plan_mismatches()
     emit({"phase": "build", "seconds": round(seconds, 3),
           "compiled": compiled, "ptxas": ptxas,
-          "onchip_plan_mismatches": mismatches, "ok": not mismatches})
+          "onchip_plan_mismatches": mismatches,
+          "lowlat_plan_mismatches": lowlat_mismatches,
+          "ok": not mismatches and not lowlat_mismatches})
     if mismatches:
         raise AssertionError(f"build: the on-chip backward's plan differs "
                              f"from its C launcher at {mismatches}")
+    if lowlat_mismatches:
+        raise AssertionError(f"build: the whole-encoder kernels' plan "
+                             f"differs from their C launcher at "
+                             f"{lowlat_mismatches}")
 
 
 def _kernel_parts(a_in, m_in, bwd, ln, heads, valid):
@@ -1201,8 +1237,8 @@ def phase_kernels_lowlat(dev, model):
 
 def small_mode(b: int) -> str:
     """The whole-encoder regime phase slice_small drives at B: lowlat at
-    B = 1, batch_grid (chosen explicitly: the H100's table serves B = 2-16
-    on fastserve) above."""
+    B = 1, batch_grid above (chosen explicitly: the H100's table serves
+    B = 2 on it and 4-16 on fastserve)."""
     return "lowlat" if b == 1 else "batch_grid"
 
 
@@ -1293,8 +1329,8 @@ def phase_slice_small(dev, model):
 
 def phase_http(model):
     """The HTTP front on the default shapes (the regimes of
-    fastserve.auto_serving_mode: B = 1 lowlat, 2-16 fastserve); returns
-    its summary."""
+    fastserve.auto_serving_mode: B = 1 lowlat, 2 batch_grid, 4-16
+    fastserve); returns its summary."""
     rng = np.random.default_rng(SEED + 7)
     fns = {b: fastserve.make_serving_fn(model, batch_size=b)
            for b in SMALL_B}
@@ -1676,9 +1712,13 @@ def phase_times(dev, model, serve128, u8, main_err, launches,
     return rows, step_ms
 
 
-LAYER_PHASES = ["ln1", "qkv", "attention", "proj", "ln2", "fc1", "fc2"]
-BATCHGRID_PHASES = ["ln1", "qkv", "attention", "proj", "ln2", "fc1",
-                    "fc2_a", "fc2_b"]
+def lowlat_phases(b: int, kernel: str, hh: int = 0) -> list:
+    """The phase names of a whole-encoder launch at B and DEPTH, in launch
+    order (ops/lowlat.py ``lowlat_plan``: per layer ``low.LAYER_PHASES``,
+    with the stem and the head around them (fold-ends) or a final fixup)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return [ph["name"] for ph in low.lowlat_plan(
+        b, TP, D, HEADS, sms, kernel, depth=DEPTH, hh=hh)["phases"]]
 
 
 def trace_breakdown(launch, phases, repeats: int = 5) -> dict:
@@ -1762,11 +1802,11 @@ def phase_times_small(dev, model, progs, fns, main_err, launches) -> list:
     breakdown = {
         "lowlat_encoder_b1": trace_breakdown(
             lambda tr: low.forward_lowlat_e2e(*args10, **kw, trace=tr),
-            ["stem"] + LAYER_PHASES * DEPTH + ["head_fc1", "head_fc2"]),
+            lowlat_phases(1, "lowlat_e2e", hh)),
         "lowlat_batchgrid_chunk2": trace_breakdown(
             lambda tr: low.encoder_forward_lowlat_batchgrid(*args11, **kw,
                                                             trace=tr),
-            BATCHGRID_PHASES * DEPTH)}
+            lowlat_phases(2, "lowlat_batchgrid"))}
     emit({"phase": "times_small", "b1_ms": e2e["1"]["ms"],
           "phase_breakdown": breakdown,
           "kernels": {r["name"]: {k: r[k] for k in

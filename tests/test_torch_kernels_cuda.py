@@ -387,6 +387,158 @@ def test_lowlat_trace_stamps_every_barrier(cuda_device):
         tlow.encoder_forward_lowlat(x, w, s, trace=trace[:-1], **kw)
 
 
+# The launch plan of both whole-encoder kernels, across what the wrappers
+# take: (kernel, B, Tp, D, heads, hh, int8)
+LOWLAT_PLAN_SHAPES = [
+    (k, b, tp, d, heads, 512 if k == "lowlat_e2e" else 0, int8)
+    for k, int8s in (("lowlat_encoder", (False, True)),
+                     ("lowlat_e2e", (False, True)),
+                     ("lowlat_batchgrid", (False,)))
+    for int8 in int8s for b in (1, 2, 3, 4)
+    for tp, d, heads in ((8, 64, 4), (40, 96, 3), (64, 768, 12),
+                         (200, 768, 12), (208, 768, 48), (584, 768, 12))
+    if k != "lowlat_e2e" or d == 768]
+
+
+@pytest.mark.cuda
+def test_lowlat_plan_matches_the_c_launcher_on_card(cuda_device):
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    bad = [shape for shape in LOWLAT_PLAN_SHAPES
+           if tlow.plan_ints(tlow.lowlat_plan(*shape[1:5], sms, shape[0],
+                                              shape[6], depth=12,
+                                              hh=shape[5]))
+           != tlow.lowlat_launch_config(*shape[1:5], shape[0], shape[6],
+                                        depth=12, hh=shape[5])]
+    assert not bad
+
+
+def _deep_case(kernel, b, dh, device, *, depth=12, d=768, tp=200, valid=197,
+               int8=False, seed=30):
+    """(kernel output, plain output) of one whole-encoder launch on a
+    seeded ViT-B tree of ``depth`` layers at head dim ``dh``."""
+    heads = d // dh
+    tree = _encoder_tree(seed, depth, d, 512 if kernel == "lowlat_e2e" else 0)
+    kw = dict(num_heads=heads, valid_len=valid)
+    if kernel == "lowlat_batchgrid":
+        w, s = tlow.pack_encoder_weights_batchgrid(tree["vit"], depth=depth,
+                                                   device=device)
+        x = _stream(seed + 1, b, tp, d, device)
+        if b > 1:
+            x[-1] = 0                              # a zero pad item
+        run = lambda: tlow.encoder_forward_lowlat_batchgrid(x, w, s, **kw)
+        plain = tlow.encoder_forward_lowlat_batchgrid_plain(x, w, s, **kw)
+        return run, plain
+    w, s = tlow.pack_encoder_weights(
+        tree["vit"], depth=depth, device=device,
+        weight_dtype=torch.int8 if int8 else None)
+    if kernel == "lowlat_e2e":
+        ends = tlow.pack_end_weights(tree, device=device)
+        rng = np.random.default_rng(seed + 2)
+        xp = torch.tensor(rng.integers(0, 256, (b, tp, d)).astype(
+            np.float32), device=device).to(torch.bfloat16)
+        xp[:, 0] = 0
+        xp[:, valid:] = 0
+        return (lambda: tlow.forward_lowlat_e2e(xp, w, s, *ends, **kw),
+                tlow.forward_lowlat_e2e_plain(xp, w, s, *ends, **kw))
+    x = _stream(seed + 1, b, tp, d, device)
+    return (lambda: tlow.encoder_forward_lowlat(x, w, s, **kw),
+            tlow.encoder_forward_lowlat_plain(x, w, s, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [16, 32, 64])
+@pytest.mark.parametrize("kernel,b", [("lowlat_e2e", 1), ("lowlat_encoder", 1)]
+                         + [("lowlat_batchgrid", c) for c in (1, 2, 3, 4)])
+def test_lowlat_kernels_at_full_depth_match_plain_on_card(cuda_device,
+                                                          kernel, b, dh):
+    """Both kernels at 12 ViT-B layers (fold-ends, encoder-only, batch-grid
+    chunks 1-4): within 2 bf16 ulps a layer of the plain version, two
+    launches bit-equal (the split-K sums are taken in slot order), one
+    launch counted each."""
+    run, want = _deep_case(kernel, b, dh, cuda_device)
+    name = "lowlat_batchgrid" if kernel == "lowlat_batchgrid" else (
+        "lowlat_encoder")
+    n0 = tatt.LAUNCHES[name]
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    assert tatt.LAUNCHES[name] == n0 + 2
+    _assert_close_layers(got, want, 12)
+    assert torch.equal(got, again)
+
+
+# ragged shapes: Tp 40 (valid 33) at D 96 (a K chunk of 96: a 64-deep and
+# a 32-deep k-tile), Tp 584 (ViT-B/16 at 384 px: K and V in two key tiles
+# at head dim 64, one at 32), D 64 at head dim 16, Tp 64 at ViT-B width
+# (one m-group: proj and fc2 at their most K slices); with the int8 stream
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,b,int8", [
+    ("lowlat_encoder", 1, False), ("lowlat_encoder", 2, True),
+    ("lowlat_encoder", 3, False), ("lowlat_batchgrid", 3, False),
+    ("lowlat_batchgrid", 4, False)])
+@pytest.mark.parametrize("tp,valid,d,dh,depth", [
+    (40, 33, 96, 32, 2), (584, 577, 768, 64, 1), (584, 577, 768, 32, 1),
+    (48, 41, 64, 16, 2), (64, 57, 768, 64, 1)])
+def test_lowlat_kernels_at_ragged_shapes_match_plain_on_card(
+        cuda_device, kernel, b, int8, tp, valid, d, dh, depth):
+    run, want = _deep_case(kernel, b, dh, cuda_device, depth=depth, d=d,
+                           tp=tp, valid=valid, int8=int8, seed=40)
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    _assert_close_layers(got, want, depth)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_lowlat_serving_launches_one_per_forward_or_chunk(cuda_device):
+    """The serving wrappers over the kernels: one launch of kernel 10 a
+    B = 1 forward, ceil(B / 2) of kernel 11 a batch-grid forward."""
+    from vit_spoof_detection_pda_tpu_torch.models import fastserve
+
+    tree = _encoder_tree(50, 1, 768, 512)
+    prep = fastserve.prepare_lowlat(tree, depth=1, batch_grid=True,
+                                    device=cuda_device)
+    rng = np.random.default_rng(51)
+    u8 = torch.from_numpy(rng.integers(0, 256, (8, 224, 224, 3),
+                                       dtype=np.uint8)).to(cuda_device)
+    kw = dict(num_heads=12)
+    n0 = dict(tatt.LAUNCHES)
+    fastserve.serving_forward_lowlat(prep, u8[:1], **kw)
+    assert tatt.LAUNCHES["lowlat_encoder"] == n0["lowlat_encoder"] + 1
+    for b in (2, 3, 5, 8):
+        n0 = dict(tatt.LAUNCHES)
+        out = fastserve.serving_forward_lowlat_batch(prep, u8[:b], **kw)
+        torch.cuda.synchronize()
+        assert out.shape == (b,) and torch.isfinite(out).all()
+        assert (tatt.LAUNCHES["lowlat_batchgrid"]
+                == n0["lowlat_batchgrid"] + -(-b // 2))
+        assert tatt.LAUNCHES["lowlat_encoder"] == n0["lowlat_encoder"]
+
+
+@pytest.mark.cuda
+def test_lowlat_unit_stamps_cover_every_phase(cuda_device):
+    """A trace of unit_trace_slots also takes each block's unit stamps:
+    every phase has a block that stamped its start and end, in order."""
+    w, s = tlow.pack_encoder_weights(_encoder_tree(28, 2, 64)["vit"],
+                                     depth=2, device=cuda_device)
+    x = _stream(29, 2, 40, 64, cuda_device)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    plan = tlow.lowlat_plan(2, 40, 64, 4, sms, "lowlat_encoder", depth=2)
+    trace = torch.zeros(tlow.unit_trace_slots(plan), dtype=torch.int64,
+                        device=cuda_device)
+    got = tlow.encoder_forward_lowlat(x, w, s, trace=trace, num_heads=4,
+                                      valid_len=33)
+    want = tlow.encoder_forward_lowlat(x, w, s, num_heads=4, valid_len=33)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    n = plan["trace_slots"]
+    units = trace[n:].view(n, plan["grid"], 6).cpu()
+    for ph in range(len(plan["phases"])):
+        u = units[ph]
+        done = u[:, 0] > 0
+        assert done.any()
+        assert (u[done, 4] >= u[done, 0]).all()
+
+
 # --------------------------------------------------------------------------
 # augmentation kernels: pool gather, warp pass, NLM
 # --------------------------------------------------------------------------

@@ -224,7 +224,7 @@ def test_build_programs_live_defaults_to_the_jax_shapes(model):
                                                device="cpu")
     assert sorted(programs) == [1, 2, 4, 8, 16]
     # the H100's regime table (fastserve.auto_serving_mode)
-    assert metas[0]["shapes"] == {1: "lowlat", 2: "fastserve",
+    assert metas[0]["shapes"] == {1: "lowlat", 2: "batch_grid",
                                   4: "fastserve", 8: "fastserve",
                                   16: "fastserve"}
 

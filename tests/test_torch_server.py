@@ -198,7 +198,7 @@ def test_healthz_stats_and_metrics(server):
     assert health["img_size"] == SIZE and health["batch_sizes"] == [1, 2, 4]
     meta = health["artifacts"][0]
     assert meta["model"] == "ViTAntiSpoof" and meta["source"] == "live"
-    assert meta["shapes"] == {"1": "lowlat", "2": "fastserve",
+    assert meta["shapes"] == {"1": "lowlat", "2": "batch_grid",
                               "4": "fastserve"}
     status, _h, body = _get(port, "/stats")
     stats = json.loads(body)

@@ -37,8 +37,11 @@ each beside the PyTorch call that computes the same function:
   B 32 (``models/registry.py::build_model`` on seeded random weights);
 - kernels 1 and 3 (``fused_attention_block_padded``,
   ``attention_block_train_padded``) at B 128, Tp 200, and kernels 10 and
-  11 (``encoder_forward_lowlat`` at B 1, ``..._batchgrid`` at B 2) on
-  random ViT-B/16 packs, with no library call;
+  11 on random ViT-B/16 packs, with no library call:
+  ``encoder_forward_lowlat`` at B 1 (``lowlat_encoder``; on the int8 pack
+  ``lowlat_encoder_int8``), ``forward_lowlat_e2e`` at B 1 (``lowlat_e2e``),
+  ``..._batchgrid`` per chunk of 2 (``lowlat_batchgrid``) and 4
+  (``lowlat_batchgrid_4``);
 - at ViT-B/16, 384 px (B 8, T 577, Tp 584), kernel 5's route past its one
   launch (``..._384``: the four-launch long route before the key-tiled
   backward replaced it, the key-tiled backward after), bf16 and f32, beside
@@ -52,7 +55,8 @@ each beside the PyTorch call that computes the same function:
 Each TREE is the root of a checkout (a ``git archive`` unpacked into a
 directory that ``.gitignore`` lists, or ``.`` for this one); name them in
 the order to run, e.g. ``parent . . parent``.  ``--only`` times just the
-named runs (the keys of the JSON lines).  For each, one process
+named runs (the keys of the JSON lines) and builds up front only the
+libraries whose names the named runs start with.  For each, one process
 imports that tree's port, builds the kernels from its sources (into that
 tree's ``build/``), prints ptxas's register and spill report for each
 head-dim-64 instantiation of those kernels, and times each kernel and its
@@ -117,7 +121,10 @@ def _child(tree: str, only=None) -> None:
     from vit_spoof_detection_pda_tpu_torch.ops import attention as att
     from vit_spoof_detection_pda_tpu_torch.ops import lowlat as low
 
-    names = [n for n in NAMES if n in _build.KERNELS]
+    # built up front (ptxas's report): every library, or with --only those
+    # the named runs start with; any other a run calls builds at first use
+    names = [n for n in NAMES if n in _build.KERNELS
+             and (not only or any(o.startswith(n) for o in only))]
     _build.build(names)
     ptxas = {n: _ptxas(_build.build_log(n)) for n in names}
     rng = np.random.default_rng(0)
@@ -290,16 +297,42 @@ def _child(tree: str, only=None) -> None:
         runs[name] = (train_step, None)
         del model
     # kernels 10 and 11 on random packs of the 12 layers (W [36, D, 4D],
-    # S [36, 4, 4D]: LN scales near 1, small biases)
+    # S [36, 4, 4D]: LN scales near 1, small biases): kernel 10 at B 1
+    # encoder-only, fold-ends (``lowlat_e2e``, random stem and head
+    # blocks) and on the int8 pack (``lowlat_encoder_int8``: the per-column
+    # scales of pack_encoder_weights), kernel 11 per chunk of 2 and of 4
     s_pack = scaled(36, 4, 4 * D, scale=0.05, dt=torch.float32)
     s_pack[:, 0] += 1.0
     w_pack = scaled(36, D, 4 * D, scale=D ** -0.5)
-    for name, fn, b in (("lowlat_encoder", low.encoder_forward_lowlat, 1),
-                        ("lowlat_batchgrid",
-                         low.encoder_forward_lowlat_batchgrid, 2)):
+    wf = w_pack.float()
+    q_scale = torch.clamp(wf.abs().amax(dim=1), min=1e-12) / 127.0
+    w_q8 = torch.clamp(torch.round(wf / q_scale[:, None, :]), -127,
+                       127).to(torch.int8)
+    s_q8 = torch.cat([s_pack, q_scale[:, None, :]], 1).contiguous()
+    del wf
+    hh = 512
+    w_end = scaled(1, D, D + hh, scale=D ** -0.5)
+    s_end = scaled(1, 4, 4 * D, scale=0.05, dt=torch.float32)
+    s_end[:, 0] += 1.0
+    aux = scaled(1, TP, D, scale=0.02, dt=torch.float32)
+    patches = torch.from_numpy(rng.integers(0, 256, (1, TP, D)).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    patches[:, 0] = 0
+    patches[:, T:] = 0
+    for name, fn, b, w, s in (
+            ("lowlat_encoder", low.encoder_forward_lowlat, 1, w_pack, s_pack),
+            ("lowlat_encoder_int8", low.encoder_forward_lowlat, 1, w_q8,
+             s_q8),
+            ("lowlat_batchgrid", low.encoder_forward_lowlat_batchgrid, 2,
+             w_pack, s_pack),
+            ("lowlat_batchgrid_4", low.encoder_forward_lowlat_batchgrid, 4,
+             w_pack, s_pack)):
         xp = rand(b, TP, D)
-        runs[name] = (lambda fn=fn, xp=xp: fn(
-            xp, w_pack, s_pack, num_heads=HEADS, valid_len=T), None)
+        runs[name] = (lambda fn=fn, xp=xp, w=w, s=s: fn(
+            xp, w, s, num_heads=HEADS, valid_len=T), None)
+    runs["lowlat_e2e"] = (lambda: low.forward_lowlat_e2e(
+        patches, w_pack, s_pack, w_end, s_end, aux, num_heads=HEADS,
+        valid_len=T), None)
     tiled = hasattr(att, "tiled_bwd_plan")
     for dt, sfx in ((torch.bfloat16, ""), (torch.float32, "_f32")):
         qkv, g = (rand(B384, TP384, 3 * D, dt=dt),

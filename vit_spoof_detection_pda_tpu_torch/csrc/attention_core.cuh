@@ -10,8 +10,9 @@
 // runs.
 //
 // Its forward serves kernels 1 and 3 (attention() in attention_block.cu and
-// attention_block_train.cu) and kernels 10 and 11 (attention_tile in
-// lowlat_core.cuh).  Kernels 8 and 9 left it for kernel 12's cores
+// attention_block_train.cu); kernels 10 and 11 run their own attention
+// phase on the same arithmetic (lowlat_core.cuh attention_phase, keys split
+// over warps).  Kernels 8 and 9 left it for kernel 12's cores
 // (attention_self.cuh), which were faster at every T in turns (PERF.md,
 // kernel table rows 8 and 9); they still launch attention_tiled_kernel
 // below.
@@ -33,15 +34,6 @@ __host__ __device__ inline int att_keys(int tk) { return (tk + 15) / 16 * 16; }
 // Shared memory of one block over tk keys: K and V [tk rounded up to 16][dh + 8] bf16.
 __host__ __device__ inline size_t att_smem_bytes(int tk, int dh) {
   return 2 * static_cast<size_t>(att_keys(tk)) * (dh + 8) * sizeof(bf16);
-}
-
-// Q's 32-bit fragments: through the read-only path in a standalone launch;
-// from L2 (coherent) in the persistent lowlat kernels, which rewrite qkv
-// during the launch.
-template <bool kCoherent>
-__device__ __forceinline__ uint32_t ld_q_u32(const bf16* p) {
-  if (kCoherent) return __ldcg(reinterpret_cast<const unsigned int*>(p));
-  return ld_global_u32(p);
 }
 
 // qkv [B, Tp, 3D] (q | k | v, heads contiguous inside each) -> out [B, Tp, D]
@@ -71,7 +63,7 @@ __device__ __forceinline__ uint32_t ld_q_u32(const bf16* p) {
 // the block's shared memory (att_smem_bytes(tk, DH)).  ldq, ldk and ldo
 // are multiples of 8 and the pointers 16-byte aligned (the 16-byte K/V
 // copies).
-template <int DH, bool kCoherent>
+template <int DH>
 __device__ __forceinline__ void attention_rows(const bf16* __restrict__ q, size_t ldq,
                                                const bf16* __restrict__ k,
                                                const bf16* __restrict__ v, size_t ldk,
@@ -115,10 +107,10 @@ __device__ __forceinline__ void attention_rows(const bf16* __restrict__ q, size_
   const bool lo_in = r0 + g < tq, hi_in = r0 + g + 8 < tq;
 #pragma unroll
   for (int kk = 0; kk < KK; ++kk) {
-    qa[kk][0] = lo_in ? ld_q_u32<kCoherent>(qlo + kk * 16) : 0u;
-    qa[kk][1] = hi_in ? ld_q_u32<kCoherent>(qhi + kk * 16) : 0u;
-    qa[kk][2] = lo_in ? ld_q_u32<kCoherent>(qlo + kk * 16 + 8) : 0u;
-    qa[kk][3] = hi_in ? ld_q_u32<kCoherent>(qhi + kk * 16 + 8) : 0u;
+    qa[kk][0] = lo_in ? ld_global_u32(qlo + kk * 16) : 0u;
+    qa[kk][1] = hi_in ? ld_global_u32(qhi + kk * 16) : 0u;
+    qa[kk][2] = lo_in ? ld_global_u32(qlo + kk * 16 + 8) : 0u;
+    qa[kk][3] = hi_in ? ld_global_u32(qhi + kk * 16 + 8) : 0u;
   }
 
   // s[j][0..1]: row g, keys kc0 + 8j + 2*t4 + {0, 1}; s[j][2..3]: row g + 8.
@@ -210,14 +202,14 @@ __device__ __forceinline__ void attention_rows(const bf16* __restrict__ q, size_
 // attention_tile: the same on the fused projection qkv [B, Tp, 3D] (q | k |
 // v, heads contiguous inside each) for head h of item b, written to out
 // [B, Tp, D].
-template <int DH, bool kCoherent>
+template <int DH>
 __device__ __forceinline__ void attention_tile(const bf16* __restrict__ qkv,
                                                bf16* __restrict__ out, int tp, int d,
                                                int valid_len, float scale, int q0, int h, int b,
                                                bf16* Ks, bf16* Vs) {
   const size_t stride = 3 * static_cast<size_t>(d);
   const bf16* base = qkv + static_cast<size_t>(b) * tp * stride + static_cast<size_t>(h) * DH;
-  attention_rows<DH, kCoherent>(base, stride, base + d, base + 2 * d, stride,
+  attention_rows<DH>(base, stride, base + d, base + 2 * d, stride,
                                 out + static_cast<size_t>(b) * tp * d + static_cast<size_t>(h) * DH,
                                 d, tp, tp, valid_len, scale, q0, Ks, Vs);
 }
@@ -229,7 +221,7 @@ __global__ void __launch_bounds__(kAttMaxWarps * 32)
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Ks = reinterpret_cast<bf16*>(smem);
   bf16* Vs = Ks + att_keys(tp) * (DH + 8);
-  attention_tile<DH, false>(qkv, out, tp, d, valid_len, scale, blockIdx.x * blockDim.x / 2,
+  attention_tile<DH>(qkv, out, tp, d, valid_len, scale, blockIdx.x * blockDim.x / 2,
                             blockIdx.y, blockIdx.z, Ks, Vs);
 }
 

@@ -90,16 +90,8 @@ __device__ __forceinline__ float gelu_erf(float x) {
 
 constexpr int kLnRowsPerBlock = 8;
 
-// 16 bytes of x: through L1, or from L2 only (kCoherent: the persistent
-// lowlat kernels, which rewrite x during the launch).
-template <bool kCoherent>
-__device__ __forceinline__ uint4 ld_x16(const bf16* p) {
-  if (kCoherent) return __ldcg(reinterpret_cast<const uint4*>(p));
-  return *reinterpret_cast<const uint4*>(p);
-}
-
 // One row by one warp: xr, orow (and xhrow, inv) point at the row.
-template <bool kResid, bool kCoherent = false>
+template <bool kResid>
 __device__ __forceinline__ void layernorm_row(const bf16* __restrict__ xr,
                                               const float* __restrict__ gamma,
                                               const float* __restrict__ beta,
@@ -109,14 +101,14 @@ __device__ __forceinline__ void layernorm_row(const bf16* __restrict__ xr,
   float f[8];
   float s = 0.f;
   for (int c = lane * 8; c < d; c += 256) {
-    unpack8(ld_x16<kCoherent>(xr + c), f);
+    unpack8(*reinterpret_cast<const uint4*>(xr + c), f);
 #pragma unroll
     for (int i = 0; i < 8; ++i) s += f[i];
   }
   const float mu = warp_sum(s) / static_cast<float>(d);
   float v = 0.f;
   for (int c = lane * 8; c < d; c += 256) {
-    unpack8(ld_x16<kCoherent>(xr + c), f);
+    unpack8(*reinterpret_cast<const uint4*>(xr + c), f);
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const float t = f[i] - mu;
@@ -126,7 +118,7 @@ __device__ __forceinline__ void layernorm_row(const bf16* __restrict__ xr,
   const float inv = 1.0f / sqrtf(warp_sum(v) / static_cast<float>(d) + eps);
   if (kResid && lane == 0) *inv_out = inv;
   for (int c = lane * 8; c < d; c += 256) {
-    unpack8(ld_x16<kCoherent>(xr + c), f);
+    unpack8(*reinterpret_cast<const uint4*>(xr + c), f);
     float h[8], g[8];
 #pragma unroll
     for (int i = 0; i < 8; ++i) {

@@ -1,8 +1,8 @@
 // The whole ViT encoder for a chunk of up to 4 items in one launch, for
 // B = 2-16 serving, on Hopper, over the batch-grid pack:
 //
-//   x [b, Tp, D] -> per layer: attention sub-layer; MLP half A into an f32
-//   partial; x + (A + B) + b2 rounded once -> x
+//   x [b, Tp, D] -> per layer: attention sub-layer; fc1 of both MLP halves;
+//   x + (A + B) + b2 rounded once -> x
 //
 // Replaces the TPU kernel vit_spoof_detection_pda_tpu/ops/lowlat.py::
 // _encoder_batchgrid_kernel (:241; wrapper encoder_forward_lowlat_batchgrid
@@ -12,14 +12,14 @@
 // 70.9 GFLOP of products take 0.072 ms at 989 TFLOP/s; the 169.9 MB of
 // superblocks take 0.051 ms at 3.35 TB/s.
 //
-// Design (lowlat_core.cuh has the phase loop): one cooperative launch of a
-// persistent grid, per layer LN1 | QKV | attention | proj + residual | LN2 |
-// fc1 of both halves + GELU | fc2 half A -> f32 partial | fc2 half B +
-// partial + residual.  The TPU kernel split the MLP in halves so that no
-// [Tp, 4D] hidden had to persist in VMEM between grid steps; here the
-// hidden of the whole chunk (4.9 MB at 4 items) stays in L2, so both fc1
-// halves run in one phase and only fc2 keeps the split and its f32 partial
-// sum.  Each superblock is read from device memory once per chunk.
+// Design: the per-item kernel's (lowlat_core.cuh), on the batch-grid pack.
+// The TPU kernel split the MLP in halves so that no [Tp, 4D] hidden had to
+// persist in VMEM between grid steps; here the hidden of the whole chunk
+// (4.9 MB at 4 items) stays in L2, so fc1 runs both halves as one GEMM
+// (hidden columns 2D.. from the second half's step) and fc2 one GEMM over
+// K = 4D (chunks 0-1 from the first half's fc2 columns, 2-3 from the
+// second's), its slices summed in the next row phase.  Each superblock
+// tile is staged once per unit of rows.
 //
 // Rounding points follow the TPU kernel: as lowlat_encoder.cu; the MLP
 // output is x + (A + B) + b2 in f32, rounded once.  Zero pad items (the
@@ -31,40 +31,9 @@ namespace vsd {
 namespace lowlat {
 namespace {
 
-__global__ void __launch_bounds__(kThreads) lowlat_batchgrid_kernel(const Params p) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  unsigned char* smem = aligned_smem(smem_raw);
-  const int rows = p.batch * p.tp, d = p.d, h4 = 4 * d;
-  const bf16* cur = p.x_in;
-  trace_begin(p);
-  for (int l = 0; l < p.depth; ++l) {
-    const bf16* w0 = p.w + static_cast<size_t>(3 * l) * d * h4;
-    const float* s0 = p.s + static_cast<size_t>(3 * l) * 4 * h4;
-    const bf16 *wa = w0 + static_cast<size_t>(d) * h4, *wb = wa + static_cast<size_t>(d) * h4;
-    const float *sa = s0 + 4 * h4, *sb = sa + 4 * h4;
-    attention_sublayer<false>(p, cur, w0, nullptr, nullptr, s0, smem);
-    cur = p.x;
-    ln_phase(p.x, sa, sa + h4, p.xn, rows, d, p.eps);
-    grid_sync(p.bar, p.trace);
-    Gemm fa{};  // hidden columns 0 .. 2D from half A, 2D .. 4D from half B
-    fa.a = p.xn, fa.lda = d, fa.w = wa, fa.ldw = h4, fa.kc = d, fa.bias = sa + 2 * h4;
-    fa.c = p.hid, fa.ldc = h4, fa.m = rows, fa.n = 2 * d, fa.k = d;
-    Gemm fb = fa;
-    fb.w = wb, fb.bias = sb + 2 * h4, fb.c = p.hid + 2 * d;
-    gemm_phase<kGelu>(p, fa, &fb, smem);
-    grid_sync(p.bar, p.trace);
-    Gemm ga{};  // fc2 rows 0 .. 2D: two D-row chunks in columns 2D .. 4D of wa
-    ga.a = p.hid, ga.lda = h4, ga.w = wa + 2 * d, ga.ldw = h4, ga.kc = d;
-    ga.cf = p.part, ga.ldc = d, ga.m = rows, ga.n = d, ga.k = 2 * d;
-    gemm_phase<kF32>(p, ga, nullptr, smem);
-    grid_sync(p.bar, p.trace);
-    Gemm gb = ga;  // fc2 rows 2D .. 4D, plus the partial, the residual, b2
-    gb.a = p.hid + 2 * d, gb.w = wb + 2 * d, gb.cf = nullptr, gb.part = p.part;
-    gb.bias = sb + 3 * h4, gb.r = p.x, gb.c = p.x;
-    gemm_phase<kResPart>(p, gb, nullptr, smem);
-    if (l + 1 < p.depth) grid_sync(p.bar, p.trace);
-  }
-  trace_end(p);
+__global__ void __launch_bounds__(kThreads, 1)
+    lowlat_batchgrid_kernel(const __grid_constant__ Params p) {
+  encoder_kernel_body<false>(p);
 }
 
 }  // namespace
@@ -73,37 +42,42 @@ __global__ void __launch_bounds__(kThreads) lowlat_batchgrid_kernel(const Params
 
 // x_in, x [b, Tp, D] bf16 (in, out); w [3*depth, D, 4D] bf16, s [3*depth,
 // 4, 4D] f32 (the batch-grid pack); scratch xn [b*Tp, D], qkv [b*Tp, 3D],
-// hid [b*Tp, 4D] bf16, part [b*Tp, D] f32; bar: 2 + splitk_units 32-bit
-// words; splitk [splitk_units, 64, 128] f32 scratch; trace: null, or
-// 64-bit timestamps, one per barrier (lowlat_core.cuh).  Needs
-// 1 <= b <= 4, a head dim of 16, 32 or 64, D and Tp multiples of 8 and
-// 0 < valid_len <= Tp.  Returns the CUDA error of the launch (0 on success).
+// hid [b*Tp, 4D] bf16; bar: 1 + b 32-bit words; splitk: splitk_len f32 (at
+// least the plan's splitk_floats); trace: null, or trace_len 64-bit
+// timestamps (lowlat_core.cuh).  Needs 1 <= b <= 4, a head dim of 16, 32
+// or 64, D a multiple of 16, Tp a multiple of 8 and 0 < valid_len <= Tp.
+// Returns the CUDA error of the launch (0 on success).
 extern "C" int vsd_lowlat_batchgrid(const void* x_in, void* x, const void* w, const void* s,
-                                    void* xn, void* qkv, void* hid, void* part, void* bar,
-                                    void* splitk, int splitk_units, void* trace, int depth,
+                                    void* xn, void* qkv, void* hid, void* bar, void* splitk,
+                                    long long splitk_len, void* trace, int trace_len, int depth,
                                     int batch, int tp, int d, int heads, int valid_len,
                                     float eps, float scale, void* stream) {
   using namespace vsd;
   using namespace vsd::lowlat;
-  if (batch > 4 || splitk_units < 0 || !valid_shape(depth, batch, tp, d, heads, valid_len))
+  if (batch > 4 || !valid_shape(depth, batch, tp, d, heads, valid_len))
     return cudaErrorInvalidValue;
   Params p{};
+  if (!encode_map(&p.wmap, w, 3LL * depth * d, 4LL * d, false)) return cudaErrorInvalidValue;
   p.x_in = static_cast<const bf16*>(x_in);
   p.x = static_cast<bf16*>(x);
-  p.w = static_cast<const bf16*>(w);
   p.s = static_cast<const float*>(s);
   p.xn = static_cast<bf16*>(xn);
   p.qkv = static_cast<bf16*>(qkv);
   p.hid = static_cast<bf16*>(hid);
-  p.part = static_cast<float*>(part);
+  p.part = static_cast<float*>(splitk);
   p.bar = static_cast<unsigned*>(bar);
-  p.tile_count = p.bar + 2;
-  p.splitk = static_cast<float*>(splitk);
-  p.splitk_units = splitk_units;
   p.trace = static_cast<unsigned long long*>(trace);
   p.depth = depth, p.batch = batch, p.tp = tp, p.d = d, p.heads = heads;
   p.valid_len = valid_len;
+  p.batch_grid = 1, p.fold_ends = 0, p.srows = 4;
   p.eps = eps, p.scale = scale;
-  return launch_persistent(reinterpret_cast<const void*>(&lowlat_batchgrid_kernel), p,
-                           static_cast<cudaStream_t>(stream));
+  return launch_persistent(reinterpret_cast<const void*>(&lowlat_batchgrid_kernel), p, false,
+                           splitk_len, trace_len, static_cast<cudaStream_t>(stream));
+}
+
+// The launcher's plan (lowlat_encoder.cu vsd_lowlat_plan, the same core).
+extern "C" int vsd_lowlat_plan(int batch_grid, int fold_ends, int int8, int depth, int batch,
+                               int tp, int d, int heads, int hh, int sms, int* out, int len) {
+  return vsd::lowlat::plan_entry(batch_grid, fold_ends, int8, depth, batch, tp, d, heads, hh, sms,
+                                 out, len);
 }

@@ -3,14 +3,15 @@ package's ``models/fastserve.py``), in its three regimes
 (:func:`auto_serving_mode` picks one by batch size, from the H100's
 measured table):
 
-- ``fastserve`` (B >= 2): each encoder layer on the two hand-written
+- ``fastserve`` (B >= 3): each encoder layer on the two hand-written
   kernels, composed as below.
 - ``lowlat`` (B = 1): the whole forward, patch rows to logits, in one
   launch of ``csrc/lowlat_encoder.cu`` (:func:`serving_forward_lowlat`,
   packs from :func:`prepare_lowlat`).
-- ``batch_grid`` (B = 2-16 on the TPU; on the card by ``mode=`` only):
-  the whole encoder in one launch of ``csrc/lowlat_batchgrid.cu`` per
-  chunk of up to 4 items (:func:`serving_forward_lowlat_batch`).
+- ``batch_grid`` (B = 2; B = 2-16 on the TPU, and on the card any B by
+  ``mode=``): the whole encoder in one launch of
+  ``csrc/lowlat_batchgrid.cu`` per chunk of up to 4 items
+  (:func:`serving_forward_lowlat_batch`).
 
 Composition (the math of ``models/vit.py`` at serving dtypes):
   x <- pad(embed_patches(batch))        # once, 197 -> 200 rows
@@ -357,15 +358,18 @@ def serving_program(model, *, mode: str, dtype=torch.bfloat16,
 def auto_serving_mode(batch_size: int) -> str:
     """The regime table measured on the H100 (``NVIDIA H100 80GB HBM3``,
     700 W; ``chip_smoke.py``'s ``times_small`` phase, which times each
-    regime at B = 1, 2, 4, 8, 16): B = 1 ``lowlat`` (2.30 ms a forward),
-    B >= 2 ``fastserve`` (0.21-0.95 ms an image at B = 2-16, against
-    ``batch_grid``'s 1.32-1.46).  The JAX package's TPU table serves
-    B = 2-16 on ``batch_grid``; ``make_serving_fn(mode=...)`` still picks
-    any regime explicitly.  B = 1 stays on ``lowlat`` while fastserve's
-    host-bound B = 1 time (1.9-4.4 ms across runs) is unexplained."""
+    regime at B = 1, 2, 4, 8, 16): B = 1 ``lowlat`` (1.02 ms a forward,
+    fastserve 2.32), B = 2 ``batch_grid`` (1.46 ms a forward against
+    fastserve's 2.30), B >= 3 ``fastserve`` (at B = 4, 8, 16 2.18, 2.46
+    and 3.43 ms a forward against ``batch_grid``'s 2.71, 5.22 and 10.36:
+    one launch a 2-item chunk, about 1.3 ms each).  The JAX package's TPU
+    table serves B = 2-16 on ``batch_grid``; ``make_serving_fn(mode=...)``
+    still picks any regime explicitly."""
     if batch_size < 1:
         raise ValueError(f"batch_size must be >= 1, got {batch_size}")
-    return "lowlat" if batch_size == 1 else "fastserve"
+    if batch_size == 1:
+        return "lowlat"
+    return "batch_grid" if batch_size == 2 else "fastserve"
 
 
 def make_serving_fn(model, *, batch_size: int, mode: str = "auto",

@@ -57,13 +57,14 @@ LAUNCHES = _build.LAUNCHES
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 _SIGNATURES = {
     "lowlat_encoder": ("vsd_lowlat_encoder", [_P] * 3 + [_I] + [_P] * 11
-                       + [_I, _P]
-                       + [_I] * 7 + [_F] * 3 + [_P]),
-    "lowlat_batchgrid": ("vsd_lowlat_batchgrid", [_P] * 10 + [_I, _P]
-                         + [_I] * 6 + [_F] * 2 + [_P]),
+                       + [_L, _P] + [_I] * 8 + [_F] * 3 + [_P]),
+    "lowlat_batchgrid": ("vsd_lowlat_batchgrid", [_P] * 9 + [_L, _P]
+                         + [_I] * 7 + [_F] * 2 + [_P]),
 }
+_PLAN_SIGNATURE = ("vsd_lowlat_plan", [_I] * 10 + [_P, _I])
 
 
 def _entry(name: str):
@@ -390,8 +391,8 @@ def _check_encoder_args(xp, w_packed, s_packed, num_heads, valid_len):
     if d % num_heads or d // num_heads not in (16, 32, 64):
         raise ValueError(f"the lowlat kernels take a head dim of 16, 32 or "
                          f"64; got D {d} over {num_heads} heads")
-    if d % 8 or tp % 8 or not 0 < valid_len <= tp or b < 1:
-        raise ValueError(f"the lowlat kernels take D % 8 == 0, Tp % 8 == 0, "
+    if d > 1024 or tp % 8 or not 0 < valid_len <= tp or b < 1:
+        raise ValueError(f"the lowlat kernels take D <= 1024, Tp % 8 == 0, "
                          f"0 < valid_len <= Tp and B >= 1; got D {d}, Tp "
                          f"{tp}, valid_len {valid_len}, B {b}")
     bf, dev = torch.bfloat16, xp.device
@@ -409,27 +410,193 @@ def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def _sync_scratch(dev):
-    """The grid barrier's words and the split-K scratch of one launch:
-    ``(bar [2 + units] int32, splitk [units, 64, 128] f32, units)``, room
-    for two split-K units per SM (the grid is at most two blocks an SM at
-    the kernels' shared memory)."""
-    units = 2 * torch.cuda.get_device_properties(dev).multi_processor_count
-    bar = torch.empty((2 + units,), dtype=torch.int32, device=dev)
-    splitk = torch.empty((units, 64, 128), dtype=torch.float32, device=dev)
-    return bar, splitk, units
+# --------------------------------------------------------------------------
+# the launch plan (csrc/lowlat_core.cuh make_plan, mirrored)
+# --------------------------------------------------------------------------
+
+_TILE = 64                 # kBM = kBK: 64-row m-tiles, 64-deep k-tiles
+_SLAB = 128                # kBN: a GEMM unit's columns
+_MT_UNIT = 2               # kMtUnit: m-tiles of a GEMM unit, at most
+_MAX_SPLIT = 8             # kMaxSplit
+_A_STAGES = 6              # kAStages
+_A_REGION = _A_STAGES * _MT_UNIT * _TILE * _TILE * 2   # kARegion, bytes
+_THREADS = 384             # kThreads: two consumer warpgroups, a producer one
+_ATT_SPLIT = 4             # kAttSplit: warps splitting a query group's keys
+_ATT_GROUPS = 2            # kAttGroups: 16-row query groups of a unit
+_LAND = 6                  # kLand: int8 landing slots
+_LAND_BYTES = 64 * 64 + 64 * 4   # kLandBytes: a tile and its 64 scales
+# kWRing: the weight ring's offset, past the A region, 512 bytes of
+# descriptors and 2 x 16 + _LAND + _A_STAGES mbarriers, aligned to 1024
+_W_RING = -(-(_A_REGION + 512 + (32 + _LAND + _A_STAGES) * 8) // 1024) * 1024
+_TRACE_BARRIERS = 4        # kTraceBarriers
+_UNIT_STAMPS = 6           # kUnitStamps
+LAYER_PHASES = ("ln1", "qkv", "attention", "proj", "ln2", "fc1", "fc2")
+KERNEL_FORMS = ("lowlat_encoder", "lowlat_e2e", "lowlat_batchgrid")
 
 
-def trace_slots(depth: int, *, fold_ends: bool = False,
-                batch_grid: bool = False) -> int:
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _w_stages(int8: bool) -> int:
+    return 12 if int8 else 16
+
+
+def plan_gemm(m: int, n: int, nseg: int, kc: int, nchunks: int, split: bool,
+              grid: int) -> dict:
+    """How a GEMM phase of M rows, N output columns (the first ``nseg``
+    from the first weight segment) and K = ``nchunks`` chunks of ``kc`` is
+    cut into units: 128-column slabs (per segment), m-groups of ``mtpg``
+    64-row m-tiles (at most 2), and ``ksplit`` slices of its 64-deep
+    k-tiles (k-tiles never cross a chunk).  ``split`` (a row phase follows
+    and sums partial slots): K is split so that the units fill the grid;
+    else M is split instead."""
+    slabs0 = _cdiv(nseg, _SLAB)
+    slabs = slabs0 + _cdiv(n - nseg, _SLAB)
+    mtiles, tpc = _cdiv(m, _TILE), _cdiv(kc, _TILE)
+    ktiles = nchunks * tpc
+    minmg = _cdiv(mtiles, _MT_UNIT)
+    if split:
+        mg = minmg
+        ksplit = min(max(grid // (slabs * mg), 1), ktiles, _MAX_SPLIT)
+    else:
+        ksplit = 1
+        mg = min(max(grid // slabs, minmg), mtiles)
+    mtpg = _cdiv(mtiles, mg)
+    mgroups = _cdiv(mtiles, mtpg)
+    return {"slabs0": slabs0, "slabs": slabs, "mtiles": mtiles,
+            "mgroups": mgroups, "mtpg": mtpg, "tpc": tpc, "ktiles": ktiles,
+            "ksplit": ksplit, "units": slabs * mgroups * ksplit}
+
+
+def gemm_units(g: dict):
+    """Each unit of a GEMM plan as ``(slab, m-tiles, k-tiles)``: ranges in
+    the order the grid's blocks take them (unit u to block u % grid)."""
+    for u in range(g["units"]):
+        mg, r = u % g["mgroups"], u // g["mgroups"]
+        ks, slab = r % g["ksplit"], r // g["ksplit"]
+        mt0 = mg * g["mtpg"]
+        yield (slab, range(mt0, min(mt0 + g["mtpg"], g["mtiles"])),
+               range(ks * g["ktiles"] // g["ksplit"],
+                     (ks + 1) * g["ktiles"] // g["ksplit"]))
+
+
+def _att_keys(tp: int) -> int:
+    return _cdiv(tp, 16) * 16
+
+
+def lowlat_plan(batch: int, tp: int, d: int, heads: int, sms: int,
+                kernel: str, int8: bool = False, *, depth: int = 12,
+                hh: int = 0) -> dict:
+    """The launch of a whole-encoder kernel for a shape, as its C launcher
+    plans it (``csrc/lowlat_core.cuh`` make_plan): ``kernel`` is
+    ``"lowlat_encoder"`` (encoder-only), ``"lowlat_e2e"`` (fold-ends, head
+    width ``hh``) or ``"lowlat_batchgrid"``.  One block of 384 threads on
+    each of the ``sms`` SMs.  Returns the grid, the shared memory, the
+    weight ring's stages, each GEMM's plan (:func:`plan_gemm`; ``stem``
+    None without fold-ends), the attention phase's units (two 16-row query
+    groups of one item and head, four warps to a group splitting its keys)
+    and key tile, the phases in launch order (name, units, K slices; a row
+    phase's units are its rows), and the scratch: ``splitk_floats`` f32
+    partial sums and ``bar_words`` barrier words.
+    :func:`lowlat_launch_config` reads the launcher's own choice."""
+    if kernel not in KERNEL_FORMS:
+        raise ValueError(f"kernel must be one of {KERNEL_FORMS}, got "
+                         f"{kernel!r}")
+    bg, fold = kernel == "lowlat_batchgrid", kernel == "lowlat_e2e"
+    m, h4, grid, st = batch * tp, 4 * d, sms, _w_stages(int8)
+    gemms = {
+        "stem": plan_gemm(m, d, d, d, 1, False, grid) if fold else None,
+        "qkv": plan_gemm(m, 3 * d, 3 * d, d, 1, False, grid),
+        "proj": plan_gemm(m, d, d, d, 1, True, grid),
+        "fc1": plan_gemm(m, h4, 2 * d if bg else h4, d, 1, False, grid),
+        "fc2": plan_gemm(m, d, d, d, 4, True, grid)}
+    dh = d // heads
+    chunks = _cdiv(_cdiv(tp, 16), _ATT_GROUPS)
+    scratch = _ATT_GROUPS * _ATT_SPLIT * 16 * (dh + 2) * 4  # row stats, P V
+    keys, fit = _att_keys(tp), (_A_REGION - scratch) // (2 * (dh + 8) * 2)
+    key_tile = keys if keys <= fit else fit // 64 * 64
+    att = {"chunks": chunks, "gpc": _ATT_GROUPS,
+           "units": batch * heads * chunks, "key_tile": key_tile,
+           "key_tiles": _cdiv(keys, key_tile)}
+    head_units = batch * _cdiv(hh, 64) if fold else 0
+    rows = {"units": m, "split": 1}
+    kinds = {"attention": {"units": att["units"], "split": 1},
+             "ln1": rows, "ln2": rows, "fixup": rows,
+             "head": {"units": head_units, "split": 1}}
+    kinds.update({k: {"units": g["units"], "split": g["ksplit"]}
+                  for k, g in gemms.items() if g})
+    names = (["stem"] if fold else []) + list(LAYER_PHASES) * depth + [
+        "head" if fold else "fixup"]
+    slots = max(gemms["proj"]["ksplit"], gemms["fc2"]["ksplit"])
+    return {"kernel": kernel, "grid": grid, "threads": _THREADS,
+            "smem": (_W_RING + st * 8192 + (_LAND * _LAND_BYTES if int8 else 0)
+                     + 1024),
+            "w_stages": st, "a_stages": _A_STAGES, "gemms": gemms,
+            "attention": att, "head_units": head_units,
+            "phases": [dict(name=n, **kinds[n]) for n in names],
+            "splitk_floats": slots * m * d, "bar_words": 1 + batch,
+            "trace_slots": 1 + _TRACE_BARRIERS + len(names)}
+
+
+def plan_ints(plan: dict) -> list:
+    """A plan as the integers the C launcher reports (plan_ints in
+    ``csrc/lowlat_core.cuh``)."""
+    out = [plan["grid"], plan["threads"], plan["smem"], plan["w_stages"],
+           plan["a_stages"], len(plan["phases"])]
+    for k in ("stem", "qkv", "proj", "fc1", "fc2"):
+        g = plan["gemms"][k]
+        out += ([g[f] for f in ("slabs", "mgroups", "mtpg", "ktiles",
+                                "ksplit", "units")] if g else [0] * 6)
+    a = plan["attention"]
+    out += [a["chunks"], a["gpc"], a["units"], a["key_tile"], a["key_tiles"],
+            plan["head_units"], plan["splitk_floats"], plan["bar_words"]]
+    return out
+
+
+def lowlat_launch_config(batch: int, tp: int, d: int, heads: int,
+                         kernel: str, int8: bool = False, *, depth: int = 12,
+                         hh: int = 0, sms: int = 0) -> list:
+    """The C launcher's plan for a shape (``vsd_lowlat_plan`` of the
+    kernel's library, which launches nothing; on this card's SM count, or
+    on ``sms``), as :func:`plan_ints` lays a plan out.  The library is
+    built at first use, so this needs ``nvcc``."""
+    lib_name = ("lowlat_batchgrid" if kernel == "lowlat_batchgrid"
+                else "lowlat_encoder")
+    _, fn = _build.entry(lib_name, *_PLAN_SIGNATURE)
+    out = (ctypes.c_int * 64)()
+    n = fn(int(kernel == "lowlat_batchgrid"), int(kernel == "lowlat_e2e"),
+           int(int8), depth, batch, tp, d, heads, hh, sms,
+           ctypes.cast(out, ctypes.c_void_p), 64)
+    return list(out[:n])
+
+
+def _sms(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _sync_scratch(plan: dict, dev):
+    """The grid barrier's words (and the head's item counters) and the
+    split-K partial sums of one launch: ``(bar int32, splitk f32)``."""
+    bar = torch.empty((plan["bar_words"],), dtype=torch.int32, device=dev)
+    splitk = torch.empty((max(plan["splitk_floats"], 1),),
+                         dtype=torch.float32, device=dev)
+    return bar, splitk
+
+
+def trace_slots(depth: int, *, fold_ends: bool = False) -> int:
     """Timestamps a traced launch writes: the start, the empty barriers
-    that time the barrier itself, one per phase (7 a layer, 8 in the
-    batch-grid kernel; the stem and the two head phases with fold-ends)."""
-    phases = depth * (8 if batch_grid else 7) + (3 if fold_ends else 0)
+    that time the barrier itself, one per phase (7 a layer, and the final
+    fixup, or with fold-ends the stem and the head)."""
+    phases = len(LAYER_PHASES) * depth + (2 if fold_ends else 1)
     return 1 + _TRACE_BARRIERS + phases
 
 
-_TRACE_BARRIERS = 4        # kTraceBarriers of csrc/lowlat_core.cuh
+def unit_trace_slots(plan: dict) -> int:
+    """Length of a trace that also takes the unit stamps: every block
+    writes ``kUnitStamps`` timer values for its first unit of each phase
+    (``csrc/lowlat_core.cuh``), after the barrier stamps."""
+    return plan["trace_slots"] * (1 + plan["grid"] * _UNIT_STAMPS)
 
 
 def _trace_ptr(trace, need: int, dev):
@@ -468,17 +635,22 @@ def _launch_encoder(x_in, w_packed, s_packed, ends, *, num_heads,
     hid = torch.empty((rows, 4 * d), dtype=bf, device=dev)
     h1 = torch.empty((b, max(hh, 1)), dtype=f32, device=dev)
     logits = torch.empty((b, 2), dtype=f32, device=dev)
-    bar, splitk, units = _sync_scratch(dev)
+    int8 = w_packed.dtype == torch.int8
+    plan = lowlat_plan(b, tp, d, num_heads, _sms(dev),
+                       "lowlat_encoder" if ends is None else "lowlat_e2e",
+                       int8, depth=depth, hh=hh)
+    bar, splitk = _sync_scratch(plan, dev)
     end_ptrs = ([t.data_ptr() for t in ends] if ends is not None
                 else [None, None, None])
-    tr = _trace_ptr(trace, trace_slots(depth, fold_ends=ends is not None), dev)
-    int8 = w_packed.dtype == torch.int8
+    tr = _trace_ptr(trace, plan["trace_slots"], dev)
     lib, fn = _entry("lowlat_encoder")
     err = fn(x_in.data_ptr(), x.data_ptr(), w_packed.data_ptr(), int(int8),
              s_packed.data_ptr(), *end_ptrs, xn.data_ptr(), qkv.data_ptr(),
              hid.data_ptr(), h1.data_ptr(), logits.data_ptr(), bar.data_ptr(),
-             splitk.data_ptr(), units, tr, depth, b, tp, d, num_heads,
-             valid_len, hh, eps, head_eps, float(d // num_heads) ** -0.5,
+             splitk.data_ptr(), splitk.numel(), tr,
+             0 if trace is None else trace.numel(), depth, b, tp, d,
+             num_heads, valid_len, hh, eps, head_eps,
+             float(d // num_heads) ** -0.5,
              _stream(dev))
     name = "lowlat_encoder_int8" if int8 else "lowlat_encoder"
     _build.check(lib, name, err)
@@ -510,10 +682,11 @@ def encoder_forward_lowlat(xp, w_packed, s_packed, *, num_heads: int,
     whole per-item pack in one launch.
 
     On the card: bf16 stream, the bf16 pack (W bf16, 4 S rows) or the
-    int8 pack (W int8, 5 S rows), a head dim of 16, 32 or 64, D and Tp
-    multiples of 8.  ``trace`` (measurement only): an int64 tensor of at
+    int8 pack (W int8, 5 S rows), a head dim of 16, 32 or 64, Tp a
+    multiple of 8.  ``trace`` (measurement only): an int64 tensor of at
     least :func:`trace_slots` elements on the card that receives a
-    global-timer stamp (ns) at each grid barrier."""
+    global-timer stamp (ns) at each grid barrier; with at least
+    :func:`unit_trace_slots` it also takes each block's unit stamps."""
     if torch.compiler.is_exporting():
         return lowlat_encoder_op(xp, w_packed, s_packed, num_heads,
                                  valid_len, eps)
@@ -584,16 +757,17 @@ def _lowlat_batchgrid_cuda(xp, w_packed, s_packed, num_heads, valid_len,
     xn = torch.empty((rows, d), dtype=bf, device=dev)
     qkv = torch.empty((rows, 3 * d), dtype=bf, device=dev)
     hid = torch.empty((rows, 4 * d), dtype=bf, device=dev)
-    part = torch.empty((rows, d), dtype=torch.float32, device=dev)
-    bar, splitk, units = _sync_scratch(dev)
-    tr = _trace_ptr(trace, trace_slots(depth, batch_grid=True), dev)
+    plan = lowlat_plan(b, tp, d, num_heads, _sms(dev), "lowlat_batchgrid",
+                       depth=depth)
+    bar, splitk = _sync_scratch(plan, dev)
+    tr = _trace_ptr(trace, plan["trace_slots"], dev)
     lib, fn = _entry("lowlat_batchgrid")
     err = fn(xp.data_ptr(), x.data_ptr(), w_packed.data_ptr(),
              s_packed.data_ptr(), xn.data_ptr(), qkv.data_ptr(),
-             hid.data_ptr(), part.data_ptr(), bar.data_ptr(),
-             splitk.data_ptr(), units, tr, depth, b, tp,
-             d, num_heads, valid_len, eps, float(d // num_heads) ** -0.5,
-             _stream(dev))
+             hid.data_ptr(), bar.data_ptr(), splitk.data_ptr(),
+             splitk.numel(), tr, 0 if trace is None else trace.numel(),
+             depth, b, tp, d, num_heads, valid_len, eps,
+             float(d // num_heads) ** -0.5, _stream(dev))
     _build.check(lib, "lowlat_batchgrid", err)
     LAUNCHES["lowlat_batchgrid"] += 1
     return x

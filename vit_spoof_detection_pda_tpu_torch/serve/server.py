@@ -24,7 +24,8 @@ symbolic-batch module artifact serves every batch size, and fixed-batch
 kernel artifacts (e.g. lowlat B = 1 and fastserve B = 32) each add their
 shape; or from a live model (:func:`build_programs_live`), where each
 batch shape gets the regime of ``fastserve.auto_serving_mode`` (B = 1
-``lowlat``, >= 2 ``fastserve``, the H100's measured table).  The
+``lowlat``, 2 ``batch_grid``, >= 3 ``fastserve``, the H100's measured
+table).  The
 dispatcher picks the smallest shape that fits each window.
 """
 
