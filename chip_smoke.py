@@ -12,7 +12,9 @@ runs these phases, each printing one JSON line and raising on failure:
             to its C launcher's own choice at every square Tp 8-1,040 and
             the rectangles, bf16 and f32, head dims 16, 32 and 64; the
             whole-encoder kernels' plan (ops/lowlat.py lowlat_plan) held
-            to theirs at B = 1-4 and Tp 8-584.
+            to theirs at B = 1-4 and Tp 8-584; the bf16 GEMM core's plan
+            (ops/gemm.py gemm_plan) held to vsd_gemm_plan at ViT-B/16's
+            four products, B = 1-128, and ragged M, N and K.
 3. kernels  each kernel against its plain PyTorch version on the card in
             bf16: full ViT-B shapes (B = 2, 3 and the main path's 128;
             Tp 200, valid_len 197) and a ragged one (Tp 40, valid_len 33,
@@ -26,7 +28,8 @@ runs these phases, each printing one JSON line and raising on failure:
             numpy seed, loaded through models/convert.py) served by
             make_serving_fn at B = 128 and B = 32 on 224x224 uint8
             faces.  Each kernel's launch count must rise by exactly 12
-            per forward.  Scores are held against the same forward with
+            per forward, the bf16 GEMM core's by 48 (two a block).
+            Scores are held against the same forward with
             both blocks on their plain versions on the card, and against
             the port's f32 module forward (TF32 off): max |diff| within
             5e-2 and mean |diff| within 1e-2.  That is the bf16 noise
@@ -185,6 +188,16 @@ runs these phases, each printing one JSON line and raising on failure:
             versions, bounds and the PyTorch call for the same function
             where there is one (SDPA's backward for kernel 4, the LN
             backward plus the add for kernel 6).
+   kernels_gemm, times_gemm  the GEMM cores of kernels 1, 2, 3 and 7
+            alone (ops/gemm.py gemm): the bf16 core at the scoring
+            forward's four products (B = 128, M 25,600, each with its
+            epilogue) and the training fc1 with its stored hidden, the f32
+            core at the f32 step's (B = 32), each against gemm_plain (bf16
+            within 2 bf16 ulps, f32 within 1e-5 of each output's largest
+            magnitude), then timed in turns with torch.matmul on the same
+            operands (TF32 off), beside gemm_plain and the bound; the rows'
+            launches are the cores' launches by the blocks in phase 4's
+            B = 128 forward (48) and phase 17's f32 step (24).
 20. kernels (again) kernel 17 (the doctor's probe, o = 2 x on [8, 128]
             f32) against 2 x exactly; kernel 5 (the phased attention
             backward) against attention_qkv_bwd_plain, bf16 at B = 2, 3,
@@ -368,6 +381,7 @@ from vit_spoof_detection_pda_tpu_torch.ops import _build
 from vit_spoof_detection_pda_tpu_torch.ops import attention as att
 from vit_spoof_detection_pda_tpu_torch.ops import augment as aug
 from vit_spoof_detection_pda_tpu_torch.ops import gather
+from vit_spoof_detection_pda_tpu_torch.ops import gemm
 from vit_spoof_detection_pda_tpu_torch.ops import ln_bwd
 from vit_spoof_detection_pda_tpu_torch.ops import lowlat as low
 from vit_spoof_detection_pda_tpu_torch.ops import nlm
@@ -534,7 +548,20 @@ KERNELS = {
     "attention_cp_bwd_f32": dict(
         source="vit_spoof_detection_pda_tpu_torch/csrc/attention_cp_bwd.cu",
         replaces="vit_spoof_detection_pda_tpu/ops/attention.py:865"),
+    # the GEMM cores that kernels 1, 2, 3 and 7 launch for their products
+    # (two a call; the TPU kernels' QKV / proj and fc1 / fc2 dots), timed
+    # alone through csrc/gemm.cu
+    "gemm": dict(
+        source="vit_spoof_detection_pda_tpu_torch/csrc/gemm_core.cuh",
+        replaces="vit_spoof_detection_pda_tpu/ops/attention.py:412"),
+    "gemm_f32": dict(
+        source="vit_spoof_detection_pda_tpu_torch/csrc/f32_common.cuh",
+        replaces="vit_spoof_detection_pda_tpu/models/fasttrain.py:70"),
 }
+# the GEMM cores' launches in the main paths' runs (ops/gemm.py
+# core_launches, counted in C where the launchers launch the cores): the
+# B = 128 scoring forward and the f32 training step's step 0
+CORE_COUNTS = {}
 SERVING_KERNELS = ("attention_block", "mlp_block")
 TRAIN_KERNELS = ("attention_block_train", "attention_qkv_bwd", "ln_res_bwd")
 LOWLAT_KERNELS = ("lowlat_encoder", "lowlat_batchgrid")
@@ -655,6 +682,7 @@ def plain_attention_qkv():
 def reset_launches():
     for k in att.LAUNCHES:
         att.LAUNCHES[k] = 0
+    gemm.core_launches(reset=True)
 
 
 def bf16_tol(want: torch.Tensor, ulps: int = 2) -> float:
@@ -923,6 +951,19 @@ def lowlat_plan_mismatches() -> list:
                                         depth=DEPTH, hh=shape[5])]
 
 
+def gemm_plan_mismatches() -> list:
+    """The shapes where ops/gemm.py's plan of the bf16 GEMM core differs
+    from what its C launcher chooses (read from the library): ViT-B/16's
+    four products at B = 1, 2, 32 and 128 (Tp 200, and the step's 197
+    rows) and ragged M, N and K."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    shapes = [(b * tp, n, k) for b in (1, 2, 32, 128) for tp in (TP, T)
+              for n, k in ((3 * D, D), (D, D), (HIDDEN, D), (D, HIDDEN))] + [
+        (m, n, k) for m in (1, 130, 25216) for n in (8, 776) for k in (8, 72)]
+    return [shape for shape in shapes
+            if gemm.gemm_plan(*shape, sms) != gemm.gemm_launch_config(*shape)]
+
+
 def phase_build():
     t0 = time.perf_counter()
     compiled = _build.build()
@@ -931,13 +972,21 @@ def phase_build():
                     for ln in _build.build_log(name).splitlines()
                     if "Used" in ln or "spill" in ln]
              for name in _build.KERNELS}
+    # ptxas's notes that a kernel's wgmma products run serialised (C75xx)
+    serialised = {name: n for name in _build.KERNELS
+                  if (n := sum("C75" in ln for ln in
+                               _build.build_log(name).splitlines()))}
     mismatches = onchip_plan_mismatches()
     lowlat_mismatches = lowlat_plan_mismatches()
+    gemm_mismatches = gemm_plan_mismatches()
     emit({"phase": "build", "seconds": round(seconds, 3),
           "compiled": compiled, "ptxas": ptxas,
+          "wgmma_serialised_notes": serialised,
           "onchip_plan_mismatches": mismatches,
           "lowlat_plan_mismatches": lowlat_mismatches,
-          "ok": not mismatches and not lowlat_mismatches})
+          "gemm_plan_mismatches": gemm_mismatches,
+          "ok": not mismatches and not lowlat_mismatches
+          and not gemm_mismatches})
     if mismatches:
         raise AssertionError(f"build: the on-chip backward's plan differs "
                              f"from its C launcher at {mismatches}")
@@ -945,6 +994,9 @@ def phase_build():
         raise AssertionError(f"build: the whole-encoder kernels' plan "
                              f"differs from their C launcher at "
                              f"{lowlat_mismatches}")
+    if gemm_mismatches:
+        raise AssertionError(f"build: the GEMM core's plan differs from its "
+                             f"C launcher at {gemm_mismatches}")
 
 
 def _kernel_parts(a_in, m_in, bwd, ln, heads, valid):
@@ -1031,6 +1083,7 @@ def phase_slice(dev):
     s128 = serve128(u8)
     torch.cuda.synchronize()
     launches = dict(att.LAUNCHES)
+    CORE_COUNTS["scoring_b128"] = gemm.core_launches()
     reset_launches()
     s32 = serve32(u8[:32])
     torch.cuda.synchronize()
@@ -1039,6 +1092,11 @@ def phase_slice(dev):
     if launches != want or launches32 != want:
         raise AssertionError(f"kernel launches per forward {launches} "
                              f"(B=128), {launches32} (B=32); want {want}")
+    # each block launches the bf16 GEMM core twice
+    if CORE_COUNTS["scoring_b128"] != {"gemm": 4 * DEPTH, "gemm_f32": 0}:
+        raise AssertionError(f"GEMM core launches per forward "
+                             f"{CORE_COUNTS['scoring_b128']}; want "
+                             f"{4 * DEPTH} of the bf16 core")
 
     with plain_blocks():
         plain = serve128(u8)
@@ -2845,14 +2903,21 @@ def phase_train_modes(dev):
     out, ok = {}, True
     for run, (apply_fn, want_run) in runs.items():
         loss, grads, counts = step0(apply_fn, imgs, lbls)
+        if run == "fasttrain_hidden":  # the f32 GEMM core: 2 a kernel 3
+            CORE_COUNTS["f32_step"] = gemm.core_launches()
+            good_core = CORE_COUNTS["f32_step"] == {"gemm": 0,
+                                                    "gemm_f32": 2 * DEPTH}
         gaps = _leaf_gaps(grads, ref32)
         del grads
         worst = max(gaps, key=gaps.get)
         good = (counts == want_run and math.isfinite(loss)
-                and gaps[worst] <= F32_GRAD_REL_TOL)
+                and gaps[worst] <= F32_GRAD_REL_TOL
+                and (run != "fasttrain_hidden" or good_core))
         ok = ok and good
         launches[f"f32_{run}"] = counts
         out[run] = {"loss": loss, "loss_f32": loss_ref32,
+                    **({"core_launches": CORE_COUNTS["f32_step"]}
+                       if run == "fasttrain_hidden" else {}),
                     "loss_gap": abs(loss - loss_ref32),
                     "max_leaf_rel_l2_vs_f32": gaps[worst],
                     "median_leaf_rel_l2_vs_f32": statistics.median(
@@ -3215,6 +3280,115 @@ def phase_times_train_loop(dev, ctx, loop_trainer, main_err, launches):
           "kernels": {r["name"]: {k: r[k] for k in (
               "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
               "launches")} for r in rows}})
+    return rows
+
+
+# --------------------------------------------------------------------------
+# slice 15: the GEMM cores of kernels 1, 2, 3 and 7 alone
+# --------------------------------------------------------------------------
+
+# (label, M, N, K, epilogue) of each product on the main paths: the
+# scoring forward's four (bf16, B = 128, Tp 200), the training MLP's fc1
+# with its stored hidden (the step's 197 rows), and the f32 step's (B = 32)
+GEMM_CASES = {
+    "gemm": [("qkv", MAIN_B * TP, 3 * D, D, "bias"),
+             ("proj", MAIN_B * TP, D, D, "bias_residual"),
+             ("fc1", MAIN_B * TP, HIDDEN, D, "bias_gelu"),
+             ("fc2", MAIN_B * TP, D, HIDDEN, "bias_residual"),
+             ("fc1_train", MAIN_B * T, HIDDEN, D, "bias_hgelu_erf")],
+    "gemm_f32": [("qkv", F32_B * TP, 3 * D, D, "bias"),
+                 ("proj", F32_B * TP, D, D, "bias_residual"),
+                 ("fc1_train", F32_B * T, HIDDEN, D, "bias_hgelu_erf"),
+                 ("fc2", F32_B * TP, D, HIDDEN, "bias_residual")]}
+
+
+def _gemm_operands(rng, m, n, k, epilogue, dt, dev):
+    def t(*shape, scale=1.0, dtype=dt):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(
+            np.float32)).to(dev, dtype)
+    a, w = t(m, k), t(k, n, scale=k ** -0.5)
+    bias = t(n, scale=0.1, dtype=torch.float32)
+    res = t(m, n) if epilogue == "bias_residual" else None
+    return (a, w, bias), dict(epilogue=epilogue, residual=res)
+
+
+def phase_kernels_gemm(dev) -> dict:
+    """Each GEMM core (ops/gemm.py::gemm) against gemm_plain at the main
+    paths' products with their epilogues: bf16 within 2 bf16 ulps of each
+    output's largest magnitude, f32 within 1e-5 of it.  Returns each
+    core's largest error."""
+    rng = np.random.default_rng(SEED + 51)
+    worst = {}
+    for name, cases in GEMM_CASES.items():
+        dt = torch.float32 if name == "gemm_f32" else torch.bfloat16
+        for label, m, n, k, epi in cases:
+            args, kw = _gemm_operands(rng, m, n, k, epi, dt, dev)
+            got, want = gemm.gemm(*args, **kw), gemm.gemm_plain(*args, **kw)
+            torch.cuda.synchronize()
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            parts, ok = {}, True
+            for part, g, w in zip(("c", "h"), got, want):
+                g, w = g.float(), w.float()
+                err = (g - w).abs().max().item()
+                tol = (bf16_tol(w) if dt == torch.bfloat16
+                       else 1e-5 * w.abs().max().item())
+                parts[part] = {"max_abs_err": err, "tol": tol}
+                ok = ok and bool(torch.isfinite(g).all()) and err <= tol
+                worst[name] = max(worst.get(name, 0.0), err)
+            emit({"phase": "kernels_gemm", "kernel": name, "case": label,
+                  "shape": [m, n, k], "epilogue": epi, "parts": parts,
+                  "ok": ok})
+            if not ok:
+                raise AssertionError(f"{name} disagrees with gemm_plain at "
+                                     f"{label} {m}x{n}x{k}: {parts}")
+            del args, kw, got, want
+    return worst
+
+
+def phase_times_gemm(dev, err) -> list:
+    """Each core at the main paths' products beside gemm_plain, its bound
+    and one torch.matmul on the same operands (TF32 off; the library's
+    GEMM, timed only as the yardstick), kernel and library in turns.  The
+    row's numbers are the QKV product's; ``by_product`` holds every
+    product's.  Launches: the cores' launches by the blocks in the main
+    paths' runs (the B = 128 scoring forward, the f32 step)."""
+    rng = np.random.default_rng(SEED + 52)
+    launches = {"gemm": CORE_COUNTS["scoring_b128"]["gemm"],
+                "gemm_f32": CORE_COUNTS["f32_step"]["gemm_f32"]}
+    rows = []
+    for name, cases in GEMM_CASES.items():
+        dt = torch.float32 if name == "gemm_f32" else torch.bfloat16
+        peak = PEAK_F32_FLOPS if dt == torch.float32 else PEAK_BF16_FLOPS
+        by = {}
+        for label, m, n, k, epi in cases:
+            args, kw = _gemm_operands(rng, m, n, k, epi, dt, dev)
+            a, w, _ = args
+
+            def lib(a=a, w=w):
+                with exact_f32_matmul():
+                    return torch.matmul(a, w)
+            ms, lib_ms = time_in_turns(lambda: gemm.gemm(*args, **kw), lib)
+            plain_ms = time_ms(lambda: gemm.gemm_plain(*args, **kw),
+                               per_window=3)
+            outs = 2 if epi.startswith("bias_hgelu") else 1
+            nb = nbytes(*args) + (outs + (kw["residual"] is not None)) * (
+                m * n * a.element_size())
+            bound_ms, bound_by = bound(2 * m * n * k, nb, peak)
+            by[label] = {"shape": [m, n, k], "epilogue": epi, "ms": ms,
+                         "plain_ms": plain_ms, "library_ms": lib_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by,
+                         "share_of_peak": bound_ms / ms}
+            del args, kw, a, w
+        q = by["qkv"]
+        rows.append({"name": name, "route": "cuda", **KERNELS[name],
+                     "launches": launches[name], "max_abs_err": err[name],
+                     "ms": q["ms"], "plain_ms": q["plain_ms"],
+                     "bound_ms": q["bound_ms"], "bound_by": q["bound_by"],
+                     "library_ms": q["library_ms"], "by_product": by})
+    emit({"phase": "times_gemm", "kernels": {r["name"]: r["by_product"]
+                                             for r in rows},
+          "launches": launches})
     return rows
 
 
@@ -5502,6 +5676,7 @@ def main() -> int:
         rows += phase_times_train_loop(dev, tctx, loop_trainer, train_err,
                                        mode_launches)
     del loop_trainer
+    rows += phase_times_gemm(dev, phase_kernels_gemm(dev))
     cli_err = phase_kernels_cli(dev)
     phased_launches = phase_train_phased(dev, tctx)
     with tempfile.TemporaryDirectory() as tmp:

@@ -35,7 +35,6 @@ PLANS = {
     "cp_bwd_plan": lambda tp, dh, dt: [
         tatt.cp_bwd_plan(8, -(-tp // 2), tp, 12, dh, dt),
         tatt.cp_bwd_plan(8, tp, tp, 12, dh, dt)],
-    "forward_plan": lambda tp, dh, dt: tatt.forward_plan(tp, dh, dt),
     "module_attention_plan":
         lambda tp, dh, dt: tatt.module_attention_plan(tp, dh, dt),
 }
@@ -91,7 +90,8 @@ def test_module_attention_plan_tiles_cover_every_row(dtype, dh):
     for t in TPS:
         plan = tatt.module_attention_plan(t, dh, dtype)
         if dtype == F32 and plan["form"] != "one_pass":
-            assert plan == tatt.forward_plan(t, dh, F32), (t, plan)
+            assert plan == tatt._f32_core_plan(t, dh), (t, plan)
+            assert plan["form"] in ("whole", "key_tiled"), (t, plan)
             continue
         per_group = 2 if dtype == F32 else 1
         assert plan["tiles"] * plan["warps"] >= per_group * -(-t // 16)

@@ -123,15 +123,18 @@ def test_indivisible_geometry_raises():
 
 
 def test_kernel_shared_memory_bound_matches_the_source():
-    """The plan's shared-memory figures follow csrc/attention_qkv.cu:
-    ViT-B (T 197, head dim 64) fits whole in both dtypes; T 400 at f32
-    does not, and takes the key-tiled core within the limit."""
+    """The plan's shared-memory figures follow csrc/attention_self.cuh: at
+    ViT-B (T 197, head dim 64) the blocks' attention stage is kernel 12's
+    one pass in both dtypes (bf16: 7 warps of 16 rows and 208 keys of K
+    and V, [rows][dh + 8]); T 400 at f32 is past the one pass and the
+    whole f32 core, and takes its key tiles within the limit."""
     limit = tatt._MAX_SMEM
-    assert tatt.forward_plan(197, 64, torch.bfloat16) == {
-        "form": "whole", "smem": 2 * 208 * 72 * 2}
-    assert tatt.forward_plan(197, 64, torch.float32) == {
-        "form": "whole", "smem": 4 * (2 * 197 * 68 + 8 * 4 * (64 + 197))}
-    assert 4 * (2 * 197 * 68 + 8 * 4 * (64 + 197)) <= limit
+    assert tatt.module_attention_plan(197, 64, torch.bfloat16) == {
+        "form": "one_pass", "tiles": 2, "warps": 7, "keys": 208,
+        "smem": (7 * 16 + 2 * 208) * 72 * 2}
+    f32 = tatt.module_attention_plan(197, 64, torch.float32)
+    assert (f32["form"], f32["keys"]) == ("one_pass", 200)
+    assert f32["smem"] <= limit
     assert 4 * (2 * 400 * 68 + 8 * 4 * (64 + 400)) > limit
-    big = tatt.forward_plan(400, 64, torch.float32)
+    big = tatt.module_attention_plan(400, 64, torch.float32)
     assert big["form"] == "key_tiled" and big["smem"] <= limit

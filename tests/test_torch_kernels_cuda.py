@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from vit_spoof_detection_pda_tpu_torch.ops import attention as tatt
+from vit_spoof_detection_pda_tpu_torch.ops import gemm as tgemm
 from vit_spoof_detection_pda_tpu_torch.ops import ln_bwd as tln
 from vit_spoof_detection_pda_tpu_torch.ops import lowlat as tlow
 
@@ -1169,7 +1170,7 @@ def test_attention_block_f32_key_tiled_matches_plain_on_card(
     key-tiled core, within 1e-5 of each output's largest magnitude."""
     a = _attn_inputs(71, cuda_device, b, tp, d)
     x, *w = _f32(a.values())
-    assert tatt.forward_plan(tp, d // heads, torch.float32)[
+    assert tatt.module_attention_plan(tp, d // heads, torch.float32)[
         "form"] == "key_tiled"
     n0 = dict(tatt.LAUNCHES)
     got = tatt.attention_block_train_padded(x, *w, heads, valid_len=valid)
@@ -1200,7 +1201,8 @@ def test_attention_f32_key_tiled_matches_plain_on_card(cuda_device, b, t,
     the key-tiled core, within 1e-5 of the largest output magnitude."""
     rng = np.random.default_rng(72)
     x = _randn(rng, (b, t, 3, heads, dh), torch.float32, cuda_device)
-    assert tatt.forward_plan(t, dh, torch.float32)["form"] == "key_tiled"
+    assert tatt.module_attention_plan(t, dh, torch.float32)[
+        "form"] == "key_tiled"
     n0 = dict(tatt.LAUNCHES)
     qkv = x.reshape(b, t, 3 * heads * dh)
     got8 = tatt.fused_attention_qkv(qkv, heads)
@@ -1270,7 +1272,8 @@ def test_attention_bf16_key_tiled_matches_plain_on_card(cuda_device, b, t,
     bf16 ulps of the largest output magnitude."""
     rng = np.random.default_rng(74)
     x = _randn(rng, (b, t, 3, heads, dh), torch.bfloat16, cuda_device)
-    assert tatt.forward_plan(t, dh, torch.bfloat16)["form"] == "key_tiled"
+    assert tatt.module_attention_plan(t, dh, torch.bfloat16)[
+        "form"] == "key_tiled"
     n0 = dict(tatt.LAUNCHES)
     qkv = x.reshape(b, t, 3 * heads * dh)
     got8 = tatt.fused_attention_qkv(qkv, heads)
@@ -1295,7 +1298,7 @@ def test_attention_block_bf16_key_tiled_matches_plain_on_card(
     stage on kernel 12's key tiles): within 2 bf16 ulps of each output's
     largest magnitude."""
     a = _attn_inputs(75, cuda_device, b, tp, d)
-    assert tatt.forward_plan(tp, d // heads, torch.bfloat16)[
+    assert tatt.module_attention_plan(tp, d // heads, torch.bfloat16)[
         "form"] == "key_tiled"
     n0 = dict(tatt.LAUNCHES)
     got = tatt.attention_block_train_padded(*a.values(), heads,
@@ -1496,3 +1499,156 @@ def test_onchip_bwd_plan_matches_the_c_launcher_on_card(cuda_device, dtype,
            if (plan := tatt.onchip_bwd_plan(tq, tk, dh, dtype))
            != (c := tatt.onchip_bwd_launch_config(tq, tk, dh, dtype))]
     assert not bad
+
+
+# --------------------------------------------------------------------------
+# The GEMM cores (csrc/gemm_core.cuh, bf16; csrc/f32_common.cuh, f32) alone,
+# and kernels 1 and 3 on the routes of kernels 8 and 9
+# --------------------------------------------------------------------------
+
+# ViT-B/16's four products at B = 128 (bf16, M 25,600) and 32 (f32, 6,400),
+# the step's unpadded rows (25,216), and ragged M, N and K
+GEMM_SHAPES = {
+    torch.bfloat16: [(25600, 2304, 768), (25600, 768, 768),
+                     (25600, 3072, 768), (25600, 768, 3072),
+                     (25216, 2304, 768), (1, 8, 8), (130, 776, 72)],
+    torch.float32: [(6400, 2304, 768), (6400, 768, 768), (6400, 3072, 768),
+                    (6400, 768, 3072), (1, 8, 8), (130, 776, 72)]}
+GEMM_CASES = [(dt, epi, *shape) for dt in (torch.bfloat16, torch.float32)
+              for epi in tgemm.EPILOGUES
+              if not (dt == torch.float32 and epi == "bias_gelu")
+              for shape in GEMM_SHAPES[dt]]
+
+
+def _gemm_inputs(seed, device, m, n, k, dtype):
+    rng = np.random.default_rng(seed)
+
+    def t(*shape, scale=1.0, dt=dtype):
+        return torch.tensor((rng.standard_normal(shape) * scale).astype(
+            np.float32), device=device).to(dt)
+    return (t(m, k), t(k, n, scale=k ** -0.5),
+            t(n, scale=0.1, dt=torch.float32), t(m, n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,epilogue,m,n,k", GEMM_CASES)
+def test_gemm_core_matches_plain_on_card(cuda_device, dtype, epilogue, m, n,
+                                         k):
+    """Each core and epilogue against gemm_plain: within 2 bf16 ulps of
+    each output's largest magnitude (one rounding apart, sums in other
+    f32 orders), f32 within 1e-5 of it."""
+    a, w, bias, r = _gemm_inputs(m + n + k, cuda_device, m, n, k, dtype)
+    res = r if epilogue == "bias_residual" else None
+    name = "gemm_f32" if dtype == torch.float32 else "gemm"
+    n0 = dict(tatt.LAUNCHES)
+    got = tgemm.gemm(a, w, bias, epilogue=epilogue, residual=res)
+    want = tgemm.gemm_plain(a, w, bias, epilogue=epilogue, residual=res)
+    torch.cuda.synchronize()
+    assert tatt.LAUNCHES == {**n0, name: n0[name] + 1}
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for gg, ww in zip(got, want):            # C (and H)
+        assert gg.dtype == dtype
+        (_assert_close if dtype == torch.bfloat16 else _assert_close_f32)(
+            gg, ww)
+
+
+@pytest.mark.cuda
+def test_gemm_core_rejects_what_it_cannot_take(cuda_device):
+    a, w, bias, _ = _gemm_inputs(1, cuda_device, 64, 64, 64, torch.bfloat16)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        tgemm.gemm(a[:, :60], w[:60], bias)
+    with pytest.raises(ValueError, match="bias_gelu"):
+        tgemm.gemm(a.float(), w.float(), bias, epilogue="bias_gelu")
+    with pytest.raises(ValueError, match="residual"):
+        tgemm.gemm(a, w, bias, epilogue="bias_residual")
+    with pytest.raises(TypeError, match="float16"):
+        tgemm.gemm(a.half(), w.half(), bias)
+
+
+@pytest.mark.cuda
+def test_gemm_plan_matches_the_c_launcher_on_card(cuda_device):
+    """gemm_plan is what vsd_gemm_plan reports on this card: the four
+    ViT-B/16 products at B = 1, 2, 32 and 128, and ragged M, N, K."""
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    shapes = [(b * 200, n, k) for b in (1, 2, 32, 128)
+              for n, k in ((2304, 768), (768, 768), (3072, 768), (768, 3072))
+              ] + [(m, n, k) for m in (1, 130, 25216) for n in (8, 776)
+                   for k in (8, 72)]
+    bad = [(shape, plan, c) for shape in shapes
+           if (plan := tgemm.gemm_plan(*shape, sms))
+           != (c := tgemm.gemm_launch_config(*shape))]
+    assert not bad
+
+
+# Kernels 1 and 3 at the first Tp past each route limit of the attention
+# stage (bf16: one pass to 208 keys, then two passes to 800; f32: one pass
+# to 208, the whole f32 core to 328 at head dim 64), ViT-B/16 at 224, 256,
+# 384 and 512 px, and head dims 16 to 128
+BLOCK_ROUTE_CASES = [
+    (2, 208, 205, 768, 12), (2, 216, 209, 768, 12), (2, 800, 795, 768, 12),
+    (2, 808, 801, 768, 12), (2, 200, 197, 768, 12), (2, 264, 257, 768, 12),
+    (1, 584, 577, 768, 12), (1, 1032, 1025, 768, 12),
+    (2, 200, 197, 768, 48), (2, 200, 197, 768, 24), (2, 200, 197, 768, 16),
+    (2, 200, 197, 160, 2), (2, 200, 197, 768, 8), (2, 200, 197, 224, 2),
+    (2, 264, 257, 768, 6), (2, 336, 330, 768, 12)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,tp,valid,d,heads", BLOCK_ROUTE_CASES)
+def test_attention_blocks_on_the_module_routes_match_plain_on_card(
+        cuda_device, dtype, b, tp, valid, d, heads):
+    """Kernels 1 and 3 take the route module_attention_plan names for
+    their attention stage, with the launch counter it names and two
+    launches of the GEMM core each; their outputs within 2 bf16 ulps
+    (f32: 1e-5) of each output's largest magnitude."""
+    a = _attn_inputs(81, cuda_device, b, tp, d)
+    x, *w = a.values() if dtype == torch.bfloat16 else _f32(a.values())
+    plan = tatt.module_attention_plan(tp, d // heads, dtype)
+    sfx = ("_f32" if dtype == torch.float32 else "") + (
+        "_tiled" if plan["form"] == "key_tiled" else "")
+    core = "gemm_f32" if dtype == torch.float32 else "gemm"
+    n0, c0 = dict(tatt.LAUNCHES), tgemm.core_launches()
+    got = tatt.attention_block_train_padded(x, *w, heads, valid_len=valid)
+    out = tatt.fused_attention_block_padded(x, *w, heads, valid_len=valid)
+    want = tatt.attention_block_train_padded_plain(x, *w, heads,
+                                                   valid_len=valid)
+    torch.cuda.synchronize()
+    assert tatt.LAUNCHES == {
+        **n0, "attention_block_train" + sfx:
+            n0["attention_block_train" + sfx] + 1,
+        "attention_block" + sfx: n0["attention_block" + sfx] + 1}
+    assert tgemm.core_launches() == {**c0, core: c0[core] + 4}
+    for gg, ww in zip(got, want):          # out, qkv, attn, xhat, inv
+        if gg.dtype == torch.bfloat16:
+            _assert_close(gg, ww)
+        else:
+            _assert_close_f32(gg, ww)
+    if dtype == torch.bfloat16:
+        _assert_close(out, want[0])
+    else:
+        assert torch.equal(out, got[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,d,hidden", [(128, 200, 768, 3072),
+                                          (3, 197, 768, 3072),
+                                          (2, 33, 64, 256)])
+def test_mlp_blocks_count_two_core_launches_on_card(cuda_device, b, t, d,
+                                                    hidden):
+    """Kernels 2 and 7 (bf16 and f32) follow the GEMM core: two launches
+    of it a call, outputs within 2 bf16 ulps (f32: 1e-5) of plain."""
+    m = _mlp_inputs(41, cuda_device, b, t, d, hidden)
+    c0 = tgemm.core_launches()
+    got = tatt.fused_mlp_block(*m.values())
+    _assert_close(got, tatt.fused_mlp_block_plain(*m.values()))
+    x, *w = _f32(m.values())
+    rows = x.reshape(-1, d)
+    y = tatt.mlp_block_train(rows, *w, approximate=False)
+    want = tatt.mlp_block_train_plain(rows, *w, approximate=False)
+    torch.cuda.synchronize()
+    assert tgemm.core_launches() == {"gemm": c0["gemm"] + 2,
+                                   "gemm_f32": c0["gemm_f32"] + 2}
+    for gg, ww in zip(y, want):
+        _assert_close_f32(gg, ww)

@@ -83,16 +83,21 @@ def _nll(logits, labels, xp):
 
 def test_the_shape_is_past_every_one_block_limit():
     """T 362 (Tp 368) takes the key-tiled route of every plan at head dim
-    64 in both dtypes, bar kernel 12's two-pass form, which holds 368 keys
-    whole."""
+    64 in both dtypes, bar kernel 12's two-pass form (also the bf16
+    attention stage of the blocks), which holds 368 keys whole."""
     tp = tatt._round_up(T, 8)
     for dt in (torch.bfloat16, torch.float32):
         assert tatt.attention_qkv_bwd_plan(2, tp, HEADS, 64, dt)[
             "route"] == "key_tiled"
         assert tatt.cp_bwd_plan(2, tp, tp, HEADS, 64, dt)[
             "route"] == "key_tiled"
-    assert tatt.forward_plan(T, 64, torch.float32)["form"] == "key_tiled"
-    assert tatt.forward_plan(tp, 64, torch.float32)["form"] == "key_tiled"
+    assert tatt.module_attention_plan(T, 64, torch.float32)[
+        "form"] == "key_tiled"
+    assert tatt.module_attention_plan(tp, 64, torch.float32)[
+        "form"] == "key_tiled"
+    # the blocks' bf16 attention stage: kernel 12's two passes, K and V whole
+    assert tatt.module_attention_plan(tp, 64, torch.bfloat16)[
+        "form"] == "two_pass"
 
 
 def test_train_forward_logits_and_every_param_grad_match_jax_f32():

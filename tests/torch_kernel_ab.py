@@ -42,6 +42,19 @@ each beside the PyTorch call that computes the same function:
   ``lowlat_encoder_int8``), ``forward_lowlat_e2e`` at B 1 (``lowlat_e2e``),
   ``..._batchgrid`` per chunk of 2 (``lowlat_batchgrid``) and 4
   (``lowlat_batchgrid_4``);
+- the GEMM cores alone (``ops/gemm.py::gemm``, bias epilogue) at
+  ViT-B/16's four products, QKV, proj, fc1 and fc2 (``gemm_qkv``,
+  ``gemm_proj``, ``gemm_fc1``, ``gemm_fc2``: bf16 at M 25,600 = B 128 x
+  Tp 200; ``..._f32`` at M 6,400), and proj and fc2 with the blocks'
+  residual epilogue (``gemm_proj_res``, ``gemm_fc2_res``), beside
+  ``torch.matmul`` with TF32 off (no epilogue),
+  in a tree that has ``vsd_gemm``; the blocks around them: kernel 2
+  (``mlp_block``, B 128), kernel 7 (``mlp_block_train``, 25,216 rows; f32
+  ``mlp_block_train_f32``, 6,304), kernels 1 and 3 at f32
+  (``attention_block_f32``, ``attention_block_train_f32``, B 32), the B 128
+  scoring forward (``serving_forward_b128``: ``make_serving_fn`` on
+  fastserve) and the default training step (``train_step_bf16_hidden``:
+  ``make_apply(mlp_mode="hidden")``, B 128);
 - at ViT-B/16, 384 px (B 8, T 577, Tp 584), kernel 5's route past its one
   launch (``..._384``: the four-launch long route before the key-tiled
   backward replaced it, the key-tiled backward after), bf16 and f32, beside
@@ -83,8 +96,9 @@ TQ4, TK4 = 56, 224                 # one of four sequence ranks' blocks
 T256, TP256 = 257, 264             # ViT-B/16 at 256 px
 T512, TP512 = 1025, 1040           # ViT-B/16 at 512 px
 T_PAST = (257, 325, 577, 1025)      # ViT-B/16 at 256, 288, 384, 512 px
-NAMES = ("attention_bwd_onchip", "attention_qkv_bwd",
-         "attention_qkv_bwd_f32", "attention_qkv_bwd_phased",
+NAMES = ("gemm", "mlp_block", "mlp_block_train", "attention_block_f32",
+         "attention_bwd_onchip", "attention_qkv_bwd", "attention_qkv_bwd_f32",
+         "attention_qkv_bwd_phased",
          "attention_qkv_bwd_phased_long",
          "attention_bwd_tiled", "attention_cp", "attention_cp_bwd",
          "attention_qkv", "attention", "attention_block",
@@ -258,6 +272,57 @@ def _child(tree: str, only=None) -> None:
         **blk, num_heads=HEADS, valid_len=T), None)
     runs["attention_block_train"] = (lambda: att.attention_block_train_padded(
         **blk, num_heads=HEADS, valid_len=T), None)
+    # their f32 forms at B 32, and kernels 2 and 7 (bf16 B 128 / 25,216
+    # rows, f32 6,304 rows), with no library call
+    blk32 = {k: v[:B32].float() if k == "xp" else v.float()
+             for k, v in blk.items()}
+    runs["attention_block_f32"] = (lambda: att.fused_attention_block_padded(
+        **blk32, num_heads=HEADS, valid_len=T), None)
+    runs["attention_block_train_f32"] = (
+        lambda: att.attention_block_train_padded(
+            **blk32, num_heads=HEADS, valid_len=T), None)
+    mlp = dict(ln_scale=scaled(D, scale=0.1, shift=1.0, dt=torch.float32),
+               ln_bias=scaled(D, scale=0.1, dt=torch.float32),
+               w_fc1=scaled(D, 4 * D, scale=D ** -0.5),
+               b_fc1=scaled(4 * D, scale=0.1, dt=torch.float32),
+               w_fc2=scaled(4 * D, D, scale=(4 * D) ** -0.5),
+               b_fc2=scaled(D, scale=0.1, dt=torch.float32))
+    x_mlp = rand(B, TP, D)
+    runs["mlp_block"] = (lambda: att.fused_mlp_block(x_mlp, **mlp), None)
+    rows = x_mlp[:, :T].reshape(-1, D).contiguous()
+    mlp32 = {k: v.float() for k, v in mlp.items()}
+    rows32 = rows[:B32 * T].float()
+    runs["mlp_block_train"] = (lambda: att.mlp_block_train(
+        rows, **mlp, approximate=False), None)
+    runs["mlp_block_train_f32"] = (lambda: att.mlp_block_train(
+        rows32, **mlp32, approximate=False), None)
+    # the GEMM cores alone beside torch.matmul (TF32 off), where the tree
+    # has them
+    try:
+        from vit_spoof_detection_pda_tpu_torch.ops import gemm as gm
+    except ImportError:
+        gm = None
+    if gm is not None:
+        for dt, m, sfx in ((torch.bfloat16, B * TP, ""),
+                           (torch.float32, B32 * TP, "_f32")):
+            for name, n, k in (("qkv", 3 * D, D), ("proj", D, D),
+                               ("fc1", 4 * D, D), ("fc2", D, 4 * D)):
+                a_g = rand(m, k, dt=dt)
+                w_g = scaled(k, n, scale=k ** -0.5, dt=dt)
+                b_g = scaled(n, scale=0.1, dt=torch.float32)
+
+                def lib_mm(a_g=a_g, w_g=w_g):
+                    with exact_f32_matmul():
+                        return torch.matmul(a_g, w_g)
+                runs[f"gemm_{name}{sfx}"] = (
+                    lambda a_g=a_g, w_g=w_g, b_g=b_g: gm.gemm(a_g, w_g, b_g),
+                    lib_mm)
+                if n == D:  # proj and fc2 with the blocks' residual epilogue
+                    r_g = rand(m, n, dt=dt)
+                    runs[f"gemm_{name}_res{sfx}"] = (
+                        lambda a_g=a_g, w_g=w_g, b_g=b_g, r_g=r_g: gm.gemm(
+                            a_g, w_g, b_g, epilogue="bias_residual",
+                            residual=r_g), lib_mm)
     # the module forwards kernel 8 sits in (12 launches each): the `test`
     # verb's bf16 ViTAntiSpoof at B 128 and evaluate-all's f32
     # ViTLinearHead at B 32, on seeded random weights
@@ -273,6 +338,15 @@ def _child(tree: str, only=None) -> None:
             with torch.inference_mode(), exact_f32_matmul():
                 return model(x)
         runs[name] = (forward, None)
+    # the B 128 scoring forward (fastserve: 12 launches each of kernels 1
+    # and 2) on uint8 faces
+    from vit_spoof_detection_pda_tpu_torch.models import fastserve
+    serve = fastserve.make_serving_fn(
+        registry.build_model("Custom_ViT_FineTuned"), batch_size=B,
+        mode="fastserve")
+    faces = torch.from_numpy(rng.integers(0, 256, (B, 224, 224, 3)).astype(
+        np.uint8))
+    runs["serving_forward_b128"] = (lambda: serve(faces), None)
     # the training step around kernel 4 (12 launches a step): the bf16
     # fasttrain step at B 128 and the f32 step at B 32 (make_train_step,
     # focal loss, AdamW; the parameters move in place from step to step)
@@ -283,11 +357,15 @@ def _child(tree: str, only=None) -> None:
     from vit_spoof_detection_pda_tpu_torch.train.step import make_train_step
     labels = torch.from_numpy(rng.integers(0, 2, B)).to(dev)
     for name, dt, b in (("train_step_bf16", torch.bfloat16, B),
-                        ("train_step_f32", torch.float32, B32)):
+                        ("train_step_f32", torch.float32, B32),
+                        ("train_step_bf16_hidden", torch.bfloat16, B)):
+        if only and name not in only:
+            continue
         model = registry.build_model("Custom_ViT_FineTuned", dropout=0.0)
+        kw = {"mlp_mode": "hidden"} if name.endswith("_hidden") else {}
         state = create_train_state(
             model, make_optimizer(3e-4), 0, device=dev,
-            apply_fn=fasttrain.make_apply(model, dtype=dt))
+            apply_fn=fasttrain.make_apply(model, dtype=dt, **kw))
         step = make_train_step(make_loss_fn("focal"))
         batch = {"image": images[:b], "label": labels[:b]}
 

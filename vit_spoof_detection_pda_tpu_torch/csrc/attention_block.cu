@@ -11,32 +11,34 @@
 // at 989 TFLOP/s; its ~83 MB of compulsory traffic (x in, out, weights) takes
 // 0.025 ms at 3.35 TB/s and does not bind.
 //
-// Design (a first, simple one): four launches on the caller's stream,
+// Design: four launches on the caller's stream,
 //   1. LayerNorm rows -> xn (bf16 scratch)
-//   2. GEMM xn @ Wqkv + bqkv -> qkv (bf16 scratch [B*Tp, 3D]), wgmma
-//      (common.cuh)
-//   3. attention per (query tile of up to 128 rows, head, item) with
-//      mma.sync, K and V in shared memory, the scores in registers -> attn
-//      (bf16 scratch, reusing the xn buffer)
-//   4. GEMM attn @ Wproj + bproj + x -> out, wgmma
+//   2. GEMM xn @ Wqkv + bqkv -> qkv (bf16 scratch [B*Tp, 3D]) on the
+//      TMA-fed, warp-specialised, persistent wgmma core (gemm_core.cuh)
+//   3. attention per (query tile, head, item) on the qkv buffer -> attn
+//      (bf16 scratch, reusing the xn buffer), by the routes of kernels 8
+//      and 9 (attention_self.cuh): kernel 12's one-pass core where the
+//      keys rounded up to 16 are at most 208 (Tp 200 at 224 px: every
+//      score in registers, K and V staged once, the weights normalised
+//      before their bf16 rounding), else kernel 12's two passes with K and
+//      V whole, and past T 800 its 256-key tiles
+//   4. GEMM attn @ Wproj + bproj + x -> out on the same core
 // All products are bf16 x bf16 with f32 accumulation.  The TPU kernel kept
 // qkv and the head outputs in VMEM; here they go through device memory
-// (about 4x the compulsory bytes), and the attention core recomputes
-// Q K^T once to normalize the weights before rounding them (1.5x its
-// 15.7 GFLOP).  Fusing qkv away, TMA loads and a persistent GEMM schedule
-// are later work.
+// (about 4x the compulsory bytes).  Fusing qkv away is later work.
 //
 // Rounding points follow the TPU kernel: xn, qkv, the softmax weights and
 // the concatenated head outputs are rounded to bf16; LN, the logits, the
 // softmax and every sum are f32; out is rounded once.
-#include "attention_core.cuh"
+#include "attention_self.cuh"
+#include "gemm_core.cuh"
 
 // x, out [B, Tp, D] bf16; ln_* [D] f32; w_qkv [D, 3D] and w_proj [D, D] bf16;
 // b_qkv [3D], b_proj [D] f32; scratch [B*Tp, D] and qkv [B*Tp, 3D] bf16.
 // Needs a head dim that is a multiple of 16 up to 128, Tp % 8 == 0 and
-// 0 <= valid_len <= Tp; past the Tp whose K and V fit a block the attention
-// stage is key-tiled (attention_core.cuh).  Returns the first CUDA error of
-// the four launches (0 on success).
+// 0 <= valid_len <= Tp; any Tp (the attention stage's route by shape,
+// attention_self.cuh).  Returns the first CUDA error of the four launches
+// (0 on success).
 extern "C" int vsd_attention_block(const void* x, const void* ln_scale, const void* ln_bias,
                                    const void* w_qkv, const void* b_qkv, const void* w_proj,
                                    const void* b_proj, void* scratch, void* qkv, void* out,
@@ -61,7 +63,8 @@ extern "C" int vsd_attention_block(const void* x, const void* ln_scale, const vo
   e = launch_gemm<kEpiBias>(sc, static_cast<const bf16*>(w_qkv), static_cast<const float*>(b_qkv),
                             nullptr, qb, rows, 3 * d, d, s);
   if (e != cudaSuccess) return e;
-  e = attention(qb, sc, batch, tp, d, num_heads, valid_len, scale, s);
+  e = attention_self(qb, qb + d, qb + 2 * d, sc, 0, batch, tp, num_heads, dh, 3 * d,
+                     static_cast<long long>(tp) * 3 * d, valid_len, scale, s);
   if (e != cudaSuccess) return e;
   return launch_gemm<kEpiBiasResidual>(sc, static_cast<const bf16*>(w_proj),
                                        static_cast<const float*>(b_proj), xb,

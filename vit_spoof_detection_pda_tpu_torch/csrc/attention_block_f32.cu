@@ -20,14 +20,17 @@
 // Design: the bf16 kernels' four launches (attention_block_train.cu) with
 // f32 parts that never touch the tensor cores:
 //   1. the f32 LayerNorm (f32_common.cuh) -> xn (scratch), xhat, inv
-//   2. the f32 GEMM xn @ Wqkv + bqkv -> qkv
-//   3. kernel 8's f32 attention core (attention_f32.cuh) -> attn, whole or,
-//      past the Tp whose K and V fit a block, key-tiled
+//   2. the f32 GEMM xn @ Wqkv + bqkv -> qkv (f32_common.cuh: 128 x 128
+//      tiles, K 16 at a time through two shared buffers)
+//   3. the f32 routes of kernels 8 and 9 (attention_self.cuh) -> attn:
+//      kernel 12's f32 one pass where the block fits (T up to 208), else
+//      the whole f32 core (attention_f32.cuh::attention_f32_rows, K and V
+//      of a head in a block), else its key tiles
 //   4. the f32 GEMM attn @ Wproj + bproj + x -> out
 // Every value stays f32 (the TPU kernel's roundings to the compute dtype
 // are no-ops at f32); only the order of the f32 sums differs from the
 // plain version.
-#include "attention_f32.cuh"
+#include "attention_self.cuh"
 #include "f32_common.cuh"
 
 // x, out, xn_scratch, attn [B, Tp, D] f32; qkv [B, Tp, 3D] f32; ln_* [D],
@@ -65,7 +68,8 @@ extern "C" int vsd_attention_block_f32(const void* x, const void* ln_scale, cons
                                    static_cast<const float*>(b_qkv), nullptr, qf, rows, 3 * d, d,
                                    s);
   if (e != cudaSuccess) return e;
-  e = attention_f32(qf, af, batch, tp, d, num_heads, valid_len, scale, s);
+  e = attention_self(qf, qf + d, qf + 2 * d, af, 1, batch, tp, num_heads, dh, 3 * d,
+                     static_cast<long long>(tp) * 3 * d, valid_len, scale, s);
   if (e != cudaSuccess) return e;
   return launch_gemm_f32<kEpiF32BiasResidual>(af, static_cast<const float*>(w_proj),
                                               static_cast<const float*>(b_proj), xf,

@@ -15,15 +15,17 @@
 // compulsory traffic (x in; out, qkv, attn, xhat, inv out; weights) is
 // about 280 MB, 0.084 ms at 3.35 TB/s.
 //
-// Design: the serving kernel's four launches (attention_block.cu), whose
-// scratch becomes output: the LayerNorm launch also writes xhat and inv,
-// the qkv GEMM writes the qkv output, the attention core writes the attn
-// output, and the proj GEMM adds bproj and the residual.  Only xn stays
-// scratch.  Rounding points are the serving kernel's and the TPU
-// kernel's: xn, xhat, qkv, the softmax weights and the head outputs are
-// rounded to bf16, LN, the softmax and every sum are f32, out is rounded
-// once.
-#include "attention_core.cuh"
+// Design: the serving kernel's four launches (attention_block.cu: the
+// GEMMs on gemm_core.cuh, the attention stage on the routes of
+// attention_self.cuh), whose scratch becomes output: the LayerNorm launch
+// also writes xhat and inv, the qkv GEMM writes the qkv output, the
+// attention stage writes the attn output, and the proj GEMM adds bproj and
+// the residual.  Only xn stays scratch.  Rounding points are the serving
+// kernel's and the TPU kernel's: xn, xhat, qkv, the softmax weights and
+// the head outputs are rounded to bf16, LN, the softmax and every sum are
+// f32, out is rounded once.
+#include "attention_self.cuh"
+#include "gemm_core.cuh"
 
 // x, out, xn_scratch, attn, xhat [B, Tp, D] bf16; qkv [B, Tp, 3D] bf16;
 // inv [B, Tp] f32; ln_* [D] f32; w_qkv [D, 3D], w_proj [D, D] bf16;
@@ -57,7 +59,8 @@ extern "C" int vsd_attention_block_train(const void* x, const void* ln_scale,
   e = launch_gemm<kEpiBias>(xn, static_cast<const bf16*>(w_qkv), static_cast<const float*>(b_qkv),
                             nullptr, qb, rows, 3 * d, d, s);
   if (e != cudaSuccess) return e;
-  e = attention(qb, ab, batch, tp, d, num_heads, valid_len, scale, s);
+  e = attention_self(qb, qb + d, qb + 2 * d, ab, 0, batch, tp, num_heads, dh, 3 * d,
+                     static_cast<long long>(tp) * 3 * d, valid_len, scale, s);
   if (e != cudaSuccess) return e;
   return launch_gemm<kEpiBiasResidual>(ab, static_cast<const bf16*>(w_proj),
                                        static_cast<const float*>(b_proj), xb,

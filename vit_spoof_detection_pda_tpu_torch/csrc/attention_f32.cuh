@@ -1,12 +1,13 @@
-// The f32 attention core of the f32 attention blocks
-// (csrc/attention_block_f32.cu) and of kernels 8 and 9 past the keys their
-// one-pass core holds (csrc/attention_self.cuh):
+// The f32 attention core of kernels 1, 3 (the f32 attention blocks,
+// csrc/attention_block_f32.cu), 8 and 9 past the keys their one-pass core
+// holds (csrc/attention_self.cuh, which launches it):
 //
 //   out[b, :, h] = softmax(Q_h K_h^T * scale) V_h
 //
-// per head h on the fused projection qkv [B, T, 3D] f32, key columns at or
-// past valid_len at -1e30, in plain f32 FMAs (never the tensor cores: TF32
-// would round q, k and the weights to 10 mantissa bits).  Grid (query
+// per head h on strided q, k and v f32 (the fused projection qkv [B, T, 3D]
+// of the blocks and kernel 8), key columns at or past valid_len at -1e30,
+// in plain f32 FMAs (never the tensor cores: TF32 would round q, k and the
+// weights to 10 mantissa bits).  Grid (query
 // tiles, heads, B); a block of 8 warps loads one head's K and V
 // [T][dh + 4] into shared memory (16-byte rows, the +4 keeps a
 // quarter-warp's float4 reads on distinct banks), and each warp takes 4
@@ -22,9 +23,9 @@
 // per 4 FMAs in step 1), so shared-memory bandwidth, not the FMA rate
 // (67 TFLOP/s), is its limit.
 //
-// Two forms, chosen by shape (ops/attention.py::forward_plan and
-// module_attention_plan): where one head's K and V fit a block's shared memory
-// (f32_smem_bytes; T up to 333 at head dim 64), attention_f32_rows holds
+// Two forms, chosen by shape (ops/attention.py::module_attention_plan):
+// where one head's K and V fit a block's shared memory (f32_smem_bytes; T
+// up to 333 at head dim 64), attention_f32_rows holds
 // them whole and takes the exact softmax of each row; past that,
 // attention_f32_rows_tiled walks the keys in tiles of kF32KeyTile staged
 // through shared memory, with an online softmax (the running max and sum
@@ -344,37 +345,11 @@ __device__ __forceinline__ void attention_f32_rows_tiled(const float* __restrict
   }
 }
 
-// Kernel 8's f32 route: the fused projection qkv [B, T, 3D] -> out [B, T, D],
-// grid (query tiles, heads, B).
-template <int DH>
-__global__ void __launch_bounds__(kF32Warps * 32)
-    attention_f32_kernel(const float* __restrict__ qkv, float* __restrict__ out, int t, int d,
-                         int valid_len, float scale, int tile_rows) {
-  const int h = blockIdx.y, b = blockIdx.z;
-  const size_t stride = 3 * static_cast<size_t>(d);
-  const float* base = qkv + static_cast<size_t>(b) * t * stride + static_cast<size_t>(h) * DH;
-  attention_f32_rows<DH>(base, stride, base + d, base + 2 * d, stride,
-                         out + static_cast<size_t>(b) * t * d + static_cast<size_t>(h) * DH, d,
-                         t, t, valid_len, scale, tile_rows);
-}
-
 // The query tiles of a launch: rows split evenly into tiles of at most
 // kF32TileRows, in whole 4-row groups.
 inline int f32_tile_rows(int t) {
   const int tiles = (t + kF32TileRows - 1) / kF32TileRows;
   return ((t + tiles - 1) / tiles + kF32Rows - 1) / kF32Rows * kF32Rows;
-}
-
-template <int DH>
-__global__ void __launch_bounds__(kF32Warps * 32)
-    attention_f32_tiled_kernel(const float* __restrict__ qkv, float* __restrict__ out, int t,
-                               int d, int valid_len, float scale) {
-  const int h = blockIdx.y, b = blockIdx.z;
-  const size_t stride = 3 * static_cast<size_t>(d);
-  const float* base = qkv + static_cast<size_t>(b) * t * stride + static_cast<size_t>(h) * DH;
-  attention_f32_rows_tiled<DH>(base, stride, base + d, base + 2 * d, stride,
-                               out + static_cast<size_t>(b) * t * d + static_cast<size_t>(h) * DH,
-                               d, t, t, valid_len, scale);
 }
 
 // Launch a key-tiled kernel (grid (32-row tiles, heads, B)) with its shared
@@ -390,44 +365,6 @@ cudaError_t launch_f32_tiled(Kernel kernel, int dh, int t, int heads, int batch,
   const int rows = kF32Warps * kF32Rows;
   kernel<<<dim3((t + rows - 1) / rows, heads, batch), kF32Warps * 32, smem, stream>>>(args...);
   return cudaGetLastError();
-}
-
-template <int DH>
-cudaError_t launch_attention_f32(const float* qkv, float* out, int batch, int t, int d,
-                                 int heads, int valid_len, float scale, cudaStream_t stream) {
-  const size_t smem = f32_smem_bytes(t, DH);
-  if (smem > kMaxSmem)
-    return launch_f32_tiled(attention_f32_tiled_kernel<DH>, DH, t, heads, batch, stream, qkv,
-                            out, t, d, valid_len, scale);
-  cudaError_t e = cudaFuncSetAttribute(attention_f32_kernel<DH>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(smem));
-  if (e != cudaSuccess) return e;
-  const int rows = f32_tile_rows(t);
-  const dim3 grid((t + rows - 1) / rows, heads, batch);
-  attention_f32_kernel<DH><<<grid, kF32Warps * 32, smem, stream>>>(qkv, out, t, d, valid_len,
-                                                                   scale, rows);
-  return cudaGetLastError();
-}
-
-cudaError_t attention_f32(const float* qkv, float* out, int batch, int t, int d, int heads,
-                          int valid_len, float scale, cudaStream_t stream) {
-  switch (d / heads) {
-#define VSD_HEAD_DIM(DH) \
-  case DH:               \
-    return launch_attention_f32<DH>(qkv, out, batch, t, d, heads, valid_len, scale, stream);
-    VSD_HEAD_DIM(16)
-    VSD_HEAD_DIM(32)
-    VSD_HEAD_DIM(48)
-    VSD_HEAD_DIM(64)
-    VSD_HEAD_DIM(80)
-    VSD_HEAD_DIM(96)
-    VSD_HEAD_DIM(112)
-    VSD_HEAD_DIM(128)
-#undef VSD_HEAD_DIM
-    default:
-      return cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace

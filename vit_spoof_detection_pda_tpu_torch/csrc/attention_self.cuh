@@ -1,6 +1,7 @@
 // The attention forward of the module path, shared by kernel 8
 // (csrc/attention_qkv.cu, the fused projection) and kernel 9
-// (csrc/attention.cu, q/k/v views):
+// (csrc/attention.cu, q/k/v views), and the attention stage of the blocks,
+// kernels 1 and 3 (csrc/attention_block*.cu, the fused projection):
 //
 //   out[b, :, h] = softmax(Q[b, :, h] K[b, :, h]^T * scale) V[b, :, h]
 //

@@ -5,10 +5,7 @@
 // f32 (the JAX package's f32 dots keep exact products).
 //
 // Bound on the H100: the f32 FMA rate (67 TFLOP/s) for the GEMMs at the
-// ViT's widths; the LayerNorm by its bytes.  The GEMM is a first, simple
-// design (a 128 x 128 output tile per block of 256 threads, 8 x 8 outputs
-// a thread, K in steps of 8 through shared memory, one buffer); its time
-// is recorded, not tuned.
+// ViT's widths; the LayerNorm by its bytes.
 #pragma once
 
 #include "common.cuh"
@@ -73,13 +70,22 @@ inline cudaError_t launch_layernorm_f32(const float* x, const float* gamma, cons
 
 // ---------------------------------------------------------------------------
 // GEMM, f32: C[M, N] = epilogue(A[M, K] @ W[K, N]), A and W f32 row-major
-// (W in the JAX [in, out] layout).  Thread (tx, ty) of the 16 x 16 block
-// owns rows ty*4 + {0..3} and 64 + ty*4 + {0..3} and the same columns of
-// tx, so the shared-memory reads of a k step are two float4 broadcasts of
-// A and two conflict-free float4 reads of W.  A's tile is stored transposed
-// ([k][m]).  Rows past M, columns past N and k past K are zero-filled on
-// load and skipped on store: any M works, N and K must be multiples of 4.
-// Each output sums its K products in k order, one FMA each.
+// (W in the JAX [in, out] layout), in plain f32 FMAs.
+//
+// A 128 x 128 output tile per block of 256 threads, two blocks an SM.
+// Thread (tx, ty) of the 16 x 16 block owns rows ty*4 + {0..3} and 64 +
+// ty*4 + {0..3} and the same columns of tx: 8 x 8 outputs, so a k step is
+// two float4 reads of A, two of W and 64 FMAs.  K advances 16 at a time
+// through two shared buffers: while the block multiplies one, W's next
+// tile lands in the other by 16-byte cp.async, and A's next tile, read
+// into registers by 16-byte loads before the products, is stored into it
+// k-major ([k][m], so that a thread reads float4 of A; cp.async cannot
+// transpose) after them; one __syncthreads a k step.  The A tile's rows
+// are padded to 132 floats so that the transposing stores of the two
+// threads that share a row land on distinct banks.  Rows past M, columns
+// past N and k past K are zero-filled on load and skipped on store: any M
+// works, N and K must be multiples of 4.  Each output sums its K products
+// in k order, one FMA each: deterministic, no atomics, no split-K.
 //
 // Epilogues, all in f32:
 //   kEpiF32Bias          C = acc + bias
@@ -96,20 +102,55 @@ __device__ __forceinline__ float gelu_f32(float x) {
   return GELU == kGeluErf ? gelu_erf(x) : gelu_tanh(x);
 }
 
-constexpr int kSgemmBM = 128, kSgemmBN = 128, kSgemmBK = 8, kSgemmThreads = 256;
+constexpr int kSgemmBM = 128, kSgemmBN = 128, kSgemmBK = 16, kSgemmThreads = 256;
+constexpr int kSgemmALd = kSgemmBM + 4;  // the A tile's padded row
 
 template <int EPI, int GELU>
-__global__ void __launch_bounds__(kSgemmThreads)
+__global__ void __launch_bounds__(kSgemmThreads, 2)
     gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ W,
                     const float* __restrict__ bias, const float* __restrict__ R,
                     float* __restrict__ C, float* __restrict__ H, int M, int N, int K) {
-  __shared__ __align__(16) float As[kSgemmBK][kSgemmBM];
-  __shared__ __align__(16) float Ws[kSgemmBK][kSgemmBN];
+  __shared__ __align__(16) float As[2][kSgemmBK][kSgemmALd];
+  __shared__ __align__(16) float Ws[2][kSgemmBK][kSgemmBN];
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int m0 = blockIdx.y * kSgemmBM, n0 = blockIdx.x * kSgemmBN;
-  // loaders: A row a_r, k a_k .. a_k + 3; W k-row w_k, columns w_n .. w_n + 3
+  // loaders: A row a_r, k a_k .. a_k + 3 and a_k + 8 .. a_k + 11; W k-rows
+  // w_k and w_k + 8, columns w_n .. w_n + 3
   const int a_r = tid >> 1, a_k = (tid & 1) * 4;
   const int w_k = tid >> 5, w_n = (tid & 31) * 4;
+  const bool a_in = m0 + a_r < M, w_in = n0 + w_n < N;
+  const float* a_src = A + static_cast<size_t>(a_in ? m0 + a_r : 0) * K + a_k;
+  const float* w_src = W + n0 + w_n;
+
+  float4 ra[2];
+  auto load_a = [&](int k0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      ra[i] = a_in && k0 + a_k + 8 * i < K
+                  ? __ldg(reinterpret_cast<const float4*>(a_src + k0 + 8 * i))
+                  : make_float4(0.f, 0.f, 0.f, 0.f);
+  };
+  auto store_a = [&](int buf) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int k = a_k + 8 * i;
+      As[buf][k][a_r] = ra[i].x;
+      As[buf][k + 1][a_r] = ra[i].y;
+      As[buf][k + 2][a_r] = ra[i].z;
+      As[buf][k + 3][a_r] = ra[i].w;
+    }
+  };
+  auto load_w = [&](int buf, int k0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int kr = w_k + 8 * i;
+      float* dst = &Ws[buf][kr][w_n];
+      if (w_in && k0 + kr < K)
+        cp_async16(dst, w_src + static_cast<size_t>(k0 + kr) * N);
+      else
+        store_zero16(dst);
+    }
+  };
 
   float acc[8][8];
 #pragma unroll
@@ -117,27 +158,27 @@ __global__ void __launch_bounds__(kSgemmThreads)
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
-  for (int k0 = 0; k0 < K; k0 += kSgemmBK) {
-    float4 a = make_float4(0.f, 0.f, 0.f, 0.f), w = a;
-    if (m0 + a_r < M && k0 + a_k < K)
-      a = __ldg(reinterpret_cast<const float4*>(A + static_cast<size_t>(m0 + a_r) * K + k0 +
-                                                a_k));
-    if (k0 + w_k < K && n0 + w_n < N)
-      w = __ldg(reinterpret_cast<const float4*>(W + static_cast<size_t>(k0 + w_k) * N + n0 +
-                                                w_n));
-    __syncthreads();  // the previous step's reads are done
-    As[a_k][a_r] = a.x;
-    As[a_k + 1][a_r] = a.y;
-    As[a_k + 2][a_r] = a.z;
-    As[a_k + 3][a_r] = a.w;
-    *reinterpret_cast<float4*>(&Ws[w_k][w_n]) = w;
-    __syncthreads();
+  const int ktiles = (K + kSgemmBK - 1) / kSgemmBK;
+  load_a(0);
+  load_w(0, 0);
+  cp_async_commit();
+  store_a(0);
+  cp_async_wait<0>();
+  __syncthreads();
+  for (int kt = 0; kt < ktiles; ++kt) {
+    const int cur = kt & 1;
+    const bool more = kt + 1 < ktiles;
+    if (more) {  // the next tile: A into registers, W into the other buffer
+      load_a((kt + 1) * kSgemmBK);
+      load_w(cur ^ 1, (kt + 1) * kSgemmBK);
+    }
+    cp_async_commit();
 #pragma unroll
     for (int k = 0; k < kSgemmBK; ++k) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[k][ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[k][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Ws[k][tx * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&Ws[k][64 + tx * 4]);
+      const float4 a0 = *reinterpret_cast<const float4*>(&As[cur][k][ty * 4]);
+      const float4 a1 = *reinterpret_cast<const float4*>(&As[cur][k][64 + ty * 4]);
+      const float4 b0 = *reinterpret_cast<const float4*>(&Ws[cur][k][tx * 4]);
+      const float4 b1 = *reinterpret_cast<const float4*>(&Ws[cur][k][64 + tx * 4]);
       const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
       const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
@@ -145,6 +186,9 @@ __global__ void __launch_bounds__(kSgemmThreads)
 #pragma unroll
         for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
     }
+    if (more) store_a(cur ^ 1);  // its last readers passed the previous barrier
+    cp_async_wait<0>();
+    __syncthreads();
   }
 
 #pragma unroll
@@ -186,11 +230,15 @@ inline cudaError_t launch_gemm_f32(const float* A, const float* W, const float* 
                                    cudaStream_t stream, float* H = nullptr) {
   if (M <= 0) return cudaSuccess;
   if (N <= 0 || N % 4 || K <= 0 || K % 4) return cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(A) | reinterpret_cast<uintptr_t>(W)) & 15)
+    return cudaErrorInvalidValue;
   const int grid_m = (M + kSgemmBM - 1) / kSgemmBM;
   if (grid_m > 65535) return cudaErrorInvalidValue;
   const dim3 grid((N + kSgemmBN - 1) / kSgemmBN, grid_m);
   gemm_f32_kernel<EPI, GELU><<<grid, kSgemmThreads, 0, stream>>>(A, W, bias, R, C, H, M, N, K);
-  return cudaGetLastError();
+  const cudaError_t e = cudaGetLastError();
+  if (e == cudaSuccess) ++g_core_launches[1];
+  return e;
 }
 
 }  // namespace vsd

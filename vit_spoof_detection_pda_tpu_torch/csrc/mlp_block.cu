@@ -11,20 +11,20 @@
 // >= 0.244 ms at 989 TFLOP/s; its ~88 MB of compulsory traffic takes
 // 0.026 ms at 3.35 TB/s.
 //
-// Design (a first, simple one): three launches on the caller's stream,
+// Design: three launches on the caller's stream,
 //   1. LayerNorm rows -> xn (bf16 scratch)
 //   2. GEMM xn @ W1 + b1, tanh-GELU in f32 -> h (bf16 scratch [rows, 4D])
 //   3. GEMM h @ W2 + b2 + x -> out
-// Both GEMMs are the wgmma GEMM of common.cuh.  The TPU kernel never wrote
-// the [rows, 4D] hidden to HBM (it looped over hidden chunks in VMEM); here
-// it goes through device memory (157 MB each way at B = 128).  Fusing fc1
-// into fc2 over hidden chunks, TMA loads and a persistent GEMM schedule are
-// later work.
+// Both GEMMs run the TMA-fed, warp-specialised, persistent wgmma core of
+// gemm_core.cuh.  The TPU kernel never wrote the [rows, 4D] hidden to HBM
+// (it looped over hidden chunks in VMEM); here it goes through device
+// memory (157 MB each way at B = 128).  Fusing fc1 into fc2 over hidden
+// chunks is later work.
 //
 // Rounding points follow the TPU kernel: xn and the GELU output are rounded
 // to bf16; LN, the GELU and every sum are f32; out is rounded once.  Any row
 // count works; D and the hidden width must be multiples of 8.
-#include "common.cuh"
+#include "gemm_core.cuh"
 
 // x, out [rows, D] bf16; ln_* [D] f32; w1 [D, hidden], w2 [hidden, D] bf16;
 // b1 [hidden], b2 [D] f32; scratch [rows, D] and hidden_buf [rows, hidden]

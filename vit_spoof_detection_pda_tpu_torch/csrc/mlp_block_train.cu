@@ -19,14 +19,15 @@
 // inv; weights) is about 244 MB, 0.073 ms at 3.35 TB/s.  f32: the FMA rate,
 // 59.5 GFLOP at B = 32 (6,304 rows), >= 0.89 ms at 67 TFLOP/s.
 //
-// Design (a first, simple one): the serving MLP kernel's three launches
+// Design: the serving MLP kernel's three launches
 // (mlp_block.cu) with the training outputs:
 //   1. LayerNorm rows -> xn (scratch), xhat, inv (the training form of the
 //      LayerNorm, as kernel 3's)
 //   2. GEMM xn @ W1 + b1 -> h (output, rounded), gelu(h) -> a (scratch
 //      [rows, 4D])
 //   3. GEMM a @ W2 + b2 + x -> y
-// bf16 runs the wgmma GEMM of common.cuh with its stored-hidden epilogue;
+// bf16 runs the wgmma GEMM core of gemm_core.cuh with its stored-hidden
+// epilogue;
 // f32 the FMA GEMM of f32_common.cuh (no TF32).  The TPU kernel kept the
 // activation in VMEM; here it goes through device memory once each way.
 //
@@ -34,6 +35,7 @@
 // are rounded to the compute dtype; LN, the GELU and every sum are f32; y
 // is rounded once.
 #include "f32_common.cuh"
+#include "gemm_core.cuh"
 
 // dtype 0: x, y, xhat, scratch [rows, D], w1 [D, hidden], w2 [hidden, D],
 // h, act [rows, hidden] bf16; dtype 1: all of them f32.  ln_* [D], b1

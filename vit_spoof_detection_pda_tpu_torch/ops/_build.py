@@ -11,7 +11,9 @@ same hash is reused.  A failed build raises with nvcc's stderr.
 :data:`LAUNCHES` holds one count per kernel form (a library, or an f32
 form beside a bf16 one): each wrapper adds one where it launches its
 kernel and nowhere else, so a run can show that its main path went
-through the kernels.
+through the kernels.  The GEMM cores inside the block kernels count their
+own launches in C, where their launchers launch them
+(:func:`core_launches`).
 
 Nothing here runs when the module is imported, so the CPU tests, which
 have no ``nvcc``, import it freely.
@@ -34,7 +36,7 @@ KERNELS = ("attention_block", "mlp_block", "attention_block_train",
            "lowlat_batchgrid", "pool_gather", "warp_pass", "nlm",
            "attention_qkv", "attention_block_f32", "mlp_block_train",
            "doctor_probe", "attention", "attention_cp",
-           "attention_bwd_tiled")
+           "attention_bwd_tiled", "gemm")
 # one count per kernel form: each library's name but attention_bwd_onchip's,
 # whose entry points count under their kernels' names (kernels 4, 5 and 13:
 # "attention_qkv_bwd", "attention_qkv_bwd_phased", "attention_cp_bwd"), the
@@ -47,7 +49,8 @@ KERNELS = ("attention_block", "mlp_block", "attention_block_train",
 # (kernels 4 and 5, "attention_bwd_tiled") and on kernel 13's rectangle
 # ("attention_cp_bwd_tiled"), the key-tiled forward cores under each of
 # their four callers (bf16: kernel 12's key tiles; f32: attention_f32.cuh),
-# and kernel 12's key-tiled form
+# kernel 12's key-tiled form, and the standalone GEMM entry's f32 core
+# ("gemm_f32", beside "gemm", its bf16 core)
 LAUNCHES = {name: 0 for name in tuple(
     n for n in KERNELS if n != "attention_bwd_onchip") + (
                                            "attention_qkv_bwd",
@@ -74,7 +77,8 @@ LAUNCHES = {name: 0 for name in tuple(
                                            "attention_qkv_f32_tiled",
                                            "attention_f32_tiled",
                                            "attention_cp_tiled",
-                                           "attention_cp_tiled_f32")}
+                                           "attention_cp_tiled_f32",
+                                           "gemm_f32")}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -149,8 +153,30 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(library_path(name)))
             lib.vsd_error_string.argtypes = [ctypes.c_int]
             lib.vsd_error_string.restype = ctypes.c_char_p
+            lib.vsd_core_launches.argtypes = [
+                ctypes.POINTER(ctypes.c_longlong), ctypes.c_int]
+            lib.vsd_core_launches.restype = None
             _libs[name] = lib
         return lib
+
+
+def core_launches(reset: bool = False) -> dict:
+    """The GEMM cores' launches, ``{"gemm": bf16, "gemm_f32": f32}``,
+    summed over every loaded library: each library counts them in C where
+    ``launch_gemm`` (``csrc/gemm_core.cuh``) or ``launch_gemm_f32``
+    (``csrc/f32_common.cuh``) launches its kernel (``vsd_core_launches``).
+    The block kernels 1, 2, 3 and 7 launch a core twice a call, the
+    standalone entry (``ops/gemm.py::gemm``) once.  ``reset`` zeroes the
+    counts after reading them."""
+    total = [0, 0]
+    with _lock:
+        libs = list(_libs.values())
+    for lib in libs:
+        out = (ctypes.c_longlong * 2)()
+        lib.vsd_core_launches(out, int(reset))
+        total[0] += out[0]
+        total[1] += out[1]
+    return {"gemm": total[0], "gemm_f32": total[1]}
 
 
 def entry(name: str, symbol: str, argtypes):

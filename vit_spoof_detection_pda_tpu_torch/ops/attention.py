@@ -85,13 +85,17 @@ adds two:
 Past what one block holds, each attention kernel takes a key-tiled route
 chosen by shape before any launch (:func:`attention_qkv_bwd_plan`,
 :func:`phased_plan`, :func:`cp_plan`, :func:`cp_bwd_plan`,
-:func:`forward_plan`, :func:`module_attention_plan`): the key-tiled backward
+:func:`module_attention_plan`): the key-tiled backward
 ``csrc/attention_bwd_tiled.cu`` (kernels 4, 5 and 13), the key-tiled f32
 core of ``csrc/attention_f32.cuh`` (kernels 1 / 3, 8 and 9 at f32),
 kernel 12's key tiles, which also carry kernels 1 / 3, 8 and 9 at bf16
-past one head's K and V (kernels 8 and 9 choose theirs by
-:func:`module_attention_plan`).  So the card takes every shape the JAX
-functions take.
+past one head's K and V (the blocks' attention stage takes the routes of
+kernels 8 and 9, :func:`module_attention_plan`).  So the card takes every
+shape the JAX functions take.
+
+The blocks (kernels 1, 2, 3 and 7) run their products on the GEMM cores
+of ``ops/gemm.py`` (bf16: ``csrc/gemm_core.cuh``, TMA-fed, warp-specialised
+and persistent; f32: ``csrc/f32_common.cuh``).
 
 The serving kernels (1, 2, 8, 9) are also ``vsd::`` operators (the end
 of this module) for frozen programs (``models/artifact.py``).
@@ -292,7 +296,7 @@ def _attention_block_f32(xp, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj,
     b, tp, d, dh = _check_attention_block_args(
         xp, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj, num_heads,
         valid_len)
-    tiled = forward_plan(tp, dh, torch.float32)["form"] == "key_tiled"
+    tiled = module_attention_plan(tp, dh, torch.float32)["form"] == "key_tiled"
     lib, fn = _entry("attention_block_f32")
     dev, f32 = xp.device, torch.float32
     out = torch.empty_like(xp)
@@ -326,11 +330,14 @@ def fused_attention_block_padded(xp, ln_scale, ln_bias, w_qkv, b_qkv,
     On the card: bf16 ``xp``, ``w_qkv [D, 3D]`` and ``w_proj [D, D]``;
     f32 ``ln_scale``, ``ln_bias``, ``b_qkv`` and ``b_proj``; any B, any
     ``Tp % 8 == 0`` and a head dim that is a multiple of 16 up to 128.
-    Past the Tp whose K and V fit a block (800 at head dim 64) the
-    attention stage runs key-tiled (:func:`forward_plan`;
-    ``LAUNCHES["attention_block_tiled"]``).  f32 ``xp`` and matrices run
-    the f32 kernel (``LAUNCHES["attention_block_f32"]``; past Tp 328 at
-    head dim 64 on the key-tiled core, ``"attention_block_f32_tiled"``)."""
+    The attention stage takes the routes of kernels 8 and 9
+    (:func:`module_attention_plan`): kernel 12's one pass to 208 keys, its two
+    passes with K and V whole to Tp 800 at head dim 64, then its key
+    tiles (``LAUNCHES["attention_block_tiled"]``).  f32 ``xp`` and
+    matrices run the f32 kernel (``LAUNCHES["attention_block_f32"]``; one
+    pass to 208 keys, the whole f32 core to Tp 333 at head dim 64, then
+    its key tiles, ``"attention_block_f32_tiled"``).  Each call launches
+    the GEMM core twice (``ops/gemm.py::core_launches``)."""
     if torch.compiler.is_exporting():
         return attention_block_op(xp, ln_scale, ln_bias, w_qkv, b_qkv,
                                   w_proj, b_proj, num_heads, valid_len, eps)
@@ -354,7 +361,7 @@ def _attention_block_cuda(xp, ln_scale, ln_bias, w_qkv, b_qkv, w_proj,
     b, tp, d, dh = _check_attention_block_args(
         xp, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj, num_heads,
         valid_len)
-    tiled = forward_plan(tp, dh, xp.dtype)["form"] == "key_tiled"
+    tiled = module_attention_plan(tp, dh, xp.dtype)["form"] == "key_tiled"
     lib, fn = _entry("attention_block")
     out = torch.empty_like(xp)
     scratch = torch.empty((b * tp, d), dtype=xp.dtype, device=xp.device)
@@ -394,7 +401,7 @@ def attention_block_train_padded(xp, ln_scale, ln_bias, w_qkv, b_qkv,
     b, tp, d, dh = _check_attention_block_args(
         xp, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj, num_heads,
         valid_len)
-    tiled = forward_plan(tp, dh, xp.dtype)["form"] == "key_tiled"
+    tiled = module_attention_plan(tp, dh, xp.dtype)["form"] == "key_tiled"
     lib, fn = _entry("attention_block_train")
     dev, cdt = xp.device, xp.dtype
     out = torch.empty_like(xp)
@@ -745,41 +752,32 @@ def fused_attention_qkv_plain(qkv, num_heads: int):
 _F32_KEY_TILE = 128            # keys a tile of the key-tiled f32 core
 
 
-def forward_plan(t: int, dh: int, dtype) -> dict:
-    """How the attention core of kernels 1 and 3 (the blocks) runs T rows
-    at head dim ``dh``, chosen by shape before the launch:
-    ``"whole"``, a block holding one head's K and V (bf16,
-    ``attention_core.cuh``: rows padded to 16, T up to 800 at head dim 64;
-    f32, ``attention_f32.cuh``: ``[T][dh + 4]`` plus each warp's 4 query
-    rows and their ``[T][4]`` weights, T up to 333 at head dim 64), else
-    ``"key_tiled"``, any T: in bf16 kernel 12's two passes over key tiles
-    of ``keys`` (``attention_cp_core.cuh::cp_rows_bf16_tiles`` with Tq =
-    Tk), in f32 tiles of 128 keys with an online softmax.  ``smem`` is a
-    block's dynamic shared memory."""
-    _check_head_dim(dh, "the attention core")
-    if dtype == torch.float32:
-        whole = 4 * (2 * t * (dh + 4) + _F32_WARPS * _F32_ROWS * (dh + t))
-        kt = _F32_KEY_TILE
-        tiled = 4 * (2 * kt * (dh + 4) + _F32_WARPS * _F32_ROWS * (dh + kt))
-    else:
-        whole = 2 * _round_up(t, 16) * (dh + 8) * 2
-        kt = _cp_key_tile(t, dh, False)
-        tiled = 2 * kt * (dh + 8) * 2
+def _f32_core_plan(t: int, dh: int) -> dict:
+    """The f32 attention core's route (``csrc/attention_f32.cuh``) for T
+    rows at head dim ``dh``: ``"whole"``, a block holding one head's K and
+    V (``[T][dh + 4]`` plus each warp's 4 query rows and their ``[T][4]``
+    weights, T up to 333 at head dim 64), else ``"key_tiled"``, tiles of
+    128 keys with an online softmax, any T.  ``smem`` is a block's dynamic
+    shared memory."""
+    whole = 4 * (2 * t * (dh + 4) + _F32_WARPS * _F32_ROWS * (dh + t))
     if whole <= _MAX_SMEM:
         return {"form": "whole", "smem": whole}
+    kt = _F32_KEY_TILE
+    tiled = 4 * (2 * kt * (dh + 4) + _F32_WARPS * _F32_ROWS * (dh + kt))
     return {"form": "key_tiled", "keys": kt, "smem": tiled}
 
 
 def module_attention_plan(t: int, dh: int, dtype) -> dict:
-    """How kernels 8 and 9, the attention forward of the module path,
-    run T rows at head dim ``dh``: the route that
+    """How kernels 8 and 9, the attention forward of the module path (and
+    the attention stage of kernels 1 and 3, on the blocks' qkv buffer), run T
+    rows at head dim ``dh``: the route that
     ``csrc/attention_self.cuh::launch_self`` takes from the same shape
     (the wrappers read it only to name the launch counter).  The bf16
     routes and the f32 one
     pass are :func:`cp_plan`'s, with its fields (``form``, the query
     ``tiles`` of a (head, item), the ``warps`` of a block, the ``keys`` a
     block stages at once, its dynamic shared memory ``smem``); the f32
-    routes past it are :func:`forward_plan`'s (``form``, ``smem``).
+    routes past it are the f32 core's (``form``, ``smem``).
 
     ``"one_pass"`` where the keys, rounded up to 16 in bf16 or 8 in f32,
     are at most 208 and the block fits: kernel 12's one-pass core at Tq =
@@ -789,15 +787,15 @@ def module_attention_plan(t: int, dh: int, dtype) -> dict:
     800 at head dim 64; kernel 1's two-pass core, the route before, took
     up to 1.6x as long) and then ``"key_tiled"`` over 256-key tiles, so
     the bf16 plan is ``cp_plan(t, t, dh, dtype)``; in f32 the routes of
-    :func:`forward_plan`, ``"whole"`` (to T 333 at head dim 64) and then
+    the f32 core, ``"whole"`` (to T 333 at head dim 64) and then
     ``"key_tiled"`` over 128-key tiles with an online softmax (kernel
     12's f32 two passes took 1.6-2x as long).  Any T.  Raises
     ``ValueError`` naming the limit on a head dim it does not take."""
-    _check_head_dim(dh, "kernels 8 and 9")
+    _check_head_dim(dh, "kernels 1, 3, 8 and 9")
     plan = cp_plan(t, t, dh, dtype)
     if dtype != torch.float32 or plan["form"] == "one_pass":
         return plan
-    return forward_plan(t, dh, dtype)
+    return _f32_core_plan(t, dh)
 
 
 def _attention_qkv_kernel(qkv, num_heads: int):
