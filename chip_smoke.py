@@ -345,6 +345,7 @@ from __future__ import annotations
 
 import contextlib
 import csv
+import itertools
 import json
 import math
 import statistics
@@ -1647,6 +1648,19 @@ def profile_step(fn, top: int = 15) -> dict:
     return out
 
 
+def device_ms(fn, needle: str, calls: int = 20):
+    """The mean device time of the kernels named with ``needle`` over
+    ``calls`` calls of ``fn`` queued back to back, from torch.profiler
+    (after one unprofiled call); None where the profile holds no such
+    kernel (not measured: the profiler has come back empty for a window of
+    one launch of a microsecond)."""
+    fn()
+    torch.cuda.synchronize()
+    hits = profile_once(lambda: [fn() for _ in range(calls)], 0,
+                        needles=(needle,))[needle]
+    return hits["ms"] / hits["calls"] if hits["calls"] else None
+
+
 def profile_once(fn, top: int = 15, needles=()) -> dict:
     """``fn()`` once under torch.profiler: its result, the wall time of
     the call, the summed device time of its kernels (so the device's idle
@@ -1958,28 +1972,42 @@ def phase_kernels_aug(dev) -> dict:
     rng = np.random.default_rng(SEED + 10)
     main_err = {}
 
-    # kernel 14: byte for byte, B = 128 rows of a pool larger than the L2,
-    # and rows of 105 bytes (no 16-byte vectors)
+    # kernel 14: byte for byte, with repeated indices: the 16-byte loop at
+    # B = 128 (and 1 and 300) rows of a pool larger than the L2 and at
+    # 16-byte rows; the byte loop at rows of 105 bytes and on a base one
+    # byte past alignment
     pool = torch.randint(0, 256, (POOL_N, IMG, IMG, 3), generator=gen,
                          device=dev, dtype=torch.uint8)
-    for label, p in (("pool4096_b128", pool),
-                     ("rows_of_105_bytes", pool[:37, :5, :7].contiguous())):
-        idx = rng.integers(0, p.shape[0], MAIN_B)
+    flat = pool.view(-1)[:40 * 3072 + 1]
+    for label, p, b in (
+            ("pool4096_b128", pool, MAIN_B),
+            ("pool4096_b1", pool, 1),
+            ("pool4096_b300", pool, 300),
+            ("rows_of_16_bytes", pool.view(-1, 16)[:1000], 300),
+            ("rows_of_105_bytes", pool[:37, :5, :7].contiguous(), MAIN_B),
+            ("unaligned_base", flat[1:].view(40, 3072), 50)):
+        idx = rng.integers(0, p.shape[0], b)
+        idx[1::4] = idx[0]
+        n0 = gather.LAUNCHES["pool_gather"]
         equal = torch.equal(gather.pool_gather(p, idx),
                             gather.pool_gather_plain(p, idx))
+        launched = gather.LAUNCHES["pool_gather"] - n0
         try:
             gather.pool_gather(p, np.array([p.shape[0]]))
             raised = False
         except IndexError:
             raised = True
+        good = equal and raised and launched == 1
         emit({"phase": "kernels", "case": label, "kernel": "pool_gather",
-              "pool": list(p.shape), "rows": MAIN_B, "byte_equal": equal,
-              "out_of_range_raises": raised, "ok": equal and raised})
-        if not (equal and raised):
+              "pool": list(p.shape), "rows": b, "byte_equal": equal,
+              "launches": launched,
+              "out_of_range_raises": raised, "ok": good})
+        if not good:
             raise AssertionError(f"pool_gather on {label}: equal {equal}, "
-                                 f"out-of-range index raised {raised}")
+                                 f"out-of-range index raised {raised}, "
+                                 f"{launched} launches")
     main_err["pool_gather"] = 0.0
-    del pool
+    del pool, flat
 
     # kernel 15: within one ulp of the output type, f32 and bf16 images,
     # every pass geometry at its bound, and a ragged 250 x 190 frame with
@@ -2266,10 +2294,23 @@ def phase_times_aug(dev, ctx, main_err, launches, bare_step_ms) -> list:
                      "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": lib_ms})
     # the wrapper the step calls (the host check and upload of the
-    # indices, then the launch), and the kernel's device time in a profile
+    # indices, then the launch); the kernel's device time in a profile;
+    # and both again cold: each call on the next of 8 index sets of
+    # distinct rows (154 MB, past the 50 MB L2), as the pool step meets
+    # new rows each step
     wrapper_ms = time_ms(lambda: gather.pool_gather(pool, idx))
-    gather_device_ms = [t["ms"] / t["calls"] for t in profile_step(
-        timed["pool_gather"][0])["profile_top"] if "pool_gather" in t["name"]]
+    row14 = next(r for r in rows if r["name"] == "pool_gather")
+    row14["device_ms"] = device_ms(timed["pool_gather"][0], "pool_gather")
+    sets = torch.from_numpy(np.random.default_rng(SEED + 13).permutation(
+        POOL_N)[:8 * MAIN_B].reshape(8, MAIN_B)).to(dev)
+    kernel_sets, library_sets = itertools.cycle(sets.int()), itertools.cycle(
+        sets)
+    cold_kernel = (lambda: gather.gather_rows(pool, next(kernel_sets),
+                                              rows_out))
+    cold_ms, cold_lib_ms = time_in_turns(
+        cold_kernel, lambda: pool.index_select(0, next(library_sets)))
+    gather_cold = {"ms": cold_ms, "library_ms": cold_lib_ms,
+                   "device_ms": device_ms(cold_kernel, "pool_gather")}
     rot = (-torch.tan(torch.full((MAIN_B,), math.radians(10.0), device=dev)
                       / 2.0)[:, None]
            * (torch.arange(IMG, device=dev, dtype=torch.float32)
@@ -2307,7 +2348,8 @@ def phase_times_aug(dev, ctx, main_err, launches, bare_step_ms) -> list:
           "kernels": {r["name"]: {k: r[k] for k in
                                   ("ms", "plain_ms", "bound_ms", "bound_by",
                                    "library_ms")} for r in rows},
-          "pool_gather_kernel_device_ms": gather_device_ms,
+          "pool_gather_kernel_device_ms": row14["device_ms"],
+          "pool_gather_cold": gather_cold,
           "pool_gather_wrapper_ms": wrapper_ms,
           "warp_pass_other_shapes": warp_extra,
           "tiers_b64_uint8_out": tiers, "pool_step": pool_steps,
@@ -3831,14 +3873,19 @@ def phase_times_cli(dev, ctx, main_err, phased_launches, doctor_launches,
     del bwd, bwd32
     x = torch.ones((8, 128), device=dev)
     bound_ms, bound_by = bound(x.numel(), 2 * nbytes(x), PEAK_F32_FLOPS)
+    probe_ms, mul_ms = time_in_turns(lambda: probe.doctor_probe(x),
+                                     lambda: torch.mul(x, 2.0))
     rows.append({"name": "doctor_probe", "route": "cuda",
                  **KERNELS["doctor_probe"],
                  "launches": doctor_launches["doctor_probe"],
                  "max_abs_err": main_err["doctor_probe"],
-                 "ms": time_ms(lambda: probe.doctor_probe(x)),
+                 "ms": probe_ms,
                  "plain_ms": time_ms(lambda: probe.doctor_probe_plain(x)),
                  "bound_ms": bound_ms, "bound_by": bound_by,
-                 "library_ms": time_ms(lambda: torch.mul(x, 2.0))})
+                 "library_ms": mul_ms,
+                 "device_ms": device_ms(lambda: probe.doctor_probe(x),
+                                        "doctor_probe")})
+    mul_device_ms = device_ms(lambda: torch.mul(x, 2.0), "elementwise")
 
     model, params = ctx["model"], ctx["params"]
     step = make_train_step(ctx["loss_fn"])
@@ -3862,6 +3909,8 @@ def phase_times_cli(dev, ctx, main_err, phased_launches, doctor_launches,
               "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
               "launches")} for r in rows},
           "kernel_4_ms_in_turns": k4,
+          "doctor_probe_device_ms": rows[-1]["device_ms"],
+          "torch_mul_device_ms": mul_device_ms,
           "step_ms_in_turns": step_ms,
           "verb_wall_s": walls})
     return rows

@@ -568,6 +568,51 @@ def test_pool_gather_kernel_matches_plain_on_card(cuda_device, shape, dtype):
         tgather.pool_gather(pool, np.array([shape[0]]))
 
 
+def _gather_case(case, device):
+    """(pool, host indices) of a case."""
+    rng = np.random.default_rng(33)
+    if case == "unaligned_base":
+        # rows of 3,072 bytes on a base one byte past 16-byte alignment
+        flat = torch.tensor(rng.integers(0, 256, 40 * 3072 + 1),
+                            dtype=torch.uint8, device=device)
+        pool, b = flat[1:].view(40, 32, 32, 3), 50
+    else:
+        shape, dtype, b = {
+            "b1": ((300, 224, 224, 3), torch.uint8, 1),
+            "b128": ((300, 224, 224, 3), torch.uint8, 128),
+            "b300": ((300, 224, 224, 3), torch.uint8, 300),
+            "rows_3072_bytes": ((40, 32, 32, 3), torch.uint8, 50),
+            "rows_16_bytes": ((1000, 16), torch.uint8, 300),
+            "f32_rows": ((11, 2, 128), torch.float32, 128),
+            "rows_105_bytes": ((37, 5, 7, 3), torch.uint8, 128),
+        }[case]
+        pool = torch.tensor(rng.integers(0, 256, shape), dtype=dtype,
+                            device=device)
+    idx = rng.integers(0, pool.shape[0], b)
+    idx[1::4] = idx[0]                  # repeated indices
+    return pool, idx
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["b1", "b128", "b300", "rows_3072_bytes",
+                                  "rows_16_bytes", "f32_rows",
+                                  "rows_105_bytes", "unaligned_base"])
+def test_pool_gather_cases_match_plain_on_card(cuda_device, case):
+    """Kernel 14 byte for byte, with repeated indices: its 16-byte loop
+    (B = 1, 128 and 300 faces; 3 KB and 16-byte rows; f32 rows) and its
+    byte loop (105-byte rows, an unaligned base); one launch a call."""
+    pool, idx = _gather_case(case, cuda_device)
+    want = tgather.pool_gather_plain(pool, idx)
+    n0 = tatt.LAUNCHES["pool_gather"]
+    got = tgather.pool_gather(pool, idx)
+    torch.cuda.synchronize()
+    assert tatt.LAUNCHES["pool_gather"] == n0 + 1
+    assert torch.equal(got, want)
+    for _ in range(2):
+        tgather.pool_gather(pool, idx)
+    assert tatt.LAUNCHES["pool_gather"] == n0 + 3
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("along_y", [False, True])
@@ -920,6 +965,30 @@ def test_doctor_probe_kernel_on_card(cuda_device):
     assert probe.LAUNCHES["doctor_probe"] == n0 + 1
     assert out.sum().item() == 2048.0
     assert torch.equal(out, probe.doctor_probe_plain(x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["8x128", "3x5", "unaligned_base"])
+def test_doctor_probe_shapes_on_card(cuda_device, case):
+    """Kernel 17 exactly on [8, 128], on [3, 5] (a ragged block) and on a
+    contiguous slice whose base is 4 bytes past 16-byte alignment; one
+    launch a call."""
+    from vit_spoof_detection_pda_tpu_torch.ops import probe
+
+    rng = np.random.default_rng(34)
+    if case == "unaligned_base":
+        x = torch.tensor(rng.standard_normal(1025).astype(np.float32),
+                         device=cuda_device)[1:]
+        assert x.is_contiguous() and x.data_ptr() % 16 == 4
+    else:
+        shape = (8, 128) if case == "8x128" else (3, 5)
+        x = torch.tensor(rng.standard_normal(shape).astype(np.float32),
+                         device=cuda_device)
+    n0 = probe.LAUNCHES["doctor_probe"]
+    got = probe.doctor_probe(x)
+    torch.cuda.synchronize()
+    assert probe.LAUNCHES["doctor_probe"] == n0 + 1
+    assert torch.equal(got, probe.doctor_probe_plain(x))
 
 
 @pytest.mark.cuda

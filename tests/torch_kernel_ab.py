@@ -1,5 +1,5 @@
-"""The attention kernels of several checkouts, timed in turns on one card,
-each beside the PyTorch call that computes the same function:
+"""The kernels of several checkouts, timed in turns on one card, each
+beside the PyTorch call that computes the same function:
 
 - kernel 4 (``attention_qkv_bwd``) and kernel 5 (``attention_qkv_bwd_phased``)
   at the fasttrain step's shape (ViT-B/16: B 128, Tp 200, D 768, 12 heads,
@@ -61,7 +61,12 @@ each beside the PyTorch call that computes the same function:
   SDPA's masked backward; and, in a tree that has the key-tiled routes
   (``ops/attention.py::tiled_bwd_plan``), kernel 13's key-tiled instance
   and kernel 12's f32 key tiles at the 2-rank block (Tq 296, Tk 592), and
-  at 512 px kernel 12's bf16 key tiles (Tq 520, Tk 1040), beside SDPA.
+  at 512 px kernel 12's bf16 key tiles (Tq 520, Tk 1040), beside SDPA;
+- kernel 14 (``pool_gather``: the launch alone, B 128 faces of a 4,096-face
+  pool, beside ``index_select`` on the same device indices; ``..._cold``
+  on 8 sets of distinct rows in turn, past the L2; ``..._wrapper`` with
+  the host check and upload, beside the plain version) and kernel 17
+  (``doctor_probe`` on the doctor's [8, 128], beside ``torch.mul``).
 
     python tests/torch_kernel_ab.py [--only NAME,...] TREE [TREE ...]
 
@@ -76,12 +81,14 @@ head-dim-64 instantiation of those kernels, and times each kernel and its
 library call in turns (kernel, library, library, kernel), each turn 5
 windows of at least 20 calls and 2 ms between CUDA events, on
 numpy-seeded operands that are the same in every tree.  Prints one JSON line per tree (the medians
-over both turns, in ms, and the sums of each output's magnitudes), then
-the card's name and power limit.  Needs a CUDA card.
+over both turns, in ms; each run's and its library call's device time a
+call over 10 calls, from torch.profiler; the sums of each output's
+magnitudes), then the card's name and power limit.  Needs a CUDA card.
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import re
@@ -96,7 +103,7 @@ TQ4, TK4 = 56, 224                 # one of four sequence ranks' blocks
 T256, TP256 = 257, 264             # ViT-B/16 at 256 px
 T512, TP512 = 1025, 1040           # ViT-B/16 at 512 px
 T_PAST = (257, 325, 577, 1025)      # ViT-B/16 at 256, 288, 384, 512 px
-NAMES = ("gemm", "mlp_block", "mlp_block_train", "attention_block_f32",
+NAMES = ("pool_gather", "doctor_probe", "gemm", "mlp_block", "mlp_block_train", "attention_block_f32",
          "attention_bwd_onchip", "attention_qkv_bwd", "attention_qkv_bwd_f32",
          "attention_qkv_bwd_phased",
          "attention_qkv_bwd_phased_long",
@@ -111,7 +118,8 @@ def _ptxas(log: str) -> list:
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
-            entry = m.group(1) if "Li64E" in m.group(1) else None
+            entry = m.group(1) if any(k in m.group(1) for k in (
+                "Li64E", "pool_gather", "doctor_probe")) else None
         elif entry and "spill" in ln:
             spill = ln.split(":", 1)[-1].strip()
         elif entry and "registers" in ln:
@@ -411,6 +419,38 @@ def _child(tree: str, only=None) -> None:
     runs["lowlat_e2e"] = (lambda: low.forward_lowlat_e2e(
         patches, w_pack, s_pack, w_end, s_end, aux, num_heads=HEADS,
         valid_len=T), None)
+    # kernel 14 at the pool step's gather (B 128 faces of 150,528 bytes
+    # from a 4,096-face pool) beside index_select on the same device
+    # indices: warm (the same rows every call, ``pool_gather``) and cold
+    # (each call the next of 8 sets of distinct rows, 154 MB past the L2,
+    # ``pool_gather_cold``); the wrappers with their host check and upload
+    # (``pool_gather_wrapper``, beside the plain version's); kernel 17 on
+    # the doctor's [8, 128] beside torch.mul (``doctor_probe``)
+    from vit_spoof_detection_pda_tpu_torch.ops import gather as ga
+    from vit_spoof_detection_pda_tpu_torch.ops import probe as pr
+    pool = torch.randint(0, 256, (4096, 224, 224, 3), dtype=torch.uint8,
+                         device=dev, generator=torch.Generator(
+                             device=dev).manual_seed(0))
+    host_sets = rng.permutation(4096)[:8 * B].reshape(8, B)
+    sets = torch.from_numpy(host_sets).to(dev)
+    sets32 = sets.int()
+    kernel_sets, library_sets = itertools.cycle(sets32), itertools.cycle(sets)
+    rows_out = torch.empty((B, 224, 224, 3), dtype=torch.uint8, device=dev)
+
+    def gather_rows(i32):
+        ga.gather_rows(pool, i32, rows_out)
+        return rows_out
+    runs["pool_gather"] = (lambda: gather_rows(sets32[0]),
+                           lambda: pool.index_select(0, sets[0]))
+    runs["pool_gather_cold"] = (
+        lambda: gather_rows(next(kernel_sets)),
+        lambda: pool.index_select(0, next(library_sets)))
+    runs["pool_gather_wrapper"] = (
+        lambda: ga.pool_gather(pool, host_sets[0]),
+        lambda: ga.pool_gather_plain(pool, host_sets[0]))
+    x_probe = torch.ones((8, 128), device=dev)
+    runs["doctor_probe"] = (lambda: pr.doctor_probe(x_probe),
+                            lambda: torch.mul(x_probe, 2.0))
     tiled = hasattr(att, "tiled_bwd_plan")
     for dt, sfx in ((torch.bfloat16, ""), (torch.float32, "_f32")):
         qkv, g = (rand(B384, TP384, 3 * D, dt=dt),
@@ -503,7 +543,21 @@ def _child(tree: str, only=None) -> None:
         n = max(20, int(2.0 / window(fn, 5)) + 1)
         return [window(fn, n) for _ in range(5)]
 
-    ms, lib_ms, sums = {}, {}, {}
+    def device_ms(fn, n=10):
+        """The card's time a call (every kernel and copy of ``n`` calls,
+        from torch.profiler)."""
+        from torch.profiler import ProfilerActivity, profile
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        return sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   ) / 1e3 / n
+
+    ms, lib_ms, dev_ms, sums = {}, {}, {}, {}
     if only:
         runs = {k: v for k, v in runs.items() if k in only}
     for name, (run, lib) in runs.items():
@@ -513,11 +567,13 @@ def _child(tree: str, only=None) -> None:
                 acc += windows(fn)
         ms[name] = statistics.median(wk)
         lib_ms[name] = statistics.median(wl) if wl else None
+        dev_ms[name] = [device_ms(fn) if fn else None for fn in (run, lib)]
         out = run()
         out = out if isinstance(out, (tuple, list)) else (out,)
         sums[name] = [float(o.float().abs().sum()) for o in out]
     print(json.dumps({"tree": tree, "ms": ms, "library_ms": lib_ms,
-                      "ptxas": ptxas, "out_abs_sums": sums}))
+                      "device_ms": dev_ms, "ptxas": ptxas,
+                      "out_abs_sums": sums}))
 
 
 def main(argv) -> int:

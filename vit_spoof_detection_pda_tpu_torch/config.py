@@ -9,8 +9,12 @@ train_advanced.py:498-505, maps onto ``Config.with_overrides``).
 
 The port's copy of the JAX package's ``config.py`` (stdlib only): the same
 fields, defaults, presets and JSON form, so one config file drives both
-packages.  Fields the port does not run yet (the mesh, FSDP, the pipeline,
-``profile_dir``, ``data.shard_cache``) make its Trainer and driver raise.
+packages.  The fields the port does not run yet make its Trainer and driver
+raise: a model axis (``sharding.model_parallel > 1``), ``sharding.fsdp`` and
+the pipeline (``sharding.pipeline_parallel > 1``), ROADMAP Queue 1 item 9b,
+and ``data.shard_cache``, item 5.
+Data and sequence meshes run, and ``telemetry.profile_dir`` is honoured (a
+trace of the first epoch).
 """
 
 from __future__ import annotations

@@ -84,6 +84,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _libs: dict = {}
+# (library name, symbol) -> (library, bound C function, argtypes as first
+# asked for)
+_entries: dict = {}
 
 
 def _nvcc() -> str:
@@ -181,12 +184,24 @@ def core_launches(reset: bool = False) -> dict:
 
 def entry(name: str, symbol: str, argtypes):
     """``(library, C function)`` of kernel ``name``: the library loaded
-    (built first if needed), the function's argument types set."""
-    lib = load(name)
-    fn = getattr(lib, symbol)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    return lib, fn
+    (built first if needed), the function bound with ``argtypes`` and an
+    int return.  Each ``(name, symbol)`` is resolved and bound once, under
+    the lock; later calls are one dictionary lookup, and one that asks for
+    other ``argtypes`` raises ``ValueError``."""
+    hit = _entries.get((name, symbol))
+    if hit is None:
+        lib = load(name)
+        with _lock:
+            hit = _entries.get((name, symbol))
+            if hit is None:
+                fn = getattr(lib, symbol)
+                fn.argtypes = tuple(argtypes)
+                fn.restype = ctypes.c_int
+                hit = _entries[(name, symbol)] = (lib, fn, argtypes)
+    if hit[2] is not argtypes and tuple(hit[1].argtypes) != tuple(argtypes):
+        raise ValueError(f"{symbol} of {name} is bound with argtypes "
+                         f"{hit[1].argtypes}; asked for {tuple(argtypes)}")
+    return hit[0], hit[1]
 
 
 def check(lib: ctypes.CDLL, name: str, err: int):

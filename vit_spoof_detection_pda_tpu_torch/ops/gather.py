@@ -12,6 +12,7 @@ is one contiguous run of bytes on the card.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import numpy as np
 import torch
@@ -20,7 +21,8 @@ from . import _build
 
 LAUNCHES = _build.LAUNCHES
 _P = ctypes.c_void_p
-_SIGNATURE = ("vsd_pool_gather", [_P] * 3 + [ctypes.c_int, ctypes.c_longlong, _P])
+_SIGNATURE = ("vsd_pool_gather",
+              (_P, _P, _P, ctypes.c_int, ctypes.c_longlong, _P))
 
 
 def _host_indices(idx, n: int) -> np.ndarray:
@@ -78,9 +80,8 @@ def gather_rows(pool: torch.Tensor, dev_idx: torch.Tensor,
     wrapper checks and uploads them); ``out`` holds ``dev_idx.numel()``
     rows.  Lets a timing hold the kernel beside ``index_select`` on the
     same device indices."""
-    row_bytes = pool[0].numel() * pool.element_size()
     lib, fn = _build.entry("pool_gather", *_SIGNATURE)
     err = fn(pool.data_ptr(), dev_idx.data_ptr(), out.data_ptr(),
-             dev_idx.numel(), row_bytes,
-             torch.cuda.current_stream(pool.device).cuda_stream)
+             dev_idx.numel(), math.prod(pool.shape[1:]) * pool.element_size(),
+             torch.cuda.current_stream(pool.get_device()).cuda_stream)
     _build.check(lib, "pool_gather", err)

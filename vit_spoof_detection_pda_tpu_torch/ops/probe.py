@@ -7,6 +7,10 @@ package's ``cli/doctor.py::check_pallas`` (:115).  The ``doctor`` verb's
 exactly 2048 shows that nvcc built the library for sm_90a, that ctypes
 loaded it and that it launched.  A CPU tensor runs
 :func:`doctor_probe_plain`.
+
+The card's work is 8 KB, so the call's cost is its host path: the checks,
+one ``torch.empty_like``, the stream handle and the C entry bound once
+(``_build.entry``).
 """
 
 from __future__ import annotations
@@ -18,6 +22,9 @@ import torch
 from . import _build
 
 LAUNCHES = _build.LAUNCHES
+_SIGNATURE = ("vsd_doctor_probe",
+              (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+               ctypes.c_void_p))
 
 
 def doctor_probe_plain(x: torch.Tensor) -> torch.Tensor:
@@ -34,12 +41,10 @@ def doctor_probe(x: torch.Tensor) -> torch.Tensor:
     if x.dtype != torch.float32 or not x.is_contiguous() or not x.numel():
         raise ValueError("the probe takes a non-empty contiguous f32 tensor; "
                          f"got {x.dtype}, shape {tuple(x.shape)}")
-    lib, fn = _build.entry("doctor_probe", "vsd_doctor_probe",
-                           [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                            ctypes.c_void_p])
+    lib, fn = _build.entry("doctor_probe", *_SIGNATURE)
     out = torch.empty_like(x)
     err = fn(x.data_ptr(), out.data_ptr(), x.numel(),
-             torch.cuda.current_stream(x.device).cuda_stream)
+             torch.cuda.current_stream(x.get_device()).cuda_stream)
     _build.check(lib, "doctor_probe", err)
     LAUNCHES["doctor_probe"] += 1
     return out
