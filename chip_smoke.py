@@ -1656,9 +1656,22 @@ def device_ms(fn, needle: str, calls: int = 20):
     one launch of a microsecond)."""
     fn()
     torch.cuda.synchronize()
-    hits = profile_once(lambda: [fn() for _ in range(calls)], 0,
-                        needles=(needle,))[needle]
-    return hits["ms"] / hits["calls"] if hits["calls"] else None
+    for _ in range(3):      # a profile that came back empty is taken again
+        hits = profile_once(lambda: [fn() for _ in range(calls)], 0,
+                            needles=(needle,))[needle]
+        if hits["calls"]:
+            return hits["ms"] / hits["calls"]
+    return None
+
+
+def device_ms_per_call(fn, calls: int = 20) -> float:
+    """The device time of every kernel of ``calls`` calls of ``fn`` queued
+    back to back, a call, from torch.profiler (after one unprofiled call):
+    for a library call that launches several kernels."""
+    fn()
+    torch.cuda.synchronize()
+    out = profile_once(lambda: [fn() for _ in range(calls)], 0)
+    return out["profile_device_busy_ms"] / calls
 
 
 def profile_once(fn, top: int = 15, needles=()) -> dict:
@@ -1740,6 +1753,11 @@ def phase_times(dev, model, serve128, u8, main_err, launches,
                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by,
                      "library_ms": time_ms(lib) if lib else None})
+    # kernel 6 by device time too, beside its library pair's (every
+    # kernel of the pair)
+    row6 = next(r for r in rows if r["name"] == "ln_res_bwd")
+    row6["device_ms"] = device_ms(timed["ln_res_bwd"][0], "ln_res_bwd")
+    row6["library_device_ms"] = device_ms_per_call(library["ln_res_bwd"])
     del a_in, m_in, bwd, ln, library
 
     batch = torch.from_numpy(u8).to(dev)
@@ -1762,7 +1780,8 @@ def phase_times(dev, model, serve128, u8, main_err, launches,
                                               for k in SERVING_KERNELS),
           "kernels": {r["name"]: {k: r[k] for k in
                                   ("ms", "plain_ms", "bound_ms",
-                                   "library_ms")}
+                                   "library_ms", "device_ms",
+                                   "library_device_ms") if k in r}
                       for r in rows}})
 
     # the training step (forward, backward, optimizer), dropout on
@@ -2009,19 +2028,30 @@ def phase_kernels_aug(dev) -> dict:
     main_err["pool_gather"] = 0.0
     del pool, flat
 
-    # kernel 15: within one ulp of the output type, f32 and bf16 images,
-    # every pass geometry at its bound, and a ragged 250 x 190 frame with
-    # out-of-frame pixels
+    # kernel 15: bit for bit with its plain version, f32 and bf16 images,
+    # every pass geometry at its bound, a ragged 250 x 190 frame with
+    # out-of-frame pixels, 1, 2 and 4 channels, and lines past the staged
+    # routes; each case on the route warp_pass_plan gives it, and every
+    # route launched
     img = torch.rand((MAIN_B, IMG, IMG, 3), generator=gen, device=dev)
     rimg = torch.rand((4, 250, 190, 3), generator=gen, device=dev)
     rfield = (torch.rand((4, 250, 190), generator=gen, device=dev) * 2
               - 1) * 12.5
-    cases = warp_cases(dev, gen) + [("ragged_250x190_rows", False, 13,
-                                     rfield),
-                                    ("ragged_250x190_cols", True, 13, rfield)]
-    worst = 0.0
-    for label, along_y, kmax, field in cases:
-        x = rimg if label.startswith("ragged") else img
+    chan = torch.rand((3, 64, 48, 4), generator=gen, device=dev)
+    cfield = (torch.rand((3, 64, 48), generator=gen, device=dev) * 2
+              - 1) * 8.9
+    wide = torch.rand((1, 3, 9000, 4), generator=gen, device=dev)
+    wfield = (torch.rand((1, 3, 9000), generator=gen, device=dev) * 2
+              - 1) * 8.9
+    cases = ([c + (img,) for c in warp_cases(dev, gen)]
+             + [("ragged_250x190_rows", False, 13, rfield, rimg),
+                ("ragged_250x190_cols", True, 13, rfield, rimg)]
+             + [(f"c{c}_{ax}", ax == "cols", 9, cfield, chan[..., :c])
+                for c in (1, 2, 4) for ax in ("rows", "cols")]
+             + [("wide_9000x4_rows", False, 9, wfield, wide),
+                ("wide_9000x4_cols", True, 9, wfield, wide)])
+    worst, routes = 0.0, set()
+    for label, along_y, kmax, field, x in cases:
         n = x.shape[1 if along_y else 2]
         pos = torch.arange(n, dtype=torch.float32, device=dev).view(
             (1, n, 1) if along_y else (1, 1, n))
@@ -2031,8 +2061,12 @@ def phase_kernels_aug(dev) -> dict:
             got = warp.warp_pass(xx, field, kmax, along_y=along_y)
             want = warp.warp_pass_plain(xx, field, kmax, along_y=along_y)
             res[name] = ulps_apart(got, want, mant)
+            res[name]["equal"] = bool(torch.equal(got, want))
             res[name]["dtype_kept"] = got.dtype == xx.dtype
-        ok = all(r["within_1ulp"] and r["dtype_kept"] for r in res.values())
+            res[name]["route"] = warp.warp_pass_plan(
+                *xx.shape, xx.dtype, along_y)["route"]
+            routes.add(res[name]["route"])
+        ok = all(r["equal"] and r["dtype_kept"] for r in res.values())
         emit({"phase": "kernels", "case": label, "kernel": "warp_pass",
               "shape": list(x.shape), "kmax": kmax,
               "max_abs_shift": field.abs().max().item(),
@@ -2042,10 +2076,13 @@ def phase_kernels_aug(dev) -> dict:
         if not ok:
             raise AssertionError(f"warp_pass disagrees with its plain "
                                  f"version on {label}: {res}")
-        if not label.startswith("ragged"):
+        if x is img:        # the main path's passes
             worst = max(worst, *(r["max_abs_err"] for r in res.values()))
+    if routes != set(warp.WARP_ROUTES):
+        raise AssertionError(f"warp_pass cases ran routes {sorted(routes)}, "
+                             f"not every one of {warp.WARP_ROUTES}")
     main_err["warp_pass"] = worst
-    del img, rimg, rfield, cases
+    del img, rimg, rfield, chan, cfield, wide, wfield, cases
 
     # kernel 16: f32, within AUG_TOL (the same roundings; expf may differ
     # by an ulp)
@@ -2301,6 +2338,11 @@ def phase_times_aug(dev, ctx, main_err, launches, bare_step_ms) -> list:
     wrapper_ms = time_ms(lambda: gather.pool_gather(pool, idx))
     row14 = next(r for r in rows if r["name"] == "pool_gather")
     row14["device_ms"] = device_ms(timed["pool_gather"][0], "pool_gather")
+    # kernel 15 by device time too, and its route at the timed shape
+    row15 = next(r for r in rows if r["name"] == "warp_pass")
+    row15["device_ms"] = device_ms(timed["warp_pass"][0], "warp_")
+    row15["plan_route"] = warp.warp_pass_plan(*img.shape, img.dtype,
+                                              False)["route"]
     sets = torch.from_numpy(np.random.default_rng(SEED + 13).permutation(
         POOL_N)[:8 * MAIN_B].reshape(8, MAIN_B)).to(dev)
     kernel_sets, library_sets = itertools.cycle(sets.int()), itertools.cycle(
@@ -2315,11 +2357,23 @@ def phase_times_aug(dev, ctx, main_err, launches, bare_step_ms) -> list:
                       / 2.0)[:, None]
            * (torch.arange(IMG, device=dev, dtype=torch.float32)
               - (IMG - 1) / 2.0))[:, :, None].expand(MAIN_B, IMG, IMG)
-    warp_extra = {
-        "rotation_rows_bf16_ms": time_ms(lambda: warp.warp_pass(img, rot,
-                                                                11)),
-        "full_field_f32_ms": time_ms(lambda: warp.warp_pass(
-            img.float(), field, kmax))}
+    # the other passes of the tower at the timed shape: the column pass on
+    # the same field, the rotation's broadcast rows, an f32 image; each by
+    # events and by device time, with its route
+    img32 = img.float()
+    warp_extra = {}
+    for key, fn, along_y, x in (
+            ("cols_bf16", lambda: warp.warp_pass(img, field, kmax,
+                                                 along_y=True), True, img),
+            ("rotation_rows_bf16", lambda: warp.warp_pass(img, rot, 11),
+             False, img),
+            ("full_field_f32", lambda: warp.warp_pass(img32, field, kmax),
+             False, img32)):
+        warp_extra[key + "_ms"] = time_ms(fn)
+        warp_extra[key + "_device_ms"] = device_ms(fn, "warp_")
+        warp_extra[key + "_route"] = warp.warp_pass_plan(
+            *x.shape, x.dtype, along_y)["route"]
+    del img32
     del img, field, x_nlm, rot
 
     tiers = {}
@@ -2351,6 +2405,8 @@ def phase_times_aug(dev, ctx, main_err, launches, bare_step_ms) -> list:
           "pool_gather_kernel_device_ms": row14["device_ms"],
           "pool_gather_cold": gather_cold,
           "pool_gather_wrapper_ms": wrapper_ms,
+          "warp_pass_device_ms": row15["device_ms"],
+          "warp_pass_route": row15["plan_route"],
           "warp_pass_other_shapes": warp_extra,
           "tiers_b64_uint8_out": tiers, "pool_step": pool_steps,
           "bare_step_ms": bare_step_ms, "heavy_step_profile": profile,
@@ -3318,10 +3374,15 @@ def phase_times_train_loop(dev, ctx, loop_trainer, main_err, launches):
                      "launches": runs[name], "max_abs_err": main_err[name],
                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": lib_ms})
+        if name == "ln_res_bwd_f32":    # by device time too, as row 6
+            rows[-1]["device_ms"] = device_ms(kernel, "ln_res_bwd")
+            with exact_f32_matmul():
+                rows[-1]["library_device_ms"] = device_ms_per_call(lib)
     emit({"phase": "times_train_kernels",
           "kernels": {r["name"]: {k: r[k] for k in (
               "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-              "launches")} for r in rows}})
+              "launches", "device_ms", "library_device_ms") if k in r}
+                      for r in rows}})
     return rows
 
 

@@ -640,6 +640,71 @@ def test_warp_pass_kernel_matches_plain_on_card(cuda_device, dtype, along_y,
                                              along_y=along_y))
 
 
+# kernel 15's routes (ops/warp.py::warp_pass_plan): (b, h, w, c, kmax,
+# field limit, field kind); "wrap": kmax near half the line, so taps wrap;
+# "rows" / "cols": the rotation's broadcast per-row / per-column shifts;
+# "wide": lines past the staged routes' shared memory (per pixel)
+WARP_ROUTE_CASES = {
+    "c1": (3, 64, 48, 1, 9, 8.9, "full"),
+    "c2": (3, 64, 48, 2, 9, 8.9, "full"),
+    "c4": (3, 64, 48, 4, 9, 8.9, "full"),
+    "ragged_250x190": (3, 250, 190, 3, 13, 12.5, "full"),
+    "wrap": (2, 40, 36, 3, 18, 17.9, "full"),
+    "broadcast_rows": (3, 224, 224, 3, 11, 10.9, "rows"),
+    "broadcast_cols": (3, 224, 224, 3, 21, 20.9, "cols"),
+    "wide": (1, 3, 9000, 4, 9, 8.9, "full"),
+}
+
+
+def _warp_case(case, dtype, device):
+    b, h, w, c, kmax, lim, kind = WARP_ROUTE_CASES[case]
+    rng = np.random.default_rng(34)
+    img = torch.tensor(rng.random((b, h, w, c), dtype=np.float32),
+                       device=device).to(dtype)
+    field = torch.tensor((rng.random((b, h, w)) * 2 - 1).astype(np.float32)
+                         * lim, device=device)
+    if kind == "rows":
+        field = field[:, :, :1].expand(b, h, w)
+    elif kind == "cols":
+        field = field[:, :1, :].expand(b, h, w)
+    return img, field, kmax
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("along_y", [False, True])
+@pytest.mark.parametrize("case", list(WARP_ROUTE_CASES))
+def test_warp_pass_routes_match_plain_on_card(cuda_device, dtype, along_y,
+                                              case):
+    """Kernel 15 bit for bit on the route its plan gives each case (C 1,
+    2 and 4, lines off the 16-byte grid, wrapping taps, broadcast fields,
+    a line past the staged routes); one launch a call."""
+    img, field, kmax = _warp_case(case, dtype, cuda_device)
+    b, h, w, c = img.shape
+    want = twarp.warp_pass_plain(img, field.contiguous(), kmax,
+                                 along_y=along_y)
+    plan = twarp.warp_pass_plan(b, h, w, c, dtype, along_y)
+    assert plan["route"] == ("per_pixel" if case == "wide" else
+                             "cols_direct" if along_y else "rows_staged")
+    n0 = tatt.LAUNCHES["warp_pass"]
+    got = twarp.warp_pass(img, field, kmax, along_y=along_y)
+    torch.cuda.synchronize()
+    assert tatt.LAUNCHES["warp_pass"] == n0 + 1
+    assert got.dtype == dtype
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_warp_pass_plan_matches_the_c_launcher_on_card(cuda_device):
+    """The plan in Python against the C launcher's own
+    (``vsd_warp_pass_plan``) at every case, both types and directions."""
+    for b, h, w, c, *_ in WARP_ROUTE_CASES.values():
+        for dtype in (torch.float32, torch.bfloat16):
+            for along_y in (False, True):
+                assert (twarp.warp_pass_c_plan(b, h, w, c, dtype, along_y)
+                        == twarp.warp_pass_plan(b, h, w, c, dtype, along_y))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,h,w,c,r,p", [(2, 224, 224, 3, 5, 1),
                                          (1, 250, 190, 3, 5, 1),
@@ -864,6 +929,52 @@ def test_f32_kernels_reject_what_they_cannot_take(cuda_device):
     x, *w = m.values()
     with pytest.raises(TypeError):                   # f32 x, bf16 weights
         tatt.mlp_block_train(x[0].float(), *w, approximate=False)
+
+
+# kernel 6 on its card-sized grid: (B, Tq, D) -- rows fewer than the SMs,
+# rows off a block's run (25,599), D 8 / 776 / 1024, B 256 at ViT-B
+LN_GRID_CASES = [(1, 8, 768), (1, 25599, 768), (4, 40, 8), (4, 40, 776),
+                 (4, 40, 1024), (256, 200, 768)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["bf16", "bf16_f32dxn", "f32"])
+@pytest.mark.parametrize("b,tq,d", LN_GRID_CASES)
+def test_ln_res_bwd_grid_matches_plain_on_card(cuda_device, b, tq, d, form):
+    """Kernel 6 against its plain version (bf16 at 2 bf16 ulps, f32 at
+    1e-5 of each output's largest magnitude), pad rows exactly 0, the
+    sums bit for bit over two calls, one launch a call, a grid of at most
+    one wave of the card and the ticket counters left at 0."""
+    xh, inv, dxn, g, lns = _ln_bwd_inputs(
+        28, cuda_device, b, tq, d,
+        torch.bfloat16 if form == "bf16" else torch.float32)
+    if form == "f32":
+        xh, g = xh.float(), g.float()
+    valid = max(1, tq - 3)
+    dxn[:, valid:] = 0                      # padding contract
+    g[:, valid:] = 0
+    name = "ln_res_bwd_f32" if form == "f32" else "ln_res_bwd"
+    n0 = tatt.LAUNCHES[name]
+    got = tln.ln_residual_bwd(xh, inv, dxn, g, lns)
+    assert tatt.LAUNCHES[name] == n0 + 1
+    again = tln.ln_residual_bwd(xh, inv, dxn, g, lns)
+    assert tatt.LAUNCHES[name] == n0 + 2
+    want = tln.ln_residual_bwd_plain(xh, inv, dxn, g, lns)
+    torch.cuda.synchronize()
+    close = _assert_close_f32 if form == "f32" else _assert_close
+    for gg, ww in zip(got, want):           # dx, dscale, dbias
+        assert gg.dtype == ww.dtype
+        close(gg, ww)
+    assert (got[0][:, valid:] == 0).all()
+    assert all(torch.equal(u, v) for u, v in zip(got, again))
+    plan = tln.ln_bwd_plan(b * tq, d, form != "bf16", form == "f32",
+                           cuda_device)
+    assert 1 <= plan["blocks"] <= plan["per_sm"] * plan["sms"]
+    assert plan["blocks"] <= max(1, -(-(b * tq) // 16))
+    assert plan["finishers"] == min(plan["blocks"], 128, 2 * d)
+    stream = torch.cuda.current_stream(cuda_device).cuda_stream
+    tickets = tln._tickets[(torch.device(cuda_device).index or 0, stream)]
+    assert int(tickets.abs().sum()) == 0
 
 
 # --------------------------------------------------------------------------

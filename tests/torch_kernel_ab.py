@@ -66,7 +66,16 @@ beside the PyTorch call that computes the same function:
   pool, beside ``index_select`` on the same device indices; ``..._cold``
   on 8 sets of distinct rows in turn, past the L2; ``..._wrapper`` with
   the host check and upload, beside the plain version) and kernel 17
-  (``doctor_probe`` on the doctor's [8, 128], beside ``torch.mul``).
+  (``doctor_probe`` on the doctor's [8, 128], beside ``torch.mul``);
+- kernel 15 (``warp_pass``: a bf16 B 128, 224 x 224 x 3 batch, a full f32
+  field at the perspective's kmax 33, along x; ``warp_pass_cols`` the same
+  along y; ``warp_pass_rot`` the rotation's per-row shifts, a broadcast
+  field, kmax 11; ``warp_pass_f32`` an f32 image, full field, along x), no
+  library call;
+- kernel 6 (``ln_res_bwd``: bf16 B 128, Tp 200, D 768, bf16 dxn;
+  ``ln_res_bwd_f32dxn`` with f32 dxn; ``ln_res_bwd_f32`` the f32 form at
+  B 32), beside ``native_layer_norm_backward`` plus the residual add (on
+  dxn in the type of xh).
 
     python tests/torch_kernel_ab.py [--only NAME,...] TREE [TREE ...]
 
@@ -103,7 +112,7 @@ TQ4, TK4 = 56, 224                 # one of four sequence ranks' blocks
 T256, TP256 = 257, 264             # ViT-B/16 at 256 px
 T512, TP512 = 1025, 1040           # ViT-B/16 at 512 px
 T_PAST = (257, 325, 577, 1025)      # ViT-B/16 at 256, 288, 384, 512 px
-NAMES = ("pool_gather", "doctor_probe", "gemm", "mlp_block", "mlp_block_train", "attention_block_f32",
+NAMES = ("pool_gather", "doctor_probe", "warp_pass", "ln_res_bwd", "gemm", "mlp_block", "mlp_block_train", "attention_block_f32",
          "attention_bwd_onchip", "attention_qkv_bwd", "attention_qkv_bwd_f32",
          "attention_qkv_bwd_phased",
          "attention_qkv_bwd_phased_long",
@@ -119,7 +128,8 @@ def _ptxas(log: str) -> list:
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
             entry = m.group(1) if any(k in m.group(1) for k in (
-                "Li64E", "pool_gather", "doctor_probe")) else None
+                "Li64E", "pool_gather", "doctor_probe", "warp_",
+                "ln_res_bwd")) else None
         elif entry and "spill" in ln:
             spill = ln.split(":", 1)[-1].strip()
         elif entry and "registers" in ln:
@@ -451,6 +461,48 @@ def _child(tree: str, only=None) -> None:
     x_probe = torch.ones((8, 128), device=dev)
     runs["doctor_probe"] = (lambda: pr.doctor_probe(x_probe),
                             lambda: torch.mul(x_probe, 2.0))
+    # kernel 15 at the tower's timed shape (a full f32 field at kmax 33,
+    # a broadcast per-row field at kmax 11), no library call
+    from vit_spoof_detection_pda_tpu_torch.ops import warp as wp
+    img = torch.from_numpy(rng.random((B, 224, 224, 3), dtype=np.float32)
+                           ).to(dev)
+    img16 = img.bfloat16()
+    field = torch.from_numpy(((rng.random((B, 224, 224)) * 2 - 1) * 32.0)
+                             .astype(np.float32)).to(dev)
+    rot = (torch.from_numpy(((rng.random((B, 224)) * 2 - 1) * 10.0)
+                            .astype(np.float32)).to(dev)[:, :, None]
+           .expand(B, 224, 224))
+    runs["warp_pass"] = (lambda: wp.warp_pass(img16, field, 33), None)
+    runs["warp_pass_cols"] = (
+        lambda: wp.warp_pass(img16, field, 33, along_y=True), None)
+    runs["warp_pass_rot"] = (lambda: wp.warp_pass(img16, rot, 11), None)
+    runs["warp_pass_f32"] = (lambda: wp.warp_pass(img, field, 33), None)
+    # kernel 6 at the step's shape beside native_layer_norm_backward plus
+    # the residual add (it recomputes xhat from mean 0 and rstd = inv)
+    from vit_spoof_detection_pda_tpu_torch.ops import ln_bwd as lb
+    for name, b, xdt, ddt in (
+            ("ln_res_bwd", B, torch.bfloat16, torch.bfloat16),
+            ("ln_res_bwd_f32dxn", B, torch.bfloat16, torch.float32),
+            ("ln_res_bwd_f32", B32, torch.float32, torch.float32)):
+        xh, g2 = rand(b, TP, D, dt=xdt), rand(b, TP, D, dt=xdt)
+        dxn = rand(b, TP, D, dt=ddt)
+        inv = torch.from_numpy(rng.uniform(0.5, 2.0, (b, TP, 1)).astype(
+            np.float32)).to(dev)
+        lns = scaled(D, scale=0.1, shift=1.0, dt=torch.float32)
+        w_ln = lns.to(xdt)
+        bias_ln = torch.zeros_like(w_ln)
+        _, mean, rstd = torch.ops.aten.native_layer_norm(
+            xh, [D], w_ln, bias_ln, 1e-6)
+        mean = torch.zeros_like(mean)
+        rstd = inv.to(rstd.dtype).view(rstd.shape)
+
+        def ln_lib(xh=xh, dxn=dxn.to(xdt), g2=g2, mean=mean, rstd=rstd,
+                   w_ln=w_ln, bias_ln=bias_ln):
+            dx, dw, db = torch.ops.aten.native_layer_norm_backward(
+                dxn, xh, [D], mean, rstd, w_ln, bias_ln, [True, True, True])
+            return dx + g2, dw, db
+        runs[name] = (lambda xh=xh, inv=inv, dxn=dxn, g2=g2, lns=lns:
+                      lb.ln_residual_bwd(xh, inv, dxn, g2, lns), ln_lib)
     tiled = hasattr(att, "tiled_bwd_plan")
     for dt, sfx in ((torch.bfloat16, ""), (torch.float32, "_f32")):
         qkv, g = (rand(B384, TP384, 3 * D, dt=dt),
@@ -560,6 +612,10 @@ def _child(tree: str, only=None) -> None:
     ms, lib_ms, dev_ms, sums = {}, {}, {}, {}
     if only:
         runs = {k: v for k, v in runs.items() if k in only}
+    # the training steps last: a profile of a whole step's thousands of
+    # kernels leaves later profiles of one kernel short of events
+    runs = dict(sorted(runs.items(),
+                       key=lambda kv: kv[0].startswith("train_step")))
     for name, (run, lib) in runs.items():
         wk, wl = [], []
         for fn, acc in ((run, wk), (lib, wl), (lib, wl), (run, wk)):

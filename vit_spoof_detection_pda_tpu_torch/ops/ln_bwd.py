@@ -11,11 +11,14 @@ Every sub-layer of the ViT is ``y = x + f(LN(x))``; given the cotangent
 with ``xh`` the stored normalized input and ``inv = rsqrt(var + eps)``
 per row.  Kernel: ``csrc/ln_res_bwd.cu``; replaces ``_ln_res_bwd_kernel``
 (JAX ``ops/ln_bwd.py:45``).  The TPU kernel summed ``dscale`` and
-``dbias`` across its sequential grid; the CUDA kernel writes per-block
-partial sums and reduces them in a second launch in a fixed order, so
-the sums are the same from run to run.  The f32 form (f32 ``xh``, ``g``
-and ``dxn``, for ``compute_dtype="float32"``) is the same kernel
-templated on the type.
+``dbias`` across its sequential grid; the CUDA kernel runs one launch on
+a grid sized to the card, each block writing a partial row that the last
+blocks to finish add in a fixed order (ticket counters in device memory,
+zeroed once per device and stream and left zero by every call), so the
+sums are the same from run to run.  The grid and the scratch come from
+one rule in C (``vsd_ln_res_bwd_plan``, :func:`ln_bwd_plan`).  The f32
+form (f32 ``xh``, ``g`` and ``dxn``, for ``compute_dtype="float32"``)
+is the same kernel templated on the type.
 
 Padding contract: rows with ``dxn = g = 0`` come out with ``dx`` exactly
 0 and add nothing to the sums, so row-padded operands need no masking.
@@ -31,10 +34,15 @@ from . import _build
 from .attention import _require
 
 LAUNCHES = _build.LAUNCHES
-_LN_ROWS_PER_BLOCK = 128     # rows of one partial sum (csrc/ln_res_bwd.cu)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIGNATURE = ("vsd_ln_res_bwd", [_P] * 9 + [_I] * 4 + [_P])
+_L = ctypes.c_longlong
+_SIGNATURE = ("vsd_ln_res_bwd", [_P] * 10 + [_L] * 2 + [_I] * 4 + [_P])
+_PLAN_SIGNATURE = ("vsd_ln_res_bwd_plan", [_I] * 4 + [_P])
+_PLAN_KEYS = ("blocks", "finishers", "scratch", "tickets", "per_sm", "sms",
+              "smem")
+_plans: dict = {}      # (device, rows, d, dxn_f32, x_f32) -> plan
+_tickets: dict = {}    # (device, stream) -> the zeroed ticket counters
 
 
 def ln_residual_bwd_plain(xh, inv, dxn, g, lns):
@@ -51,6 +59,40 @@ def ln_residual_bwd_plain(xh, inv, dxn, g, lns):
     dlns = (dxn * xh32).reshape(-1, d).sum(0)
     dlnb = dxn.reshape(-1, d).sum(0)
     return dx, dlns, dlnb
+
+
+def ln_bwd_plan(rows: int, d: int, dxn_f32: bool, x_f32: bool,
+                device) -> dict:
+    """The launch plan of one call on ``device`` (a CUDA device), from the
+    C launcher's own rule (``vsd_ln_res_bwd_plan``), read once per shape:
+    ``blocks`` = min(ceil(rows / 16), ``per_sm`` x ``sms``), the blocks
+    of the kernel's instance that fit an SM times the SMs; the last
+    ``finishers`` blocks to finish add the partial rows; ``scratch``
+    floats and ``tickets`` counters; ``smem`` bytes a block."""
+    dev = torch.device(device)
+    key = (dev.index, rows, d, bool(dxn_f32), bool(x_f32))
+    plan = _plans.get(key)
+    if plan is None:
+        lib, fn = _build.entry("ln_res_bwd", *_PLAN_SIGNATURE)
+        out = (ctypes.c_longlong * len(_PLAN_KEYS))()
+        with torch.cuda.device(dev):
+            _build.check(lib, "ln_res_bwd_plan",
+                         fn(rows, d, int(dxn_f32), int(x_f32), out))
+        plan = _plans[key] = dict(zip(_PLAN_KEYS, out))
+    return plan
+
+
+def _ticket_counters(dev, stream, n: int) -> torch.Tensor:
+    """At least ``n`` int32 ticket counters for calls on ``stream``: zeroed
+    when first made (one memset per device and stream), then left zero by
+    every launch (the last finisher past its wait resets them).  Calls on
+    one stream run in order, so they share one set."""
+    key = (dev.index, stream)
+    t = _tickets.get(key)
+    if t is None or t.numel() < n:
+        t = _tickets[key] = torch.zeros(max(n, 64), dtype=torch.int32,
+                                        device=dev)
+    return t
 
 
 def ln_residual_bwd(xh, inv, dxn, g, lns):
@@ -87,16 +129,19 @@ def ln_residual_bwd(xh, inv, dxn, g, lns):
     _require(g, "g", xdt, (b, tq, d), dev)
     _require(lns, "lns", f32, (d,), dev)
     rows = b * tq
-    blocks = max(1, -(-rows // _LN_ROWS_PER_BLOCK))
+    dxn_f32, x_f32 = dxn.dtype == f32, xdt == f32
+    plan = ln_bwd_plan(rows, d, dxn_f32, x_f32, dev)
     lib, fn = _build.entry("ln_res_bwd", *_SIGNATURE)
+    stream = torch.cuda.current_stream(dev.index).cuda_stream
+    tickets = _ticket_counters(dev, stream, plan["tickets"])
     dx = torch.empty_like(xh)
-    partial = torch.empty((2, blocks, d), dtype=f32, device=dev)
+    scratch = torch.empty(plan["scratch"], dtype=f32, device=dev)
     sums = torch.empty((2, d), dtype=f32, device=dev)
     err = fn(xh.data_ptr(), inv.data_ptr(), dxn.data_ptr(), g.data_ptr(),
-             lns.data_ptr(), dx.data_ptr(), partial.data_ptr(),
-             sums[0].data_ptr(), sums[1].data_ptr(), rows, d,
-             int(dxn.dtype == f32), int(xdt == f32),
-             torch.cuda.current_stream(dev).cuda_stream)
+             lns.data_ptr(), dx.data_ptr(), scratch.data_ptr(),
+             sums[0].data_ptr(), sums[1].data_ptr(), tickets.data_ptr(),
+             plan["scratch"], tickets.numel(), rows, d, int(dxn_f32),
+             int(x_f32), stream)
     name = "ln_res_bwd_f32" if xdt == f32 else "ln_res_bwd"
     _build.check(lib, name, err)
     LAUNCHES[name] += 1

@@ -10,7 +10,8 @@ Two families, as in the JAX package:
 - the scanline passes of the gather-free warp tower (``rotate_3shear``,
   ``perspective_warp_2pass``, ``displacement_warp_2pass``), each pass one
   launch of the hand-written kernel ``csrc/warp_pass.cu`` for the whole
-  batch (:func:`warp_pass`).  It replaces the TPU kernel
+  batch (:func:`warp_pass`), on the route :func:`warp_pass_plan` chooses
+  by shape.  It replaces the TPU kernel
   ``ops/warp_pallas.py::_pass_kernel`` and computes what that kernel
   computes: a 2-tap tent in f32, zero fill outside the frame, the output
   in the image's dtype.  On a CPU tensor :func:`warp_pass` runs
@@ -37,6 +38,15 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIGNATURE = ("vsd_warp_pass", [_P] * 3 + [_I] * 4 + [_L] * 3 + [_I] * 3 + [_P])
+_PLAN_SIGNATURE = ("vsd_warp_pass_plan", [_I] * 6 + [_P])
+
+# the routes of kernel 15, in the ids of csrc/warp_plan.cuh
+WARP_ROUTES = ("per_pixel", "rows_staged", "cols_direct")
+WARP_THREADS = 256
+WARP_STAGE_BYTES = 16384       # image bytes of the rows a staged block takes
+WARP_STAGES = 2                # stages of the rows_staged ring
+WARP_MAX_SMEM = 98304          # shared memory past which a pass goes per pixel
+_INT32 = 2 ** 31 - 1
 
 
 # --------------------------------------------------------------------------
@@ -77,6 +87,53 @@ def warp_pass_plain(img: torch.Tensor, field: torch.Tensor, kmax: int, *,
     return torch.where(valid.unsqueeze(-1), acc, 0.0).to(img.dtype)
 
 
+def _align16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def warp_pass_plan(b: int, h: int, w: int, c: int, dtype,
+                   along_y: bool) -> dict:
+    """The route of one pass of kernel 15 and its geometry, chosen by
+    shape before any launch (the mirror of ``csrc/warp_plan.cuh``, which
+    the launcher runs and ``vsd_warp_pass_plan`` exports).
+
+    ``rows_staged`` (along x) and ``cols_direct`` (along y): a tile is
+    ``lines`` whole image rows, the largest power of 2 up to 8 whose rows
+    hold at most ``WARP_STAGE_BYTES``, moved through shared memory with
+    16-byte copies (along x two stages of input and field rows and one of
+    output, a persistent grid of 256-thread blocks walking the ``tiles``;
+    along y a block a tile, its field and output rows staged); past
+    ``WARP_MAX_SMEM`` of shared memory, or past 32-bit row or image
+    indices, ``per_pixel``: one thread a pixel (``tiles`` blocks of 256).
+
+    Returns ``{"route", "lines", "smem", "tiles"}``."""
+    plan = {"route": "per_pixel", "lines": 0, "smem": 0,
+            "tiles": -(-(b * h * w) // WARP_THREADS)}
+    line = w * c * (2 if dtype == torch.bfloat16 else 4)
+    lines = 8
+    while lines > 1 and lines * line > WARP_STAGE_BYTES:
+        lines //= 2
+    tile, fbytes = _align16(lines * line + 16), _align16(lines * w * 4 + 16)
+    smem = (tile + fbytes if along_y else
+            (1 + WARP_STAGES) * tile + WARP_STAGES * fbytes)
+    if smem > WARP_MAX_SMEM or b * h > _INT32 or h * w * c > _INT32:
+        return plan
+    return {"route": "cols_direct" if along_y else "rows_staged",
+            "lines": lines, "smem": smem, "tiles": -(-(b * h) // lines)}
+
+
+def warp_pass_c_plan(b: int, h: int, w: int, c: int, dtype,
+                     along_y: bool) -> dict:
+    """The C launcher's own plan (``vsd_warp_pass_plan``) in the form of
+    :func:`warp_pass_plan`; builds the library."""
+    lib, fn = _build.entry("warp_pass", *_PLAN_SIGNATURE)
+    out = (ctypes.c_longlong * 4)()
+    _build.check(lib, "warp_pass_plan", fn(
+        b, h, w, c, int(dtype == torch.bfloat16), int(along_y), out))
+    return {"route": WARP_ROUTES[out[0]], "lines": out[1], "smem": out[2],
+            "tiles": out[3]}
+
+
 def warp_pass(img: torch.Tensor, field: torch.Tensor, kmax: int, *,
               along_y: bool = False) -> torch.Tensor:
     """One scanline pass over the batch (see :func:`warp_pass_plain`).
@@ -84,8 +141,9 @@ def warp_pass(img: torch.Tensor, field: torch.Tensor, kmax: int, *,
     img    [B, H, W, C] f32 or bf16, C <= 4
     field  [B, H, W] f32; may be a broadcast view (stride 0 on an axis)
 
-    On a CUDA tensor: one launch of ``csrc/warp_pass.cu``; a bad input
-    or a failed build or launch raises."""
+    On a CUDA tensor: one launch of ``csrc/warp_pass.cu`` on the route
+    :func:`warp_pass_plan` gives the shape; a bad input or a failed build
+    or launch raises."""
     if img.device.type == "cpu":
         return warp_pass_plain(img, field, kmax, along_y=along_y)
     if img.device.type != "cuda":
@@ -107,7 +165,7 @@ def warp_pass(img: torch.Tensor, field: torch.Tensor, kmax: int, *,
     err = fn(img.data_ptr(), field.data_ptr(), out.data_ptr(), b, h, w, c,
              *field.stride(), int(kmax), int(along_y),
              int(img.dtype == torch.bfloat16),
-             torch.cuda.current_stream(img.device).cuda_stream)
+             torch.cuda.current_stream(img.device.index).cuda_stream)
     _build.check(lib, "warp_pass", err)
     LAUNCHES["warp_pass"] += 1
     return out
