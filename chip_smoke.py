@@ -965,6 +965,29 @@ def gemm_plan_mismatches() -> list:
             if gemm.gemm_plan(*shape, sms) != gemm.gemm_launch_config(*shape)]
 
 
+def mlp_nlm_plan_mismatches() -> list:
+    """The shapes where ops/attention.py's plan of kernel 2 or ops/nlm.py's
+    plan of kernel 16 differs from what its C launcher chooses (read from
+    the library): kernel 2 at 1, 127, 129, 25,216 and 25,600 rows (ViT-B
+    widths) and a narrow block; kernel 16 at the eval shape, ragged and
+    tiny images, r 0 / p 0, every channel count and both routes."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = []
+    for rows, d, hidden in ((1, D, HIDDEN), (127, D, HIDDEN),
+                            (129, D, HIDDEN), (25216, D, HIDDEN),
+                            (MAIN_B * TP, D, HIDDEN), (66, 40, 72)):
+        plan = att.mlp_block_plan(rows, d, hidden, sms)
+        del plan["scratch"]
+        if plan != att.mlp_block_launch_config(rows, d, hidden):
+            out.append(("mlp_block", rows, d, hidden))
+    for shape in ((IMG, IMG, 3, 5, 1), (250, 190, 3, 5, 1), (6, 9, 3, 5, 1),
+                  (20, 17, 1, 2, 2), (IMG, IMG, 3, 0, 0), (80, 70, 4, 3, 1),
+                  (64, 64, 3, 5, 3), (97, 133, 2, 5, 1)):
+        if nlm.nlm_plan(*shape) != nlm.nlm_c_plan(*shape):
+            out.append(("nlm",) + shape)
+    return out
+
+
 def phase_build():
     t0 = time.perf_counter()
     compiled = _build.build()
@@ -980,14 +1003,16 @@ def phase_build():
     mismatches = onchip_plan_mismatches()
     lowlat_mismatches = lowlat_plan_mismatches()
     gemm_mismatches = gemm_plan_mismatches()
+    mlp_nlm_mismatches = mlp_nlm_plan_mismatches()
     emit({"phase": "build", "seconds": round(seconds, 3),
           "compiled": compiled, "ptxas": ptxas,
           "wgmma_serialised_notes": serialised,
           "onchip_plan_mismatches": mismatches,
           "lowlat_plan_mismatches": lowlat_mismatches,
           "gemm_plan_mismatches": gemm_mismatches,
+          "mlp_nlm_plan_mismatches": mlp_nlm_mismatches,
           "ok": not mismatches and not lowlat_mismatches
-          and not gemm_mismatches})
+          and not gemm_mismatches and not mlp_nlm_mismatches})
     if mismatches:
         raise AssertionError(f"build: the on-chip backward's plan differs "
                              f"from its C launcher at {mismatches}")
@@ -998,6 +1023,9 @@ def phase_build():
     if gemm_mismatches:
         raise AssertionError(f"build: the GEMM core's plan differs from its "
                              f"C launcher at {gemm_mismatches}")
+    if mlp_nlm_mismatches:
+        raise AssertionError(f"build: kernel 2's or 16's plan differs from "
+                             f"its C launcher at {mlp_nlm_mismatches}")
 
 
 def _kernel_parts(a_in, m_in, bwd, ln, heads, valid):
@@ -2085,15 +2113,24 @@ def phase_kernels_aug(dev) -> dict:
     del img, rimg, rfield, chan, cfield, wide, wfield, cases
 
     # kernel 16: f32, within AUG_TOL (the same roundings; expf may differ
-    # by an ulp)
-    for label, shape in (("b8_224", (8, IMG, IMG, 3)),
-                         ("ragged_250x190", (2, 250, 190, 3))):
+    # by an ulp); the eval shape and a ragged one, then an image smaller
+    # than the search window, one channel with a 5 x 5 patch, and the
+    # staged route (p 3)
+    for label, shape, r, p in (("b8_224", (8, IMG, IMG, 3), 5, 1),
+                               ("ragged_250x190", (2, 250, 190, 3), 5, 1),
+                               ("tiny_6x9", (1, 6, 9, 3), 5, 1),
+                               ("c1_p2_97x133", (2, 97, 133, 1), 5, 2),
+                               ("staged_p3_64x50", (1, 64, 50, 4), 3, 3)):
         x = torch.rand(shape, generator=gen, device=dev)
-        diff = (nlm.nlm_denoise(x) - nlm.nlm_denoise_plain(x)).abs()
+        kw = {"search_radius": r, "patch_radius": p}
+        diff = (nlm.nlm_denoise(x, **kw)
+                - nlm.nlm_denoise_plain(x, **kw)).abs()
         err = diff.max().item()
         ok = err <= AUG_TOL
         emit({"phase": "kernels", "case": label, "kernel": "nlm",
-              "shape": list(shape), "max_abs_err": err,
+              "shape": list(shape), "r": r, "p": p,
+              "route": nlm.nlm_plan(*shape[1:], r, p)["route"],
+              "max_abs_err": err,
               "mean_abs_err": diff.mean().item(), "tol": AUG_TOL, "ok": ok})
         if not ok:
             raise AssertionError(f"nlm disagrees with its plain version on "
@@ -2301,7 +2338,9 @@ def phase_times_aug(dev, ctx, main_err, launches, bare_step_ms) -> list:
              - 1) * (kmax - 1)
     x_nlm = torch.rand((EVAL_B, IMG, IMG, 3), generator=gen, device=dev)
     # per pixel and search offset: diff2 3C - 1, the 3 x 3 box 8, the
-    # weight 5 (exp as one), the sums 2C + 1; C divisions at the end
+    # weight 5 (exp as one), the sums 2C + 1; C divisions at the end.  None
+    # fuses (each is an explicit __fadd_rn / __fmul_rn rounding), so their
+    # rate is one a lane a clock, half the FMA-counted f32 peak
     pix = EVAL_B * IMG * IMG
     nlm_ops = (3 * 3 - 1 + 8 + 5 + 2 * 3 + 1) * 11 * 11 * pix + 3 * pix
     # kernel 14 and index_select alike: one launch each on indices
@@ -2324,12 +2363,15 @@ def phase_times_aug(dev, ctx, main_err, launches, bare_step_ms) -> list:
         ms, lib_ms = time_in_turns(kernel, lib) if lib else (
             time_ms(kernel), None)
         plain_ms = time_ms(plain, windows=3, per_window=1, warmup=1)
-        bound_ms, bound_by = bound(flops, nb, PEAK_F32_FLOPS)
+        bound_ms, bound_by = bound(flops, nb, PEAK_F32_FLOPS / 2)
         rows.append({"name": name, "route": "cuda", **KERNELS[name],
                      "launches": launches[name],
                      "max_abs_err": main_err[name], "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": lib_ms})
+        if flops:       # the bound at the FMA-counted peak, as reckoned
+            rows[-1]["bound_ms_fma_counted"] = bound(   # before
+                flops, nb, PEAK_F32_FLOPS)[0]
     # the wrapper the step calls (the host check and upload of the
     # indices, then the launch); the kernel's device time in a profile;
     # and both again cold: each call on the next of 8 index sets of

@@ -1832,3 +1832,104 @@ def test_mlp_blocks_count_two_core_launches_on_card(cuda_device, b, t, d,
                                    "gemm_f32": c0["gemm_f32"] + 2}
     for gg, ww in zip(y, want):
         _assert_close_f32(gg, ww)
+
+
+# --------------------------------------------------------------------------
+# kernels 2 and 16 at the edges of their plans
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 127, 129, 25216])
+def test_mlp_kernel_row_counts_match_plain_on_card(cuda_device, rows):
+    """Kernel 2 at ViT-B widths on one row, either side of a 128-row GEMM
+    tile and the training step's 25,216 rows: one launch, two of the GEMM
+    core, within 2 bf16 ulps of plain."""
+    m = _mlp_inputs(90 + rows % 7, cuda_device, 1, rows, 768, 3072)
+    n0, c0 = tatt.LAUNCHES["mlp_block"], tgemm.core_launches()
+    got = tatt.fused_mlp_block(*m.values())
+    want = tatt.fused_mlp_block_plain(*m.values())
+    torch.cuda.synchronize()
+    assert tatt.LAUNCHES["mlp_block"] == n0 + 1
+    assert tgemm.core_launches()["gemm"] == c0["gemm"] + 2
+    _assert_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,c,r,p", [
+    (1, 6, 9, 3, 5, 1),          # smaller than the search window
+    (2, 6, 9, 1, 5, 2),
+    (2, 40, 33, 3, 0, 1),        # r 0
+    (2, 40, 33, 3, 5, 0),        # p 0
+    (2, 224, 224, 3, 0, 0),
+    (2, 97, 133, 1, 5, 1),       # C 1, 2 and 4
+    (2, 80, 70, 2, 3, 1),
+    (1, 100, 70, 4, 5, 1),
+    (1, 64, 50, 4, 3, 3),        # the staged route
+    (1, 40, 35, 2, 4, 5),
+])
+def test_nlm_kernel_edge_shapes_match_plain_on_card(cuda_device, b, h, w, c,
+                                                    r, p):
+    rng = np.random.default_rng(h * w + c + r)
+    img = torch.tensor(rng.random((b, h, w, c), dtype=np.float32),
+                       device=cuda_device)
+    kw = dict(search_radius=r, patch_radius=p)
+    n0 = tatt.LAUNCHES["nlm"]
+    got = tnlm.nlm_denoise(img, **kw)
+    want = tnlm.nlm_denoise_plain(img, **kw)
+    torch.cuda.synchronize()
+    assert tatt.LAUNCHES["nlm"] == n0 + 1
+    assert (got - want).abs().max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+def test_mlp_and_nlm_plans_match_the_c_launchers_on_card(cuda_device):
+    """mlp_block_plan and nlm_plan are what vsd_mlp_block_plan and
+    vsd_nlm_plan report on this card."""
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for rows, d, hidden in ((1, 768, 3072), (127, 768, 3072),
+                            (129, 768, 3072), (25216, 768, 3072),
+                            (25600, 768, 3072), (66, 40, 72)):
+        plan = tatt.mlp_block_plan(rows, d, hidden, sms)
+        del plan["scratch"]
+        assert plan == tatt.mlp_block_launch_config(rows, d, hidden)
+    for shape in ((224, 224, 3, 5, 1), (250, 190, 3, 5, 1), (6, 9, 3, 5, 1),
+                  (20, 17, 1, 2, 2), (224, 224, 3, 0, 0), (80, 70, 4, 3, 1),
+                  (64, 64, 3, 5, 3), (512, 512, 4, 40, 1)):
+        assert tnlm.nlm_plan(*shape) == tnlm.nlm_c_plan(*shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,p", [(c, p) for c in (1, 2, 3, 4)
+                                 for p in (0, 1, 2)])
+def test_nlm_division_equals_fdiv_rn_at_every_input_on_card(cuda_device, c,
+                                                           p):
+    """Where the plan names the fast division (an odd norm (2p + 1)^2 C or
+    a power of two), the register route's multiply and one correction
+    equal __fdiv_rn bit for bit at each of the 2^32 f32 inputs; where it
+    does not (C 2 or 4 with p >= 1), some input differs, so __fdiv_rn
+    stays there."""
+    count, first = tnlm.nlm_div_check((2 * p + 1) ** 2 * c)
+    if tnlm.nlm_plan(32, 32, c, 1, p)["fast_div"]:
+        assert (count, first) == (0, 2 ** 32)
+    else:
+        assert count > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1024, 1088])
+def test_layernorm_either_side_of_its_register_rows_on_card(cuda_device, d):
+    """The LN pass of kernels 2 and 7 holds a row of up to 1,024 values in
+    registers and reads a longer one three times: both within 2 bf16 ulps
+    of plain (kernel 7's f32 residuals within 1e-5)."""
+    m = _mlp_inputs(95, cuda_device, 1, 130, d, 256)
+    got = tatt.fused_mlp_block(*m.values())
+    _assert_close(got, tatt.fused_mlp_block_plain(*m.values()))
+    x, *w = m.values()
+    rows = x.reshape(-1, d)
+    y = tatt.mlp_block_train(rows, *w, approximate=True)
+    want = tatt.mlp_block_train_plain(rows, *w, approximate=True)
+    torch.cuda.synchronize()
+    for gg, ww in zip(y, want):
+        (_assert_close if gg.dtype == torch.bfloat16 else _assert_close_f32)(
+            gg, ww)

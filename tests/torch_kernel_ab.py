@@ -72,12 +72,21 @@ beside the PyTorch call that computes the same function:
   along y; ``warp_pass_rot`` the rotation's per-row shifts, a broadcast
   field, kmax 11; ``warp_pass_f32`` an f32 image, full field, along x), no
   library call;
+- kernel 16 (``nlm``: the eval batch, f32 B 64, 224 x 224 x 3, r 5, p 1),
+  no library call; kernel 2's stages on the GEMM core beside
+  ``torch.matmul``: fc1 with its GELU epilogue on the LayerNorm's output
+  (``mlp_block_fc1``) and fc2 with its residual epilogue on a hidden of
+  the same shape (``mlp_block_fc2``), and each ``mlp_block*`` run's device
+  time by kernel (``device_by_kernel``: the LayerNorm pass among them);
 - kernel 6 (``ln_res_bwd``: bf16 B 128, Tp 200, D 768, bf16 dxn;
   ``ln_res_bwd_f32dxn`` with f32 dxn; ``ln_res_bwd_f32`` the f32 form at
   B 32), beside ``native_layer_norm_backward`` plus the residual add (on
   dxn in the type of xh).
 
     python tests/torch_kernel_ab.py [--only NAME,...] TREE [TREE ...]
+    python tests/torch_kernel_ab.py --only \
+        mlp_block,mlp_block_fc1,mlp_block_fc2,nlm,serving_forward_b128 \
+        PARENT . . PARENT
 
 Each TREE is the root of a checkout (a ``git archive`` unpacked into a
 directory that ``.gitignore`` lists, or ``.`` for this one); name them in
@@ -112,7 +121,7 @@ TQ4, TK4 = 56, 224                 # one of four sequence ranks' blocks
 T256, TP256 = 257, 264             # ViT-B/16 at 256 px
 T512, TP512 = 1025, 1040           # ViT-B/16 at 512 px
 T_PAST = (257, 325, 577, 1025)      # ViT-B/16 at 256, 288, 384, 512 px
-NAMES = ("pool_gather", "doctor_probe", "warp_pass", "ln_res_bwd", "gemm", "mlp_block", "mlp_block_train", "attention_block_f32",
+NAMES = ("pool_gather", "doctor_probe", "warp_pass", "ln_res_bwd", "nlm", "gemm", "mlp_block", "mlp_block_train", "attention_block_f32",
          "attention_bwd_onchip", "attention_qkv_bwd", "attention_qkv_bwd_f32",
          "attention_qkv_bwd_phased",
          "attention_qkv_bwd_phased_long",
@@ -128,7 +137,7 @@ def _ptxas(log: str) -> list:
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
             entry = m.group(1) if any(k in m.group(1) for k in (
-                "Li64E", "pool_gather", "doctor_probe", "warp_",
+                "Li64E", "pool_gather", "doctor_probe", "warp_", "nlm_",
                 "ln_res_bwd")) else None
         elif entry and "spill" in ln:
             spill = ln.split(":", 1)[-1].strip()
@@ -307,6 +316,30 @@ def _child(tree: str, only=None) -> None:
                b_fc2=scaled(D, scale=0.1, dt=torch.float32))
     x_mlp = rand(B, TP, D)
     runs["mlp_block"] = (lambda: att.fused_mlp_block(x_mlp, **mlp), None)
+    # its two products alone on the core, with its epilogues, beside
+    # torch.matmul (TF32 off, no epilogue): fc1 on the LN's output, fc2 on
+    # a GELU-sized hidden with x as the residual
+    from vit_spoof_detection_pda_tpu_torch.ops import gemm as gm_mlp
+    x_rows = x_mlp.view(-1, D)
+    xn_mlp = att._layernorm_f32(x_rows.float(), mlp["ln_scale"],
+                                mlp["ln_bias"], 1e-6).bfloat16()
+    h_mlp = torch.nn.functional.gelu(
+        (xn_mlp.float() @ mlp["w_fc1"].float()).add_(mlp["b_fc1"]),
+        approximate="tanh").bfloat16()
+    runs["mlp_block_fc1"] = (
+        lambda: gm_mlp.gemm(xn_mlp, mlp["w_fc1"], mlp["b_fc1"],
+                            epilogue="bias_gelu"),
+        lambda: torch.matmul(xn_mlp, mlp["w_fc1"]))
+    runs["mlp_block_fc2"] = (
+        lambda: gm_mlp.gemm(h_mlp, mlp["w_fc2"], mlp["b_fc2"],
+                            epilogue="bias_residual", residual=x_rows),
+        lambda: torch.matmul(h_mlp, mlp["w_fc2"]))
+    # kernel 16 at the eval batch (preprocess_eval(denoise=True)), no
+    # library call
+    from vit_spoof_detection_pda_tpu_torch.ops import nlm as nl
+    x_nlm = torch.from_numpy(rng.random((64, 224, 224, 3), dtype=np.float32)
+                             ).to(dev)
+    runs["nlm"] = (lambda: nl.nlm_denoise(x_nlm), None)
     rows = x_mlp[:, :T].reshape(-1, D).contiguous()
     mlp32 = {k: v.float() for k, v in mlp.items()}
     rows32 = rows[:B32 * T].float()
@@ -595,9 +628,10 @@ def _child(tree: str, only=None) -> None:
         n = max(20, int(2.0 / window(fn, 5)) + 1)
         return [window(fn, n) for _ in range(5)]
 
-    def device_ms(fn, n=10):
+    def device_ms(fn, n=10, by=None):
         """The card's time a call (every kernel and copy of ``n`` calls,
-        from torch.profiler)."""
+        from torch.profiler); with ``by`` a dict, also each kernel's, by
+        name."""
         from torch.profiler import ProfilerActivity, profile
         fn()
         torch.cuda.synchronize()
@@ -605,11 +639,14 @@ def _child(tree: str, only=None) -> None:
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-        return sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   ) / 1e3 / n
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if by is not None:
+            for e in events:
+                by[e.key[:72]] = e.self_device_time_total / 1e3 / n
+        return sum(e.self_device_time_total for e in events) / 1e3 / n
 
-    ms, lib_ms, dev_ms, sums = {}, {}, {}, {}
+    ms, lib_ms, dev_ms, sums, by_kernel = {}, {}, {}, {}, {}
     if only:
         runs = {k: v for k, v in runs.items() if k in only}
     # the training steps last: a profile of a whole step's thousands of
@@ -623,13 +660,17 @@ def _child(tree: str, only=None) -> None:
                 acc += windows(fn)
         ms[name] = statistics.median(wk)
         lib_ms[name] = statistics.median(wl) if wl else None
-        dev_ms[name] = [device_ms(fn) if fn else None for fn in (run, lib)]
+        by = by_kernel.setdefault(name, {}) if name.startswith(
+            "mlp_block") else None
+        dev_ms[name] = [device_ms(fn, by=by) if fn and i == 0
+                        else device_ms(fn) if fn else None
+                        for i, fn in enumerate((run, lib))]
         out = run()
         out = out if isinstance(out, (tuple, list)) else (out,)
         sums[name] = [float(o.float().abs().sum()) for o in out]
     print(json.dumps({"tree": tree, "ms": ms, "library_ms": lib_ms,
-                      "device_ms": dev_ms, "ptxas": ptxas,
-                      "out_abs_sums": sums}))
+                      "device_ms": dev_ms, "device_by_kernel": by_kernel,
+                      "ptxas": ptxas, "out_abs_sums": sums}))
 
 
 def main(argv) -> int:

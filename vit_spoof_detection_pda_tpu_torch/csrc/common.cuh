@@ -81,6 +81,35 @@ __device__ __forceinline__ float gelu_tanh(float x) {
   return x * (0.5f * (1.0f + tanhf(inner)));
 }
 
+// The same function in the form the serving MLP's fc1 epilogue runs
+// (gemm_core.cuh, kEpiBiasGelu): x (1 + tanh u) / 2 = x / (1 + 2^t), with
+// u = sqrt(2 / pi) (x + 0.044715 x^3) and t = -2u log2(e), on the
+// special-function unit (ex2.approx, rcp.approx): a multiply, an FMA, a
+// multiply, two SFU operations, an add and a multiply.  About 2e-6
+// relative to gelu_tanh at any x, including large negative x, where
+// 1 + tanh u cancels (tanh.approx.f32 would lose the small values there).
+// The result is rounded to bf16, so it moves a hidden value by one bf16
+// ulp only where that value lies within ~2e-6 of a rounding midpoint.
+// Past |t| ~ 128 the power is 0 or inf and the quotient x or -0, as for
+// tanhf.
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float rcp_approx(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float gelu_tanh_fast(float x) {
+  // t = x (c0 + c1 x^2), c0 = -2 sqrt(2 / pi) log2(e), c1 = 0.044715 c0
+  const float t = x * fmaf(-0.1029432395800235f, x * x, -2.302208198144325f);
+  return x * rcp_approx(1.0f + ex2_approx(t));
+}
+
 // erf GELU in f32, the formula of jax.nn.gelu(approximate=False) and of
 // torch's gelu: 0.5 x (1 + erf(x / sqrt 2)), with CUDA's erff (the TPU
 // kernel had to emulate erf with the A&S rational; CUDA has it).
@@ -91,8 +120,9 @@ __device__ __forceinline__ float gelu_erf(float x) {
 // ---------------------------------------------------------------------------
 // LayerNorm: one warp per row of d bf16 values (d % 8 == 0).  Mean and
 // variance in f32, (x - mu) * rsqrt(var + eps) * gamma + beta, rounded to
-// bf16 once.  The row is read three times; the second and third reads
-// come from L1/L2.  The training form (kResid) also writes the backward's
+// bf16 once.  Rows of up to 1,024 values stay in registers between the
+// passes (one read from device memory); a longer row is read three times,
+// the second and third reads from L1/L2.  The training form (kResid) also writes the backward's
 // residuals: xhat = (x - mu) * rsqrt(var + eps) rounded to bf16, and the
 // f32 rsqrt(var + eps) of each row.
 // ---------------------------------------------------------------------------
@@ -139,6 +169,72 @@ __device__ __forceinline__ void layernorm_row(const bf16* __restrict__ xr,
   }
 }
 
+// The same row with its values held in registers between the passes
+// (rows of at most kLnRegChunks * 256 values): one read of the row from
+// device memory, the sums in layernorm_row's order, so the two agree bit
+// for bit.
+constexpr int kLnRegChunks = 4;
+
+// Row xr's values into f and its mean and 1 / sqrt(var + eps), one warp.
+__device__ __forceinline__ void ln_row_reg_stats(const bf16* __restrict__ xr,
+                                                 float (&f)[kLnRegChunks][8], int d, float eps,
+                                                 int lane, float& mu, float& inv) {
+#pragma unroll
+  for (int k = 0; k < kLnRegChunks; ++k) {
+    const int c = lane * 8 + k * 256;
+    if (c < d) unpack8(__ldg(reinterpret_cast<const uint4*>(xr + c)), f[k]);
+  }
+  float s = 0.f;
+#pragma unroll
+  for (int k = 0; k < kLnRegChunks; ++k)
+    if (lane * 8 + k * 256 < d) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) s += f[k][i];
+    }
+  mu = warp_sum(s) / static_cast<float>(d);
+  float v = 0.f;
+#pragma unroll
+  for (int k = 0; k < kLnRegChunks; ++k)
+    if (lane * 8 + k * 256 < d) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float t = f[k][i] - mu;
+        v += t * t;
+      }
+    }
+  inv = 1.0f / sqrtf(warp_sum(v) / static_cast<float>(d) + eps);
+}
+
+template <bool kResid>
+__device__ __forceinline__ void layernorm_row_reg(const bf16* __restrict__ xr,
+                                                  const float* __restrict__ gamma,
+                                                  const float* __restrict__ beta,
+                                                  bf16* __restrict__ orow, bf16* __restrict__ xhrow,
+                                                  float* __restrict__ inv_out, int d, float eps,
+                                                  int lane) {
+  float f[kLnRegChunks][8], mu, inv;
+  ln_row_reg_stats(xr, f, d, eps, lane, mu, inv);
+  if (kResid && lane == 0) *inv_out = inv;
+#pragma unroll
+  for (int k = 0; k < kLnRegChunks; ++k) {
+    const int c = lane * 8 + k * 256;
+    if (c < d) {
+      float gm[8], bt[8], h[8], g[8];
+      *reinterpret_cast<float4*>(gm) = __ldg(reinterpret_cast<const float4*>(gamma + c));
+      *reinterpret_cast<float4*>(gm + 4) = __ldg(reinterpret_cast<const float4*>(gamma + c + 4));
+      *reinterpret_cast<float4*>(bt) = __ldg(reinterpret_cast<const float4*>(beta + c));
+      *reinterpret_cast<float4*>(bt + 4) = __ldg(reinterpret_cast<const float4*>(beta + c + 4));
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        h[i] = (f[k][i] - mu) * inv;
+        g[i] = h[i] * gm[i] + bt[i];
+      }
+      *reinterpret_cast<uint4*>(orow + c) = pack8(g);
+      if (kResid) *reinterpret_cast<uint4*>(xhrow + c) = pack8(h);
+    }
+  }
+}
+
 template <bool kResid>
 __global__ void __launch_bounds__(kLnRowsPerBlock * 32)
     layernorm_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
@@ -148,9 +244,14 @@ __global__ void __launch_bounds__(kLnRowsPerBlock * 32)
   const long long row =
       static_cast<long long>(blockIdx.x) * kLnRowsPerBlock + (threadIdx.x >> 5);
   if (row >= rows) return;
-  layernorm_row<kResid>(x + row * d, gamma, beta, out + row * d,
-                        kResid ? xhat + row * d : nullptr, kResid ? inv_out + row : nullptr, d,
-                        eps, threadIdx.x & 31);
+  if (d <= kLnRegChunks * 256)
+    layernorm_row_reg<kResid>(x + row * d, gamma, beta, out + row * d,
+                              kResid ? xhat + row * d : nullptr,
+                              kResid ? inv_out + row : nullptr, d, eps, threadIdx.x & 31);
+  else
+    layernorm_row<kResid>(x + row * d, gamma, beta, out + row * d,
+                          kResid ? xhat + row * d : nullptr, kResid ? inv_out + row : nullptr, d,
+                          eps, threadIdx.x & 31);
 }
 
 // xhat and inv_out are written only when both are given (the training form).

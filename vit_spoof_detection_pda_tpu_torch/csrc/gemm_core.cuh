@@ -7,7 +7,8 @@
 // on the tensor cores (wgmma.mma_async m64n256k16).  Epilogues, in f32,
 // rounded to bf16 once:
 //   kEpiBias          acc + bias
-//   kEpiBiasGelu      gelu_tanh(acc + bias)
+//   kEpiBiasGelu      gelu_tanh(acc + bias) (its sigmoid form,
+//                     gelu_tanh_fast, on the special-function unit)
 //   kEpiBiasResidual  (residual + acc) + bias
 // and the training MLP's stored-hidden epilogues, which write two outputs:
 //   kEpiBiasHGeluErf  H = bf16(acc + bias), C = bf16(gelu_erf(H))
@@ -342,8 +343,8 @@ __device__ __forceinline__ void gemm_epilogue(
             v0 += bb.x;
             v1 += bb.y;
             if (EPI == kEpiBiasGelu) {
-              v0 = gelu_tanh(v0);
-              v1 = gelu_tanh(v1);
+              v0 = gelu_tanh_fast(v0);
+              v1 = gelu_tanh_fast(v1);
             }
           }
           *slot = bf16x2_bits(__floats2bfloat162_rn(v0, v1));

@@ -115,6 +115,7 @@ import torch
 
 from ..device import exact_f32_matmul
 from . import _build
+from . import gemm as _gemm
 from .gelu import gelu
 
 LAUNCHES = _build.LAUNCHES     # one dict for every kernel of the port
@@ -128,6 +129,8 @@ _SIGNATURES = {
     "attention_block": ("vsd_attention_block",
                         [_P] * 10 + [_I] * 5 + [_F, _F, _P]),
     "mlp_block": ("vsd_mlp_block", [_P] * 10 + [_I] * 3 + [_F, _P]),
+    "mlp_block_plan": ("vsd_mlp_block_plan",
+                       [_I] * 4 + [ctypes.POINTER(_I), _I]),
     "attention_block_train": ("vsd_attention_block_train",
                               [_P] * 13 + [_I] * 5 + [_F, _F, _P]),
     "attention_qkv_bwd": ("vsd_attention_qkv_bwd",
@@ -154,6 +157,7 @@ _SIGNATURES = {
 _LIBRARY = {name: "attention_bwd_onchip" for name in (
     "attention_qkv_bwd", "attention_qkv_bwd_phased", "attention_cp_bwd",
     "onchip_bwd_config")}
+_LIBRARY["mlp_block_plan"] = "mlp_block"
 # the f32 kernels' blocks: 8 warps, each on 4 query rows (or keys) at a time
 _F32_WARPS, _F32_ROWS = 8, 4
 
@@ -1392,6 +1396,53 @@ def fused_mlp_block(x, ln_scale, ln_bias, w_fc1, b_fc1, w_fc2, b_fc2, *,
                                      w_fc2, b_fc2, eps=eps)
     return _mlp_block_cuda(x, ln_scale, ln_bias, w_fc1, b_fc1, w_fc2, b_fc2,
                            eps)
+
+
+MLP_LN_ROWS = 8       # rows a block of the LayerNorm launch (a warp a row)
+
+
+def mlp_block_plan(rows: int, d: int, hidden: int,
+                   sms: int = _gemm.H100_SMS) -> dict:
+    """Kernel 2's launches for ``rows`` x ``d`` with a ``hidden``-wide MLP
+    on ``sms`` SMs, as ``csrc/mlp_block.cu`` makes them: the LayerNorm
+    (``ln``: a warp a row, ``rows_per_block`` rows a block of ``threads``,
+    ``blocks`` of them) into the bf16 scratch ``xn``, then fc1 with the
+    GELU epilogue into the hidden scratch and fc2 with the residual
+    epilogue, each on the GEMM core's plan (:func:`ops.gemm.gemm_plan`).
+    ``scratch`` gives the two scratch tensors' bytes.  Raises
+    ``ValueError`` naming the limit on D or hidden that are not multiples
+    of 8, or on rows < 1."""
+    if d % 8 or hidden % 8 or d <= 0 or hidden <= 0:
+        raise ValueError(f"the MLP kernel takes D and hidden that are "
+                         f"multiples of 8; got D {d}, hidden {hidden}")
+    if rows < 1:
+        raise ValueError(f"the MLP plan needs rows >= 1; got {rows}")
+    return {"launches": ("ln", "fc1", "fc2"),
+            "ln": {"rows_per_block": MLP_LN_ROWS,
+                   "blocks": -(-rows // MLP_LN_ROWS),
+                   "threads": 32 * MLP_LN_ROWS},
+            "fc1": _gemm.gemm_plan(rows, hidden, d, sms),
+            "fc2": _gemm.gemm_plan(rows, d, hidden, sms),
+            "scratch": {"xn": rows * d * 2, "hidden": rows * hidden * 2}}
+
+
+def mlp_block_launch_config(rows: int, d: int, hidden: int,
+                            sms: int = 0) -> dict:
+    """Kernel 2's plan as its C launcher reports it (``vsd_mlp_block_plan``,
+    on this card's SM count when ``sms`` is 0), with
+    :func:`mlp_block_plan`'s keys but ``scratch``.  Needs the card."""
+    keys = _gemm.PLAN_KEYS
+    n = 3 + 2 * len(keys)
+    lib, fn = _entry("mlp_block_plan")
+    out = (_I * n)()
+    got = fn(rows, d, hidden, sms, out, n)
+    if got != n:
+        raise RuntimeError(f"vsd_mlp_block_plan returned {got} values")
+    v = list(out)
+    return {"launches": ("ln", "fc1", "fc2"),
+            "ln": dict(zip(("rows_per_block", "blocks", "threads"), v[:3])),
+            "fc1": dict(zip(keys, v[3:3 + len(keys)])),
+            "fc2": dict(zip(keys, v[3 + len(keys):]))}
 
 
 def _mlp_block_cuda(x, ln_scale, ln_bias, w_fc1, b_fc1, w_fc2, b_fc2, eps):

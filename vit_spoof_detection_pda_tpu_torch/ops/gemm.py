@@ -49,8 +49,8 @@ BM, BN, BK, STAGES, THREADS, GROUP_M = 128, 256, 64, 4, 384, 8
 # the ring, two 64 x 128 staging tiles of the epilogue, 10 mbarriers, alignment
 _SMEM = (STAGES * (BM * BK + BK * BN) * 2 + 2 * 64 * 128 * 2
          + (2 * STAGES + 2) * 8 + 1024)
-_PLAN_KEYS = ("bm", "bn", "bk", "stages", "tiles_m", "tiles_n", "tiles",
-              "grid", "smem", "group_m", "threads")
+PLAN_KEYS = ("bm", "bn", "bk", "stages", "tiles_m", "tiles_n", "tiles",
+             "grid", "smem", "group_m", "threads")
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -113,11 +113,11 @@ def gemm_launch_config(m: int, n: int, k: int, sms: int = 0) -> dict:
     :func:`gemm_plan`'s keys.  Needs the card."""
     lib, fn = _build.entry("gemm", "vsd_gemm_plan", [ctypes.c_int] * 4 + [
         ctypes.POINTER(ctypes.c_int), ctypes.c_int])
-    out = (ctypes.c_int * len(_PLAN_KEYS))()
-    n_out = fn(m, n, k, sms, out, len(_PLAN_KEYS))
-    if n_out != len(_PLAN_KEYS):
+    out = (ctypes.c_int * len(PLAN_KEYS))()
+    n_out = fn(m, n, k, sms, out, len(PLAN_KEYS))
+    if n_out != len(PLAN_KEYS):
         raise RuntimeError(f"vsd_gemm_plan returned {n_out} values")
-    return dict(zip(_PLAN_KEYS, out))
+    return dict(zip(PLAN_KEYS, out))
 
 
 def gemm_plain(a, w, bias, *, epilogue: str = "bias", residual=None):
