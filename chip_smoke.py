@@ -187,14 +187,19 @@ runs these phases, each printing one JSON line and raising on failure:
             async; kernel 7 and the f32 kernels beside their plain
             versions, bounds and the PyTorch call for the same function
             where there is one (SDPA's backward for kernel 4, the LN
-            backward plus the add for kernel 6).
+            backward plus the add for kernel 6); kernel 7's device time
+            by launch (LN, fc1, fc2).
    kernels_gemm, times_gemm  the GEMM cores of kernels 1, 2, 3 and 7
             alone (ops/gemm.py gemm): the bf16 core at the scoring
             forward's four products (B = 128, M 25,600, each with its
-            epilogue) and the training fc1 with its stored hidden, the f32
-            core at the f32 step's (B = 32), each against gemm_plain (bf16
-            within 2 bf16 ulps, f32 within 1e-5 of each output's largest
-            magnitude), then timed in turns with torch.matmul on the same
+            epilogue) and the training fc1 with its stored hidden (erf
+            and tanh), the f32 core at the f32 step's (B = 32), each
+            against gemm_plain (bf16 within 2 bf16 ulps, f32 within 1e-5
+            of each output's largest magnitude); the stored-hidden
+            epilogue at every finite bf16 hidden value, both flavours (H
+            bit for bit, the activation within one bf16 ulp of the exact
+            GELU: ops/gemm.py hidden_gelu_check); then timed in turns with
+            torch.matmul on the same
             operands (TF32 off), beside gemm_plain and the bound; the rows'
             launches are the cores' launches by the blocks in phase 4's
             B = 128 forward (48) and phase 17's f32 step (24).
@@ -3420,10 +3425,16 @@ def phase_times_train_loop(dev, ctx, loop_trainer, main_err, launches):
             rows[-1]["device_ms"] = device_ms(kernel, "ln_res_bwd")
             with exact_f32_matmul():
                 rows[-1]["library_device_ms"] = device_ms_per_call(lib)
+        if name == "mlp_block_train":   # and its three launches, a call
+            prof = profile_once(lambda: [kernel() for _ in range(10)], 6)
+            rows[-1]["device_ms"] = prof["profile_device_busy_ms"] / 10
+            rows[-1]["device_by_launch"] = {
+                k["name"]: k["ms"] / k["calls"] for k in prof["profile_top"]}
     emit({"phase": "times_train_kernels",
           "kernels": {r["name"]: {k: r[k] for k in (
               "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-              "launches", "device_ms", "library_device_ms") if k in r}
+              "launches", "device_ms", "library_device_ms",
+              "device_by_launch") if k in r}
                       for r in rows}})
     return rows
 
@@ -3434,13 +3445,15 @@ def phase_times_train_loop(dev, ctx, loop_trainer, main_err, launches):
 
 # (label, M, N, K, epilogue) of each product on the main paths: the
 # scoring forward's four (bf16, B = 128, Tp 200), the training MLP's fc1
-# with its stored hidden (the step's 197 rows), and the f32 step's (B = 32)
+# with its stored hidden (the step's 197 rows; erf and tanh), and the f32
+# step's (B = 32)
 GEMM_CASES = {
     "gemm": [("qkv", MAIN_B * TP, 3 * D, D, "bias"),
              ("proj", MAIN_B * TP, D, D, "bias_residual"),
              ("fc1", MAIN_B * TP, HIDDEN, D, "bias_gelu"),
              ("fc2", MAIN_B * TP, D, HIDDEN, "bias_residual"),
-             ("fc1_train", MAIN_B * T, HIDDEN, D, "bias_hgelu_erf")],
+             ("fc1_train", MAIN_B * T, HIDDEN, D, "bias_hgelu_erf"),
+             ("fc1_train_tanh", MAIN_B * T, HIDDEN, D, "bias_hgelu_tanh")],
     "gemm_f32": [("qkv", F32_B * TP, 3 * D, D, "bias"),
                  ("proj", F32_B * TP, D, D, "bias_residual"),
                  ("fc1_train", F32_B * T, HIDDEN, D, "bias_hgelu_erf"),
@@ -3488,6 +3501,22 @@ def phase_kernels_gemm(dev) -> dict:
                 raise AssertionError(f"{name} disagrees with gemm_plain at "
                                      f"{label} {m}x{n}x{k}: {parts}")
             del args, kw, got, want
+    # kernel 7's fc1 epilogue at every finite bf16 hidden value, both GELU
+    # flavours: H bit for bit, the activation within one bf16 ulp of the
+    # exact GELU (ops/gemm.py::hidden_gelu_check)
+    worst["hidden_gelu"] = {}
+    for approx in (False, True):
+        flavour = "tanh" if approx else "erf"
+        r = gemm.hidden_gelu_check(approx, dev)
+        ok = (r["values"] == 65280 and r["h_bit_equal"] and r["rows_agree"]
+              and r["max_ulps"] <= 1)
+        emit({"phase": "kernels_gemm", "kernel": "gemm",
+              "case": f"stored_hidden_gelu_every_bf16_{flavour}", **r,
+              "ok": ok})
+        if not ok:
+            raise AssertionError(f"the stored-hidden {flavour} GELU is more "
+                                 f"than one bf16 ulp off: {r}")
+        worst["hidden_gelu"][flavour] = r
     return worst
 
 
@@ -3531,6 +3560,8 @@ def phase_times_gemm(dev, err) -> list:
                      "ms": q["ms"], "plain_ms": q["plain_ms"],
                      "bound_ms": q["bound_ms"], "bound_by": q["bound_by"],
                      "library_ms": q["library_ms"], "by_product": by})
+        if name == "gemm":
+            rows[-1]["hidden_gelu_check"] = err["hidden_gelu"]
     emit({"phase": "times_gemm", "kernels": {r["name"]: r["by_product"]
                                              for r in rows},
           "launches": launches})

@@ -917,6 +917,22 @@ def test_mlp_block_train_kernel_matches_plain_on_card(
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("approximate", [False, True])
+def test_stored_hidden_gelu_at_every_bf16_value_on_card(cuda_device,
+                                                        approximate):
+    """Kernel 7's fc1 epilogue (the bf16 core's stored-hidden epilogue) on
+    one-hot rows whose product is every finite bf16 value: H equal to W's
+    row bit for bit (-0 summed to +0), every row's activations alike, each
+    within one bf16 ulp of the exact GELU of its flavour (float64, erf by
+    erfc, tanh as x sigmoid(2u)); prints how many are one ulp off."""
+    r = tgemm.hidden_gelu_check(approximate, cuda_device)
+    print("stored-hidden GELU", "tanh" if approximate else "erf", r)
+    assert r["values"] == 65280
+    assert r["h_bit_equal"] and r["rows_agree"]
+    assert r["max_ulps"] <= 1, r
+
+
+@pytest.mark.cuda
 def test_f32_kernels_reject_what_they_cannot_take(cuda_device):
     qkv, g = _f32(_qkv_bwd_inputs(25, cuda_device, 1, 400, 197, 768))
     with pytest.raises(ValueError, match="head dim"):  # Tp 400 now routes

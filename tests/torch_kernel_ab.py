@@ -54,7 +54,11 @@ beside the PyTorch call that computes the same function:
   (``attention_block_f32``, ``attention_block_train_f32``, B 32), the B 128
   scoring forward (``serving_forward_b128``: ``make_serving_fn`` on
   fastserve) and the default training step (``train_step_bf16_hidden``:
-  ``make_apply(mlp_mode="hidden")``, B 128);
+  ``make_apply(mlp_mode="hidden")``, B 128), and the step on kernel 7
+  (``train_step_bf16_fused``: ``mlp_mode="fused"``); kernel 7 in its tanh
+  flavour (``mlp_block_train_tanh``) and its fc1 alone on the core with
+  the stored-hidden epilogue, erf and tanh (``mlp_block_train_fc1``,
+  ``..._fc1_tanh``: 25,216 rows), beside ``torch.matmul``;
 - at ViT-B/16, 384 px (B 8, T 577, Tp 584), kernel 5's route past its one
   launch (``..._384``: the four-launch long route before the key-tiled
   backward replaced it, the key-tiled backward after), bf16 and f32, beside
@@ -345,6 +349,17 @@ def _child(tree: str, only=None) -> None:
     rows32 = rows[:B32 * T].float()
     runs["mlp_block_train"] = (lambda: att.mlp_block_train(
         rows, **mlp, approximate=False), None)
+    runs["mlp_block_train_tanh"] = (lambda: att.mlp_block_train(
+        rows, **mlp, approximate=True), None)
+    # kernel 7's fc1 alone on the core, with its stored-hidden epilogue
+    # (erf and tanh), on the LN's output of the step's 25,216 rows, beside
+    # torch.matmul (TF32 off, no epilogue)
+    xn_train = xn_mlp.view(B, TP, D)[:, :T].reshape(-1, D).contiguous()
+    for sfx, epi in (("", "bias_hgelu_erf"), ("_tanh", "bias_hgelu_tanh")):
+        runs["mlp_block_train_fc1" + sfx] = (
+            lambda epi=epi: gm_mlp.gemm(xn_train, mlp["w_fc1"],
+                                        mlp["b_fc1"], epilogue=epi),
+            lambda: torch.matmul(xn_train, mlp["w_fc1"]))
     runs["mlp_block_train_f32"] = (lambda: att.mlp_block_train(
         rows32, **mlp32, approximate=False), None)
     # the GEMM cores alone beside torch.matmul (TF32 off), where the tree
@@ -409,11 +424,13 @@ def _child(tree: str, only=None) -> None:
     labels = torch.from_numpy(rng.integers(0, 2, B)).to(dev)
     for name, dt, b in (("train_step_bf16", torch.bfloat16, B),
                         ("train_step_f32", torch.float32, B32),
-                        ("train_step_bf16_hidden", torch.bfloat16, B)):
+                        ("train_step_bf16_hidden", torch.bfloat16, B),
+                        ("train_step_bf16_fused", torch.bfloat16, B)):
         if only and name not in only:
             continue
         model = registry.build_model("Custom_ViT_FineTuned", dropout=0.0)
-        kw = {"mlp_mode": "hidden"} if name.endswith("_hidden") else {}
+        kw = ({"mlp_mode": name.rsplit("_", 1)[1]}
+              if name.endswith(("_hidden", "_fused")) else {})
         state = create_train_state(
             model, make_optimizer(3e-4), 0, device=dev,
             apply_fn=fasttrain.make_apply(model, dtype=dt, **kw))

@@ -117,6 +117,55 @@ __device__ __forceinline__ float gelu_erf(float x) {
   return 0.5f * x * (1.0f + erff(x * 0.7071067811865476f));
 }
 
+// The two GELUs of the training MLP's stored-hidden epilogue (kernel 7,
+// gemm_core.cuh), on the special-function unit, as x Phi(x) with Phi
+// written through its small tail E: Phi = E for x < 0 and 1 - E past it,
+// so that 1 + erf and 1 + tanh never cancel at large negative x.  The
+// tail is scaled by 2^24 inside the ex2 and back by a multiply, so that
+// where x E lies in the subnormals it is rounded there once and not
+// flushed to 0 (ex2.approx.ftz flushes).  On every finite bf16 input the
+// bf16-rounded result is within one bf16 ulp of the exact GELU of its
+// flavour (tests/test_torch_mlp_train_epilogue.py emulates these lines
+// over all of them; on the card ops/gemm.py::hidden_gelu_check runs them).
+// A non-finite input gives NaN (the erf form) or +-inf / NaN (the tanh
+// form), as x Phi(x) does.
+//
+// erf: E = erfc(|x| / sqrt 2) / 2 = t 2^(q(t) - x^2 log2(e) / 2 - 24),
+// t = 1 / (1 + p |x| / sqrt 2) (p = 0.7; kGeluTailC = p / sqrt 2),
+// q(t) = log2(e) g(t) + 23, g the degree-4 fit of ln(erfcx(u) / t) over u
+// in [0, 10] (relative error 6.0e-5 in E; erfcx(u) = e^(u^2) erfc(u)), so
+// E keeps its relative accuracy out to |x| = 14.1, past which x E rounds
+// to 0 in bf16 (x < 0) or x - x E to x (x > 0).  ops/gemm.py mirrors the
+// constants.
+constexpr float kGeluTailC = 0.4949747468305833f;
+// q(t) = (((Q4 t + Q3) t + Q2) t + Q1) t + Q0
+constexpr float kGeluTailQ4 = 0.361751914024353f;
+constexpr float kGeluTailQ3 = -1.1295230388641357f;
+constexpr float kGeluTailQ2 = 0.7219557166099548f;
+constexpr float kGeluTailQ1 = 1.382437825202942f;
+constexpr float kGeluTailQ0 = 21.663318634033203f;
+
+__device__ __forceinline__ float gelu_erf_tail(float x) {
+  const float t = rcp_approx(fmaf(fabsf(x), kGeluTailC, 1.0f));
+  float q = fmaf(kGeluTailQ4, t, kGeluTailQ3);
+  q = fmaf(q, t, kGeluTailQ2);
+  q = fmaf(q, t, kGeluTailQ1);
+  q = fmaf(q, t, kGeluTailQ0);
+  const float e = ex2_approx(fmaf(x * x, -0.7213475204444817f, q));  // 2^24 E / t
+  // x Phi = max(x, 0) - |x| E: x - x E past 0, x E below it
+  return fmaxf(x, 0.f) - (fabsf(x) * t) * (e * 5.9604644775390625e-8f);
+}
+
+// tanh: Phi = 1 / (1 + 2^s), s = -2 sqrt(2 / pi) (x + 0.044715 x^3) log2(e)
+// (gelu_tanh_fast's exponent); with S = 2^-|s|, Phi = S / (1 + S) for
+// x < 0 and 1 / (1 + S) past it.
+__device__ __forceinline__ float gelu_tanh_tail(float x) {
+  const float s = x * fmaf(-0.1029432395800235f, x * x, -2.302208198144325f);
+  const float sm = ex2_approx(24.0f - fabsf(s)) * 5.9604644775390625e-8f;  // 2^-|s|
+  const float xr = x * rcp_approx(1.0f + sm);
+  return x < 0.f ? xr * sm : xr;
+}
+
 // ---------------------------------------------------------------------------
 // LayerNorm: one warp per row of d bf16 values (d % 8 == 0).  Mean and
 // variance in f32, (x - mu) * rsqrt(var + eps) * gamma + beta, rounded to

@@ -90,3 +90,25 @@ extern "C" int vsd_gemm_plan(int m, int n, int k, int sms, int* out, int len) {
   for (int i = 0; i < count && i < len; ++i) out[i] = v[i];
   return count < len ? count : len;
 }
+
+#ifdef VSD_GEMM_STAMPS
+// The unit stamps of the last launches (gemm_core.cuh, VSD_GEMM_STAMPS):
+// with out null, writes {blocks, tiles, per} to layout and returns 3;
+// else copies min(n, all) stamps into the host array out and returns the
+// count copied (-1 on a CUDA error).
+extern "C" int vsd_gemm_stamps(unsigned long long* out, int n, int* layout) {
+  using namespace vsd;
+  const int all = kStampBlocks * 2 * kStampPer;
+  if (!out) {
+    layout[0] = kStampBlocks;
+    layout[1] = kStampTiles;
+    layout[2] = kStampPer;
+    return 3;
+  }
+  const int count = n < all ? n : all;
+  if (cudaDeviceSynchronize() != cudaSuccess ||
+      cudaMemcpyFromSymbol(out, g_gemm_stamps, count * sizeof(unsigned long long)) != cudaSuccess)
+    return -1;
+  return count;
+}
+#endif

@@ -14,7 +14,10 @@
 //   kEpiBiasHGeluErf  H = bf16(acc + bias), C = bf16(gelu_erf(H))
 //   kEpiBiasHGeluTanh H = bf16(acc + bias), C = bf16(gelu_tanh(H))
 // (the GELU reads the rounded hidden, so the stored H, the activation and
-// the backward's recompute of the gate all see one tensor).
+// the backward's recompute of the gate all see one tensor; both GELUs in
+// their tail forms on the special-function unit, gelu_erf_tail and
+// gelu_tanh_tail in common.cuh, within one bf16 ulp of the exact GELU at
+// every finite bf16 hidden value).
 //
 // Bound on the H100: the tensor cores at the block kernels' shapes (ViT-B,
 // M = 25,600: QKV 90.6 GFLOP, >= 0.092 ms at 989 TFLOP/s; its 161 MB of
@@ -42,7 +45,8 @@
 //     divergent path (C7518), which holds it near 30% of the peak, so
 //     one-thread work goes through predicated instructions;
 //   - the epilogue goes through shared memory: a warpgroup writes its 64
-//     rows, 128 columns at a time, as bf16 into a staging tile of two
+//     rows, 128 columns at a time (the stored-hidden epilogues: H and C of
+//     64 columns at a time), as bf16 into a staging tile of two
 //     128-byte-swizzled 64 x 64 boxes (conflict-free from the accumulator
 //     layout) and one thread stores them by TMA (cp.async.bulk.tensor,
 //     clipped at M and N), which runs on while the warpgroup goes on; the
@@ -287,18 +291,17 @@ __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 h) {
 
 // The epilogue of one consumer warpgroup's 64 x kGemmBN accumulator at rows
 // row0 .., columns n0 .., 128 columns at a time through the warpgroup's
-// staging tile `out` (two swizzled 64 x 64 boxes).  Per half and output: its
-// thread 0 waits until the previous stores have read the tile, a barrier of
-// the warpgroup; (residual) the residual boxes land in it by TMA; each
-// thread writes its bf16 pairs, fences them for the async proxy; a barrier;
-// thread 0 stores the boxes by TMA.  rphase: the parity of rbar's next
-// completion.
+// staging tile `out` (two swizzled 64 x 64 boxes): kEpiBias, kEpiBiasGelu
+// and kEpiBiasResidual.  Per half: its thread 0 waits until the previous
+// stores have read the tile, a barrier of the warpgroup; (residual) the
+// residual boxes land in it by TMA; each thread writes its bf16 pairs,
+// fences them for the async proxy; a barrier; thread 0 stores the boxes by
+// TMA.  rphase: the parity of rbar's next completion.
 template <int EPI>
 __device__ __forceinline__ void gemm_epilogue(
     const float (&acc)[kGemmBN / 2], int row0, int n0, int wg, int wt, unsigned char* out,
-    uint64_t* rbar, unsigned& rphase, const CUtensorMap* cmap, const CUtensorMap* hmap,
-    const CUtensorMap* rmap, const float* __restrict__ bias, int N) {
-  constexpr bool kHidden = EPI == kEpiBiasHGeluErf || EPI == kEpiBiasHGeluTanh;
+    uint64_t* rbar, unsigned& rphase, const CUtensorMap* cmap, const CUtensorMap* rmap,
+    const float* __restrict__ bias, int N) {
   const bool lead = wt == 0;
   const int lane = wt & 31;
   const int r_lo = (wt >> 5) * 16 + (lane >> 2);  // rows r_lo, r_lo + 8 of the 64
@@ -307,58 +310,123 @@ __device__ __forceinline__ void gemm_epilogue(
   for (int half = 0; half < 2; ++half) {
     const int c0 = n0 + 128 * half;
     const bool box0 = c0 < N, box1 = c0 + 64 < N;  // boxes wholly past N: no traffic
-#pragma unroll
-    for (int o = 0; o < (kHidden ? 2 : 1); ++o) {  // stored hidden: H, then C
-      bulk_wait_read_if(lead);
-      named_sync(1 + wg, 128);
-      if (EPI == kEpiBiasResidual) {
-        mbar_expect_tx_if(rbar, (box0 + box1) * kGemmBox, lead);
-        tma_load_2d_if(out, rmap, c0, row0, rbar, lead && box0);
-        tma_load_2d_if(out + kGemmBox, rmap, c0 + 64, row0, rbar, lead && box1);
-        mbar_wait_spin(rbar, rphase);
-        rphase ^= 1;
-      }
-#pragma unroll
-      for (int jj = 0; jj < 16; ++jj) {  // 8-column groups of the half
-        const int j = half * 16 + jj;
-        const int col = n0 + 8 * j + cq;
-        const float2 bb = ld_f2_if(bias + col, col < N);  // N % 8 == 0: col + 1 < N too
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int r = r_lo + 8 * h;
-          uint32_t* slot = reinterpret_cast<uint32_t*>(
-              out + (jj >> 3) * kGemmBox + r * 128 + (((jj & 7) ^ (r & 7)) << 4) + cq * 2);
-          float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
-          if (EPI == kEpiBiasResidual) {
-            uint32_t rb = *slot;
-            const float2 rv = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&rb));
-            v0 = (rv.x + v0) + bb.x;
-            v1 = (rv.y + v1) + bb.y;
-          } else if (kHidden) {
-            const __nv_bfloat162 hv = __floats2bfloat162_rn(v0 + bb.x, v1 + bb.y);
-            const float2 hf = __bfloat1622float2(hv);
-            v0 = o == 0 ? hf.x : (EPI == kEpiBiasHGeluErf ? gelu_erf(hf.x) : gelu_tanh(hf.x));
-            v1 = o == 0 ? hf.y : (EPI == kEpiBiasHGeluErf ? gelu_erf(hf.y) : gelu_tanh(hf.y));
-          } else {
-            v0 += bb.x;
-            v1 += bb.y;
-            if (EPI == kEpiBiasGelu) {
-              v0 = gelu_tanh_fast(v0);
-              v1 = gelu_tanh_fast(v1);
-            }
-          }
-          *slot = bf16x2_bits(__floats2bfloat162_rn(v0, v1));
-        }
-      }
-      fence_proxy_async();  // this thread's writes, for the TMA store
-      named_sync(1 + wg, 128);
-      const CUtensorMap* map = kHidden && o == 0 ? hmap : cmap;
-      tma_store_2d_if(map, c0, row0, out, lead && box0);
-      tma_store_2d_if(map, c0 + 64, row0, out + kGemmBox, lead && box1);
-      bulk_commit_if(lead);
+    bulk_wait_read_if(lead);
+    named_sync(1 + wg, 128);
+    if (EPI == kEpiBiasResidual) {
+      mbar_expect_tx_if(rbar, (box0 + box1) * kGemmBox, lead);
+      tma_load_2d_if(out, rmap, c0, row0, rbar, lead && box0);
+      tma_load_2d_if(out + kGemmBox, rmap, c0 + 64, row0, rbar, lead && box1);
+      mbar_wait_spin(rbar, rphase);
+      rphase ^= 1;
     }
+#pragma unroll
+    for (int jj = 0; jj < 16; ++jj) {  // 8-column groups of the half
+      const int j = half * 16 + jj;
+      const int col = n0 + 8 * j + cq;
+      const float2 bb = ld_f2_if(bias + col, col < N);  // N % 8 == 0: col + 1 < N too
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = r_lo + 8 * h;
+        uint32_t* slot = reinterpret_cast<uint32_t*>(
+            out + (jj >> 3) * kGemmBox + r * 128 + (((jj & 7) ^ (r & 7)) << 4) + cq * 2);
+        float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+        if (EPI == kEpiBiasResidual) {
+          uint32_t rb = *slot;
+          const float2 rv = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&rb));
+          v0 = (rv.x + v0) + bb.x;
+          v1 = (rv.y + v1) + bb.y;
+        } else {
+          v0 += bb.x;
+          v1 += bb.y;
+          if (EPI == kEpiBiasGelu) {
+            v0 = gelu_tanh_fast(v0);
+            v1 = gelu_tanh_fast(v1);
+          }
+        }
+        *slot = bf16x2_bits(__floats2bfloat162_rn(v0, v1));
+      }
+    }
+    fence_proxy_async();  // this thread's writes, for the TMA store
+    named_sync(1 + wg, 128);
+    tma_store_2d_if(cmap, c0, row0, out, lead && box0);
+    tma_store_2d_if(cmap, c0 + 64, row0, out + kGemmBox, lead && box1);
+    bulk_commit_if(lead);
   }
 }
+
+// The stored-hidden epilogue (kEpiBiasHGeluErf, kEpiBiasHGeluTanh) in one
+// pass over the accumulator, a 64-column box at a time: thread 0 waits
+// until the previous box's stores have read the staging tile, a barrier;
+// each thread rounds acc + bias to bf16 once, writes that H into the tile's
+// first box and the GELU of the rounded H (gelu_erf_tail / gelu_tanh_tail,
+// common.cuh) into its second, in the swizzle of gemm_epilogue; a barrier;
+// thread 0 stores both boxes by TMA.  Four waits a tile, as the two passes
+// (H, then C) had, but C no longer waits on H's store.
+template <int EPI>
+__device__ __forceinline__ void gemm_epilogue_hidden(
+    const float (&acc)[kGemmBN / 2], int row0, int n0, int wg, int wt, unsigned char* out,
+    const CUtensorMap* cmap, const CUtensorMap* hmap, const float* __restrict__ bias, int N) {
+  const bool lead = wt == 0;
+  const int lane = wt & 31;
+  const int r_lo = (wt >> 5) * 16 + (lane >> 2);
+  const int cq = (lane & 3) * 2;
+#pragma unroll
+  for (int box = 0; box < kGemmBN / 64; ++box) {
+    const int c0 = n0 + 64 * box;
+    bulk_wait_read_if(lead);
+    named_sync(1 + wg, 128);
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {  // 8-column groups of the box
+      const int j = box * 8 + jj;
+      const int col = n0 + 8 * j + cq;
+      const float2 bb = ld_f2_if(bias + col, col < N);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = r_lo + 8 * h;
+        const int at = r * 128 + ((jj ^ (r & 7)) << 4) + cq * 2;
+        const __nv_bfloat162 hv =
+            __floats2bfloat162_rn(acc[4 * j + 2 * h] + bb.x, acc[4 * j + 2 * h + 1] + bb.y);
+        const float2 hf = __bfloat1622float2(hv);
+        *reinterpret_cast<uint32_t*>(out + at) = bf16x2_bits(hv);
+        *reinterpret_cast<uint32_t*>(out + kGemmBox + at) = bf16x2_bits(
+            EPI == kEpiBiasHGeluErf
+                ? __floats2bfloat162_rn(gelu_erf_tail(hf.x), gelu_erf_tail(hf.y))
+                : __floats2bfloat162_rn(gelu_tanh_tail(hf.x), gelu_tanh_tail(hf.y)));
+      }
+    }
+    fence_proxy_async();
+    named_sync(1 + wg, 128);
+    tma_store_2d_if(hmap, c0, row0, out, lead && c0 < N);
+    tma_store_2d_if(cmap, c0, row0, out + kGemmBox, lead && c0 < N);
+    bulk_commit_if(lead);
+  }
+}
+
+#ifdef VSD_GEMM_STAMPS
+// Unit stamps, only in a build with this macro (tests/gemm_stamps.py): per
+// block (the first kStampBlocks) and consumer warpgroup, %globaltimer and
+// %clock64 where the warpgroup starts and where it ends, and %clock64 at
+// each tile's start, when its products are done and when its epilogue is
+// (the first kStampTiles tiles of its walk), all written by its thread 0.
+constexpr int kStampBlocks = 160, kStampTiles = 48, kStampPer = 4 + 3 * kStampTiles;
+__device__ unsigned long long g_gemm_stamps[kStampBlocks * 2 * kStampPer];
+
+__device__ __forceinline__ unsigned long long clock_now() {
+  unsigned long long c;
+  asm volatile("mov.u64 %0, %%clock64;\n" : "=l"(c)::"memory");
+  return c;
+}
+
+__device__ __forceinline__ void st_u64_if(unsigned long long* p, unsigned long long v, bool pred) {
+  asm volatile("{\n.reg .pred q;\nsetp.ne.b32 q, %2, 0;\n@q st.global.u64 [%0], %1;\n}\n" ::"l"(p),
+               "l"(v), "r"(static_cast<int>(pred))
+               : "memory");
+}
+#define GEMM_STAMP(k) \
+  st_u64_if(stamps + 4 + 3 * ti + (k), clock_now(), stamping && ti < kStampTiles)
+#else
+#define GEMM_STAMP(k)
+#endif
 
 template <int EPI>
 __global__ void __launch_bounds__(kGemmThreads, 1)
@@ -419,12 +487,21 @@ __global__ void __launch_bounds__(kGemmThreads, 1)
 
   // the consumers: warpgroup wg multiplies rows 64 wg .. + 64 of each tile
   setmaxnreg_inc232();
+#ifdef VSD_GEMM_STAMPS
+  unsigned long long* stamps =
+      g_gemm_stamps + (min(static_cast<int>(blockIdx.x), kStampBlocks - 1) * 2 + wg) * kStampPer;
+  const bool stamping = wt == 0 && blockIdx.x < kStampBlocks;
+  int ti = 0;
+  st_u64_if(stamps, global_ns(), stamping);
+  st_u64_if(stamps + 1, clock_now(), stamping);
+#endif
   float acc[kGemmBN / 2];
   unsigned q = 0, rphase = 0;
   for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
     int mt, nt;
     gemm_tile(t, tiles_m, tiles_n, group_m, mt, nt);
     const int row0 = mt * kGemmBM + 64 * wg, n0 = nt * kGemmBN;
+    GEMM_STAMP(0);
 #pragma unroll
     for (int j = 0; j < kGemmBN / 2; ++j) acc[j] = 0.f;
     unsigned prev = 0;
@@ -448,11 +525,25 @@ __global__ void __launch_bounds__(kGemmThreads, 1)
     }
     wgmma_wait<0>();
     mbar_arrive_if(empty + prev, wt == 0);
-    gemm_epilogue<EPI>(acc, row0, n0, wg, wt, outs + wg * kGemmOutBytes, rbars + wg, rphase,
-                       &cmap, &hmap, &rmap, bias, N);
+    GEMM_STAMP(1);
+    if constexpr (EPI == kEpiBiasHGeluErf || EPI == kEpiBiasHGeluTanh)
+      gemm_epilogue_hidden<EPI>(acc, row0, n0, wg, wt, outs + wg * kGemmOutBytes, &cmap, &hmap,
+                                bias, N);
+    else
+      gemm_epilogue<EPI>(acc, row0, n0, wg, wt, outs + wg * kGemmOutBytes, rbars + wg, rphase,
+                         &cmap, &rmap, bias, N);
+    GEMM_STAMP(2);
+#ifdef VSD_GEMM_STAMPS
+    ++ti;
+#endif
   }
   bulk_wait_all_if(wt == 0);  // the last stores are done before the block's shared memory goes
+#ifdef VSD_GEMM_STAMPS
+  st_u64_if(stamps + 2, global_ns(), stamping);
+  st_u64_if(stamps + 3, clock_now(), stamping);
+#endif
 }
+#undef GEMM_STAMP
 
 constexpr int kGemmMaxDevices = 64;
 

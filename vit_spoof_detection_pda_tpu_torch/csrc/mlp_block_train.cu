@@ -10,8 +10,12 @@
 // backward's gate recompute all see one tensor.  erf or tanh GELU.
 // Replaces the TPU kernel
 // vit_spoof_detection_pda_tpu/models/fasttrain.py::_mlp_block_train_p_kernel
-// (:508), which emulated erf with the A&S rational (Mosaic has no erf);
-// here erf is CUDA's erff.
+// (:508), which emulated erf with the A&S rational (Mosaic has no erf).
+// Here the bf16 form computes either GELU in its tail form on the
+// special-function unit (common.cuh, gelu_erf_tail / gelu_tanh_tail:
+// within one bf16 ulp of the exact GELU at every finite bf16 hidden
+// value, where 1 + erff would cancel below x ~ -3); the f32 form uses
+// CUDA's erff and tanhf.
 //
 // Bound on the H100: the tensor cores at bf16.  At ViT-B, B = 128, Tp = 197
 // (25,216 rows) one call does 4*rows*D*4D = 238 GFLOP, >= 0.241 ms at 989
@@ -27,7 +31,8 @@
 //      [rows, 4D])
 //   3. GEMM a @ W2 + b2 + x -> y
 // bf16 runs the wgmma GEMM core of gemm_core.cuh with its stored-hidden
-// epilogue;
+// epilogue (one pass over the accumulator: H and C of each 64-column box
+// staged side by side and stored together);
 // f32 the FMA GEMM of f32_common.cuh (no TF32).  The TPU kernel kept the
 // activation in VMEM; here it goes through device memory once each way.
 //

@@ -25,11 +25,18 @@ Epilogues (the blocks' own, with their rounding points): ``"bias"``
 ``"bias_hgelu_tanh"`` ``H = round(acc + b)``, ``C = round(gelu(H))``, which
 return ``(C, H)``.  Products are exact f32 products of the inputs summed in
 f32; the output is rounded to the input dtype once.
+
+The bf16 core's stored-hidden epilogues compute the GELU in a tail form on
+the special-function unit (``csrc/common.cuh``, ``gelu_erf_tail`` /
+``gelu_tanh_tail``; :data:`GELU_TAIL_C` and :data:`GELU_TAIL_Q` mirror its
+constants), within one bf16 ulp of the exact GELU at every finite bf16
+hidden value: :func:`hidden_gelu_check` runs that check on the card.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -51,6 +58,13 @@ _SMEM = (STAGES * (BM * BK + BK * BN) * 2 + 2 * 64 * 128 * 2
          + (2 * STAGES + 2) * 8 + 1024)
 PLAN_KEYS = ("bm", "bn", "bk", "stages", "tiles_m", "tiles_n", "tiles",
              "grid", "smem", "group_m", "threads")
+# the erf GELU's tail in the stored-hidden epilogue (csrc/common.cuh,
+# gelu_erf_tail): t = 1 / (1 + GELU_TAIL_C |x|), E = t 2^(q(t) - x^2
+# log2(e) / 2 - 24), q(t) = (((Q4 t + Q3) t + Q2) t + Q1) t + Q0, the
+# coefficients Q4 .. Q0 in that order
+GELU_TAIL_C = 0.4949747468305833
+GELU_TAIL_Q = (0.361751914024353, -1.1295230388641357, 0.7219557166099548,
+               1.382437825202942, 21.663318634033203)
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -191,3 +205,85 @@ def gemm(a, w, bias, *, epilogue: str = "bias", residual=None):
     _build.check(lib, name, err)
     LAUNCHES[name] += 1
     return (c, h) if hidden else c
+
+
+def finite_bf16() -> torch.Tensor:
+    """Every finite bf16 value (65,280: all 2^16 patterns but the 256 of
+    inf and NaN), in the order of their bit patterns."""
+    bits = torch.arange(1 << 16, dtype=torch.int32)
+    bits = bits[(bits & 0x7F80) != 0x7F80]
+    return (bits - ((bits >> 15) << 16)).to(torch.int16).view(torch.bfloat16)
+
+
+def bf16_round(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (float64) rounded to bf16 once, to nearest, ties to even: by
+    way of f32 rounded to odd, which keeps the one rounding that a plain
+    float64 -> f32 -> bf16 chain can get wrong at a bf16 midpoint."""
+    f = x.float()
+    off = (f.double() != x) & ((f.view(torch.int32) & 1) == 0)
+    toward = torch.where(x > f.double(), float("inf"), float("-inf")).float()
+    return torch.where(off, torch.nextafter(f, toward), f).bfloat16()
+
+
+def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """How many bf16 values lie from ``b`` to ``a`` (signed, int32): the
+    distance of their bit patterns in value order, +0 and -0 one point."""
+    def key(t):
+        v = t.contiguous().view(torch.int16).int()
+        return torch.where(v < 0, -(v + 32768), v)
+    return key(a) - key(b)
+
+
+def gelu_exact_bf16(h: torch.Tensor, approximate: bool) -> torch.Tensor:
+    """The exact GELU of bf16 ``h`` in float64, rounded to bf16 once: erf,
+    ``0.5 x erfc(-x / sqrt 2)``; tanh (``jax.nn.gelu(approximate=True)``'s
+    formula), ``x (1 + tanh u) / 2`` written ``x sigmoid(2u)``, u =
+    sqrt(2 / pi) (x + 0.044715 x^3), which does not cancel at large
+    negative x."""
+    x = h.double()
+    if approximate:
+        u = math.sqrt(2.0 / math.pi) * (x + 0.044715 * x ** 3)
+        y = x * torch.sigmoid(2.0 * u)
+    else:
+        y = 0.5 * x * torch.special.erfc(-x * math.sqrt(0.5))
+    return bf16_round(y)
+
+
+def hidden_gelu_check(approximate: bool, device=None, rows: int = 128
+                      ) -> dict:
+    """The bf16 core's stored-hidden epilogue at every finite bf16 hidden
+    value, on the card: :func:`gemm` with ``epilogue="bias_hgelu_tanh"``
+    (``approximate``) or ``"bias_hgelu_erf"`` on ``rows`` one-hot rows of
+    A (K 64) and a W whose rows each hold all of :func:`finite_bf16`, zero
+    bias, so that H is W's row summed with 0 (-0 becomes +0) and C the
+    epilogue's GELU of each value.  Returns ``values`` (65,280),
+    ``h_bit_equal`` (every row of H equal to ``W + 0`` bit for bit),
+    ``rows_agree`` (every row of C equal to the first, bit for bit),
+    ``max_ulps`` and ``one_ulp`` (how many values' activations lie one bf16
+    ulp from :func:`gelu_exact_bf16`; ``max_ulps`` the largest distance)
+    and ``worst`` (a hidden value at that distance).  Needs the card."""
+    dev = torch.device(device or "cuda")
+    if dev.type != "cuda":
+        raise ValueError("hidden_gelu_check runs the CUDA kernel; it needs "
+                         f"a CUDA device, not {dev}")
+    vals = finite_bf16().to(dev)
+    k = 64
+    a = torch.zeros((rows, k), dtype=torch.bfloat16, device=dev)
+    a[torch.arange(rows, device=dev), torch.arange(rows, device=dev) % k] = 1
+    w = vals.expand(k, -1).contiguous()
+    bias = torch.zeros(vals.numel(), dtype=torch.float32, device=dev)
+    c, h = gemm(a, w, bias, epilogue="bias_hgelu_tanh" if approximate
+                else "bias_hgelu_erf")
+    want_h = (vals.float() + 0.0).bfloat16()
+    want_c = gelu_exact_bf16(want_h, approximate)
+    d = bf16_ulps(c[0], want_c).abs()
+    worst = int(d.argmax())
+    return {"values": vals.numel(),
+            "h_bit_equal": bool(torch.equal(
+                h.view(torch.int16), want_h.expand(rows, -1).view(
+                    torch.int16))),
+            "rows_agree": bool(torch.equal(
+                c.view(torch.int16), c[:1].expand(rows, -1).view(
+                    torch.int16))),
+            "max_ulps": int(d.max()), "one_ulp": int((d == 1).sum()),
+            "worst": float(want_h[worst])}
