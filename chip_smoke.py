@@ -338,6 +338,36 @@ runs these phases, each printing one JSON line and raising on failure:
             kernel 4's f32 form 12 times, every leaf within
             F32_GRAD_REL_TOL of f32 autograd), and its time in turns with
             SDPA's masked backward, beside its plain version and bound.
+36. slice_linear (run inside phase 14's temp dir) the linear-head
+            ViT-B/16 (numpy-seeded weights, LayerNorm eps 1e-12):
+            serving_forward_linear at B = 128 (kernels 1 and 2 12 times
+            each, the GEMM cores 48; P(live) within phase 4's bounds of
+            the f32 ViTLinearHead module on the plain versions and of the
+            same forward on plain blocks; rows summing to 1 within 1e-6);
+            serving_forward(fuse_mlp=False) at B = 128 for both heads
+            (kernel 1 12 times, kernel 2 never, ops/gemm.py gemm 24 times,
+            the cores 48; within phase 4's bounds of the fused forward);
+            serving_forward_lowlat_linear at B = 1 and 4 over 64 faces
+            (kernel 10's encoder-only form once a forward; within phase
+            4's bounds of its plain version and of
+            serving_forward_linear, the mean over the 64);
+            run_cross_model_eval(fastserve=True) on phase 14's 72 faces
+            (both ViTs kernels 1 and 2 12 times a forward, the ResNets
+            none); benchmark --lowlat on Base_ViT_Pretrained through
+            __main__.main.  Then, in turns: the linear-head forward beside
+            the anti-spoof one at B = 128, fuse_mlp=False beside True, the
+            linear lowlat beside the anti-spoof lowlat at B = 1.
+37. analysis analyze --calibration through __main__.main over phase 14's
+            results directory: every file the JAX verb writes but the
+            figures, the JSON numbers equal to a numpy recomputation from
+            the CSVs, and without matplotlib the reliability diagram
+            absent with one warning; analyze --xprof on a torch.profiler
+            trace of one B = 128 forward (kernels 1 and 2's device kernels
+            among the top ops, the trace's device ms within 10% of the
+            forward's event-timed ms); the attention rollout on the card at
+            B = 16 over phase 14's bf16 model and its f32 build, within
+            1e-5 of the float64 host rollout of the captured softmaxes, its
+            ms.
 
 Then it prints the kernel table as one JSON line, the card's name and
 power limit as nvidia-smi gives them, and last
@@ -381,8 +411,8 @@ from vit_spoof_detection_pda_tpu_torch.models import fasttrain
 from vit_spoof_detection_pda_tpu_torch.models import registry
 from vit_spoof_detection_pda_tpu_torch.models.convert import (
     antispoof_from_torch, antispoof_to_torch, load_jax_params)
-from vit_spoof_detection_pda_tpu_torch.models.vit import (ViTAntiSpoof,
-                                                          module_apply)
+from vit_spoof_detection_pda_tpu_torch.models.vit import (
+    ViTAntiSpoof, fold_normalization, module_apply)
 from vit_spoof_detection_pda_tpu_torch.ops import _build
 from vit_spoof_detection_pda_tpu_torch.ops import attention as att
 from vit_spoof_detection_pda_tpu_torch.ops import augment as aug
@@ -2576,7 +2606,7 @@ def phase_slice_eval(dev, tmp: Path):
     run."""
     rng = np.random.default_rng(SEED + 21)
     params = random_params(rng)
-    ckpt = tmp / "best_model_seeded.pth"
+    ckpt = tmp / EVAL_CKPT
     torch.save({"epoch": 0, "model_state_dict": {
         k: torch.from_numpy(v) for k, v in antispoof_to_torch(params).items()}},
         ckpt)
@@ -5821,6 +5851,422 @@ def phase_times_long(dev, main_err, launches) -> list:
     return rows
 
 
+# --------------------------------------------------------------------------
+# slice 20: the linear-head serving forwards, fuse_mlp=False, and the
+# analysis layer (analyze, the rollout on the card, trace tables)
+# --------------------------------------------------------------------------
+
+LINEAR_LOWLAT_B = (1, 4)
+ROLLOUT_B = 16
+ROLLOUT_TOL = 1e-5                   # f32 on the card vs float64 host
+XPROF_TOL = 0.10                     # trace device ms vs event-timed ms
+EVAL_CKPT = "best_model_seeded.pth"  # phase 14's .pth, in its temp dir
+
+
+def linear_params(rng) -> dict:
+    """ViTLinearHead parameters in the JAX layout (ViT-B/16): the encoder
+    of random_params and a 2-way classifier N(0, 0.05), so that the
+    softmax spreads (logit gap std ~2)."""
+    vit = random_params(rng)["params"]["vit"]
+    cls = {"kernel": rng.standard_normal((D, 2), dtype=np.float32)
+           * np.float32(0.05),
+           "bias": rng.standard_normal(2, dtype=np.float32)
+           * np.float32(0.02)}
+    return {"params": {"vit": vit, "classifier": cls}}
+
+
+def _nonzero_launches() -> dict:
+    return {k: v for k, v in att.LAUNCHES.items() if v}
+
+
+def _gaps(got, want) -> dict:
+    e = (got.float() - want.float()).abs()
+    return {"max": e.max().item(), "mean": e.mean().item()}
+
+
+def _within_phase4(g: dict) -> bool:
+    return g["max"] <= SCORE_TOL and g["mean"] <= SCORE_MEAN_TOL
+
+
+def phase_slice_linear(dev, tmp: Path) -> dict:
+    """The linear-head ViT-B/16 (numpy-seeded weights, LayerNorm eps
+    1e-12) on the serving path: serving_forward_linear at B = 128 (kernels
+    1 and 2 12 times each, the cores 48; column 1 within phase 4's bounds
+    of the f32 module on the plain versions and of the same forward on
+    plain blocks, rows summing to 1); serving_forward(fuse_mlp=False) for
+    both heads at B = 128 (kernel 1 12 times, kernel 2 never, the GEMM
+    core alone 24 times, the cores 48; within phase 4's bounds of the fused
+    forward); serving_forward_lowlat_linear at B = 1 and 4 (kernel 10's
+    encoder-only form once a forward; within phase 4's bounds of its plain
+    version, the 12-layer rule of the lowlat kernels phase, its bf16 ulps
+    printed, and of serving_forward_linear);
+    run_cross_model_eval(fastserve=True) over phase 14's 72 faces (each
+    ViT's forward kernels 1 and 2 12 times); benchmark --lowlat on
+    Base_ViT_Pretrained through __main__.main; then the times, in turns,
+    and a profile of one fuse_mlp=False forward."""
+    from vit_spoof_detection_pda_tpu_torch.models.convert import (
+        vit_linear_to_torch)
+    from vit_spoof_detection_pda_tpu_torch.models.vit import ViTLinearHead
+
+    rng = np.random.default_rng(SEED + 40)
+    lin = linear_params(rng)
+    asp = random_params(rng)
+    f32 = torch.float32
+    prep_lin = fastserve.prepare_params(
+        fold_normalization(lin)["params"], dtype=torch.bfloat16,
+        device=dev)
+    prep_as = fastserve.prepare_params(
+        fold_normalization(asp)["params"], dtype=torch.bfloat16,
+        device=dev)
+    u8 = torch.from_numpy(rng.integers(0, 256, (MAIN_B, IMG, IMG, 3),
+                                       dtype=np.uint8)).to(dev)
+    geom = dict(num_heads=HEADS, patch_size=PATCH, depth=DEPTH)
+    lin_eps = dict(geom, norm_eps=1e-12)
+    want_fwd = {"attention_block": DEPTH, "mlp_block": DEPTH}
+    want_unfused = {"attention_block": DEPTH, "gemm": 2 * DEPTH}
+    parts, ok_all = {}, True
+
+    # (a) serving_forward_linear at B = 128
+    reset_launches()
+    probs = fastserve.serving_forward_linear(prep_lin, u8, **lin_eps)
+    torch.cuda.synchronize()
+    launches, cores = _nonzero_launches(), gemm.core_launches()["gemm"]
+    with plain_blocks():
+        plain = fastserve.serving_forward_linear(prep_lin, u8, **lin_eps)
+    ref_model = ViTLinearHead(patch_size=PATCH, embed_dim=D, depth=DEPTH,
+                              num_heads=HEADS, img_size=IMG).to(dev).eval()
+    ref_model.load_state_dict({k: torch.from_numpy(v) for k, v in
+                               vit_linear_to_torch(lin).items()})
+    with torch.inference_mode(), plain_attention_qkv(), exact_f32_matmul():
+        ref = torch.softmax(ref_model(normalize(to_float(u8))).float(), -1)
+    del ref_model
+    rowsum = (probs.sum(-1) - 1).abs().max().item()
+    g_plain, g_ref = _gaps(probs[:, 1], plain[:, 1]), _gaps(probs[:, 1],
+                                                            ref[:, 1])
+    ok = (launches == want_fwd and cores == 4 * DEPTH
+          and tuple(probs.shape) == (MAIN_B, 2)
+          and bool(torch.isfinite(probs).all()) and rowsum <= 1e-6
+          and _within_phase4(g_plain) and _within_phase4(g_ref))
+    parts["linear_b128"] = {
+        "launches": launches, "core_launches": cores,
+        "gap_vs_plain_blocks": g_plain, "gap_vs_f32_module": g_ref,
+        "bit_equal_vs_plain": (probs == plain).all(-1).float().mean().item(),
+        "max_rowsum_err": rowsum, "p_live_std": probs[:, 1].std().item(),
+        "ok": bool(ok)}
+    ok_all &= ok
+
+    # (b) fuse_mlp=False, both heads, against the fused forward
+    for head, fn, prep in (("antispoof", fastserve.serving_forward, prep_as),
+                           ("linear", fastserve.serving_forward_linear,
+                            prep_lin)):
+        kw = lin_eps if head == "linear" else geom
+        fused = fn(prep, u8, **kw)
+        reset_launches()
+        got = fn(prep, u8, fuse_mlp=False, **kw)
+        torch.cuda.synchronize()
+        launches, cores = _nonzero_launches(), gemm.core_launches()["gemm"]
+        score = (lambda p: p[:, 1]) if head == "linear" else (lambda p: p)
+        g = _gaps(score(got), score(fused))
+        ok = (launches == want_unfused and cores == 4 * DEPTH
+              and bool(torch.isfinite(got).all()) and _within_phase4(g))
+        parts[f"unfused_mlp_{head}_b128"] = {
+            "launches": launches, "core_launches": cores,
+            "gap_vs_fused": g, "ok": bool(ok)}
+        ok_all &= ok
+
+    # (c) the B = 1 regime of the linear head: kernel 10 encoder-only, over
+    # SMALL_IMAGES faces at each B (phase 6's protocol: the mean over them)
+    folded_lin = fold_normalization(lin)["params"]
+    prep_low = fastserve.prepare_lowlat(folded_lin, depth=DEPTH, device=dev)
+    faces = u8[:SMALL_IMAGES]
+    trunk = fastserve.serving_forward_linear(prep_lin, faces, **lin_eps)
+
+    def lowlat_scores(b):
+        return torch.cat([fastserve.serving_forward_lowlat_linear(
+            prep_low, faces[i:i + b], num_heads=HEADS, patch_size=PATCH,
+            norm_eps=1e-12) for i in range(0, len(faces), b)])
+
+    for b in LINEAR_LOWLAT_B:
+        reset_launches()
+        got = lowlat_scores(b)
+        torch.cuda.synchronize()
+        launches = _nonzero_launches()
+        with plain_lowlat():
+            plain = lowlat_scores(b)
+        g_plain = _gaps(got[:, 1], plain[:, 1])
+        g = _gaps(got[:, 1], trunk[:, 1])
+        # 12 layers: per-layer ulps compound, so the bound is phase 4's,
+        # as for kernel 10 at full depth in the lowlat kernels phase
+        ok = ("aux" not in prep_low
+              and launches == {"lowlat_encoder": len(faces) // b}
+              and _within_phase4(g_plain) and _within_phase4(g))
+        parts[f"lowlat_linear_b{b}"] = {
+            "encoder_only": "aux" not in prep_low, "images": len(faces),
+            "launches": launches, "gap_vs_plain": g_plain,
+            "bf16_ulps_vs_plain": g_plain["max"] / bf16_tol(plain, 1),
+            "bit_equal_vs_plain": (got == plain).all(-1).float().mean().item(),
+            "gap_vs_serving_forward_linear": g, "ok": bool(ok)}
+        ok_all &= ok
+
+    # (d) evaluate-all --fastserve: both ViTs on the serving path
+    per_model = []
+    saved = harness.run_inference
+
+    def watched(module, records, **kw):
+        reset_launches()
+        out = saved(module, records, **kw)
+        torch.cuda.synchronize()
+        per_model.append(_nonzero_launches())
+        return out
+
+    harness.run_inference = watched
+    try:
+        with seeded_faces(2):
+            results = harness.run_cross_model_eval(
+                seeded_records(EVAL_HARNESS_N, 2),
+                output_dir=str(tmp / "harness_fastserve"),
+                checkpoint_path=str(tmp / EVAL_CKPT),
+                batch_size=EVAL_HARNESS_B, img_size=IMG, fastserve=True)
+    finally:
+        harness.run_inference = saved
+    n_fwd = -(-EVAL_HARNESS_N // EVAL_HARNESS_B)
+    vit_entries = ("Custom_ViT_FineTuned", "Base_ViT_Pretrained")
+    names = list(registry.MODEL_REGISTRY)
+    got_launches = dict(zip(results, per_model))
+    want = {n: ({k: n_fwd * v for k, v in want_fwd.items()}
+                if n in vit_entries else {}) for n in names}
+    ok = list(results) == names and got_launches == want
+    parts["evaluate_all_fastserve"] = {
+        "images": EVAL_HARNESS_N, "batch": EVAL_HARNESS_B, "forwards": n_fwd,
+        "launches": got_launches,
+        "roc_auc": {n: results[n]["roc_auc"] for n in results},
+        "ok": bool(ok)}
+    ok_all &= ok
+
+    # (e) benchmark --lowlat on the linear head through __main__.main
+    reset_launches()
+    lines, secs, rc = _run_verb([
+        "benchmark", "--model", "Base_ViT_Pretrained", "--batch-size", "1",
+        "--device-latency", "--lowlat", "--n1", "20"])
+    launches = _nonzero_launches()
+    rows = _json_lines(lines)
+    ok = (rc == 0 and "lowlat flavor: encoder-only (plain stem/head)" in lines
+          and set(launches) == {"lowlat_encoder"} and bool(rows)
+          and rows[-1].get("device") == torch.cuda.get_device_name(0))
+    parts["benchmark_lowlat_linear"] = {
+        "launches": launches, "result": rows[-1] if rows else None,
+        "seconds": secs, "ok": bool(ok)}
+    ok_all &= ok
+    for name, part in parts.items():
+        emit({"phase": "slice_linear", "part": name, **part})
+    if not ok_all:
+        raise AssertionError(
+            f"slice_linear: {[k for k, p in parts.items() if not p['ok']]}")
+
+    # (f) times, in turns within one call
+    folded_as = fold_normalization(asp)["params"]
+    prep_as_low = fastserve.prepare_lowlat(folded_as, depth=DEPTH,
+                                           device=dev)
+    one = u8[:1]
+    lin_ms, as_ms = time_in_turns(
+        lambda: fastserve.serving_forward_linear(prep_lin, u8, **lin_eps),
+        lambda: fastserve.serving_forward(prep_as, u8, **geom))
+    unfused_ms, fused_ms = time_in_turns(
+        lambda: fastserve.serving_forward(prep_as, u8, fuse_mlp=False,
+                                          **geom),
+        lambda: fastserve.serving_forward(prep_as, u8, **geom))
+    low_lin_ms, low_as_ms = time_in_turns(
+        lambda: fastserve.serving_forward_lowlat_linear(
+            prep_low, one, num_heads=HEADS, patch_size=PATCH,
+            norm_eps=1e-12),
+        lambda: fastserve.serving_forward_lowlat(
+            prep_as_low, one, num_heads=HEADS, patch_size=PATCH))
+    with torch.inference_mode():
+        unfused_profile = profile_step(lambda: fastserve.serving_forward(
+            prep_as, u8, fuse_mlp=False, **geom), top=12)
+    emit({"phase": "times_linear", "card": nvidia_smi(),
+          "unfused_mlp_b128_profile": unfused_profile,
+          "linear_forward_b128_ms": lin_ms,
+          "antispoof_forward_b128_ms": as_ms,
+          "antispoof_unfused_mlp_b128_ms": unfused_ms,
+          "antispoof_fused_mlp_b128_ms": fused_ms,
+          "lowlat_linear_b1_ms": low_lin_ms,
+          "lowlat_antispoof_b1_ms": low_as_ms,
+          "lowlat_antispoof_b1_fold_ends": "aux" in prep_as_low})
+    return {"prep_as": prep_as, "u8": u8}
+
+
+def _stats(x: np.ndarray) -> dict:
+    return {"mean": float(np.mean(x)), "std": float(np.std(x)),
+            "median": float(np.median(x)), "min": float(np.min(x)),
+            "max": float(np.max(x)), "q25": float(np.percentile(x, 25)),
+            "q75": float(np.percentile(x, 75))}
+
+
+def _analysis_recomputed(results: Path) -> list:
+    """The analyze JSON numbers that differ from a numpy recomputation out
+    of the CSVs (read with the csv module): the per-class statistics of
+    every model, the best AUC of the summary, and each model's ECE and
+    Brier score before temperature scaling."""
+    dist = json.loads((results / "score_distribution_analysis.json")
+                      .read_text())
+    cal = json.loads((results / "calibration_analysis.json").read_text())
+    summ = json.loads((results / "final_summary.json").read_text())
+    bad = []
+    for name in registry.MODEL_REGISTRY:
+        with open(results / name / "per_image_predictions.csv",
+                  newline="") as f:
+            rows = list(csv.DictReader(f))
+        y = np.array([int(r["true_label"]) for r in rows])
+        s = np.array([float(r["spoof_score"]) for r in rows])
+        for cls, key in ((0, "live_scores"), (1, "spoof_scores")):
+            for k, v in _stats(s[y == cls]).items():
+                if abs(dist[name][key][k] - v) > 1e-12:
+                    bad.append(f"{name}.{key}.{k}")
+        edges = np.linspace(0.0, 1.0, 16)
+        ids = np.digitize(s, edges[1:-1], right=True)
+        ece = 0.0
+        for i in np.unique(ids):
+            m = ids == i
+            ece += m.sum() * abs(y[m].mean() - s[m].mean())
+        for k, v in (("ece", ece / len(s)), ("brier", np.mean((s - y) ** 2))):
+            if abs(cal[name]["before"][k] - v) > 1e-12:
+                bad.append(f"{name}.calibration.{k}")
+    with open(results / "model_comparison.csv", newline="") as f:
+        comp = list(csv.DictReader(f))
+    aucs = [float(r["roc_auc"]) for r in comp]
+    best = summ["best_performers"]["highest_auc"]
+    if (best["value"] != max(aucs)
+            or best["model"] != comp[int(np.argmax(aucs))]["model_name"]):
+        bad.append("summary.highest_auc")
+    return bad
+
+
+def phase_analysis(dev, tmp: Path, ectx, lctx):
+    """(a) analyze --calibration through __main__.main over phase 14's
+    results directory: every file the JAX verb writes but the figures,
+    the JSON numbers equal to a numpy recomputation from the CSVs, and
+    with no matplotlib here the diagram absent with one warning; (b)
+    analyze --xprof on a torch.profiler trace of one B = 128 fastserve
+    forward: kernels 1 and 2's device kernels among the top ops, the
+    trace's device ms within 10% of the forward's event-timed ms; (c) the
+    attention rollout on the card at B = 16 over phase 14's bf16 model and
+    its f32 build: cls_patch_relevance_device within 1e-5 of the float64
+    host rollout of capture_attention_probs, capture off after; its ms."""
+    import logging
+
+    from vit_spoof_detection_pda_tpu_torch.analysis import attention_maps
+    from vit_spoof_detection_pda_tpu_torch.cli.analyze import (
+        main as analyze_main)
+    from vit_spoof_detection_pda_tpu_torch.utils.profiling import (
+        profile_trace)
+
+    results = tmp / "harness"
+    names = list(registry.MODEL_REGISTRY)
+    try:
+        import matplotlib  # noqa: F401
+        have_mpl = True
+    except ImportError:
+        have_mpl = False
+
+    class Warnings(logging.Handler):
+        def __init__(self):
+            super().__init__(logging.WARNING)
+            self.seen = []
+
+        def emit(self, record):
+            self.seen.append(record.getMessage())
+
+    catcher = Warnings()
+    logging.getLogger().addHandler(catcher)
+    try:
+        lines, secs, rc = _run_verb(["analyze", "--results-dir",
+                                     str(results), "--calibration"])
+    finally:
+        logging.getLogger().removeHandler(catcher)
+    want_files = ["score_distribution_analysis.json",
+                  "score_separation_comparison.csv",
+                  "failed_cases_analysis/failed_cases_summary.json",
+                  "final_summary.json", "calibration_analysis.json"]
+    for n in names:
+        want_files += [f"{n}/score_distributions.csv",
+                       f"{n}/calibration_curve.csv",
+                       f"failed_cases_analysis/{n}/false_positives.csv",
+                       f"failed_cases_analysis/{n}/false_negatives.csv"]
+    missing = [f for f in want_files if not (results / f).exists()]
+    mismatched = _analysis_recomputed(results) if not missing else ["-"]
+    mpl_warnings = [m for m in catcher.seen if "matplotlib" in m]
+    diagram = (results / "calibration_reliability.png").exists()
+    plots_ok = (diagram if have_mpl
+                else not diagram and len(mpl_warnings) == 1)
+    ok = rc == 0 and not missing and not mismatched and plots_ok
+    emit({"phase": "analysis", "part": "analyze", "files": len(want_files),
+          "missing": missing, "json_vs_numpy_mismatches": mismatched,
+          "matplotlib": have_mpl, "diagram_written": diagram,
+          "matplotlib_warnings": mpl_warnings, "seconds": secs,
+          "ok": bool(ok)})
+    if not ok:
+        raise AssertionError(f"analyze: missing {missing}, mismatched "
+                             f"{mismatched}, plots {diagram} "
+                             f"{mpl_warnings}")
+
+    # (b) the trace tables of one B = 128 forward
+    prep_as, u8 = lctx["prep_as"], lctx["u8"]
+    geom = dict(num_heads=HEADS, patch_size=PATCH, depth=DEPTH)
+
+    def fwd():
+        return fastserve.serving_forward(prep_as, u8, **geom)
+
+    fwd_ms = time_ms(fwd)
+    trace_dir = tmp / "trace_b128"
+    with profile_trace(str(trace_dir)):
+        fwd()
+        torch.cuda.synchronize()
+    import io
+    with contextlib.redirect_stdout(io.StringIO()):
+        summary = analyze_main(["--xprof", str(trace_dir)])["xprof"]
+    top = [r["op"] for r in summary["top_ops"]]
+    need = ("gemm_tma_kernel", "self_one_pass_kernel")
+    ratio = summary["total_device_ms"] / fwd_ms
+    ok = (all(any(n in op for op in top) for n in need)
+          and abs(1.0 - ratio) <= XPROF_TOL)
+    emit({"phase": "analysis", "part": "xprof", "card": nvidia_smi(),
+          "trace_device_ms": summary["total_device_ms"],
+          "forward_event_ms": fwd_ms, "ratio": ratio, "tol": XPROF_TOL,
+          "n_ops": summary["n_ops"], "by_category": summary["by_category"],
+          "top_ops": summary["top_ops"][:8], "ok": bool(ok)})
+    if not ok:
+        raise AssertionError(f"xprof: top ops {top}, device "
+                             f"{summary['total_device_ms']} ms vs events "
+                             f"{fwd_ms} ms")
+
+    # (c) the rollout on the card, bf16 and f32 modules
+    images = ectx["images"][:ROLLOUT_B]
+    f32_model = registry.build_model("Custom_ViT_FineTuned",
+                                     checkpoint_path=str(tmp / EVAL_CKPT),
+                                     img_size=IMG)
+    out, ok_all = {}, True
+    for label, module in (("bf16", ectx["model"]), ("f32", f32_model)):
+        rel = attention_maps.cls_patch_relevance_device(module, images)
+        host = attention_maps.cls_patch_relevance(
+            attention_maps.capture_attention_probs(module, images))
+        err = float(np.abs(rel - host).max())
+        off = not any(b.attn.capture or b.attn.attn_probs is not None
+                      for b in module.vit.blocks)
+        ms = time_ms(lambda: attention_maps.cls_patch_relevance_device(
+            module, images), windows=3, per_window=2, warmup=1)
+        ok = (rel.shape == (ROLLOUT_B, IMG // PATCH, IMG // PATCH)
+              and np.isfinite(rel).all() and err <= ROLLOUT_TOL and off)
+        out[label] = {"max_abs_err_vs_f64_host": err, "tol": ROLLOUT_TOL,
+                      "capture_off_after": off, "ms": ms, "ok": bool(ok)}
+        ok_all &= ok
+    del f32_model
+    emit({"phase": "analysis", "part": "rollout", "batch": ROLLOUT_B,
+          "card": nvidia_smi(), **out})
+    if not ok_all:
+        raise AssertionError(f"rollout on the card: {out}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card "
@@ -5851,7 +6297,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         ectx, eval_launches = phase_slice_eval(dev, Path(tmp))
         rows += phase_times_eval(dev, ectx, qkv_err, eval_launches)
-    del ectx
+        lctx = phase_slice_linear(dev, Path(tmp))
+        phase_analysis(dev, Path(tmp), ectx, lctx)
+    del ectx, lctx
     train_err = phase_kernels_train(dev)
     tctx, mode_launches = phase_train_modes(dev)
     with tempfile.TemporaryDirectory() as tmp:

@@ -262,7 +262,8 @@ def test_mesh_and_fastserve_options_raise():
     # scoring over a mesh is ROADMAP Queue 1 item 9b
     with pytest.raises(NotImplementedError, match="item 9b"):
         run_inference(TBright(), [], mesh=object(), fastserve=True)
-    with pytest.raises(TypeError, match="anti-spoof"):
+    with pytest.raises(TypeError, match="supports ViTAntiSpoof and "
+                       "ViTLinearHead"):
         trunner.make_fastserve_infer(TBright())
 
 

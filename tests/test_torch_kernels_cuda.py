@@ -1949,3 +1949,99 @@ def test_layernorm_either_side_of_its_register_rows_on_card(cuda_device, d):
     for gg, ww in zip(y, want):
         (_assert_close if gg.dtype == torch.bfloat16 else _assert_close_f32)(
             gg, ww)
+
+
+# --------------------------------------------------------------------------
+# the linear head's LayerNorm eps (HF 1e-12) through kernels 1, 2 and 10,
+# and serving_forward(fuse_mlp=False) on the GEMM core
+# --------------------------------------------------------------------------
+
+from vit_spoof_detection_pda_tpu_torch.models import fastserve as tfast  # noqa: E402,E501
+
+
+def _tiny_var_rows(x):
+    """Rows 3 and 7 of each item scaled to ~1e-4 (variance ~1e-8), where
+    eps 1e-12 and the default 1e-6 give outputs an order of magnitude
+    apart: an eps that did not reach the kernel shows."""
+    x = x.clone()
+    x[:, 3] = (x[:, 3].float() * 1e-4).to(x.dtype)
+    x[:, 7] = (x[:, 7].float() * 1e-4).to(x.dtype)
+    return x
+
+
+def _far(got, other):
+    """``got`` is further than 4 x the 2-ulp tolerance from ``other`` (the
+    plain version at the default eps 1e-6): the eps reached the kernel."""
+    got, other = got.float().cpu(), other.float().cpu()
+    tol = 2.0 * 2.0 ** (math.floor(math.log2(other.abs().max().item())) - 7)
+    return (got - other).abs().max().item() > 4 * tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["attention_block", "mlp_block"])
+def test_serving_blocks_take_eps_1e12_on_card(cuda_device, kernel):
+    b, t, d = 2, 197, 768
+    tp = tatt._round_up(t, 8)
+    if kernel == "attention_block":
+        a = _attn_inputs(96, cuda_device, b, tp, d)
+        x = _tiny_var_rows(a.pop("x"))
+
+        def run(fn, eps):
+            return fn(x, *a.values(), 12, valid_len=t, eps=eps)
+        fns = (tatt.fused_attention_block_padded,
+               tatt.fused_attention_block_padded_plain)
+    else:
+        m = _mlp_inputs(97, cuda_device, b, tp, d, 4 * d)
+        x = _tiny_var_rows(m.pop("x"))
+
+        def run(fn, eps):
+            return fn(x, *m.values(), eps=eps)
+        fns = (tatt.fused_mlp_block, tatt.fused_mlp_block_plain)
+    n0 = tatt.LAUNCHES[kernel]
+    got = run(fns[0], 1e-12)
+    torch.cuda.synchronize()
+    assert tatt.LAUNCHES[kernel] == n0 + 1
+    _assert_close(got, run(fns[1], 1e-12))
+    assert _far(got, run(fns[1], 1e-6))
+
+
+@pytest.mark.cuda
+def test_lowlat_encoder_takes_eps_1e12_on_card(cuda_device):
+    d, tp, valid = 768, 200, 197
+    w, s = tlow.pack_encoder_weights(_encoder_tree(98, 1, d)["vit"],
+                                     depth=1, device=cuda_device)
+    x = _tiny_var_rows(_stream(99, 1, tp, d, cuda_device))
+    n0 = tatt.LAUNCHES["lowlat_encoder"]
+    kw = dict(num_heads=12, valid_len=valid)
+    got = tlow.encoder_forward_lowlat(x, w, s, eps=1e-12, **kw)
+    torch.cuda.synchronize()
+    assert tatt.LAUNCHES["lowlat_encoder"] == n0 + 1
+    _assert_close_layers(
+        got, tlow.encoder_forward_lowlat_plain(x, w, s, eps=1e-12, **kw), 1)
+    assert _far(got, tlow.encoder_forward_lowlat_plain(x, w, s, eps=1e-6,
+                                                       **kw))
+
+
+@pytest.mark.cuda
+def test_unfused_mlp_serving_forward_launches_the_gemm_core(cuda_device):
+    """serving_forward(fuse_mlp=False): per layer kernel 1 once and the
+    GEMM core alone twice (fc1 with the GELU, fc2 with the residual),
+    kernel 2 never; the cores' own count 4 a layer, as the fused forward's;
+    scores within the bf16 serving bound (5e-2) of the fused forward."""
+    depth = 2
+    tree = _encoder_tree(100, depth, 768, hh=64)
+    params = tfast.prepare_params(tree, dtype=torch.bfloat16,
+                                  device=cuda_device)
+    u8 = torch.from_numpy(np.random.default_rng(101).integers(
+        0, 256, (4, 224, 224, 3), dtype=np.uint8)).to(cuda_device)
+    fused = tfast.serving_forward(params, u8, depth=depth)
+    torch.cuda.synchronize()
+    before = dict(tatt.LAUNCHES)
+    tgemm.core_launches(reset=True)
+    got = tfast.serving_forward(params, u8, depth=depth, fuse_mlp=False)
+    torch.cuda.synchronize()
+    delta = {k: tatt.LAUNCHES[k] - before.get(k, 0) for k in tatt.LAUNCHES
+             if tatt.LAUNCHES[k] != before.get(k, 0)}
+    assert delta == {"attention_block": depth, "gemm": 2 * depth}
+    assert tgemm.core_launches()["gemm"] == 4 * depth
+    assert (got - fused).abs().max().item() <= 5e-2

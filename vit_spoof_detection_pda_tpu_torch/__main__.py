@@ -1,8 +1,7 @@
 """Dispatcher: ``python -m vit_spoof_detection_pda_tpu_torch <command> ...``
 
-The JAX package's verbs (``vit_spoof_detection_pda_tpu/__main__.py``).
-Those whose modules are not ported yet exit with status 2 and name the
-ROADMAP item that brings them.  ``train`` and ``test`` also run under
+The JAX package's verbs (``vit_spoof_detection_pda_tpu/__main__.py``),
+every one ported.  ``train`` and ``test`` also run under
 ``torchrun --nproc-per-node N -m vit_spoof_detection_pda_tpu_torch ...``,
 one rank per process on the mesh the config's ``sharding.*`` describes.
 """
@@ -14,7 +13,7 @@ COMMANDS = {
     "train": "vit_spoof_detection_pda_tpu_torch.cli.train",
     "test": "vit_spoof_detection_pda_tpu_torch.cli.test",
     "evaluate-all": "vit_spoof_detection_pda_tpu_torch.cli.evaluate_all",
-    "analyze": None,
+    "analyze": "vit_spoof_detection_pda_tpu_torch.cli.analyze",
     "benchmark": "vit_spoof_detection_pda_tpu_torch.cli.benchmark",
     "export": "vit_spoof_detection_pda_tpu_torch.cli.export",
     "export-serving": "vit_spoof_detection_pda_tpu_torch.cli.export_serving",
@@ -24,14 +23,7 @@ COMMANDS = {
     "describe": "vit_spoof_detection_pda_tpu_torch.cli.describe",
     "config": "vit_spoof_detection_pda_tpu_torch.cli.config_cmd",
     "doctor": "vit_spoof_detection_pda_tpu_torch.cli.doctor",
-    "demo": None,
-}
-
-# the ROADMAP item that brings each verb not ported yet
-NOT_PORTED = {
-    "analyze": "ROADMAP Queue 1 item 10 (the analysis modules)",
-    "demo": "ROADMAP Queue 1 item 10 (it drives analyze, which waits for "
-            "item 10)",
+    "demo": "vit_spoof_detection_pda_tpu_torch.cli.demo",
 }
 
 
@@ -46,10 +38,6 @@ def main(argv=None):
     if cmd not in COMMANDS:
         print(f"unknown command {cmd!r}; choose from {list(COMMANDS)}")
         return 1
-    if COMMANDS[cmd] is None:
-        print(f"the {cmd!r} verb is not ported to the PyTorch/CUDA package "
-              f"yet: {NOT_PORTED[cmd]}", file=sys.stderr)
-        return 2
     import importlib
 
     mod = importlib.import_module(COMMANDS[cmd])

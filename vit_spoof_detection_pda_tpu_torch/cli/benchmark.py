@@ -237,33 +237,33 @@ def _dispatch(args, cfg, parser, device):
 def _lowlat_infer(args, parser, module, device):
     """``(infer(prepared, batch_u8), prepared)`` of the --lowlat flavors
     on the whole-encoder kernels (kernel 10 per item, fold-ends or
-    encoder-only; kernel 11 per 2-item chunk)."""
-    from ..models.convert import antispoof_from_torch
+    encoder-only; kernel 11 per 2-item chunk).  ``ViTLinearHead`` takes
+    the encoder-only kernel and scores softmax column 1."""
+    from ..models.convert import antispoof_from_torch, vit_linear_from_torch
     from ..models.fastserve import (prepare_lowlat, serving_forward_lowlat,
-                                    serving_forward_lowlat_batch)
+                                    serving_forward_lowlat_batch,
+                                    serving_forward_lowlat_linear)
     from ..models.vit import ViTAntiSpoof, ViTLinearHead, fold_normalization
 
     if not isinstance(module, (ViTAntiSpoof, ViTLinearHead)):
         parser.error("--lowlat supports the ViT-family models "
                      f"only; got {type(module).__name__}")
-    if args.lowlat_batch_grid and not isinstance(module, ViTAntiSpoof):
+    antispoof = isinstance(module, ViTAntiSpoof)
+    if args.lowlat_batch_grid and not antispoof:
         parser.error("--lowlat-batch-grid packs the anti-spoof "
                      "head layout; use plain --lowlat for "
                      f"{type(module).__name__}")
-    if args.lowlat_int8 and not isinstance(module, ViTAntiSpoof):
+    if args.lowlat_int8 and not antispoof:
         parser.error("--lowlat-int8 packs the anti-spoof layout; use plain "
                      f"--lowlat for {type(module).__name__}")
-    if not isinstance(module, ViTAntiSpoof):
-        raise SystemExit("--lowlat on ViTLinearHead needs its serving "
-                         "forward (serving_forward_lowlat_linear), not "
-                         "ported: ROADMAP Queue 1 item 0")
-    folded = fold_normalization(antispoof_from_torch(
+    to_tree = antispoof_from_torch if antispoof else vit_linear_from_torch
+    folded = fold_normalization(to_tree(
         {k: v.float() for k, v in module.state_dict().items()}))
     geom = dict(num_heads=module.num_heads, patch_size=module.patch_size,
                 norm_eps=module.norm_eps, device=device)
     prepared = prepare_lowlat(
         folded["params"], depth=module.depth,
-        fold_ends=not args.lowlat_encoder_only,
+        fold_ends=antispoof and not args.lowlat_encoder_only,
         batch_grid=args.lowlat_batch_grid,
         per_item=not args.lowlat_batch_grid,
         int8_weights=args.lowlat_int8, device=device)
@@ -273,6 +273,11 @@ def _lowlat_infer(args, parser, module, device):
           "fold-ends (image->logits single kernel)"
           if "aux" in prepared else
           "encoder-only (plain stem/head)")
+    if not antispoof:
+        def infer(prep, batch_u8):
+            return {"prob1": serving_forward_lowlat_linear(
+                prep, batch_u8, **geom)[:, 1]}
+        return infer, prepared
     forward = (serving_forward_lowlat_batch if args.lowlat_batch_grid
                else serving_forward_lowlat)
 

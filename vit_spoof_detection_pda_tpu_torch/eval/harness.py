@@ -76,12 +76,12 @@ def run_cross_model_eval(records: Sequence[Record], *, output_dir: str,
                          device=None) -> Dict[str, dict]:
     """Evaluate every registry model (f32) on ``records``; returns
     ``{model_name: summary_dict}`` (JAX :64).  ``fastserve=True`` scores
-    the anti-spoof ViT on the serving path (bf16, ``eval/runner.py``);
-    the other entries keep the module path.  ``ema=True`` scores the EMA
+    the two ViTs (``ViTAntiSpoof``, ``ViTLinearHead``) on the serving path
+    (bf16, ``eval/runner.py``); the ResNets keep the module path.  ``ema=True`` scores the EMA
     shadow of the checkpoint-loading entries (``checkpoint_path`` a
     training run's directory); the other entries are unaffected.  Models
     run on ``device`` (the card unless ``"cpu"``)."""
-    from ..models.vit import ViTAntiSpoof
+    from ..models.vit import ViTAntiSpoof, ViTLinearHead
 
     outp = Path(output_dir)
     outp.mkdir(parents=True, exist_ok=True)
@@ -98,7 +98,8 @@ def run_cross_model_eval(records: Sequence[Record], *, output_dir: str,
                 img_size=img_size, device=device)
             out = run_inference(
                 module, records, batch_size=batch_size, img_size=img_size,
-                fastserve=fastserve and isinstance(module, ViTAntiSpoof))
+                fastserve=fastserve and isinstance(
+                    module, (ViTAntiSpoof, ViTLinearHead)))
             y_spoof = harness_labels(out["labels"])
             spoof_scores = harness_scores(out["prob1"]).astype(np.float64)
             ev = evaluate_scores(y_spoof, spoof_scores,

@@ -101,21 +101,33 @@ def make_fastserve_infer(module, *, device=None):
     kernels, the normalization folded into the patch embed, raw uint8
     in): ``infer(batch_u8) -> {"prob1", "pred"}`` with ``pred`` =
     P(live) > 0.5.  Numerics are the serving policy, hence opt-in.  Takes
-    the port's ``ViTAntiSpoof``; the linear-head serving forward is not
-    ported yet (ROADMAP Queue 1 item 0)."""
+    the port's ``ViTAntiSpoof`` (P(live) = sigmoid(l1 - l0)) and
+    ``ViTLinearHead`` (the "Base ViT" ablation: softmax column 1), which
+    ride the same trunk; any other module raises ``TypeError``."""
     from ..models import fastserve
-    from ..models.vit import ViTAntiSpoof
+    from ..models.convert import vit_linear_from_torch
+    from ..models.vit import ViTAntiSpoof, ViTLinearHead, fold_normalization
 
-    if not isinstance(module, ViTAntiSpoof):
-        raise TypeError("fastserve eval runs the anti-spoof head (the "
-                        "linear-head serving forward is ROADMAP Queue 1 "
-                        f"item 0); got {type(module).__name__}")
     device = module_device(module) if device is None else device
-    weights, raw, kw = fastserve.serving_program(module, mode="fastserve",
-                                                 device=device)
+    if isinstance(module, ViTAntiSpoof):
+        weights, raw, kw = fastserve.serving_program(
+            module, mode="fastserve", device=device)
+    elif isinstance(module, ViTLinearHead):
+        folded = fold_normalization(vit_linear_from_torch(
+            module.state_dict()))["params"]
+        weights = fastserve.prepare_params(folded, dtype=torch.bfloat16,
+                                           device=device)
+        raw = fastserve.serving_forward_linear
+        kw = dict(num_heads=module.num_heads, patch_size=module.patch_size,
+                  depth=module.depth, norm_eps=module.norm_eps,
+                  dtype=torch.bfloat16, device=device)
+    else:
+        raise TypeError("fastserve eval supports ViTAntiSpoof and "
+                        f"ViTLinearHead; got {type(module).__name__}")
 
     def infer(batch_u8):
-        score = raw(weights, torch.as_tensor(batch_u8), **kw).float()
+        out = raw(weights, torch.as_tensor(batch_u8), **kw)
+        score = (out if out.ndim == 1 else out[:, 1]).float()
         return {"prob1": score, "pred": (score > 0.5).to(torch.int32)}
 
     return infer

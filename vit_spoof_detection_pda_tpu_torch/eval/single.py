@@ -100,14 +100,13 @@ def run_single_model_eval(module, records: Sequence[Record], *,
     return metrics, paths
 
 
-def _pyplot():
-    """matplotlib's pyplot on the Agg backend, or None (logged) where
-    matplotlib does not import."""
+def pyplot(what: str):
+    """matplotlib's pyplot on the Agg backend, or None where matplotlib
+    does not import, with one warning that ``what`` is not written."""
     try:
         import matplotlib
     except ImportError:
-        log.warning("matplotlib is not installed: the confusion-matrix and "
-                    "ROC plots are not written")
+        log.warning("matplotlib is not installed; not written: %s", what)
         return None
     matplotlib.use("Agg")
     import matplotlib.pyplot as plt
@@ -199,7 +198,8 @@ def _save_results(metrics, cm, y_true, y_pred, y_prob, records, output_dir,
                                 "Predicted Live": cm[:, 1]},
               index=["Actual Spoof", "Actual Live"])
 
-    plt = _pyplot() if write_plots else None
+    plt = (pyplot("the confusion-matrix and ROC plots") if write_plots
+           else None)
     if plt is not None:
         _save_plots(plt, cm, y_true, y_prob, metrics, output_dir, ts, paths)
 

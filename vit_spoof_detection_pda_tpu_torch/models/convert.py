@@ -14,8 +14,9 @@ numbers through these):
   ``batch_stats`` -> torchvision's key set.
 - :func:`load_jax_params`: any of the three into its port module with
   ``strict=True``.
-- :func:`antispoof_from_torch`: the inverse of the first, used by the
-  serving path to lay the module's weights out for the kernels.
+- :func:`antispoof_from_torch` / :func:`vit_linear_from_torch`: the
+  inverses of the first two, used by the serving paths to lay a module's
+  weights out for the kernels.
 - :func:`antispoof_state_from_tree`: the first as torch ops on tensors,
   differentiable (the module path's training forward over the tree).
 - :func:`train_state_arrays`: a JAX ``TrainState``'s params, AdamW
@@ -184,6 +185,14 @@ def vit_linear_to_torch(variables) -> dict:
     sd["classifier.weight"] = _np(params["classifier"]["kernel"]).T
     sd["classifier.bias"] = _np(params["classifier"]["bias"])
     return sd
+
+
+def vit_linear_from_torch(sd: Mapping) -> dict:
+    """A ``ViTLinearHead`` state dict (``vit.*`` + ``classifier``) ->
+    ``{"params": {"vit": ..., "classifier": ...}}`` in the JAX layout
+    (numpy); the inverse of :func:`vit_linear_to_torch`."""
+    return {"params": {"vit": vit_backbone_from_timm(sd, prefix="vit."),
+                       "classifier": _linear(sd, "classifier")}}
 
 
 def _stage_blocks(params) -> list:

@@ -20,6 +20,13 @@ Composition (the math of ``models/vit.py`` at serving dtypes):
     x <- fused_mlp_block(x)               # csrc/mlp_block.cu
   scores <- head(LN(x[:, :1]))          # CLS row only
 
+``fuse_mlp=False`` runs each MLP half-layer as the row-local LayerNorm,
+then fc1 and fc2 on the GEMM core alone (``ops/gemm.py::gemm``, kernel
+2's own ``"bias_gelu"`` and ``"bias_residual"`` epilogues).  Two heads
+share the trunk: the anti-spoof head (P(live) ``[B]``) and the linear
+head of ``ViTLinearHead`` (softmax ``[B, C]``,
+:func:`serving_forward_linear`, :func:`serving_forward_lowlat_linear`).
+
 The stem and the head are plain PyTorch, as they were plain XLA in the
 JAX package: their products are f32 matmuls of bf16-rounded operands
 (TF32 off), so they round where JAX's ``preferred_element_type=float32``
@@ -40,6 +47,7 @@ from ..device import exact_f32_matmul, resolve_device
 from ..ops.attention import (_round_up, fused_attention_block_padded,
                              fused_mlp_block)
 from ..ops.gelu import gelu
+from ..ops.gemm import gemm
 from .vit import patchify
 
 log = logging.getLogger(__name__)
@@ -106,7 +114,7 @@ def _as_batch(batch, device) -> torch.Tensor:
 def serving_forward(params, batch, *, num_heads: int = 12,
                     patch_size: int = 16, depth: int = 12,
                     norm_eps: float = 1e-6, dtype=torch.bfloat16,
-                    device=None) -> torch.Tensor:
+                    fuse_mlp: bool = True, device=None) -> torch.Tensor:
     """uint8 (or raw [0, 255] float) ``[B, H, W, 3]`` -> P(live) ``[B]``
     f32 on ``device``.
 
@@ -114,17 +122,59 @@ def serving_forward(params, batch, *, num_heads: int = 12,
     :func:`..models.vit.fold_normalization` so raw uint8 input is right.
     ``device=None`` runs on the card (the kernels); ``device="cpu"`` runs
     the plain versions.  Matches the module forward with tanh GELU in the
-    encoder within bf16 resolution."""
+    encoder within bf16 resolution.  ``fuse_mlp=False``: the MLP on the
+    GEMM core (:func:`_mlp_unfused`) instead of kernel 2."""
     device = resolve_device(device)
     batch = _as_batch(batch, device)
     x = _encode_stream(params["vit"], batch, num_heads=num_heads,
                        patch_size=patch_size, depth=depth,
-                       norm_eps=norm_eps, dtype=dtype)
+                       norm_eps=norm_eps, dtype=dtype, fuse_mlp=fuse_mlp)
     return _cls_head_scores(params, x, norm_eps=norm_eps, dtype=dtype)
 
 
+@torch.inference_mode()
+def serving_forward_linear(params, batch, *, num_heads: int = 12,
+                           patch_size: int = 16, depth: int = 12,
+                           norm_eps: float = 1e-12, dtype=torch.bfloat16,
+                           fuse_mlp: bool = True,
+                           device=None) -> torch.Tensor:
+    """uint8 ``[B, H, W, 3]`` -> softmax probabilities ``[B, C]`` f32 of
+    the linear-head ViT (``models/vit.py::ViTLinearHead``, the frozen
+    "Base ViT" ablation): the trunk of :func:`serving_forward`, then the
+    final LayerNorm on the CLS row (HF eps 1e-12) and the f32 classifier.
+    ``params``: its JAX-layout tree (``{"vit", "classifier"}``) after
+    ``fold_normalization``."""
+    device = resolve_device(device)
+    batch = _as_batch(batch, device)
+    x = _encode_stream(params["vit"], batch, num_heads=num_heads,
+                       patch_size=patch_size, depth=depth,
+                       norm_eps=norm_eps, dtype=dtype, fuse_mlp=fuse_mlp)
+    return _linear_head_probs(params, x, norm_eps=norm_eps)
+
+
+def _mlp_unfused(x, norm, mlp, *, eps: float, dtype) -> torch.Tensor:
+    """One MLP half-layer off kernel 2 (``fuse_mlp=False``): the
+    row-local LayerNorm, then fc1 with the tanh GELU and fc2 with the
+    residual on the GEMM core (``ops/gemm.py::gemm``; its plain version on
+    the CPU).  The core rounds each output once, after its epilogue: the
+    JAX package rounds ``acc + b`` to ``dtype`` before its GELU and fc2's
+    output before the residual add, so at bf16 the two differ by those
+    roundings (within the bf16 score tolerance of the tests)."""
+    dev, f32 = x.device, torch.float32
+    b, tp, d = x.shape
+    rows = x.reshape(b * tp, d)
+    y = _layernorm(rows, norm, eps)
+    h = gemm(y, _t(mlp["fc1"]["kernel"], dtype, dev),
+             _t(mlp["fc1"]["bias"], f32, dev), epilogue="bias_gelu")
+    out = gemm(h, _t(mlp["fc2"]["kernel"], dtype, dev),
+               _t(mlp["fc2"]["bias"], f32, dev), epilogue="bias_residual",
+               residual=rows)
+    return out.view(b, tp, d)
+
+
 def _encode_stream(vit, batch, *, num_heads: int, patch_size: int,
-                   depth: int, norm_eps: float, dtype) -> torch.Tensor:
+                   depth: int, norm_eps: float, dtype,
+                   fuse_mlp: bool = True) -> torch.Tensor:
     """Image batch -> ``[B, Tp, D]`` residual stream after the last block
     (padded to a multiple of 8 rows, before the final LN)."""
     # the stream is padded once (197 -> 200) and stays padded: pad rows
@@ -142,6 +192,9 @@ def _encode_stream(vit, batch, *, num_heads: int, patch_size: int,
             _t(attn["proj"]["kernel"], dtype, dev),
             _t(attn["proj"]["bias"], f32, dev),
             num_heads, valid_len=t, eps=norm_eps)
+        if not fuse_mlp:
+            x = _mlp_unfused(x, blk["norm2"], mlp, eps=norm_eps, dtype=dtype)
+            continue
         x = fused_mlp_block(
             x, _t(blk["norm2"]["scale"], f32, dev),
             _t(blk["norm2"]["bias"], f32, dev),
@@ -150,6 +203,19 @@ def _encode_stream(vit, batch, *, num_heads: int, patch_size: int,
             _t(mlp["fc2"]["kernel"], dtype, dev),
             _t(mlp["fc2"]["bias"], f32, dev), eps=norm_eps)
     return x
+
+
+def _linear_head_probs(params, x, *, norm_eps: float) -> torch.Tensor:
+    """Final LN on the CLS row + the f32 classifier -> softmax ``[B, C]``:
+    an f32 product of the ``dtype``-rounded features and the f32 kernel
+    (TF32 off), as JAX's ``preferred_element_type=float32`` dot."""
+    dev, f32 = x.device, torch.float32
+    feats = _layernorm(x[:, :1], params["vit"]["norm"], norm_eps)[:, 0]
+    cls = params["classifier"]
+    with exact_f32_matmul():
+        logits = (torch.matmul(feats.float(), _t(cls["kernel"], f32, dev))
+                  + _t(cls["bias"], f32, dev))
+    return torch.softmax(logits, dim=-1)
 
 
 def _cls_head_scores(params, x, *, norm_eps: float, dtype) -> torch.Tensor:
@@ -173,21 +239,24 @@ def _cls_head_scores(params, x, *, norm_eps: float, dtype) -> torch.Tensor:
 
 
 # which leaves the serving path reads in the compute dtype; the rest
-# (LN scales and biases, linear biases) stay f32
+# (LN scales and biases, linear biases) stay f32, and so does the whole
+# linear head's classifier (an f32 Dense, as in the JAX package)
 _COMPUTE_DTYPE_LEAVES = ("kernel", "cls_token", "pos_embed")
+_F32_SUBTREES = ("classifier",)
 
 
 def prepare_params(params, *, dtype, device):
     """Cast a JAX-layout tree once into the tensors the serving path
     reads: kernels, cls token and pos embed in ``dtype``, LN and bias
-    vectors in f32, all contiguous on ``device`` (serving_forward's own
-    casts are then no-ops)."""
-    def walk(node, key):
+    vectors and the linear head's ``classifier`` in f32, all contiguous on
+    ``device`` (the forwards' own casts are then no-ops)."""
+    def walk(node, key, dt):
         if isinstance(node, dict):
-            return {k: walk(v, k) for k, v in node.items()}
-        want = dtype if key in _COMPUTE_DTYPE_LEAVES else torch.float32
+            dt = torch.float32 if key in _F32_SUBTREES else dt
+            return {k: walk(v, k, dt) for k, v in node.items()}
+        want = dt if key in _COMPUTE_DTYPE_LEAVES else torch.float32
         return _t(node, want, device).contiguous()
-    return walk(params, None)
+    return walk(params, None, dtype)
 
 
 def prepare_lowlat(params, *, depth: int = 12, dtype=torch.bfloat16,
@@ -285,6 +354,25 @@ def _lowlat_encode(prepared, batch, *, num_heads: int, patch_size: int,
     return encoder_forward_lowlat(x, prepared["packed_w"],
                                   prepared["packed_s"], num_heads=num_heads,
                                   valid_len=t, eps=norm_eps)
+
+
+@torch.inference_mode()
+def serving_forward_lowlat_linear(prepared, batch, *, num_heads: int = 12,
+                                  patch_size: int = 16,
+                                  norm_eps: float = 1e-12,
+                                  dtype=torch.bfloat16,
+                                  device=None) -> torch.Tensor:
+    """The B = 1 regime of the linear-head ViT: the stem, the whole
+    encoder in one launch of the encoder-only kernel (the fold-ends packs
+    hold the anti-spoof head, so :func:`prepare_lowlat` on this tree packs
+    none), then the ends of :func:`serving_forward_linear` -> softmax
+    ``[B, C]``.  ``prepared``: :func:`prepare_lowlat` of the folded
+    linear-head tree."""
+    device = resolve_device(device)
+    batch = _as_batch(batch, device)
+    x = _lowlat_encode(prepared, batch, num_heads=num_heads,
+                       patch_size=patch_size, norm_eps=norm_eps, dtype=dtype)
+    return _linear_head_probs(prepared["params"], x, norm_eps=norm_eps)
 
 
 @torch.inference_mode()

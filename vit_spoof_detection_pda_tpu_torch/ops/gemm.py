@@ -4,8 +4,10 @@
 Kernels 1, 2, 3 and 7 (``csrc/attention_block*.cu``, ``csrc/mlp_block*.cu``)
 run their products on two cores, which :func:`gemm` reaches alone
 (``csrc/gemm.cu``), so that the card tests and the timings can hold each
-core to :func:`gemm_plain` and to ``torch.matmul``; nothing on a main path
-calls it.
+core to :func:`gemm_plain` and to ``torch.matmul``.  One main path calls
+it: the serving forward with ``fuse_mlp=False``
+(``models/fastserve.py::_mlp_unfused``: fc1 with ``"bias_gelu"``, fc2 with
+``"bias_residual"``, kernel 2's own epilogues, two calls a layer).
 
 - bf16: the TMA-fed, warp-specialised, persistent wgmma core
   (``csrc/gemm_core.cuh``; ``LAUNCHES["gemm"]``).  :func:`gemm_plan`
