@@ -369,6 +369,32 @@ runs these phases, each printing one JSON line and raising on failure:
             1e-5 of the float64 host rollout of the captured softmaxes, its
             ms.
 
+38. native_codec  the host codec (data/native, libjpeg/libpng): which of
+            g++, jpeglib.h, png.h, libjpeg and libpng the machine lacks
+            (then ``built: false`` and the run goes on); else its build,
+            a PNG written with the standard library decoded back bit for
+            bit, JPEGs of pad_encode_jpeg at quality 95 within 24 levels
+            (mean 3), and the host's decode ms per 256 px image.
+39. shard_store  256 seeded face files (PNGs through the codec, else the
+            seeded reader) into data/shards.py's store: built, rebuilt
+            with no shard file rewritten, ``gather`` byte-equal to
+            decode_image; train_from_config with data.shard_cache for 3
+            steps at the train_loop geometry in the records feed
+            (kernels 3, 4 and 6) and in pool mode (with kernels 14 and
+            15), exact launches, each first step's loss equal to the same
+            run fed without the store.
+40. sharded_serving  two ranks sharing the card over gloo:
+            serving_forward_sharded at a global B = 128 (kernels 1 and 2
+            12 times a rank) against one process's serving_forward
+            (phase 4's bounds; gap and bit-equality printed) and its ms
+            per rank beside the single process's; a fleet artifact
+            exported by rank 0 and loaded by both, within 1e-4 of the
+            f32 module path; pool="mean" under a (data 1, seq 2) mesh in
+            f32 within SP_F32_TOL of the single-card forward.
+41. aot      utils/aot.py cached_compile of the B = 128 fastserve program,
+            cold then warm: wall s of each, the second a hit, scores
+            within 1e-5 of the live forward.
+
 Then it prints the kernel table as one JSON line, the card's name and
 power limit as nvidia-smi gives them, and last
 ``{"ok": true, "device": {...}}``.  Without a CUDA card it exits with 2
@@ -6267,6 +6293,487 @@ def phase_analysis(dev, tmp: Path, ectx, lctx):
         raise AssertionError(f"rollout on the card: {out}")
 
 
+# --------------------------------------------------------------------------
+# slice 21: the native codec, the shard store, data-parallel scoring, fleet
+# artifacts, mean pooling under a seq axis, the program cache
+# --------------------------------------------------------------------------
+
+CODEC_IMG = 256                      # px of the codec's decode-time images
+CODEC_IMAGES = 64
+JPEG_Q95_MAX = 24                    # u8 levels, a smooth face at quality 95
+JPEG_Q95_MEAN = 3.0
+SHARD_FACES = 256                    # files behind the shard store
+SHARD_STEPS = 3                      # steps of each shard-fed run
+SHARDED_B = 128                      # the 2-rank data-parallel forward's batch
+FLEET_TOL = 1e-4                     # f32 P(live): the fleet artifact's ranks
+#                                      (64 rows each) vs the module (128)
+AOT_TOL = 1e-5                       # P(live): the lowered program vs live
+
+
+def codec_prerequisites() -> list:
+    """What the native codec's build needs and this machine lacks: the
+    compiler, each header (asked of the compiler itself), each
+    library."""
+    import ctypes.util
+    import shutil
+
+    if shutil.which("g++") is None:
+        return ["g++", "jpeglib.h", "png.h", "libjpeg", "libpng"]
+    missing = []
+    for header in ("jpeglib.h", "png.h"):
+        probe = subprocess.run(
+            ["g++", "-fsyntax-only", "-x", "c++", "-"],
+            input=f"#include <cstdio>\n#include <{header}>\n",
+            capture_output=True, text=True, timeout=60)
+        if probe.returncode:
+            missing.append(header)
+    missing += [f"lib{n}" for n in ("jpeg", "png")
+                if ctypes.util.find_library(n) is None]
+    return missing
+
+
+def smooth_face(i: int) -> np.ndarray:
+    """A seeded smooth CODEC_IMG px uint8 face (three sinusoids and +-2 of
+    noise): what a JPEG at quality 95 keeps within JPEG_Q95_MAX."""
+    n = CODEC_IMG
+    rng = np.random.default_rng([SEED, 141, i])
+    yy, xx = np.mgrid[0:n, 0:n].astype(np.float32) / n
+    f, ph = rng.uniform(2, 6, 3), rng.uniform(0, 2 * np.pi, 3)
+    base = np.stack([0.5 + 0.4 * np.sin(f[c] * np.pi * (yy + xx * (c + 1) / 3)
+                                        + ph[c]) for c in range(3)], -1)
+    return np.clip(base * 255 + rng.integers(-2, 3, base.shape), 0,
+                   255).astype(np.uint8)
+
+
+def phase_native_codec(tmp: Path) -> dict:
+    """The host codec (data/native): the prerequisites of its build; where
+    all are present, the build, a PNG written with the standard library
+    decoded back bit for bit, JPEGs written by pad_encode_jpeg at quality
+    95 decoded within JPEG_Q95_MAX / JPEG_Q95_MEAN, and the host's decode
+    ms per CODEC_IMG px image (PNG and JPEG).  A codec that is missing
+    prints which part and the run goes on; one that builds and decodes
+    wrongly fails it."""
+    from vit_spoof_detection_pda_tpu_torch.data import native
+
+    missing = codec_prerequisites()
+    if missing:
+        out = {"phase": "native_codec", "built": False, "missing": missing}
+        emit(out)
+        return out
+    t0 = time.perf_counter()
+    lib = native.get_lib()
+    build_s = time.perf_counter() - t0
+    if lib is None:
+        out = {"phase": "native_codec", "built": False, "missing": [],
+               "build_error": native.build_error()}
+        emit(out)
+        return out
+    d = tmp / "codec"
+    d.mkdir()
+    faces = [smooth_face(i) for i in range(CODEC_IMAGES)]
+    for i, face in enumerate(faces):
+        (d / f"{i}.png").write_bytes(native.encode_png(face))
+        (d / f"{i}.jpg").write_bytes(native.native_encode_jpeg(face, 95))
+    png_exact = all(np.array_equal(native.native_decode(
+        str(d / f"{i}.png"), CODEC_IMG), face) for i, face in enumerate(faces))
+    jerr = [np.abs(native.native_decode(str(d / f"{i}.jpg"), CODEC_IMG)
+                   .astype(int) - face) for i, face in enumerate(faces)]
+    jmax, jmean = max(int(e.max()) for e in jerr), float(np.mean(jerr))
+    ms = {}
+    for ext in ("png", "jpg"):
+        t0 = time.perf_counter()
+        for i in range(CODEC_IMAGES):
+            native.native_decode(str(d / f"{i}.{ext}"), CODEC_IMG)
+        ms[ext] = (time.perf_counter() - t0) * 1e3 / CODEC_IMAGES
+    ok = png_exact and jmax <= JPEG_Q95_MAX and jmean <= JPEG_Q95_MEAN
+    out = {"phase": "native_codec", "built": True, "missing": [],
+           "build_s": build_s, "png_roundtrip_bit_exact": png_exact,
+           "jpeg_q95_max_err": jmax, "jpeg_q95_mean_err": jmean,
+           "jpeg_tol": {"max": JPEG_Q95_MAX, "mean": JPEG_Q95_MEAN},
+           "decode_ms_per_image": ms, "image_px": CODEC_IMG,
+           "images": CODEC_IMAGES, "ok": ok}
+    emit(out)
+    if not ok:
+        raise AssertionError(f"native codec decodes wrongly: {out}")
+    return out
+
+
+def _write_faces(root: Path, raw: Path, codec: bool) -> None:
+    """SHARD_FACES seeded faces as files ``<i>.png`` twice over: the
+    augmented layout (``root/{live,spoof}``) and the raw one
+    (``raw/subject<k>/{live,spoof}``).  With the codec they are PNGs of
+    :func:`smooth_face`; without it empty files that the seeded reader
+    (:func:`seeded_faces`) decodes by their index."""
+    from vit_spoof_detection_pda_tpu_torch.data import native
+
+    labels = np.random.default_rng([SEED, 151]).integers(0, 2, SHARD_FACES)
+    for i, y in enumerate(labels):
+        cls = "live" if y else "spoof"
+        data = native.encode_png(smooth_face(i)) if codec else b""
+        for d in (root / cls, raw / f"subject{i % 4}" / cls):
+            d.mkdir(parents=True, exist_ok=True)
+            (d / f"{i}.png").write_bytes(data)
+
+
+@contextlib.contextmanager
+def face_decoder(codec: bool):
+    """Host decoding of :func:`_write_faces`' files: the native codec, or
+    the seeded reader where it did not build."""
+    if codec:
+        yield
+    else:
+        with seeded_faces(151):
+            yield
+
+
+def _first_step_run(cfg_over: dict, tmp: Path, name: str):
+    """``train_from_config`` of the train_loop geometry (ViT-B/16 bf16 at
+    224 px, B = LOOP_B, dropout 0.1; the module's weights drawn after
+    ``torch.manual_seed(SEED)``) for SHARD_STEPS steps; returns its
+    launches, the logged step losses, the groups its pool batches came
+    from, and the trainer."""
+    from vit_spoof_detection_pda_tpu_torch.train import trainer as trainer_mod
+    from vit_spoof_detection_pda_tpu_torch.train.driver import (
+        train_from_config)
+
+    rec, groups = _Record(), []
+    base = trainer_mod.Trainer
+
+    class Recorded(base):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **{**k, "logger": rec})
+
+    pool_batches = DevicePoolData.batches
+
+    def batches(self, *a, **k):
+        for b in pool_batches(self, *a, **k):
+            groups.append(b["group"])
+            yield b
+
+    cfg = Config().with_overrides({
+        "seed": SEED, "data.img_size": IMG, "data.batch_size": LOOP_B,
+        "data.eval_batch_size": LOOP_B, "model.patch_size": PATCH,
+        "model.embed_dim": D, "model.depth": DEPTH, "model.num_heads": HEADS,
+        "model.head_hidden": HEAD_HIDDEN, "train_aug.crop_size": IMG,
+        "train_aug.resize_to": IMG * 8 // 7, "model.dropout": 0.1,
+        "model.compute_dtype": "bfloat16", "optim.num_epochs": 1,
+        "optim.learning_rate": 1e-4, "optim.warmup_epochs": 0,
+        "telemetry.log_interval": 1,
+        "checkpoint.save_dir": str(tmp / f"ck_{name}"), **cfg_over})
+    trainer_mod.Trainer, DevicePoolData.batches = Recorded, batches
+    try:
+        torch.manual_seed(SEED)
+        reset_launches()
+        _best, trainer = train_from_config(cfg,
+                                           max_steps_per_epoch=SHARD_STEPS)
+        torch.cuda.synchronize()
+        launches = dict(att.LAUNCHES)
+    finally:
+        trainer_mod.Trainer, DevicePoolData.batches = base, pool_batches
+    losses = [r["train/loss"] for r in rec.records
+              if "train/loss" in r and "train/epoch" not in r]
+    return launches, losses, groups[:SHARD_STEPS], trainer
+
+
+def phase_shard_store(dev, tmp: Path, codec: bool) -> dict:
+    """The decode-once shard store (data/shards.py) on SHARD_FACES seeded
+    face files (PNGs through the native codec where it built, else the
+    seeded reader): built, built again (reused: no shard file rewritten,
+    by their mtimes), ``gather`` byte-equal to ``decode_image``; then
+    ``train_from_config`` with ``data.shard_cache`` for SHARD_STEPS steps
+    at the train_loop geometry in both feeds, with launches from 0 just
+    before each run: the records feed (kernels 3 and 4 DEPTH times a
+    step, kernel 6 twice that, kernel 15 the train-time chain's
+    GROUP_PASSES["orig"] a step, kernel 8 DEPTH times a validation
+    forward) and the pool mode (kernel 14 once a step, kernel 15
+    GROUP_PASSES of the step's group, the others as above); each run's
+    first step's loss equal to the same run fed without the store
+    (DataPipeline / the threaded decode)."""
+    from vit_spoof_detection_pda_tpu_torch.data.manifest import (
+        scan_augmented, stratified_split)
+    from vit_spoof_detection_pda_tpu_torch.data.shards import ShardStore
+
+    root, raw = tmp / "faces", tmp / "raw"
+    t0 = time.perf_counter()
+    _write_faces(root, raw, codec)
+    write_s = time.perf_counter() - t0
+    out = {"phase": "shard_store", "faces": SHARD_FACES,
+           "decoding": "native codec" if codec else
+           "seeded reader (no codec or PIL on this machine)",
+           "files_write_s": write_s}
+    with face_decoder(codec):
+        records = scan_augmented(str(root))
+        t0 = time.perf_counter()
+        store = ShardStore.build(records, str(tmp / "store"), img_size=IMG,
+                                 resize="exact")
+        out["build_s"] = time.perf_counter() - t0
+        stamp = {p.name: p.stat().st_mtime_ns
+                 for p in (tmp / "store").iterdir()}
+        t0 = time.perf_counter()
+        again = ShardStore.build(records, str(tmp / "store"), img_size=IMG,
+                                 resize="exact")
+        out["reuse_s"] = time.perf_counter() - t0
+        out["reused"] = stamp == {p.name: p.stat().st_mtime_ns
+                                  for p in (tmp / "store").iterdir()}
+        idx = np.random.default_rng(SEED + 151).permutation(len(store))[:64]
+        t0 = time.perf_counter()
+        got = again.gather(idx)
+        out["gather_ms_64"] = (time.perf_counter() - t0) * 1e3
+        out["gather_equals_decode"] = bool(np.array_equal(got, np.stack([
+            loader.decode_image(records[i].path, IMG, "exact")
+            for i in idx])))
+        out["store_mb"] = sum(p.stat().st_size for p in
+                              (tmp / "store").iterdir()) / 1e6
+        dcfg = Config().data
+        _train, val = stratified_split(records, dcfg.train_split,
+                                       dcfg.split_seed)
+        val_fwd = -(-len(val) // LOOP_B)
+        runs = {}
+        # the records feed's train-time chain warps as the pool's
+        # originals do (its crop runs no warp pass)
+        feeds = {"records": ({"data.data_root": str(root)},
+                             {"attention_qkv": DEPTH * val_fwd,
+                              "warp_pass": GROUP_PASSES["orig"]
+                              * SHARD_STEPS}),
+                 "pool": ({"augment.online": True,
+                           "augment.device_pool": True,
+                           "augment.input_dir": str(raw)},
+                          {"attention_qkv": DEPTH * val_fwd})}
+        for feed, (over, extra) in feeds.items():
+            cache = str(tmp / f"cache_{feed}")
+            t0 = time.perf_counter()
+            launches, losses, groups, trainer = _first_step_run(
+                {**over, "data.shard_cache": cache}, tmp, f"{feed}_store")
+            run_s = time.perf_counter() - t0
+            del trainer
+            _l2, plain_losses, _g2, trainer = _first_step_run(
+                over, tmp, f"{feed}_plain")
+            del trainer
+            torch.cuda.empty_cache()
+            want = dict(attention_block_train=DEPTH * SHARD_STEPS,
+                        attention_qkv_bwd=DEPTH * SHARD_STEPS,
+                        ln_res_bwd=2 * DEPTH * SHARD_STEPS, **extra)
+            if feed == "pool":
+                want.update(pool_gather=SHARD_STEPS,
+                            warp_pass=sum(GROUP_PASSES[g] for g in groups))
+            sub = Path(cache) / ("pool" if feed == "pool" else "")
+            runs[feed] = {
+                "launches": {k: v for k, v in launches.items() if v},
+                "launches_ok": launches == _want(**want), "groups": groups,
+                "losses": losses, "first_loss_without_store": plain_losses[:1],
+                "first_loss_equal": bool(losses[:1] == plain_losses[:1]
+                                         and losses
+                                         and math.isfinite(losses[0])),
+                "store_written": (sub / "shards.json").exists(),
+                "run_s": run_s}
+    out["runs"] = runs
+    ok = (out["reused"] and out["gather_equals_decode"]
+          and all(r["launches_ok"] and r["first_loss_equal"]
+                  and r["store_written"] for r in runs.values()))
+    out["ok"] = ok
+    emit(out)
+    if not ok:
+        raise AssertionError(f"shard_store: {out}")
+    return out
+
+
+def _serve_rank(rank, world, tmp, port, out):
+    """One rank of phase sharded_serving (spawned; gloo on cuda:0)."""
+    import traceback
+
+    import torch.distributed as dist
+
+    from vit_spoof_detection_pda_tpu_torch.parallel import mesh as pm
+
+    try:
+        dev = torch.device("cuda", 0)
+        pm.init_multi_host("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                           rank=rank, world_size=world)
+        out.put((rank, _serve_rank_body(rank, Path(tmp), dev)))
+    except BaseException:                       # noqa: BLE001 - reported
+        out.put((rank, {"error": traceback.format_exc()}))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _sharded_inputs(dev):
+    params = random_params(np.random.default_rng(SEED + 121))
+    weights = fastserve.prepare_params(fold_normalization(params)["params"],
+                                       dtype=torch.bfloat16, device=dev)
+    u8, _ = loop_faces(SHARDED_B, 121, IMG)
+    kw = dict(num_heads=HEADS, patch_size=PATCH, depth=DEPTH, norm_eps=1e-6,
+              dtype=torch.bfloat16)
+    return params, weights, torch.from_numpy(u8).to(dev), kw
+
+
+def _f32_model(params, dev, pool="token"):
+    return load_jax_params(ViTAntiSpoof(
+        patch_size=PATCH, embed_dim=D, depth=DEPTH, num_heads=HEADS,
+        hidden=HEAD_HIDDEN, img_size=IMG, gelu="erf", pool=pool),
+        params).to(dev).eval()
+
+
+def _serve_rank_body(rank, tmp: Path, dev) -> dict:
+    import torch.distributed as dist
+
+    from vit_spoof_detection_pda_tpu_torch.models import artifact
+    from vit_spoof_detection_pda_tpu_torch.parallel import mesh as pm
+
+    params, weights, batch, kw = _sharded_inputs(dev)
+    ref = torch.load(tmp / "sharded_ref.pt", map_location=dev)
+    mesh = pm.make_mesh(data=2, model=1)
+    res = {"mesh": pm.axis_sizes(mesh)}
+
+    # the main path: counts from 0 just before the forward, read after
+    reset_launches()
+    scores = fastserve.serving_forward_sharded(weights, batch, mesh, **kw)
+    torch.cuda.synchronize()
+    res["launches"] = {k: v for k, v in att.LAUNCHES.items() if v}
+    res["launches_ok"] = dict(att.LAUNCHES) == _want(attention_block=DEPTH,
+                                                     mlp_block=DEPTH)
+    res["core_launches"] = sum(gemm.core_launches().values())
+    res["gap_vs_single"] = _gaps(scores, ref["scores"])
+    res["bit_equal_vs_single"] = bool(torch.equal(scores, ref["scores"]))
+    block = pm.shard_batch({"b": batch}, mesh)["b"]
+    res["sharded_ms"] = time_ms(lambda: fastserve.serving_forward_sharded(
+        weights, batch, mesh, **kw), windows=3, per_window=5)
+    res["block_ms"] = time_ms(lambda: fastserve.serving_forward(
+        weights, block, **kw), windows=3, per_window=5)
+
+    # a fleet artifact: rank 0 exports, both load it and score the batch
+    m32 = _f32_model(params, dev)
+    if rank == 0:
+        t0 = time.perf_counter()
+        artifact.save_serving_artifact(tmp / "fleet", m32, mode="module",
+                                       batch_size=SHARDED_B, img_size=IMG,
+                                       mesh=mesh)
+        res["fleet_export_s"] = time.perf_counter() - t0
+    del m32
+    dist.barrier()
+    art = artifact.load_serving_artifact(tmp / "fleet", device=dev)
+    reset_launches()
+    got = art(batch)
+    torch.cuda.synchronize()
+    res["fleet"] = {
+        "mesh": art.meta["mesh"],
+        "launches": {k: v for k, v in att.LAUNCHES.items() if v},
+        "launches_ok": dict(att.LAUNCHES) == _want(
+            **_artifact_launches("module", SHARDED_B // 2)),
+        "gap_vs_module": _gaps(got["prob1"], ref["module_prob1"]),
+        "pred_equal": bool(torch.equal(got["pred"].cpu(),
+                                       ref["module_pred"].cpu()))}
+    del art
+
+    # mean pooling under a (data 1, seq 2) mesh, f32
+    smesh = pm.make_seq_mesh(seq=2, data=1)
+    mp = _f32_model(params, dev, pool="mean")
+    x = normalize(to_float(batch[:F32_B]))
+    reset_launches()
+    with torch.no_grad(), exact_f32_matmul(), att.attention_sharding(smesh):
+        logits = mp(x)
+    torch.cuda.synchronize()
+    want = ref["mean_logits"]
+    res["mean_pool"] = {
+        "max_abs_err": (logits - want).abs().max().item(),
+        "tol": SP_F32_TOL * want.abs().max().item(),
+        "launches": {k: v for k, v in att.LAUNCHES.items() if v},
+        "launches_ok": dict(att.LAUNCHES) == _want(attention_cp_f32=DEPTH)}
+    return res
+
+
+def phase_sharded_serving(dev, tmp: Path) -> dict:
+    """Data-parallel scoring of ViT-B/16 (numpy-seeded weights and faces)
+    with two ranks sharing this card over gloo: serving_forward_sharded
+    at a global B = SHARDED_B (each rank kernels 1 and 2 DEPTH times,
+    from 0 just before the forward), its scores against one process's
+    serving_forward at that B (phase 4's bounds; the gap and whether it
+    is bit-equal printed) and each rank's ms beside the single process's;
+    a fleet artifact (module mode, f32) exported by rank 0 and loaded by
+    both, its P(live) within FLEET_TOL of the module path's and its
+    decisions equal (kernel 8 DEPTH times a rank); the f32 forward with
+    pool="mean" over a (data 1, seq 2) mesh within SP_F32_TOL of the
+    single-card mean-pooled forward (kernel 12's f32 form DEPTH
+    times)."""
+    params, weights, batch, kw = _sharded_inputs(dev)
+    scores = fastserve.serving_forward(weights, batch, **kw)
+    single_ms = time_ms(lambda: fastserve.serving_forward(weights, batch,
+                                                          **kw))
+    m32 = _f32_model(params, dev)
+    module = runner.make_infer_fn(m32)(batch)
+    mp = _f32_model(params, dev, pool="mean")
+    with torch.no_grad(), exact_f32_matmul():
+        mean_logits = mp(normalize(to_float(batch[:F32_B])))
+    torch.save({"scores": scores.cpu(), "module_prob1": module["prob1"].cpu(),
+                "module_pred": module["pred"].cpu(),
+                "mean_logits": mean_logits.cpu()}, tmp / "sharded_ref.pt")
+    del m32, mp, weights
+    torch.cuda.empty_cache()
+    reports = run_ranks(_serve_rank, 2, str(tmp), timeout=SP_TIMEOUT)
+    ok = True
+    for v in reports.values():
+        g, f, m = v["gap_vs_single"], v["fleet"], v["mean_pool"]
+        v["ok"] = bool(v["launches_ok"] and g["max"] <= SCORE_TOL
+                       and g["mean"] <= SCORE_MEAN_TOL and f["launches_ok"]
+                       and f["gap_vs_module"]["max"] <= FLEET_TOL
+                       and f["pred_equal"] and m["launches_ok"]
+                       and m["max_abs_err"] <= m["tol"])
+        ok = ok and v["ok"]
+    out = {"phase": "sharded_serving", "ranks": 2,
+           "backend": "gloo (ranks share cuda:0)", "batch": SHARDED_B,
+           "card": nvidia_smi(), "single_process_ms": single_ms,
+           "score_tol": SCORE_TOL, "score_mean_tol": SCORE_MEAN_TOL,
+           "fleet_tol": FLEET_TOL, "reports": reports, "ok": ok}
+    emit(out)
+    if not ok:
+        raise AssertionError(f"sharded_serving: {reports}")
+    return out
+
+
+def phase_aot(dev, tmp: Path) -> dict:
+    """utils/aot.py cached_compile of the fastserve program (ViT-B/16, B =
+    SHARDED_B, the kernels entering as their vsd:: operators) into an
+    empty cache, then again: wall s of each (trace, lower or load, first
+    call), the second a hit; both programs' scores within AOT_TOL of the
+    live forward's (bit-equality printed), the warm call launching
+    kernels 1 and 2 DEPTH times."""
+    from vit_spoof_detection_pda_tpu_torch.utils.aot import cached_compile
+
+    _params, weights, batch, kw = _sharded_inputs(dev)
+    want = fastserve.serving_forward(weights, batch, **kw)
+
+    def fn(w, b):
+        return fastserve.serving_forward(w, b, **kw)
+
+    walls, exes, outs = [], [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        exe = cached_compile(fn, (weights, batch), key="fastserve_b128",
+                             cache_dir=str(tmp / "aot"))
+        reset_launches()
+        with exact_f32_matmul():
+            outs.append(exe(weights, batch))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        exes.append(exe)
+    launches = dict(att.LAUNCHES)
+    errs = [(o - want).abs().max().item() for o in outs]
+    ok = (not exes[0].hit and exes[1].hit and max(errs) <= AOT_TOL
+          and launches == _want(attention_block=DEPTH, mlp_block=DEPTH))
+    out = {"phase": "aot", "card": nvidia_smi(), "cold_s": walls[0],
+           "warm_s": walls[1], "cold_hit": exes[0].hit,
+           "warm_hit": exes[1].hit, "max_abs_err_vs_live": errs,
+           "tol": AOT_TOL,
+           "bit_equal_vs_live": [bool(torch.equal(o, want)) for o in outs],
+           "launches": {k: v for k, v in launches.items() if v},
+           "cache_mb": sum(p.stat().st_size for p in (tmp / "aot").iterdir())
+           / 1e6, "ok": ok}
+    emit(out)
+    if not ok:
+        raise AssertionError(f"aot: {out}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card "
@@ -6337,6 +6844,12 @@ def main() -> int:
         sp_long["f32"]["launches"],
         {"attention_qkv_two_pass": sp_single["bf16"].get("attention_qkv", 0)}))
     rows += phase_f32_256(dev, loss_fn)
+    with tempfile.TemporaryDirectory() as tmp:
+        codec = phase_native_codec(Path(tmp))
+        phase_shard_store(dev, Path(tmp), bool(codec["built"]))
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_sharded_serving(dev, Path(tmp))
+        phase_aot(dev, Path(tmp))
     idle = [r["name"] for r in rows if not r["launches"]]
     if idle:
         raise AssertionError(f"kernels never launched on their paths: {idle}")

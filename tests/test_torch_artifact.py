@@ -1,8 +1,9 @@
 """The port's serving artifacts (models/artifact.py) and the verbs around
 them (export-serving, predict, serve, serve-bench, describe, benchmark
 --artifact), against the JAX package's artifacts and live serving paths
-on the same weights.  The cases mirror tests/test_artifact.py, the fleet
-ones becoming a NotImplementedError that names ROADMAP Queue 1 item 9.
+on the same weights.  The cases mirror tests/test_artifact.py; the fleet
+ones run on two ranks in tests/test_torch_sharded_serving.py, and here
+only a model axis raises, naming ROADMAP Queue 1 item 9.
 
 Tolerances:
 - a port module artifact against a JAX module artifact (both f32 on the
@@ -255,11 +256,27 @@ def test_invalid_combinations_raise_the_jax_messages(vit, foldable):
 
 
 def test_fleet_artifacts_name_the_roadmap_item(vit, module_art):
+    """Fleet artifacts landed (tests/test_torch_sharded_serving.py runs
+    them on two ranks): what is left of item 9b, a model axis, names it;
+    a fleet over a data mesh records the mesh and the per-rank batch; a
+    single-device artifact refuses a mesh at load, as JAX's does."""
+    from types import SimpleNamespace
+
     _jm, _v, tm = vit
+    tp = SimpleNamespace(mesh_dim_names=("data", "model"),
+                         mesh=torch.zeros(4, 2))
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        A.export_serving(tm, mode="module", batch_size=8, mesh=object())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        A.load_serving_artifact(module_art, mesh=object(), device="cpu")
+        A.export_serving(tm, mode="module", batch_size=8, mesh=tp)
+    dp = SimpleNamespace(mesh_dim_names=("data", "model"),
+                         mesh=torch.zeros(4, 1))
+    exported, _w, meta = A.export_serving(tm, mode="module", batch_size=8,
+                                          img_size=IMG, mesh=dp)
+    assert meta["mesh"] == {"axis_names": ["data", "model"],
+                            "shape": [4, 1]} and meta["batch_size"] == 8
+    (_weights, batch), _ = exported.example_inputs
+    assert batch.shape[0] == 2                   # 8 rows over 4 data ranks
+    with pytest.raises(ValueError, match="single-device"):
+        A.load_serving_artifact(module_art, mesh=dp, device="cpu")
 
 
 # --------------------------------------------------------------------------

@@ -4,7 +4,8 @@ devices; tests/test_parallel.py, tests/test_sequence_parallel.py,
 tests/test_sharding_config.py), the Megatron and FSDP rule tables leaf by
 leaf against JAX's on the same parameter tree, the Trainer's sharding
 rules, the record and batch sharding, and the branches that ROADMAP
-Queue 1 item 9b still owns, each raising and naming it.
+Queue 1 item 9b still owns, each raising and naming it (and mean pooling
+under a seq axis, which landed from it).
 
 A ``DeviceMesh`` needs a process group: the fixture ``world8`` joins an
 8-rank ``fake`` group (``FakeStore``: one process, no communication) and
@@ -231,12 +232,22 @@ def test_item_9b_branches_raise_and_name_it(world8):
     from vit_spoof_detection_pda_tpu_torch.eval.runner import run_inference
     with pytest.raises(NotImplementedError, match="item 9b"):
         run_inference(torch.nn.Linear(2, 2), [], fastserve=True, mesh=tp)
+    # mean pooling under a seq axis landed (its two-rank parity is in
+    # tests/test_torch_sharded_serving.py); on this one-process fake group
+    # it runs its sequence-parallel path, one dispatch a layer
     sp = pm.make_seq_mesh(seq=2, data=4, device_type="cpu")
     mean_pool = TViT(embed_dim=64, depth=1, num_heads=2, hidden=16,
-                     img_size=32, patch_size=8, pool="mean")
-    with pytest.raises(NotImplementedError, match="item 9b"):
+                     img_size=32, patch_size=8, pool="mean").eval()
+    calls = att._context["cp_calls"]
+    with torch.no_grad(), att.attention_sharding(sp):
+        logits = mean_pool(torch.zeros(2, 32, 32, 3))
+    assert logits.shape == (2, 2) and torch.isfinite(logits).all()
+    assert att._context["cp_calls"] == calls + 1
+    capture = TViT(embed_dim=64, depth=1, num_heads=2, hidden=16,
+                   img_size=32, patch_size=8, capture_attention=True)
+    with pytest.raises(ValueError, match="capture_attention"):
         with att.attention_sharding(sp):
-            mean_pool(torch.zeros(2, 32, 32, 3))
+            capture(torch.zeros(2, 32, 32, 3))
 
 
 def test_sequence_parallel_dispatch_needs_the_token_count(world8):
@@ -283,10 +294,12 @@ def test_shard_for_host_and_batch_follow_the_data_axis(world8, monkeypatch):
 
 
 def test_fleet_artifacts_and_packed_checkpoints_name_item_9b(tmp_path):
-    """The fleet (mesh) artifact flavor and a JAX checkpoint in the
-    pipeline's packed layout are ROADMAP Queue 1 item 9b."""
+    """Both landed from ROADMAP Queue 1 item 9b: a fleet artifact over a
+    model axis still names it; a JAX checkpoint in the pipeline's packed
+    layout reads into the per-layer tree (bit for bit; the EMA shadow's
+    case is in tests/test_torch_sharded_serving.py)."""
     from vit_spoof_detection_pda_tpu.parallel.pipeline import (
-        pack_pipeline_params)
+        pack_pipeline_params, unpack_pipeline_params)
     from vit_spoof_detection_pda_tpu.train.state import (
         create_train_state as j_create, make_optimizer as j_opt)
     from vit_spoof_detection_pda_tpu.utils.checkpoint import (
@@ -295,9 +308,13 @@ def test_fleet_artifacts_and_packed_checkpoints_name_item_9b(tmp_path):
     from vit_spoof_detection_pda_tpu_torch.utils.checkpoint import (
         load_checkpoint_bundle)
 
+    from types import SimpleNamespace
+
     module = TViT(embed_dim=64, depth=2, num_heads=2, hidden=16, img_size=32)
+    tp = SimpleNamespace(mesh_dim_names=("data", "model"),
+                         mesh=torch.zeros(4, 2))
     with pytest.raises(NotImplementedError, match="item 9b"):
-        A.export_serving(module, mode="module", mesh=object())
+        A.export_serving(module, mode="module", batch_size=8, mesh=tp)
     jm = JViT(patch_size=16, embed_dim=64, depth=2, num_heads=2, hidden=16)
     jstate = j_create(jm, j_opt(1e-3), jax.random.PRNGKey(0),
                       input_shape=(1, 32, 32, 3))
@@ -306,8 +323,15 @@ def test_fleet_artifacts_and_packed_checkpoints_name_item_9b(tmp_path):
     mgr = JManager(str(tmp_path / "packed"))
     mgr.save(1, jstate, metrics={"val_f1": 0.5})
     mgr.close()
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        load_checkpoint_bundle(str(tmp_path / "packed"))
+    variables, step, _ = load_checkpoint_bundle(str(tmp_path / "packed"))
+    want = unpack_pipeline_params({"params": jstate.params})["params"]
+    assert step == 1 and "blocks" not in variables["params"]["vit"]
+    got_leaves = jax.tree.leaves(jax.tree.map(np.asarray,
+                                              variables["params"]))
+    want_leaves = jax.tree.leaves(want)
+    assert len(got_leaves) == len(want_leaves)
+    for g, w in zip(got_leaves, want_leaves):
+        np.testing.assert_array_equal(g, np.asarray(w))
 
 
 def test_dryrun_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch):

@@ -356,9 +356,12 @@ def test_train_from_config_trains_checkpoints_and_resumes(tmp_path):
                                        "checkpoint.resume": True})
     _, t2 = train_from_config(resumed, device="cpu")
     assert t2.state.step == 3 * spe               # the horizon is kept
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        train_from_config(Config().with_overrides(
-            {**over, "data.shard_cache": str(tmp_path / "s")}), device="cpu")
+    # data.shard_cache: the same run fed from the shard store it builds
+    _, t3 = train_from_config(Config().with_overrides(
+        {**over, "data.shard_cache": str(tmp_path / "s"),
+         "checkpoint.save_dir": str(tmp_path / "ckpt3")}), device="cpu")
+    assert (tmp_path / "s" / "shards.json").exists()
+    assert t3.state.step == 2 * spe
 
 
 def test_determinism_controls():

@@ -162,9 +162,15 @@ def _reencode_original(src: Path, fallback_u8: np.ndarray, path: Path,
 
 
 def _write_jpeg(arr_u8: np.ndarray, path: Path, quality: int) -> int:
-    """One JPEG through PIL; an error (PIL missing included) is logged
-    and counts 0."""
+    """One JPEG through the native codec (libjpeg, the GIL released for
+    the whole compress), else PIL; an error (PIL missing included) is
+    logged and counts 0."""
     try:
+        from ..data.native import native_encode_jpeg
+        data = native_encode_jpeg(arr_u8, quality)
+        if data is not None:
+            path.write_bytes(data)
+            return 1
         from PIL import Image
         Image.fromarray(arr_u8).save(path, quality=quality)
         return 1

@@ -4,8 +4,10 @@ remedy, so a machine can be validated before a training or serving job.
 
 The checks keep the JAX names, so ``--only`` lists carry over: the
 ``pallas`` check builds and launches the port's toolchain probe
-(``csrc/doctor_probe.cu``, kernel 17), and ``compile_cache`` is the
-kernels' build directory.  Without a card, the device checks warn.
+(``csrc/doctor_probe.cu``, kernel 17), ``native_codec`` builds the host
+codec (``data/native``) and decodes a PNG back, and ``compile_cache`` is
+the kernels' build directory and the program cache (``utils/aot.py``).
+Without a card, the device checks warn.
 
 Exit code 0 when nothing fails (warnings allowed), 1 otherwise.
 """
@@ -149,18 +151,40 @@ def check_pallas():
 
 @_check("native_codec")
 def check_native_codec():
-    return WARN, {"note": "the native C++ codec (data/native) is not "
-                          "ported: ROADMAP Queue 1 item 5; decoding uses "
-                          "PIL"}
+    """The libjpeg/libpng codec (``data/native``) builds, and decodes a
+    PNG back bit for bit.  The PNG is written with the standard library,
+    so the check needs no PIL."""
+    import tempfile
+
+    import numpy as np
+
+    from ..data import native
+
+    lib = native.get_lib()
+    if lib is None:
+        return WARN, {"note": "C++ codec unavailable (PIL fallback "
+                              "active); check g++/libjpeg-dev/libpng-dev "
+                              "— data/native builds on first use",
+                      "build_error": native.build_error()}
+    rng = np.random.default_rng(0)
+    img = rng.integers(0, 255, (32, 32, 3), dtype=np.uint8)
+    with tempfile.NamedTemporaryFile(suffix=".png") as f:
+        f.write(native.encode_png(img))
+        f.flush()
+        arr = native.native_decode(f.name, 32, resize="exact")
+    if arr is None or arr.shape != (32, 32, 3):
+        return FAIL, {"error": "native decode returned wrong shape"}
+    if not np.array_equal(arr, img):
+        return FAIL, {"error": "native PNG decode not bit-exact vs source"}
+    return OK, {"png_roundtrip": "bit-exact",
+                "library": str(native.library_path())}
 
 
-@_check("compile_cache")
-def check_compile_cache():
+def _writable(d) -> str:
+    """'' if a file can be written in ``d`` (made if missing), else the
+    error."""
     import os
 
-    from ..ops import _build
-
-    d = _build._build_dir()
     try:
         os.makedirs(d, exist_ok=True)
         probe = os.path.join(d, ".doctor_probe")
@@ -168,10 +192,32 @@ def check_compile_cache():
             f.write("ok")
         os.remove(probe)
     except OSError as e:
-        return WARN, {"note": f"kernel build dir not writable ({e}); "
+        return str(e)
+    return ""
+
+
+@_check("compile_cache")
+def check_compile_cache():
+    """The kernels' build directory (``ops/_build.py``) and the program
+    cache (``utils/aot.py``)."""
+    import os
+
+    from ..ops import _build
+    from ..utils import aot
+
+    d, a = _build._build_dir(), aot.DEFAULT_CACHE_DIR
+    err = _writable(d)
+    if err:
+        return WARN, {"note": f"kernel build dir not writable ({err}); "
                               "every run will fail to build the kernels"}
-    entries = [f for f in os.listdir(d) if not f.startswith(".")]
-    return OK, {"dir": str(d), "entries": len(entries)}
+    info = {"dir": str(d), "entries": len(
+        [f for f in os.listdir(d) if not f.startswith(".")])}
+    err = _writable(a)
+    if err:
+        return WARN, {**info, "note": f"program cache dir not writable "
+                                      f"({err}); cold starts will re-lower"}
+    return OK, {**info, "aot_dir": a, "aot_entries": len(
+        [f for f in os.listdir(a) if not f.startswith(".")])}
 
 
 @_check("config_presets")

@@ -11,10 +11,10 @@ The port's copy of the JAX package's ``config.py`` (stdlib only): the same
 fields, defaults, presets and JSON form, so one config file drives both
 packages.  The fields the port does not run yet make its Trainer and driver
 raise: a model axis (``sharding.model_parallel > 1``), ``sharding.fsdp`` and
-the pipeline (``sharding.pipeline_parallel > 1``), ROADMAP Queue 1 item 9b,
-and ``data.shard_cache``, item 5.
-Data and sequence meshes run, and ``telemetry.profile_dir`` is honoured (a
-trace of the first epoch).
+the pipeline (``sharding.pipeline_parallel > 1``), ROADMAP Queue 1 item 9b.
+Data and sequence meshes run, ``data.shard_cache`` feeds training from the
+shard store, and ``telemetry.profile_dir`` is honoured (a trace of the
+first epoch).
 """
 
 from __future__ import annotations

@@ -1,3 +1,4 @@
 """Host-side data: ``conventions.py`` (labels), ``manifest.py`` (scans,
-splits, manifests) and ``loader.py`` (decoding, the threaded pipeline,
-device prefetch)."""
+splits, manifests), ``loader.py`` (decoding, the threaded pipeline,
+device prefetch), ``shards.py`` (the decode-once memmapped shard store)
+and ``native`` (the libjpeg/libpng codec, built at first use)."""

@@ -5,12 +5,13 @@ The host does the minimum, decode and a fixed-size resize; augmentation
 and normalization run on the device.  A thread pool decodes ahead through
 a bounded queue, and :func:`prefetch_to_device` keeps batches in flight
 on the card.  Corrupt files decode to a black image with a logged
-warning.  The port decodes through PIL only (the JAX package's native
-libjpeg decoder is not ported).  In a multi-rank run
-:func:`shard_for_host` gives each data rank its equal share.
+warning.  Files decode through the native libjpeg/libpng codec
+(``data/native``) first and through PIL where it declines, as in the
+JAX package.  In a multi-rank run :func:`shard_for_host` gives each data
+rank its equal share.
 
 PIL is imported inside the functions, so the module imports where PIL
-is not installed; only decoding needs it.
+is not installed; only what the native codec declines needs it.
 """
 
 from __future__ import annotations
@@ -57,8 +58,22 @@ def _pil_to_sized_rgb(im, size: int, resize: str) -> np.ndarray:
 
 
 def decode_image(path: str, size: int, resize: str = "exact") -> np.ndarray:
-    """Decode a file to (size, size, 3) uint8 RGB through PIL (geometry as
-    :func:`_pil_to_sized_rgb`); a black image on any decode failure."""
+    """Decode a file to (size, size, 3) uint8 RGB (geometry as
+    :func:`_pil_to_sized_rgb`); a black image on any decode failure.
+
+    Fast path: the native codec (``data/native``: libjpeg's DCT-domain
+    prescale and PIL's bilinear resample in C, the GIL released for the
+    whole call).  PIL handles whatever the native path declines."""
+    try:
+        from .native import native_decode
+        out = native_decode(path, size, resize)
+        if out is not None:
+            return out
+    except Exception as e:                       # noqa: BLE001
+        # the fallback contract covers the native path too: PIL gets its
+        # turn, then the black frame
+        log.warning("native decode raised for %s (%s) — PIL fallback",
+                    path, e)
     from PIL import Image
     try:
         with Image.open(path) as im:

@@ -15,7 +15,8 @@ The module holds its weights (a port ``nn.Module`` from
 On the card the ViT's attention core is kernel 8 (``ops/attention.py::
 dispatch_attention_qkv``); on the CPU its plain version.  Under a mesh
 (one process per rank) each data rank scores its share of the records
-and the scores are gathered back into record order.
+(on the fastserve path its block of each global batch) and the scores
+are gathered back into record order.
 """
 
 from __future__ import annotations
@@ -95,7 +96,18 @@ def infer_body(forward, batch: torch.Tensor, *, normalize: bool = True,
     return {"prob1": prob1, "pred": pred}
 
 
-def make_fastserve_infer(module, *, device=None):
+def _check_fastserve_mesh(mesh):
+    """Fastserve scoring shards the batch over the data axis and
+    replicates the weights; a model axis (tensor parallelism) is item
+    9b."""
+    from ..parallel.mesh import MODEL_AXIS, axis_sizes
+    if mesh is not None and axis_sizes(mesh).get(MODEL_AXIS, 1) > 1:
+        raise NotImplementedError(
+            "fastserve scoring over a model axis (tensor-parallel "
+            "weights) is not ported: ROADMAP Queue 1 item 9b")
+
+
+def make_fastserve_infer(module, *, device=None, mesh=None):
     """Throughput eval on the serving path (``models/fastserve.py``: bf16,
     tanh GELU, each encoder layer on the attention- and MLP-block
     kernels, the normalization folded into the patch embed, raw uint8
@@ -103,7 +115,10 @@ def make_fastserve_infer(module, *, device=None):
     P(live) > 0.5.  Numerics are the serving policy, hence opt-in.  Takes
     the port's ``ViTAntiSpoof`` (P(live) = sigmoid(l1 - l0)) and
     ``ViTLinearHead`` (the "Base ViT" ablation: softmax column 1), which
-    ride the same trunk; any other module raises ``TypeError``."""
+    ride the same trunk; any other module raises ``TypeError``.  With a
+    ``mesh`` of more than one rank (JAX :130-137) each call takes the
+    global batch and scores it through ``serving_forward_sharded``: each
+    data rank its block, the scores gathered in batch order."""
     from ..models import fastserve
     from ..models.convert import vit_linear_from_torch
     from ..models.vit import ViTAntiSpoof, ViTLinearHead, fold_normalization
@@ -124,9 +139,14 @@ def make_fastserve_infer(module, *, device=None):
     else:
         raise TypeError("fastserve eval supports ViTAntiSpoof and "
                         f"ViTLinearHead; got {type(module).__name__}")
+    _check_fastserve_mesh(mesh)
+    sharded = mesh is not None and mesh.mesh.numel() > 1
 
     def infer(batch_u8):
-        out = raw(weights, torch.as_tensor(batch_u8), **kw)
+        batch_u8 = torch.as_tensor(batch_u8)
+        out = (fastserve.serving_forward_sharded(weights, batch_u8, mesh,
+                                                 fn=raw, **kw)
+               if sharded else raw(weights, batch_u8, **kw))
         score = (out if out.ndim == 1 else out[:, 1]).float()
         return {"prob1": score, "pred": (score > 0.5).to(torch.int32)}
 
@@ -194,16 +214,16 @@ def run_inference(module, records: Sequence[Record], *,
     opt-in throughput mode; :func:`make_fastserve_infer`).
 
     ``mesh`` (JAX :147-175): data-parallel scoring.  ``batch_size`` is the
-    global batch and must divide by the data axis; data rank r scores the
-    records ``r, r + n, ...`` at ``batch_size / n`` a batch (the ranks of
-    one sequence group alike, through the sequence-parallel forward) and
-    every rank returns all the scores in record order.  The fastserve
-    path over a mesh (JAX ``serving_forward_sharded``) raises: ROADMAP
-    Queue 1 item 9b."""
-    if mesh is not None and fastserve:
-        raise NotImplementedError(
-            "fastserve scoring over a mesh (serving_forward_sharded) is not "
-            "ported: ROADMAP Queue 1 item 9b")
+    global batch and must divide by the data axis, and every rank returns
+    all the scores in record order.  On the module path data rank r
+    scores the records ``r, r + n, ...`` at ``batch_size / n`` a batch
+    (the ranks of one sequence group alike, through the
+    sequence-parallel forward).  With ``fastserve`` every rank reads the
+    global batches and ``serving_forward_sharded`` scores each data
+    rank's block of them (:func:`make_fastserve_infer`); a model axis
+    raises (ROADMAP Queue 1 item 9b)."""
+    if fastserve:
+        _check_fastserve_mesh(mesh)
     if fastserve and not normalize:
         raise ValueError("fastserve always folds normalization into the "
                          "weights; normalize=False is only supported on "
@@ -216,18 +236,19 @@ def run_inference(module, records: Sequence[Record], *,
         if batch_size % n_data:
             raise ValueError(f"batch_size {batch_size} not divisible by the "
                              f"{n_data}-way data axis of the eval mesh")
-        mine = mine[axis_rank(mesh, DATA_AXIS)::n_data]
-        batch_size //= n_data
+        if not fastserve:
+            mine = mine[axis_rank(mesh, DATA_AXIS)::n_data]
+            batch_size //= n_data
     pipe = DataPipeline([records[i] for i in mine], batch_size=batch_size,
                         img_size=img_size, resize="exact",
                         num_workers=num_workers, shuffle=False,
                         drop_last=False)
-    infer = (make_fastserve_infer(module) if fastserve
+    infer = (make_fastserve_infer(module, mesh=mesh) if fastserve
              else make_infer_fn(module, normalize=normalize, mesh=mesh))
     dev = module_device(module)
     prob1, pred = score_batches(infer, pipe.batches(), len(mine),
                                 batch_size=batch_size, device=dev)
-    if mesh is not None:
+    if mesh is not None and not fastserve:
         from ..parallel.collectives import all_gather_rows
         from ..parallel.mesh import DATA_AXIS
         group = mesh.get_group(DATA_AXIS)

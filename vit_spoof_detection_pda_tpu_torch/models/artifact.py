@@ -38,6 +38,14 @@ operators first, and moves the program to the device it runs on
 (``torch.export.passes.move_to_device_pass``: tensors the trace created
 carry the export's device).  A JAX artifact (``serving.stablehlo``) is
 refused, not run.
+
+Fleet artifacts (``export_serving(mesh=...)``, module mode): the program
+is the per-rank eval program at ``batch_size / n`` rows, ``n`` the
+mesh's data axis, and ``meta.json`` records the mesh.  Loading needs a
+process group (or a mesh) of the recorded size; each rank runs the
+frozen program on its block of the global batch
+(``parallel/mesh.py::shard_batch``) and the scores are gathered back in
+batch order, so every rank returns the global batch's.
 """
 
 from __future__ import annotations
@@ -60,8 +68,6 @@ _WEIGHTS_FILE = "weights.npz"
 _META_FILE = "meta.json"
 
 _KERNEL_MODES = ("fastserve", "lowlat", "batch_grid")
-_FLEET_TODO = ("fleet (mesh) artifacts are not ported: ROADMAP Queue 1 "
-               "item 9b")
 
 
 # ---------------------------------------------------------------------------
@@ -209,8 +215,9 @@ def export_serving(module, *, mode: str = "module", batch_size=None,
     kernel modes pack their weights and trace (the card unless
     ``"cpu"``; no card is needed to export, the operators' fake
     implementations give the shapes); module mode traces where the
-    module's parameters are.  ``mesh`` (the JAX fleet flavor) raises
-    ``NotImplementedError``."""
+    module's parameters are.  ``mesh``: the FLEET flavor (module mode, a
+    concrete ``batch_size`` that divides by the data axis): the per-rank
+    program over ``batch_size / n`` rows, the mesh in the descriptor."""
     from ..eval.runner import module_device
     from .vit import ViTAntiSpoof
 
@@ -221,8 +228,21 @@ def export_serving(module, *, mode: str = "module", batch_size=None,
         temperature = float(temperature)
         if temperature <= 0.0:
             raise ValueError(f"temperature must be > 0, got {temperature}")
+    rank_batch = None if batch_size is None else int(batch_size)
     if mesh is not None:
-        raise NotImplementedError(_FLEET_TODO)
+        if mode != "module":
+            raise ValueError(
+                "mesh export is module-mode only (the kernel regimes "
+                "shard at call time — use the live "
+                "serving_forward_sharded path on the fleet)")
+        if batch_size is None:
+            raise ValueError("mesh export needs a concrete batch_size "
+                             "(divisible by the data axis)")
+        ndata = _fleet_data_axis(mesh)
+        if int(batch_size) % ndata:
+            raise ValueError(f"batch_size {batch_size} not divisible by "
+                             f"the {ndata}-way data axis")
+        rank_batch = int(batch_size) // ndata
 
     geom = {}
     if isinstance(module, ViTAntiSpoof):
@@ -262,7 +282,7 @@ def export_serving(module, *, mode: str = "module", batch_size=None,
         raise ValueError(f"unknown serving mode {mode!r}")
 
     weights = _sorted_tree(weights)
-    example_b = 2 if batch_size is None else int(batch_size)
+    example_b = 2 if batch_size is None else rank_batch
     batch = torch.zeros((example_b, img_size, img_size, 3), dtype=torch.uint8,
                         device=device)
     batch_dims = ({0: torch.export.Dim("b", min=1)} if batch_size is None
@@ -293,7 +313,27 @@ def export_serving(module, *, mode: str = "module", batch_size=None,
         "geometry": geom,
         "torch_version": torch.__version__,
     }
+    if mesh is not None:
+        meta["mesh"] = {"axis_names": list(mesh.mesh_dim_names),
+                        "shape": [int(s) for s in mesh.mesh.shape]}
     return exported, weights, meta
+
+
+def _fleet_data_axis(mesh) -> int:
+    """The data axis size of a fleet mesh, every other axis 1: a fleet
+    shards the batch and replicates the weights (a model axis is
+    tensor parallelism, item 9b)."""
+    from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, axis_sizes
+    sizes = axis_sizes(mesh)
+    if sizes.get(MODEL_AXIS, 1) > 1:
+        raise NotImplementedError(
+            "a fleet artifact over a model axis (tensor-parallel weights) "
+            "is not ported: ROADMAP Queue 1 item 9b")
+    other = {k: v for k, v in sizes.items() if k != DATA_AXIS and v > 1}
+    if other:
+        raise ValueError(f"a fleet artifact shards the batch over the "
+                         f"data axis alone; the mesh also has {other}")
+    return sizes.get(DATA_AXIS, 1)
 
 
 def save_serving_artifact(out_dir, module, **kwargs):
@@ -328,9 +368,9 @@ class ServingArtifact:
     the ``ExportedProgram`` on the device, ``weights`` the restored tree,
     moved to the device once here."""
 
-    def __init__(self, exported, weights, meta, device):
+    def __init__(self, exported, weights, meta, device, mesh=None):
         self.exported, self.meta, self.device = exported, meta, device
-        self.weights = weights
+        self.weights, self.mesh = weights, mesh
         self._call = exported.module()
 
     def __call__(self, batch_u8):
@@ -343,6 +383,14 @@ class ServingArtifact:
                 f"batch of shape {tuple(batch.shape)}; this artifact takes "
                 f"uint8 [{fixed if fixed is not None else 'B'}, {size}, "
                 f"{size}, 3]")
+        if self.mesh is not None:
+            from ..parallel.collectives import gather_rows
+            from ..parallel.mesh import DATA_AXIS, shard_batch
+            block = shard_batch({"batch": batch}, self.mesh)["batch"]
+            with torch.no_grad(), exact_f32_matmul():
+                out = self._call(self.weights, block)
+            group = self.mesh.get_group(DATA_AXIS)
+            return {k: gather_rows(v, group) for k, v in out.items()}
         with torch.no_grad(), exact_f32_matmul():
             return self._call(self.weights, batch)
 
@@ -362,8 +410,10 @@ def load_serving_artifact(path, mesh=None, *, device=None) -> ServingArtifact:
     """Load an artifact directory onto ``device`` (the card unless
     ``"cpu"``; a kernel-mode artifact then runs the kernels' plain
     versions).  Refuses an unknown format version, a file whose sha256
-    disagrees with the descriptor, and a JAX artifact; ``mesh`` and fleet
-    artifacts raise ``NotImplementedError``."""
+    disagrees with the descriptor, and a JAX artifact.  A fleet artifact
+    needs a process group of the recorded size (a data mesh over it is
+    built) or a ``mesh`` of that size; a single-device artifact refuses
+    a ``mesh``."""
     from torch.export.passes import move_to_device_pass
 
     from ..ops import attention, lowlat  # noqa: F401  (the vsd:: operators)
@@ -380,8 +430,6 @@ def load_serving_artifact(path, mesh=None, *, device=None) -> ServingArtifact:
     if ver != ARTIFACT_VERSION:
         raise ValueError(f"artifact format {ver} != supported "
                          f"{ARTIFACT_VERSION} ({p})")
-    if mesh is not None or meta.get("mesh"):
-        raise NotImplementedError(_FLEET_TODO)
     blobs = {f: (p / f).read_bytes() for f in (_EXPORTED_FILE, _WEIGHTS_FILE)}
     for f, want in meta.get("checksums", {}).items():
         if hashlib.sha256(blobs[f]).hexdigest() != want:
@@ -394,7 +442,27 @@ def load_serving_artifact(path, mesh=None, *, device=None) -> ServingArtifact:
     with np.load(io.BytesIO(blobs[_WEIGHTS_FILE])) as z:
         leaves = {k: z[k] for k in z.files}
     weights = _tree_unspec(meta["weights_spec"], leaves, device)
-    return ServingArtifact(exported, weights, meta, device)
+    if meta.get("mesh"):
+        from ..parallel import mesh as pmesh
+        want = int(np.prod(meta["mesh"]["shape"]))
+        if mesh is None:
+            if pmesh.world_size() != want:
+                raise ValueError(
+                    f"fleet artifact was exported for {want} devices; "
+                    f"{pmesh.world_size()} visible — pass a matching mesh "
+                    "or run in a matching device context")
+            mesh = pmesh.make_mesh(data=want, model=1,
+                                   device_type=device.type)
+        elif mesh.mesh.numel() != want:
+            raise ValueError(f"fleet artifact needs {want} devices; the "
+                             f"given mesh has {mesh.mesh.numel()}")
+        else:
+            _fleet_data_axis(mesh)
+    elif mesh is not None:
+        raise ValueError("this artifact was exported single-device; "
+                         "re-export with export_serving(mesh=...) for "
+                         "fleet serving")
+    return ServingArtifact(exported, weights, meta, device, mesh=mesh)
 
 
 def score_records(artifact: ServingArtifact, records, *,

@@ -26,6 +26,8 @@ then fc1 and fc2 on the GEMM core alone (``ops/gemm.py::gemm``, kernel
 share the trunk: the anti-spoof head (P(live) ``[B]``) and the linear
 head of ``ViTLinearHead`` (softmax ``[B, C]``,
 :func:`serving_forward_linear`, :func:`serving_forward_lowlat_linear`).
+:func:`serving_forward_sharded` runs either over a mesh's data axis, one
+process per rank.
 
 The stem and the head are plain PyTorch, as they were plain XLA in the
 JAX package: their products are f32 matmuls of bf16-rounded operands
@@ -150,6 +152,31 @@ def serving_forward_linear(params, batch, *, num_heads: int = 12,
                        patch_size=patch_size, depth=depth,
                        norm_eps=norm_eps, dtype=dtype, fuse_mlp=fuse_mlp)
     return _linear_head_probs(params, x, norm_eps=norm_eps)
+
+
+@torch.inference_mode()
+def serving_forward_sharded(params, batch, mesh, *, fn=serving_forward,
+                            **kwargs) -> torch.Tensor:
+    """Data-parallel scoring over ``mesh``'s data axis (JAX :379), one
+    process per rank: each data rank runs ``fn`` (:func:`serving_forward`
+    by default, or :func:`serving_forward_linear`) with the replicated
+    ``params`` on its contiguous block of the global ``batch`` (the block
+    ``parallel/mesh.py::shard_batch`` gives, JAX's ``P("data")``); the
+    ranks of one group along the other axes score the same block, as
+    JAX's ``shard_map`` replicates over them.  The scores are gathered
+    over the data group in batch order, so every rank returns the global
+    batch's.  On the card each rank's forward runs kernels 1 and 2 once
+    a layer; on the CPU their plain versions."""
+    from ..parallel.collectives import gather_rows
+    from ..parallel.mesh import DATA_AXIS, axis_sizes, shard_batch
+
+    ndata = axis_sizes(mesh).get(DATA_AXIS, 1)
+    if batch.shape[0] % ndata:
+        raise ValueError(
+            f"batch {batch.shape[0]} not divisible by data axis {ndata}")
+    block = shard_batch({"batch": batch}, mesh)["batch"]
+    out = fn(params, block, **kwargs)
+    return gather_rows(out, mesh.get_group(DATA_AXIS))
 
 
 def _mlp_unfused(x, norm, mlp, *, eps: float, dtype) -> torch.Tensor:

@@ -25,12 +25,13 @@ only for ``capture=True``, the attention-map tap.
 Under a mesh (``ops/attention.py::attention_sharding``, one process per
 rank): with a ``seq`` axis, :class:`ViT` pads the tokens to a multiple
 of ``8 n_seq`` and runs the blocks on this rank's contiguous block of
-them, the attention on kernel 12 against the gathered keys; the heads'
-logits are seq rank 0's (the CLS token lives there), on every rank of the
-sequence group, with their gradient on seq rank 0 only, so each image's
-loss counts once.  With a ``data`` axis the head's dropout masks are
-drawn at the global batch shape and this rank's rows kept, so a run
-replays the single-card masks.  The serving path
+them, the attention on kernel 12 against the gathered keys (the mean
+pooling sums each rank's real tokens and adds the sums over the group);
+the heads' logits are seq rank 0's (the CLS token lives there), on every
+rank of the sequence group, with their gradient on seq rank 0 only, so
+each image's loss counts once.  With a ``data`` axis the head's dropout
+masks are drawn at the global batch shape and this rank's rows kept, so
+a run replays the single-card masks.  The serving path
 (``models/fastserve.py``) runs the same function on the block kernels
 over weights from :func:`fold_normalization`.
 """
@@ -289,12 +290,13 @@ class ViT(nn.Module):
         224 at four, 256 at eight), rows ``r Tp / n .. (r + 1) Tp / n``
         kept.  LayerNorm, the GEMMs and the MLP are token-local; pad rows
         run through them (a zero row's LayerNorm is finite), are masked
-        as keys and never read as outputs.  Returns row 0 of the block
-        after the final LayerNorm: the CLS feature on seq rank 0."""
-        if self.pool != "token":
-            raise NotImplementedError(
-                "sequence parallelism pools the CLS token; pool='mean' "
-                "under a seq axis is not ported (ROADMAP Queue 1 item 9b)")
+        as keys and never read as outputs.  ``pool="token"`` returns row
+        0 of the block after the final LayerNorm: the CLS feature on seq
+        rank 0.  ``pool="mean"``: each rank sums its real patch rows
+        (global rows 1 .. T-1) in f32 after the final LayerNorm, the
+        sums and the row counts are summed over the sequence group
+        (``parallel/collectives.py::psum``), and every rank divides: the
+        mean of JAX's ``x[:, 1:]``."""
         if any(blk.attn.capture for blk in self.blocks):
             raise ValueError("capture_attention reads the whole attention "
                              "map, which no rank holds under a seq axis")
@@ -304,7 +306,17 @@ class ViT(nn.Module):
         x = F.pad(x, (0, 0, 0, n_seq * tl - t))[:, lo:lo + tl]
         for blk in self.blocks:
             x = blk(x, valid_len=t)
-        return _layer_norm(x, self.norm, self.dtype)[:, 0]
+        x = _layer_norm(x, self.norm, self.dtype)
+        if self.pool == "token":
+            return x[:, 0]
+        from ..parallel.collectives import psum
+        group = mesh.get_group(SEQ_AXIS)
+        a, b = max(1, lo), min(t, lo + tl)            # this block's real
+        sums = x[:, a - lo:max(a, b) - lo].float().sum(1)   # patch rows
+        count = torch.tensor([float(max(0, b - a))], device=x.device)
+        sums = psum(sums, group)
+        count = psum(count, group)
+        return (sums / count).to(self.dtype)
 
 
 class AntiSpoofHead(nn.Sequential):

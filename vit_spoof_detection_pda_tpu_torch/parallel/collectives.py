@@ -14,6 +14,11 @@ inside ``_sp_sharded`` and its transpose, GSPMD's gradient all-reduce).
 - :func:`from_seq_rank0`: seq rank 0's tensor on every rank of the
   sequence group; its gradient stays on seq rank 0 (zero elsewhere), so a
   quantity computed on every rank from it counts once.
+- :func:`psum`: the group's sum of a tensor on every rank; its backward
+  is the sum of the cotangents (JAX's ``psum`` transpose), so a quantity
+  that flows back on one rank only (a :func:`from_seq_rank0` result)
+  reaches every rank's share.  The mean pooling under a seq axis sums
+  each rank's tokens with it.
 - :func:`all_reduce_sum` (the gradient all-reduce over the whole data x
   seq group, one flat buffer), :func:`all_gather_rows` (no gradient) and
   :func:`broadcast_params`.
@@ -121,6 +126,27 @@ def from_seq_rank0(x: torch.Tensor, group) -> torch.Tensor:
     """Rank 0's ``x`` on every rank of ``group`` (same shape everywhere);
     the gradient flows back on rank 0 only."""
     return _FromSeqRank0.apply(x, group)
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.detach().clone().contiguous()
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.detach().clone().contiguous()
+        dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.group)
+        return g, None
+
+
+def psum(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``x`` over the ranks of ``group``, on each of them;
+    differentiable (the backward sums the cotangents over the group)."""
+    return _Psum.apply(x, group)
 
 
 def all_reduce_sum(tensors, group=None):

@@ -16,8 +16,13 @@ shared out by data rank (``data/loader.py::shard_for_host``; the pool
 mode stages every original on each rank and shares out its index
 batches instead), each rank's batches are its rows of the global batch
 and the Trainer trains on the mesh ``config.sharding`` describes.
-``data.shard_cache`` (the memmapped shard store) is not ported and
-raises.
+
+``data.shard_cache`` decodes the training records once into the
+memmapped shard store (``data/shards.py``) and feeds the epochs from it:
+the records feed takes its batches from ``ShardStore.batches``, the pool
+mode stages its originals from ``ShardStore.gather`` (the store under
+``<shard_cache>/pool``).  Under a process group of more than one rank
+each rank keeps its own ``host<rank>`` subdirectory.
 """
 
 from __future__ import annotations
@@ -33,9 +38,6 @@ from ..ops import augment as A
 from ..ops import image as I
 
 log = logging.getLogger(__name__)
-
-_SHARD_TODO = ("data.shard_cache (the memmapped shard store) is not "
-               "ported: ROADMAP Queue 1 item 5")
 
 # TrainAugConfig's defaults (the JAX package's config.py)
 TRAIN_AUG = dict(crop_size=224, hflip_prob=0.5,
@@ -174,12 +176,22 @@ def _make_pool_data(cfg, device, mesh=None):
     train_recs, val_recs = stratified_split(
         records, cfg.data.train_split, cfg.data.split_seed)
     size = cfg.data.img_size
-    with ThreadPoolExecutor(max(1, cfg.data.num_workers)) as pool:
-        imgs = list(pool.map(lambda r: decode_image(r.path, size, "exact"),
-                             train_recs))
-    labels = np.asarray([r.label for r in train_recs], np.int32)
+    if cfg.data.shard_cache:
+        from ..data.shards import ShardStore
+        # every rank stages the same pool; the per-rank directories only
+        # keep the ranks from contending for one lock
+        store = ShardStore.build(
+            train_recs, _shard_dir(f"{cfg.data.shard_cache}/pool"),
+            img_size=size, resize="exact", num_workers=cfg.data.num_workers)
+        images = store.gather(np.arange(len(store)))
+        labels = store.labels
+    else:
+        with ThreadPoolExecutor(max(1, cfg.data.num_workers)) as pool:
+            images = np.stack(list(pool.map(
+                lambda r: decode_image(r.path, size, "exact"), train_recs)))
+        labels = np.asarray([r.label for r in train_recs], np.int32)
     lm, sm = cfg.augment.live_augmentations, cfg.augment.spoof_augmentations
-    data = DevicePoolData(np.stack(imgs), labels, live_mult=lm,
+    data = DevicePoolData(images, labels, live_mult=lm,
                           spoof_mult=sm, batch_size=cfg.data.batch_size,
                           seed=cfg.seed, device=device)
     n_live = int(np.sum(labels == 1))
@@ -198,6 +210,16 @@ def _make_pool_data(cfg, device, mesh=None):
 
     return (train_batches, shard_for_host(val_recs, mesh),
             data.steps_per_epoch, counts, preps)
+
+
+def _shard_dir(cache_dir: str) -> str:
+    """The shard store's directory for this rank: ``cache_dir`` itself on
+    one rank, ``cache_dir/host<rank>`` under a process group of more than
+    one rank (JAX's ``host<process_index>``)."""
+    from ..parallel import mesh as pmesh
+    if pmesh.world_size() > 1:
+        return f"{cache_dir}/host{pmesh.rank()}"
+    return cache_dir
 
 
 def _run_training(cfg, train_batches, val_recs, steps, counts,
@@ -307,8 +329,6 @@ def train_from_config(cfg, *, mesh=None, records=None,
     from .trainer import resolve_mesh
 
     mesh = resolve_mesh(cfg, mesh, device)
-    if cfg.data.shard_cache:
-        raise NotImplementedError(_SHARD_TODO)
     if cfg.augment.online:
         if cfg.augment.device_pool:
             from ..device import resolve_device
@@ -332,21 +352,39 @@ def train_from_config(cfg, *, mesh=None, records=None,
     train_recs, val_recs = stratified_split(
         records, cfg.data.train_split, cfg.data.split_seed)
     aug_on = cfg.train_aug.enabled
-    train_pipe = DataPipeline(
-        train_recs, batch_size=cfg.data.batch_size,
-        img_size=cfg.train_aug.resize_to if aug_on else cfg.data.img_size,
-        resize="shorter" if aug_on else "exact",
-        num_workers=cfg.data.num_workers,
-        prefetch_depth=cfg.data.prefetch_depth, shuffle=True,
-        drop_last=cfg.data.drop_last_train, seed=cfg.seed)
+    size = cfg.train_aug.resize_to if aug_on else cfg.data.img_size
+    resize = "shorter" if aug_on else "exact"
+    if cfg.data.shard_cache:
+        # decode once into the memmapped store; epochs gather from it.
+        # Each rank's record share differs, hence its own directory
+        from ..data.shards import ShardStore
+        store = ShardStore.build(
+            train_recs, _shard_dir(cfg.data.shard_cache), img_size=size,
+            resize=resize, num_workers=cfg.data.num_workers)
+        steps = store.steps_per_epoch(cfg.data.batch_size,
+                                      cfg.data.drop_last_train)
+
+        def source(epoch, skip):
+            return store.batches(
+                cfg.data.batch_size, epoch=epoch, shuffle=True,
+                seed=cfg.seed, drop_last=cfg.data.drop_last_train, skip=skip)
+    else:
+        train_pipe = DataPipeline(
+            train_recs, batch_size=cfg.data.batch_size, img_size=size,
+            resize=resize, num_workers=cfg.data.num_workers,
+            prefetch_depth=cfg.data.prefetch_depth, shuffle=True,
+            drop_last=cfg.data.drop_last_train, seed=cfg.seed)
+        steps = train_pipe.steps_per_epoch
+
+        def source(epoch, skip):
+            return train_pipe.batches(epoch, skip=skip)
 
     def train_batches(epoch, skip=0):
-        for b in train_pipe.batches(epoch, skip=skip):
+        for b in source(epoch, skip):
             yield {"image": b["image"], "label": b["label"]}
 
     chain = _train_chain(**_train_aug(cfg)) if aug_on else []
     prep = make_prep_fn(chain, aug_dtype=cfg.train_aug.aug_dtype)
-    return _run_training(cfg, train_batches, val_recs,
-                         train_pipe.steps_per_epoch, counts,
+    return _run_training(cfg, train_batches, val_recs, steps, counts,
                          max_steps_per_epoch, batch_prep=prep, device=device,
                          mesh=mesh)

@@ -455,9 +455,10 @@ def _orbax_bundle(directory: str, step: Optional[int], ema: bool):
                     f"checkpoint at {directory} (step {step}) has no EMA "
                     "state — train with optim.ema_decay set")
         if "blocks" in params.get("vit", {}):
-            raise NotImplementedError(
-                "a pipeline-parallel (packed) JAX checkpoint is not read by "
-                "the port: ROADMAP Queue 1 item 9b")
+            # a pipeline-parallel run's packed layout (params and its EMA
+            # shadow alike): back to the per-layer block{i} subtrees
+            from ..parallel.pipeline import unpack_pipeline_params
+            params = unpack_pipeline_params({"params": params})["params"]
         params = _map_tree(lambda a: torch.from_numpy(np.array(a)), params)
         return {"params": params}, int(step), dict(restored["metrics"] or {})
     finally:

@@ -8,7 +8,8 @@ every generator (the train step derives its dropout generators from
 ``(seed, step)``), seeded host RNGs for shuffles, and, on request,
 PyTorch's deterministic algorithms.  The port's own kernels need no
 switch: none of them uses atomics, and the LN backward reduces its
-parameter sums in a fixed order.
+parameter sums in a fixed order.  :func:`enable_debug_nans` is the
+numerical sanitizer.
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ import random
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_flatten
 
 
 def seed_everything(seed: int) -> torch.Generator:
@@ -32,6 +35,56 @@ def seed_everything(seed: int) -> torch.Generator:
     # only affects CHILD processes: CPython reads PYTHONHASHSEED at start
     os.environ.setdefault("PYTHONHASHSEED", str(seed))
     return torch.Generator().manual_seed(seed)
+
+
+# ops whose output is uninitialized memory or a view of another tensor:
+# their values are not produced by the op, so they are not checked
+_UNCHECKED = frozenset(("empty", "empty_like", "empty_strided", "new_empty",
+                        "new_empty_strided", "resize_"))
+
+
+class _NanCheck(TorchDispatchMode):
+    """Raise ``FloatingPointError`` on the first floating-point output of
+    an operator that holds a NaN, in the forward and, since a dispatch
+    mode reaches the autograd engine's operators too, in the backward.
+    A hand-written kernel's output is checked by the first operator that
+    reads it."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        packet = func.overloadpacket.__name__
+        if packet in _UNCHECKED or func.is_view:
+            return out
+        for t in tree_flatten(out)[0]:
+            if (type(t) is torch.Tensor and t.is_floating_point()
+                    and t.device.type != "meta" and bool(t.isnan().any())):
+                raise FloatingPointError(
+                    f"invalid value (nan) encountered in {func}")
+        return out
+
+
+_nan_state: dict = {}
+
+
+def enable_debug_nans(enabled: bool = True):
+    """Raise ``FloatingPointError`` at the first NaN that any operator
+    produces, in the forward or the backward (JAX's ``jax_debug_nans``):
+    a NaN-checking dispatch mode on this thread, plus
+    ``torch.autograd.set_detect_anomaly(True, check_nan=True)``, which
+    names the forward operator behind a failing backward one.  Each op's
+    check synchronizes with the card, so this is a debugging switch.
+    ``enabled=False`` leaves the mode and restores the anomaly setting
+    that was in force before."""
+    if enabled and "mode" not in _nan_state:
+        _nan_state["anomaly"] = (torch.is_anomaly_enabled(),
+                                 torch.is_anomaly_check_nan_enabled())
+        torch.autograd.set_detect_anomaly(True, check_nan=True)
+        mode = _NanCheck()
+        mode.__enter__()
+        _nan_state["mode"] = mode
+    elif not enabled and "mode" in _nan_state:
+        _nan_state.pop("mode").__exit__(None, None, None)
+        torch.autograd.set_detect_anomaly(*_nan_state.pop("anomaly"))
 
 
 @contextlib.contextmanager
