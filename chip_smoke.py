@@ -394,9 +394,26 @@ runs these phases, each printing one JSON line and raising on failure:
 41. aot      utils/aot.py cached_compile of the B = 128 fastserve program,
             cold then warm: wall s of each, the second a hit, scores
             within 1e-5 of the live forward.
+42. kernels_mp (again) kernels 8 and 4 at a tensor-parallel rank's head
+            counts (6 heads, D 384; 3 heads, D 192) at B = 16, T 197 (Tp
+            200), bf16 and f32, against their plain versions (2 bf16 ulps,
+            QKV_F32_TOL / F32_TOL); their ms at 6 heads beside the plain
+            version, the bound and SDPA (or its backward) in turns.
+43. model_parallel  ViT-B/16 at full width and depth, global B = 16,
+            Trainer-built layouts, ranks sharing the card over gloo: TP
+            (data 1 x model 2), FSDP (data 2), PP (data 1 x pipe 2, 4
+            microbatches) one step each in bf16 and f32, exact launches of
+            kernels 8 and 4 a rank, every gradient leaf against the
+            one-process step (bf16 within twice its bf16-f32 gap, f32
+            within 1e-5), FSDP's large leaves halved, bytes of parameters
+            and moments and step ms a rank beside one process's; a DP x
+            TP x PP (1 x 2 x 2) forward within phase 4's score bounds and
+            SP_F32_TOL in f32.
 
-Then it prints the kernel table as one JSON line, the card's name and
-power limit as nvidia-smi gives them, and last
+After each phase it prints ``{"phase_seconds": name, "seconds": s}``.
+Then it prints the kernel table as one JSON line (rows 8 and 4 with their
+launches on a model-parallel rank and their times at its shape), the
+card's name and power limit as nvidia-smi gives them, and last
 ``{"ok": true, "device": {...}}``.  Without a CUDA card it exits with 2
 before printing any result.  TF32 is turned off wherever a plain version
 or the f32 reference runs (device.exact_f32_matmul).
@@ -4893,17 +4910,18 @@ def sp_config(dtype="bfloat16", img=IMG, **sharding):
         **{f"sharding.{k}": v for k, v in sharding.items()}})
 
 
-def sp_model(dtype=torch.bfloat16, img=IMG):
+def sp_model(dtype=torch.bfloat16, img=IMG, dropout=0.1):
     return ViTAntiSpoof(patch_size=PATCH, embed_dim=D, depth=DEPTH,
                         num_heads=HEADS, hidden=HEAD_HIDDEN, img_size=img,
-                        gelu="erf", dropout=0.1, dtype=dtype)
+                        gelu="erf", dropout=dropout, dtype=dtype)
 
 
-def sp_trainer(cfg, params, dev, dtype=torch.bfloat16, img=IMG):
+def sp_trainer(cfg, params, dev, dtype=torch.bfloat16, img=IMG,
+               dropout=0.1):
     """A Trainer of ``cfg`` on ``params`` (a ``dtype`` module on ``img`` px
-    faces) whose train step takes uint8 faces (make_prep_fn([])
-    normalizes them on the card)."""
-    return Trainer(cfg, sp_model(dtype, img),
+    faces, head dropout ``dropout``) whose train step takes uint8 faces
+    (make_prep_fn([]) normalizes them on the card)."""
+    return Trainer(cfg, sp_model(dtype, img, dropout),
                    train_batches=lambda e, skip=0: iter(()),
                    val_batches=lambda: iter(()), steps_per_epoch=1,
                    variables=params, device=dev, logger=_Record(),
@@ -6774,6 +6792,385 @@ def phase_aot(dev, tmp: Path) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# slice 22: model parallelism (kernels 8 and 4 on a rank's heads and
+# layers)
+# --------------------------------------------------------------------------
+
+MP_B = 16                            # the model-parallel steps' global batch
+MP_MICRO = 4                         # pipeline microbatches (4 rows each)
+MP_F32_TOL = 1e-5                    # f32: each leaf's relative L2 vs one
+                                     # process (TF32 off)
+MP_BOUND_FACTOR = 2.0                # bf16: times the worst leaf's bf16-f32
+                                     # gap of the one-process step
+MP_TP_HEADS = (HEADS // 2, HEADS // 4)   # a 2- and a 4-way model axis
+MP_TIMEOUT = 300                     # s for one group of ranks
+
+
+def phase_kernels_mp(dev) -> dict:
+    """Kernels 8 and 4 at the head counts tensor parallelism gives them
+    (6 heads, D 384; 3 heads, D 192; head dim 64) at B = MP_B, T 197
+    (kernel 4 on the stream padded to Tp 200), bf16 and f32, against their
+    plain versions: 2 bf16 ulps of each output's largest magnitude (dq,
+    dk, dv apart), f32 QKV_F32_TOL / F32_TOL.  Then, at the 2-way rank's
+    shape in bf16, each kernel's ms beside its plain version, its bound
+    and scaled_dot_product_attention (or its backward) on the same q, k,
+    v in turns.  Returns those times."""
+    rng = np.random.default_rng(SEED + 222)
+    dh = D // HEADS
+    for heads in MP_TP_HEADS:
+        d = heads * dh
+        for dt in (torch.bfloat16, torch.float32):
+            name = "bf16" if dt == torch.bfloat16 else "f32"
+            qkv = torch.from_numpy(rng.standard_normal(
+                (MP_B, T, 3 * d), dtype=np.float32)).to(dev, dt)
+            got = att.fused_attention_qkv(qkv, heads)
+            want = att.fused_attention_qkv_plain(qkv, heads)
+            _check_parts(f"tp_{heads}_heads_{name}", "attention_qkv",
+                         [("out", got, want)], [MP_B, T, 3 * d],
+                         bf16_tol if dt == torch.bfloat16 else
+                         (lambda w: QKV_F32_TOL * w.abs().max().item()))
+            qkvp, g = (torch.from_numpy(rng.standard_normal(
+                shape, dtype=np.float32)).to(dev, dt)
+                for shape in ((MP_B, TP, 3 * d), (MP_B, TP, d)))
+            qkvp[:, T:] = 0
+            g[:, T:] = 0                      # pad rows carry no cotangent
+            got = att.attention_qkv_bwd(qkvp, g, heads, valid_len=T)
+            want = att.attention_qkv_bwd_plain(qkvp, g, heads, valid_len=T)
+            _check_parts(f"tp_{heads}_heads_{name}", "attention_qkv_bwd",
+                         _bwd_parts(got, want, d), [MP_B, TP, 3 * d],
+                         bf16_tol if dt == torch.bfloat16 else _f32_tol)
+    heads = MP_TP_HEADS[0]
+    d = heads * dh
+    gen = torch.Generator(device=dev).manual_seed(SEED + 223)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qkv = torch.randn((MP_B, T, 3 * d), generator=gen,
+                      device=dev).bfloat16()
+    q, k, v = qkv.view(MP_B, T, 3, heads, dh).permute(2, 0, 3, 1, 4)
+    ms, lib_ms = time_in_turns(lambda: att.fused_attention_qkv(qkv, heads),
+                               lambda: sdpa(q, k, v))
+    flops, nb = qkv_work(MP_B, T, d, heads, 2)
+    bound_ms, bound_by = bound(flops, nb)
+    fwd = {"ms": ms, "library_ms": lib_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "plain_ms": time_ms(
+               lambda: att.fused_attention_qkv_plain(qkv, heads),
+               per_window=3)}
+    qkvp = torch.nn.functional.pad(qkv, (0, 0, 0, TP - T)).contiguous()
+    g = torch.randn((MP_B, TP, d), generator=gen, device=dev).bfloat16()
+    g[:, T:] = 0
+    qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+    out = sdpa(qs, ks, vs)
+    go = g[:, :T].view(MP_B, T, heads, dh).transpose(1, 2)
+    ms, lib_ms = time_in_turns(
+        lambda: att.attention_qkv_bwd(qkvp, g, heads, valid_len=T),
+        lambda: torch.autograd.grad(out, (qs, ks, vs), go,
+                                    retain_graph=True))
+    flops, nb = attention_bwd_work(MP_B, TP, T, d, heads)
+    bound_ms, bound_by = bound(flops, nb)
+    bwd = {"ms": ms, "library_ms": lib_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "plain_ms": time_ms(
+               lambda: att.attention_qkv_bwd_plain(qkvp, g, heads,
+                                                   valid_len=T),
+               per_window=3)}
+    out = {"attention_qkv": fwd, "attention_qkv_bwd": bwd,
+           "shape": {"b": MP_B, "t": T, "tp": TP, "d": d, "heads": heads}}
+    emit({"phase": "times_kernels_mp", "card": nvidia_smi(), **out})
+    return out
+
+
+def _mp_layouts(world: int):
+    """The layouts a group of ``world`` ranks runs: ``(label, sharding,
+    kernel 8 launches a forward and kernel 4 a backward per rank)``."""
+    per_stage = (DEPTH // 2) * MP_MICRO
+    if world == 2:
+        return (("tp", {"model_parallel": 2, "data_parallel": 1}, DEPTH),
+                ("fsdp", {"fsdp": True, "data_parallel": 2}, DEPTH),
+                ("pp", {"pipeline_parallel": 2, "data_parallel": 1,
+                        "pipeline_microbatches": MP_MICRO}, per_stage))
+    return (("dp_tp_pp", {"pipeline_parallel": 2, "model_parallel": 2,
+                          "data_parallel": 1,
+                          "pipeline_microbatches": MP_MICRO}, per_stage),)
+
+
+def _mp_unpacked(grads: dict) -> dict:
+    """``{path: gradient}`` with the packed ``vit/blocks`` leaves split
+    into the module layout's ``block{i}`` paths."""
+    out = {}
+    for path, g in grads.items():
+        if path[:2] == ("vit", "blocks"):
+            for i in range(g.shape[0]):
+                out[("vit", f"block{i}") + path[2:]] = g[i]
+        else:
+            out[path] = g
+    return out
+
+
+def _mp_rank(rank, world, tmp, port, out):
+    """One rank of phase model_parallel (spawned; gloo on cuda:0)."""
+    import traceback
+
+    import torch.distributed as dist
+
+    from vit_spoof_detection_pda_tpu_torch.parallel import mesh as pm
+
+    try:
+        dev = torch.device("cuda", 0)
+        pm.init_multi_host("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                           rank=rank, world_size=world)
+        out.put((rank, _mp_rank_body(world, Path(tmp), dev)))
+    except BaseException:                       # noqa: BLE001 - reported
+        out.put((rank, {"error": traceback.format_exc()}))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _mp_step(label, sharding, dtype, params, u8, y, dev, ref, timed):
+    """One Trainer-built step of ``sharding`` at the global batch: the
+    launches from 0 just before it, its loss and whole gradient leaves
+    against the one-process step's, the layout's bytes of parameters and
+    moments, and (``timed``) the ms of later steps."""
+    from vit_spoof_detection_pda_tpu_torch.parallel import mesh as pm
+
+    f32 = dtype == torch.float32
+    ctx = exact_f32_matmul() if f32 else contextlib.nullcontext()
+    with ctx:
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated(dev)
+        trainer = sp_trainer(sp_config("float32" if f32 else "bfloat16",
+                                       **sharding), params, dev, dtype,
+                             dropout=0.0)
+        torch.cuda.synchronize()
+        st = trainer.state
+        held = sum(t.numel() * t.element_size() for t in st.leaves()
+                   + st.opt_state["mu"] + st.opt_state["nu"])
+        res = {"mesh": pm.axis_sizes(trainer.mesh),
+               "params_moments_bytes": held,
+               "memory_allocated_bytes": torch.cuda.memory_allocated(dev)
+               - mem0}
+        rows = pm.shard_batch({"image": u8, "label": y}, trainer.mesh)
+        batch = {"image": rows["image"].to(dev), "label": rows["label"].to(dev)}
+        reset_launches()
+        calls = att._context["tp_calls"]
+        s0 = sp_step0(trainer, batch)
+        res["launches"] = {k: v for k, v in att.LAUNCHES.items() if v}
+        res["tp_dispatches"] = att._context["tp_calls"] - calls
+        local = [s0["grads"][p] for p in st.paths]
+        full = (st.layout.gather_list(local) if st.layout is not None
+                else local)
+        grads = _mp_unpacked(dict(zip(st.paths, full)))
+        gaps = _leaf_gaps(grads, ref["grads"])
+        worst = max(gaps, key=gaps.get)
+        res.update(loss=s0["loss"], loss_single=ref["loss"],
+                   max_leaf_rel_l2=gaps[worst], worst_leaf=worst)
+        if st.layout is not None:
+            res["local_numel"] = {"/".join(p): w.numel() for p, w in
+                                  zip(st.paths, st.leaves())}
+        if timed:
+            res["step_ms"] = time_ms(
+                lambda: trainer.train_steps[None](trainer.state, batch),
+                windows=2, per_window=2, warmup=1)
+    del trainer, s0, grads, full, local
+    torch.cuda.empty_cache()
+    return res
+
+
+def _mp_rank_body(world: int, tmp: Path, dev) -> dict:
+    from vit_spoof_detection_pda_tpu_torch.parallel import mesh as pm
+
+    params = random_params(np.random.default_rng(SEED + 221))
+    u8, y = loop_faces(MP_B, 221)
+    refs = torch.load(tmp / "mp_ref.pt", map_location=dev)
+    res = {}
+    for label, sharding, per_pass in _mp_layouts(world):
+        if world == 4:
+            # DP x TP x PP: one forward, bf16 and f32, against the one
+            # process's scores
+            out = {}
+            for dt in (torch.bfloat16, torch.float32):
+                name = "bf16" if dt == torch.bfloat16 else "f32"
+                ctx = (exact_f32_matmul() if dt == torch.float32
+                       else contextlib.nullcontext())
+                with ctx:
+                    trainer = sp_trainer(sp_config(
+                        "float32" if dt == torch.float32 else "bfloat16",
+                        **sharding), params, dev, dt, dropout=0.0)
+                    rows = pm.shard_batch({"image": u8}, trainer.mesh)
+                    x = normalize(to_float(rows["image"].to(dev)))
+                    reset_launches()
+                    calls = att._context["tp_calls"]
+                    with torch.no_grad(), att.attention_sharding(
+                            trainer.mesh):
+                        logits = trainer.state.apply_fn(
+                            {"params": trainer.state.params}, x)
+                    torch.cuda.synchronize()
+                    want = refs["logits"][name]
+                    out[name] = {
+                        "mesh": pm.axis_sizes(trainer.mesh),
+                        "launches": {k: v for k, v in att.LAUNCHES.items()
+                                     if v},
+                        "tp_dispatches": att._context["tp_calls"] - calls,
+                        "scores": _score_gaps(logits, want),
+                        "max_abs_err": (logits - want).abs().max().item(),
+                        "tol": SP_F32_TOL * want.abs().max().item()}
+                    if dt == torch.bfloat16:
+                        out[name]["forward_ms"] = time_ms(
+                            lambda: trainer.state.apply_fn(
+                                {"params": trainer.state.params}, x),
+                            windows=2, per_window=2, warmup=1)
+                    del trainer, logits
+                    torch.cuda.empty_cache()
+            res[label] = out
+            continue
+        res[label] = {
+            "bf16": _mp_step(label, sharding, torch.bfloat16, params, u8, y,
+                             dev, refs["bf16"], timed=True),
+            "f32": _mp_step(label, sharding, torch.float32, params, u8, y,
+                            dev, refs["f32"], timed=False)}
+    return res
+
+
+def _mp_launches_ok(rep, dtype, per_pass) -> bool:
+    bwd = "attention_qkv_bwd" + ("_f32" if dtype == "f32" else "")
+    return rep["launches"] == {"attention_qkv": per_pass, bwd: per_pass}
+
+
+def phase_model_parallel(dev, tmp: Path) -> dict:
+    """Tensor parallelism, FSDP and the GPipe schedule on ViT-B/16 at full
+    width and depth (numpy-seeded weights and uint8 faces, dropout 0.1,
+    focal loss, AdamW), each built by the Trainer from config.sharding,
+    ranks as spawned processes sharing this card over gloo (NCCL refuses
+    two ranks on one GPU):
+
+    - 2 ranks: TP (data 1 x model 2), FSDP (data 2) and PP (data 1 x pipe
+      2, MP_MICRO microbatches of 4 rows, 6 layers a stage), one step each
+      at global B = MP_B in bf16 and in f32 (TF32 off), dropout off (the
+      bf16 and f32 dropout kernels draw different masks, which would
+      swamp the bf16-f32 gap the bound is taken from).  Exact launches
+      from 0 just before the step, per rank: TP and FSDP kernel 8 12
+      times and kernel 4 12 times (TP at 6 heads: 12 model-axis
+      dispatches), PP 6 x 4 of each.  The loss and every whole gradient
+      leaf (gathered from the ranks' slices) against the one-process
+      module-path step on the same weights and batch: bf16 within
+      MP_BOUND_FACTOR x the worst leaf's relative L2 gap between that
+      one-process step in bf16 and in f32 (two bf16 evaluations each sit
+      about that far from f32), f32 within MP_F32_TOL; the key third of
+      each qkv bias left out (_leaf_gaps).  FSDP's leaves of at least
+      fsdp_min_size elements hold half their elements; each rank's bytes
+      of parameters and Adam moments (and torch.cuda.memory_allocated
+      over the Trainer's construction) beside the one process's.  Each
+      rank's bf16 step ms beside the one process's (gloo-bound: no
+      yardstick of multi-card speed).
+    - 4 ranks: DP x TP x PP (data 1 x pipe 2 x model 2): one forward of
+      the train path, bf16 within phase 4's score bounds and f32 within
+      SP_F32_TOL of the one-process module forward; kernel 8 6 x 4 times
+      a rank, all through the model-axis dispatch.
+    """
+    params = random_params(np.random.default_rng(SEED + 221))
+    u8, y = loop_faces(MP_B, 221)
+    batch = {"image": torch.from_numpy(u8).to(dev),
+             "label": torch.from_numpy(y).to(dev)}
+    refs, single = {"logits": {}}, {}
+    for dt in (torch.bfloat16, torch.float32):
+        name = "bf16" if dt == torch.bfloat16 else "f32"
+        ctx = exact_f32_matmul() if name == "f32" else contextlib.nullcontext()
+        with ctx:
+            torch.cuda.synchronize()
+            mem0 = torch.cuda.memory_allocated(dev)
+            t = sp_trainer(sp_config("float32" if name == "f32"
+                                     else "bfloat16"), params, dev, dt,
+                           dropout=0.0)
+            st = t.state
+            single[name] = {
+                "params_moments_bytes": sum(
+                    w.numel() * w.element_size() for w in st.leaves()
+                    + st.opt_state["mu"] + st.opt_state["nu"]),
+                "memory_allocated_bytes":
+                    torch.cuda.memory_allocated(dev) - mem0}
+            s0 = sp_step0(t, batch)
+            refs[name] = {"loss": s0["loss"],
+                          "grads": {p: g.cpu() for p, g in
+                                    s0["grads"].items()}}
+            if name == "bf16":
+                single[name]["step_ms"] = time_ms(
+                    lambda: t.train_steps[None](t.state, batch),
+                    windows=2, per_window=2, warmup=1)
+            del t, s0, st
+            m = load_jax_params(sp_model(dt), params).to(dev).eval()
+            with torch.no_grad():
+                refs["logits"][name] = m(normalize(to_float(
+                    batch["image"]))).cpu()
+            del m
+    gaps = _leaf_gaps({p: g.to(dev) for p, g in refs["bf16"]["grads"].items()},
+                      {p: g.to(dev) for p, g in refs["f32"]["grads"].items()})
+    bf16_bound = MP_BOUND_FACTOR * max(gaps.values())
+    torch.save(refs, tmp / "mp_ref.pt")
+    del refs, batch
+    torch.cuda.empty_cache()
+
+    out, ok = {}, True
+    for world in (2, 4):
+        reports = run_ranks(_mp_rank, world, str(tmp), timeout=MP_TIMEOUT)
+        for label, sharding, per_pass in _mp_layouts(world):
+            reps = {r: reports[r][label] for r in sorted(reports)}
+            good = True
+            for r, rep in reps.items():
+                for dtype, v in rep.items():
+                    if world == 4:
+                        v["ok"] = bool(
+                            v["launches"] == {"attention_qkv": per_pass}
+                            and v["tp_dispatches"] == per_pass
+                            and (v["scores"]["max"] <= SCORE_TOL
+                                 and v["scores"]["mean"] <= SCORE_MEAN_TOL
+                                 if dtype == "bf16"
+                                 else v["max_abs_err"] <= v["tol"]))
+                    else:
+                        tol = bf16_bound if dtype == "bf16" else MP_F32_TOL
+                        v["tol"] = tol
+                        v["ok"] = bool(
+                            _mp_launches_ok(v, dtype, per_pass)
+                            and v["tp_dispatches"] == (
+                                DEPTH if label == "tp" else 0)
+                            and math.isfinite(v["loss"])
+                            and abs(v["loss"] - v["loss_single"])
+                            <= tol * abs(v["loss_single"])
+                            and v["max_leaf_rel_l2"] <= tol)
+                        if label == "fsdp":
+                            floor = Config().sharding.fsdp_min_size
+                            full = dict(zip(*reversed(tree_flatten(
+                                params["params"]))))
+                            halves = [v["local_numel"]["/".join(p)] * 2
+                                      == a.size for p, a in full.items()
+                                      if a.size >= floor]
+                            v["large_leaves_halved"] = (len(halves), all(
+                                halves))
+                            v["ok"] = v["ok"] and bool(halves) and all(halves)
+                        v.pop("local_numel", None)
+                    good = good and v["ok"]
+            ok = ok and good
+            emit({"phase": "model_parallel", "part": label, "ranks": world,
+                  "sharding": sharding, "backend": "gloo (ranks share "
+                  "cuda:0)", "batch": MP_B, "card": nvidia_smi(),
+                  "bf16_grad_bound": bf16_bound,
+                  "bf16_f32_worst_gap_single": max(gaps.values()),
+                  "f32_tol": MP_F32_TOL, "single_process": single,
+                  "reports": reps, "ok": good})
+            out[label] = reps[0]
+    if not ok:
+        raise AssertionError("model_parallel: a check failed (see the "
+                             "model_parallel lines above)")
+    return out
+
+
+def _timed(name, fn, *args):
+    """``fn(*args)``, its wall seconds printed on a line of their own."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    emit({"phase_seconds": name, "seconds": round(time.perf_counter() - t0,
+                                                  3)})
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card "
@@ -6781,75 +7178,98 @@ def main() -> int:
         return 2
     dev = torch.device("cuda")
     t0 = time.perf_counter()
-    phase_device()
-    phase_build()
-    main_err = phase_kernels(dev)
-    model, serve128, u8, launches = phase_slice(dev)
-    phase_serving(model, serve128)
-    low_err, progs = phase_kernels_lowlat(dev, model)
-    fns, small_launches = phase_slice_small(dev, model)
-    phase_http(model)
-    train_state, train_step, train_batch, train_launches = phase_train(dev)
-    rows, step_ms = phase_times(dev, model, serve128, u8, main_err, launches,
-                                train_launches, train_state, train_step,
-                                train_batch)
-    rows += phase_times_small(dev, model, progs, fns, low_err,
-                              small_launches)
+    run = _timed
+    run("device", phase_device)
+    run("build", phase_build)
+    main_err = run("kernels", phase_kernels, dev)
+    model, serve128, u8, launches = run("slice", phase_slice, dev)
+    run("serving", phase_serving, model, serve128)
+    low_err, progs = run("kernels_lowlat", phase_kernels_lowlat, dev, model)
+    fns, small_launches = run("slice_small", phase_slice_small, dev, model)
+    run("http", phase_http, model)
+    train_state, train_step, train_batch, train_launches = run(
+        "train", phase_train, dev)
+    rows, step_ms = run("times", phase_times, dev, model, serve128, u8,
+                        main_err, launches, train_launches, train_state,
+                        train_step, train_batch)
+    rows += run("times_small", phase_times_small, dev, model, progs, fns,
+                low_err, small_launches)
     del model, serve128, progs, fns, train_state, train_step, train_batch
-    aug_err = phase_kernels_aug(dev)
-    ctx, aug_launches = phase_slice_aug(dev)
-    rows += phase_times_aug(dev, ctx, aug_err, aug_launches, step_ms)
+    aug_err = run("kernels_aug", phase_kernels_aug, dev)
+    ctx, aug_launches = run("slice_aug", phase_slice_aug, dev)
+    rows += run("times_aug", phase_times_aug, dev, ctx, aug_err,
+                aug_launches, step_ms)
     del ctx
-    qkv_err = phase_kernels_qkv(dev)
+    qkv_err = run("kernels_qkv", phase_kernels_qkv, dev)
     with tempfile.TemporaryDirectory() as tmp:
-        ectx, eval_launches = phase_slice_eval(dev, Path(tmp))
-        rows += phase_times_eval(dev, ectx, qkv_err, eval_launches)
-        lctx = phase_slice_linear(dev, Path(tmp))
-        phase_analysis(dev, Path(tmp), ectx, lctx)
+        ectx, eval_launches = run("slice_eval", phase_slice_eval, dev,
+                                  Path(tmp))
+        rows += run("times_eval", phase_times_eval, dev, ectx, qkv_err,
+                    eval_launches)
+        lctx = run("slice_linear", phase_slice_linear, dev, Path(tmp))
+        run("analysis", phase_analysis, dev, Path(tmp), ectx, lctx)
     del ectx, lctx
-    train_err = phase_kernels_train(dev)
-    tctx, mode_launches = phase_train_modes(dev)
+    train_err = run("kernels_train", phase_kernels_train, dev)
+    tctx, mode_launches = run("train_modes", phase_train_modes, dev)
     with tempfile.TemporaryDirectory() as tmp:
-        loop_trainer, _loop_launches = phase_train_loop(dev, Path(tmp))
-        rows += phase_times_train_loop(dev, tctx, loop_trainer, train_err,
-                                       mode_launches)
+        loop_trainer, _loop_launches = run("train_loop", phase_train_loop,
+                                           dev, Path(tmp))
+        rows += run("times_train_loop", phase_times_train_loop, dev, tctx,
+                    loop_trainer, train_err, mode_launches)
     del loop_trainer
-    rows += phase_times_gemm(dev, phase_kernels_gemm(dev))
-    cli_err = phase_kernels_cli(dev)
-    phased_launches = phase_train_phased(dev, tctx)
+    rows += run("times_gemm", phase_times_gemm, dev,
+                run("kernels_gemm", phase_kernels_gemm, dev))
+    cli_err = run("kernels_cli", phase_kernels_cli, dev)
+    phased_launches = run("train_phased", phase_train_phased, dev, tctx)
     with tempfile.TemporaryDirectory() as tmp:
-        walls, doctor_launches, _ = phase_cli(dev, Path(tmp))
-    rows += phase_times_cli(dev, tctx, cli_err, phased_launches,
-                            doctor_launches, walls)
+        walls, doctor_launches, _ = run("cli", phase_cli, dev, Path(tmp))
+    rows += run("times_cli", phase_times_cli, dev, tctx, cli_err,
+                phased_launches, doctor_launches, walls)
     loss_fn = tctx["loss_fn"]
     del tctx
-    art_err = phase_kernels_artifact(dev)
-    ictx = phase_slice_int8(dev)
+    art_err = run("kernels_artifact", phase_kernels_artifact, dev)
+    ictx = run("slice_int8", phase_slice_int8, dev)
     with tempfile.TemporaryDirectory() as tmp:
-        actx = phase_artifact(dev, Path(tmp))
-        rows += phase_times_artifact(dev, ictx, actx, art_err)
+        actx = run("artifact", phase_artifact, dev, Path(tmp))
+        rows += run("times_artifact", phase_times_artifact, dev, ictx, actx,
+                    art_err)
     del ictx, actx
-    cp_err = phase_kernels_cp(dev)
+    cp_err = run("kernels_cp", phase_kernels_cp, dev)
     with tempfile.TemporaryDirectory() as tmp:
-        sctx = phase_slice_sp(dev, Path(tmp))
-    rows += phase_times_sp(dev, sctx, cp_err)
+        sctx = run("slice_sp", phase_slice_sp, dev, Path(tmp))
+    rows += run("times_sp", phase_times_sp, dev, sctx, cp_err)
     del sctx
-    long_err = phase_kernels_long(dev)
-    long_launches = phase_long(dev, long_ctx(dev, loss_fn))
+    long_err = run("kernels_long", phase_kernels_long, dev)
+    long_launches = run("long", phase_long, dev, long_ctx(dev, loss_fn))
     with tempfile.TemporaryDirectory() as tmp:
-        sp_ranks, sp_single = phase_slice_sp_long(dev, Path(tmp))
+        sp_ranks, sp_single = run("slice_sp_long", phase_slice_sp_long, dev,
+                                  Path(tmp))
     sp_long = sp_ranks[0]
-    rows += phase_times_long(dev, long_err, _sum_counts(
+    rows += run("times_long", phase_times_long, dev, long_err, _sum_counts(
         *long_launches.values(), sp_long["bf16"]["launches"],
         sp_long["f32"]["launches"],
         {"attention_qkv_two_pass": sp_single["bf16"].get("attention_qkv", 0)}))
-    rows += phase_f32_256(dev, loss_fn)
+    rows += run("f32_256", phase_f32_256, dev, loss_fn)
     with tempfile.TemporaryDirectory() as tmp:
-        codec = phase_native_codec(Path(tmp))
-        phase_shard_store(dev, Path(tmp), bool(codec["built"]))
+        codec = run("native_codec", phase_native_codec, Path(tmp))
+        run("shard_store", phase_shard_store, dev, Path(tmp),
+            bool(codec["built"]))
     with tempfile.TemporaryDirectory() as tmp:
-        phase_sharded_serving(dev, Path(tmp))
-        phase_aot(dev, Path(tmp))
+        run("sharded_serving", phase_sharded_serving, dev, Path(tmp))
+        run("aot", phase_aot, dev, Path(tmp))
+    mp_times = run("kernels_mp", phase_kernels_mp, dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        mp = run("model_parallel", phase_model_parallel, dev, Path(tmp))
+    for row in rows:
+        # kernels 8 and 4 on a model-parallel rank: its launches (rank 0,
+        # bf16; a step's for TP, FSDP and PP, a forward's for DP x TP x PP)
+        # and their times at the 2-way rank's shape
+        if row["name"] in ("attention_qkv", "attention_qkv_bwd"):
+            row["model_parallel_launches"] = {
+                label: rep["bf16"]["launches"].get(row["name"], 0)
+                for label, rep in mp.items()}
+            row["tp_rank_shape"] = {**mp_times["shape"],
+                                    **mp_times[row["name"]]}
     idle = [r["name"] for r in rows if not r["launches"]]
     if idle:
         raise AssertionError(f"kernels never launched on their paths: {idle}")

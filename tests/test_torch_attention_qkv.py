@@ -92,19 +92,39 @@ def test_dispatch_cpu_takes_the_plain_version_and_counts_no_launch():
 
 
 def test_dispatch_with_a_mesh_raises_naming_slice_6():
-    """Meshes came with the parallelism slice; what it left, a model axis
-    (head-sharded attention), raises naming ROADMAP Queue 1 item 9b."""
+    """Meshes came with the parallelism slice; a model axis (head-sharded
+    attention, JAX ``_tp_head_sharded`` :795) now runs: rank r's stream
+    holds the [q | k | v] of its H / n heads (``parallel/mesh.py::
+    head_major_index``), kernel 8 runs at H / n heads on it, and the
+    output is the whole attention's columns of those heads, as JAX's
+    ``_local_heads_attention`` gives them; heads that do not divide keep
+    the whole stream."""
     import torch.distributed as dist
     from torch.testing._internal.distributed.fake_pg import FakeStore
 
-    from vit_spoof_detection_pda_tpu_torch.parallel.mesh import make_mesh
+    from vit_spoof_detection_pda_tpu_torch.parallel.mesh import (
+        head_major_index, make_mesh)
 
     x = torch.tensor(_qkv(12, 2, 17, 64))
+    whole = tatt.fused_attention_qkv_plain(x, 4)
+    hm, dh = jatt._head_major_relayout(jnp.asarray(x.numpy()), 4)
     dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=2)
     try:
         mesh = make_mesh(data=1, model=2, device_type="cpu")
-        with pytest.raises(NotImplementedError, match="item 9b"):
-            tatt.dispatch_attention_qkv(x, 4, mesh=mesh)
+        calls = tatt._context["tp_calls"]
+        for r in range(2):
+            local = x[..., head_major_index(3 * 64, 2, r)]
+            got = tatt.dispatch_attention_qkv(local, 4, mesh=mesh)
+            assert got.shape == (2, 17, 32)
+            assert torch.equal(got, whole[..., r * 32:(r + 1) * 32])
+            want = jatt._local_heads_attention(hm[:, :, 2 * r:2 * r + 2], 2,
+                                               dh, True)
+            np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                       atol=2e-6, rtol=1e-5)
+        assert tatt._context["tp_calls"] == calls + 2
+        x3 = torch.tensor(_qkv(13, 2, 17, 48))
+        assert torch.equal(tatt.dispatch_attention_qkv(x3, 3, mesh=mesh),
+                           tatt.fused_attention_qkv_plain(x3, 3))
     finally:
         dist.destroy_process_group()
 

@@ -32,7 +32,8 @@ def test_doctor_no_failures_without_a_card(no_card):
         assert by_name[name]["status"] == OK, by_name[name]
     for name in ("backend", "device_exec", "device_memory", "mesh", "pallas"):
         assert by_name[name]["status"] == WARN, by_name[name]
-    assert "Queue 1 item 9" in by_name["mesh"]["note"]
+    assert "tensor parallelism, FSDP and the pipeline run" in by_name[
+        "mesh"]["note"]
     # the host codec builds wherever g++, libjpeg and libpng are: a PNG
     # round trip then; else a warning that carries the build's error
     codec = by_name["native_codec"]

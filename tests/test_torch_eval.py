@@ -259,13 +259,15 @@ def test_score_batches_pads_the_tail_and_keeps_order():
 
 def test_mesh_and_fastserve_options_raise():
     # fastserve scoring over a data mesh landed (serving_forward_sharded,
-    # tests/test_torch_sharded_serving.py); over a model axis it is
-    # ROADMAP Queue 1 item 9b
+    # tests/test_torch_sharded_serving.py), and over a model axis, whose
+    # ranks replicate the weights: that mesh is taken, and only the
+    # module's type is refused
     from types import SimpleNamespace
 
     tp = SimpleNamespace(mesh_dim_names=("data", "model"),
                          mesh=torch.zeros(4, 2))
-    with pytest.raises(NotImplementedError, match="item 9b"):
+    with pytest.raises(TypeError, match="supports ViTAntiSpoof and "
+                       "ViTLinearHead"):
         run_inference(TBright(), [], mesh=tp, fastserve=True)
     with pytest.raises(TypeError, match="supports ViTAntiSpoof and "
                        "ViTLinearHead"):

@@ -793,6 +793,45 @@ def test_attention_qkv_backward_on_card(cuda_device):
         _assert_close_f32(q32.grad[..., cols], want[..., cols])
 
 
+# a tensor-parallel rank's heads of ViT-B/16 (head dim 64): 6 of 12 at a
+# 2-way model axis (D 384), 3 at a 4-way one (D 192); B 16, T 197
+TP_CASES = [(16, 197, 384, 6), (16, 197, 192, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,t,d,heads", TP_CASES)
+def test_kernels_8_and_4_at_tensor_parallel_head_counts_on_card(
+        cuda_device, dtype, b, t, d, heads):
+    """Kernel 8 on a rank's fused ``[B, T, 3 D / n]`` stream and kernel 4
+    on it padded to Tp 200, each within 2 bf16 ulps (f32: f32 noise) of
+    its plain version, one launch each."""
+    f32 = dtype == torch.float32
+    rng = np.random.default_rng(b * t + heads)
+    qkv = torch.tensor(rng.standard_normal((b, t, 3 * d)).astype(np.float32),
+                       device=cuda_device).to(dtype)
+    before = tatt.LAUNCHES["attention_qkv"]
+    got = tatt.fused_attention_qkv(qkv, heads)
+    torch.cuda.synchronize()
+    assert tatt.LAUNCHES["attention_qkv"] == before + 1
+    close = _assert_close_f32 if f32 else _assert_close
+    close(got, tatt.fused_attention_qkv_plain(qkv, heads))
+    tp = 200
+    qkvp, g = _qkv_bwd_inputs(31, cuda_device, b, tp, t, d)
+    qkvp[:, t:] = 0
+    if f32:
+        qkvp, g = qkvp.float(), g.float()
+    name = "attention_qkv_bwd_f32" if f32 else "attention_qkv_bwd"
+    n0 = tatt.LAUNCHES[name]
+    got = tatt.attention_qkv_bwd(qkvp, g, heads, valid_len=t)
+    want = tatt.attention_qkv_bwd_plain(qkvp, g, heads, valid_len=t)
+    torch.cuda.synchronize()
+    assert tatt.LAUNCHES[name] == n0 + 1
+    for part in range(3):                   # dq, dk, dv
+        cols = slice(part * d, (part + 1) * d)
+        close(got[..., cols], want[..., cols])
+
+
 @pytest.mark.cuda
 def test_attention_qkv_kernel_rejects_what_it_cannot_take(cuda_device):
     qkv = torch.zeros((2, 197, 3 * 768), device=cuda_device,

@@ -3,9 +3,11 @@ mesh shapes and error cases against the JAX package's (its 8 virtual CPU
 devices; tests/test_parallel.py, tests/test_sequence_parallel.py,
 tests/test_sharding_config.py), the Megatron and FSDP rule tables leaf by
 leaf against JAX's on the same parameter tree, the Trainer's sharding
-rules, the record and batch sharding, and the branches that ROADMAP
-Queue 1 item 9b still owns, each raising and naming it (and mean pooling
-under a seq axis, which landed from it).
+rules, the record and batch sharding, and the branches of tensor
+parallelism, FSDP and fleet artifacts over a model axis on one process
+(their multi-rank parity is in tests/test_torch_tensor_parallel.py,
+test_torch_pipeline.py and test_torch_sharding_trainer.py), and mean
+pooling under a seq axis.
 
 A ``DeviceMesh`` needs a process group: the fixture ``world8`` joins an
 8-rank ``fake`` group (``FakeStore``: one process, no communication) and
@@ -185,17 +187,19 @@ def _cfg(**sharding):
 
 
 @pytest.mark.parametrize("sharding,exc,match", [
-    ({"model_parallel": 2}, NotImplementedError, "item 9b"),
-    ({"fsdp": True}, NotImplementedError, "item 9b"),
-    ({"pipeline_parallel": 2}, NotImplementedError, "item 9b"),
+    ({"model_parallel": 2}, ValueError, "1 devices not divisible by "
+     "model=2"),
+    ({"fsdp": True, "data_parallel": 2}, ValueError, "2x1 != 1 devices"),
+    ({"pipeline_parallel": 2}, ValueError, "1 devices not divisible by "
+     "pipe\\*model=2"),
     ({"model_parallel": 2, "seq_parallel": 2}, ValueError, "exclusive"),
     ({"seq_parallel": 2, "fsdp": True}, ValueError, "fsdp"),
     ({"seq_parallel": 2}, ValueError, "1 devices not divisible by seq=2"),
     ({"data_parallel": 2}, ValueError, "2x1 != 1 devices")])
 def test_trainer_sharding_rules(sharding, exc, match):
-    """On one rank: data and sequence layouts that need more ranks fail on
-    the rank count, tensor parallelism, FSDP and the pipeline name item
-    9b, and the JAX exclusivity errors hold."""
+    """On one rank: every layout that needs more ranks fails on the rank
+    count (JAX's messages: make_mesh, make_seq_mesh, make_pipe_mesh), and
+    the JAX exclusivity errors hold."""
     with pytest.raises(exc, match=match):
         ttrainer.check_sharding(_cfg(**sharding))
 
@@ -206,31 +210,55 @@ def test_trainer_sharding_rules_pass_and_build_no_mesh_on_one_rank():
 
 
 def test_trainer_refuses_a_model_axis(world8):
+    """A model axis no longer refuses: the Trainer builds over a (data 4,
+    model 2) mesh and holds this rank's Megatron slices (the multi-rank
+    runs are tests/test_torch_sharding_trainer.py's); FSDP on a mesh with
+    a model axis is JAX's ValueError."""
     mesh = pm.make_mesh(data=4, model=2, device_type="cpu")
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        ttrainer.check_sharding(_cfg(), mesh)
+    ttrainer.check_sharding(_cfg(), mesh)
+    with pytest.raises(ValueError, match="fsdp composes"):
+        ttrainer.check_sharding(_cfg(fsdp=True), mesh)
     module = TViT(embed_dim=64, depth=1, num_heads=2, hidden=16, img_size=32)
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        ttrainer.Trainer(_cfg(**{"data_parallel": 4, "model_parallel": 2}),
+    t = ttrainer.Trainer(_cfg(**{"data_parallel": 4, "model_parallel": 2}),
                          module, train_batches=lambda e, skip=0: iter(()),
                          val_batches=lambda: iter(()), steps_per_epoch=1,
                          device="cpu")
+    assert pm.axis_sizes(t.mesh) == {"data": 4, "model": 2}
+    blk = t.state.params["vit"]["block0"]
+    assert tuple(blk["attn"]["qkv"]["kernel"].shape) == (64, 96)
+    assert tuple(blk["mlp"]["fc2"]["kernel"].shape) == (128, 64)
+    mu = t.state.opt_state["mu"][t.state.paths.index(
+        ("vit", "block0", "attn", "qkv", "kernel"))]
+    assert tuple(mu.shape) == (64, 96)
 
 
 def test_item_9b_branches_raise_and_name_it(world8):
+    """The branches that raised until tensor parallelism and FSDP landed
+    now run on this one-process fake group: the dispatch on a model axis
+    takes the rank's heads, the parameter layouts hand back this rank's
+    slices, fastserve scoring over a model axis gets past the mesh to the
+    module's type."""
     tp = pm.make_mesh(data=4, model=2, device_type="cpu")
-    qkv = torch.zeros(2, 17, 3 * 64)
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        att.dispatch_attention_qkv(qkv, 4, mesh=tp)
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        with att.attention_sharding(tp):
-            att.dispatch_attention_qkv(qkv, 4)
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        pm.shard_params_fsdp({}, tp)
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        pm.shard_params({"w": torch.zeros(2)}, tp)
+    qkv = torch.zeros(2, 17, 3 * 32)
+    calls = att._context["tp_calls"]
+    assert att.dispatch_attention_qkv(qkv, 4, mesh=tp).shape == (2, 17, 32)
+    with att.attention_sharding(tp):
+        assert att.dispatch_attention_qkv(qkv, 4).shape == (2, 17, 32)
+    assert att._context["tp_calls"] == calls + 2
+    tree = {"vit": {"block0": {"attn": {"qkv": {
+        "kernel": torch.arange(64 * 192.).reshape(64, 192)}}}},
+        "w": torch.zeros(2)}
+    local = pm.shard_params(tree, tp, num_heads=4)
+    got = local["vit"]["block0"]["attn"]["qkv"]["kernel"]
+    want = tree["vit"]["block0"]["attn"]["qkv"]["kernel"][
+        :, pm.head_major_index(192, 2, 0)]
+    assert torch.equal(got, want) and torch.equal(local["w"], tree["w"])
+    dp = pm.make_mesh(data=8, model=1, device_type="cpu")
+    big = {"k": torch.arange(4 * 2048.).reshape(4, 2048), "b": torch.zeros(3)}
+    fs = pm.shard_params_fsdp(big, dp, min_size=1024)
+    assert torch.equal(fs["k"], big["k"][:, :256]) and fs["b"].shape == (3,)
     from vit_spoof_detection_pda_tpu_torch.eval.runner import run_inference
-    with pytest.raises(NotImplementedError, match="item 9b"):
+    with pytest.raises(TypeError, match="supports ViTAntiSpoof"):
         run_inference(torch.nn.Linear(2, 2), [], fastserve=True, mesh=tp)
     # mean pooling under a seq axis landed (its two-rank parity is in
     # tests/test_torch_sharded_serving.py); on this one-process fake group
@@ -294,10 +322,11 @@ def test_shard_for_host_and_batch_follow_the_data_axis(world8, monkeypatch):
 
 
 def test_fleet_artifacts_and_packed_checkpoints_name_item_9b(tmp_path):
-    """Both landed from ROADMAP Queue 1 item 9b: a fleet artifact over a
-    model axis still names it; a JAX checkpoint in the pipeline's packed
-    layout reads into the per-layer tree (bit for bit; the EMA shadow's
-    case is in tests/test_torch_sharded_serving.py)."""
+    """A fleet artifact over a model axis exports (the weights replicated
+    over it, the batch split over the data axis, the mesh recorded); a
+    JAX checkpoint in the pipeline's packed layout reads into the
+    per-layer tree (bit for bit; the EMA shadow's case is in
+    tests/test_torch_sharded_serving.py)."""
     from vit_spoof_detection_pda_tpu.parallel.pipeline import (
         pack_pipeline_params, unpack_pipeline_params)
     from vit_spoof_detection_pda_tpu.train.state import (
@@ -313,8 +342,11 @@ def test_fleet_artifacts_and_packed_checkpoints_name_item_9b(tmp_path):
     module = TViT(embed_dim=64, depth=2, num_heads=2, hidden=16, img_size=32)
     tp = SimpleNamespace(mesh_dim_names=("data", "model"),
                          mesh=torch.zeros(4, 2))
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        A.export_serving(module, mode="module", batch_size=8, mesh=tp)
+    _exported, _w, meta = A.export_serving(module, mode="module",
+                                           batch_size=8, img_size=32,
+                                           mesh=tp)
+    assert meta["mesh"] == {"axis_names": ["data", "model"],
+                            "shape": [4, 2]} and meta["batch_size"] == 8
     jm = JViT(patch_size=16, embed_dim=64, depth=2, num_heads=2, hidden=16)
     jstate = j_create(jm, j_opt(1e-3), jax.random.PRNGKey(0),
                       input_shape=(1, 32, 32, 3))

@@ -191,8 +191,9 @@ def test_fleet_artifact_round_trips_on_two_ranks(runs):
 
 
 def test_fleet_artifact_refusals_follow_jax(runs, tmp_path):
-    """tests/test_artifact.py::test_fleet_artifact_validation's cases,
-    and a fleet artifact loaded where no process group of its size is."""
+    """tests/test_artifact.py::test_fleet_artifact_validation's cases
+    (a model axis now exports, its weights replicated), and a fleet
+    artifact loaded where no process group of its size is."""
     from types import SimpleNamespace
 
     m = W.antispoof(runs["as"])
@@ -207,8 +208,11 @@ def test_fleet_artifact_refusals_follow_jax(runs, tmp_path):
         A.export_serving(m, mode="module", batch_size=None, mesh=mesh)
     tp = SimpleNamespace(mesh_dim_names=("data", "model"),
                          mesh=torch.zeros(1, 2))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9b"):
-        A.export_serving(m, mode="module", batch_size=8, mesh=tp)
+    # a model axis replicates the weights, as JAX's fleet program does
+    _e, _w, meta = A.export_serving(m, mode="module", batch_size=8,
+                                    img_size=32, mesh=tp)
+    assert meta["mesh"] == {"axis_names": ["data", "model"],
+                            "shape": [1, 2]} and meta["batch_size"] == 8
     with pytest.raises(ValueError, match="exported for 2 devices; 1 "
                        "visible"):
         A.load_serving_artifact(runs["dir"] / "fleet", device="cpu")

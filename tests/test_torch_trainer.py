@@ -278,12 +278,19 @@ def test_preemption_flag_clears_between_fits():
 
 
 def test_parallel_and_profile_settings_raise(tmp_path):
-    """The parallel settings raise; ``telemetry.profile_dir`` no longer
-    does: the first epoch is traced into it (utils/profiling.py)."""
+    """The parallel settings that need more ranks than this one process
+    fail on the rank count, with JAX's messages (the layouts themselves
+    train in tests/test_torch_sharding_trainer.py); ``telemetry.
+    profile_dir`` does not raise: the first epoch is traced into it
+    (utils/profiling.py)."""
     images, labels = _synthetic(16, seed=8)
-    for over in ({"sharding.model_parallel": 2}, {"sharding.fsdp": True},
-                 {"sharding.pipeline_parallel": 2}):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+    for over, match in (
+            ({"sharding.model_parallel": 2}, "not divisible by model=2"),
+            ({"sharding.fsdp": True, "sharding.data_parallel": 2},
+             "2x1 != 1 devices"),
+            ({"sharding.pipeline_parallel": 2},
+             "not divisible by pipe\\*model=2")):
+        with pytest.raises(ValueError, match=match):
             _port(over, images, labels, (images, labels))
     trace_dir = tmp_path / "trace"
     trainer = _port({"telemetry.profile_dir": str(trace_dir),

@@ -119,9 +119,8 @@ def check_mesh():
             return FAIL, {"error": "all-reduce over the ranks mismatched"}
     info = {"world_size": n, "backend": backend,
             "devices": torch.cuda.device_count(), "mesh": shape,
-            "note": "data and sequence parallelism run one process per "
-                    "rank (torchrun); tensor parallelism, FSDP and the "
-                    "pipeline are ROADMAP Queue 1 item 9b"}
+            "note": "data, sequence and tensor parallelism, FSDP and the "
+                    "pipeline run one process per rank (torchrun)"}
     return (OK if torch.cuda.is_available() else WARN), info
 
 

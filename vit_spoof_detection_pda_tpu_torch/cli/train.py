@@ -1,7 +1,8 @@
 """`train` command (JAX ``cli/train.py``): full fine-tune or
 hyperparameter sweep (``--sweep``), on the card unless ``--device cpu``;
 under ``torchrun --nproc-per-node N`` one rank per process on the mesh
-``sharding.*`` describes (data and sequence parallelism)."""
+``sharding.*`` describes (data, sequence and tensor parallelism, FSDP,
+the pipeline)."""
 
 from __future__ import annotations
 

@@ -16,7 +16,11 @@ On the card the ViT's attention core is kernel 8 (``ops/attention.py::
 dispatch_attention_qkv``); on the CPU its plain version.  Under a mesh
 (one process per rank) each data rank scores its share of the records
 (on the fastserve path its block of each global batch) and the scores
-are gathered back into record order.
+are gathered back into record order.  Under a model axis the module path
+head-shards (each rank its Megatron slices of the weights,
+``parallel/mesh.py::module_tp_state``); fastserve replicates the weights
+and shards the batch over the data axis only, as JAX's
+``serving_forward_sharded`` does.
 """
 
 from __future__ import annotations
@@ -53,17 +57,25 @@ def make_infer_fn(module, *, normalize: bool = True,
     the argmax of the logits, the reference's rule.  ``temperature``:
     P(live) = sigmoid((l1 - l0) / T), and ``pred`` cuts that.  ``mesh``:
     the forward runs under ``attention_sharding(mesh)`` on this rank's
-    rows."""
+    rows; with a model axis larger than 1 on this rank's Megatron slices
+    of the module's weights (the attention on its heads)."""
     if temperature is not None and float(temperature) <= 0.0:
         raise ValueError(f"temperature must be > 0, got {temperature}")
     dev = module_device(module)
     module.eval()
+    forward = module
+    from ..parallel.mesh import MODEL_AXIS, axis_sizes, module_tp_state
+    if mesh is not None and axis_sizes(mesh).get(MODEL_AXIS, 1) > 1:
+        local = module_tp_state(module, mesh)
+
+        def forward(x):
+            return torch.func.functional_call(module, local, (x,))
 
     @torch.inference_mode()
     def infer(batch):
         batch = torch.as_tensor(batch).to(dev)
         with exact_f32_matmul(), attention_sharding(mesh):
-            return infer_body(module, batch, normalize=normalize,
+            return infer_body(forward, batch, normalize=normalize,
                               input_dtype=input_dtype, threshold=threshold,
                               temperature=temperature)
 
@@ -96,17 +108,6 @@ def infer_body(forward, batch: torch.Tensor, *, normalize: bool = True,
     return {"prob1": prob1, "pred": pred}
 
 
-def _check_fastserve_mesh(mesh):
-    """Fastserve scoring shards the batch over the data axis and
-    replicates the weights; a model axis (tensor parallelism) is item
-    9b."""
-    from ..parallel.mesh import MODEL_AXIS, axis_sizes
-    if mesh is not None and axis_sizes(mesh).get(MODEL_AXIS, 1) > 1:
-        raise NotImplementedError(
-            "fastserve scoring over a model axis (tensor-parallel "
-            "weights) is not ported: ROADMAP Queue 1 item 9b")
-
-
 def make_fastserve_infer(module, *, device=None, mesh=None):
     """Throughput eval on the serving path (``models/fastserve.py``: bf16,
     tanh GELU, each encoder layer on the attention- and MLP-block
@@ -118,7 +119,8 @@ def make_fastserve_infer(module, *, device=None, mesh=None):
     ride the same trunk; any other module raises ``TypeError``.  With a
     ``mesh`` of more than one rank (JAX :130-137) each call takes the
     global batch and scores it through ``serving_forward_sharded``: each
-    data rank its block, the scores gathered in batch order."""
+    data rank its block (the ranks along a model axis the same block, the
+    weights replicated), the scores gathered in batch order."""
     from ..models import fastserve
     from ..models.convert import vit_linear_from_torch
     from ..models.vit import ViTAntiSpoof, ViTLinearHead, fold_normalization
@@ -139,7 +141,6 @@ def make_fastserve_infer(module, *, device=None, mesh=None):
     else:
         raise TypeError("fastserve eval supports ViTAntiSpoof and "
                         f"ViTLinearHead; got {type(module).__name__}")
-    _check_fastserve_mesh(mesh)
     sharded = mesh is not None and mesh.mesh.numel() > 1
 
     def infer(batch_u8):
@@ -220,10 +221,9 @@ def run_inference(module, records: Sequence[Record], *,
     (the ranks of one sequence group alike, through the
     sequence-parallel forward).  With ``fastserve`` every rank reads the
     global batches and ``serving_forward_sharded`` scores each data
-    rank's block of them (:func:`make_fastserve_infer`); a model axis
-    raises (ROADMAP Queue 1 item 9b)."""
-    if fastserve:
-        _check_fastserve_mesh(mesh)
+    rank's block of them (:func:`make_fastserve_infer`).  Under a model
+    axis the module path head-shards (:func:`make_infer_fn`) and
+    fastserve replicates the weights over it."""
     if fastserve and not normalize:
         raise ValueError("fastserve always folds normalization into the "
                          "weights; normalize=False is only supported on "

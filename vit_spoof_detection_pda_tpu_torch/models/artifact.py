@@ -320,16 +320,14 @@ def export_serving(module, *, mode: str = "module", batch_size=None,
 
 
 def _fleet_data_axis(mesh) -> int:
-    """The data axis size of a fleet mesh, every other axis 1: a fleet
-    shards the batch and replicates the weights (a model axis is
-    tensor parallelism, item 9b)."""
+    """The data axis size of a fleet mesh: a fleet shards the batch over
+    the data axis and replicates the weights over the others (a model
+    axis, as JAX's fleet program replicates its weights over it: the ranks
+    of a model group score the same block)."""
     from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, axis_sizes
     sizes = axis_sizes(mesh)
-    if sizes.get(MODEL_AXIS, 1) > 1:
-        raise NotImplementedError(
-            "a fleet artifact over a model axis (tensor-parallel weights) "
-            "is not ported: ROADMAP Queue 1 item 9b")
-    other = {k: v for k, v in sizes.items() if k != DATA_AXIS and v > 1}
+    other = {k: v for k, v in sizes.items()
+             if k not in (DATA_AXIS, MODEL_AXIS) and v > 1}
     if other:
         raise ValueError(f"a fleet artifact shards the batch over the "
                          f"data axis alone; the mesh also has {other}")

@@ -29,9 +29,14 @@ them, the attention on kernel 12 against the gathered keys (the mean
 pooling sums each rank's real tokens and adds the sums over the group);
 the heads' logits are seq rank 0's (the CLS token lives there), on every
 rank of the sequence group, with their gradient on seq rank 0 only, so
-each image's loss counts once.  With a ``data`` axis the head's dropout
-masks are drawn at the global batch shape and this rank's rows kept, so
-a run replays the single-card masks.  The serving path
+each image's loss counts once.  With a ``model`` axis (Megatron tensor
+parallelism, ``parallel/mesh.py::shard_params``) each layer holds this
+rank's columns of qkv and fc1 and its rows of proj and fc2: the
+attention runs kernel 8 on the rank's heads, and each sub-layer's
+partial sums are all-reduced once, the bias added after.  With a
+``data`` axis the head's dropout masks are drawn at the global batch
+shape and this rank's rows kept, so a run replays the single-card masks
+(the same masks on every model and pipe rank of a data group).  The serving path
 (``models/fastserve.py``) runs the same function on the block kernels
 over weights from :func:`fold_normalization`.
 """
@@ -46,7 +51,8 @@ from torch import nn
 from ..ops import attention as att
 from ..ops.gelu import _SQRT_2_OVER_PI, _SQRT_HALF, GELU, gelu
 from ..ops.image import IMAGENET_MEAN, IMAGENET_STD
-from ..parallel.mesh import DATA_AXIS, SEQ_AXIS, axis_rank, axis_sizes
+from ..parallel.mesh import (DATA_AXIS, MODEL_AXIS, SEQ_AXIS, axis_rank,
+                             axis_sizes)
 
 
 def _dense(x, weight, bias, dtype) -> torch.Tensor:
@@ -120,6 +126,33 @@ def _seq_logits(logits: torch.Tensor) -> torch.Tensor:
     return from_seq_rank0(logits, mesh.get_group(SEQ_AXIS))
 
 
+def _model_group(split: bool):
+    """The model group of the enclosing mesh when a sub-layer is split over
+    it (None on the single-card path or with the sub-layer kept whole)."""
+    mesh, sizes = _mesh_axes()
+    if sizes.get(MODEL_AXIS, 1) == 1 or not split:
+        return None
+    return mesh.get_group(MODEL_AXIS)
+
+
+def _check_local(layer: nn.Linear, full: int, n: int, what: str):
+    """Under a model axis the column-split product must hold this rank's
+    ``full / n`` output columns (``parallel/mesh.py::shard_params``)."""
+    if layer.weight.shape[0] != full // n:
+        raise ValueError(
+            f"{what} holds {layer.weight.shape[0]} output columns under a "
+            f"{n}-way model axis; expected this rank's {full // n} "
+            "(lay the parameters out with parallel.mesh.shard_params)")
+
+
+def _row_split(x, layer: nn.Linear, dtype, group) -> torch.Tensor:
+    """A row-split product: this rank's partial sums in ``dtype``, summed
+    over the model group, then the bias once."""
+    from ..parallel.collectives import reduce_from_group
+    part = F.linear(x.to(dtype), layer.weight.to(dtype))
+    return reduce_from_group(part, group) + layer.bias.to(dtype)
+
+
 def _single_device() -> bool:
     """No process group of more than one rank (JAX's
     ``jax.device_count() == 1``: a kernel per device, nothing sharded)."""
@@ -164,9 +197,23 @@ class Attention(nn.Module):
 
     def forward(self, x: torch.Tensor, valid_len=None) -> torch.Tensor:
         """``valid_len``: under a seq mesh, the real token count of the
-        whole stream (``x`` is this rank's block of it)."""
+        whole stream (``x`` is this rank's block of it).  Under a model
+        axis of n ranks that divides the heads, ``qkv`` and ``proj`` hold
+        this rank's heads: the input's gradient is summed over the model
+        group, kernel 8 runs on the rank's H / n heads, and proj's partial
+        sums are all-reduced before its bias."""
         b, t, d = x.shape
-        qkv = _linear(x, self.qkv, self.dtype)                  # [B, T, 3D]
+        mesh, sizes = _mesh_axes()
+        n = sizes.get(MODEL_AXIS, 1)
+        group = _model_group(self.num_heads % n == 0)
+        if n > 1 and self.capture:
+            raise ValueError("capture_attention reads the whole attention "
+                             "map, which no rank holds under a model axis")
+        if group is not None:
+            from ..parallel.collectives import copy_to_group
+            _check_local(self.qkv, 3 * d, n, "attn.qkv")
+            x = copy_to_group(x, group)
+        qkv = _linear(x, self.qkv, self.dtype)          # [B, T, 3D(/n)]
         if self.capture:
             dh = d // self.num_heads
             q, k, v = qkv.view(b, t, 3, self.num_heads, dh).unbind(2)
@@ -178,6 +225,8 @@ class Attention(nn.Module):
         else:
             out = att.dispatch_attention_qkv(qkv, self.num_heads,
                                              valid_len=valid_len)
+        if group is not None:
+            return _row_split(out, self.proj, self.dtype, group)
         return _linear(out, self.proj, self.dtype)
 
 
@@ -185,13 +234,25 @@ class MlpBlock(nn.Module):
     def __init__(self, dim: int, hidden_dim: int, gelu: str = "erf",
                  dtype=torch.float32):
         super().__init__()
-        self.dtype = dtype
+        self.dtype, self.hidden_dim = dtype, hidden_dim
         self.fc1 = nn.Linear(dim, hidden_dim)
         self.act = GELU(approximate=gelu == "tanh")
         self.fc2 = nn.Linear(hidden_dim, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Under a model axis of n ranks that divides the hidden width,
+        fc1 holds this rank's hidden columns and fc2 its rows: the input's
+        gradient is summed over the model group and fc2's partial sums are
+        all-reduced before its bias."""
+        n = _mesh_axes()[1].get(MODEL_AXIS, 1)
+        group = _model_group(self.hidden_dim % n == 0)
+        if group is not None:
+            from ..parallel.collectives import copy_to_group
+            _check_local(self.fc1, self.hidden_dim, n, "mlp.fc1")
+            x = copy_to_group(x, group)
         h = _gelu(_linear(x, self.fc1, self.dtype), self.act.approximate)
+        if group is not None:
+            return _row_split(h, self.fc2, self.dtype, group)
         return _linear(h, self.fc2, self.dtype)
 
 

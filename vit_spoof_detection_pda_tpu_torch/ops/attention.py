@@ -1161,10 +1161,11 @@ def fused_attention_qkv_cp(q, kv, num_heads: int, valid_len: int):
                               valid_len)
 
 
-# the mesh model code runs under, and the sequence-parallel dispatches
-# made (on any device; JAX's ``pallas_calls``), which tests and
-# parallel/dryrun.py read to see that the CP path ran
-_context = {"mesh": None, "cp_calls": 0}
+# the mesh model code runs under, whether the caller is a pipeline stage's
+# body (manual_attention), and the sequence- and tensor-parallel
+# dispatches made (on any device; JAX's ``pallas_calls``), which tests and
+# parallel/dryrun.py read to see that those paths ran
+_context = {"mesh": None, "manual": False, "cp_calls": 0, "tp_calls": 0}
 
 
 @contextlib.contextmanager
@@ -1181,8 +1182,26 @@ def attention_sharding(mesh=None):
         _context["mesh"] = prev
 
 
+@contextlib.contextmanager
+def manual_attention(mesh=None):
+    """Dispatch for the body of a pipeline stage (JAX ``manual_attention``
+    :624): the blocks run on this rank's microbatch inside
+    ``parallel/pipeline.py``'s schedule, under ``mesh`` (the pipeline's,
+    whatever mesh an enclosing :func:`attention_sharding` holds).  With a
+    ``model`` axis the attention runs on the rank's heads, as JAX's
+    ``_tp_head_sharded_nested`` (:771) does; without one kernel 8 runs on
+    the whole microbatch."""
+    prev = dict(_context)
+    _context.update(mesh=mesh, manual=True)
+    try:
+        yield
+    finally:
+        _context.update(mesh=prev["mesh"], manual=prev["manual"])
+
+
 def current_mesh():
-    """The mesh of the enclosing :func:`attention_sharding`, or None."""
+    """The mesh of the enclosing :func:`attention_sharding` (or
+    :func:`manual_attention`), or None."""
     return _context["mesh"]
 
 
@@ -1209,24 +1228,32 @@ def dispatch_attention_qkv(qkv, num_heads: int, *, mesh=None,
                            valid_len=None):
     """The attention core of ``models/vit.py::Attention`` (JAX
     ``dispatch_attention_qkv`` :663) under ``mesh`` (by default the
-    :func:`attention_sharding` context's):
+    :func:`attention_sharding` or :func:`manual_attention` context's):
 
     - no mesh, or a data-only mesh: kernel 8 on this rank's rows (its
       plain version on a CPU tensor);
-    - a ``seq`` axis larger than 1: :func:`_sp_sharded`, kernel 12 on the
-      local query block against the gathered keys; ``valid_len`` is the
-      real token count of the gathered stream (pad keys past it masked);
-    - a ``model`` axis larger than 1 (head-sharded attention) raises:
-      ROADMAP Queue 1 item 9b, as does JAX's ``manual_attention``."""
+    - a ``seq`` axis larger than 1 (outside a pipeline stage):
+      :func:`_sp_sharded`, kernel 12 on the local query block against the
+      gathered keys; ``valid_len`` is the real token count of the
+      gathered stream (pad keys past it masked);
+    - a ``model`` axis of n > 1 ranks (JAX ``_tp_head_sharded`` :795 and
+      ``_tp_head_sharded_nested`` :771): when n divides ``num_heads``,
+      ``qkv`` is this rank's stream ``[B, T, 3 D / n]``, the ``[q | k |
+      v]`` of its H / n heads (``models/vit.py::Attention`` projects onto
+      the rank's columns, ``parallel/mesh.py::head_major_index``), and
+      kernel 8 runs at H / n heads; the output ``[B, T, D / n]`` is the
+      rank's heads, the rows of proj it holds.  When n does not divide
+      the heads the layer was kept whole and ``qkv`` is the full stream:
+      kernel 8 at H heads, JAX's dense result."""
     mesh = _context["mesh"] if mesh is None else mesh
     if mesh is not None:
         from ..parallel.mesh import MODEL_AXIS, SEQ_AXIS, axis_sizes
         sizes = axis_sizes(mesh)
-        if sizes.get(MODEL_AXIS, 1) > 1:
-            raise NotImplementedError(
-                "head-sharded attention under a model axis (tensor "
-                "parallelism) is not ported: ROADMAP Queue 1 item 9b")
-        if sizes.get(SEQ_AXIS, 1) > 1:
+        n_model = sizes.get(MODEL_AXIS, 1)
+        if n_model > 1 and num_heads % n_model == 0:
+            _context["tp_calls"] += 1
+            return fused_attention_qkv(qkv, num_heads // n_model)
+        if sizes.get(SEQ_AXIS, 1) > 1 and not _context["manual"]:
             if valid_len is None:
                 raise ValueError("sequence-parallel attention needs "
                                  "valid_len, the real token count")

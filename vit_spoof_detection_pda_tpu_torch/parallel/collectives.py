@@ -1,6 +1,8 @@
-"""The collectives of the port's data- and sequence-parallel paths, with
-their gradients (what the JAX package gets from XLA: the ``all_gather``
-inside ``_sp_sharded`` and its transpose, GSPMD's gradient all-reduce).
+"""The collectives of the port's parallel paths, with their gradients
+(what the JAX package gets from XLA: the ``all_gather`` inside
+``_sp_sharded`` and its transpose, GSPMD's gradient all-reduce and the
+Megatron and FSDP collectives it derives from the specs, the pipeline's
+``ppermute`` and masked ``psum``).
 
 - :func:`all_gather_seq`: the sequence group's blocks of a ``[B, Tl, C]``
   tensor gathered along dim 1 into ``[B, n Tl, C]``; its backward is the
@@ -11,17 +13,36 @@ inside ``_sp_sharded`` and its transpose, GSPMD's gradient all-reduce).
   its backward keeps the rank's own rows of the cotangent.  Every rank
   computes the same loss on the gathered rows, so each rank's gradient is
   its own rows' share and the shares sum to the global gradient.
-- :func:`from_seq_rank0`: seq rank 0's tensor on every rank of the
-  sequence group; its gradient stays on seq rank 0 (zero elsewhere), so a
-  quantity computed on every rank from it counts once.
+- :func:`from_rank` (:func:`from_seq_rank0`): one rank's tensor on every
+  rank of the group; its gradient stays on that rank (zero elsewhere), so
+  a quantity computed on every rank from it counts once.  The pipeline
+  takes its last stage's outputs to every stage with it (JAX's masked
+  ``psum``, ``parallel/pipeline.py`` :225).
 - :func:`psum`: the group's sum of a tensor on every rank; its backward
   is the sum of the cotangents (JAX's ``psum`` transpose), so a quantity
-  that flows back on one rank only (a :func:`from_seq_rank0` result)
+  that flows back on one rank only (a :func:`from_rank` result)
   reaches every rank's share.  The mean pooling under a seq axis sums
   each rank's tokens with it.
-- :func:`all_reduce_sum` (the gradient all-reduce over the whole data x
-  seq group, one flat buffer), :func:`all_gather_rows` (no gradient) and
-  :func:`broadcast_params`.
+- Megatron's two operators on the model group: :func:`copy_to_group`
+  (identity forward, the backward all-reduces the cotangent: at the input
+  of a column-split product, whose rank computes only its columns' share
+  of the input's gradient) and :func:`reduce_from_group` (the forward
+  all-reduces the row-split product's partial sums, the backward is the
+  identity).  :func:`copy_to_group` over the pipe group also gives every
+  stage the embedding's gradient, which only stage 0's pipeline input
+  has.
+- :func:`fsdp_gather`: an FSDP leaf's chunks gathered along its split
+  dimension over the data group; its backward reduce-scatters (sums) the
+  cotangent, so each rank gets the global gradient of its own chunk and
+  the gradients and Adam moments stay sharded.
+- :func:`send_to` / :func:`recv_from`: the pipeline's hop to the next
+  stage (its backward hops back to the previous one), JAX's
+  ``ppermute``.  Under NCCL a tensor is sent from the card; under gloo,
+  whose point-to-point calls take CPU tensors only, it goes through host
+  memory.  The group's backend picks the path.
+- :func:`all_reduce_sum` (a gradient all-reduce over a group, one flat
+  buffer), :func:`all_gather_rows` and :func:`gather_dim` (no
+  gradient) and :func:`broadcast_params`.
 
 Each runs on the group's own backend with the same calls: NCCL across
 cards, and gloo, which ``chip_smoke.py`` uses to run several ranks on one
@@ -109,23 +130,30 @@ def all_gather_rows(x: torch.Tensor, group) -> torch.Tensor:
                       for i, c in enumerate(counts)])
 
 
-class _FromSeqRank0(torch.autograd.Function):
+class _FromRank(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.first = dist.get_rank(group) == 0
+    def forward(ctx, x, group, src):
+        ctx.mine = dist.get_rank(group) == src
         out = x.detach().clone().contiguous()
-        dist.broadcast(out, src=dist.get_global_rank(group, 0), group=group)
+        dist.broadcast(out, src=dist.get_global_rank(group, src),
+                       group=group)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        return (g if ctx.first else torch.zeros_like(g)), None
+        return (g if ctx.mine else torch.zeros_like(g)), None, None
+
+
+def from_rank(x: torch.Tensor, group, src: int) -> torch.Tensor:
+    """Group rank ``src``'s ``x`` on every rank of ``group`` (same shape
+    everywhere); the gradient flows back on ``src`` only."""
+    return _FromRank.apply(x, group, src)
 
 
 def from_seq_rank0(x: torch.Tensor, group) -> torch.Tensor:
     """Rank 0's ``x`` on every rank of ``group`` (same shape everywhere);
     the gradient flows back on rank 0 only."""
-    return _FromSeqRank0.apply(x, group)
+    return _FromRank.apply(x, group, 0)
 
 
 class _Psum(torch.autograd.Function):
@@ -147,6 +175,93 @@ def psum(x: torch.Tensor, group) -> torch.Tensor:
     """The sum of ``x`` over the ranks of ``group``, on each of them;
     differentiable (the backward sums the cotangents over the group)."""
     return _Psum.apply(x, group)
+
+
+class _CopyToGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.group)
+        return g, None
+
+
+def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` unchanged; its gradient is the sum of the group's cotangents
+    (Megatron's ``f``)."""
+    return _CopyToGroup.apply(x, group)
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.detach().clone().contiguous()
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def reduce_from_group(x: torch.Tensor, group) -> torch.Tensor:
+    """The group's sum of ``x`` on every rank, in ``x.dtype``; the gradient
+    passes through unchanged (Megatron's ``g``)."""
+    return _ReduceFromGroup.apply(x, group)
+
+
+def gather_dim(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The group's chunks of ``x`` concatenated along ``dim`` in rank
+    order (no gradient)."""
+    full = _gather0(x.detach().movedim(dim, 0), group)
+    return full.movedim(0, dim).contiguous()
+
+
+class _FsdpGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return gather_dim(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        part = _reduce_scatter0(g.movedim(ctx.dim, 0), ctx.group)
+        return part.movedim(0, ctx.dim).contiguous(), None, None
+
+
+def fsdp_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The full leaf from the group's chunks of it along ``dim``;
+    differentiable (the backward reduce-scatters the cotangent: this
+    rank's chunk of the group's summed gradient)."""
+    return _FsdpGather.apply(x, group, dim)
+
+
+def _via_host(group, t: torch.Tensor) -> bool:
+    return t.is_cuda and dist.get_backend(group) == "gloo"
+
+
+def send_to(x: torch.Tensor, group, dst: int):
+    """Start sending ``x`` to group rank ``dst``; returns the work to wait
+    on (the send buffer lives in it until then)."""
+    buf = x.detach().contiguous()
+    if _via_host(group, buf):
+        buf = buf.cpu()
+    work = dist.isend(buf, dst=dist.get_global_rank(group, dst), group=group)
+    return work, buf
+
+
+def recv_from(shape, dtype, device, group, src: int) -> torch.Tensor:
+    """Receive a tensor of ``shape`` and ``dtype`` from group rank
+    ``src`` onto ``device``."""
+    host = device.type == "cuda" and dist.get_backend(group) == "gloo"
+    buf = torch.empty(shape, dtype=dtype,
+                      device="cpu" if host else device)
+    dist.recv(buf, src=dist.get_global_rank(group, src), group=group)
+    return buf.to(device) if host else buf
 
 
 def all_reduce_sum(tensors, group=None):

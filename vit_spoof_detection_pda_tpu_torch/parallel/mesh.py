@@ -13,18 +13,26 @@ dimension names are the JAX axis names:
   (``ops/attention.py::_sp_sharded``);
 - ``("data", "model")`` (:func:`make_mesh`): with ``model == 1`` pure
   data parallelism (each rank runs the single-card path on its rows and
-  the gradients are all-reduced, ``parallel/collectives.py``).  A model
-  axis larger than 1 (Megatron TP), FSDP and the pipeline are ROADMAP
-  Queue 1 item 9b and raise where they would run.
+  the gradients are all-reduced, ``parallel/collectives.py``), optionally
+  with the FSDP layout (:func:`shard_params_fsdp`); a model axis larger
+  than 1 is Megatron tensor parallelism (:func:`shard_params`): each rank
+  holds its columns of qkv and fc1 and its rows of proj and fc2, and the
+  attention runs kernel 8 on the rank's heads;
+- ``("data", "pipe"[, "model"])`` (:func:`make_pipe_mesh`): the GPipe
+  schedule of ``parallel/pipeline.py``, each stage holding depth / pipe
+  layers, with tensor parallelism inside each stage when ``model > 1``.
 
 The Megatron and FSDP rule tables (:func:`param_specs`,
 :func:`fsdp_param_specs`) are kept as data over the JAX-layout parameter
 tree, each spec an axis-name tuple (``()`` replicated, ``(None,
-"model")`` a column split).
+"model")`` a column split).  :class:`ParamLayout` applies them: each rank
+keeps only its own slice of a sharded leaf, and gathers the full leaf
+where a checkpoint or an evaluation needs it.
 """
 
 from __future__ import annotations
 
+import math
 import os
 import re
 from typing import Optional
@@ -34,8 +42,7 @@ import torch
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
 SEQ_AXIS = "seq"
-
-_ITEM_9B = "ROADMAP Queue 1 item 9b"
+PIPE_AXIS = "pipe"
 
 
 def _dist():
@@ -139,9 +146,8 @@ def make_seq_mesh(seq: int, data: int = 1, *,
 
 def check_sharding(sharding_cfg):
     """The JAX ``mesh_from_config`` rules (:73) on a ``ShardingConfig``:
-    raise ``ValueError`` on layouts that cannot compose, and
-    ``NotImplementedError`` for the pipeline (item 9b).  Returns
-    ``(data, model, seq)``."""
+    raise ``ValueError`` on layouts that cannot compose.  Returns
+    ``(data, model, seq, pipe)``."""
     model = int(getattr(sharding_cfg, "model_parallel", 1))
     seq = int(getattr(sharding_cfg, "seq_parallel", 1))
     pipe = int(getattr(sharding_cfg, "pipeline_parallel", 1))
@@ -158,20 +164,50 @@ def check_sharding(sharding_cfg):
             "fsdp composes with pure data parallelism only (got "
             f"model_parallel={model}, seq_parallel={seq}, "
             f"pipeline_parallel={pipe})")
-    if pipe > 1:
-        raise NotImplementedError(
-            f"sharding.pipeline_parallel={pipe} (the GPipe schedule, "
-            f"parallel/pipeline.py) is not ported: {_ITEM_9B}")
-    return data, model, seq
+    return data, model, seq, pipe
+
+
+def pipe_mesh_shape(pipe: int, data: int, model: int, n: int):
+    """``(data, pipe, model)`` sizes of a pipeline mesh over ``n`` ranks
+    with the JAX checks (``parallel/pipeline.py::make_pipe_mesh`` :72):
+    ``data = -1`` takes the remaining ranks."""
+    if data == -1:
+        if n % (pipe * model):
+            raise ValueError(f"{n} devices not divisible by "
+                             f"pipe*model={pipe * model}")
+        data = n // (pipe * model)
+    if data * pipe * model != n:
+        raise ValueError(f"mesh {data}x{pipe}x{model} != {n} devices")
+    return data, pipe, model
+
+
+def make_pipe_mesh(pipe: int, data: int = 1, model: int = 1, *,
+                   device_type: Optional[str] = None):
+    """A (data, pipe[, model]) mesh for the GPipe schedule (JAX
+    ``parallel/pipeline.py`` :72): ``model > 1`` adds a tensor-parallel
+    axis inside each stage, laid out minor-most so a stage's per-layer
+    all-reduces stay among adjacent ranks; ``data=-1`` takes the
+    remaining ranks."""
+    data, pipe, model = pipe_mesh_shape(pipe, data, model, world_size())
+    if model == 1:
+        return _device_mesh((data, pipe), (DATA_AXIS, PIPE_AXIS),
+                            device_type)
+    return _device_mesh((data, pipe, model),
+                        (DATA_AXIS, PIPE_AXIS, MODEL_AXIS), device_type)
 
 
 def config_layout(sharding_cfg, n: Optional[int] = None) -> dict:
     """``{axis name: size}`` of the mesh :func:`mesh_from_config` builds
-    over ``n`` ranks (the process group's by default): ``seq_parallel >
-    1`` -> (data, seq), otherwise (data, model); ``data_parallel = -1``
+    over ``n`` ranks (the process group's by default):
+    ``pipeline_parallel > 1`` -> (data, pipe[, model]); ``seq_parallel >
+    1`` -> (data, seq); otherwise (data, model); ``data_parallel = -1``
     takes the remaining ranks."""
-    data, model, seq = check_sharding(sharding_cfg)
+    data, model, seq, pipe = check_sharding(sharding_cfg)
     n = world_size() if n is None else n
+    if pipe > 1:
+        shape = pipe_mesh_shape(pipe, data, model, n)
+        names = (DATA_AXIS, PIPE_AXIS, MODEL_AXIS)
+        return dict(zip(names[:2 if model == 1 else 3], shape))
     if seq > 1:
         return dict(zip((DATA_AXIS, SEQ_AXIS),
                         mesh_shape(data, seq, n, "seq")))
@@ -228,7 +264,7 @@ def shard_batch(batch: dict, mesh, *, device=None) -> dict:
 # Tensor-parallel rules for the JAX-layout parameter tree, matched against
 # the '/'-joined path; first hit wins.  Column-split the up-projections
 # (qkv, fc1), row-split the down-projections (proj, fc2): the Megatron
-# pattern (JAX :145).  Training under them is item 9b.
+# pattern (JAX :145).
 _TP_RULES = [
     (re.compile(r".*attn/qkv/kernel$"), (None, MODEL_AXIS)),
     (re.compile(r".*attn/qkv/bias$"), (MODEL_AXIS,)),
@@ -271,7 +307,7 @@ def fsdp_param_specs(params, n_data: int, min_size: int = 2 ** 16) -> dict:
     and leaves with no divisible axis stay replicated."""
 
     def spec_for(_path, leaf):
-        if leaf.numel() < min_size:
+        if math.prod(leaf.shape) < min_size:
             return ()
         dims = [(d, i) for i, d in enumerate(leaf.shape) if d % n_data == 0]
         if not dims:
@@ -283,23 +319,245 @@ def fsdp_param_specs(params, n_data: int, min_size: int = 2 ** 16) -> dict:
     return _map_tree(spec_for, params)
 
 
-def shard_params(params, mesh):
-    """The parameters replicated on every rank of ``mesh``: each leaf
-    broadcast from rank 0 in place (the JAX ``shard_params`` of a mesh
-    without a model axis).  A model axis larger than 1 raises (item
-    9b)."""
+def tree_flatten(tree, path=()):
+    """``(leaves, paths)`` of a nested dict, keys in sorted order (JAX's
+    order for dicts)."""
+    if isinstance(tree, dict):
+        leaves, paths = [], []
+        for k in sorted(tree):
+            lv, pt = tree_flatten(tree[k], path + (k,))
+            leaves += lv
+            paths += pt
+        return leaves, paths
+    return [tree], [path]
+
+
+def tree_unflatten(paths, leaves) -> dict:
+    """The nested dict with ``leaves`` at ``paths``."""
+    out: dict = {}
+    for path, leaf in zip(paths, leaves):
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
+    return out
+
+
+_QKV = re.compile(r".*attn/qkv/(kernel|bias)$")
+
+
+def head_major_index(width: int, n: int, r: int) -> torch.Tensor:
+    """The columns of a fused ``[q | k | v]`` dimension of ``width`` = 3D
+    that model rank ``r`` of ``n`` holds: its D/n columns of each of q, k
+    and v, in that order.  Its heads' projection is then the fused ``[B,
+    T, 3 D/n]`` stream kernel 8 takes at H/n heads, with no shuffle of
+    the activations (JAX relabels the activations instead,
+    ``ops/attention.py::_head_major_relayout`` :748)."""
+    d = width // 3
+    dl = d // n
+    base = torch.arange(r * dl, (r + 1) * dl)
+    return torch.cat([base, base + d, base + 2 * d])
+
+
+class ParamLayout:
+    """Where each leaf of a flattened parameter tree lives over ``mesh``:
+    ``specs[i]`` names, per dimension, the mesh axis it is split over
+    (None: whole).  A split dimension holds the rank's contiguous chunk,
+    except the model split of a fused qkv leaf, which holds the rank's
+    heads (:func:`head_major_index`)."""
+
+    def __init__(self, mesh, paths, specs):
+        self.mesh = mesh
+        self.paths = [tuple(p) for p in paths]
+        self.specs = [tuple(s) for s in specs]
+        self.sizes = axis_sizes(mesh)
+        self.head_major = [
+            bool(_QKV.match("/".join(map(str, p)))) and MODEL_AXIS in s
+            for p, s in zip(self.paths, self.specs)]
+
+    def axes(self, i: int) -> tuple:
+        """The mesh axes leaf ``i`` is split over."""
+        return tuple(a for a in self.specs[i] if a is not None)
+
+    def shard(self, full: torch.Tensor, i: int) -> torch.Tensor:
+        """This rank's slice of leaf ``i``'s full value (a copy)."""
+        x = full
+        for dim, axis in enumerate(self.specs[i]):
+            if axis is None:
+                continue
+            n, r = self.sizes[axis], axis_rank(self.mesh, axis)
+            if self.head_major[i] and axis == MODEL_AXIS:
+                idx = head_major_index(x.shape[dim], n, r).to(x.device)
+                x = x.index_select(dim, idx)
+            else:
+                per = x.shape[dim] // n
+                x = x.narrow(dim, r * per, per)
+        return x.clone(memory_format=torch.contiguous_format)
+
+    def gather(self, local: torch.Tensor, i: int, axes=None, *,
+               differentiable: bool = False) -> torch.Tensor:
+        """Leaf ``i``'s value gathered over ``axes`` (every axis it is
+        split over by default: the full leaf) from every rank's slice, a
+        collective over those axes that every rank calls in one order.
+        ``differentiable``: the FSDP gather, whose backward
+        reduce-scatters the cotangent (``collectives.fsdp_gather``; not
+        for the model axis's head-major split)."""
+        from .collectives import fsdp_gather, gather_dim
+        x = local if differentiable else local.detach()
+        for dim, axis in enumerate(self.specs[i]):
+            if axis is None or (axes is not None and axis not in axes):
+                continue
+            group = self.mesh.get_group(axis)
+            if differentiable:
+                x = fsdp_gather(x, group, dim)
+                continue
+            x = gather_dim(x, group, dim)
+            if self.head_major[i] and axis == MODEL_AXIS:
+                n = self.sizes[axis]
+                order = torch.cat([head_major_index(x.shape[dim], n, r)
+                                   for r in range(n)]).to(x.device)
+                full = torch.empty_like(x)
+                full.index_copy_(dim, order, x)
+                x = full
+        return x
+
+    def gather_list(self, tensors, axes=None, *,
+                    differentiable: bool = False) -> list:
+        """:meth:`gather` of each leaf in order."""
+        return [self.gather(t, i, axes, differentiable=differentiable)
+                for i, t in enumerate(tensors)]
+
+    def gather_tree(self, tree, axes=None, *, differentiable: bool = False):
+        """The tree (this layout's structure) with :meth:`gather_list`'s
+        leaves."""
+        leaves, paths = tree_flatten(tree)
+        return tree_unflatten(paths, self.gather_list(
+            leaves, axes, differentiable=differentiable))
+
+    def norm_f32(self, tensors) -> torch.Tensor:
+        """The global L2 norm of tensors in this layout, each element
+        counted once: a split leaf's squares are summed over the axes it
+        is split over, a replicated leaf's counted as they are.  Squares
+        summed in f32; a collective every rank calls in one order."""
+        import torch.distributed as dist
+        by_axes: dict = {}
+        for i, t in enumerate(tensors):
+            sq = t.float().square().sum()
+            key = self.axes(i)
+            by_axes[key] = by_axes.get(key, 0) + sq
+        total = torch.zeros((), dtype=torch.float32,
+                            device=tensors[0].device)
+        for key in sorted(by_axes, key=str):
+            part = by_axes[key].reshape(1).clone()
+            for axis in key:
+                dist.all_reduce(part, group=self.mesh.get_group(axis))
+            total = total + part[0]
+        return torch.sqrt(total)
+
+
+def _divides(leaf_shape, spec, sizes) -> bool:
+    return all(a is None or leaf_shape[d] % sizes.get(a, 1) == 0
+               for d, a in enumerate(spec))
+
+
+def tp_specs(paths, leaves, mesh, num_heads: Optional[int] = None) -> list:
+    """Megatron specs of flattened leaves over ``mesh``'s model axis:
+    :func:`param_specs`'s rules, a leaf replicated where its split
+    dimension does not divide by the axis, and the attention's qkv and
+    proj replicated where the heads do not (``num_heads % model``): that
+    layer then computes every head on every rank, the dense result of
+    JAX's fallback (``ops/attention.py:732``)."""
+    sizes = axis_sizes(mesh)
+    n = sizes.get(MODEL_AXIS, 1)
+    out = []
+    for path, leaf in zip(paths, leaves):
+        name = "/".join(map(str, path))
+        spec = _spec_for_path(name, leaf.ndim) if n > 1 else ()
+        if spec and "/attn/" in f"/{name}" and num_heads and num_heads % n:
+            spec = ()
+        if spec and not _divides(leaf.shape, spec, sizes):
+            spec = ()
+        out.append(spec or (None,) * leaf.ndim)
+    return out
+
+
+def tp_layout(params, mesh, num_heads: Optional[int] = None) -> ParamLayout:
+    """:class:`ParamLayout` of a JAX-layout tree under tensor parallelism
+    (:func:`tp_specs`)."""
+    leaves, paths = tree_flatten(params)
+    return ParamLayout(mesh, paths, tp_specs(paths, leaves, mesh,
+                                             num_heads))
+
+
+def fsdp_layout(params, mesh, min_size: int = 2 ** 16) -> ParamLayout:
+    """:class:`ParamLayout` of a JAX-layout tree under FSDP
+    (:func:`fsdp_param_specs` over the mesh's data axis)."""
+    leaves, paths = tree_flatten(params)
+    specs = tree_flatten(fsdp_param_specs(
+        params, axis_sizes(mesh).get(DATA_AXIS, 1), min_size))[0]
+    return ParamLayout(mesh, paths, [s or (None,) * leaf.ndim
+                                     for s, leaf in zip(specs, leaves)])
+
+
+def _local_tree(params, layout: ParamLayout) -> dict:
+    leaves, paths = tree_flatten(params)
+    return tree_unflatten(paths, [layout.shard(_as_tensor(x), i)
+                              for i, x in enumerate(leaves)])
+
+
+def _as_tensor(x) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x
+    import numpy as np
+    return torch.as_tensor(np.asarray(x))
+
+
+def shard_params(params, mesh, num_heads: Optional[int] = None):
+    """The parameters laid out over ``mesh`` (JAX :184): on a mesh without
+    a model axis every rank holds the whole tree, broadcast from rank 0 in
+    place; with a model axis larger than 1 each rank gets its Megatron
+    slices (:func:`tp_specs`; ``num_heads`` keeps the attention whole
+    where the heads do not divide), a new tree of this rank's leaves."""
     if axis_sizes(mesh).get(MODEL_AXIS, 1) > 1:
-        raise NotImplementedError(
-            f"tensor-parallel parameter layouts (a model axis > 1) are not "
-            f"ported: {_ITEM_9B}")
+        return _local_tree(params, tp_layout(params, mesh, num_heads))
     from .collectives import broadcast_params
-    leaves = []
-    _map_tree(lambda _p, leaf: leaves.append(leaf), params)
-    broadcast_params(leaves)
+    broadcast_params(tree_flatten(params)[0])
     return params
 
 
 def shard_params_fsdp(params, mesh, min_size: int = 2 ** 16):
-    """FSDP parameter layout (FSDP2): not ported (item 9b)."""
-    raise NotImplementedError(
-        f"FSDP (sharding.fsdp) is not ported: {_ITEM_9B}")
+    """The FSDP layout (JAX :194): each leaf of at least ``min_size``
+    elements keeps this rank's chunk of its largest data-divisible axis
+    (:func:`fsdp_param_specs`); smaller leaves stay whole.  Returns a new
+    tree of this rank's leaves."""
+    return _local_tree(params, fsdp_layout(params, mesh, min_size))
+
+
+def module_tp_state(module, mesh) -> dict:
+    """A port ViT module's state dict with each encoder layer's Megatron
+    slices for this rank of ``mesh``'s model axis (the module path's
+    tensor-parallel eval over full weights): qkv's heads and fc1's columns
+    (``nn.Linear`` rows), proj's and fc2's input columns.  A layer whose
+    heads or hidden width do not divide keeps that half whole."""
+    from ..models.vit import Attention, MlpBlock
+    n = axis_sizes(mesh).get(MODEL_AXIS, 1)
+    r = axis_rank(mesh, MODEL_AXIS)
+    sd = dict(module.state_dict())
+    for name, mod in module.named_modules():
+        if isinstance(mod, Attention) and mod.num_heads % n == 0:
+            idx = head_major_index(mod.qkv.weight.shape[0], n, r)
+            sd[f"{name}.qkv.weight"] = mod.qkv.weight.detach()[
+                idx.to(mod.qkv.weight.device)]
+            sd[f"{name}.qkv.bias"] = mod.qkv.bias.detach()[
+                idx.to(mod.qkv.bias.device)]
+            per = mod.proj.weight.shape[1] // n
+            sd[f"{name}.proj.weight"] = mod.proj.weight.detach()[
+                :, r * per:(r + 1) * per].contiguous()
+        elif isinstance(mod, MlpBlock) and mod.fc1.weight.shape[0] % n == 0:
+            per = mod.fc1.weight.shape[0] // n
+            sl = slice(r * per, (r + 1) * per)
+            sd[f"{name}.fc1.weight"] = mod.fc1.weight.detach()[sl]
+            sd[f"{name}.fc1.bias"] = mod.fc1.bias.detach()[sl]
+            sd[f"{name}.fc2.weight"] = mod.fc2.weight.detach()[
+                :, sl].contiguous()
+    return sd

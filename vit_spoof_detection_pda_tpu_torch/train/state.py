@@ -10,6 +10,12 @@ gradients it tracks optax: the clip divides by the norm alone (no
 read at the update count before the update, Adam's bias corrections and
 the decoupled weight decay are optax's.
 
+Under a sharded layout (``parallel/mesh.py::ParamLayout``: tensor
+parallelism, FSDP, the pipeline) each rank holds its slices of the
+parameters and AdamW's moments, EMA and accumulation run on them as they
+are; the clip's global norm counts each element once
+(``ParamLayout.norm_f32``).
+
 **The update happens in place**: :meth:`Optimizer.update` and
 :meth:`TrainState.apply_gradients` overwrite the parameter tensors and
 the optimizer state instead of returning new ones (the JAX state is
@@ -26,30 +32,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-
-
-def tree_flatten(tree, path=()):
-    """``(leaves, paths)`` of a nested dict, keys in sorted order (JAX's
-    order for dicts)."""
-    if isinstance(tree, dict):
-        leaves, paths = [], []
-        for k in sorted(tree):
-            lv, pt = tree_flatten(tree[k], path + (k,))
-            leaves += lv
-            paths += pt
-        return leaves, paths
-    return [tree], [path]
-
-
-def tree_unflatten(paths, leaves) -> dict:
-    """The nested dict with ``leaves`` at ``paths``."""
-    out: dict = {}
-    for path, leaf in zip(paths, leaves):
-        node = out
-        for k in path[:-1]:
-            node = node.setdefault(k, {})
-        node[path[-1]] = leaf
-    return out
+from ..parallel.mesh import tree_flatten, tree_unflatten
 
 
 def global_norm_f32(tensors) -> torch.Tensor:
@@ -91,10 +74,11 @@ class Optimizer:
         }
 
     @torch.no_grad()
-    def update(self, grads, state: dict, params) -> bool:
-        """One step on ``grads``, in place on ``params`` and ``state``.
-        Returns whether the parameters moved (False on the micro-steps of
-        an accumulation)."""
+    def update(self, grads, state: dict, params, norm_fn=None) -> bool:
+        """One step on ``grads``, in place on ``params`` and ``state``;
+        ``norm_fn`` is the global norm the clip reads (:func:`
+        global_norm_f32` by default).  Returns whether the parameters
+        moved (False on the micro-steps of an accumulation)."""
         grads = [g.float() for g in grads]
         if self.every_k > 1:
             n = state["mini_step"]
@@ -107,16 +91,16 @@ class Optimizer:
             for acc in state["acc"]:
                 acc.zero_()
             state["mini_step"] = 0
-        self._inner(grads, state, params)
+        self._inner(grads, state, params, norm_fn or global_norm_f32)
         return True
 
-    def _inner(self, grads, state, params):
+    def _inner(self, grads, state, params, norm_fn):
         """clip -> AdamW [-> EMA] over all leaves at once (``torch._foreach``
         ops: a few launches per step instead of a dozen per leaf); the
         scalars are rounded to f32 as optax computes them."""
         f32 = np.float32
         if self.max_grad_norm is not None:
-            g_norm = float(global_norm_f32(grads))
+            g_norm = float(norm_fn(grads))
             if not f32(g_norm) < f32(self.max_grad_norm):
                 grads = torch._foreach_div(grads, g_norm)
                 torch._foreach_mul_(grads, self.max_grad_norm)
@@ -169,7 +153,9 @@ def find_ema_params(train_state) -> Optional[dict]:
 class TrainState:
     """Parameters (a JAX-layout tree of f32 leaf tensors that require
     grad), optimizer state, step and the seed the per-step dropout
-    generators derive from."""
+    generators derive from.  ``layout``: the ``parallel/mesh.py::
+    ParamLayout`` of a sharded run (this rank's slices in ``params`` and
+    the optimizer state), None where every rank holds everything."""
 
     step: int
     params: dict
@@ -178,27 +164,56 @@ class TrainState:
     apply_fn: Callable
     tx: Optimizer
     paths: list = dataclasses.field(default_factory=list)
+    layout: Any = None
 
     def leaves(self) -> list:
         return tree_flatten(self.params)[0]
 
+    def grad_norm(self, grads) -> torch.Tensor:
+        """The global norm of ``grads`` (each element counted once)."""
+        if self.layout is None:
+            return global_norm_f32(grads)
+        return self.layout.norm_f32(list(grads))
+
     def apply_gradients(self, grads) -> "TrainState":
         """One optimizer step on ``grads`` (leaves in :func:`tree_flatten`
         order), in place; returns the state itself."""
-        self.tx.update(grads, self.opt_state, self.leaves())
+        self.tx.update(grads, self.opt_state, self.leaves(),
+                       norm_fn=self.grad_norm)
         self.step += 1
         return self
+
+    def full(self) -> "TrainState":
+        """The state with every leaf whole (parameters, moments, EMA,
+        accumulation): under a layout gathered from every rank's slices,
+        a collective every rank calls; else the state itself."""
+        if self.layout is None:
+            return self
+        lay = self.layout
+        opt = dict(self.opt_state)
+        for key in ("mu", "nu", "ema", "acc"):
+            if opt.get(key) is not None:
+                opt[key] = lay.gather_list(opt[key])
+        return dataclasses.replace(
+            self, params=tree_unflatten(self.paths,
+                                        lay.gather_list(self.leaves())),
+            opt_state=opt, layout=None)
 
 
 def create_train_state(module, tx: Optimizer, seed: int = 0, *,
                        variables: Any = None, apply_fn=None,
-                       device=None, opt_arrays: Optional[dict] = None
-                       ) -> TrainState:
+                       device=None, opt_arrays: Optional[dict] = None,
+                       layout=None) -> TrainState:
     """A :class:`TrainState` for the port's ``ViTAntiSpoof``: parameters
     from ``variables`` (a JAX-layout ``{"params": ...}`` tree of arrays
     or tensors) or from the module's own weights, as f32 tensors on
     ``device`` (the card unless ``device="cpu"``), and ``apply_fn``
-    defaulting to :func:`..models.fasttrain.make_apply` in bf16."""
+    defaulting to :func:`..models.fasttrain.make_apply` in bf16.
+
+    ``layout``: a ``parallel/mesh.py::ParamLayout`` of the tree (built
+    over the whole tree by the caller): every rank takes rank 0's whole
+    parameters, keeps its slices, and the optimizer state is born in the
+    layout (JAX lays the parameters out before ``tx.init``)."""
     from ..models.convert import antispoof_from_torch
     from ..models.fasttrain import make_apply
 
@@ -212,12 +227,17 @@ def create_train_state(module, tx: Optimizer, seed: int = 0, *,
     # matrices back as transposed views, which the card's kernels refuse
     leaves = [torch.as_tensor(np.asarray(a) if not isinstance(
         a, torch.Tensor) else a).to(device=device, dtype=torch.float32)
-              .clone(memory_format=torch.contiguous_format).requires_grad_()
+              .clone(memory_format=torch.contiguous_format)
               for a in leaves]
+    if layout is not None:
+        from ..parallel.collectives import broadcast_params
+        broadcast_params(leaves)
+        leaves = [layout.shard(w, i) for i, w in enumerate(leaves)]
+    leaves = [w.requires_grad_() for w in leaves]
     state = TrainState(step=0, params=tree_unflatten(paths, leaves),
                        opt_state=tx.init(leaves), seed=seed,
                        apply_fn=apply_fn or make_apply(module), tx=tx,
-                       paths=paths)
+                       paths=paths, layout=layout)
     if opt_arrays is not None:
         load_opt_arrays(state, opt_arrays)
     return state
@@ -239,8 +259,11 @@ def load_opt_arrays(state: TrainState, arrays: dict) -> TrainState:
             if len(arrays[key]) != len(opt[key]):
                 raise ValueError(f"{key}: {len(arrays[key])} leaves for "
                                  f"{len(opt[key])} parameters")
-            for dst, src in zip(opt[key], arrays[key]):
-                dst.copy_(torch.as_tensor(np.asarray(src)).to(dst))
+            for i, (dst, src) in enumerate(zip(opt[key], arrays[key])):
+                src = torch.as_tensor(np.asarray(src)).to(dst)
+                if state.layout is not None:
+                    src = state.layout.shard(src, i)
+                dst.copy_(src)
     opt["count"] = int(arrays["count"])
     state.step = int(arrays["step"])
     return state

@@ -18,8 +18,9 @@ group the same rows) and runs the forward under ``attention_sharding``.
 The logits of the data group's ranks are gathered, so every rank
 computes the loss and metrics of the GLOBAL batch; each rank's gradient
 is then its own rows' and tokens' share of the global gradient, and one
-all-reduce (sum) over the whole data x seq group gives every rank the
-single-card gradient of the global-batch loss.
+all-reduce (sum) over the ranks that hold a copy of a leaf gives every
+rank the single-card gradient of the global-batch loss
+(:func:`reduce_gradients`).
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ import torch
 
 from ..ops.attention import attention_sharding
 from ..ops.gather import pool_gather
-from .state import TrainState, global_norm_f32, tree_flatten
+from .state import TrainState, tree_flatten
 
 _PREP_SALT = 104729
 
@@ -53,6 +54,33 @@ def _to(x, device) -> torch.Tensor:
     return x.to(device)
 
 
+def reduce_gradients(grads, mesh, layout=None) -> list:
+    """Sum each gradient over the ranks whose shares make it up, in place:
+    under a seq axis the whole data x seq group (each rank holds its
+    tokens' share); otherwise the data group alone.  A leaf that a model
+    or pipe axis splits or replicates needs nothing more: with Megatron's
+    operators every model rank computes the whole gradient of a
+    replicated leaf and its own of a split one, and every stage ends the
+    pipeline's backward with the same gradient of a pipe-replicated leaf
+    (``parallel/pipeline.py``).  An FSDP leaf's gradient arrives summed
+    over the data group already (its gather's backward reduce-scatters),
+    and is left alone."""
+    from ..parallel.collectives import all_reduce_sum
+    from ..parallel.mesh import DATA_AXIS, SEQ_AXIS, axis_sizes
+    sizes = axis_sizes(mesh)
+    if sizes.get(SEQ_AXIS, 1) > 1:
+        group = None
+    elif sizes.get(DATA_AXIS, 1) > 1:
+        group = mesh.get_group(DATA_AXIS)
+    else:
+        return grads
+    todo = [g for i, g in enumerate(grads)
+            if layout is None or DATA_AXIS not in layout.axes(i)]
+    if todo:
+        all_reduce_sum(todo, group)
+    return grads
+
+
 def make_train_step(loss_fn: Callable, *, batch_prep: Optional[Callable] = None,
                     mesh=None):
     """``step(state, batch) -> (state, metrics)``.
@@ -70,8 +98,7 @@ def make_train_step(loss_fn: Callable, *, batch_prep: Optional[Callable] = None,
     rows and the metrics are the global batch's (the module docstring)."""
     data_group = None
     if mesh is not None:
-        from ..parallel.collectives import (all_gather_rows, all_reduce_sum,
-                                            gather_rows)
+        from ..parallel.collectives import all_gather_rows, gather_rows
         from ..parallel.mesh import DATA_AXIS
         data_group = mesh.get_group(DATA_AXIS)
 
@@ -94,13 +121,13 @@ def make_train_step(loss_fn: Callable, *, batch_prep: Optional[Callable] = None,
             logits = gather_rows(logits, data_group)
             labels = all_gather_rows(labels, data_group)
         loss = loss_fn(logits, labels)
-        grads = torch.autograd.grad(loss, leaves)
+        grads = list(torch.autograd.grad(loss, leaves))
         if mesh is not None:
-            grads = all_reduce_sum(list(grads))
+            grads = reduce_gradients(grads, mesh, state.layout)
         metrics = {
             "loss": loss.detach(),
             "accuracy": (logits.detach().argmax(-1) == labels).float().mean(),
-            "grad_norm": global_norm_f32(grads),
+            "grad_norm": state.grad_norm(grads),
         }
         state.apply_gradients(grads)
         return state, metrics

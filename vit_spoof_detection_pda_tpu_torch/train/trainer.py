@@ -19,8 +19,17 @@ the epoch (exact mid-epoch resume).
 
 Several ranks (one process each, ``parallel/mesh.py``): the Trainer
 takes a ``mesh`` or, in a process group of more than one rank, builds the
-one ``config.sharding`` describes (data and sequence parallelism; tensor
-parallelism, FSDP and the pipeline raise: ROADMAP Queue 1 item 9b).
+one ``config.sharding`` describes, and lays the parameters and the
+optimizer state out by it (JAX :119-192): data and sequence parallelism
+replicate them; a model axis holds each rank's Megatron slices
+(``shard_params``' rules), ``sharding.fsdp`` each rank's chunk of the
+large leaves (gathered for the forward, the gradients reduce-scattered),
+and ``sharding.pipeline_parallel`` the packed layout with each stage's
+depth / S layers (and their moments), trained through the GPipe
+schedule (``parallel/pipeline.py::pipeline_apply``) and evaluated on the
+module path over the layers gathered from the stages.  Checkpoints hold
+the whole leaves (a pipeline run's packed), as the same run on one card
+writes them.
 Batches are then this rank's rows, the step's metrics the global batch's,
 validation gathers every data rank's scores so its metrics, the best-k
 choice and the early stop are the same on every rank, and only rank 0
@@ -54,9 +63,6 @@ from .step import _to, make_eval_step, make_train_step
 
 log = logging.getLogger(__name__)
 
-_ITEM_9B = "{what} is not ported: ROADMAP Queue 1 item 9b"
-
-
 class _Preempted(Exception):
     """Raised at a safe point (a batch boundary) after a preemption
     request; the fit loop checkpoints and returns."""
@@ -66,24 +72,19 @@ def check_sharding(config: Config, mesh=None):
     """The JAX Trainer's sharding rules (JAX ``train/trainer.py``
     :119-190, ``parallel/mesh.py::mesh_from_config``): ``ValueError`` for
     layouts that cannot compose (seq with model or pipeline, fsdp beyond
-    pure data parallelism) or that do not fit the process group's ranks;
-    ``NotImplementedError`` naming ROADMAP Queue 1 item 9b for tensor
-    parallelism (a model axis), FSDP and the pipeline.  Data and sequence
-    parallelism pass."""
+    pure data parallelism, also on a given ``mesh``) or that do not fit
+    the process group's ranks."""
     sh = config.sharding
-    data, model, seq = pmesh.check_sharding(sh)
-    if model > 1:
-        raise NotImplementedError(_ITEM_9B.format(
-            what=f"sharding.model_parallel={model} (Megatron TP with the "
-                 "head-sharded attention)"))
-    if sh.fsdp:
-        raise NotImplementedError(_ITEM_9B.format(
-            what="sharding.fsdp (FSDP2)"))
+    pmesh.check_sharding(sh)
     if mesh is None:
-        pmesh.mesh_shape(data, seq, pmesh.world_size(), "seq")
-    elif pmesh.axis_sizes(mesh).get(pmesh.MODEL_AXIS, 1) > 1:
-        raise NotImplementedError(_ITEM_9B.format(
-            what="training on a mesh with a model axis > 1"))
+        pmesh.config_layout(sh, pmesh.world_size())
+        return
+    sizes = pmesh.axis_sizes(mesh)
+    for axis in (pmesh.MODEL_AXIS, pmesh.PIPE_AXIS):
+        if sh.fsdp and sizes.get(axis, 1) > 1:
+            # silently dropping fsdp would fake its memory saving
+            raise ValueError("fsdp composes with pure data parallelism "
+                             f"only (mesh has a {axis} axis > 1)")
 
 
 def resolve_mesh(config: Config, mesh=None, device=None):
@@ -184,19 +185,23 @@ class Trainer:
             label_smoothing=config.loss.label_smoothing,
             class_weights=class_weights)
 
-        # the train step's forward: the fused training forward over the
-        # kernels (JAX make_apply; model.mlp_vjp picks the MLP backward),
-        # or the module path; validation always runs the module path
-        from ..models.fasttrain import fast_apply_available, make_apply
-        if config.model.fused_train_forward and fast_apply_available(
-                module, self.mesh):
-            train_apply = make_apply(module, mlp_mode=config.model.mlp_vjp)
-        else:
-            train_apply = module_tree_apply(module)
+        layout, train_apply, eval_apply, variables, opt_arrays = \
+            self._layout(config, module, variables, opt_arrays)
+        if train_apply is None:
+            # the fused training forward over the kernels (JAX make_apply;
+            # model.mlp_vjp picks the MLP backward), or the module path
+            from ..models.fasttrain import fast_apply_available, make_apply
+            if config.model.fused_train_forward and fast_apply_available(
+                    module, self.mesh):
+                train_apply = make_apply(module,
+                                         mlp_mode=config.model.mlp_vjp)
+            else:
+                train_apply = module_tree_apply(module)
         self.state = create_train_state(
             module, tx, config.seed, variables=variables,
-            apply_fn=train_apply, device=self.device, opt_arrays=opt_arrays)
-        if self.mesh is not None:
+            apply_fn=train_apply, device=self.device, opt_arrays=opt_arrays,
+            layout=layout)
+        if self.mesh is not None and layout is None:
             # every rank starts from rank 0's parameters and optimizer state
             from ..parallel.collectives import broadcast_params
             opt = self.state.opt_state
@@ -213,8 +218,71 @@ class Trainer:
         self.train_steps = {tag: make_train_step(loss_fn, batch_prep=prep,
                                                  mesh=self.mesh)
                             for tag, prep in preps.items()}
-        self.eval_step = make_eval_step(module_tree_apply(module),
-                                        mesh=self.mesh)
+        self.eval_step = make_eval_step(eval_apply, mesh=self.mesh)
+
+    def _layout(self, config, module, variables, opt_arrays):
+        """``(layout, train_apply, eval_apply, variables, opt_arrays)`` of
+        the mesh (JAX :119-192): the parameter layout (None: every rank
+        holds everything) and the forwards that read it (None: the
+        defaults)."""
+        from ..models.convert import antispoof_from_torch
+        from ..models.vit import ViTAntiSpoof
+        base = module_tree_apply(module)
+        sizes = pmesh.axis_sizes(self.mesh) if self.mesh is not None else {}
+        n_pipe = sizes.get(pmesh.PIPE_AXIS, 1)
+        n_model = sizes.get(pmesh.MODEL_AXIS, 1)
+        fsdp = config.sharding.fsdp and self.mesh is not None and (
+            self.mesh.mesh.numel() > 1)
+        if not (n_pipe > 1 or n_model > 1 or fsdp):
+            return None, None, base, variables, opt_arrays
+        if n_pipe > 1 and not isinstance(module, ViTAntiSpoof):
+            raise ValueError("pipeline_parallel supports the ViT anti-spoof "
+                             f"module only; got {type(module).__name__}")
+        if opt_arrays is not None:
+            variables = {"params": opt_arrays["params"]}
+        elif variables is None:
+            variables = antispoof_from_torch(module.state_dict())
+        heads = getattr(module, "num_heads", None)
+        if fsdp:
+            layout = pmesh.fsdp_layout(variables["params"], self.mesh,
+                                       config.sharding.fsdp_min_size)
+
+            def gathered(v):
+                return {"params": layout.gather_tree(
+                    v["params"], (pmesh.DATA_AXIS,), differentiable=True)}
+
+            def apply_fn(v, x, **kw):
+                return base(gathered(v), x, **kw)
+
+            return layout, apply_fn, apply_fn, variables, opt_arrays
+        if n_model > 1 and n_pipe == 1:
+            layout = pmesh.tp_layout(variables["params"], self.mesh, heads)
+            return layout, base, base, variables, opt_arrays
+        from ..parallel.pipeline import (pack_pipeline_params, pipe_layout,
+                                         pipeline_apply,
+                                         unpack_pipeline_params)
+        if "blocks" not in variables["params"]["vit"]:
+            if opt_arrays is not None:
+                raise ValueError("opt_arrays of a run in the module layout "
+                                 "cannot seed a pipeline run (its moments "
+                                 "are in the unpacked leaf order)")
+            variables = pack_pipeline_params(variables, module.depth)
+        layout = pipe_layout(variables["params"], self.mesh, heads)
+        micro = config.sharding.pipeline_microbatches or 2 * n_pipe
+        remat, mesh = config.sharding.pipeline_remat, self.mesh
+
+        def train_apply(v, x, *, train: bool = False, generator=None):
+            return pipeline_apply(module, v, x, mesh, microbatches=micro,
+                                  train=train, generator=generator,
+                                  remat=remat)
+
+        def eval_apply(v, x, **kw):
+            # the stages' layers gathered (model slices stay: the module
+            # path head-shards under the mesh) and unpacked
+            full = layout.gather_tree(v["params"], (pmesh.PIPE_AXIS,))
+            return base(unpack_pipeline_params({"params": full}), x, **kw)
+
+        return layout, train_apply, eval_apply, variables, opt_arrays
 
     # ------------------------------------------------------------------
 

@@ -87,10 +87,14 @@ class CheckpointManager:
     save and :meth:`wait_until_finished` wait for the write first, so the
     directory is always consistent.
 
-    In a multi-rank run (``parallel/mesh.py``) the ranks hold the same
-    state: rank 0 writes it and the other ranks' ``save`` writes nothing
-    (the Trainer waits at a barrier after each save); every rank restores
-    from the shared directory."""
+    In a multi-rank run (``parallel/mesh.py``) rank 0 writes the state and
+    the other ranks' ``save`` writes nothing (the Trainer waits at a
+    barrier after each save); every rank restores from the shared
+    directory.  A sharded state (tensor parallelism, FSDP, the pipeline:
+    ``TrainState.layout``) is gathered whole first, a collective every
+    rank's ``save`` takes part in, so the files are those of the same
+    run on one card (a pipeline run's in the packed layout, as JAX's);
+    ``restore`` keeps each rank's slices of them."""
 
     def __init__(self, directory: str, *, max_to_keep: int = 3,
                  best_metric: str = "val_f1", best_mode: str = "max",
@@ -124,6 +128,8 @@ class CheckpointManager:
         best-k retention (the preemption save).  On a rank other than 0
         nothing is written and False is returned."""
         from ..parallel.mesh import is_primary
+        if getattr(state, "layout", None) is not None:
+            state = state.full()
         if not is_primary():
             return False
         self.wait_until_finished()
@@ -269,10 +275,15 @@ class CheckpointManager:
         from ..train.state import tree_flatten
 
         saved_opt = payload["opt_state"]
+        layout = getattr(state, "layout", None)
+
+        def mine(src, i):
+            return src if layout is None else layout.shard(src, i)
+
         with torch.no_grad():
-            for dst, src in zip(state.leaves(),
-                                tree_flatten(payload["params"])[0]):
-                dst.copy_(src)
+            for i, (dst, src) in enumerate(zip(
+                    state.leaves(), tree_flatten(payload["params"])[0])):
+                dst.copy_(mine(src, i))
             for key in ("mu", "nu", "ema", "acc"):
                 have, got = state.opt_state.get(key), saved_opt.get(key)
                 if (have is None) != (got is None):
@@ -280,8 +291,8 @@ class CheckpointManager:
                         f"optimizer state {key!r} is "
                         f"{'absent' if got is None else 'present'} in the "
                         "checkpoint but not in this trainer's optimizer")
-                for dst, src in zip(have or [], got or []):
-                    dst.copy_(src)
+                for i, (dst, src) in enumerate(zip(have or [], got or [])):
+                    dst.copy_(mine(src, i))
         state.opt_state["count"] = int(saved_opt["count"])
         state.opt_state["mini_step"] = int(saved_opt["mini_step"])
         state.step = int(payload["step"])
@@ -338,7 +349,8 @@ def load_checkpoint_bundle(directory: str, step: Optional[int] = None,
                            ema: bool = False):
     """``(variables, step, metrics)`` of a checkpoint directory (JAX :291):
     the parameters as a JAX-layout tree of CPU tensors under
-    ``{"params": ...}``, and the metrics JSON.  ``ema=True`` hands back
+    ``{"params": ...}`` (a pipeline run's packed tree unpacked into its
+    ``block{i}`` subtrees), and the metrics JSON.  ``ema=True`` hands back
     the EMA shadow instead of the last iterate, and raises if the run
     trained without EMA.  The port's directories are read here; a JAX
     Orbax directory is read through ``orbax`` where it imports."""
@@ -361,12 +373,17 @@ def load_checkpoint_bundle(directory: str, step: Optional[int] = None,
                 "state — train with optim.ema_decay set")
         from ..train.state import tree_unflatten
         params = tree_unflatten([tuple(p) for p in payload["paths"]], shadow)
+    from ..parallel.pipeline import unpack_pipeline_params
     metrics_path = os.path.join(step_dir, "metrics.json")
     metrics = {}
     if os.path.exists(metrics_path):
         with open(metrics_path) as f:
             metrics = json.load(f)
-    return {"params": params}, int(step), metrics
+    variables = {"params": params}
+    if "blocks" in params.get("vit", {}):
+        # a pipeline run's checkpoint is packed: hand back the module layout
+        variables = unpack_pipeline_params(variables)
+    return variables, int(step), metrics
 
 
 # --------------------------------------------------------------------------
