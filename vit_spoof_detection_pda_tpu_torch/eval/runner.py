@@ -36,6 +36,7 @@ from ..data.manifest import Record
 from ..device import exact_f32_matmul
 from ..ops import image as I
 from ..ops.attention import attention_sharding
+from ..utils.profiling import annotate
 
 log = logging.getLogger(__name__)
 
@@ -126,21 +127,23 @@ def make_fastserve_infer(module, *, device=None, mesh=None):
     from ..models.vit import ViTAntiSpoof, ViTLinearHead, fold_normalization
 
     device = module_device(module) if device is None else device
-    if isinstance(module, ViTAntiSpoof):
-        weights, raw, kw = fastserve.serving_program(
-            module, mode="fastserve", device=device)
-    elif isinstance(module, ViTLinearHead):
-        folded = fold_normalization(vit_linear_from_torch(
-            module.state_dict()))["params"]
-        weights = fastserve.prepare_params(folded, dtype=torch.bfloat16,
-                                           device=device)
-        raw = fastserve.serving_forward_linear
-        kw = dict(num_heads=module.num_heads, patch_size=module.patch_size,
-                  depth=module.depth, norm_eps=module.norm_eps,
-                  dtype=torch.bfloat16, device=device)
-    else:
-        raise TypeError("fastserve eval supports ViTAntiSpoof and "
-                        f"ViTLinearHead; got {type(module).__name__}")
+    with annotate("vsd.build.serving"):
+        if isinstance(module, ViTAntiSpoof):
+            weights, raw, kw = fastserve.serving_program(
+                module, mode="fastserve", device=device)
+        elif isinstance(module, ViTLinearHead):
+            folded = fold_normalization(vit_linear_from_torch(
+                module.state_dict()))["params"]
+            weights = fastserve.prepare_params(
+                folded, dtype=torch.bfloat16, device=device)
+            raw = fastserve.serving_forward_linear
+            kw = dict(num_heads=module.num_heads,
+                      patch_size=module.patch_size, depth=module.depth,
+                      norm_eps=module.norm_eps, dtype=torch.bfloat16,
+                      device=device)
+        else:
+            raise TypeError("fastserve eval supports ViTAntiSpoof and "
+                            f"ViTLinearHead; got {type(module).__name__}")
     sharded = mesh is not None and mesh.mesh.numel() > 1
 
     def infer(batch_u8):
@@ -173,29 +176,37 @@ def score_batches(infer, batches: Iterable[dict], n: int, *,
     each is padded to ``batch_size``, uploaded (from pinned memory on the
     card), scored, and its ``prob1`` / ``pred`` written at its indices of
     two length-``n`` arrays, which are returned.  Batch i-1's results are
-    collected after batch i is launched."""
+    collected after batch i is launched.  Each batch opens the spans
+    ``vsd.eval.upload`` (pad, pin, copy to the device),
+    ``vsd.eval.forward`` (``infer`` and the queued fetch) and
+    ``vsd.eval.collect`` (the wait for its results, their copy into the
+    arrays)."""
     prob1 = np.zeros(n, np.float32)
     pred = np.zeros(n, np.int32)
     device = torch.device(device)
 
     def collect(pending):
         (host, event), idx, b = pending
-        if event is not None:
-            event.synchronize()
-        prob1[idx] = host["prob1"][:b].numpy()
-        pred[idx] = host["pred"][:b].numpy()
+        with annotate("vsd.eval.collect"):
+            if event is not None:
+                event.synchronize()
+            prob1[idx] = host["prob1"][:b].numpy()
+            pred[idx] = host["pred"][:b].numpy()
 
     pending = None
     for batch in batches:
-        imgs, idx = torch.as_tensor(batch["image"]), np.asarray(batch["index"])
-        b = imgs.shape[0]
-        if b < batch_size:                 # pad the tail to the batch size
-            imgs = torch.cat([imgs, imgs.new_zeros(
-                (batch_size - b,) + tuple(imgs.shape[1:]))])
-        if device.type == "cuda" and imgs.device.type == "cpu":
-            imgs = imgs.pin_memory()
-        out = infer(imgs.to(device, non_blocking=True))
-        fetch = _start_fetch(out)
+        with annotate("vsd.eval.upload"):
+            imgs = torch.as_tensor(batch["image"])
+            idx = np.asarray(batch["index"])
+            b = imgs.shape[0]
+            if b < batch_size:             # pad the tail to the batch size
+                imgs = torch.cat([imgs, imgs.new_zeros(
+                    (batch_size - b,) + tuple(imgs.shape[1:]))])
+            if device.type == "cuda" and imgs.device.type == "cpu":
+                imgs = imgs.pin_memory()
+            x = imgs.to(device, non_blocking=True)
+        with annotate("vsd.eval.forward"):
+            fetch = _start_fetch(infer(x))
         if pending is not None:
             collect(pending)
         pending = (fetch, idx, b)

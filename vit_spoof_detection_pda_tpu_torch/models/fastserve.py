@@ -50,6 +50,7 @@ from ..ops.attention import (_round_up, fused_attention_block_padded,
                              fused_mlp_block)
 from ..ops.gelu import gelu
 from ..ops.gemm import gemm
+from ..utils.profiling import annotate
 from .vit import patchify
 
 log = logging.getLogger(__name__)
@@ -82,10 +83,12 @@ def embed_patches(vit, batch: torch.Tensor, *, dtype,
 
 def padded_stream(vit, batch: torch.Tensor, *, dtype, patch_size: int):
     """The stem's ``[B, T, D]`` output zero-padded to ``Tp``, a multiple
-    of 8 rows (197 -> 200 at ViT-B/16): ``(stream, T)``."""
-    x = embed_patches(vit, batch, dtype=dtype, patch_size=patch_size)
-    t = x.shape[1]
-    return F.pad(x, (0, 0, 0, _round_up(t, 8) - t)).contiguous(), t
+    of 8 rows (197 -> 200 at ViT-B/16): ``(stream, T)``, in the span
+    ``vsd.serve.stem``."""
+    with annotate("vsd.serve.stem"):
+        x = embed_patches(vit, batch, dtype=dtype, patch_size=patch_size)
+        t = x.shape[1]
+        return F.pad(x, (0, 0, 0, _round_up(t, 8) - t)).contiguous(), t
 
 
 def patch_rows(batch: torch.Tensor, *, patch_size: int, tp: int, dtype):

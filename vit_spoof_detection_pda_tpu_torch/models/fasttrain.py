@@ -48,6 +48,7 @@ from ..ops.attention import (_round_up, attention_block_train_padded,
 from ..ops.gelu import gelu as _gelu
 from ..ops.gelu import gelu_lean
 from ..ops.ln_bwd import ln_residual_bwd
+from ..utils.profiling import annotate
 from .fastserve import embed_patches
 
 MLP_MODES = ("hidden", "autodiff", "xhat", "fused")
@@ -401,17 +402,19 @@ def make_apply(module, *, dtype=None, mlp_mode: str = "hidden"):
     GELU and dropout rate), computing in ``dtype``: the module's own
     ``dtype`` unless given, as JAX's ``make_apply`` reads
     ``module.dtype``.  ``mlp_mode`` as :func:`train_forward`.  There is
-    no module-path fallback: on the card the kernels are the path."""
-    if not fast_apply_available(module):
-        raise TypeError(f"make_apply takes the port's ViTAntiSpoof; got "
-                        f"{type(module).__name__}")
-    if dtype is None:
-        dtype = module.dtype
-    if mlp_mode not in MLP_MODES:
-        raise ValueError(f"unknown mlp_mode {mlp_mode!r} (expected "
-                         f"{' | '.join(MLP_MODES)})")
-    if dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"compute dtype {dtype} (bfloat16 | float32)")
+    no module-path fallback: on the card the kernels are the path.  Runs
+    in the span ``vsd.build.train_apply``."""
+    with annotate("vsd.build.train_apply"):
+        if not fast_apply_available(module):
+            raise TypeError(f"make_apply takes the port's ViTAntiSpoof; "
+                            f"got {type(module).__name__}")
+        if dtype is None:
+            dtype = module.dtype
+        if mlp_mode not in MLP_MODES:
+            raise ValueError(f"unknown mlp_mode {mlp_mode!r} (expected "
+                             f"{' | '.join(MLP_MODES)})")
+        if dtype not in (torch.bfloat16, torch.float32):
+            raise ValueError(f"compute dtype {dtype} (bfloat16 | float32)")
 
     def apply_fn(variables, batch, *, train: bool = False, generator=None):
         return train_forward(

@@ -29,6 +29,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+from ..utils.profiling import annotate
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 KERNELS = ("attention_block", "mlp_block", "attention_block_train",
@@ -148,12 +150,16 @@ def build(names=KERNELS) -> list:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built first if needed."""
+    """The loaded library of kernel ``name``, built first if needed.  The
+    first load of each library (the sources' hash, nvcc where it is not
+    built, the ``ctypes`` load) runs in the span ``vsd.kernels.load``,
+    whose profiler args name the library."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            build((name,))
-            lib = ctypes.CDLL(str(library_path(name)))
+            with annotate("vsd.kernels.load", name):
+                build((name,))
+                lib = ctypes.CDLL(str(library_path(name)))
             lib.vsd_error_string.argtypes = [ctypes.c_int]
             lib.vsd_error_string.restype = ctypes.c_char_p
             lib.vsd_core_launches.argtypes = [

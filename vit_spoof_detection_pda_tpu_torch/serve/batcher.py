@@ -22,6 +22,8 @@ Design notes:
 - Padding rows are zeros; their outputs are dropped before fan-out.
 - Errors from the program fail every request in that batch (the
   callers see the exception re-raised from their Future).
+- Each request's queue wait, from submit to the start of its batch's
+  dispatch, is kept beside its latency: ``stats()["queue_wait_ms"]``.
 """
 
 from __future__ import annotations
@@ -85,6 +87,7 @@ class MicroBatcher:
         self._stats = {"requests": 0, "batches": 0, "images": 0,
                        "padded_rows": 0, "errors": 0}
         self._latencies: list = []          # bounded reservoir, ms
+        self._waits: list = []              # the same requests' queue wait
         self._thread = threading.Thread(target=self._dispatch_loop,
                                         name="pad-microbatcher",
                                         daemon=True)
@@ -138,19 +141,22 @@ class MicroBatcher:
         return futs
 
     def stats(self) -> dict:
-        """Counters + latency percentiles (ms, submit -> result)."""
+        """Counters, latency percentiles (ms, submit -> result) and queue
+        wait percentiles (ms, submit -> the start of its dispatch)."""
         with self._lock:
             out = dict(self._stats)
             lats = np.asarray(self._latencies, np.float64)
+            waits = np.asarray(self._waits, np.float64)
         out["batch_sizes"] = list(self._sizes)
         out["avg_batch"] = (out["images"] / out["batches"]
                             if out["batches"] else 0.0)
-        if lats.size:
-            out["latency_ms"] = {
-                "p50": round(float(np.percentile(lats, 50)), 3),
-                "p95": round(float(np.percentile(lats, 95)), 3),
-                "p99": round(float(np.percentile(lats, 99)), 3),
-                "max": round(float(lats.max()), 3)}
+        for key, ms in (("latency_ms", lats), ("queue_wait_ms", waits)):
+            if ms.size:
+                out[key] = {
+                    "p50": round(float(np.percentile(ms, 50)), 3),
+                    "p95": round(float(np.percentile(ms, 95)), 3),
+                    "p99": round(float(np.percentile(ms, 99)), 3),
+                    "max": round(float(ms.max()), 3)}
         return out
 
     def warmup(self, timeout: float = 600.0):
@@ -275,6 +281,7 @@ class MicroBatcher:
             self._dispatch(group, size)
 
     def _dispatch(self, items, target):
+        start = time.monotonic()
         b = len(items)
         batch = np.zeros((target, self._img_size, self._img_size, 3),
                          np.uint8)
@@ -304,5 +311,7 @@ class MicroBatcher:
             self._stats["padded_rows"] += target - b
             for it in items:
                 self._latencies.append((now - it.t_submit) * 1000.0)
+                self._waits.append((start - it.t_submit) * 1000.0)
             if len(self._latencies) > 4096:
                 del self._latencies[:len(self._latencies) - 2048]
+                del self._waits[:len(self._waits) - 2048]

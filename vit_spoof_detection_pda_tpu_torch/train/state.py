@@ -33,6 +33,7 @@ import torch
 
 from ..device import resolve_device
 from ..parallel.mesh import tree_flatten, tree_unflatten
+from ..utils.profiling import annotate
 
 
 def global_norm_f32(tensors) -> torch.Tensor:
@@ -213,34 +214,37 @@ def create_train_state(module, tx: Optimizer, seed: int = 0, *,
     ``layout``: a ``parallel/mesh.py::ParamLayout`` of the tree (built
     over the whole tree by the caller): every rank takes rank 0's whole
     parameters, keeps its slices, and the optimizer state is born in the
-    layout (JAX lays the parameters out before ``tx.init``)."""
+    layout (JAX lays the parameters out before ``tx.init``).  Runs in
+    the span ``vsd.build.train_state``."""
     from ..models.convert import antispoof_from_torch
     from ..models.fasttrain import make_apply
 
-    device = resolve_device(device)
-    if opt_arrays is not None:
-        variables = {"params": opt_arrays["params"]}
-    if variables is None:
-        variables = antispoof_from_torch(module.state_dict())
-    leaves, paths = tree_flatten(variables["params"])
-    # contiguous copies: the converter hands the kernels' [in, out]
-    # matrices back as transposed views, which the card's kernels refuse
-    leaves = [torch.as_tensor(np.asarray(a) if not isinstance(
-        a, torch.Tensor) else a).to(device=device, dtype=torch.float32)
-              .clone(memory_format=torch.contiguous_format)
-              for a in leaves]
-    if layout is not None:
-        from ..parallel.collectives import broadcast_params
-        broadcast_params(leaves)
-        leaves = [layout.shard(w, i) for i, w in enumerate(leaves)]
-    leaves = [w.requires_grad_() for w in leaves]
-    state = TrainState(step=0, params=tree_unflatten(paths, leaves),
-                       opt_state=tx.init(leaves), seed=seed,
-                       apply_fn=apply_fn or make_apply(module), tx=tx,
-                       paths=paths, layout=layout)
-    if opt_arrays is not None:
-        load_opt_arrays(state, opt_arrays)
-    return state
+    with annotate("vsd.build.train_state"):
+        device = resolve_device(device)
+        if opt_arrays is not None:
+            variables = {"params": opt_arrays["params"]}
+        if variables is None:
+            variables = antispoof_from_torch(module.state_dict())
+        leaves, paths = tree_flatten(variables["params"])
+        # contiguous copies: the converter hands the kernels' [in, out]
+        # matrices back as transposed views, which the card's kernels
+        # refuse
+        leaves = [torch.as_tensor(np.asarray(a) if not isinstance(
+            a, torch.Tensor) else a).to(device=device, dtype=torch.float32)
+                  .clone(memory_format=torch.contiguous_format)
+                  for a in leaves]
+        if layout is not None:
+            from ..parallel.collectives import broadcast_params
+            broadcast_params(leaves)
+            leaves = [layout.shard(w, i) for i, w in enumerate(leaves)]
+        leaves = [w.requires_grad_() for w in leaves]
+        state = TrainState(step=0, params=tree_unflatten(paths, leaves),
+                           opt_state=tx.init(leaves), seed=seed,
+                           apply_fn=apply_fn or make_apply(module), tx=tx,
+                           paths=paths, layout=layout)
+        if opt_arrays is not None:
+            load_opt_arrays(state, opt_arrays)
+        return state
 
 
 def load_opt_arrays(state: TrainState, arrays: dict) -> TrainState:

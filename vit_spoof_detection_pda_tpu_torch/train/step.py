@@ -21,6 +21,12 @@ is then its own rows' and tokens' share of the global gradient, and one
 all-reduce (sum) over the ranks that hold a copy of a leaf gives every
 rank the single-card gradient of the global-batch loss
 (:func:`reduce_gradients`).
+
+A step opens four spans (``utils/profiling.py::annotate``), in order:
+``vsd.train.input`` (the upload, the pool gather, ``batch_prep``),
+``vsd.train.forward`` (the forward and the loss), ``vsd.train.backward``
+(the gradients and their all-reduce) and ``vsd.train.update`` (the
+metrics' global norm, the clip with its host sync, AdamW).
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ import torch
 
 from ..ops.attention import attention_sharding
 from ..ops.gather import pool_gather
+from ..utils.profiling import annotate
 from .state import TrainState, tree_flatten
 
 _PREP_SALT = 104729
@@ -103,33 +110,39 @@ def make_train_step(loss_fn: Callable, *, batch_prep: Optional[Callable] = None,
         data_group = mesh.get_group(DATA_AXIS)
 
     def step(state: TrainState, batch):
-        leaves = state.leaves()
-        dev = leaves[0].device
-        images, labels = _to(batch["image"], dev), _to(batch["label"], dev)
-        if "index" in batch:
-            images = pool_gather(images, batch["index"])
-        labels = labels.long()
-        if batch_prep is not None:
-            images = batch_prep(
-                step_generator(state.seed, state.step, dev, _PREP_SALT),
-                images)
-        gen = step_generator(state.seed, state.step, dev)
-        with attention_sharding(mesh):
-            logits = state.apply_fn({"params": state.params}, images,
-                                    train=True, generator=gen)
-        if data_group is not None:
-            logits = gather_rows(logits, data_group)
-            labels = all_gather_rows(labels, data_group)
-        loss = loss_fn(logits, labels)
-        grads = list(torch.autograd.grad(loss, leaves))
-        if mesh is not None:
-            grads = reduce_gradients(grads, mesh, state.layout)
-        metrics = {
-            "loss": loss.detach(),
-            "accuracy": (logits.detach().argmax(-1) == labels).float().mean(),
-            "grad_norm": state.grad_norm(grads),
-        }
-        state.apply_gradients(grads)
+        with annotate("vsd.train.input"):
+            leaves = state.leaves()
+            dev = leaves[0].device
+            images = _to(batch["image"], dev)
+            labels = _to(batch["label"], dev)
+            if "index" in batch:
+                images = pool_gather(images, batch["index"])
+            labels = labels.long()
+            if batch_prep is not None:
+                images = batch_prep(
+                    step_generator(state.seed, state.step, dev, _PREP_SALT),
+                    images)
+        with annotate("vsd.train.forward"):
+            gen = step_generator(state.seed, state.step, dev)
+            with attention_sharding(mesh):
+                logits = state.apply_fn({"params": state.params}, images,
+                                        train=True, generator=gen)
+            if data_group is not None:
+                logits = gather_rows(logits, data_group)
+                labels = all_gather_rows(labels, data_group)
+            loss = loss_fn(logits, labels)
+        with annotate("vsd.train.backward"):
+            grads = list(torch.autograd.grad(loss, leaves))
+            if mesh is not None:
+                grads = reduce_gradients(grads, mesh, state.layout)
+        with annotate("vsd.train.update"):
+            metrics = {
+                "loss": loss.detach(),
+                "accuracy": (logits.detach().argmax(-1)
+                             == labels).float().mean(),
+                "grad_norm": state.grad_norm(grads),
+            }
+            state.apply_gradients(grads)
         return state, metrics
 
     return step
